@@ -2,14 +2,29 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ntt_cuda_tpu_torch/csrc with nvcc (sm_90a),
-holds each kernel exactly (tolerance 0) against its plain PyTorch version
-on the card at the 4k_3q and 16k_5q shapes, decrypts the reference's
-golden ciphertext, then drives the BFV main path at 16k_5q through the
-public API (keygen, encrypt of three seeded messages, decrypt,
-decrypt_batch), checks it against the messages and against the same path
-run in plain PyTorch on the CPU, checks that every kernel launched during
-that run, and times the ops and the kernels with CUDA events.
+Builds the CUDA kernels from ntt_cuda_tpu_torch/csrc with nvcc (sm_90a, one
+nvcc per source, all started together) and, beside them, a probe whose
+SASS gives the integer multiply instructions of one Shoup butterfly and
+one Montgomery product (for each kernel's bound).  Then:
+
+1. every kernel exactly (tolerance 0) against its plain PyTorch version on
+   the card: the op kernels K1-K5 at 4k_3q and 16k_5q, the stage kernels
+   (7-10, 13) and the decrypt tail at 4k_3q, 16k_5q and 32k_9q (the 2^15
+   split), J = 1 and 3 where there is a batch axis, K2 also at 32k_16q;
+2. the reference's golden ciphertext, on both schedules;
+3. the op schedule's main path at 16k_5q and the stage schedule's at
+   32k_9q through the public API (keygen, encrypt of three seeded
+   messages, decrypt, decrypt_batch; 32k_9q through
+   `BFVContext.build(params)`, the default device and fusion), each with
+   the launch counts set to 0 before it and read after it, its messages
+   round-tripped and its keys and ciphertexts equal to the same calls on
+   the CPU;
+4. a 32k_16q round trip, and 16k_5q under fusion="stage" equal to the op
+   schedule;
+5. CUDA-event times: the 32k_9q ops and the 16k_5q op-vs-stage A/B (in
+   turns op, stage, stage, op), each around one call; every kernel and
+   its plain version around a run of calls back to back, beside the
+   kernel's bound.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and last `{"ok": true, "device": {...}}`.  Any failure raises,
@@ -19,6 +34,7 @@ so the exit code is not 0 and no result line is printed.  Imports no jax.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -32,35 +48,122 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from ntt_cuda_tpu_torch import BFVContext, cuda, get_bfv_params  # noqa: E402
-from ntt_cuda_tpu_torch.ops import (bfv_tail, fused_ops, salsa20,  # noqa: E402
-                                    sampling)
+from ntt_cuda_tpu_torch.ops import (bfv_tail, fused_ops,  # noqa: E402
+                                    ntt_stage, salsa20, sampling)
 
 SEED = 20261016
-MAIN_SET = "16k_5q"
-CHECK_SETS = ("4k_3q", "16k_5q")
+OP_SET = "16k_5q"        # the op schedule's main path (n <= 16384)
+STAGE_SET = "32k_9q"     # the stage schedule's main path (n = 32768)
+OP_CHECK_SETS = ("4k_3q", "16k_5q")
+STAGE_CHECK_SETS = ("4k_3q", "16k_5q", "32k_9q")
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
 
-# name -> (wrapper, CUDA source, the TPU kernel it replaces)
+# name -> (wrappers, CUDA source, the TPU kernel it replaces, the main
+# paths that run it; its `launches` are the first path's)
 KERNELS = {
-    "salsa20_keystream": (salsa20.keystream_block_words,
+    "salsa20_keystream": ((salsa20.keystream_block_words,),
                           "ntt_cuda_tpu_torch/csrc/salsa20.cu",
-                          "ntt_cuda_tpu/ops/salsa20.py:174"),
-    "decrypt_tail": (bfv_tail.decrypt_tail,
+                          "ntt_cuda_tpu/ops/salsa20.py:174", ("op", "stage")),
+    "decrypt_tail": ((bfv_tail.decrypt_tail,),
                      "ntt_cuda_tpu_torch/csrc/decrypt_tail.cu",
-                     "ntt_cuda_tpu/ops/bfv_tail.py:388"),
-    "half_polymul": (fused_ops.half_polymul,
+                     "ntt_cuda_tpu/ops/bfv_tail.py:388", ("op", "stage")),
+    "half_polymul": ((fused_ops.half_polymul,),
                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
-                     "ntt_cuda_tpu/ops/fused_ops.py:213"),
-    "keygen_fused": (fused_ops.keygen_fused,
+                     "ntt_cuda_tpu/ops/fused_ops.py:213", ("op",)),
+    "keygen_fused": ((fused_ops.keygen_fused,),
                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
-                     "ntt_cuda_tpu/ops/fused_ops.py:137"),
-    "encrypt_fused": (fused_ops.encrypt_fused,
+                     "ntt_cuda_tpu/ops/fused_ops.py:137", ("op",)),
+    "encrypt_fused": ((fused_ops.encrypt_fused,),
                       "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
-                      "ntt_cuda_tpu/ops/fused_ops.py:466"),
+                      "ntt_cuda_tpu/ops/fused_ops.py:466", ("op",)),
+    # kernel 7, both directions (one TPU kernel with an `inverse` flag);
+    # its times below are the forward's, the direction the main path runs
+    "ntt_transform": ((ntt_stage.ntt_forward, ntt_stage.ntt_inverse),
+                      "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
+                      "ntt_cuda_tpu/ops/ntt_pallas.py:558", ("stage",)),
+    "ntt_inverse_mul": ((ntt_stage.ntt_inverse_mul,),
+                        "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
+                        "ntt_cuda_tpu/ops/ntt_pallas.py:685", ("stage",)),
+    "ntt_forward_ternary": ((ntt_stage.ntt_forward_ternary,),
+                            "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
+                            "ntt_cuda_tpu/ops/ntt_pallas.py:782", ("stage",)),
+    "ntt_forward_addneg_gauss": ((ntt_stage.ntt_forward_addneg_gauss,),
+                                 "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
+                                 "ntt_cuda_tpu/ops/ntt_pallas.py:959",
+                                 ("stage",)),
+    "encrypt_fused_stage": ((bfv_tail.encrypt_fused,),
+                            "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
+                            "ntt_cuda_tpu/ops/bfv_tail.py:661", ("stage",)),
 }
+
+# One multiply-heavy primitive per probe kernel; its SASS gives the
+# primitive's integer multiply instructions.
+PROBE_SRC = r"""
+#include "modarith.cuh"
+extern "C" __global__ void probe_shoup(const u64* a, u64* o) {
+  o[0] = mul_shoup(a[0], a[1], a[2], a[3]);
+}
+extern "C" __global__ void probe_mont(const u64* a, u64* o) {
+  o[0] = mont_mul(a[0], a[1], a[2], a[3]);
+}
+extern "C" __global__ void probe_mod_nu(const u64* a, u64* o) {
+  o[0] = mod_nu(a[0], a[1], a[2]);
+}
+extern "C" __global__ void probe_mullo(const u64* a, u64* o) {
+  o[0] = a[0] * a[1];
+}
+"""
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def start_probe() -> tuple[subprocess.Popen, Path]:
+    out = ROOT / "build" / "sass_probe"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "probe.cu").write_text(PROBE_SRC)
+    cubin = out / "probe.cubin"
+    cmd = [cuda.find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+           "-cubin", "-I", str(cuda.CSRC), "-o", str(cubin),
+           str(out / "probe.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), cubin
+
+
+def probe_mults(proc: subprocess.Popen, cubin: Path) -> dict[str, int]:
+    """Integer multiply instructions (IMAD, IMAD.WIDE, IMAD.HI, IMAD.X,
+    IMUL; not the IMAD.MOV / .SHL / .IADD forms, which move, shift or add)
+    in each probe kernel's SASS."""
+    out = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc (SASS probe) failed:\n{out}")
+    cuobjdump = Path(cuda.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(cubin)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : probe_(\w+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+            continue
+        m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if fn and m:
+            op = m.group(1)
+            if op.startswith(("IMAD", "IMUL")) and not any(
+                    k in op for k in (".MOV", ".SHL", ".IADD")):
+                counts[fn] += 1
+    if sorted(counts) != ["mod_nu", "mont", "mullo", "shoup"]:
+        raise RuntimeError(f"SASS probe: functions {sorted(counts)}")
+    return counts
 
 
 def as_list(x):
@@ -82,7 +185,8 @@ def compare(name: str, got, ref, errs: dict) -> None:
 
 
 def median_ms(fn, reps: int = 15, warmup: int = 3) -> float:
-    """Median device time of one call, from CUDA events around it."""
+    """Median CUDA-event time around one call: an op's latency, the
+    host's dispatch included."""
     for _ in range(warmup):
         fn()
     times = []
@@ -97,58 +201,248 @@ def median_ms(fn, reps: int = 15, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def kernel_ms(fn, reps: int = 20, runs: int = 3) -> float:
+    """Time per call of `reps` calls back to back, from CUDA events around
+    the run (the host's launch latency hides behind the device wherever
+    the device is the slower); the median of `runs` runs."""
+    fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
 def rand_res(rng, qs, n, lead, device):
     return torch.from_numpy(np.stack(
         [rng.integers(0, q, lead + (n,), dtype=np.int64) for q in qs],
         axis=-2)).to(device)
 
 
-def kernel_cases(ctx: BFVContext, rng, dev):
-    """(kernel name, J, wrapper call, plain call) at the shapes the main
-    path gives each kernel, J = 1 and 3 where a batch dim exists."""
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+class Work:
+    """Bytes a function must move (each input read once, each output
+    written once) and integer multiply instructions it must issue, in
+    units of the probed primitives: `shoup`, `mont`, `mod_nu`, `mullo`."""
+
+    def __init__(self, nbytes: int, **prims):
+        self.nbytes, self.prims = nbytes, prims
+
+    def terms(self, mults: dict, clock_hz: float) -> dict:
+        """The two times, in ms, whose larger is the bound."""
+        imads = sum(mults[k] * v for k, v in self.prims.items())
+        return {"bytes": self.nbytes, "imads": imads,
+                "bytes_ms": self.nbytes / HBM_BYTES_PER_S * 1e3,
+                "ops_ms": imads / (SMS * IMAD_PER_CLOCK * clock_hz) * 1e3}
+
+
+def tables(tb, which: str = "both") -> list:
+    """The tables a transform reads: the psi ("fwd") or psi^-1 ("inv")
+    powers with their Shoup companions, or both, and the consts."""
+    fw, iv = [tb.psi, tb.psi_shoup], [tb.psiinv, tb.psiinv_shoup]
+    return {"fwd": fw, "inv": iv, "both": fw + iv}[which] + [tb.consts]
+
+
+def transform_butterflies(polys: int, n: int) -> int:
+    return polys * (n // 2) * (n.bit_length() - 1)
+
+
+def op_cases(ctx: BFVContext, rng, dev):
+    """(kernel, J, wrapper call, plain call, Work) for K1-K5 at the shapes
+    the op schedule's main path gives each, J = 1 and 3 where a batch dim
+    exists."""
     p = ctx.params
+    n, r = p.n, p.r
     cases = []
-    kg_blocks = (sampling.keygen_entropy_bytes(p.n, p.r) + 63) // 64
-    enc_blocks = (sampling.encrypt_entropy_bytes(p.n) + 63) // 64
+    kg_blocks = (sampling.keygen_entropy_bytes(n, r) + 63) // 64
+    enc_blocks = (sampling.encrypt_entropy_bytes(n) + 63) // 64
     for nb, with_u64 in ((kg_blocks, True), (enc_blocks, False)):
         kw = dict(nonce=3, with_u64=with_u64, device=dev)
         cases.append(("salsa20_keystream", nb,
                       lambda nb=nb, kw=kw: salsa20.keystream_block_words(nb, **kw),
-                      lambda nb=nb, kw=kw: salsa20.keystream_plain(nb, **kw)))
-    s_b, a, e_d = sampling.keygen_draws_compact(p.n, p.r, ctx.tables_full.ms,
+                      lambda nb=nb, kw=kw: salsa20.keystream_plain(nb, **kw),
+                      Work(8 * nb * (24 if with_u64 else 16))))
+    s_b, a, e_d = sampling.keygen_draws_compact(n, r, ctx.tables_full.ms,
                                                 nonce=1)
     tf, td = ctx.tables_full, ctx.tables_drop
+    bf = transform_butterflies(r, n)
     cases.append(("keygen_fused", 1,
                   lambda: fused_ops.keygen_fused(s_b, a, e_d, tf),
-                  lambda: fused_ops.keygen_fused_plain(s_b, a, e_d, tf)))
+                  lambda: fused_ops.keygen_fused_plain(s_b, a, e_d, tf),
+                  Work(nbytes(s_b, a, e_d, *tables(tf)) + 2 * nbytes(a),
+                       shoup=3 * bf + r * n, mont=r * n)))
     sk, pk0 = fused_ops.keygen_fused(s_b, a, e_d, tf)
     pk = torch.stack([pk0, a])
-    sk_drop = sk[: p.r - 1].contiguous()
+    sk_drop = sk[: r - 1].contiguous()
+    dt, tc = ctx.dec_tail_consts, ctx.tail_consts
     for J in (1, 3):
         lead = () if J == 1 else (J,)
-        x = rand_res(rng, p.q[:-1], p.n, lead, dev)
-        c0 = rand_res(rng, p.q[:-1], p.n, lead, dev)
-        dt = ctx.dec_tail_consts
+        x = rand_res(rng, p.q[:-1], n, lead, dev)
+        c0 = rand_res(rng, p.q[:-1], n, lead, dev)
+        bfd = transform_butterflies(J * (r - 1), n)
         cases.append(("half_polymul", J,
                       lambda x=x: fused_ops.half_polymul(x, sk_drop, td),
-                      lambda x=x: fused_ops.half_polymul_plain(x, sk_drop, td)))
+                      lambda x=x: fused_ops.half_polymul_plain(x, sk_drop, td),
+                      Work(nbytes(x, sk_drop, *tables(td), x),
+                           shoup=2 * bfd + x.numel(), mont=x.numel())))
         cases.append(("decrypt_tail", J,
                       lambda x=x, c0=c0: bfv_tail.decrypt_tail(x, c0, dt),
-                      lambda x=x, c0=c0: bfv_tail.decrypt_tail_plain(x, c0, dt)))
-        draws = [sampling.encrypt_draws_compact(p.n, nonce=k + 1, device=dev)
+                      lambda x=x, c0=c0: bfv_tail.decrypt_tail_plain(x, c0, dt),
+                      decrypt_tail_work(x, c0, dt, J * n)))
+        draws = [sampling.encrypt_draws_compact(n, nonce=k + 1, device=dev)
                  for k in range(J)]
         u_b = torch.stack([d[0] for d in draws])
         e2 = torch.stack([d[1] for d in draws])
-        m = torch.from_numpy(rng.integers(0, p.t, (J, p.n))).to(dev)
+        m = torch.from_numpy(rng.integers(0, p.t, (J, n))).to(dev)
         if J == 1:
             u_b, e2, m = u_b[0], e2[0], m[0]
-        tc = ctx.tail_consts
+        bfe = transform_butterflies(J * r, n)
+        out_coefs = J * 2 * (r - 1) * n
         cases.append(("encrypt_fused", J,
                       lambda u=u_b, e=e2, m=m: fused_ops.encrypt_fused(
                           u, pk, e, m, tf, tc),
                       lambda u=u_b, e=e2, m=m: fused_ops.encrypt_fused_plain(
-                          u, pk, e, m, tf, tc)))
+                          u, pk, e, m, tf, tc),
+                      Work(nbytes(u_b, pk, e2, m, *tables(tf), tc.per_mod)
+                           + 8 * out_coefs,
+                           shoup=3 * bfe + 2 * J * r * n,
+                           mont=2 * J * r * n + out_coefs,
+                           mod_nu=out_coefs + out_coefs // 2,
+                           mullo=out_coefs // 2)))
     return cases
+
+
+def decrypt_tail_work(x, c0, dt, coefs: int) -> Work:
+    """Per coefficient and kept residue: two Montgomery products mod q_i,
+    one mod gamma and one 64-bit multiply by bcm_t; per coefficient one
+    more of each (pow2 t)."""
+    rk = x.shape[-2]
+    return Work(nbytes(x, c0, dt.per_mod, dt.glob) + 8 * coefs,
+                mont=coefs * (3 * rk + 1), mullo=coefs * (rk + 1))
+
+
+def stage_cases(ctx: BFVContext, rng, dev):
+    """(kernel, J, wrapper call, plain call, Work) for the stage kernels at
+    the shapes the stage schedule's main path gives each (keygen: x (r, n);
+    decrypt: (J, r-1, n) against a shared sk), J = 1 and 3, and the
+    decrypt tail at (J, r-1, n)."""
+    p = ctx.params
+    n, r = p.n, p.r
+    tf, td, tc, dt = (ctx.tables_full, ctx.tables_drop, ctx.tail_consts,
+                      ctx.dec_tail_consts)
+    cases = []
+    for J in (1, 3):
+        lead = () if J == 1 else (J,)
+        x = rand_res(rng, p.q[:-1], n, lead, dev)
+        y = rand_res(rng, p.q[:-1], n, (), dev)
+        xf = rand_res(rng, p.q, n, lead, dev)
+        d = torch.from_numpy(rng.integers(-19, 17, lead + (n,))
+                             .astype(np.int32)).to(dev)
+        t = d.clamp(-1, 2)
+        bd = transform_butterflies(J * (r - 1), n)
+        bf = transform_butterflies(J * r, n)
+        cases += [
+            ("ntt_forward", J, lambda x=x: ntt_stage.ntt_forward(x, td),
+             lambda x=x: ntt_stage.ntt_forward_plain(x, td),
+             Work(nbytes(x, *tables(td, "fwd"), x), shoup=bd)),
+            ("ntt_inverse", J, lambda x=x: ntt_stage.ntt_inverse(x, td),
+             lambda x=x: ntt_stage.ntt_inverse_plain(x, td),
+             Work(nbytes(x, *tables(td, "inv"), x), shoup=bd,
+                  mont=x.numel())),
+            ("ntt_inverse_mul", J,
+             lambda x=x, y=y: ntt_stage.ntt_inverse_mul(x, y, td),
+             lambda x=x, y=y: ntt_stage.ntt_inverse_mul_plain(x, y, td),
+             Work(nbytes(x, y, *tables(td, "inv"), x), shoup=bd + x.numel(),
+                  mont=x.numel())),
+            ("ntt_forward_ternary", J,
+             lambda t=t: ntt_stage.ntt_forward_ternary(t, tf),
+             lambda t=t: ntt_stage.ntt_forward_ternary_plain(t, tf),
+             Work(nbytes(t, *tables(tf, "fwd"), xf), shoup=bf)),
+            ("ntt_forward_addneg_gauss", J,
+             lambda xf=xf, d=d: ntt_stage.ntt_forward_addneg_gauss(xf, d, tf),
+             lambda xf=xf, d=d: ntt_stage.ntt_forward_addneg_gauss_plain(
+                 xf, d, tf),
+             Work(nbytes(xf, d, *tables(tf, "fwd"), xf), shoup=bf)),
+            ("decrypt_tail", J,
+             lambda x=x: bfv_tail.decrypt_tail(x, x, dt),
+             lambda x=x: bfv_tail.decrypt_tail_plain(x, x, dt),
+             decrypt_tail_work(x, x, dt, J * n)),
+        ]
+    _, pk = ctx.keygen(nonce=1)
+    u_ntt = ntt_stage.ntt_forward_ternary(
+        torch.from_numpy(rng.integers(-1, 3, n).astype(np.int32)).to(dev), tf)
+    e2 = torch.from_numpy(rng.integers(-19, 17, (2, n)).astype(np.int32)).to(dev)
+    m = torch.from_numpy(rng.integers(0, p.t, n)).to(dev)
+    out_coefs = 2 * (r - 1) * n
+    cases.append((
+        "encrypt_fused_stage", 1,
+        lambda: bfv_tail.encrypt_fused(u_ntt, pk, e2, m, tf, tc),
+        lambda: bfv_tail.encrypt_fused_plain(u_ntt, pk, e2, m, tf, tc),
+        Work(nbytes(u_ntt, pk, e2, m, *tables(tf, "inv"), tc.per_mod)
+             + 8 * out_coefs,
+             shoup=transform_butterflies(2 * r, n) + 2 * r * n,
+             mont=2 * r * n + out_coefs, mod_nu=out_coefs + out_coefs // 2,
+             mullo=out_coefs // 2)))
+    return cases
+
+
+def reset_counts() -> None:
+    for wrappers, *_ in KERNELS.values():
+        for w in wrappers:
+            w.launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    return {k: sum(w.launches for w in ws) for k, (ws, *_) in KERNELS.items()}
+
+
+def drive(ctx: BFVContext, msgs: np.ndarray, dev=None) -> dict:
+    """keygen, encrypt of each message, decrypt of each, decrypt_batch."""
+    sk, pk = ctx.keygen(nonce=1)
+    cts = [ctx.encrypt(pk, msgs[j], nonce=j + 1) for j in range(len(msgs))]
+    outs = [ctx.decrypt(sk, c) for c in cts]
+    outb = ctx.decrypt_batch(sk, torch.stack(cts))
+    if dev is not None:
+        torch.cuda.synchronize(dev)
+    return dict(sk=sk, pk=pk, cts=cts, outs=outs, outb=outb)
+
+
+def check_path(name: str, res: dict, msgs: np.ndarray, ref: dict) -> None:
+    """Round trip of every message, decrypt_batch agreeing, and keys and
+    ciphertexts equal to `ref` (the same calls on the CPU)."""
+    for j in range(len(msgs)):
+        if not np.array_equal(res["outs"][j].cpu().numpy(), msgs[j]):
+            raise AssertionError(f"{name}: decrypt(encrypt(m{j})) != m{j}")
+    if not np.array_equal(res["outb"].cpu().numpy(), msgs):
+        raise AssertionError(f"{name}: decrypt_batch != messages")
+    same = (torch.equal(res["sk"].cpu(), ref["sk"].cpu())
+            and torch.equal(res["pk"].cpu(), ref["pk"].cpu())
+            and all(torch.equal(a.cpu(), b.cpu())
+                    for a, b in zip(res["cts"], ref["cts"])))
+    if not same:
+        raise AssertionError(f"{name}: keys/ciphertexts != the reference run")
+
+
+def op_times(ctx: BFVContext, res: dict, msgs: np.ndarray, reps: int) -> dict:
+    sk, pk, cts = res["sk"], res["pk"], res["cts"]
+    m0 = torch.from_numpy(msgs[0]).to(ctx.device)
+    batch = torch.stack(cts)
+    return {
+        "keygen": median_ms(lambda: ctx.keygen(nonce=1), reps),
+        "encrypt": median_ms(lambda: ctx.encrypt(pk, m0, nonce=1), reps),
+        "decrypt": median_ms(lambda: ctx.decrypt(sk, cts[0]), reps),
+        "decrypt_batch_J3": median_ms(lambda: ctx.decrypt_batch(sk, batch),
+                                      reps),
+    }
 
 
 def main() -> int:
@@ -157,87 +451,133 @@ def main() -> int:
                            "torch.cuda.is_available() is False")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True)
-    log(smi.stdout.strip())
+    log(smi("name,power.limit"))
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)}")
+        f"device {torch.cuda.get_device_name(0)} max SM clock "
+        f"{clock_hz / 1e6:.0f} MHz")
 
     t0 = time.perf_counter()
+    probe = start_probe()
     cuda.library()
+    mults = probe_mults(*probe)
     log(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    log(f"SASS integer multiplies per primitive (sm_90a): {json.dumps(mults)}")
 
-    # Phase 3: every kernel == its plain version, on the card.
+    # Phase 1: every kernel == its plain version, on the card.
     rng = np.random.default_rng(SEED)
     errs: dict[str, float] = {}
-    timing_cases = {}
-    for name in CHECK_SETS:
-        ctx = BFVContext.build(get_bfv_params(name), device=dev)
-        for kname, J, kern, plain in kernel_cases(ctx, rng, dev):
+    timing = {}
+    t0 = time.perf_counter()
+    for name in OP_CHECK_SETS:
+        ctx = BFVContext.build(get_bfv_params(name), device=dev, fusion="op")
+        for kname, J, kern, plain, work in op_cases(ctx, rng, dev):
             compare(kname, kern(), plain(), errs)
-            log(f"check {name} {kname} J/blocks={J}: equal")
-            if name == MAIN_SET and kname not in timing_cases:
-                timing_cases[kname] = (kern, plain)
+            log(f"check {name} op {kname} J/blocks={J}: equal")
+            if name == OP_SET and kname not in timing:
+                timing[kname] = (kern, plain, work)
+    for name in STAGE_CHECK_SETS + ("32k_16q",):
+        ctx = BFVContext.build(get_bfv_params(name), device=dev,
+                               fusion="stage")
+        for kname, J, kern, plain, work in stage_cases(ctx, rng, dev):
+            if name == "32k_16q" and kname != "decrypt_tail":
+                continue       # 32k_16q: the decrypt tail at r-1 = 15
+            compare("ntt_transform" if kname in ("ntt_forward", "ntt_inverse")
+                    else kname, kern(), plain(), errs)
+            log(f"check {name} stage {kname} J={J}: equal")
+            if name == STAGE_SET and J == 1 and kname != "decrypt_tail":
+                timing[kname] = (kern, plain, work)
     torch.cuda.synchronize()
+    log(f"checks: {time.perf_counter() - t0:.1f} s")
 
-    # Phase 4: the reference's golden ciphertext.
-    ctx4 = BFVContext.build(get_bfv_params("4k_3q"), device=dev)
+    # Phase 2: the reference's golden ciphertext, both schedules.
     fix = ROOT / "tests" / "fixtures"
     ct = np.stack([np.load(fix / "dec4k_c0.npy"), np.load(fix / "dec4k_c1.npy")])
-    m = ctx4.decrypt(np.load(fix / "dec4k_sk_ntt.npy"), ct).cpu().numpy()
-    if not np.array_equal(m, np.arange(ctx4.params.n) % 10):
-        raise AssertionError("golden dec4k ciphertext does not decrypt to i % 10")
-    log("golden: dec4k decrypts to i % 10 on the card")
+    sk4 = np.load(fix / "dec4k_sk_ntt.npy")
+    for fusion in ("op", "stage"):
+        ctx4 = BFVContext.build(get_bfv_params("4k_3q"), device=dev,
+                                fusion=fusion)
+        m = ctx4.decrypt(sk4, ct).cpu().numpy()
+        if not np.array_equal(m, np.arange(ctx4.params.n) % 10):
+            raise AssertionError(f"golden dec4k ({fusion}) != i % 10")
+    log("golden: dec4k decrypts to i % 10 on the card, op and stage")
 
-    # Phase 5: the main path at 16k_5q, through the public API.
-    p = get_bfv_params(MAIN_SET)
-    ctx = BFVContext.build(p, device=dev)
-    msgs = np.random.default_rng(SEED).integers(0, p.t, (3, p.n))
-    for wrapper, _, _ in KERNELS.values():
-        wrapper.launches = 0
-    sk, pk = ctx.keygen(nonce=1)
-    cts = [ctx.encrypt(pk, msgs[j], nonce=j + 1) for j in range(3)]
-    outs = [ctx.decrypt(sk, c) for c in cts]
-    outb = ctx.decrypt_batch(sk, torch.stack(cts))
-    torch.cuda.synchronize()
-    launches = {k: w.launches for k, (w, _, _) in KERNELS.items()}
-    for j in range(3):
-        if not np.array_equal(outs[j].cpu().numpy(), msgs[j]):
-            raise AssertionError(f"{MAIN_SET}: decrypt(encrypt(m{j})) != m{j}")
-    if not np.array_equal(outb.cpu().numpy(), msgs):
-        raise AssertionError(f"{MAIN_SET}: decrypt_batch != messages")
-    log(f"main path {MAIN_SET}: 3 messages round-trip; decrypt_batch agrees")
-    cpu = BFVContext.build(p, device="cpu")
-    sk_c, pk_c = cpu.keygen(nonce=1)
-    cts_c = [cpu.encrypt(pk_c, msgs[j], nonce=j + 1) for j in range(3)]
-    if not (torch.equal(sk.cpu(), sk_c) and torch.equal(pk.cpu(), pk_c)
-            and all(torch.equal(a.cpu(), b) for a, b in zip(cts, cts_c))):
-        raise AssertionError("card keys/ciphertexts != CPU plain path")
-    log("main path: keys and ciphertexts equal the CPU plain path bit for bit")
-    log(f"launch counts in the main-path run: {launches}")
-    missing = [k for k, v in launches.items() if v < 1]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    # Phase 3: the main paths through the public API, counts read per path.
+    counts, paths = {}, {}
+    for sched, name in (("op", OP_SET), ("stage", STAGE_SET)):
+        p = get_bfv_params(name)
+        ctx = (BFVContext.build(p, device=dev) if sched == "op" else
+               BFVContext.build(p))       # the default device and fusion
+        if ctx.fusion != sched or ctx.device != dev:
+            raise AssertionError(f"{name}: built {ctx.fusion} on "
+                                 f"{ctx.device}, expected {sched} on {dev}")
+        msgs = np.random.default_rng(SEED).integers(0, p.t, (3, p.n))
+        reset_counts()
+        res = drive(ctx, msgs, dev)
+        counts[sched] = read_counts()
+        ref = drive(BFVContext.build(p, device="cpu", fusion=sched), msgs)
+        check_path(f"{name} {sched}", res, msgs, ref)
+        log(f"main path {name} ({sched}): 3 messages round-trip; "
+            f"decrypt_batch agrees; keys and ciphertexts equal the CPU "
+            f"plain path bit for bit")
+        log(f"launch counts in the {name} {sched} run: "
+            f"{json.dumps(counts[sched])}")
+        missing = [k for k, (*_, s) in KERNELS.items()
+                   if sched in s and counts[sched][k] < 1]
+        if missing:
+            raise AssertionError(f"kernels not launched on the {sched} "
+                                 f"main path: {missing}")
+        paths[sched] = (ctx, res, msgs)
 
-    # Phase 7: times on the card, 16k_5q main-path shapes.
-    m0 = torch.from_numpy(msgs[0]).to(dev)
-    op_ms = {
-        "keygen": median_ms(lambda: ctx.keygen(nonce=1)),
-        "encrypt": median_ms(lambda: ctx.encrypt(pk, m0, nonce=1)),
-        "decrypt": median_ms(lambda: ctx.decrypt(sk, cts[0])),
-        "decrypt_batch_J3": median_ms(
-            lambda: ctx.decrypt_batch(sk, torch.stack(cts))),
-    }
-    log(f"op times {MAIN_SET} (ms, median of CUDA-event timings): "
-        f"{json.dumps(op_ms)}")
+    # Phase 4: 32k_16q round trip; 16k_5q stage == op.
+    p = get_bfv_params("32k_16q")
+    ctx16 = BFVContext.build(p, device=dev)
+    m16 = np.random.default_rng(SEED + 1).integers(0, p.t, (1, p.n))
+    res16 = drive(ctx16, m16, dev)
+    if not (np.array_equal(res16["outs"][0].cpu().numpy(), m16[0])
+            and np.array_equal(res16["outb"].cpu().numpy(), m16)):
+        raise AssertionError("32k_16q: decrypt(encrypt(m)) != m")
+    log("32k_16q (stage): one message round-trips")
+    ctx_op, res_op, msgs = paths["op"]
+    ctx_st = BFVContext.build(ctx_op.params, device=dev, fusion="stage")
+    res_st = drive(ctx_st, msgs, dev)
+    check_path(f"{OP_SET} stage vs op", res_st, msgs, res_op)
+    log(f"{OP_SET} under fusion='stage': keys, ciphertexts and plaintexts "
+        f"equal the op schedule's")
+
+    # Phase 5: times on the card.
+    ctx32, res32, msgs32 = paths["stage"]
+    log(f"op times {STAGE_SET} stage (ms, median of CUDA-event timings): "
+        f"{json.dumps(op_times(ctx32, res32, msgs32, 10))}")
+    ab = {"op": [], "stage": []}
+    for sched, ctx, res in (("op", ctx_op, res_op), ("stage", ctx_st, res_st),
+                            ("stage", ctx_st, res_st), ("op", ctx_op, res_op)):
+        ab[sched].append(op_times(ctx, res, msgs, 10))
+    for sched, runs in ab.items():
+        log(f"op times {OP_SET} {sched} (ms, median of CUDA-event timings; "
+            f"two turns of op, stage, stage, op): {json.dumps(runs)}")
+    bounds, terms = {}, {}
+    for kname, (kern, plain, work) in timing.items():
+        terms[kname] = work.terms(mults, clock_hz)
+        t_bytes, t_ops = terms[kname]["bytes_ms"], terms[kname]["ops_ms"]
+        bounds[kname] = (kernel_ms(kern), kernel_ms(plain), max(t_bytes, t_ops),
+                         "bytes" if t_bytes >= t_ops else "operations")
+    log(f"bound terms (bytes moved, integer multiply instructions, and their "
+        f"times at {HBM_BYTES_PER_S:.3g} B/s and {SMS} SMs x "
+        f"{IMAD_PER_CLOCK}/clock): {json.dumps(terms)}")
+    inv = bounds.pop("ntt_inverse")
+    log(f"kernel 7 inverse ({STAGE_SET}, x (r-1, n)): ms {inv[0]}, plain "
+        f"ms {inv[1]}, bound ms {inv[2]} ({inv[3]})")
+    bounds["ntt_transform"] = bounds.pop("ntt_forward")
     rows = []
-    for kname, (wrapper, source, replaces) in KERNELS.items():
-        kern, plain = timing_cases[kname]
+    for kname, (_, source, replaces, scheds) in KERNELS.items():
+        ms, plain_ms, bound_ms, bound_by = bounds[kname]
         rows.append({"name": kname, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[kname],
-                     "max_abs_err": errs[kname],
-                     "ms": median_ms(kern), "plain_ms": median_ms(plain)})
+                     "replaces": replaces,
+                     "launches": counts[scheds[0]][kname],
+                     "max_abs_err": errs[kname], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
     torch.cuda.synchronize()
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

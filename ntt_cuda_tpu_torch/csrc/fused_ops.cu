@@ -142,13 +142,6 @@ NTT_HD void encrypt_tail_body(long long idx, const u64* scratch,
   ct[idx] = out;
 }
 
-static Twiddles make_tw(const void* psi, const void* psi_sh, const void* ipsi,
-                        const void* ipsi_sh, const void* consts) {
-  Twiddles tw = {(const u64*)psi, (const u64*)psi_sh, (const u64*)ipsi,
-                 (const u64*)ipsi_sh, (const u64*)consts};
-  return tw;
-}
-
 #ifdef __CUDACC__
 
 __global__ void k_half_polymul(const u64* x, const u64* y, u64* out,
@@ -179,20 +172,6 @@ __global__ void k_encrypt_tail(const u64* scratch, const long long* m, u64* ct,
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx < total)
     encrypt_tail_body(idx, scratch, m, ct, tc, q_last, half, fix_th, r, n);
-}
-
-// Launch a block-per-polynomial kernel with 8n bytes of dynamic shared
-// memory (above 48 KB only after raising the kernel's limit).
-template <typename K, typename... A>
-static int launch_poly(K kernel, int blocks, int logn, void* stream, A... args) {
-  const int n = 1 << logn;
-  const size_t smem = (size_t)n * sizeof(u64);
-  if (logn < 1 || n > 16384 || blocks < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<blocks, ntt_threads(n), smem, (cudaStream_t)stream>>>(args...);
-  return (int)cudaGetLastError();
 }
 
 extern "C" int ntt_half_polymul(const void* x, const void* y, void* out,

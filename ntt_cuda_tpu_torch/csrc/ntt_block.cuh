@@ -19,6 +19,14 @@
 // `tid`/`nt` are the thread's index and the block's thread count; the host
 // build of the tests passes 0/1, where BLOCK_SYNC is a no-op and one thread
 // runs every butterfly in order.
+//
+// Sub-range form (`tw_mul`, default 1 = the whole polynomial): half h of a
+// 2^(logn+1)-point transform runs that transform's stages 1..logn as a
+// 2^logn-point one whose twiddle for local (len', ps') is
+// psi[(2 + h) len' + ps'] -- the full stage has len = 2 len' and
+// ps = h len' + ps'.  The caller passes tw_mul = 2 + h and the full
+// polynomial's tables; ntt_stage.cu does stage 0 (the pairs i, i + n/2)
+// in a separate elementwise pass.
 
 #pragma once
 
@@ -48,6 +56,15 @@ struct Twiddles {
   const u64* consts;
 };
 
+// The launchers' table arguments (tensor data pointers) as Twiddles.
+static inline Twiddles make_tw(const void* psi, const void* psi_sh,
+                               const void* ipsi, const void* ipsi_sh,
+                               const void* consts) {
+  Twiddles tw = {(const u64*)psi, (const u64*)psi_sh, (const u64*)ipsi,
+                 (const u64*)ipsi_sh, (const u64*)consts};
+  return tw;
+}
+
 NTT_HD Twiddles twiddles_at(Twiddles tw, int mi, int n) {
   const size_t off = (size_t)mi * n;
   Twiddles t = {tw.psi + off, tw.psi_sh + off, tw.ipsi + off, tw.ipsi_sh + off,
@@ -57,7 +74,7 @@ NTT_HD Twiddles twiddles_at(Twiddles tw, int mi, int n) {
 
 // Forward transform of s[0, 2^logn), values in [0, q) in and out.
 NTT_HD void ntt_fwd_block(u64* s, int logn, const Twiddles& tw, u64 q, int tid,
-                          int nt) {
+                          int nt, int tw_mul = 1) {
   const int half = 1 << (logn - 1);
   BLOCK_SYNC();
   for (int lg = 0; lg < logn; ++lg) {
@@ -68,8 +85,8 @@ NTT_HD void ntt_fwd_block(u64* s, int logn, const Twiddles& tw, u64 q, int tid,
       const int ps = g >> sl;
       const int tgt = (ps << (sl + 1)) | (g & (step - 1));
       const u64 u = s[tgt];
-      const u64 v = mul_shoup(s[tgt + step], tw.psi[len + ps],
-                              tw.psi_sh[len + ps], q);
+      const int w = tw_mul * len + ps;
+      const u64 v = mul_shoup(s[tgt + step], tw.psi[w], tw.psi_sh[w], q);
       s[tgt] = add_mod(u, v, q);
       s[tgt + step] = sub_mod(u, v, q);
     }
@@ -80,7 +97,7 @@ NTT_HD void ntt_fwd_block(u64* s, int logn, const Twiddles& tw, u64 q, int tid,
 // Inverse transform WITHOUT the n^-1 factor: the caller multiplies by
 // n^-1 (times 2^64 when a Montgomery product came before) at the end.
 NTT_HD void ntt_inv_block(u64* s, int logn, const Twiddles& tw, u64 q, int tid,
-                          int nt) {
+                          int nt, int tw_mul = 1) {
   const int half = 1 << (logn - 1);
   BLOCK_SYNC();
   for (int lg = logn - 1; lg >= 0; --lg) {
@@ -92,9 +109,9 @@ NTT_HD void ntt_inv_block(u64* s, int logn, const Twiddles& tw, u64 q, int tid,
       const int tgt = (ps << (sl + 1)) | (g & (step - 1));
       const u64 u = s[tgt];
       const u64 v = s[tgt + step];
+      const int w = tw_mul * len + ps;
       s[tgt] = add_mod(u, v, q);
-      s[tgt + step] = mul_shoup(sub_mod(u, v, q), tw.ipsi[len + ps],
-                                tw.ipsi_sh[len + ps], q);
+      s[tgt + step] = mul_shoup(sub_mod(u, v, q), tw.ipsi[w], tw.ipsi_sh[w], q);
     }
     BLOCK_SYNC();
   }
@@ -103,3 +120,24 @@ NTT_HD void ntt_inv_block(u64* s, int logn, const Twiddles& tw, u64 q, int tid,
 // Threads per block for a transform of size n: every thread has at least
 // one butterfly, at most 1024 threads.
 static inline int ntt_threads(int n) { return n / 2 < 1024 ? n / 2 : 1024; }
+
+// The longest polynomial one block holds in shared memory: 2^14 u64, 128 KB
+// of the 227 KB a block can use (two 2^14 halves make the 2^15 transform).
+#define LOG_BLOCK_MAX 14
+
+#ifdef __CUDACC__
+// Launch a block-per-polynomial kernel with 8 * 2^logb bytes of dynamic
+// shared memory (above 48 KB only after raising the kernel's limit).
+template <typename K, typename... A>
+static int launch_poly(K kernel, int blocks, int logb, void* stream, A... args) {
+  const int nb = 1 << logb;
+  const size_t smem = (size_t)nb * sizeof(u64);
+  if (logb < 1 || logb > LOG_BLOCK_MAX || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<blocks, ntt_threads(nb), smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+#endif

@@ -1,6 +1,7 @@
 """Build, load and call the hand-written CUDA kernels in `csrc/`.
 
-The kernels are compiled with `nvcc` for `sm_90a` (Hopper) into one shared
+The kernels are compiled with `nvcc` for `sm_90a` (Hopper), one `nvcc`
+process per source, all started together, and linked into one shared
 library with a plain C interface, loaded with ctypes (no PyTorch headers,
 so a build takes seconds).  The library goes to `build/cuda-<hash>/` at
 the root of the checkout, keyed by a hash of the sources and flags, and is
@@ -26,11 +27,13 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("salsa20.cu", "decrypt_tail.cu", "fused_ops.cu")
+SOURCES = ("salsa20.cu", "decrypt_tail.cu", "fused_ops.cu", "ntt_stage.cu")
 HEADERS = ("modarith.cuh", "ntt_block.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-MAX_N = 16384   # one u64 polynomial per block in shared memory: 128 KB
+              "-O3", "-Xcompiler", "-fPIC")
+BLOCK_MAX_N = 16384     # one u64 polynomial per block in shared memory:
+#                         128 KB; the whole-op kernels (fused_ops.cu)
+TRANSFORM_MAX_N = 32768  # two 2^14 halves; the stage kernels (ntt_stage.cu)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,7 +57,16 @@ SIGNATURES = {
                               _I, _P),
     # scratch, m, ct, per_mod, q_last, half, fix_th, J, r, n
     "ntt_encrypt_tail": (_P, _P, _P, _P, _U64, _U64, _U64, _I, _I, _I, _P),
+    # x, d, out, 4 tables, consts, prologue, P, r, log n
+    "ntt_stage_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _P),
+    # x, y, e, out, 4 tables, consts, prologue, ny, P, r, log n
+    "ntt_stage_inverse": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _P),
 }
+
+# The stage kernels' prologues (ntt_stage.cu PRO_*).
+PRO_COPY, PRO_TERNARY, PRO_ADDNEG_GAUSS, PRO_MONT = range(4)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -76,7 +88,7 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _nvcc() -> str:
+def find_nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     for cand in ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
             shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
@@ -86,23 +98,40 @@ def _nvcc() -> str:
                        "ntt_cuda_tpu_torch are built from csrc/ at first use")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands together; raise with the output of the first that
+    fails, after every one has ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into one shared library (skipped when the hashed
-    build exists) and return its path."""
+    """Compile csrc/*.cu, one nvcc per source in parallel, and link them
+    into one shared library (skipped when the hashed build exists); return
+    its path."""
     out_dir = CSRC.parents[1] / "build" / f"cuda-{source_hash()}"
     lib = out_dir / "libntt_cuda_tpu_torch.so"
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".tmp-{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, lib)   # atomic: a concurrent build never sees half a file
+    nvcc, tag = find_nvcc(), f".tmp-{os.getpid()}"
+    objs = [out_dir / f"{Path(s).stem}{tag}.o" for s in SOURCES]
+    tmp = out_dir / f"{tag}.so"
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                  for s, o in zip(SOURCES, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, lib)   # atomic: a concurrent build never sees half
+    finally:
+        for o in objs + [tmp]:
+            o.unlink(missing_ok=True)
     return lib
 
 
@@ -110,6 +139,20 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The kernels' library, built if needed and loaded once per process."""
     return bind(ctypes.CDLL(str(build())))
+
+
+def kernel_device(name: str, t: torch.Tensor, tables,
+                  max_n: int) -> torch.device:
+    """The device a transform kernel runs on: the tables' (NTTTables).
+    Raises unless `t` is a CUDA tensor and the transform length is in
+    [2, max_n]; the caller's `require` checks hold every operand to the
+    device returned."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {t.device}")
+    if not 2 <= tables.n <= max_n:
+        raise ValueError(f"{name}: n={tables.n} outside the kernel's range "
+                         f"[2, {max_n}]")
+    return tables.device
 
 
 def require(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,

@@ -1,11 +1,16 @@
 """BFV keygen / encryption / decryption (RNS form, SEAL 3.5 semantics).
 
 Counterpart of `ntt_cuda_tpu/models/bfv.py` (the reference's
-bfv_keygen.cuh:95, bfv_encryption.cuh:223, bfv_decryption.cuh:76) for the
-JAX package's default configuration at n <= 16384: the whole-op ("op")
-schedule with the integer uniform spec.  Eager PyTorch: each operation is
-a few kernel launches on the context's device (the CPU runs the kernels'
-plain versions instead).
+bfv_keygen.cuh:95, bfv_encryption.cuh:223, bfv_decryption.cuh:76) with the
+integer uniform spec, on the JAX package's two kernel schedules:
+
+* "op": one whole-op kernel per operation (ops/fused_ops.py), n <= 16384;
+* "stage": one kernel per transform with its elementwise neighbours fused
+  in (ops/ntt_stage.py, bfv_tail.encrypt_fused), n <= 32768.
+
+`fusion="auto"` picks as the JAX package does: "op" up to n = 16384,
+"stage" above.  Eager PyTorch: each operation is a few kernel launches on
+the context's device (the CPU runs the kernels' plain versions instead).
 
 Conventions are the JAX package's: sk (r, n) and pk (2, r, n) live in the
 NTT domain; ciphertexts are (2, r-1, n) coefficient-domain residues with
@@ -22,14 +27,15 @@ import numpy as np
 import torch
 
 from .. import params as params_mod
-from ..cuda import MAX_N
-from ..ops import bfv_tail, fused_ops, ntt, sampling
+from ..cuda import BLOCK_MAX_N, TRANSFORM_MAX_N
+from ..ops import bfv_tail, fused_ops, ntt, ntt_stage, sampling
 from ..ops.modmath import I64
 
-# What this slice leaves out, by the ROADMAP.md Queue 1 item that adds it.
-_ROADMAP_STAGE = "ROADMAP.md Queue 1 item 1 (the stage schedule and n = 32768)"
-_ROADMAP_FP64 = "ROADMAP.md Queue 1 item 3 (uniform_spec='fp64')"
-_ROADMAP_EVAL = "ROADMAP.md Queue 1 item 5 (EvalMult)"
+# What the port leaves out, by the ROADMAP.md Queue 1 item that adds it.
+_ROADMAP_OP32K = ("ROADMAP.md Queue 1 item 2 (the op schedule at n = 32768: "
+                  "whole-op kernels over two 2^14 halves)")
+_ROADMAP_FP64 = "ROADMAP.md Queue 1 item 4 (uniform_spec='fp64')"
+_ROADMAP_EVAL = "ROADMAP.md Queue 1 item 6 (EvalMult)"
 
 
 def _as_tensor(name: str, x) -> torch.Tensor:
@@ -76,20 +82,22 @@ class BFVContext:
 
     params: params_mod.BFVParams
     device: torch.device
+    fusion: str                        # "op" or "stage"
     tables_full: ntt.NTTTables         # (r, n)
     tables_drop: ntt.NTTTables         # (r-1, n)
     tail_consts: bfv_tail.TailConsts
     dec_tail_consts: bfv_tail.DecTailConsts
 
     @staticmethod
-    def build(params: params_mod.BFVParams, device="cpu",
+    def build(params: params_mod.BFVParams, device=None,
               uniform_spec: str = "int", fusion: str = "auto") -> "BFVContext":
         """Precompute and upload every constant the ops need.
 
-        The slice runs the JAX package's default configuration for
-        n <= 16384: fusion "auto" -> "op" (one kernel per op) and the
-        integer uniform spec.  What is not ported raises
-        NotImplementedError naming the ROADMAP item; nothing falls back."""
+        `device` None is the current CUDA device; where there is none this
+        raises, and `device="cpu"` runs the kernels' plain versions.
+        fusion "auto" is the JAX package's rule: "op" for n <= 16384,
+        "stage" above.  What is not ported raises NotImplementedError
+        naming the ROADMAP item; nothing falls back."""
         if params.t % 2 == 0 and params.t & (params.t - 1):
             raise ValueError(
                 f"t={params.t} is neither a power of two (reference "
@@ -101,24 +109,36 @@ class BFVContext:
                 "t < 2^31")
         if uniform_spec not in ("int", "fp64"):
             raise ValueError(f"unknown uniform_spec {uniform_spec!r}")
-        if fusion not in ("auto", "op", "stage"):
+        if fusion == "auto":
+            fusion = "op" if params.n <= BLOCK_MAX_N else "stage"
+        if fusion not in ("op", "stage"):
             raise ValueError(f"unknown fusion {fusion!r}")
-        if params.n > MAX_N:
+        if params.n > TRANSFORM_MAX_N:
             raise NotImplementedError(
-                f"n={params.n} > {MAX_N}: one polynomial no longer fits one "
-                f"block's shared memory; see {_ROADMAP_STAGE}")
-        if fusion == "stage":
+                f"n={params.n} > {TRANSFORM_MAX_N}: no transform kernel "
+                f"takes it")
+        if fusion == "op" and params.n > BLOCK_MAX_N:
             raise NotImplementedError(
-                f"fusion='stage' is not ported; see {_ROADMAP_STAGE}")
+                f"fusion='op' at n={params.n} > {BLOCK_MAX_N}: one "
+                f"polynomial no longer fits one block's shared memory; use "
+                f"fusion='stage' (or 'auto'), see {_ROADMAP_OP32K}")
         if uniform_spec == "fp64":
             raise NotImplementedError(
                 f"uniform_spec='fp64' is not ported; see {_ROADMAP_FP64}")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "BFVContext.build: no CUDA device "
+                    "(torch.cuda.is_available() is False); pass "
+                    "device='cpu' to run the kernels' plain versions")
+            device = "cuda"
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         return BFVContext(
             params=params,
             device=device,
+            fusion=fusion,
             tables_full=ntt.tables_for(params, device=device),
             tables_drop=ntt.tables_for(params, params.r - 1, device=device),
             tail_consts=bfv_tail.TailConsts.build(params, device),
@@ -133,9 +153,15 @@ class BFVContext:
         half of the nonce space; nonces must be < 2**63."""
         sampling.check_user_nonce(nonce)
         p = self.params
-        s_b, a, e_d = sampling.keygen_draws_compact(
-            p.n, p.r, self.tables_full.ms, nonce=int(nonce))
-        sk, pk0 = fused_ops.keygen_fused(s_b, a, e_d, self.tables_full)
+        tf = self.tables_full
+        s_b, a, e_d = sampling.keygen_draws_compact(p.n, p.r, tf.ms,
+                                                    nonce=int(nonce))
+        if self.fusion == "op":
+            sk, pk0 = fused_ops.keygen_fused(s_b, a, e_d, tf)
+        else:
+            sk = ntt_stage.ntt_forward_ternary(s_b, tf)
+            pk0 = ntt_stage.ntt_inverse_mul(a, sk, tf)
+            pk0 = ntt_stage.ntt_forward_addneg_gauss(pk0, e_d, tf)
         return sk, torch.stack([pk0, a])
 
     def encrypt(self, pk, m_poly, nonce=0):
@@ -155,8 +181,13 @@ class BFVContext:
                                 f"coefficient, n={p.n}", self.device)
         u_b, e_d = sampling.encrypt_draws_compact(p.n, nonce=int(nonce),
                                                   device=self.device)
-        return fused_ops.encrypt_fused(u_b, pk, e_d, m_poly, self.tables_full,
-                                       self.tail_consts)
+        tf = self.tables_full
+        if self.fusion == "op":
+            return fused_ops.encrypt_fused(u_b, pk, e_d, m_poly, tf,
+                                           self.tail_consts)
+        u_ntt = ntt_stage.ntt_forward_ternary(u_b, tf)
+        return bfv_tail.encrypt_fused(u_ntt, pk, e_d, m_poly, tf,
+                                      self.tail_consts)
 
     def decrypt(self, sk, ct):
         """sk (r, n) NTT domain (first r-1 residues used; (r-1, n) also
@@ -175,7 +206,7 @@ class BFVContext:
         ct = check_residues("ct", ct, (2, p.r - 1, p.n),
                             "encrypt returns (2, r-1, n) — the last RNS "
                             "modulus is dropped", self.device)
-        x = fused_ops.half_polymul(ct[1], sk, self.tables_drop)
+        x = self._front(ct[1], sk)
         return bfv_tail.decrypt_tail(x, ct[0], self.dec_tail_consts)
 
     def decrypt_batch(self, sk, cts):
@@ -191,8 +222,7 @@ class BFVContext:
         J = cts.shape[0]
         cts = check_residues("cts", cts, (J, 2, p.r - 1, p.n),
                              device=self.device)
-        x = fused_ops.half_polymul(cts[:, 1].contiguous(), sk,
-                                   self.tables_drop)
+        x = self._front(cts[:, 1].contiguous(), sk)
         return bfv_tail.decrypt_tail(x, cts[:, 0].contiguous(),
                                      self.dec_tail_consts)
 
@@ -201,6 +231,14 @@ class BFVContext:
         sk, pk = self.keygen()
         ct = self.encrypt(pk, m_poly)
         return self.decrypt(sk, ct)
+
+    def _front(self, c1, sk_drop):
+        """Decryption's front half, INTT(NTT(c1) (.) sk): (..., r-1, n)."""
+        td = self.tables_drop
+        if self.fusion == "op":
+            return fused_ops.half_polymul(c1, sk_drop, td)
+        return ntt_stage.ntt_inverse_mul(ntt_stage.ntt_forward(c1, td),
+                                         sk_drop, td)
 
     def _sk_drop(self, sk):
         p = self.params

@@ -7,8 +7,13 @@ Counterpart of `ntt_cuda_tpu/ops/bfv_tail.py` for the main path:
   launches csrc/decrypt_tail.cu; on the CPU it runs `decrypt_tail_plain`,
   the ops/poly.py chain (poly_add -> two scalar Montgomery multiplies ->
   fast_convert_and_round).
+* `encrypt_fused`: the stage schedule's encryption after NTT(u):
+  c_h = INTT(u_ntt (.) pk_h) +> e_h, the modulus drop and Delta*m + fix.
+  On a CUDA device: the inverse kernel of csrc/ntt_stage.cu into a
+  (2, r, n) scratch, then csrc/fused_ops.cu's encrypt tail; on the CPU
+  `encrypt_fused_plain`, which the op schedule's plain encrypt shares.
 * `TailConsts`: the per-modulus constants of encryption's tail (modulus
-  drop and Delta*m + fix), read by the encrypt kernel in ops/fused_ops.py.
+  drop and Delta*m + fix), read by the encrypt kernels.
 * `DecTailConsts` and `_t_strategy`: the decrypt kernel's constants and
   its static mod-t strategy (pow2 masks, or Barrett-by-t for odd t < 2^31).
 
@@ -24,8 +29,9 @@ import torch
 
 from .. import cuda
 from ..utils import hostmath as hm
-from . import modmath, poly
+from . import modmath, ntt, ntt_stage, poly, sampling
 from .modmath import I64, ModulusSet
+from .ntt import NTTTables
 
 
 def _fix_threshold(t: int) -> int:
@@ -161,3 +167,49 @@ def decrypt_tail(x, ct0, consts: DecTailConsts) -> torch.Tensor:
 
 
 decrypt_tail.launches = 0
+
+
+def encrypt_fused_plain(u_ntt, pk, e_d, m_poly, tables: NTTTables,
+                        consts: TailConsts) -> torch.Tensor:
+    """c_h = INTT(u_ntt (.) pk_h) +> e_h, the modulus drop, then
+    c0 += Delta*m + fix.  (..., r, n), (2, r, n), (..., 2, n), (..., n) ->
+    (..., 2, r-1, n)."""
+    ms = tables.ms
+    c = ntt.ntt_inverse(ntt.dyadic_mul(u_ntt[..., None, :, :], pk, ms), tables)
+    c = poly.poly_add(c, sampling.small_res(e_d, ms.q), ms)
+    c = poly.divide_and_round_q_last(c, consts.dr, consts.ms_drop,
+                                     consts.ms_last)
+    c0 = poly.add_message(c[..., 0, :, :], m_poly, consts.msg)
+    return torch.stack([c0, c[..., 1, :, :]], dim=-3)
+
+
+def encrypt_fused(u_ntt, pk, e_d, m_poly, tables: NTTTables,
+                  consts: TailConsts) -> torch.Tensor:
+    """One message: u_ntt (r, n) = NTT(u), pk (2, r, n) NTT domain, e_d
+    (2, n) compact int32 Gaussian, m_poly (n,) int64 in [0, t) -> the
+    (2, r-1, n) ciphertext."""
+    r, n = tables.r, tables.n
+    for name, t, shape in (("u_ntt", u_ntt, (r, n)), ("pk", pk, (2, r, n)),
+                           ("e_d", e_d, (2, n)), ("m_poly", m_poly, (n,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    if pk.device.type == "cpu":
+        return encrypt_fused_plain(u_ntt, pk, e_d, m_poly, tables, consts)
+    dev = cuda.kernel_device("encrypt_fused", pk, tables,
+                             cuda.TRANSFORM_MAX_N)
+    cuda.require("u_ntt", u_ntt, I64, (r, n), dev)
+    cuda.require("pk", pk, I64, (2, r, n), dev)
+    cuda.require("e_d", e_d, torch.int32, (2, n), dev)
+    cuda.require("m_poly", m_poly, I64, (n,), dev)
+    scratch = torch.empty((2, r, n), dtype=I64, device=dev)
+    ct = torch.empty((2, r - 1, n), dtype=I64, device=dev)
+    ntt_stage.inverse_launch(dev, pk, u_ntt, e_d, scratch, tables)
+    cuda.launch("ntt_encrypt_tail", dev, scratch.data_ptr(),
+                m_poly.data_ptr(), ct.data_ptr(), consts.per_mod.data_ptr(),
+                consts.q_last, consts.half, consts.fix_th, 1, r, n)
+    encrypt_fused.launches += 1
+    return ct
+
+
+encrypt_fused.launches = 0

@@ -17,26 +17,10 @@ from __future__ import annotations
 import torch
 
 from .. import cuda
-from . import ntt, poly, sampling
+from . import bfv_tail, ntt, poly, sampling
 from .bfv_tail import TailConsts
 from .modmath import I64
 from .ntt import NTTTables
-
-
-def _tables_args(tb: NTTTables):
-    return (tb.psi.data_ptr(), tb.psi_shoup.data_ptr(), tb.psiinv.data_ptr(),
-            tb.psiinv_shoup.data_ptr(), tb.consts.data_ptr())
-
-
-def _kernel_device(name: str, x: torch.Tensor, tb: NTTTables) -> torch.device:
-    """The device the kernel runs on; raises for anything but CUDA and for
-    sizes the block-resident transform does not take."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for {x.device}")
-    if not 2 <= tb.n <= cuda.MAX_N:
-        raise ValueError(f"{name}: n={tb.n} outside the block-resident "
-                         f"transform's range [2, {cuda.MAX_N}]")
-    return tb.device
 
 
 # --- half_polymul ----------------------------------------------------------
@@ -54,7 +38,7 @@ def half_polymul(x, y_ntt, tables: NTTTables) -> torch.Tensor:
     every leading index of x."""
     if x.device.type == "cpu":
         return half_polymul_plain(x, y_ntt, tables)
-    dev = _kernel_device("half_polymul", x, tables)
+    dev = cuda.kernel_device("half_polymul", x, tables, cuda.BLOCK_MAX_N)
     r, n = tables.r, tables.n
     if x.dim() < 2 or tuple(x.shape[-2:]) != (r, n):
         raise ValueError(f"half_polymul: x shape {tuple(x.shape)}, expected "
@@ -64,8 +48,8 @@ def half_polymul(x, y_ntt, tables: NTTTables) -> torch.Tensor:
     out = torch.empty_like(x)
     blocks = x.numel() // n
     cuda.launch("ntt_half_polymul", dev, x.data_ptr(), y_ntt.data_ptr(),
-                out.data_ptr(), *_tables_args(tables), blocks, r,
-                n.bit_length() - 1)
+                out.data_ptr(), *tables.kernel_args(), blocks, r,
+                tables.logn)
     half_polymul.launches += 1
     return out
 
@@ -89,7 +73,7 @@ def keygen_fused(s_b, a, e_d, tables: NTTTables):
     (n,) int32 Gaussian e_d -> (sk, pk0), both (r, n) NTT domain."""
     if a.device.type == "cpu":
         return keygen_fused_plain(s_b, a, e_d, tables)
-    dev = _kernel_device("keygen_fused", a, tables)
+    dev = cuda.kernel_device("keygen_fused", a, tables, cuda.BLOCK_MAX_N)
     r, n = tables.r, tables.n
     cuda.require("s_b", s_b, torch.int32, (n,), dev)
     cuda.require("a", a, I64, (r, n), dev)
@@ -98,7 +82,7 @@ def keygen_fused(s_b, a, e_d, tables: NTTTables):
     pk0 = torch.empty((r, n), dtype=I64, device=dev)
     cuda.launch("ntt_keygen_fused", dev, s_b.data_ptr(), a.data_ptr(),
                 e_d.data_ptr(), sk.data_ptr(), pk0.data_ptr(),
-                *_tables_args(tables), r, n.bit_length() - 1)
+                *tables.kernel_args(), r, tables.logn)
     keygen_fused.launches += 1
     return sk, pk0
 
@@ -110,17 +94,12 @@ keygen_fused.launches = 0
 
 def encrypt_fused_plain(u_b, pk, e_d, m_poly, tables: NTTTables,
                         consts: TailConsts):
-    """Per message: c_h = INTT(NTT(u) (.) pk_h) +> e_h, the modulus drop,
-    then c0 += Delta*m + fix.  (J, n), (2, r, n), (J, 2, n), (J, n) ->
-    (J, 2, r-1, n); the J axis may be left out."""
-    ms = tables.ms
-    u_ntt = ntt.ntt_forward(sampling.small_res(u_b, ms.q), tables)
-    c = ntt.ntt_inverse(ntt.dyadic_mul(u_ntt[..., None, :, :], pk, ms), tables)
-    c = poly.poly_add(c, sampling.small_res(e_d, ms.q), ms)
-    c = poly.divide_and_round_q_last(c, consts.dr, consts.ms_drop,
-                                     consts.ms_last)
-    c0 = poly.add_message(c[..., 0, :, :], m_poly, consts.msg)
-    return torch.stack([c0, c[..., 1, :, :]], dim=-3)
+    """Per message: u_ntt = NTT(u), then bfv_tail.encrypt_fused_plain.
+    (J, n), (2, r, n), (J, 2, n), (J, n) -> (J, 2, r-1, n); the J axis may
+    be left out."""
+    u_ntt = ntt.ntt_forward(sampling.small_res(u_b, tables.ms.q), tables)
+    return bfv_tail.encrypt_fused_plain(u_ntt, pk, e_d, m_poly, tables,
+                                        consts)
 
 
 def encrypt_fused(u_b, pk, e_d, m_poly, tables: NTTTables,
@@ -132,7 +111,8 @@ def encrypt_fused(u_b, pk, e_d, m_poly, tables: NTTTables,
     transforms into a (J, 2, r, n) scratch, then the elementwise tail."""
     if pk.device.type == "cpu":
         return encrypt_fused_plain(u_b, pk, e_d, m_poly, tables, consts)
-    dev = _kernel_device("encrypt_fused", pk, tables)
+    dev = cuda.kernel_device("encrypt_fused", pk, tables,
+                             cuda.BLOCK_MAX_N)
     single = u_b.dim() == 1
     if single:
         u_b, e_d, m_poly = u_b[None], e_d[None], m_poly[None]
@@ -145,8 +125,8 @@ def encrypt_fused(u_b, pk, e_d, m_poly, tables: NTTTables,
     scratch = torch.empty((J, 2, r, n), dtype=I64, device=dev)
     ct = torch.empty((J, 2, r - 1, n), dtype=I64, device=dev)
     cuda.launch("ntt_encrypt_transform", dev, u_b.data_ptr(), pk.data_ptr(),
-                e_d.data_ptr(), scratch.data_ptr(), *_tables_args(tables), J,
-                r, n.bit_length() - 1)
+                e_d.data_ptr(), scratch.data_ptr(), *tables.kernel_args(), J,
+                r, tables.logn)
     cuda.launch("ntt_encrypt_tail", dev, scratch.data_ptr(),
                 m_poly.data_ptr(), ct.data_ptr(), consts.per_mod.data_ptr(),
                 consts.q_last,

@@ -72,6 +72,17 @@ class NTTTables:
     def device(self) -> torch.device:
         return self.psi.device
 
+    @property
+    def logn(self) -> int:
+        return self.n.bit_length() - 1
+
+    def kernel_args(self) -> tuple:
+        """The kernels' table arguments: psi, its Shoup companions, psi^-1,
+        its Shoup companions and consts, as data pointers."""
+        return (self.psi.data_ptr(), self.psi_shoup.data_ptr(),
+                self.psiinv.data_ptr(), self.psiinv_shoup.data_ptr(),
+                self.consts.data_ptr())
+
     @staticmethod
     def build(qs, psis, n: int, device=None) -> "NTTTables":
         host = np.stack([_host_tables(int(p), int(q), n)

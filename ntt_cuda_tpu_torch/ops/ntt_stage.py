@@ -1,0 +1,193 @@
+"""Stage-schedule transforms: one forward or inverse NTT per call, with an
+elementwise prologue fused in.
+
+Counterpart of the public API of `ntt_cuda_tpu/ops/ntt_pallas.py`
+(`ntt_forward`, `ntt_inverse`, `ntt_inverse_mul`, `ntt_forward_ternary`,
+`ntt_forward_addneg_gauss`), the kernels of the JAX package's
+`fusion="stage"` schedule.  On a CUDA device each wrapper launches
+csrc/ntt_stage.cu (n <= 32768); on the CPU it runs the plain version
+beside it, composed from ops/ntt.py, ops/poly.py and the compact-draw map
+of ops/sampling.py.
+
+Standard RNS layout only: x is (r, n) for one message or (J, r, n) for J,
+and polynomial (j, i) has modulus i.  A compact i32 draw is (n,) or (J, n),
+one row per message, shared by its r moduli.  Shapes are explicit: a
+mismatch raises, and no (J, r) order is guessed from a flat batch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import cuda
+from . import ntt, poly, sampling
+from .modmath import I64
+from .ntt import NTTTables
+
+
+def _residue_lead(name: str, x: torch.Tensor, tables: NTTTables) -> tuple:
+    """() for an (r, n) x, (J,) for a (J, r, n) one; raises otherwise."""
+    r, n = tables.r, tables.n
+    if x.dim() in (2, 3) and tuple(x.shape[-2:]) == (r, n):
+        return tuple(x.shape[:-2])
+    raise ValueError(f"{name}: expected shape ({r}, {n}) or (J, {r}, {n}), "
+                     f"got {tuple(x.shape)}")
+
+
+def _draw_lead(name: str, d: torch.Tensor, n: int) -> tuple:
+    """() for an (n,) compact draw, (J,) for a (J, n) one; raises
+    otherwise."""
+    if d.dtype != torch.int32:
+        raise TypeError(f"{name}: expected a compact int32 draw, got "
+                        f"{d.dtype}")
+    if d.dim() in (1, 2) and d.shape[-1] == n:
+        return tuple(d.shape[:-1])
+    raise ValueError(f"{name}: expected shape ({n},) or (J, {n}), got "
+                     f"{tuple(d.shape)}")
+
+
+def _kernel_device(name: str, t: torch.Tensor,
+                   tables: NTTTables) -> torch.device:
+    return cuda.kernel_device(name, t, tables, cuda.TRANSFORM_MAX_N)
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _forward(dev, x, d, out, tables: NTTTables, pro: int) -> None:
+    cuda.launch("ntt_stage_forward", dev, _ptr(x), _ptr(d), out.data_ptr(),
+                *tables.kernel_args(), pro, out.numel() // tables.n,
+                tables.r, tables.logn)
+
+
+def inverse_launch(dev, x, y, e, out, tables: NTTTables) -> None:
+    """Launch the inverse kernel: out = INTT(x (.) y) (+> e) when y is
+    given, else INTT(x).  y's rows are taken in turn per polynomial (row
+    p % rows), e's per message (row p / r)."""
+    pro = cuda.PRO_COPY if y is None else cuda.PRO_MONT
+    ny = 1 if y is None else y.numel() // tables.n
+    cuda.launch("ntt_stage_inverse", dev, _ptr(x), _ptr(y), _ptr(e),
+                out.data_ptr(), *tables.kernel_args(), pro, ny,
+                out.numel() // tables.n, tables.r, tables.logn)
+
+
+# --- kernel 7: forward and inverse ------------------------------------------
+
+def ntt_forward_plain(x, tables: NTTTables) -> torch.Tensor:
+    return ntt.ntt_forward(x, tables)
+
+
+def ntt_forward(x, tables: NTTTables) -> torch.Tensor:
+    """Forward NTT of (r, n) or (J, r, n) coefficient-domain residues."""
+    _residue_lead("x", x, tables)
+    if x.device.type == "cpu":
+        return ntt_forward_plain(x, tables)
+    dev = _kernel_device("ntt_forward", x, tables)
+    cuda.require("x", x, I64, tuple(x.shape), dev)
+    out = torch.empty_like(x)
+    _forward(dev, x, None, out, tables, cuda.PRO_COPY)
+    ntt_forward.launches += 1
+    return out
+
+
+ntt_forward.launches = 0
+
+
+def ntt_inverse_plain(x, tables: NTTTables) -> torch.Tensor:
+    return ntt.ntt_inverse(x, tables)
+
+
+def ntt_inverse(x, tables: NTTTables) -> torch.Tensor:
+    """Inverse NTT of (r, n) or (J, r, n) NTT-domain residues."""
+    _residue_lead("x", x, tables)
+    if x.device.type == "cpu":
+        return ntt_inverse_plain(x, tables)
+    dev = _kernel_device("ntt_inverse", x, tables)
+    cuda.require("x", x, I64, tuple(x.shape), dev)
+    out = torch.empty_like(x)
+    inverse_launch(dev, x, None, None, out, tables)
+    ntt_inverse.launches += 1
+    return out
+
+
+ntt_inverse.launches = 0
+
+
+# --- kernel 8: INTT(x (.) y) ------------------------------------------------
+
+def ntt_inverse_mul_plain(x, y, tables: NTTTables) -> torch.Tensor:
+    return ntt.ntt_inverse(ntt.dyadic_mul(x, y, tables.ms), tables)
+
+
+def ntt_inverse_mul(x, y, tables: NTTTables) -> torch.Tensor:
+    """INTT(x (.) y), both NTT domain: x (r, n) or (J, r, n); y (r, n),
+    shared by every message, or x's shape."""
+    _residue_lead("x", x, tables)
+    if tuple(y.shape) not in (tuple(x.shape), (tables.r, tables.n)):
+        raise ValueError(f"y: expected shape ({tables.r}, {tables.n}) or "
+                         f"{tuple(x.shape)}, got {tuple(y.shape)}")
+    if x.device.type == "cpu":
+        return ntt_inverse_mul_plain(x, y, tables)
+    dev = _kernel_device("ntt_inverse_mul", x, tables)
+    cuda.require("x", x, I64, tuple(x.shape), dev)
+    cuda.require("y", y, I64, tuple(y.shape), dev)
+    out = torch.empty_like(x)
+    inverse_launch(dev, x, y, None, out, tables)
+    ntt_inverse_mul.launches += 1
+    return out
+
+
+ntt_inverse_mul.launches = 0
+
+
+# --- kernel 9: NTT of a compact ternary draw --------------------------------
+
+def ntt_forward_ternary_plain(u_b, tables: NTTTables) -> torch.Tensor:
+    return ntt.ntt_forward(sampling.small_res(u_b, tables.ms.q), tables)
+
+
+def ntt_forward_ternary(u_b, tables: NTTTables) -> torch.Tensor:
+    """(n,) or (J, n) compact int32 ternary draw -> (r, n) or (J, r, n)
+    NTT-domain residues (keygen's s, encryption's u)."""
+    lead = _draw_lead("u_b", u_b, tables.n)
+    if u_b.device.type == "cpu":
+        return ntt_forward_ternary_plain(u_b, tables)
+    dev = _kernel_device("ntt_forward_ternary", u_b, tables)
+    cuda.require("u_b", u_b, torch.int32, tuple(u_b.shape), dev)
+    out = torch.empty(lead + (tables.r, tables.n), dtype=I64, device=dev)
+    _forward(dev, None, u_b, out, tables, cuda.PRO_TERNARY)
+    ntt_forward_ternary.launches += 1
+    return out
+
+
+ntt_forward_ternary.launches = 0
+
+
+# --- kernel 10: NTT(-(x + e)) with a compact Gaussian e ---------------------
+
+def ntt_forward_addneg_gauss_plain(x, e_d, tables: NTTTables) -> torch.Tensor:
+    ms = tables.ms
+    return ntt.ntt_forward(
+        poly.poly_add_negate(x, sampling.small_res(e_d, ms.q), ms), tables)
+
+
+def ntt_forward_addneg_gauss(x, e_d, tables: NTTTables) -> torch.Tensor:
+    """NTT(-(x + e) mod q): x (r, n) or (J, r, n) coefficient domain, e_d
+    the matching (n,) or (J, n) compact int32 Gaussian (keygen's pk0)."""
+    lead = _residue_lead("x", x, tables)
+    if _draw_lead("e_d", e_d, tables.n) != lead:
+        raise ValueError(f"e_d: shape {tuple(e_d.shape)} does not match x "
+                         f"{tuple(x.shape)}: one row per message")
+    if x.device.type == "cpu":
+        return ntt_forward_addneg_gauss_plain(x, e_d, tables)
+    dev = _kernel_device("ntt_forward_addneg_gauss", x, tables)
+    cuda.require("x", x, I64, tuple(x.shape), dev)
+    cuda.require("e_d", e_d, torch.int32, tuple(e_d.shape), dev)
+    out = torch.empty_like(x)
+    _forward(dev, x, e_d, out, tables, cuda.PRO_ADDNEG_GAUSS)
+    ntt_forward_addneg_gauss.launches += 1
+    return out
+
+
+ntt_forward_addneg_gauss.launches = 0

@@ -6,8 +6,8 @@ package, on the CPU.
    `ntt_cuda_tpu` BFVContext.build(p, backend="xla") for nonces 0..3.
 3. Keys and ciphertexts cross between the two packages through
    `ntt_cuda_tpu_torch.convert` and still decrypt.
-4. What the slice leaves out raises; argument errors read as the JAX
-   package's.
+4. What the port leaves out raises; argument errors read as the JAX
+   package's; without a device, build goes to the card or raises.
 """
 
 from pathlib import Path
@@ -30,7 +30,7 @@ def jctx():
 
 @pytest.fixture(scope="module")
 def ctx():
-    return BFVContext.build(get_bfv_params("4k_3q"))
+    return BFVContext.build(get_bfv_params("4k_3q"), device="cpu")
 
 
 def test_decrypt_reference_golden_vectors(ctx):
@@ -92,19 +92,28 @@ def test_roundtrip_check(ctx):
 
 
 def test_unported_configurations_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BFVContext.build(get_bfv_params("32k_9q"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*op schedule"):
+        BFVContext.build(get_bfv_params("32k_9q"), device="cpu", fusion="op")
     p = get_bfv_params("4k_3q")
-    with pytest.raises(NotImplementedError, match="stage"):
-        BFVContext.build(p, fusion="stage")
-    with pytest.raises(NotImplementedError, match="fp64"):
-        BFVContext.build(p, uniform_spec="fp64")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*fp64"):
+        BFVContext.build(p, device="cpu", uniform_spec="fp64")
     with pytest.raises(ValueError, match="unknown fusion"):
-        BFVContext.build(p, fusion="fast")
-    ctx = BFVContext.build(p)
-    with pytest.raises(NotImplementedError, match="EvalMult"):
-        ctx.decrypt(np.zeros((p.r, p.n), np.uint64),
-                    np.zeros((3, p.r - 1, p.n), np.uint64))
+        BFVContext.build(p, device="cpu", fusion="fast")
+    for fusion in ("op", "stage"):
+        ctx = BFVContext.build(p, device="cpu", fusion=fusion)
+        with pytest.raises(NotImplementedError, match="ROADMAP.*EvalMult"):
+            ctx.decrypt(np.zeros((p.r, p.n), np.uint64),
+                        np.zeros((3, p.r - 1, p.n), np.uint64))
+
+
+def test_build_without_device_needs_a_card(monkeypatch):
+    """device=None is the card: with no CUDA, build raises and says how to
+    ask for the CPU; it never falls back to it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BFVContext.build(get_bfv_params("4k_3q"))
+    assert BFVContext.build(get_bfv_params("4k_3q"),
+                            device="cpu").device.type == "cpu"
 
 
 def test_api_validation_messages(ctx):

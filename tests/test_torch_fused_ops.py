@@ -36,7 +36,7 @@ def pair(request):
     """(JAX params, JAX xla context, port CPU context) for one set."""
     jp = SETS[request.param]()
     return jp, jbfv.BFVContext.build(jp, backend="xla"), BFVContext.build(
-        convert.params_from(jp))
+        convert.params_from(jp), device="cpu")
 
 
 def _rand(rng, qs, n, lead=()):

@@ -24,7 +24,8 @@ import torch
 
 from ntt_cuda_tpu_torch import cuda, get_bfv_params
 from ntt_cuda_tpu_torch.models.bfv import BFVContext
-from ntt_cuda_tpu_torch.ops import bfv_tail, fused_ops, salsa20, sampling
+from ntt_cuda_tpu_torch.ops import (bfv_tail, fused_ops, ntt_stage, salsa20,
+                                    sampling)
 from ntt_cuda_tpu_torch.params import BFVParams
 
 # A 1024-point set with three 40-bit moduli (generated like
@@ -37,6 +38,17 @@ SMALL_ODD_T = BFVParams(name="gen_1024_40b_3q_t12289", n=1024,
                         q=(1099181641729, 1098929963009, 1098653116417),
                         psi=(54196767100, 970723731015, 1029154110237),
                         t=12289)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    several worker processes at once, and oversubscribed torch threads slow
+    the 32k plain transforms by two orders of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _rand_res(rng, qs, n, lead=()):
@@ -58,15 +70,19 @@ def host_lib(tmp_path_factory):
     return cuda.bind(ctypes.CDLL(str(out)))
 
 
-def _tab(tb):
-    return (tb.psi.data_ptr(), tb.psi_shoup.data_ptr(), tb.psiinv.data_ptr(),
-            tb.psiinv_shoup.data_ptr(), tb.consts.data_ptr())
-
-
 @pytest.fixture(scope="module", params=[SMALL, get_bfv_params("4k_3q")],
                 ids=lambda p: p.name)
 def ctx(request):
-    return BFVContext.build(request.param)
+    return BFVContext.build(request.param, device="cpu")
+
+
+# The stage kernels also at 32k_9q: the only check of the 2^15 split (an
+# elementwise stage-0 pass beside two 2^14 halves) before the card.
+@pytest.fixture(scope="module",
+                params=[SMALL, get_bfv_params("4k_3q"),
+                        get_bfv_params("32k_9q")], ids=lambda p: p.name)
+def stage_ctx(request):
+    return BFVContext.build(request.param, device="cpu", fusion="stage")
 
 
 @pytest.mark.parametrize("with_u64", [False, True])
@@ -95,7 +111,7 @@ def test_host_half_polymul(host_lib, ctx, J):
     y = _rand_res(rng, p.q[:-1], p.n)
     out = torch.empty_like(x)
     assert host_lib.ntt_half_polymul(x.data_ptr(), y.data_ptr(),
-                                     out.data_ptr(), *_tab(tb), J * tb.r,
+                                     out.data_ptr(), *tb.kernel_args(), J * tb.r,
                                      tb.r, p.logn, None) == 0
     ref = fused_ops.half_polymul_plain(x, y, tb)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
@@ -110,7 +126,7 @@ def test_host_keygen_fused(host_lib, ctx, nonce):
     pk0 = torch.empty_like(a)
     assert host_lib.ntt_keygen_fused(s_b.data_ptr(), a.data_ptr(),
                                      e_d.data_ptr(), sk.data_ptr(),
-                                     pk0.data_ptr(), *_tab(ctx.tables_full),
+                                     pk0.data_ptr(), *ctx.tables_full.kernel_args(),
                                      p.r, p.logn, None) == 0
     sk_ref, pk0_ref = fused_ops.keygen_fused_plain(s_b, a, e_d,
                                                    ctx.tables_full)
@@ -134,7 +150,7 @@ def test_host_encrypt_fused(host_lib, ctx, J):
     tc = ctx.tail_consts
     assert host_lib.ntt_encrypt_transform(u_b.data_ptr(), pk.data_ptr(),
                                           e_d.data_ptr(), scratch.data_ptr(),
-                                          *_tab(ctx.tables_full), J, p.r,
+                                          *ctx.tables_full.kernel_args(), J, p.r,
                                           p.logn, None) == 0
     assert host_lib.ntt_encrypt_tail(scratch.data_ptr(), m.data_ptr(),
                                      ct.data_ptr(), tc.per_mod.data_ptr(),
@@ -164,6 +180,87 @@ def test_host_decrypt_tail(host_lib, params, J):
         *bfv_tail._t_strategy(dt.tmeta), None) == 0
     ref = bfv_tail.decrypt_tail_plain(x, c0, dt)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("J", [1, 3])
+def test_host_stage_forward(host_lib, stage_ctx, J):
+    """Kernels 7 (forward), 9 and 10: every forward prologue."""
+    p, tb = stage_ctx.params, stage_ctx.tables_full
+    rng = np.random.default_rng(30 + J)
+    x = _rand_res(rng, p.q, p.n, (J,))
+    d = torch.from_numpy(rng.integers(-19, 17, (J, p.n)).astype(np.int32))
+    d[:, :3] = torch.tensor([1, -1, 2])
+    x[:, :, 0] = torch.tensor(p.q) - 1   # x + e == q: the 0 fixup
+    cases = [(cuda.PRO_COPY, x, None,
+              lambda: ntt_stage.ntt_forward_plain(x, tb)),
+             (cuda.PRO_TERNARY, None, d.clamp(-1, 2),
+              lambda: ntt_stage.ntt_forward_ternary_plain(d.clamp(-1, 2), tb)),
+             (cuda.PRO_ADDNEG_GAUSS, x, d,
+              lambda: ntt_stage.ntt_forward_addneg_gauss_plain(x, d, tb))]
+    for pro, xin, din, plain in cases:
+        out = torch.empty_like(x)
+        assert host_lib.ntt_stage_forward(
+            None if xin is None else xin.data_ptr(),
+            None if din is None else din.data_ptr(), out.data_ptr(),
+            *tb.kernel_args(), pro, J * p.r, p.r, p.logn, None) == 0
+        torch.testing.assert_close(out, plain(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("J", [1, 3])
+def test_host_stage_inverse(host_lib, stage_ctx, J):
+    """Kernels 7 (inverse) and 8, y shared by the J messages or not."""
+    p, tb = stage_ctx.params, stage_ctx.tables_full
+    rng = np.random.default_rng(40 + J)
+    x = _rand_res(rng, p.q, p.n, (J,))
+    for y in (None, _rand_res(rng, p.q, p.n), _rand_res(rng, p.q, p.n, (J,))):
+        out = torch.empty_like(x)
+        pro = cuda.PRO_COPY if y is None else cuda.PRO_MONT
+        ny = 1 if y is None else y.numel() // p.n
+        assert host_lib.ntt_stage_inverse(
+            x.data_ptr(), None if y is None else y.data_ptr(), None,
+            out.data_ptr(), *tb.kernel_args(), pro, ny, J * p.r, p.r, p.logn,
+            None) == 0
+        ref = (ntt_stage.ntt_inverse_plain(x, tb) if y is None else
+               ntt_stage.ntt_inverse_mul_plain(x, y, tb))
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+def test_host_stage_encrypt(host_lib, stage_ctx):
+    """Kernel 13: the inverse with Montgomery prologue and +e epilogue into
+    a (2, r, n) scratch, then the encrypt tail at J = 1."""
+    p, tb, tc = stage_ctx.params, stage_ctx.tables_full, stage_ctx.tail_consts
+    rng = np.random.default_rng(50)
+    _, pk = stage_ctx.keygen(nonce=2)
+    u_ntt = ntt_stage.ntt_forward_ternary(
+        torch.from_numpy(rng.integers(-1, 3, p.n).astype(np.int32)), tb)
+    e_d = torch.from_numpy(rng.integers(-19, 17, (2, p.n)).astype(np.int32))
+    m = torch.from_numpy(rng.integers(0, p.t, p.n))
+    scratch = torch.empty((2, p.r, p.n), dtype=torch.int64)
+    ct = torch.empty((2, p.r - 1, p.n), dtype=torch.int64)
+    assert host_lib.ntt_stage_inverse(
+        pk.data_ptr(), u_ntt.data_ptr(), e_d.data_ptr(), scratch.data_ptr(),
+        *tb.kernel_args(), cuda.PRO_MONT, p.r, 2 * p.r, p.r, p.logn, None) == 0
+    assert host_lib.ntt_encrypt_tail(scratch.data_ptr(), m.data_ptr(),
+                                     ct.data_ptr(), tc.per_mod.data_ptr(),
+                                     tc.q_last, tc.half, tc.fix_th, 1, p.r,
+                                     p.n, None) == 0
+    ref = bfv_tail.encrypt_fused_plain(u_ntt, pk, e_d, m, tb, tc)
+    torch.testing.assert_close(ct, ref, rtol=0, atol=0)
+
+
+def test_host_stage_rejects_bad_arguments(host_lib, stage_ctx):
+    """The launchers refuse what the kernels do not take (rc != 0)."""
+    p, tb = stage_ctx.params, stage_ctx.tables_full
+    x = torch.zeros((p.r, p.n), dtype=torch.int64)
+    for pro, P, logn in ((cuda.PRO_MONT, p.r, p.logn),   # forward: no y
+                         (cuda.PRO_COPY, p.r + 1, p.logn),  # P % r
+                         (cuda.PRO_COPY, p.r, 16)):       # 2^16
+        assert host_lib.ntt_stage_forward(x.data_ptr(), None, x.data_ptr(),
+                                          *tb.kernel_args(), pro, P, p.r, logn,
+                                          None) != 0
+    assert host_lib.ntt_stage_inverse(x.data_ptr(), None, None, x.data_ptr(),
+                                      *tb.kernel_args(), cuda.PRO_TERNARY, 1, p.r,
+                                      p.r, p.logn, None) != 0
 
 
 # --- on the card -----------------------------------------------------------
@@ -213,4 +310,38 @@ def test_cuda_kernels_match_plain(cuda_device, name):
                                     ctx.tail_consts),
             fused_ops.encrypt_fused_plain(u_b, pk, e_d, m, ctx.tables_full,
                                           ctx.tail_consts))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["4k_3q", "32k_9q"])
+def test_cuda_stage_kernels_match_plain(cuda_device, name):
+    p = get_bfv_params(name)
+    ctx = BFVContext.build(p, device=cuda_device, fusion="stage")
+    tb, tc = ctx.tables_full, ctx.tail_consts
+    rng = np.random.default_rng(2)
+    for J in (1, 3):
+        lead = () if J == 1 else (J,)
+        x = _rand_res(rng, p.q, p.n, lead).to(cuda_device)
+        y = _rand_res(rng, p.q, p.n).to(cuda_device)
+        d = torch.from_numpy(rng.integers(-19, 17, lead + (p.n,))
+                             .astype(np.int32)).to(cuda_device)
+        t = d.clamp(-1, 2)
+        for kern, plain, args in (
+                (ntt_stage.ntt_forward, ntt_stage.ntt_forward_plain, (x,)),
+                (ntt_stage.ntt_inverse, ntt_stage.ntt_inverse_plain, (x,)),
+                (ntt_stage.ntt_inverse_mul, ntt_stage.ntt_inverse_mul_plain,
+                 (x, y)),
+                (ntt_stage.ntt_forward_ternary,
+                 ntt_stage.ntt_forward_ternary_plain, (t,)),
+                (ntt_stage.ntt_forward_addneg_gauss,
+                 ntt_stage.ntt_forward_addneg_gauss_plain, (x, d))):
+            assert torch.equal(kern(*args, tb), plain(*args, tb)), kern.__name__
+    _, pk = ctx.keygen(nonce=1)
+    u_ntt = ntt_stage.ntt_forward_ternary(t[0] if t.dim() == 2 else t, tb)
+    e2 = torch.from_numpy(rng.integers(-19, 17, (2, p.n)).astype(np.int32))
+    m = torch.from_numpy(rng.integers(0, p.t, p.n)).to(cuda_device)
+    e2 = e2.to(cuda_device)
+    assert torch.equal(bfv_tail.encrypt_fused(u_ntt, pk, e2, m, tb, tc),
+                       bfv_tail.encrypt_fused_plain(u_ntt, pk, e2, m, tb, tc))
     torch.cuda.synchronize()

@@ -143,7 +143,7 @@ def test_nonce_mapping_and_bit63_rejection():
             sampling.check_user_nonce(bad)
     sampling.check_user_nonce(0)
     sampling.check_user_nonce([1, 2**62])
-    ctx = BFVContext.build(convert.params_from(jget("4k_3q")))
+    ctx = BFVContext.build(convert.params_from(jget("4k_3q")), device="cpu")
     with pytest.raises(ValueError, match="bit 63"):
         ctx.keygen(nonce=2**63)
     with pytest.raises(ValueError, match="bit 63"):

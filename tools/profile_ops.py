@@ -1,0 +1,131 @@
+"""Where the time of each BFV op of the PyTorch/CUDA port goes, on one card.
+
+    python3 tools/profile_ops.py [--set 32k_9q] [--fusion auto] [--reps 30]
+
+For keygen, encrypt, decrypt and decrypt_batch (J = 3) of one parameter
+set, through `BFVContext`, prints one JSON line per op:
+
+* `event_ms`: median CUDA-event time around one call;
+* `sync_wall_ms`: median host time of one call ending in
+  `torch.cuda.synchronize()` (no profiler running);
+* under `torch.profiler` over `--reps` calls: `kernels_per_call` (CUDA
+  kernels and copies), `busy_us` (the union of their device intervals, per
+  call), `port_kernels_us` (the csrc kernels, `k_*`, by name, per call)
+  and `idle_share` = 1 - busy / sync wall.
+
+Needs a CUDA card and raises without one.  Imports no jax.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from ntt_cuda_tpu_torch import BFVContext, get_bfv_params  # noqa: E402
+
+
+def device_intervals(prof) -> list[tuple[float, float, str]]:
+    """(start us, end us, name) of every device event of a profile."""
+    return [(e.time_range.start, e.time_range.end, e.name)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def union_us(iv) -> float:
+    total, end = 0.0, float("-inf")
+    for s, e, _ in sorted(iv):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def event_ms(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def wall_ms(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--set", default="32k_9q")
+    ap.add_argument("--fusion", default="auto")
+    ap.add_argument("--reps", type=int, default=30)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_ops.py needs a CUDA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    p = get_bfv_params(args.set)
+    ctx = BFVContext.build(p, fusion=args.fusion)
+    msgs = np.random.default_rng(1).integers(0, p.t, (3, p.n))
+    sk, pk = ctx.keygen(nonce=1)
+    cts = torch.stack([ctx.encrypt(pk, msgs[j], nonce=j + 1)
+                       for j in range(3)])
+    m0 = torch.from_numpy(msgs[0]).to(ctx.device)
+    ops = {
+        "keygen": lambda: ctx.keygen(nonce=1),
+        "encrypt": lambda: ctx.encrypt(pk, m0, nonce=1),
+        "decrypt": lambda: ctx.decrypt(sk, cts[0]),
+        "decrypt_batch_J3": lambda: ctx.decrypt_batch(sk, cts),
+    }
+    for name, fn in ops.items():
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        row = {"set": args.set, "fusion": ctx.fusion, "op": name,
+               "event_ms": event_ms(fn, args.reps),
+               "sync_wall_ms": wall_ms(fn, args.reps)}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.reps):
+                fn()
+            torch.cuda.synchronize()
+        iv = device_intervals(prof)
+        if not iv:
+            row["profiler"] = "no device events: not measured"
+        else:
+            busy = union_us(iv) / args.reps
+            port = collections.Counter()
+            for s, e, n in iv:
+                if n.startswith("k_"):
+                    port[n.split("(")[0]] += (e - s) / args.reps
+            row.update(kernels_per_call=len(iv) / args.reps, busy_us=busy,
+                       port_kernels_us=dict(port),
+                       idle_share=1 - busy / (row["sync_wall_ms"] * 1e3))
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
