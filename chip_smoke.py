@@ -11,6 +11,8 @@ one Montgomery product (for each kernel's bound).  Then:
    the card: the op kernels K1-K5 at 4k_3q and 16k_5q, the stage kernels
    (7-10, 13) and the decrypt tail at 4k_3q, 16k_5q and 32k_9q (the 2^15
    split), J = 1 and 3 where there is a batch axis, K2 also at 32k_16q;
+   the EvalMult kernels (BEHZ 21a-c, kernel 11, the key switch 19) at
+   4k_3q, 16k_5q and 32k_9q, 21a-c and 19 also at 32k_16q, J = 1 and 2;
 2. the reference's golden ciphertext, on both schedules;
 3. the op schedule's main path at 16k_5q and the stage schedule's at
    32k_9q through the public API (keygen, encrypt of three seeded
@@ -19,12 +21,18 @@ one Montgomery product (for each kernel's bound).  Then:
    the launch counts set to 0 before it and read after it, its messages
    round-tripped and its keys and ciphertexts equal to the same calls on
    the CPU;
-4. a 32k_16q round trip, and 16k_5q under fusion="stage" equal to the op
+4. the EvalMult main path at 32k_9q through `BFVContext.build(params)`
+   and at 16k_5q (keygen, relin_keygen, encrypt of two seeded messages,
+   mul decrypted at L = 3, mul with rlk, square with rlk, decrypt), counts
+   read as in 3, every product equal to the negacyclic m1 m2 mod t (exact
+   through the plain NTT over the set's first modulus), and at 16k_5q
+   every key and ciphertext equal to the same calls on the CPU;
+5. a 32k_16q round trip, and 16k_5q under fusion="stage" equal to the op
    schedule;
-5. CUDA-event times: the 32k_9q ops and the 16k_5q op-vs-stage A/B (in
-   turns op, stage, stage, op), each around one call; every kernel and
-   its plain version around a run of calls back to back, beside the
-   kernel's bound.
+6. CUDA-event times: the 32k_9q ops and EvalMult ops, the 16k_5q EvalMult
+   ops and the 16k_5q op-vs-stage A/B (in turns op, stage, stage, op),
+   each around one call; every kernel and its plain version around a run
+   of calls back to back, beside the kernel's bound.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and last `{"ok": true, "device": {...}}`.  Any failure raises,
@@ -48,26 +56,32 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from ntt_cuda_tpu_torch import BFVContext, cuda, get_bfv_params  # noqa: E402
-from ntt_cuda_tpu_torch.ops import (bfv_tail, fused_ops,  # noqa: E402
-                                    ntt_stage, salsa20, sampling)
+from ntt_cuda_tpu_torch.ops import (behz_kernels, bfv_tail,  # noqa: E402
+                                    fused_ops, ntt, ntt_stage, salsa20,
+                                    sampling)
 
 SEED = 20261016
 OP_SET = "16k_5q"        # the op schedule's main path (n <= 16384)
 STAGE_SET = "32k_9q"     # the stage schedule's main path (n = 32768)
+MULT_SETS = ("32k_9q", "16k_5q")  # the EvalMult main path, timed at both
 OP_CHECK_SETS = ("4k_3q", "16k_5q")
 STAGE_CHECK_SETS = ("4k_3q", "16k_5q", "32k_9q")
+MULT_CHECK_SETS = ("4k_3q", "16k_5q", "32k_9q", "32k_16q")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
 
 # name -> (wrappers, CUDA source, the TPU kernel it replaces, the main
-# paths that run it; its `launches` are the first path's)
+# paths that run it; its `launches` are the first path's: the EvalMult
+# path's wherever it runs the kernel)
 KERNELS = {
     "salsa20_keystream": ((salsa20.keystream_block_words,),
                           "ntt_cuda_tpu_torch/csrc/salsa20.cu",
-                          "ntt_cuda_tpu/ops/salsa20.py:174", ("op", "stage")),
+                          "ntt_cuda_tpu/ops/salsa20.py:174",
+                          ("mult", "op", "stage")),
     "decrypt_tail": ((bfv_tail.decrypt_tail,),
                      "ntt_cuda_tpu_torch/csrc/decrypt_tail.cu",
-                     "ntt_cuda_tpu/ops/bfv_tail.py:388", ("op", "stage")),
+                     "ntt_cuda_tpu/ops/bfv_tail.py:388",
+                     ("mult", "op", "stage")),
     "half_polymul": ((fused_ops.half_polymul,),
                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                      "ntt_cuda_tpu/ops/fused_ops.py:213", ("op",)),
@@ -81,20 +95,40 @@ KERNELS = {
     # its times below are the forward's, the direction the main path runs
     "ntt_transform": ((ntt_stage.ntt_forward, ntt_stage.ntt_inverse),
                       "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
-                      "ntt_cuda_tpu/ops/ntt_pallas.py:558", ("stage",)),
+                      "ntt_cuda_tpu/ops/ntt_pallas.py:558",
+                      ("mult", "stage")),
     "ntt_inverse_mul": ((ntt_stage.ntt_inverse_mul,),
                         "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
-                        "ntt_cuda_tpu/ops/ntt_pallas.py:685", ("stage",)),
+                        "ntt_cuda_tpu/ops/ntt_pallas.py:685",
+                        ("mult", "stage")),
     "ntt_forward_ternary": ((ntt_stage.ntt_forward_ternary,),
                             "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
-                            "ntt_cuda_tpu/ops/ntt_pallas.py:782", ("stage",)),
+                            "ntt_cuda_tpu/ops/ntt_pallas.py:782",
+                            ("mult", "stage")),
     "ntt_forward_addneg_gauss": ((ntt_stage.ntt_forward_addneg_gauss,),
                                  "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                                  "ntt_cuda_tpu/ops/ntt_pallas.py:959",
-                                 ("stage",)),
+                                 ("mult", "stage")),
     "encrypt_fused_stage": ((bfv_tail.encrypt_fused,),
                             "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
-                            "ntt_cuda_tpu/ops/bfv_tail.py:661", ("stage",)),
+                            "ntt_cuda_tpu/ops/bfv_tail.py:661",
+                            ("mult", "stage")),
+    "ntt_forward_addneg": ((ntt_stage.ntt_forward_addneg,),
+                           "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
+                           "ntt_cuda_tpu/ops/ntt_pallas.py:868", ("mult",)),
+    # three launches: two of ntt_stage.cu and fused_ops.cu's tail
+    "keyswitch_fused": ((fused_ops.keyswitch_fused,),
+                        "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
+                        "ntt_cuda_tpu/ops/fused_ops.py:651", ("mult",)),
+    "behz_rns_to_bsk": ((behz_kernels.rns_to_bsk,),
+                        "ntt_cuda_tpu_torch/csrc/behz.cu",
+                        "ntt_cuda_tpu/ops/behz_pallas.py:183", ("mult",)),
+    "behz_fast_floor": ((behz_kernels.fast_floor,),
+                        "ntt_cuda_tpu_torch/csrc/behz.cu",
+                        "ntt_cuda_tpu/ops/behz_pallas.py:227", ("mult",)),
+    "behz_bsk_to_q": ((behz_kernels.bsk_to_q,),
+                      "ntt_cuda_tpu_torch/csrc/behz.cu",
+                      "ntt_cuda_tpu/ops/behz_pallas.py:258", ("mult",)),
 }
 
 # One multiply-heavy primitive per probe kernel; its SASS gives the
@@ -112,6 +146,9 @@ extern "C" __global__ void probe_mod_nu(const u64* a, u64* o) {
 }
 extern "C" __global__ void probe_mullo(const u64* a, u64* o) {
   o[0] = a[0] * a[1];
+}
+extern "C" __global__ void probe_mul32(const u64* a, u64* o) {
+  o[0] = (u32)a[0] * (u32)a[1];
 }
 """
 
@@ -161,7 +198,7 @@ def probe_mults(proc: subprocess.Popen, cubin: Path) -> dict[str, int]:
             if op.startswith(("IMAD", "IMUL")) and not any(
                     k in op for k in (".MOV", ".SHL", ".IADD")):
                 counts[fn] += 1
-    if sorted(counts) != ["mod_nu", "mont", "mullo", "shoup"]:
+    if sorted(counts) != ["mod_nu", "mont", "mul32", "mullo", "shoup"]:
         raise RuntimeError(f"SASS probe: functions {sorted(counts)}")
     return counts
 
@@ -232,7 +269,8 @@ def nbytes(*ts) -> int:
 class Work:
     """Bytes a function must move (each input read once, each output
     written once) and integer multiply instructions it must issue, in
-    units of the probed primitives: `shoup`, `mont`, `mod_nu`, `mullo`."""
+    units of the probed primitives: `shoup`, `mont`, `mod_nu`, `mullo`,
+    `mul32`."""
 
     def __init__(self, nbytes: int, **prims):
         self.nbytes, self.prims = nbytes, prims
@@ -395,6 +433,132 @@ def stage_cases(ctx: BFVContext, rng, dev):
     return cases
 
 
+def mult_cases(ctx: BFVContext, rng, dev, addneg: bool = True):
+    """(kernel, J, wrapper call, plain call, Work) for the EvalMult kernels
+    at the shapes the EvalMult path gives each: 21a over both operands of
+    mul (J, 2, 2, k, n), 21b and 21c over the three tensor-product
+    components (J, 3, ., n), the key switch of c2 (J, k, n), J = 1 and 2;
+    with `addneg`, kernel 11 over relin_keygen's (k, r, n)."""
+    p = ctx.params
+    n, r, k = p.n, p.r, p.r - 1
+    st = ctx._mult_setup()
+    mb, tf, tc = st.banks, ctx.tables_full, ctx.tail_consts
+    banks = [mb.qsrc, mb.tgt, mb.amat, mb.bsrc, mb.bmat, mb.bfin, mb.glob]
+    cases = []
+    for J in (1, 2):
+        lead = () if J == 1 else (J,)
+        xa = rand_res(rng, p.q[:-1], n, lead + (2, 2), dev)
+        xq = rand_res(rng, p.q[:-1], n, lead + (3,), dev)
+        xb = rand_res(rng, st.aux.bsk, n, lead + (3,), dev)
+        ca, cf = xa.numel() // (k * n), xq.numel() // (k * n)
+        coefs_a, coefs_f = ca * n, cf * n
+        cases += [
+            ("behz_rns_to_bsk", J,
+             lambda x=xa: behz_kernels.rns_to_bsk(x, mb),
+             lambda x=xa: behz_kernels.rns_to_bsk_plain(x, mb),
+             Work(nbytes(xa, *banks) + 8 * coefs_a * (k + 1),
+                  shoup=coefs_a * (k + (k + 1) * (k + 2)),
+                  mul32=coefs_a * (k + 1))),
+            ("behz_fast_floor", J,
+             lambda a=xq, b=xb: behz_kernels.fast_floor(a, b, mb),
+             lambda a=xq, b=xb: behz_kernels.fast_floor_plain(a, b, mb),
+             Work(nbytes(xq, xb, *banks) + nbytes(xb),
+                  shoup=coefs_f * (k + (k + 1) * (k + 2)))),
+            ("behz_bsk_to_q", J,
+             lambda b=xb: behz_kernels.bsk_to_q(b, mb),
+             lambda b=xb: behz_kernels.bsk_to_q_plain(b, mb),
+             Work(nbytes(xb, *banks) + nbytes(xq),
+                  shoup=coefs_f * (2 * k + 1 + k * (k + 1)))),
+        ]
+        c2 = rand_res(rng, p.q[:-1], n, lead, dev)
+        ksk = rand_res(rng, p.q, n, (2, k), dev)
+        out_coefs = J * 2 * k * n
+        cases.append((
+            "keyswitch_fused", J,
+            lambda c=c2, s=ksk: fused_ops.keyswitch_fused(c, s, tf, tc),
+            lambda c=c2, s=ksk: fused_ops.keyswitch_fused_plain(c, s, tf, tc),
+            Work(nbytes(c2, ksk, *tables(tf), tc.per_mod) + 8 * out_coefs,
+                 shoup=transform_butterflies(J * (k + 2) * r, n) + J * 2 * r * n,
+                 mod_nu=J * k * r * n + out_coefs,
+                 mont=J * 2 * r * n * k + out_coefs)))
+    if addneg:
+        x = rand_res(rng, p.q, n, (k,), dev)
+        e = rand_res(rng, p.q, n, (k,), dev)
+        cases.append((
+            "ntt_forward_addneg", 1,
+            lambda: ntt_stage.ntt_forward_addneg(x, e, tf),
+            lambda: ntt_stage.ntt_forward_addneg_plain(x, e, tf),
+            Work(nbytes(x, e, *tables(tf, "fwd"), x),
+                 shoup=transform_butterflies(k * r, n))))
+    return cases
+
+
+def negacyclic_mod_t(m1, m2, p, dev) -> torch.Tensor:
+    """m1 * m2 in Z_t[x]/(x^n + 1), exact: the product through the plain NTT
+    over the set's first modulus q0 (every coefficient of the integer
+    product has |c| <= n t^2, far below q0 / 2), centered, then mod t."""
+    q0 = p.q[0]
+    tb = ntt.NTTTables.build([q0], [p.psi[0]], p.n, dev)
+    f = [ntt.ntt_forward(torch.as_tensor(m, device=dev).reshape(1, -1), tb)
+         for m in (m1, m2)]
+    c = ntt.ntt_inverse(ntt.dyadic_mul(f[0], f[1], tb.ms), tb)[0]
+    if p.n * p.t * p.t >= q0 // 2:
+        raise AssertionError(f"{p.name}: n t^2 does not fit q0 / 2")
+    return torch.remainder(torch.where(c > q0 // 2, c - q0, c), p.t)
+
+
+def drive_mult(ctx: BFVContext, msgs: np.ndarray, dev=None) -> dict:
+    """keygen, relin_keygen, encrypt of two messages, mul (decrypted at
+    L = 3), mul with rlk, square with rlk, and their decrypts."""
+    sk, pk = ctx.keygen(nonce=1)
+    rlk = ctx.relin_keygen(sk, nonce=1)
+    cts = [ctx.encrypt(pk, msgs[j], nonce=j + 1) for j in range(2)]
+    ct3 = ctx.mul(cts[0], cts[1])
+    ct2 = ctx.mul(cts[0], cts[1], rlk=rlk)
+    sq = ctx.square(cts[0], rlk=rlk)
+    outs = {"mul_l3": ctx.decrypt(sk, ct3), "mul_relin": ctx.decrypt(sk, ct2),
+            "square_relin": ctx.decrypt(sk, sq)}
+    if dev is not None:
+        torch.cuda.synchronize(dev)
+    return dict(sk=sk, pk=pk, rlk=rlk, cts=cts, ct3=ct3, ct2=ct2, sq=sq,
+                outs=outs)
+
+
+def check_mult(p, res: dict, msgs: np.ndarray, dev,
+               ref: dict | None = None) -> None:
+    """Each decrypt equal to the exact negacyclic product mod t; with
+    `ref` (the same calls on the CPU) every key and ciphertext equal."""
+    name = p.name
+    prod12 = negacyclic_mod_t(msgs[0], msgs[1], p, dev)
+    prod11 = negacyclic_mod_t(msgs[0], msgs[0], p, dev)
+    for key, want in (("mul_l3", prod12), ("mul_relin", prod12),
+                      ("square_relin", prod11)):
+        got = res["outs"][key]
+        if got.shape != (p.n,) or not torch.equal(got.to(dev), want):
+            raise AssertionError(f"{name}: {key} does not decrypt to the "
+                                 f"negacyclic product mod t")
+    if ref is None:
+        return
+    for key in ("sk", "pk", "rlk", "ct3", "ct2", "sq"):
+        if not torch.equal(res[key].cpu(), ref[key].cpu()):
+            raise AssertionError(f"{name}: {key} != the CPU run")
+    if not all(torch.equal(a.cpu(), b.cpu())
+               for a, b in zip(res["cts"], ref["cts"])):
+        raise AssertionError(f"{name}: ciphertexts != the CPU run")
+
+
+def mult_times(ctx: BFVContext, res: dict, reps: int) -> dict:
+    sk, rlk, (a, b), ct3 = res["sk"], res["rlk"], res["cts"], res["ct3"]
+    return {
+        "mul": median_ms(lambda: ctx.mul(a, b), reps),
+        "mul_relin": median_ms(lambda: ctx.mul(a, b, rlk=rlk), reps),
+        "square": median_ms(lambda: ctx.square(a), reps),
+        "relin_keygen": median_ms(lambda: ctx.relin_keygen(sk, nonce=1),
+                                  reps),
+        "relinearize": median_ms(lambda: ctx.relinearize(ct3, rlk), reps),
+    }
+
+
 def reset_counts() -> None:
     for wrappers, *_ in KERNELS.values():
         for w in wrappers:
@@ -487,6 +651,14 @@ def main() -> int:
             log(f"check {name} stage {kname} J={J}: equal")
             if name == STAGE_SET and J == 1 and kname != "decrypt_tail":
                 timing[kname] = (kern, plain, work)
+    for name in MULT_CHECK_SETS:
+        ctx = BFVContext.build(get_bfv_params(name), device=dev)
+        for kname, J, kern, plain, work in mult_cases(
+                ctx, rng, dev, addneg=name != "32k_16q"):
+            compare(kname, kern(), plain(), errs)
+            log(f"check {name} {kname} J={J}: equal")
+            if name == STAGE_SET and J == 1:
+                timing[kname] = (kern, plain, work)
     torch.cuda.synchronize()
     log(f"checks: {time.perf_counter() - t0:.1f} s")
 
@@ -529,7 +701,36 @@ def main() -> int:
                                  f"main path: {missing}")
         paths[sched] = (ctx, res, msgs)
 
-    # Phase 4: 32k_16q round trip; 16k_5q stage == op.
+    # Phase 4: the EvalMult main path, counts read per set.
+    mult_paths = {}
+    for name in MULT_SETS:
+        p = get_bfv_params(name)
+        ctx = BFVContext.build(p)             # the default device and fusion
+        msgs = np.random.default_rng(SEED + 2).integers(0, p.t, (2, p.n))
+        reset_counts()
+        res = drive_mult(ctx, msgs, dev)
+        cnt = read_counts()
+        ref = (drive_mult(BFVContext.build(p, device="cpu"), msgs)
+               if name == OP_SET else None)
+        check_mult(p, res, msgs, dev, ref)
+        log(f"EvalMult path {name} ({ctx.fusion}): mul at L = 3, mul + "
+            f"relin and square + relin decrypt to the negacyclic products "
+            f"mod t" + ("; keys and ciphertexts equal the CPU plain path "
+                        "bit for bit" if ref else ""))
+        log(f"launch counts in the {name} EvalMult run: {json.dumps(cnt)}")
+        # the 32k_9q run is the whole path; at 16k_5q keygen and encrypt
+        # take the op kernels, so only the EvalMult kernels are required
+        need = [k for k, (*_, s) in KERNELS.items()
+                if ("mult" in s if name == STAGE_SET else s == ("mult",))]
+        missing = [k for k in need if cnt[k] < 1]
+        if missing:
+            raise AssertionError(f"kernels not launched on the {name} "
+                                 f"EvalMult path: {missing}")
+        if name == STAGE_SET:
+            counts["mult"] = cnt
+        mult_paths[name] = (ctx, res)
+
+    # Phase 5: 32k_16q round trip; 16k_5q stage == op.
     p = get_bfv_params("32k_16q")
     ctx16 = BFVContext.build(p, device=dev)
     m16 = np.random.default_rng(SEED + 1).integers(0, p.t, (1, p.n))
@@ -545,10 +746,13 @@ def main() -> int:
     log(f"{OP_SET} under fusion='stage': keys, ciphertexts and plaintexts "
         f"equal the op schedule's")
 
-    # Phase 5: times on the card.
+    # Phase 6: times on the card.
     ctx32, res32, msgs32 = paths["stage"]
     log(f"op times {STAGE_SET} stage (ms, median of CUDA-event timings): "
         f"{json.dumps(op_times(ctx32, res32, msgs32, 10))}")
+    for name, (ctx, res) in mult_paths.items():
+        log(f"EvalMult op times {name} {ctx.fusion} (ms, median of "
+            f"CUDA-event timings): {json.dumps(mult_times(ctx, res, 10))}")
     ab = {"op": [], "stage": []}
     for sched, ctx, res in (("op", ctx_op, res_op), ("stage", ctx_st, res_st),
                             ("stage", ctx_st, res_st), ("op", ctx_op, res_op)):

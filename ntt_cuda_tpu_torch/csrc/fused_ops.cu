@@ -112,7 +112,9 @@ NTT_HD void encrypt_transform_body(int b, int tid, int nt, u64* s,
 
 // --- encrypt_fused, launch 2: the modulus drop and Delta*m + fix ----------
 // tc: TailConsts.per_mod rows (q, -q^-1, nu, half_mod, inv_q_last * 2^64,
-// q_i / t); one thread per output coefficient of ct (J, 2, r-1, n).
+// q_i / t); one thread per output coefficient of ct (J, 2, r-1, n).  With
+// m null it is the modulus drop alone: the key switch's last launch
+// (divide_and_round_q_last of the accumulated (J, 2, r, n) pair).
 
 NTT_HD void encrypt_tail_body(long long idx, const u64* scratch,
                               const long long* m, u64* ct, const u64* tc,
@@ -135,7 +137,7 @@ NTT_HD void encrypt_tail_body(long long idx, const u64* scratch,
   tmp = tmp < half_mod ? tmp + q - half_mod : tmp - half_mod;
   const u64 v = sv < tmp ? sv + q - tmp : sv - tmp;
   u64 out = mont_mul(v, invq, q, qinv);
-  if (h == 0) {
+  if (h == 0 && m) {
     const u64 mm = (u64)m[j * n + k];
     out = mod_nu(out + mm * qi_div_t + (mm >= fix_th ? 1ull : 0ull), q, nu);
   }

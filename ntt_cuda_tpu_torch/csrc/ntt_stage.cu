@@ -7,19 +7,35 @@
 //   8  _transform_inv_mul          (ntt_pallas.py:685, pallas_call :719)
 //   9  _transform_fwd_ternary      (ntt_pallas.py:782, pallas_call :810)
 //   10 _transform_fwd_addneg_gauss (ntt_pallas.py:959, pallas_call :993)
-// and the transform half of ntt_cuda_tpu/ops/bfv_tail.py encrypt_fused
+//   11 _transform_fwd_addneg       (ntt_pallas.py:868, pallas_call :902)
+// the transform half of ntt_cuda_tpu/ops/bfv_tail.py encrypt_fused
 // (13: bfv_tail.py:661, pallas_call :717), whose modulus drop and
-// Delta*m + fix run in fused_ops.cu's ntt_encrypt_tail.  The TPU kernels
-// share one four-step transform (_stage_a / _stage_b) and differ in the
-// prologue; here they share ntt_block.cuh's transform and differ in
-// `pro`:
+// Delta*m + fix run in fused_ops.cu's ntt_encrypt_tail, and the two
+// transforms of the key switch (19: fused_ops.py:651, pallas_call :697),
+// whose modulus drop is the same tail launch.  The TPU kernels share one
+// four-step transform (_stage_a / _stage_b) and differ in the prologue;
+// here they share ntt_block.cuh's transform and differ in `pro`:
 //   PRO_COPY          x                          (7)
 //   PRO_TERNARY       small_res(d)               (9, d a compact ternary)
 //   PRO_ADDNEG_GAUSS  -(x + small_res(d)), 0 fix (10, d a compact Gaussian)
 //   PRO_MONT          x * y * 2^-64 (Montgomery) (8, 13)
+//   PRO_ADDNEG        -(x + y), 0 fix            (11, y u64 at x's index)
+//   PRO_DIGIT         x[p / r] mod q (mod_nu)    (19 forward: the digits)
+//   PRO_KSACC         sum_j d^_j * ksk_j * 2^-64 (19 inverse: both key rows)
 // The inverse ends with n^-1: a Shoup multiply by n^-1 * 2^64 after a
 // Montgomery product (its 2^-64 cancels), else mont_mul by the same
 // constant, which is x * n^-1.  Kernel 13 then adds e (strict `>`).
+//
+// Key switch (19).  The TPU kernel keeps one modulus per grid step in VMEM
+// with k forward chains and two accumulators; a 2^14 polynomial fills a
+// block's shared memory here, so the same function is two launches of
+// this transform (and the tail):  PRO_DIGIT forward over P = J k r
+// polynomials, p = (J k + j) r + mi reading c2[J, j] (the digit lifted to
+// every modulus, q_last included) into d^ (J, k, r, n); then PRO_KSACC
+// inverse over P = J 2 r, p = (J 2 + h) r + mi accumulating the k
+// Montgomery products d^[J, j, mi] ksk[h, j, mi] canonically into
+// (J, 2, r, n).  Every intermediate is a canonical residue, so the result
+// equals the XLA chain of the JAX package exactly.
 //
 // Polynomial p has modulus p % r (the standard RNS layout); a compact draw
 // row is shared by the r polynomials of one message (row p / r).
@@ -46,16 +62,30 @@
 #include <vector>
 #endif
 
-enum { PRO_COPY = 0, PRO_TERNARY = 1, PRO_ADDNEG_GAUSS = 2, PRO_MONT = 3 };
+enum {
+  PRO_COPY = 0,
+  PRO_TERNARY = 1,
+  PRO_ADDNEG_GAUSS = 2,
+  PRO_MONT = 3,
+  PRO_ADDNEG = 4,
+  PRO_DIGIT = 5,
+  PRO_KSACC = 6
+};
 
 struct StageIO {
-  const u64* x;  // (P, n) input polynomials (unused for PRO_TERNARY)
-  const int* d;  // (P / r, n) compact draw (PRO_TERNARY, PRO_ADDNEG_GAUSS)
-  const u64* y;  // (ny, n) dyadic operand; polynomial p uses row p % ny
-  const int* e;  // (P / r, n) compact Gaussian added by the inverse, or null
-  u64* out;      // (P, n)
-  int pro, ny, r, logn;
+  const u64* x;   // (P, n) input polynomials (unused for PRO_TERNARY);
+                  // PRO_DIGIT: (P / r, n) rows; PRO_KSACC: d^ (J, k, r, n)
+  const int* d;   // (P / r, n) compact draw (PRO_TERNARY, PRO_ADDNEG_GAUSS)
+  const u64* y;   // PRO_MONT: (ny, n) dyadic operand, row p % ny;
+                  // PRO_ADDNEG: (P, n) e; PRO_KSACC: ksk (2, k, r, n)
+  const int* e;   // (P / r, n) compact Gaussian added by the inverse, or null
+  const u64* nu;  // PRO_DIGIT: (r,) floor(2^64 / q)
+  u64* out;       // (P, n)
+  int pro, ny, r, logn;  // PRO_KSACC: ny = k, the number of digits
 };
+
+// A prologue that leaves a Montgomery factor 2^-64 for the inverse's end.
+NTT_HD bool pro_mont(int pro) { return pro == PRO_MONT || pro == PRO_KSACC; }
 
 NTT_HD u64 prologue(const StageIO& io, int p, int i, const ModConsts& c) {
   const size_t n = (size_t)1 << io.logn;
@@ -72,6 +102,25 @@ NTT_HD u64 prologue(const StageIO& io, int p, int i, const ModConsts& c) {
     case PRO_MONT:
       return mont_mul(io.x[at], io.y[(size_t)(p % io.ny) * n + i], c.q,
                       c.qinv);
+    case PRO_ADDNEG: {
+      const u64 neg = c.q - add_mod(io.x[at], io.y[at], c.q);
+      return neg == c.q ? 0 : neg;
+    }
+    case PRO_DIGIT:
+      return mod_nu(io.x[at_d], c.q, io.nu[p % io.r]);
+    case PRO_KSACC: {
+      // p = (J 2 + h) r + mi; digit j of message J is row (J k + j) r + mi
+      // of d^, key row (h k + j) r + mi
+      const int k = io.ny, r = io.r, mi = p % r, h = (p / r) % 2;
+      const size_t step = (size_t)r * n;
+      const u64* dj = io.x + ((size_t)(p / (2 * r)) * k * r + mi) * n + i;
+      const u64* kj = io.y + ((size_t)h * k * r + mi) * n + i;
+      u64 acc = 0;
+      for (int j = 0; j < k; ++j)
+        acc = add_mod(acc, mont_mul(dj[j * step], kj[j * step], c.q, c.qinv),
+                      c.q);
+      return acc;
+    }
     default:
       return io.x[at];
   }
@@ -80,8 +129,8 @@ NTT_HD u64 prologue(const StageIO& io, int p, int i, const ModConsts& c) {
 // The inverse's last step on coefficient i of polynomial p.
 NTT_HD u64 inv_finish(const StageIO& io, int p, int i, u64 v,
                       const ModConsts& c) {
-  v = io.pro == PRO_MONT ? mul_shoup(v, c.ninv, c.ninv_sh, c.q)
-                         : mont_mul(v, c.ninv, c.q, c.qinv);
+  v = pro_mont(io.pro) ? mul_shoup(v, c.ninv, c.ninv_sh, c.q)
+                       : mont_mul(v, c.ninv, c.q, c.qinv);
   if (io.e) {
     const size_t at_e = (size_t)(p / io.r) * ((size_t)1 << io.logn) + i;
     v = add_mod_gt(v, small_res(io.e[at_e], c.q), c.q);
@@ -159,17 +208,31 @@ NTT_HD void inv_last_body(long long k, StageIO io, Twiddles tw) {
 }
 
 static StageIO stage_io(const void* x, const void* d, const void* y,
-                        const void* e, void* out, int pro, int ny, int r,
-                        int logn) {
-  StageIO io = {(const u64*)x, (const int*)d, (const u64*)y, (const int*)e,
-                (u64*)out, pro, ny, r, logn};
+                        const void* e, const void* nu, void* out, int pro,
+                        int ny, int r, int logn) {
+  StageIO io = {(const u64*)x, (const int*)d,  (const u64*)y,
+                (const int*)e, (const u64*)nu, (u64*)out,
+                pro,           ny,             r,
+                logn};
   return io;
 }
 
 static bool stage_args_ok(int pro, int P, int r, int ny, int logn) {
   return logn >= 1 && logn <= LOG_BLOCK_MAX + 1 && P >= 1 && r >= 1 &&
-         P % r == 0 && pro >= PRO_COPY && pro <= PRO_MONT &&
-         (pro != PRO_MONT || ny >= 1);
+         P % r == 0 && pro >= PRO_COPY && pro <= PRO_KSACC &&
+         (!pro_mont(pro) || ny >= 1) &&
+         (pro != PRO_KSACC || P % (2 * r) == 0);
+}
+
+// What each direction takes: the forward reads x or a draw, the inverse
+// ends with n^-1 after a copy or a Montgomery prologue.
+static bool forward_pro(int pro) {
+  return pro == PRO_COPY || pro == PRO_TERNARY || pro == PRO_ADDNEG_GAUSS ||
+         pro == PRO_ADDNEG || pro == PRO_DIGIT;
+}
+
+static bool inverse_pro(int pro) {
+  return pro == PRO_COPY || pro == PRO_MONT || pro == PRO_KSACC;
 }
 
 #ifdef __CUDACC__
@@ -204,15 +267,16 @@ static int launch_pairs(K kernel, long long total, void* stream, StageIO io,
   return (int)cudaGetLastError();
 }
 
-// x, d: prologue inputs; out (P, n).  pro in PRO_COPY..PRO_ADDNEG_GAUSS.
-extern "C" int ntt_stage_forward(const void* x, const void* d, void* out,
-                                 const void* psi, const void* psi_sh,
-                                 const void* ipsi, const void* ipsi_sh,
-                                 const void* consts, int pro, int P, int r,
-                                 int logn, void* stream) {
-  if (!stage_args_ok(pro, P, r, 1, logn) || pro == PRO_MONT)
+// x, d, y, nu: prologue inputs; out (P, n).  pro: forward_pro().
+extern "C" int ntt_stage_forward(const void* x, const void* d, const void* y,
+                                 const void* nu, void* out, const void* psi,
+                                 const void* psi_sh, const void* ipsi,
+                                 const void* ipsi_sh, const void* consts,
+                                 int pro, int P, int r, int logn,
+                                 void* stream) {
+  if (!stage_args_ok(pro, P, r, 1, logn) || !forward_pro(pro))
     return (int)cudaErrorInvalidValue;
-  const StageIO io = stage_io(x, d, nullptr, nullptr, out, pro, 1, r, logn);
+  const StageIO io = stage_io(x, d, y, nullptr, nu, out, pro, 1, r, logn);
   const Twiddles tw = make_tw(psi, psi_sh, ipsi, ipsi_sh, consts);
   const int split = logn > LOG_BLOCK_MAX;
   if (split) {
@@ -224,18 +288,18 @@ extern "C" int ntt_stage_forward(const void* x, const void* d, void* out,
                      tw);
 }
 
-// x, y (ny, n), e: prologue and epilogue inputs; out (P, n).  pro is
-// PRO_COPY or PRO_MONT.
+// x, y, e: prologue and epilogue inputs; out (P, n).  pro: inverse_pro();
+// ny: PRO_MONT's y rows, PRO_KSACC's digit count k.
 extern "C" int ntt_stage_inverse(const void* x, const void* y, const void* e,
                                  void* out, const void* psi,
                                  const void* psi_sh, const void* ipsi,
                                  const void* ipsi_sh, const void* consts,
                                  int pro, int ny, int P, int r, int logn,
                                  void* stream) {
-  if (!stage_args_ok(pro, P, r, ny, logn) ||
-      (pro != PRO_COPY && pro != PRO_MONT))
+  if (!stage_args_ok(pro, P, r, ny, logn) || !inverse_pro(pro))
     return (int)cudaErrorInvalidValue;
-  const StageIO io = stage_io(x, nullptr, y, e, out, pro, ny, r, logn);
+  const StageIO io = stage_io(x, nullptr, y, e, nullptr, out, pro, ny, r,
+                              logn);
   const Twiddles tw = make_tw(psi, psi_sh, ipsi, ipsi_sh, consts);
   const int split = logn > LOG_BLOCK_MAX;
   const int rc = launch_poly(k_stage_inv_block, P << split, logn - split,
@@ -247,13 +311,13 @@ extern "C" int ntt_stage_inverse(const void* x, const void* y, const void* e,
 
 #else  // host build for the CPU tests: one thread per block, blocks in order
 
-extern "C" int ntt_stage_forward(const void* x, const void* d, void* out,
-                                 const void* psi, const void* psi_sh,
-                                 const void* ipsi, const void* ipsi_sh,
-                                 const void* consts, int pro, int P, int r,
-                                 int logn, void*) {
-  if (!stage_args_ok(pro, P, r, 1, logn) || pro == PRO_MONT) return 1;
-  const StageIO io = stage_io(x, d, nullptr, nullptr, out, pro, 1, r, logn);
+extern "C" int ntt_stage_forward(const void* x, const void* d, const void* y,
+                                 const void* nu, void* out, const void* psi,
+                                 const void* psi_sh, const void* ipsi,
+                                 const void* ipsi_sh, const void* consts,
+                                 int pro, int P, int r, int logn, void*) {
+  if (!stage_args_ok(pro, P, r, 1, logn) || !forward_pro(pro)) return 1;
+  const StageIO io = stage_io(x, d, y, nullptr, nu, out, pro, 1, r, logn);
   const Twiddles tw = make_tw(psi, psi_sh, ipsi, ipsi_sh, consts);
   const int split = logn > LOG_BLOCK_MAX;
   if (split)
@@ -271,10 +335,9 @@ extern "C" int ntt_stage_inverse(const void* x, const void* y, const void* e,
                                  const void* ipsi_sh, const void* consts,
                                  int pro, int ny, int P, int r, int logn,
                                  void*) {
-  if (!stage_args_ok(pro, P, r, ny, logn) ||
-      (pro != PRO_COPY && pro != PRO_MONT))
-    return 1;
-  const StageIO io = stage_io(x, nullptr, y, e, out, pro, ny, r, logn);
+  if (!stage_args_ok(pro, P, r, ny, logn) || !inverse_pro(pro)) return 1;
+  const StageIO io = stage_io(x, nullptr, y, e, nullptr, out, pro, ny, r,
+                              logn);
   const Twiddles tw = make_tw(psi, psi_sh, ipsi, ipsi_sh, consts);
   const int split = logn > LOG_BLOCK_MAX;
   std::vector<u64> s((size_t)1 << (logn - split));

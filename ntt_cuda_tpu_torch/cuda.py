@@ -27,7 +27,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("salsa20.cu", "decrypt_tail.cu", "fused_ops.cu", "ntt_stage.cu")
+SOURCES = ("salsa20.cu", "decrypt_tail.cu", "fused_ops.cu", "ntt_stage.cu",
+           "behz.cu")
 HEADERS = ("modarith.cuh", "ntt_block.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -57,16 +58,19 @@ SIGNATURES = {
                               _I, _P),
     # scratch, m, ct, per_mod, q_last, half, fix_th, J, r, n
     "ntt_encrypt_tail": (_P, _P, _P, _P, _U64, _U64, _U64, _I, _I, _I, _P),
-    # x, d, out, 4 tables, consts, prologue, P, r, log n
-    "ntt_stage_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _P),
+    # x, d, y, nu, out, 4 tables, consts, prologue, P, r, log n
+    "ntt_stage_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _P),
     # x, y, e, out, 4 tables, consts, prologue, ny, P, r, log n
     "ntt_stage_inverse": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _P),
+    # which, x, xb, out, 7 banks, C, k, n
+    "ntt_behz": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 # The stage kernels' prologues (ntt_stage.cu PRO_*).
-PRO_COPY, PRO_TERNARY, PRO_ADDNEG_GAUSS, PRO_MONT = range(4)
+(PRO_COPY, PRO_TERNARY, PRO_ADDNEG_GAUSS, PRO_MONT, PRO_ADDNEG, PRO_DIGIT,
+ PRO_KSACC) = range(7)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -1,4 +1,5 @@
-"""BFV keygen / encryption / decryption (RNS form, SEAL 3.5 semantics).
+"""BFV keygen / encryption / decryption and the EvalMult evaluator (RNS
+form, SEAL 3.5 semantics).
 
 Counterpart of `ntt_cuda_tpu/models/bfv.py` (the reference's
 bfv_keygen.cuh:95, bfv_encryption.cuh:223, bfv_decryption.cuh:76) with the
@@ -9,8 +10,13 @@ integer uniform spec, on the JAX package's two kernel schedules:
   in (ops/ntt_stage.py, bfv_tail.encrypt_fused), n <= 32768.
 
 `fusion="auto"` picks as the JAX package does: "op" up to n = 16384,
-"stage" above.  Eager PyTorch: each operation is a few kernel launches on
-the context's device (the CPU runs the kernels' plain versions instead).
+"stage" above.  The evaluator (mul, square, relin_keygen, relinearize and
+decrypt of L >= 3 ciphertexts) ignores `fusion`, as the JAX package's
+pallas backends do: its transforms are the stage kernels at every n, its
+base conversions ops/behz_kernels.py and its key switch
+fused_ops.keyswitch_fused.  Eager PyTorch: each operation is a few kernel
+launches on the context's device (the CPU runs the kernels' plain
+versions instead).
 
 Conventions are the JAX package's: sk (r, n) and pk (2, r, n) live in the
 NTT domain; ciphertexts are (2, r-1, n) coefficient-domain residues with
@@ -28,14 +34,15 @@ import torch
 
 from .. import params as params_mod
 from ..cuda import BLOCK_MAX_N, TRANSFORM_MAX_N
-from ..ops import bfv_tail, fused_ops, ntt, ntt_stage, sampling
+from ..ops import (behz, behz_kernels, bfv_tail, fused_ops, modmath, ntt,
+                   ntt_stage, sampling)
 from ..ops.modmath import I64
+from ..utils import hostmath as hm
 
 # What the port leaves out, by the ROADMAP.md Queue 1 item that adds it.
 _ROADMAP_OP32K = ("ROADMAP.md Queue 1 item 2 (the op schedule at n = 32768: "
                   "whole-op kernels over two 2^14 halves)")
 _ROADMAP_FP64 = "ROADMAP.md Queue 1 item 4 (uniform_spec='fp64')"
-_ROADMAP_EVAL = "ROADMAP.md Queue 1 item 6 (EvalMult)"
 
 
 def _as_tensor(name: str, x) -> torch.Tensor:
@@ -75,6 +82,17 @@ def check_residues(name: str, x, shape: tuple, hint: str = "",
 
 
 @dataclasses.dataclass(frozen=True)
+class _MultSetup:
+    """EvalMult state of one context, built at its first use: the aux base
+    Bsk, the conversion kernels' banks (with the plain MultConsts) and the
+    NTT tables over Bsk."""
+
+    aux: behz.AuxBase
+    banks: behz_kernels.MultBanks
+    tables_bsk: ntt.NTTTables          # (k+1, n)
+
+
+@dataclasses.dataclass(frozen=True)
 class BFVContext:
     """Device-resident constants for one parameter set (the analog of
     demo.cu's host precompute + cudaMemcpyToSymbol setup, demo.cu:62-272).
@@ -87,6 +105,10 @@ class BFVContext:
     tables_drop: ntt.NTTTables         # (r-1, n)
     tail_consts: bfv_tail.TailConsts
     dec_tail_consts: bfv_tail.DecTailConsts
+    # lazily built EvalMult state; a mutable cache on a frozen context,
+    # left out of eq/hash
+    _mult_cache: dict = dataclasses.field(default_factory=dict,
+                                          compare=False, repr=False)
 
     @staticmethod
     def build(params: params_mod.BFVParams, device=None,
@@ -191,22 +213,22 @@ class BFVContext:
 
     def decrypt(self, sk, ct):
         """sk (r, n) NTT domain (first r-1 residues used; (r-1, n) also
-        accepted), ct (2, r-1, n) -> plaintext (n,) in [0, t)
-        (decryption_rns, bfv_decryption.cuh:76-138)."""
+        accepted), ct (L, r-1, n) -> plaintext (n,) in [0, t)
+        (decryption_rns, bfv_decryption.cuh:76-138).  L = 2 for fresh or
+        relinearized ciphertexts; L >= 3 decrypts mul()'s output directly
+        (c0 + c1 s + ... + c_{L-1} s^{L-1})."""
         p = self.params
         sk = self._sk_drop(sk)
         ct = _as_tensor("ct", ct)
         if ct.dim() != 3 or ct.shape[0] < 2:
             raise ValueError(f"ct: expected shape (L>=2, r-1, n), got "
                              f"{tuple(ct.shape)}")
-        if ct.shape[0] > 2:
-            raise NotImplementedError(
-                f"decrypting an L={ct.shape[0]} (un-relinearized) "
-                f"ciphertext is not ported; see {_ROADMAP_EVAL}")
-        ct = check_residues("ct", ct, (2, p.r - 1, p.n),
-                            "encrypt returns (2, r-1, n) — the last RNS "
-                            "modulus is dropped", self.device)
-        x = self._front(ct[1], sk)
+        L = ct.shape[0]
+        ct = check_residues("ct", ct, (L, p.r - 1, p.n),
+                            "encrypt returns (2, r-1, n), mul() (3, r-1, n)"
+                            " — the last RNS modulus is dropped", self.device)
+        x = (self._front(ct[1], sk) if L == 2 else
+             self._spower_front(ct[1:], sk))
         return bfv_tail.decrypt_tail(x, ct[0], self.dec_tail_consts)
 
     def decrypt_batch(self, sk, cts):
@@ -226,6 +248,84 @@ class BFVContext:
         return bfv_tail.decrypt_tail(x, cts[:, 0].contiguous(),
                                      self.dec_tail_consts)
 
+    def mul(self, ct_a, ct_b, rlk=None):
+        """Homomorphic multiplication (BEHZ RNS EvalMult): decrypts to the
+        negacyclic product (m1 * m2) mod t.  (2, r-1, n) ciphertexts or
+        (J, 2, r-1, n) batches -> (..., 3, r-1, n), or (..., 2, r-1, n)
+        relinearized when `rlk` (relin_keygen) is given.
+
+        Both operands extend to Bsk together (21a), are transformed over q
+        and Bsk, multiplied out (the tensor product below), and scaled by
+        t/q back into q (21b, 21c)."""
+        a, b = self._ct_pair("mul", ct_a, ct_b)
+        st = self._mult_setup()
+        x = torch.stack([a, b], dim=-4)            # (..., 2, 2, k, n)
+        fq = self._fwd_rows(x, self.tables_drop)
+        fb = self._fwd_rows(behz_kernels.rns_to_bsk(x, st.banks),
+                            st.tables_bsk)
+        ct3 = behz_kernels.scale_and_round(
+            self._tensor(fq, self.tables_drop),
+            self._tensor(fb, st.tables_bsk), st.banks)
+        return ct3 if rlk is None else self.relinearize(ct3, rlk)
+
+    def square(self, ct, rlk=None):
+        """Homomorphic squaring: bit-identical to mul(ct, ct), with one
+        operand's transforms and conversion."""
+        a, _ = self._ct_pair("square", ct, ct)
+        st = self._mult_setup()
+        x = a[..., None, :, :, :]                  # (..., 1, 2, k, n)
+        fq = self._fwd_rows(x, self.tables_drop)
+        fb = self._fwd_rows(behz_kernels.rns_to_bsk(x, st.banks),
+                            st.tables_bsk)
+        ct3 = behz_kernels.scale_and_round(
+            self._tensor(fq, self.tables_drop, square=True),
+            self._tensor(fb, st.tables_bsk, square=True), st.banks)
+        return ct3 if rlk is None else self.relinearize(ct3, rlk)
+
+    def relin_keygen(self, sk, nonce=0):
+        """Relinearization keys for mul(): (2, r-1, r, n), NTT domain.
+        Key j encrypts P * q~_j * s^2 over the full base, P = q_last (the
+        special modulus relinearize divides by): key0_j = NTT(-(a_j s +
+        e_j)) + P s^2 at modulus row j, key1_j = a_j.  Draws under Salsa20
+        key byte 0x02; nonces must be < 2**63."""
+        sampling.check_user_nonce(nonce)
+        p = self.params
+        sk = check_residues("sk", sk, (p.r, p.n),
+                            "keygen returns the NTT-domain (r, n) sk",
+                            self.device)
+        tf = self.tables_full
+        ms, k = tf.ms, p.r - 1
+        a, e = sampling.relin_draws(p.n, p.r, k, ms, nonce=int(nonce))
+        x = ntt_stage.ntt_inverse_mul(a, sk, tf)            # (k, r, n)
+        x = ntt_stage.ntt_forward_addneg(x, e, tf)
+        # P * s^2 on key j's own modulus row j: plain tensor ops, as the
+        # JAX package leaves them to XLA
+        term = modmath.mont_mul(ntt.dyadic_mul(sk, sk, ms),
+                                self._p_mont_bank(), ms.q, ms.qinv_neg)
+        j = torch.arange(k, device=self.device)
+        x[j, j] = modmath.add_mod(x[j, j], term[:k], ms.q[:k])
+        return torch.stack([x, a])
+
+    def relinearize(self, ct3, rlk):
+        """(3, r-1, n) or (J, 3, r-1, n) mul() output + relin keys ->
+        (..., 2, r-1, n): key-switch c2 through rlk (the RNS digits of c2,
+        divided by q_last at the end) and add it to (c0, c1) exactly."""
+        p = self.params
+        ct3 = _as_tensor("ct3", ct3)
+        base = (3, p.r - 1, p.n)
+        if tuple(ct3.shape[-3:]) != base or ct3.dim() not in (3, 4):
+            raise ValueError(f"ct3: expected (3, r-1, n) or (J, 3, r-1, n),"
+                             f" got {tuple(ct3.shape)}")
+        ct3 = check_residues("ct3", ct3, tuple(ct3.shape), device=self.device)
+        rlk = check_residues("rlk", rlk, (2, p.r - 1, p.r, p.n),
+                             "relin_keygen returns (2, r-1, r, n)",
+                             self.device)
+        cc = fused_ops.keyswitch_fused(ct3[..., 2, :, :].contiguous(), rlk,
+                                       self.tables_full, self.tail_consts)
+        # exact mod-q add (not the strict-`>` quirk): outputs stay canonical
+        return modmath.add_mod(ct3[..., :2, :, :], cc,
+                               self.tables_drop.ms.q)
+
     def roundtrip_check(self, m_poly):
         """demo.cu-style end-to-end: decrypt(encrypt(m)) (demo.cu:274-311)."""
         sk, pk = self.keygen()
@@ -239,6 +339,98 @@ class BFVContext:
             return fused_ops.half_polymul(c1, sk_drop, td)
         return ntt_stage.ntt_inverse_mul(ntt_stage.ntt_forward(c1, td),
                                          sk_drop, td)
+
+    def _spower_front(self, cts, sk_drop):
+        """Extended decryption's front, INTT(sum_{i>=1} NTT(c_i) (.) s^i)
+        for cts = (c_1, ..., c_{L-1}), (L-1, r-1, n): one forward launch,
+        one INTT(x (.) y) launch against the powers of s, and the sum of
+        its L-1 rows (the INTT is linear, so this equals the JAX package's
+        single INTT of the sum)."""
+        td = self.tables_drop
+        pw = [sk_drop]
+        for _ in range(1, cts.shape[0]):
+            pw.append(ntt.dyadic_mul(pw[-1], sk_drop, td.ms))
+        x = ntt_stage.ntt_inverse_mul(ntt_stage.ntt_forward(cts, td),
+                                      torch.stack(pw), td)
+        acc = x[0]
+        for i in range(1, x.shape[0]):
+            acc = modmath.add_mod(acc, x[i], td.ms.q)
+        return acc
+
+    @staticmethod
+    def _fwd_rows(x, tables: ntt.NTTTables):
+        """The forward transform of every (r, n) block of x (..., r, n)."""
+        r, n = x.shape[-2:]
+        return ntt_stage.ntt_forward(x.reshape(-1, r, n).contiguous(),
+                                     tables).reshape(x.shape)
+
+    # (operand, component) of x then of y in each INTT(x (.) y) of the
+    # tensor product: c0 = a0 b0, c2 = a1 b1, then the cross terms
+    _MUL_PAIRS = ((0, 0, 1, 0), (0, 1, 1, 1), (0, 0, 1, 1), (0, 1, 1, 0))
+    _SQUARE_PAIRS = ((0, 0, 0, 0), (0, 1, 0, 1), (0, 0, 0, 1))
+
+    @staticmethod
+    def _tensor(f, tables: ntt.NTTTables, square: bool = False):
+        """The tensor product of NTT-domain operands f (..., 2, 2, r, n)
+        (operand, component; one operand for `square`) in the coefficient
+        domain, (..., 3, r, n): one INTT(x (.) y) launch over the pairs
+        above, then c1 as the sum of the two cross terms (the INTT is
+        linear: equal to INTT(a0 b1 + a1 b0)), twice a0 a1 for a square."""
+        pairs = BFVContext._SQUARE_PAIRS if square else BFVContext._MUL_PAIRS
+        pick = lambda o, c: f[..., o, c, :, :]
+        xs = torch.stack([pick(o, c) for o, c, _, _ in pairs], dim=-3)
+        ys = torch.stack([pick(o, c) for _, _, o, c in pairs], dim=-3)
+        r, n = f.shape[-2:]
+        out = ntt_stage.ntt_inverse_mul(
+            xs.reshape(-1, r, n), ys.reshape(-1, r, n), tables,
+        ).reshape(xs.shape)
+        q = tables.ms.q
+        c1 = modmath.add_mod(out[..., 2, :, :],
+                             out[..., 2 if square else 3, :, :], q)
+        return torch.stack([out[..., 0, :, :], c1, out[..., 1, :, :]],
+                           dim=-3)
+
+    def _p_mont_bank(self):
+        """(r, 1) P * R mod q_i (P = q_last): the switching keys' P factor
+        on each modulus row (the last is 0, P = 0 mod q_last); cached."""
+        pm = self._mult_cache.get("p_mont")
+        if pm is None:
+            p = self.params
+            pm = modmath.const([hm.to_mont(p.q[-1] % qj, qj)
+                                for qj in p.q[:-1]] + [0], self.device)
+            self._mult_cache["p_mont"] = pm
+        return pm
+
+    def _mult_setup(self) -> _MultSetup:
+        st = self._mult_cache.get("setup")
+        if st is None:
+            p = self.params
+            aux = behz.AuxBase.build(p)
+            st = _MultSetup(
+                aux=aux,
+                banks=behz_kernels.MultBanks.build(p, aux, self.device),
+                tables_bsk=ntt.NTTTables.build(aux.bsk, aux.bsk_psi, p.n,
+                                               self.device))
+            self._mult_cache["setup"] = st
+        return st
+
+    def _ct_pair(self, op, ct_a, ct_b):
+        """Two ciphertexts of one shape, (2, r-1, n) or (J, 2, r-1, n), as
+        int64 tensors on the device."""
+        p = self.params
+        ct_a, ct_b = _as_tensor(f"{op} lhs", ct_a), _as_tensor(f"{op} rhs",
+                                                                 ct_b)
+        if tuple(ct_a.shape) != tuple(ct_b.shape):
+            raise ValueError(f"{op}: ciphertext shapes differ "
+                             f"({tuple(ct_a.shape)} vs {tuple(ct_b.shape)})")
+        base = (2, p.r - 1, p.n)
+        if tuple(ct_a.shape[-3:]) != base or ct_a.dim() not in (3, 4):
+            raise ValueError(f"{op}: expected (2, r-1, n) or (J, 2, r-1, n) "
+                             f"= (..., {base}), got {tuple(ct_a.shape)}")
+        return (check_residues(f"{op} lhs", ct_a, tuple(ct_a.shape),
+                               device=self.device),
+                check_residues(f"{op} rhs", ct_b, tuple(ct_b.shape),
+                               device=self.device))
 
     def _sk_drop(self, sk):
         p = self.params

@@ -1,12 +1,16 @@
-"""Whole-BFV-op transforms: half_polymul, keygen_fused, encrypt_fused.
+"""Whole-BFV-op transforms: half_polymul, keygen_fused, encrypt_fused,
+keyswitch_fused.
 
 Counterpart of `ntt_cuda_tpu/ops/fused_ops.py` for the main path.  On a
 CUDA device each wrapper launches its kernel in csrc/fused_ops.cu: one
 block per polynomial (message x modulus), resident in shared memory for
-its whole forward -> dyadic -> inverse chain.  On the CPU it runs the
-plain version beside it, composed from ops/ntt.py, ops/poly.py and the
-compact-draw maps of ops/sampling.py: the same computation the JAX
-package's xla pipelines run (models/bfv.py:933-937 and 1016-1023).
+its whole forward -> dyadic -> inverse chain.  The key switch is the
+exception: its k digit chains and two accumulators do not fit a block, so
+it runs as two launches of csrc/ntt_stage.cu and the encrypt tail.  On the
+CPU each wrapper runs the plain version beside it, composed from
+ops/ntt.py, ops/poly.py and the compact-draw maps of ops/sampling.py: the
+same computation the JAX package's xla pipelines run (models/bfv.py:933-937,
+1016-1023 and 1185-1197).
 
 Draws arrive compact (int32 planes shared by all moduli): s and u
 ternary, e Gaussian; the residue map d < 0 -> q + d happens inside.
@@ -17,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from .. import cuda
-from . import bfv_tail, ntt, poly, sampling
+from . import bfv_tail, modmath, ntt, ntt_stage, poly, sampling
 from .bfv_tail import TailConsts
 from .modmath import I64
 from .ntt import NTTTables
@@ -136,3 +140,67 @@ def encrypt_fused(u_b, pk, e_d, m_poly, tables: NTTTables,
 
 
 encrypt_fused.launches = 0
+
+
+# --- keyswitch_fused: c2 digits through a switching key, then / q_last -----
+
+def keyswitch_fused_plain(c2, ksk, tables: NTTTables,
+                          consts: TailConsts) -> torch.Tensor:
+    """The JAX package's xla key switch (models/bfv.py:1185-1197): digits
+    d_j = [c2_j] lifted to all r moduli, NTT, sum_j d^_j (.) ksk[h, j],
+    INTT, divide_and_round_q_last.  c2 (..., k, n), ksk (2, k, r, n) ->
+    (..., 2, k, n)."""
+    ms = tables.ms
+    d = modmath.mod_u64(c2[..., :, None, :], ms.q, ms.nu)
+    dhat = ntt.ntt_forward(d, tables)                    # (..., k, r, n)
+    acc0 = acc1 = None
+    for j in range(c2.shape[-2]):
+        dj = dhat[..., j, :, :]
+        t0 = ntt.dyadic_mul(dj, ksk[0, j], ms)
+        t1 = ntt.dyadic_mul(dj, ksk[1, j], ms)
+        acc0 = t0 if acc0 is None else modmath.add_mod(acc0, t0, ms.q)
+        acc1 = t1 if acc1 is None else modmath.add_mod(acc1, t1, ms.q)
+    cc = ntt.ntt_inverse(torch.stack([acc0, acc1], dim=-3), tables)
+    return poly.divide_and_round_q_last(cc, consts.dr, consts.ms_drop,
+                                        consts.ms_last)
+
+
+def keyswitch_fused(c2, ksk, tables: NTTTables,
+                    consts: TailConsts) -> torch.Tensor:
+    """Key switch of c2 (k, n) or (J, k, n) through ksk (2, k, r, n), NTT
+    domain over all r moduli -> (2, k, n) or (J, 2, k, n), k = r-1.  On the
+    card: the PRO_DIGIT forward into d^ (J, k, r, n) (digits reduced with
+    the tables' nu = floor(2^64 / q)), the PRO_KSACC inverse into
+    (J, 2, r, n), and the encrypt tail without a message."""
+    r, n = tables.r, tables.n
+    k = r - 1
+    if c2.dim() not in (2, 3) or tuple(c2.shape[-2:]) != (k, n):
+        raise ValueError(f"c2: expected shape ({k}, {n}) or (J, {k}, {n}), "
+                         f"got {tuple(c2.shape)}")
+    if tuple(ksk.shape) != (2, k, r, n):
+        raise ValueError(f"ksk: expected shape {(2, k, r, n)}, got "
+                         f"{tuple(ksk.shape)}")
+    if c2.device.type == "cpu":
+        return keyswitch_fused_plain(c2, ksk, tables, consts)
+    dev = cuda.kernel_device("keyswitch_fused", c2, tables,
+                             cuda.TRANSFORM_MAX_N)
+    single = c2.dim() == 2
+    J = 1 if single else c2.shape[0]
+    cuda.require("c2", c2, I64, tuple(c2.shape), dev)
+    cuda.require("ksk", ksk, I64, (2, k, r, n), dev)
+    dhat = torch.empty((J, k, r, n), dtype=I64, device=dev)
+    acc = torch.empty((J, 2, r, n), dtype=I64, device=dev)
+    out = torch.empty((J, 2, k, n), dtype=I64, device=dev)
+    ntt_stage.forward_launch(dev, c2, None, dhat, tables, cuda.PRO_DIGIT,
+                             nu=tables.ms.nu)
+    cuda.launch("ntt_stage_inverse", dev, dhat.data_ptr(), ksk.data_ptr(),
+                None, acc.data_ptr(), *tables.kernel_args(), cuda.PRO_KSACC,
+                k, J * 2 * r, r, tables.logn)
+    cuda.launch("ntt_encrypt_tail", dev, acc.data_ptr(), None,
+                out.data_ptr(), consts.per_mod.data_ptr(), consts.q_last,
+                consts.half, consts.fix_th, J, r, n)
+    keyswitch_fused.launches += 1
+    return out[0] if single else out
+
+
+keyswitch_fused.launches = 0

@@ -3,11 +3,11 @@ elementwise prologue fused in.
 
 Counterpart of the public API of `ntt_cuda_tpu/ops/ntt_pallas.py`
 (`ntt_forward`, `ntt_inverse`, `ntt_inverse_mul`, `ntt_forward_ternary`,
-`ntt_forward_addneg_gauss`), the kernels of the JAX package's
-`fusion="stage"` schedule.  On a CUDA device each wrapper launches
-csrc/ntt_stage.cu (n <= 32768); on the CPU it runs the plain version
-beside it, composed from ops/ntt.py, ops/poly.py and the compact-draw map
-of ops/sampling.py.
+`ntt_forward_addneg_gauss`, `ntt_forward_addneg`), the kernels of the JAX
+package's `fusion="stage"` schedule and of its EvalMult path.  On a CUDA
+device each wrapper launches csrc/ntt_stage.cu (n <= 32768); on the CPU
+it runs the plain version beside it, composed from ops/ntt.py,
+ops/poly.py and the compact-draw map of ops/sampling.py.
 
 Standard RNS layout only: x is (r, n) for one message or (J, r, n) for J,
 and polynomial (j, i) has modulus i.  A compact i32 draw is (n,) or (J, n),
@@ -55,10 +55,13 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _forward(dev, x, d, out, tables: NTTTables, pro: int) -> None:
-    cuda.launch("ntt_stage_forward", dev, _ptr(x), _ptr(d), out.data_ptr(),
-                *tables.kernel_args(), pro, out.numel() // tables.n,
-                tables.r, tables.logn)
+def forward_launch(dev, x, d, out, tables: NTTTables, pro: int, y=None,
+                   nu=None) -> None:
+    """Launch the forward kernel with prologue `pro` (cuda.PRO_*) on
+    prologue inputs x, d, y, nu into out (P, n)."""
+    cuda.launch("ntt_stage_forward", dev, _ptr(x), _ptr(d), _ptr(y), _ptr(nu),
+                out.data_ptr(), *tables.kernel_args(), pro,
+                out.numel() // tables.n, tables.r, tables.logn)
 
 
 def inverse_launch(dev, x, y, e, out, tables: NTTTables) -> None:
@@ -86,7 +89,7 @@ def ntt_forward(x, tables: NTTTables) -> torch.Tensor:
     dev = _kernel_device("ntt_forward", x, tables)
     cuda.require("x", x, I64, tuple(x.shape), dev)
     out = torch.empty_like(x)
-    _forward(dev, x, None, out, tables, cuda.PRO_COPY)
+    forward_launch(dev, x, None, out, tables, cuda.PRO_COPY)
     ntt_forward.launches += 1
     return out
 
@@ -156,7 +159,7 @@ def ntt_forward_ternary(u_b, tables: NTTTables) -> torch.Tensor:
     dev = _kernel_device("ntt_forward_ternary", u_b, tables)
     cuda.require("u_b", u_b, torch.int32, tuple(u_b.shape), dev)
     out = torch.empty(lead + (tables.r, tables.n), dtype=I64, device=dev)
-    _forward(dev, None, u_b, out, tables, cuda.PRO_TERNARY)
+    forward_launch(dev, None, u_b, out, tables, cuda.PRO_TERNARY)
     ntt_forward_ternary.launches += 1
     return out
 
@@ -185,9 +188,37 @@ def ntt_forward_addneg_gauss(x, e_d, tables: NTTTables) -> torch.Tensor:
     cuda.require("x", x, I64, tuple(x.shape), dev)
     cuda.require("e_d", e_d, torch.int32, tuple(e_d.shape), dev)
     out = torch.empty_like(x)
-    _forward(dev, x, e_d, out, tables, cuda.PRO_ADDNEG_GAUSS)
+    forward_launch(dev, x, e_d, out, tables, cuda.PRO_ADDNEG_GAUSS)
     ntt_forward_addneg_gauss.launches += 1
     return out
 
 
 ntt_forward_addneg_gauss.launches = 0
+
+
+# --- kernel 11: NTT(-(x + e)) with a u64 e ----------------------------------
+
+def ntt_forward_addneg_plain(x, e, tables: NTTTables) -> torch.Tensor:
+    return ntt.ntt_forward(poly.poly_add_negate(x, e, tables.ms), tables)
+
+
+def ntt_forward_addneg(x, e, tables: NTTTables) -> torch.Tensor:
+    """NTT(-(x + e) mod q) with the 0 fixup: x (r, n) or (J, r, n)
+    coefficient domain, e canonical residues of x's shape, read at x's
+    index (the switching keys' key0 rows)."""
+    _residue_lead("x", x, tables)
+    if tuple(e.shape) != tuple(x.shape):
+        raise ValueError(f"e: shape {tuple(e.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return ntt_forward_addneg_plain(x, e, tables)
+    dev = _kernel_device("ntt_forward_addneg", x, tables)
+    cuda.require("x", x, I64, tuple(x.shape), dev)
+    cuda.require("e", e, I64, tuple(x.shape), dev)
+    out = torch.empty_like(x)
+    forward_launch(dev, x, None, out, tables, cuda.PRO_ADDNEG, y=e)
+    ntt_forward_addneg.launches += 1
+    return out
+
+
+ntt_forward_addneg.launches = 0

@@ -137,3 +137,33 @@ def encrypt_draws_compact(n: int, key_byte: int = salsa20.DEFAULT_KEY_BYTE,
     e_d = torch.stack([gaussian_int(salsa20.block_words_u32(bw, n, n)),
                        gaussian_int(salsa20.block_words_u32(bw, 5 * n, n))])
     return u_b, e_d
+
+
+# Relinearization-key draws: their own Salsa20 key byte (0x02), so every
+# relin stream is independent of every keygen/encrypt stream at any nonce;
+# the nonce takes the keygen half of the nonce space (bit 63 clear).
+RELIN_KEY_BYTE = 0x02
+
+
+def relin_entropy_bytes(n: int, r: int, k: int) -> int:
+    """Per key: 8*r*n uniform bytes, then 4*n Gaussian bytes."""
+    return k * (8 * r * n + 4 * n)
+
+
+def relin_draws(n: int, r: int, k: int, ms: modmath.ModulusSet, nonce=0):
+    """Draws of the k relinearization keys on ms's device: (a (k, r, n)
+    uniform NTT-domain residues, e (k, r, n) Gaussian residues).  Key j
+    owns the stream's bytes from j*(8rn + 4n): its r*n u64 lanes, then its
+    n Gaussian words.  One keystream launch, and the k keys sliced out
+    together (block-aligned: n >= 16)."""
+    nbytes = relin_entropy_bytes(n, r, k)
+    bw, lanes = salsa20.keystream_block_words(
+        (nbytes + 63) // 64, key_byte=RELIN_KEY_BYTE,
+        nonce=keygen_nonce(nonce), with_u64=True, device=ms.q.device)
+    kb = (8 * r * n + 4 * n) // 64       # blocks per key
+    ub = 8 * r * n // 64                 # of them, the uniform lanes'
+    u = (lanes[:, :k * kb].reshape(8, k, kb)[:, :, :ub]
+         .permute(1, 2, 0).reshape(k, r, n))
+    w = (bw[:, :k * kb].reshape(16, k, kb)[:, :, ub:ub + n // 16]
+         .permute(1, 2, 0).reshape(k, n))
+    return uniform(u, ms), small_res(gaussian_int(w), ms.q)

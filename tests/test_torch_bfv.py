@@ -6,8 +6,9 @@ package, on the CPU.
    `ntt_cuda_tpu` BFVContext.build(p, backend="xla") for nonces 0..3.
 3. Keys and ciphertexts cross between the two packages through
    `ntt_cuda_tpu_torch.convert` and still decrypt.
-4. What the port leaves out raises; argument errors read as the JAX
-   package's; without a device, build goes to the card or raises.
+4. What the port leaves out raises (and an L = 3 ciphertext, once left
+   out, decrypts); argument errors read as the JAX package's; without a
+   device, build goes to the card or raises.
 """
 
 from pathlib import Path
@@ -99,11 +100,16 @@ def test_unported_configurations_raise():
         BFVContext.build(p, device="cpu", uniform_spec="fp64")
     with pytest.raises(ValueError, match="unknown fusion"):
         BFVContext.build(p, device="cpu", fusion="fast")
+    # decrypt of an L = 3 (un-relinearized) ciphertext is ported: m * 1
+    m = np.random.default_rng(4).integers(0, p.t, p.n)
+    one = np.zeros(p.n, np.int64)
+    one[0] = 1
     for fusion in ("op", "stage"):
         ctx = BFVContext.build(p, device="cpu", fusion=fusion)
-        with pytest.raises(NotImplementedError, match="ROADMAP.*EvalMult"):
-            ctx.decrypt(np.zeros((p.r, p.n), np.uint64),
-                        np.zeros((3, p.r - 1, p.n), np.uint64))
+        sk, pk = ctx.keygen(2)
+        ct3 = ctx.mul(ctx.encrypt(pk, m, nonce=1), ctx.encrypt(pk, one,
+                                                                nonce=2))
+        np.testing.assert_array_equal(ctx.decrypt(sk, ct3).numpy(), m)
 
 
 def test_build_without_device_needs_a_card(monkeypatch):

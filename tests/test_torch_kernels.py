@@ -24,8 +24,8 @@ import torch
 
 from ntt_cuda_tpu_torch import cuda, get_bfv_params
 from ntt_cuda_tpu_torch.models.bfv import BFVContext
-from ntt_cuda_tpu_torch.ops import (bfv_tail, fused_ops, ntt_stage, salsa20,
-                                    sampling)
+from ntt_cuda_tpu_torch.ops import (behz, behz_kernels, bfv_tail, fused_ops,
+                                    ntt, ntt_stage, salsa20, sampling)
 from ntt_cuda_tpu_torch.params import BFVParams
 
 # A 1024-point set with three 40-bit moduli (generated like
@@ -201,8 +201,9 @@ def test_host_stage_forward(host_lib, stage_ctx, J):
         out = torch.empty_like(x)
         assert host_lib.ntt_stage_forward(
             None if xin is None else xin.data_ptr(),
-            None if din is None else din.data_ptr(), out.data_ptr(),
-            *tb.kernel_args(), pro, J * p.r, p.r, p.logn, None) == 0
+            None if din is None else din.data_ptr(), None, None,
+            out.data_ptr(), *tb.kernel_args(), pro, J * p.r, p.r, p.logn,
+            None) == 0
         torch.testing.assert_close(out, plain(), rtol=0, atol=0)
 
 
@@ -253,14 +254,154 @@ def test_host_stage_rejects_bad_arguments(host_lib, stage_ctx):
     p, tb = stage_ctx.params, stage_ctx.tables_full
     x = torch.zeros((p.r, p.n), dtype=torch.int64)
     for pro, P, logn in ((cuda.PRO_MONT, p.r, p.logn),   # forward: no y
+                         (cuda.PRO_KSACC, p.r, p.logn),  # an inverse prologue
                          (cuda.PRO_COPY, p.r + 1, p.logn),  # P % r
                          (cuda.PRO_COPY, p.r, 16)):       # 2^16
-        assert host_lib.ntt_stage_forward(x.data_ptr(), None, x.data_ptr(),
-                                          *tb.kernel_args(), pro, P, p.r, logn,
-                                          None) != 0
-    assert host_lib.ntt_stage_inverse(x.data_ptr(), None, None, x.data_ptr(),
-                                      *tb.kernel_args(), cuda.PRO_TERNARY, 1, p.r,
-                                      p.r, p.logn, None) != 0
+        assert host_lib.ntt_stage_forward(x.data_ptr(), None, None, None,
+                                          x.data_ptr(), *tb.kernel_args(), pro,
+                                          P, p.r, logn, None) != 0
+    for pro, P in ((cuda.PRO_TERNARY, p.r), (cuda.PRO_DIGIT, p.r),
+                   (cuda.PRO_KSACC, p.r)):               # KSACC: P % 2r
+        assert host_lib.ntt_stage_inverse(x.data_ptr(), None, None,
+                                          x.data_ptr(), *tb.kernel_args(), pro,
+                                          1, P, p.r, p.logn, None) != 0
+
+
+# --- EvalMult: the BEHZ conversions (21a-c), kernel 11 and the key switch
+# (19), and the stage transforms over Bsk's 60-bit moduli -----------------
+
+@pytest.fixture(scope="module",
+                params=[SMALL, get_bfv_params("4k_3q"),
+                        get_bfv_params("32k_9q"), get_bfv_params("32k_16q")],
+                ids=lambda p: p.name)
+def banks(request):
+    return request.param, behz_kernels.MultBanks.build(request.param)
+
+
+def _xm_at_half(xb_col, aux) -> int:
+    """The m_sk residue that puts bsk_to_q's alpha exactly at m_sk >> 1
+    (the strict-`>` boundary) for the B residues xb_col of one
+    coefficient."""
+    b_prod, msk = behz.prod(aux.b), aux.m_sk
+    cm = sum((int(x) * pow(b_prod // bj % bj, -1, bj) % bj) * (b_prod // bj)
+             for x, bj in zip(xb_col, aux.b))
+    return (cm - (msk >> 1) * b_prod) % msk
+
+
+def _host_behz(host_lib, which, x, xb, out, mb):
+    k, n = mb.k, x.shape[-1]
+    C = out.numel() // (out.shape[-2] * n)
+    return host_lib.ntt_behz(which, x.data_ptr(),
+                             None if xb is None else xb.data_ptr(),
+                             out.data_ptr(), *mb.kernel_args(), C, k, n, None)
+
+
+def test_host_behz(host_lib, banks):
+    """Kernels 21a-c against ops/behz.py with a (J, C) = (2, 3) lead,
+    values at the range ends and alpha at m_sk / 2 included.  The
+    conversions are per coefficient, so the 32k sets' constants are
+    checked over n = 2048."""
+    params, mb = banks
+    mc = mb.mc
+    k, n = mb.k, 2048
+    rng = np.random.default_rng(60 + k)
+    qs = [int(v) for v in mc.ms_q.q.flatten()]
+    bsk = [int(v) for v in mc.ms_bsk.q.flatten()]
+    xq = _rand_res(rng, qs, n, (2, 3))
+    xb = _rand_res(rng, bsk, n, (2, 3))
+    xq[..., :2] = torch.tensor([[0, q - 1] for q in qs])
+    xb[..., :2] = torch.tensor([[0, m - 1] for m in bsk])
+    aux = behz.AuxBase.build(params)
+    xb[0, 0, k, 2] = _xm_at_half(xb[0, 0, :k, 2].tolist(), aux)
+    for which, args, plain in (
+            (behz_kernels.RNS_TO_BSK, (xq, None), behz_kernels.rns_to_bsk_plain),
+            (behz_kernels.FAST_FLOOR, (xq, xb), behz_kernels.fast_floor_plain),
+            (behz_kernels.BSK_TO_Q, (xb, None), behz_kernels.bsk_to_q_plain)):
+        ref = plain(*[a for a in args if a is not None], mb)
+        out = torch.empty_like(ref)
+        assert _host_behz(host_lib, which, *args, out, mb) == 0
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+def test_host_behz_rejects_bad_arguments(host_lib, banks):
+    _, mb = banks
+    x = torch.zeros((mb.k + 1, 64), dtype=torch.int64)
+    assert _host_behz(host_lib, behz_kernels.FAST_FLOOR, x, None, x,
+                      mb) != 0                  # fast_floor needs xb
+    assert host_lib.ntt_behz(7, x.data_ptr(), None, x.data_ptr(),
+                             *mb.kernel_args(), 1, mb.k, 64, None) != 0
+
+
+@pytest.mark.parametrize("J", [1, 2])
+def test_host_forward_addneg(host_lib, stage_ctx, J):
+    """Kernel 11: NTT(-(x + e)) with a u64 e, the 0 fixup included."""
+    p, tb = stage_ctx.params, stage_ctx.tables_full
+    rng = np.random.default_rng(70 + J)
+    x = _rand_res(rng, p.q, p.n, (J,))
+    e = _rand_res(rng, p.q, p.n, (J,))
+    x[:, :, 0] = torch.tensor(p.q) - 1
+    e[:, :, 0] = 1                        # x + e == q
+    out = torch.empty_like(x)
+    assert host_lib.ntt_stage_forward(x.data_ptr(), None, e.data_ptr(), None,
+                                      out.data_ptr(), *tb.kernel_args(),
+                                      cuda.PRO_ADDNEG, J * p.r, p.r, p.logn,
+                                      None) == 0
+    ref = ntt_stage.ntt_forward_addneg_plain(x, e, tb)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+def test_host_keyswitch(host_lib, stage_ctx):
+    """Kernel 19: the PRO_DIGIT forward, the PRO_KSACC inverse and the tail
+    without a message (J = 2; J = 1 at 2^15) against the xla chain."""
+    p, tb, tc = stage_ctx.params, stage_ctx.tables_full, stage_ctx.tail_consts
+    J = 1 if p.n > 16384 else 2
+    k, r, n = p.r - 1, p.r, p.n
+    rng = np.random.default_rng(80)
+    c2 = _rand_res(rng, p.q[:-1], n, (J,))
+    ksk = _rand_res(rng, p.q, n, (2, k))
+    dhat = torch.empty((J, k, r, n), dtype=torch.int64)
+    acc = torch.empty((J, 2, r, n), dtype=torch.int64)
+    out = torch.empty((J, 2, k, n), dtype=torch.int64)
+    assert host_lib.ntt_stage_forward(c2.data_ptr(), None, None,
+                                      tb.ms.nu.data_ptr(), dhat.data_ptr(),
+                                      *tb.kernel_args(), cuda.PRO_DIGIT,
+                                      J * k * r, r, p.logn, None) == 0
+    assert host_lib.ntt_stage_inverse(dhat.data_ptr(), ksk.data_ptr(), None,
+                                      acc.data_ptr(), *tb.kernel_args(),
+                                      cuda.PRO_KSACC, k, J * 2 * r, r, p.logn,
+                                      None) == 0
+    assert host_lib.ntt_encrypt_tail(acc.data_ptr(), None, out.data_ptr(),
+                                     tc.per_mod.data_ptr(), tc.q_last,
+                                     tc.half, tc.fix_th, J, r, n, None) == 0
+    ref = fused_ops.keyswitch_fused_plain(c2, ksk, tb, tc)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+def test_host_stage_bsk_tables(host_lib, stage_ctx):
+    """Kernels 7 and 8 over Bsk (60-bit moduli, new to the transforms)."""
+    p = stage_ctx.params
+    aux = behz.AuxBase.build(p)
+    tb = ntt.NTTTables.build(aux.bsk, aux.bsk_psi, p.n)
+    rng = np.random.default_rng(90)
+    x = _rand_res(rng, aux.bsk, p.n, (2,))
+    y = _rand_res(rng, aux.bsk, p.n, (2,))
+    x[:, :, 0] = torch.tensor(aux.bsk) - 1
+    P = 2 * tb.r
+    out = torch.empty_like(x)
+    assert host_lib.ntt_stage_forward(x.data_ptr(), None, None, None,
+                                      out.data_ptr(), *tb.kernel_args(),
+                                      cuda.PRO_COPY, P, tb.r, p.logn,
+                                      None) == 0
+    torch.testing.assert_close(out, ntt_stage.ntt_forward_plain(x, tb),
+                               rtol=0, atol=0)
+    for yy, plain in ((None, lambda: ntt_stage.ntt_inverse_plain(x, tb)),
+                      (y, lambda: ntt_stage.ntt_inverse_mul_plain(x, y, tb))):
+        assert host_lib.ntt_stage_inverse(
+            x.data_ptr(), None if yy is None else yy.data_ptr(), None,
+            out.data_ptr(), *tb.kernel_args(),
+            cuda.PRO_COPY if yy is None else cuda.PRO_MONT, P, P, tb.r,
+            p.logn, None) == 0
+        torch.testing.assert_close(out, plain(), rtol=0, atol=0)
 
 
 # --- on the card -----------------------------------------------------------
@@ -344,4 +485,41 @@ def test_cuda_stage_kernels_match_plain(cuda_device, name):
     e2 = e2.to(cuda_device)
     assert torch.equal(bfv_tail.encrypt_fused(u_ntt, pk, e2, m, tb, tc),
                        bfv_tail.encrypt_fused_plain(u_ntt, pk, e2, m, tb, tc))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["4k_3q", "32k_9q", "32k_16q"])
+def test_cuda_mult_kernels_match_plain(cuda_device, name):
+    """Kernels 21a-c, 11 and 19 and the transforms over Bsk on the card."""
+    p = get_bfv_params(name)
+    ctx = BFVContext.build(p, device=cuda_device)
+    st = ctx._mult_setup()
+    mb, tf, tbsk = st.banks, ctx.tables_full, st.tables_bsk
+    k = p.r - 1
+    rng = np.random.default_rng(3)
+    for J in (1, 2):
+        xq = _rand_res(rng, p.q[:-1], p.n, (J, 2)).to(cuda_device)
+        xb = _rand_res(rng, st.aux.bsk, p.n, (J, 2)).to(cuda_device)
+        for kern, plain, args in (
+                (behz_kernels.rns_to_bsk, behz_kernels.rns_to_bsk_plain, (xq,)),
+                (behz_kernels.fast_floor, behz_kernels.fast_floor_plain,
+                 (xq, xb)),
+                (behz_kernels.bsk_to_q, behz_kernels.bsk_to_q_plain, (xb,))):
+            assert torch.equal(kern(*args, mb), plain(*args, mb)), kern.__name__
+        c2 = _rand_res(rng, p.q[:-1], p.n, (J,)).to(cuda_device)
+        ksk = _rand_res(rng, p.q, p.n, (2, k)).to(cuda_device)
+        assert torch.equal(
+            fused_ops.keyswitch_fused(c2, ksk, tf, ctx.tail_consts),
+            fused_ops.keyswitch_fused_plain(c2, ksk, tf, ctx.tail_consts))
+        xb0 = xb[:, 0].contiguous()
+        for kern, plain, args in (
+                (ntt_stage.ntt_forward, ntt_stage.ntt_forward_plain, (xb0,)),
+                (ntt_stage.ntt_inverse_mul, ntt_stage.ntt_inverse_mul_plain,
+                 (xb0, xb0))):
+            assert torch.equal(kern(*args, tbsk), plain(*args, tbsk))
+    x = _rand_res(rng, p.q, p.n, (k,)).to(cuda_device)
+    e = _rand_res(rng, p.q, p.n, (k,)).to(cuda_device)
+    assert torch.equal(ntt_stage.ntt_forward_addneg(x, e, tf),
+                       ntt_stage.ntt_forward_addneg_plain(x, e, tf))
     torch.cuda.synchronize()

@@ -123,6 +123,21 @@ def test_encrypt_draws_compact_match_jax(nonce):
     np.testing.assert_array_equal(e_d.numpy(), np.asarray(je))
 
 
+@pytest.mark.parametrize("name,nonce", [("4k_3q", 0), ("8k_4q", 2**62)])
+def test_relin_draws_match_jax(name, nonce):
+    """The k relinearization keys' draws, sliced out together, equal the
+    JAX package's per-key slices of the key-byte-0x02 stream."""
+    p = jget(name)
+    k = p.r - 1
+    a, e = sampling.relin_draws(p.n, p.r, k, modmath.modulus_set(p),
+                                nonce=nonce)
+    ja, je = jsamp.relin_draws(p.n, p.r, k, jmm.modulus_set(p), nonce=nonce,
+                               ks_impl="xla")
+    assert tuple(a.shape) == tuple(e.shape) == (k, p.r, p.n)
+    np.testing.assert_array_equal(convert.to_numpy(a), np.asarray(ja))
+    np.testing.assert_array_equal(convert.to_numpy(e), np.asarray(je))
+
+
 def test_residue_maps_match_jax():
     p = jget("4k_3q")
     rng = np.random.default_rng(3)

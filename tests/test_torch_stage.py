@@ -219,6 +219,8 @@ def test_stage_wrappers_check_shapes(k4):
         ntt_stage.ntt_inverse_mul(x, x[:1], tb)
     with pytest.raises(ValueError, match=r"e_d: shape"):
         ntt_stage.ntt_forward_addneg_gauss(x, d[0], tb)  # J = 2 vs one row
+    with pytest.raises(ValueError, match=r"e: shape"):
+        ntt_stage.ntt_forward_addneg(x, x[0], tb)        # e read at x's index
     with pytest.raises(TypeError, match=r"int32"):
         ntt_stage.ntt_forward_ternary(d.to(torch.int64), tb)
     with pytest.raises(ValueError, match=r"u_b: expected shape"):

@@ -2,8 +2,9 @@
 
     python3 tools/profile_ops.py [--set 32k_9q] [--fusion auto] [--reps 30]
 
-For keygen, encrypt, decrypt and decrypt_batch (J = 3) of one parameter
-set, through `BFVContext`, prints one JSON line per op:
+For keygen, encrypt, decrypt, decrypt_batch (J = 3) and the EvalMult ops
+(mul, mul with relinearization, relin_keygen) of one parameter set,
+through `BFVContext`, prints one JSON line per op:
 
 * `event_ms`: median CUDA-event time around one call;
 * `sync_wall_ms`: median host time of one call ending in
@@ -93,11 +94,15 @@ def main() -> int:
     cts = torch.stack([ctx.encrypt(pk, msgs[j], nonce=j + 1)
                        for j in range(3)])
     m0 = torch.from_numpy(msgs[0]).to(ctx.device)
+    rlk = ctx.relin_keygen(sk, nonce=1)
     ops = {
         "keygen": lambda: ctx.keygen(nonce=1),
         "encrypt": lambda: ctx.encrypt(pk, m0, nonce=1),
         "decrypt": lambda: ctx.decrypt(sk, cts[0]),
         "decrypt_batch_J3": lambda: ctx.decrypt_batch(sk, cts),
+        "mul": lambda: ctx.mul(cts[0], cts[1]),
+        "mul_relin": lambda: ctx.mul(cts[0], cts[1], rlk=rlk),
+        "relin_keygen": lambda: ctx.relin_keygen(sk, nonce=1),
     }
     for name, fn in ops.items():
         for _ in range(10):
