@@ -8,11 +8,14 @@ SASS gives the integer multiply instructions of one Shoup butterfly and
 one Montgomery product (for each kernel's bound).  Then:
 
 1. every kernel exactly (tolerance 0) against its plain PyTorch version on
-   the card: the op kernels K1-K5 at 4k_3q and 16k_5q, the stage kernels
-   (7-10, 13) and the decrypt tail at 4k_3q, 16k_5q and 32k_9q (the 2^15
-   split), J = 1 and 3 where there is a batch axis, K2 also at 32k_16q;
-   the EvalMult kernels (BEHZ 21a-c, kernel 11, the key switch 19) at
-   4k_3q, 16k_5q and 32k_9q, 21a-c and 19 also at 32k_16q, J = 1 and 2;
+   the card: the op kernels K1-K5 at 4k_3q and 16k_5q, K3-K5 also at
+   32k_9q and 32k_16q (two 2^14 halves beside stage-0 passes), the stage
+   kernels (7-10, 13) and the decrypt tail at 4k_3q, 16k_5q and 32k_9q
+   (the 2^15 split), J = 1 and 3 where there is a batch axis, K2 also at
+   32k_16q; the J-nonce keystream (kernel 6) at 32k_9q's encrypt size,
+   J = 1 and 16, also against K1 row by row; the EvalMult kernels (BEHZ
+   21a-c, kernel 11, the key switch 19) at 4k_3q, 16k_5q and 32k_9q,
+   21a-c and 19 also at 32k_16q, J = 1 and 2;
 2. the reference's golden ciphertext, on both schedules;
 3. the op schedule's main path at 16k_5q and the stage schedule's at
    32k_9q through the public API (keygen, encrypt of three seeded
@@ -29,10 +32,23 @@ one Montgomery product (for each kernel's bound).  Then:
    every key and ciphertext equal to the same calls on the CPU;
 5. a 32k_16q round trip, and 16k_5q under fusion="stage" equal to the op
    schedule;
-6. CUDA-event times: the 32k_9q ops and EvalMult ops, the 16k_5q EvalMult
-   ops and the 16k_5q op-vs-stage A/B (in turns op, stage, stage, op),
-   each around one call; every kernel and its plain version around a run
-   of calls back to back, beside the kernel's bound.
+6. batched encryption at 32k_9q (stage context) and 16k_5q (op): J = 16
+   seeded messages, nonces 1..16, through encrypt_batch and
+   decrypt_batch, counts read as in 3 (kernel 6 and K5 once each), every
+   row equal to encrypt of its message and nonce and every message
+   round-tripped;
+7. the op schedule at 32k_9q (`fusion="op"`: K3-K5 over two halves),
+   driven as in 3, its keys, ciphertexts and plaintexts equal to the stage
+   schedule's;
+8. the ciphertext ops at 32k_9q: add, sub, negate, add_plain, sub_plain
+   and mul_plain by a seeded sparse plaintext decrypt to their mod-t
+   results, mod_switch_to_next decrypts under next_context(), and
+   noise_budget is positive and falls after mul_plain;
+9. CUDA-event times: the 32k_9q ops and EvalMult ops, the 16k_5q EvalMult
+   ops, the 16k_5q op-vs-stage and 32k_9q op-vs-stage A/Bs (in turns op,
+   stage, stage, op), encrypt_batch at J = 16, each around one call; every
+   kernel and its plain version around a run of calls back to back,
+   beside the kernel's bound (K3-K5 and K5 at J = 16 also at 32k_9q).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and last `{"ok": true, "device": {...}}`.  Any failure raises,
@@ -67,6 +83,9 @@ MULT_SETS = ("32k_9q", "16k_5q")  # the EvalMult main path, timed at both
 OP_CHECK_SETS = ("4k_3q", "16k_5q")
 STAGE_CHECK_SETS = ("4k_3q", "16k_5q", "32k_9q")
 MULT_CHECK_SETS = ("4k_3q", "16k_5q", "32k_9q", "32k_16q")
+OP32_CHECK_SETS = ("32k_9q", "32k_16q")   # K3-K5 over two 2^14 halves
+OP32_KERNELS = ("half_polymul", "keygen_fused", "encrypt_fused")
+BATCH_J = 16
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
 
@@ -77,20 +96,25 @@ KERNELS = {
     "salsa20_keystream": ((salsa20.keystream_block_words,),
                           "ntt_cuda_tpu_torch/csrc/salsa20.cu",
                           "ntt_cuda_tpu/ops/salsa20.py:174",
-                          ("mult", "op", "stage")),
+                          ("mult", "op", "stage", "op32")),
+    "salsa20_keystream_batch": ((salsa20.keystream_block_words_batch,),
+                                "ntt_cuda_tpu_torch/csrc/salsa20.cu",
+                                "ntt_cuda_tpu/ops/salsa20.py:249",
+                                ("batch",)),
     "decrypt_tail": ((bfv_tail.decrypt_tail,),
                      "ntt_cuda_tpu_torch/csrc/decrypt_tail.cu",
                      "ntt_cuda_tpu/ops/bfv_tail.py:388",
-                     ("mult", "op", "stage")),
+                     ("mult", "op", "stage", "batch", "op32")),
     "half_polymul": ((fused_ops.half_polymul,),
                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
-                     "ntt_cuda_tpu/ops/fused_ops.py:213", ("op",)),
+                     "ntt_cuda_tpu/ops/fused_ops.py:213", ("op", "op32")),
     "keygen_fused": ((fused_ops.keygen_fused,),
                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
-                     "ntt_cuda_tpu/ops/fused_ops.py:137", ("op",)),
+                     "ntt_cuda_tpu/ops/fused_ops.py:137", ("op", "op32")),
     "encrypt_fused": ((fused_ops.encrypt_fused,),
                       "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
-                      "ntt_cuda_tpu/ops/fused_ops.py:466", ("op",)),
+                      "ntt_cuda_tpu/ops/fused_ops.py:466",
+                      ("op", "batch", "op32")),
     # kernel 7, both directions (one TPU kernel with an `inverse` flag);
     # its times below are the forward's, the direction the main path runs
     "ntt_transform": ((ntt_stage.ntt_forward, ntt_stage.ntt_inverse),
@@ -282,6 +306,13 @@ class Work:
                 "bytes_ms": self.nbytes / HBM_BYTES_PER_S * 1e3,
                 "ops_ms": imads / (SMS * IMAD_PER_CLOCK * clock_hz) * 1e3}
 
+    def bound(self, mults: dict, clock_hz: float) -> tuple[float, str]:
+        """The bound in ms, and which term sets it."""
+        t = self.terms(mults, clock_hz)
+        by_bytes = t["bytes_ms"] >= t["ops_ms"]
+        return (max(t["bytes_ms"], t["ops_ms"]),
+                "bytes" if by_bytes else "operations")
+
 
 def tables(tb, which: str = "both") -> list:
     """The tables a transform reads: the psi ("fwd") or psi^-1 ("inv")
@@ -292,6 +323,23 @@ def tables(tb, which: str = "both") -> list:
 
 def transform_butterflies(polys: int, n: int) -> int:
     return polys * (n // 2) * (n.bit_length() - 1)
+
+
+def keystream_batch_cases(p, dev):
+    """(kernel, J, wrapper call, plain call, Work) for kernel 6 at the
+    shapes encrypt_batch gives it at p: the encrypt stream's blocks for
+    the mapped nonces of 1..J, J = 1 and BATCH_J."""
+    nb = (sampling.encrypt_entropy_bytes(p.n) + 63) // 64
+    cases = []
+    for J in (1, BATCH_J):
+        ns = sampling.encrypt_nonces(range(1, J + 1))
+        cases.append((
+            "salsa20_keystream_batch", J,
+            lambda ns=ns: salsa20.keystream_block_words_batch(nb, ns,
+                                                              device=dev),
+            lambda ns=ns: salsa20.keystream_batch_plain(nb, ns, device=dev),
+            Work(8 * J * 16 * nb)))
+    return cases
 
 
 def op_cases(ctx: BFVContext, rng, dev):
@@ -343,20 +391,26 @@ def op_cases(ctx: BFVContext, rng, dev):
         m = torch.from_numpy(rng.integers(0, p.t, (J, n))).to(dev)
         if J == 1:
             u_b, e2, m = u_b[0], e2[0], m[0]
-        bfe = transform_butterflies(J * r, n)
-        out_coefs = J * 2 * (r - 1) * n
         cases.append(("encrypt_fused", J,
                       lambda u=u_b, e=e2, m=m: fused_ops.encrypt_fused(
                           u, pk, e, m, tf, tc),
                       lambda u=u_b, e=e2, m=m: fused_ops.encrypt_fused_plain(
                           u, pk, e, m, tf, tc),
-                      Work(nbytes(u_b, pk, e2, m, *tables(tf), tc.per_mod)
-                           + 8 * out_coefs,
-                           shoup=3 * bfe + 2 * J * r * n,
-                           mont=2 * J * r * n + out_coefs,
-                           mod_nu=out_coefs + out_coefs // 2,
-                           mullo=out_coefs // 2)))
+                      encrypt_work(ctx, u_b, pk, e2, m, J)))
     return cases
+
+
+def encrypt_work(ctx: BFVContext, u_b, pk, e2, m, J: int) -> Work:
+    """K5 over J messages: r forward and 2r inverse transforms per message,
+    two Montgomery products and two Shoup n^-1 per (h, modulus,
+    coefficient), then the tail per output coefficient."""
+    n, r = ctx.params.n, ctx.params.r
+    tf, tc = ctx.tables_full, ctx.tail_consts
+    out_coefs = J * 2 * (r - 1) * n
+    return Work(nbytes(u_b, pk, e2, m, *tables(tf), tc.per_mod) + 8 * out_coefs,
+                shoup=3 * transform_butterflies(J * r, n) + 2 * J * r * n,
+                mont=2 * J * r * n + out_coefs,
+                mod_nu=out_coefs + out_coefs // 2, mullo=out_coefs // 2)
 
 
 def decrypt_tail_work(x, c0, dt, coefs: int) -> Work:
@@ -559,6 +613,59 @@ def mult_times(ctx: BFVContext, res: dict, reps: int) -> dict:
     }
 
 
+def drive_batch(ctx: BFVContext, msgs: np.ndarray, dev) -> dict:
+    """keygen, then the counted run: encrypt_batch of the J messages with
+    nonces 1..J and decrypt_batch; then encrypt of each message alone."""
+    sk, pk = ctx.keygen(nonce=1)
+    m = torch.from_numpy(msgs).to(dev)
+    nonces = list(range(1, len(msgs) + 1))
+    torch.cuda.synchronize(dev)
+    reset_counts()
+    cts = ctx.encrypt_batch(pk, m, nonces)
+    outb = ctx.decrypt_batch(sk, cts)
+    torch.cuda.synchronize(dev)
+    cnt = read_counts()
+    each = torch.stack([ctx.encrypt(pk, m[j], nonce=nonces[j])
+                        for j in range(len(msgs))])
+    return dict(sk=sk, pk=pk, m=m, nonces=nonces, cts=cts, outb=outb,
+                each=each, counts=cnt)
+
+
+def check_ctops(ctx: BFVContext, res: dict, msgs: np.ndarray, dev) -> dict:
+    """add, sub, negate, add_plain, sub_plain, mul_plain by a seeded sparse
+    plaintext and mod_switch_to_next decrypt to their mod-t results;
+    noise_budget is positive and falls after mul_plain."""
+    p = ctx.params
+    sk, (c1, c2) = res["sk"], res["cts"][:2]
+    m1, m2 = (torch.from_numpy(msgs[j]).to(dev) for j in range(2))
+    rng = np.random.default_rng(SEED + 4)
+    sparse = np.zeros(p.n, np.int64)
+    sparse[rng.choice(p.n, 4, replace=False)] = rng.integers(1, p.t, 4)
+    cm = ctx.mul_plain(c1, sparse)
+    got = {
+        "add": (ctx.add(c1, c2), (m1 + m2) % p.t),
+        "sub": (ctx.sub(c1, c2), (m1 - m2) % p.t),
+        "negate": (ctx.negate(c1), (-m1) % p.t),
+        "add_plain": (ctx.add_plain(c1, m2), (m1 + m2) % p.t),
+        "sub_plain": (ctx.sub_plain(c1, m2), (m1 - m2) % p.t),
+        "mul_plain": (cm, negacyclic_mod_t(msgs[0], sparse, p, dev)),
+    }
+    for op, (ct, want) in got.items():
+        if not torch.equal(ctx.decrypt(sk, ct), want):
+            raise AssertionError(f"{p.name}: {op} does not decrypt to its "
+                                 f"mod-t result")
+    low = ctx.mod_switch_to_next(c1)
+    if (tuple(low.shape) != (2, p.r - 2, p.n)
+            or not torch.equal(ctx.next_context().decrypt(sk, low), m1)):
+        raise AssertionError(f"{p.name}: mod_switch_to_next does not "
+                             f"decrypt under next_context()")
+    budget = {"fresh": ctx.noise_budget(sk, c1),
+              "after_mul_plain": ctx.noise_budget(sk, cm)}
+    if not 0 < budget["after_mul_plain"] < budget["fresh"]:
+        raise AssertionError(f"{p.name}: noise budgets {budget}")
+    return budget
+
+
 def reset_counts() -> None:
     for wrappers, *_ in KERNELS.values():
         for w in wrappers:
@@ -613,6 +720,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; "
                            "torch.cuda.is_available() is False")
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     log(smi("name,power.limit"))
@@ -640,6 +748,27 @@ def main() -> int:
             log(f"check {name} op {kname} J/blocks={J}: equal")
             if name == OP_SET and kname not in timing:
                 timing[kname] = (kern, plain, work)
+    timing32 = {}          # K3-K5 at n = 2^15, J = 1
+    for name in OP32_CHECK_SETS:
+        ctx = BFVContext.build(get_bfv_params(name), device=dev, fusion="op")
+        for kname, J, kern, plain, work in op_cases(ctx, rng, dev):
+            if kname not in OP32_KERNELS:
+                continue
+            compare(kname, kern(), plain(), errs)
+            log(f"check {name} op (two 2^14 halves) {kname} J={J}: equal")
+            if name == STAGE_SET and J == 1:
+                timing32[kname] = (kern, plain, work)
+    for kname, J, kern, plain, work in keystream_batch_cases(
+            get_bfv_params(STAGE_SET), dev):
+        bw = kern()
+        compare(kname, bw, plain(), errs)
+        for j, nonce in enumerate(sampling.encrypt_nonces(range(1, J + 1))):
+            compare(kname, bw[j], salsa20.keystream_block_words(
+                bw.shape[-1], nonce=int(nonce), device=dev), errs)
+        log(f"check {STAGE_SET} {kname} J={J}: equal, each row equal to "
+            f"K1's stream of its nonce")
+        if J == BATCH_J:
+            timing[kname] = (kern, plain, work)
     for name in STAGE_CHECK_SETS + ("32k_16q",):
         ctx = BFVContext.build(get_bfv_params(name), device=dev,
                                fusion="stage")
@@ -746,10 +875,78 @@ def main() -> int:
     log(f"{OP_SET} under fusion='stage': keys, ciphertexts and plaintexts "
         f"equal the op schedule's")
 
-    # Phase 6: times on the card.
+    # Phase 6: batched encryption at full width, counts read per set.
+    batch = {}
+    for name in (STAGE_SET, OP_SET):
+        p = get_bfv_params(name)
+        ctx = BFVContext.build(p)             # the default device and fusion
+        msgs = np.random.default_rng(SEED + 3).integers(0, p.t,
+                                                        (BATCH_J, p.n))
+        res = drive_batch(ctx, msgs, dev)
+        if not torch.equal(res["cts"], res["each"]):
+            raise AssertionError(f"{name}: encrypt_batch rows != encrypt of "
+                                 f"each message and nonce")
+        if not np.array_equal(res["outb"].cpu().numpy(), msgs):
+            raise AssertionError(f"{name}: decrypt_batch(encrypt_batch(m)) "
+                                 f"!= m")
+        cnt = res["counts"]
+        log(f"batch path {name} ({ctx.fusion}): encrypt_batch of {BATCH_J} "
+            f"messages equals encrypt of each, row by row; decrypt_batch "
+            f"round-trips them")
+        log(f"launch counts in the {name} batch run: {json.dumps(cnt)}")
+        missing = [k for k, (*_, s) in KERNELS.items()
+                   if "batch" in s and cnt[k] < 1]
+        if (missing or cnt["salsa20_keystream_batch"] != 1
+                or cnt["encrypt_fused"] != 1):
+            raise AssertionError(f"{name} batch path: kernels not launched "
+                                 f"{missing}, or kernel 6 / K5 not once")
+        if name == STAGE_SET:
+            counts["batch"] = cnt
+        batch[name] = (ctx, res)
+
+    # Phase 7: the op schedule at 32k_9q (K3-K5 over two halves) == stage.
     ctx32, res32, msgs32 = paths["stage"]
-    log(f"op times {STAGE_SET} stage (ms, median of CUDA-event timings): "
-        f"{json.dumps(op_times(ctx32, res32, msgs32, 10))}")
+    ctx_op32 = BFVContext.build(ctx32.params, fusion="op")
+    if ctx_op32.fusion != "op" or ctx_op32.device != dev:
+        raise AssertionError(f"{STAGE_SET}: fusion='op' built "
+                             f"{ctx_op32.fusion} on {ctx_op32.device}")
+    reset_counts()
+    res_op32 = drive(ctx_op32, msgs32, dev)
+    counts["op32"] = read_counts()
+    check_path(f"{STAGE_SET} op vs stage", res_op32, msgs32, res32)
+    log(f"main path {STAGE_SET} (op, two 2^14 halves): 3 messages "
+        f"round-trip; keys, ciphertexts and plaintexts equal the stage "
+        f"schedule's on the card")
+    log(f"launch counts in the {STAGE_SET} op run: "
+        f"{json.dumps(counts['op32'])}")
+    missing = [k for k, (*_, s) in KERNELS.items()
+               if "op32" in s and counts["op32"][k] < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {STAGE_SET} op "
+                             f"path: {missing}")
+
+    # Phase 8: the ciphertext ops at 32k_9q.
+    budget = check_ctops(ctx32, res32, msgs32, dev)
+    log(f"ciphertext ops {STAGE_SET}: add, sub, negate, add_plain, sub_plain "
+        f"and mul_plain decrypt to their mod-t results, mod_switch_to_next "
+        f"decrypts under next_context(); noise budget bits "
+        f"{json.dumps(budget)}")
+
+    # Phase 9: times on the card.
+    ab32 = {"op": [], "stage": []}
+    for sched, ctx, res in (("op", ctx_op32, res_op32),
+                            ("stage", ctx32, res32), ("stage", ctx32, res32),
+                            ("op", ctx_op32, res_op32)):
+        ab32[sched].append(op_times(ctx, res, msgs32, 10))
+    for sched, runs in ab32.items():
+        log(f"op times {STAGE_SET} {sched} (ms, median of CUDA-event "
+            f"timings; two turns of op, stage, stage, op): {json.dumps(runs)}")
+    for name, (ctx, res) in batch.items():
+        ms = median_ms(lambda: ctx.encrypt_batch(res["pk"], res["m"],
+                                                 res["nonces"]), 10)
+        log(f"encrypt_batch {name} {ctx.fusion} J={BATCH_J} (ms, median of "
+            f"CUDA-event timings): per batch {ms}, per message "
+            f"{ms / BATCH_J}")
     for name, (ctx, res) in mult_paths.items():
         log(f"EvalMult op times {name} {ctx.fusion} (ms, median of "
             f"CUDA-event timings): {json.dumps(mult_times(ctx, res, 10))}")
@@ -763,12 +960,32 @@ def main() -> int:
     bounds, terms = {}, {}
     for kname, (kern, plain, work) in timing.items():
         terms[kname] = work.terms(mults, clock_hz)
-        t_bytes, t_ops = terms[kname]["bytes_ms"], terms[kname]["ops_ms"]
-        bounds[kname] = (kernel_ms(kern), kernel_ms(plain), max(t_bytes, t_ops),
-                         "bytes" if t_bytes >= t_ops else "operations")
+        bounds[kname] = (kernel_ms(kern), kernel_ms(plain),
+                         *work.bound(mults, clock_hz))
     log(f"bound terms (bytes moved, integer multiply instructions, and their "
         f"times at {HBM_BYTES_PER_S:.3g} B/s and {SMS} SMs x "
         f"{IMAD_PER_CLOCK}/clock): {json.dumps(terms)}")
+    ctx, res = batch[STAGE_SET]
+    u_b, e_d = sampling.encrypt_draws_compact_batch(ctx.params.n,
+                                                    res["nonces"], device=dev)
+    args = (u_b, res["pk"], e_d, res["m"], ctx.tables_full, ctx.tail_consts)
+    timing32["encrypt_fused_J16"] = (
+        lambda: fused_ops.encrypt_fused(*args),
+        lambda: fused_ops.encrypt_fused_plain(*args),
+        encrypt_work(ctx, u_b, res["pk"], e_d, res["m"], BATCH_J))
+    op32 = {}
+    for kname, (kern, plain, work) in timing32.items():
+        bound_ms, bound_by = work.bound(mults, clock_hz)
+        op32[kname] = {
+            "ms": kernel_ms(kern), "plain_ms": kernel_ms(plain, reps=5),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "terms": work.terms(mults, clock_hz),
+            "launches": (counts["batch"]["encrypt_fused"]
+                         if kname == "encrypt_fused_J16"
+                         else counts["op32"][kname])}
+    log(f"op kernels at {STAGE_SET} (n = 2^15, two 2^14 halves; J = 1, K5 "
+        f"also J = {BATCH_J}; launches on the op32 path, K5 J = 16 on the "
+        f"batch path): {json.dumps(op32)}")
     inv = bounds.pop("ntt_inverse")
     log(f"kernel 7 inverse ({STAGE_SET}, x (r-1, n)): ms {inv[0]}, plain "
         f"ms {inv[1]}, bound ms {inv[2]} ({inv[3]})")
@@ -783,6 +1000,7 @@ def main() -> int:
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
     torch.cuda.synchronize()
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,176 +4,419 @@
 //   half_polymul  (fused_ops.py:213, pallas_call :260)
 //   keygen_fused  (fused_ops.py:137, pallas_call :174)
 //   encrypt_fused (fused_ops.py:466, pallas_call :541)
-// Each block owns one polynomial (message x modulus).  It stays in dynamic
-// shared memory while the forward -> dyadic -> inverse chain runs in place
-// (ntt_block.cuh).  The dyadic product is one Montgomery REDC; its 2^-64
-// and the inverse's n^-1 cancel in one Shoup multiply by n^-1 * 2^64 at
-// the end.
+// n <= 2^14: each block owns one polynomial (message x modulus).  It stays
+// in dynamic shared memory while the forward -> dyadic -> inverse chain
+// runs in place (ntt_block.cuh).  The dyadic product is one Montgomery
+// REDC; its 2^-64 and the inverse's n^-1 cancel in one Shoup multiply by
+// n^-1 * 2^64 at the end.
+//
+// n = 2^15 (256 KB, over a block's 227 KB): the reference's hybrid
+// schedule, as in ntt_stage.cu.  One launch of two blocks per (message,
+// modulus) runs the op's whole in-block chain on its 2^14 half: forward
+// stages 1..14, the dyadic product, inverse GS stages 14..1 (ntt_block.cuh's
+// sub-range form, tw_mul = 2 + h).  The cross-half butterflies run as
+// elementwise launches beside it: CT stage 0 (pairs i, i + n/2, psi[1])
+// after the op's prologue, and GS stage 0 (psi^-1[1]) before the n^-1
+// Shoup and the op's epilogue (the Shoup cancels the product's 2^-64, so
+// it comes after the last inverse stage):
+//   half_polymul   CT0(x) | halves | GS0, n^-1
+//   keygen_fused   CT0(s) | halves: sk; a . sk, GS 14..1
+//                  | GS0, n^-1, -(x + e), CT0 | forward halves: pk0
+//   encrypt_fused  CT0(u) | halves: NTT(u) parked in the c1 slot, both
+//                  products | GS0 of both, n^-1, +> e | the encrypt tail
+// Each thread of a half block reads back exactly the indices it wrote, so
+// NTT(u) parked in the c1 slot is safe as at n <= 2^14.  No cluster yet
+// (ROADMAP.md Queue 1 item 12): a two-block cluster exchanging stage 0
+// through distributed shared memory would make each op one launch.
 //
 // Bound on the card: shared memory, 8n bytes per block (128 KB at
-// n = 16384: one block per SM, so a call fills r x J of the 132 SMs), and
-// log n barriers per transform.  The design keeps every intermediate of an
-// op out of device memory except where noted, and reads compact i32 draws
-// (the ternary u and s, the Gaussian e) instead of (r, n) u64 residues.
+// n = 16384 and per half at 2^15: one block per SM, so a call fills
+// r x J of the 132 SMs, 2 r J at 2^15), and log n barriers per transform.
+// The design keeps every intermediate of an op out of device memory
+// except where noted (at 2^15 each stage-0 pass is one round trip), and
+// reads compact i32 draws (the ternary u and s, the Gaussian e) instead of
+// (r, n) u64 residues.
 //
 // encrypt_fused cannot carry the last residue across grid steps as the TPU
-// grid does (fused_ops.py:397-407): blocks run in no order.  It is two
-// launches: a transform launch writing c_h +> e_h for all r moduli to a
-// (J, 2, r, n) scratch, and an elementwise tail launch (modulus drop,
-// Delta*m + fix).  NTT(u) is computed once per (message, modulus) and
-// parked in the half-1 scratch slot while half 0 uses shared memory.
+// grid does (fused_ops.py:397-407): blocks run in no order.  Its transform
+// writes c_h +> e_h for all r moduli to a (J, 2, r, n) scratch, and an
+// elementwise tail launch does the modulus drop and Delta*m + fix.
+//
+// Each op is a struct of its arguments with `block` (one block's work,
+// `tid`/`nt` its thread and thread count), `first` and `last` (pair k of
+// the 2^15 stage-0 passes); the same struct runs as CUDA launches or, in
+// the host build of the tests, as loops with one thread per block.
 
 #include "ntt_block.cuh"
 
 #ifndef __CUDACC__
 #include <vector>
+#define OP_HD
+#else
+#define OP_HD __host__ __device__
 #endif
 
-// --- half_polymul: out[b] = INTT(NTT(x[b]) (.) y[b % r]) -------------------
+// Where block b of a launch works: polynomial p and, at 2^15, half h of it.
+struct BlockAt {
+  int p, h, logb, nb, tw_mul;
+  size_t hoff;  // the block's first coefficient within its polynomial
+  size_t off;   // ... within a (P, n) array
+};
 
-NTT_HD void half_polymul_body(int b, int tid, int nt, u64* s, const u64* x,
-                              const u64* y, u64* out, Twiddles tw, int r,
-                              int logn) {
-  const int n = 1 << logn;
-  const int mi = b % r;
-  const ModConsts c = load_consts(tw.consts, mi);
-  const Twiddles t = twiddles_at(tw, mi, n);
-  const u64* xb = x + (size_t)b * n;
-  const u64* yb = y + (size_t)mi * n;
-  u64* ob = out + (size_t)b * n;
-  for (int i = tid; i < n; i += nt) s[i] = xb[i];
-  ntt_fwd_block(s, logn, t, c.q, tid, nt);
-  for (int i = tid; i < n; i += nt) s[i] = mont_mul(s[i], yb[i], c.q, c.qinv);
-  ntt_inv_block(s, logn, t, c.q, tid, nt);
-  for (int i = tid; i < n; i += nt)
-    ob[i] = mul_shoup(s[i], c.ninv, c.ninv_sh, c.q);
+NTT_HD BlockAt block_at(int b, int logn) {
+  const int split = logn > LOG_BLOCK_MAX;
+  BlockAt a;
+  a.p = b >> split;
+  a.h = b & split;
+  a.logb = logn - split;
+  a.nb = 1 << a.logb;
+  a.tw_mul = split ? 2 + a.h : 1;
+  a.hoff = (size_t)a.h * a.nb;
+  a.off = ((size_t)a.p << logn) + a.hoff;
+  return a;
 }
+
+// Pair k of a 2^15 stage-0 pass: polynomial p, coefficient i < n/2 and its
+// partner i + half, at lo and lo + half of a (P, n) array.
+struct PairAt {
+  int p;
+  size_t i, half, lo;
+};
+
+NTT_HD PairAt pair_at(long long k, int logn) {
+  PairAt a;
+  a.half = (size_t)1 << (logn - 1);
+  a.p = (int)(k / (long long)a.half);
+  a.i = (size_t)(k % (long long)a.half);
+  a.lo = ((size_t)a.p << logn) + a.i;
+  return a;
+}
+
+// --- half_polymul: out[p] = INTT(NTT(x[p]) (.) y[p % r]) --------------------
+
+struct HalfPolymul {
+  const u64* x;  // (P, n)
+  const u64* y;  // (r, n)
+  u64* out;      // (P, n)
+  Twiddles tw;
+  int r, logn;
+
+  OP_HD void block(int b, int tid, int nt, u64* s) const {
+    const BlockAt at = block_at(b, logn);
+    const bool split = logn > LOG_BLOCK_MAX;
+    const int mi = at.p % r;
+    const ModConsts c = load_consts(tw.consts, mi);
+    const Twiddles t = twiddles_at(tw, mi, 1 << logn);
+    const u64* src = split ? out : x;  // 2^15: after CT stage 0
+    const u64* yb = y + ((size_t)mi << logn) + at.hoff;
+    for (int i = tid; i < at.nb; i += nt) s[i] = src[at.off + i];
+    ntt_fwd_block(s, at.logb, t, c.q, tid, nt, at.tw_mul);
+    for (int i = tid; i < at.nb; i += nt)
+      s[i] = mont_mul(s[i], yb[i], c.q, c.qinv);
+    ntt_inv_block(s, at.logb, t, c.q, tid, nt, at.tw_mul);
+    for (int i = tid; i < at.nb; i += nt)
+      out[at.off + i] = split ? s[i] : mul_shoup(s[i], c.ninv, c.ninv_sh, c.q);
+  }
+
+  OP_HD void first(long long k) const {
+    const PairAt pa = pair_at(k, logn);
+    const int mi = pa.p % r;
+    const Twiddles t = twiddles_at(tw, mi, 1 << logn);
+    u64 a = x[pa.lo], b = x[pa.lo + pa.half];
+    ct_butterfly(a, b, t.psi[1], t.psi_sh[1], load_consts(tw.consts, mi).q);
+    out[pa.lo] = a;
+    out[pa.lo + pa.half] = b;
+  }
+
+  OP_HD void last(long long k) const {
+    const PairAt pa = pair_at(k, logn);
+    const int mi = pa.p % r;
+    const ModConsts c = load_consts(tw.consts, mi);
+    const Twiddles t = twiddles_at(tw, mi, 1 << logn);
+    u64 a = out[pa.lo], b = out[pa.lo + pa.half];
+    gs_butterfly(a, b, t.ipsi[1], t.ipsi_sh[1], c.q);
+    out[pa.lo] = mul_shoup(a, c.ninv, c.ninv_sh, c.q);
+    out[pa.lo + pa.half] = mul_shoup(b, c.ninv, c.ninv_sh, c.q);
+  }
+};
 
 // --- keygen_fused: per modulus, sk = NTT(s); pk0 = NTT(-(INTT(a . sk) + e)) --
 
-NTT_HD void keygen_body(int mi, int tid, int nt, u64* s, const int* sb,
-                        const u64* a, const int* ed, u64* sk, u64* pk0,
-                        Twiddles tw, int logn) {
-  const int n = 1 << logn;
-  const ModConsts c = load_consts(tw.consts, mi);
-  const Twiddles t = twiddles_at(tw, mi, n);
-  const size_t off = (size_t)mi * n;
-  for (int i = tid; i < n; i += nt) s[i] = small_res(sb[i], c.q);
-  ntt_fwd_block(s, logn, t, c.q, tid, nt);
-  for (int i = tid; i < n; i += nt) {
-    sk[off + i] = s[i];
-    s[i] = mont_mul(a[off + i], s[i], c.q, c.qinv);
-  }
-  ntt_inv_block(s, logn, t, c.q, tid, nt);
-  for (int i = tid; i < n; i += nt) {
-    // -(x + e) mod q with the 0 fixup (poly_add_negate_xq)
-    const u64 x = mul_shoup(s[i], c.ninv, c.ninv_sh, c.q);
-    const u64 neg = c.q - add_mod(x, small_res(ed[i], c.q), c.q);
-    s[i] = neg == c.q ? 0 : neg;
-  }
-  ntt_fwd_block(s, logn, t, c.q, tid, nt);
-  for (int i = tid; i < n; i += nt) pk0[off + i] = s[i];
-}
+struct Keygen {
+  const int* sb;  // (n,) compact ternary s
+  const u64* a;   // (r, n)
+  const int* ed;  // (n,) compact Gaussian e
+  u64* sk;        // (r, n)
+  u64* pk0;       // (r, n)
+  Twiddles tw;
+  int logn;
 
-// --- encrypt_fused, launch 1: scratch[j, h, mi] = INTT(NTT(u_j) . pk_h) +> e_jh
-
-NTT_HD void encrypt_transform_body(int b, int tid, int nt, u64* s,
-                                   const int* ub, const u64* pk, const int* ed,
-                                   u64* scratch, Twiddles tw, int r, int logn) {
-  const int n = 1 << logn;
-  const int j = b / r;
-  const int mi = b % r;
-  const ModConsts c = load_consts(tw.consts, mi);
-  const Twiddles t = twiddles_at(tw, mi, n);
-  u64* c0 = scratch + ((size_t)(2 * j) * r + mi) * n;
-  u64* c1 = scratch + ((size_t)(2 * j + 1) * r + mi) * n;
-  const u64* pk0 = pk + (size_t)mi * n;
-  const u64* pk1 = pk + ((size_t)r + mi) * n;
-  const int* e0 = ed + (size_t)(2 * j) * n;
-  const int* e1 = ed + (size_t)(2 * j + 1) * n;
-  const int* u = ub + (size_t)j * n;
-  for (int i = tid; i < n; i += nt) s[i] = small_res(u[i], c.q);
-  ntt_fwd_block(s, logn, t, c.q, tid, nt);
-  for (int i = tid; i < n; i += nt) {
-    c1[i] = s[i];  // NTT(u), read back by this same thread below
-    s[i] = mont_mul(s[i], pk0[i], c.q, c.qinv);
+  OP_HD void block(int b, int tid, int nt, u64* s) const {
+    const BlockAt at = block_at(b, logn);
+    const bool split = logn > LOG_BLOCK_MAX;
+    const ModConsts c = load_consts(tw.consts, at.p);
+    const Twiddles t = twiddles_at(tw, at.p, 1 << logn);
+    for (int i = tid; i < at.nb; i += nt)
+      s[i] = split ? sk[at.off + i] : small_res(sb[i], c.q);
+    ntt_fwd_block(s, at.logb, t, c.q, tid, nt, at.tw_mul);
+    for (int i = tid; i < at.nb; i += nt) {
+      sk[at.off + i] = s[i];
+      s[i] = mont_mul(a[at.off + i], s[i], c.q, c.qinv);
+    }
+    ntt_inv_block(s, at.logb, t, c.q, tid, nt, at.tw_mul);
+    if (split) {  // last() and the forward halves follow
+      for (int i = tid; i < at.nb; i += nt) pk0[at.off + i] = s[i];
+      return;
+    }
+    for (int i = tid; i < at.nb; i += nt)
+      s[i] = add_neg_mod(mul_shoup(s[i], c.ninv, c.ninv_sh, c.q),
+                         small_res(ed[i], c.q), c.q);
+    ntt_fwd_block(s, at.logb, t, c.q, tid, nt);
+    for (int i = tid; i < at.nb; i += nt) pk0[at.off + i] = s[i];
   }
-  ntt_inv_block(s, logn, t, c.q, tid, nt);
-  for (int i = tid; i < n; i += nt) {
-    c0[i] = add_mod_gt(mul_shoup(s[i], c.ninv, c.ninv_sh, c.q),
-                       small_res(e0[i], c.q), c.q);
-    s[i] = mont_mul(c1[i], pk1[i], c.q, c.qinv);
-  }
-  ntt_inv_block(s, logn, t, c.q, tid, nt);
-  for (int i = tid; i < n; i += nt)
-    c1[i] = add_mod_gt(mul_shoup(s[i], c.ninv, c.ninv_sh, c.q),
-                       small_res(e1[i], c.q), c.q);
-}
 
-// --- encrypt_fused, launch 2: the modulus drop and Delta*m + fix ----------
+  OP_HD void first(long long k) const {
+    const PairAt pa = pair_at(k, logn);
+    const u64 q = load_consts(tw.consts, pa.p).q;
+    const Twiddles t = twiddles_at(tw, pa.p, 1 << logn);
+    u64 u = small_res(sb[pa.i], q), v = small_res(sb[pa.i + pa.half], q);
+    ct_butterfly(u, v, t.psi[1], t.psi_sh[1], q);
+    sk[pa.lo] = u;
+    sk[pa.lo + pa.half] = v;
+  }
+
+  // GS stage 0 of INTT(a . sk), n^-1, -(x + e), then CT stage 0 of pk0.
+  OP_HD void last(long long k) const {
+    const PairAt pa = pair_at(k, logn);
+    const ModConsts c = load_consts(tw.consts, pa.p);
+    const Twiddles t = twiddles_at(tw, pa.p, 1 << logn);
+    u64 u = pk0[pa.lo], v = pk0[pa.lo + pa.half];
+    gs_butterfly(u, v, t.ipsi[1], t.ipsi_sh[1], c.q);
+    u = add_neg_mod(mul_shoup(u, c.ninv, c.ninv_sh, c.q),
+                    small_res(ed[pa.i], c.q), c.q);
+    v = add_neg_mod(mul_shoup(v, c.ninv, c.ninv_sh, c.q),
+                    small_res(ed[pa.i + pa.half], c.q), c.q);
+    ct_butterfly(u, v, t.psi[1], t.psi_sh[1], c.q);
+    pk0[pa.lo] = u;
+    pk0[pa.lo + pa.half] = v;
+  }
+};
+
+// 2^15: forward stages 1..14 of each half of x (P, n), in place after CT
+// stage 0 (keygen's second forward).
+struct ForwardHalves {
+  u64* x;
+  Twiddles tw;
+  int r, logn;
+
+  OP_HD void block(int b, int tid, int nt, u64* s) const {
+    const BlockAt at = block_at(b, logn);
+    const int mi = at.p % r;
+    const u64 q = load_consts(tw.consts, mi).q;
+    for (int i = tid; i < at.nb; i += nt) s[i] = x[at.off + i];
+    ntt_fwd_block(s, at.logb, twiddles_at(tw, mi, 1 << logn), q, tid, nt,
+                  at.tw_mul);
+    for (int i = tid; i < at.nb; i += nt) x[at.off + i] = s[i];
+  }
+};
+
+// --- encrypt_fused, transform: scratch[j, h, mi] = INTT(NTT(u_j) . pk_h) +> e_jh
+
+struct EncryptTransform {
+  const int* ub;  // (J, n) compact ternary u
+  const u64* pk;  // (2, r, n)
+  const int* ed;  // (J, 2, n) compact Gaussian e
+  u64* scratch;   // (J, 2, r, n)
+  Twiddles tw;
+  int r, logn;
+
+  OP_HD u64* slot(int j, int h, int mi) const {
+    return scratch + (((size_t)(2 * j + h) * r + mi) << logn);
+  }
+
+  OP_HD void block(int b, int tid, int nt, u64* s) const {
+    const BlockAt at = block_at(b, logn);
+    const bool split = logn > LOG_BLOCK_MAX;
+    const int j = at.p / r, mi = at.p % r;
+    const ModConsts c = load_consts(tw.consts, mi);
+    const Twiddles t = twiddles_at(tw, mi, 1 << logn);
+    u64* c0 = slot(j, 0, mi) + at.hoff;
+    u64* c1 = slot(j, 1, mi) + at.hoff;
+    const u64* pk0 = pk + ((size_t)mi << logn) + at.hoff;
+    const u64* pk1 = pk + ((size_t)(r + mi) << logn) + at.hoff;
+    const int* e0 = ed + ((size_t)(2 * j) << logn);
+    const int* e1 = ed + ((size_t)(2 * j + 1) << logn);
+    const int* u = ub + ((size_t)j << logn);
+    for (int i = tid; i < at.nb; i += nt)  // 2^15: CT stage 0 in the c1 slot
+      s[i] = split ? c1[i] : small_res(u[i], c.q);
+    ntt_fwd_block(s, at.logb, t, c.q, tid, nt, at.tw_mul);
+    for (int i = tid; i < at.nb; i += nt) {
+      c1[i] = s[i];  // NTT(u), read back by this same thread below
+      s[i] = mont_mul(s[i], pk0[i], c.q, c.qinv);
+    }
+    ntt_inv_block(s, at.logb, t, c.q, tid, nt, at.tw_mul);
+    for (int i = tid; i < at.nb; i += nt) {
+      c0[i] = split ? s[i]
+                    : add_mod_gt(mul_shoup(s[i], c.ninv, c.ninv_sh, c.q),
+                                 small_res(e0[i], c.q), c.q);
+      s[i] = mont_mul(c1[i], pk1[i], c.q, c.qinv);
+    }
+    ntt_inv_block(s, at.logb, t, c.q, tid, nt, at.tw_mul);
+    for (int i = tid; i < at.nb; i += nt)
+      c1[i] = split ? s[i]
+                    : add_mod_gt(mul_shoup(s[i], c.ninv, c.ninv_sh, c.q),
+                                 small_res(e1[i], c.q), c.q);
+  }
+
+  // Pair k over the J r polynomials (j, mi): CT stage 0 of u into the c1 slot.
+  OP_HD void first(long long k) const {
+    const PairAt pa = pair_at(k, logn);
+    const int j = pa.p / r, mi = pa.p % r;
+    const u64 q = load_consts(tw.consts, mi).q;
+    const Twiddles t = twiddles_at(tw, mi, 1 << logn);
+    const int* u = ub + ((size_t)j << logn);
+    u64 a = small_res(u[pa.i], q), b = small_res(u[pa.i + pa.half], q);
+    ct_butterfly(a, b, t.psi[1], t.psi_sh[1], q);
+    u64* c1 = slot(j, 1, mi);
+    c1[pa.i] = a;
+    c1[pa.i + pa.half] = b;
+  }
+
+  // Pair k over the J 2 r slots ((j, h), mi): GS stage 0, n^-1, +> e_jh.
+  OP_HD void last(long long k) const {
+    const PairAt pa = pair_at(k, logn);
+    const int row = pa.p / r, mi = pa.p % r;  // row = 2 j + h
+    const ModConsts c = load_consts(tw.consts, mi);
+    const Twiddles t = twiddles_at(tw, mi, 1 << logn);
+    const int* e = ed + ((size_t)row << logn);
+    u64 a = scratch[pa.lo], b = scratch[pa.lo + pa.half];
+    gs_butterfly(a, b, t.ipsi[1], t.ipsi_sh[1], c.q);
+    scratch[pa.lo] = add_mod_gt(mul_shoup(a, c.ninv, c.ninv_sh, c.q),
+                                small_res(e[pa.i], c.q), c.q);
+    scratch[pa.lo + pa.half] =
+        add_mod_gt(mul_shoup(b, c.ninv, c.ninv_sh, c.q),
+                   small_res(e[pa.i + pa.half], c.q), c.q);
+  }
+};
+
+// --- encrypt_fused, tail: the modulus drop and Delta*m + fix --------------
 // tc: TailConsts.per_mod rows (q, -q^-1, nu, half_mod, inv_q_last * 2^64,
 // q_i / t); one thread per output coefficient of ct (J, 2, r-1, n).  With
 // m null it is the modulus drop alone: the key switch's last launch
 // (divide_and_round_q_last of the accumulated (J, 2, r, n) pair).
 
-NTT_HD void encrypt_tail_body(long long idx, const u64* scratch,
-                              const long long* m, u64* ct, const u64* tc,
-                              u64 q_last, u64 half, u64 fix_th, int r, int n) {
-  const int rk = r - 1;
-  const int k = (int)(idx % n);
-  long long rest = idx / n;
-  const int ki = (int)(rest % rk);
-  rest /= rk;
-  const int h = (int)(rest % 2);
-  const long long j = rest / 2;
-  const u64* p = tc + 6 * ki;
-  const u64 q = p[0], qinv = p[1], nu = p[2], half_mod = p[3], invq = p[4],
-            qi_div_t = p[5];
-  const size_t base = (size_t)(2 * j + h) * r;
-  const u64 sv = scratch[(base + ki) * n + k];
-  u64 ra = scratch[(base + rk) * n + k] + half;
-  if (ra >= q_last) ra -= q_last;
-  u64 tmp = mod_nu(ra, q, nu);
-  tmp = tmp < half_mod ? tmp + q - half_mod : tmp - half_mod;
-  const u64 v = sv < tmp ? sv + q - tmp : sv - tmp;
-  u64 out = mont_mul(v, invq, q, qinv);
-  if (h == 0 && m) {
-    const u64 mm = (u64)m[j * n + k];
-    out = mod_nu(out + mm * qi_div_t + (mm >= fix_th ? 1ull : 0ull), q, nu);
+struct EncryptTail {
+  const u64* scratch;
+  const long long* m;
+  u64* ct;
+  const u64* tc;
+  u64 q_last, half, fix_th;
+  int r, n;
+
+  OP_HD void operator()(long long idx) const {
+    const int rk = r - 1;
+    const int k = (int)(idx % n);
+    long long rest = idx / n;
+    const int ki = (int)(rest % rk);
+    rest /= rk;
+    const int h = (int)(rest % 2);
+    const long long j = rest / 2;
+    const u64* p = tc + 6 * ki;
+    const u64 q = p[0], qinv = p[1], nu = p[2], half_mod = p[3], invq = p[4],
+              qi_div_t = p[5];
+    const size_t base = (size_t)(2 * j + h) * r;
+    const u64 sv = scratch[(base + ki) * n + k];
+    u64 ra = scratch[(base + rk) * n + k] + half;
+    if (ra >= q_last) ra -= q_last;
+    u64 tmp = mod_nu(ra, q, nu);
+    tmp = tmp < half_mod ? tmp + q - half_mod : tmp - half_mod;
+    const u64 v = sv < tmp ? sv + q - tmp : sv - tmp;
+    u64 out = mont_mul(v, invq, q, qinv);
+    if (h == 0 && m) {
+      const u64 mm = (u64)m[j * n + k];
+      out = mod_nu(out + mm * qi_div_t + (mm >= fix_th ? 1ull : 0ull), q, nu);
+    }
+    ct[idx] = out;
   }
-  ct[idx] = out;
-}
+};
+
+// --- launches ---------------------------------------------------------------
+
+template <typename F>
+struct FirstPass {
+  F f;
+  OP_HD void operator()(long long k) const { f.first(k); }
+};
+
+template <typename F>
+struct LastPass {
+  F f;
+  OP_HD void operator()(long long k) const { f.last(k); }
+};
 
 #ifdef __CUDACC__
 
-__global__ void k_half_polymul(const u64* x, const u64* y, u64* out,
-                               Twiddles tw, int r, int logn) {
+template <typename F>
+__global__ void k_blocks(F f) {
   extern __shared__ u64 smem[];
-  half_polymul_body(blockIdx.x, threadIdx.x, blockDim.x, smem, x, y, out, tw,
-                    r, logn);
+  f.block(blockIdx.x, threadIdx.x, blockDim.x, smem);
 }
 
-__global__ void k_keygen(const int* sb, const u64* a, const int* ed, u64* sk,
-                         u64* pk0, Twiddles tw, int logn) {
-  extern __shared__ u64 smem[];
-  keygen_body(blockIdx.x, threadIdx.x, blockDim.x, smem, sb, a, ed, sk, pk0,
-              tw, logn);
+template <typename F>
+__global__ void k_each(F f, long long total) {
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k < total) f(k);
 }
 
-__global__ void k_encrypt_transform(const int* ub, const u64* pk, const int* ed,
-                                    u64* scratch, Twiddles tw, int r,
-                                    int logn) {
-  extern __shared__ u64 smem[];
-  encrypt_transform_body(blockIdx.x, threadIdx.x, blockDim.x, smem, ub, pk, ed,
-                         scratch, tw, r, logn);
+// `blocks` blocks of f, each with 2^logb u64 of shared memory.
+template <typename F>
+static int run_blocks(const F& f, int blocks, int logb, void* stream) {
+  return launch_poly(k_blocks<F>, blocks, logb, stream, f);
 }
 
-__global__ void k_encrypt_tail(const u64* scratch, const long long* m, u64* ct,
-                               const u64* tc, u64 q_last, u64 half, u64 fix_th,
-                               int r, int n, long long total) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < total)
-    encrypt_tail_body(idx, scratch, m, ct, tc, q_last, half, fix_th, r, n);
+// f(k) for k < total, one thread each.
+template <typename F>
+static int run_each(const F& f, long long total, void* stream) {
+  if (total < 1) return NTT_EINVAL;
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  k_each<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(f, total);
+  return (int)cudaGetLastError();
+}
+
+#else  // host build for the CPU tests: one thread per block, blocks in order
+
+template <typename F>
+static int run_blocks(const F& f, int blocks, int logb, void*) {
+  if (logb < 1 || logb > LOG_BLOCK_MAX || blocks < 1) return NTT_EINVAL;
+  std::vector<u64> s((size_t)1 << logb);
+  for (int b = 0; b < blocks; ++b) f.block(b, 0, 1, s.data());
+  return 0;
+}
+
+template <typename F>
+static int run_each(const F& f, long long total, void*) {
+  if (total < 1) return NTT_EINVAL;
+  for (long long k = 0; k < total; ++k) f(k);
+  return 0;
+}
+
+#endif
+
+// An op over `polys` polynomials of 2^logn points: one block each up to
+// 2^14; at 2^15 CT stage 0 over them, two half blocks each, then GS stage 0
+// over `last_polys` polynomials.
+template <typename F>
+static int run_op(const F& f, int polys, int last_polys, int logn,
+                  void* stream) {
+  if (logn < 1 || logn > LOG_BLOCK_MAX + 1 || polys < 1) return NTT_EINVAL;
+  const int split = logn > LOG_BLOCK_MAX;
+  const long long half = 1ll << (logn - 1);
+  int rc = split ? run_each(FirstPass<F>{f}, polys * half, stream) : 0;
+  if (rc == 0) rc = run_blocks(f, polys << split, logn - split, stream);
+  if (rc == 0 && split)
+    rc = run_each(LastPass<F>{f}, last_polys * half, stream);
+  return rc;
 }
 
 extern "C" int ntt_half_polymul(const void* x, const void* y, void* out,
@@ -181,9 +424,10 @@ extern "C" int ntt_half_polymul(const void* x, const void* y, void* out,
                                 const void* ipsi, const void* ipsi_sh,
                                 const void* consts, int blocks, int r, int logn,
                                 void* stream) {
-  return launch_poly(k_half_polymul, blocks, logn, stream, (const u64*)x,
-                     (const u64*)y, (u64*)out,
-                     make_tw(psi, psi_sh, ipsi, ipsi_sh, consts), r, logn);
+  if (r < 1 || blocks % r) return NTT_EINVAL;
+  const HalfPolymul f = {(const u64*)x, (const u64*)y, (u64*)out,
+                         make_tw(psi, psi_sh, ipsi, ipsi_sh, consts), r, logn};
+  return run_op(f, blocks, blocks, logn, stream);
 }
 
 extern "C" int ntt_keygen_fused(const void* sb, const void* a, const void* ed,
@@ -191,9 +435,13 @@ extern "C" int ntt_keygen_fused(const void* sb, const void* a, const void* ed,
                                 const void* psi_sh, const void* ipsi,
                                 const void* ipsi_sh, const void* consts, int r,
                                 int logn, void* stream) {
-  return launch_poly(k_keygen, r, logn, stream, (const int*)sb, (const u64*)a,
-                     (const int*)ed, (u64*)sk, (u64*)pk0,
-                     make_tw(psi, psi_sh, ipsi, ipsi_sh, consts), logn);
+  const Twiddles tw = make_tw(psi, psi_sh, ipsi, ipsi_sh, consts);
+  const Keygen f = {(const int*)sb, (const u64*)a, (const int*)ed, (u64*)sk,
+                    (u64*)pk0,      tw,            logn};
+  const int rc = run_op(f, r, r, logn, stream);
+  if (rc != 0 || logn <= LOG_BLOCK_MAX) return rc;
+  const ForwardHalves fh = {(u64*)pk0, tw, r, logn};
+  return run_blocks(fh, 2 * r, logn - 1, stream);
 }
 
 extern "C" int ntt_encrypt_transform(const void* ub, const void* pk,
@@ -202,74 +450,19 @@ extern "C" int ntt_encrypt_transform(const void* ub, const void* pk,
                                      const void* ipsi, const void* ipsi_sh,
                                      const void* consts, int J, int r, int logn,
                                      void* stream) {
-  return launch_poly(k_encrypt_transform, J * r, logn, stream, (const int*)ub,
-                     (const u64*)pk, (const int*)ed, (u64*)scratch,
-                     make_tw(psi, psi_sh, ipsi, ipsi_sh, consts), r, logn);
+  if (J < 1 || r < 1) return NTT_EINVAL;
+  const EncryptTransform f = {(const int*)ub, (const u64*)pk, (const int*)ed,
+                              (u64*)scratch,
+                              make_tw(psi, psi_sh, ipsi, ipsi_sh, consts), r,
+                              logn};
+  return run_op(f, J * r, J * 2 * r, logn, stream);
 }
 
 extern "C" int ntt_encrypt_tail(const void* scratch, const void* m, void* ct,
                                 const void* tc, u64 q_last, u64 half,
                                 u64 fix_th, int J, int r, int n, void* stream) {
-  const long long total = (long long)J * 2 * (r - 1) * n;
-  if (total < 1) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  k_encrypt_tail<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const u64*)scratch, (const long long*)m, (u64*)ct, (const u64*)tc,
-      q_last, half, fix_th, r, n, total);
-  return (int)cudaGetLastError();
+  if (r < 2) return NTT_EINVAL;
+  const EncryptTail f = {(const u64*)scratch, (const long long*)m, (u64*)ct,
+                         (const u64*)tc, q_last, half, fix_th, r, n};
+  return run_each(f, (long long)J * 2 * (r - 1) * n, stream);
 }
-
-#else  // host build for the CPU tests: one thread per block, blocks in order
-
-extern "C" int ntt_half_polymul(const void* x, const void* y, void* out,
-                                const void* psi, const void* psi_sh,
-                                const void* ipsi, const void* ipsi_sh,
-                                const void* consts, int blocks, int r, int logn,
-                                void*) {
-  std::vector<u64> s((size_t)1 << logn);
-  const Twiddles tw = make_tw(psi, psi_sh, ipsi, ipsi_sh, consts);
-  for (int b = 0; b < blocks; ++b)
-    half_polymul_body(b, 0, 1, s.data(), (const u64*)x, (const u64*)y,
-                      (u64*)out, tw, r, logn);
-  return 0;
-}
-
-extern "C" int ntt_keygen_fused(const void* sb, const void* a, const void* ed,
-                                void* sk, void* pk0, const void* psi,
-                                const void* psi_sh, const void* ipsi,
-                                const void* ipsi_sh, const void* consts, int r,
-                                int logn, void*) {
-  std::vector<u64> s((size_t)1 << logn);
-  const Twiddles tw = make_tw(psi, psi_sh, ipsi, ipsi_sh, consts);
-  for (int mi = 0; mi < r; ++mi)
-    keygen_body(mi, 0, 1, s.data(), (const int*)sb, (const u64*)a,
-                (const int*)ed, (u64*)sk, (u64*)pk0, tw, logn);
-  return 0;
-}
-
-extern "C" int ntt_encrypt_transform(const void* ub, const void* pk,
-                                     const void* ed, void* scratch,
-                                     const void* psi, const void* psi_sh,
-                                     const void* ipsi, const void* ipsi_sh,
-                                     const void* consts, int J, int r, int logn,
-                                     void*) {
-  std::vector<u64> s((size_t)1 << logn);
-  const Twiddles tw = make_tw(psi, psi_sh, ipsi, ipsi_sh, consts);
-  for (int b = 0; b < J * r; ++b)
-    encrypt_transform_body(b, 0, 1, s.data(), (const int*)ub, (const u64*)pk,
-                           (const int*)ed, (u64*)scratch, tw, r, logn);
-  return 0;
-}
-
-extern "C" int ntt_encrypt_tail(const void* scratch, const void* m, void* ct,
-                                const void* tc, u64 q_last, u64 half,
-                                u64 fix_th, int J, int r, int n, void*) {
-  const long long total = (long long)J * 2 * (r - 1) * n;
-  for (long long idx = 0; idx < total; ++idx)
-    encrypt_tail_body(idx, (const u64*)scratch, (const long long*)m, (u64*)ct,
-                      (const u64*)tc, q_last, half, fix_th, r, n);
-  return 0;
-}
-
-#endif

@@ -58,6 +58,12 @@ NTT_HD u64 sub_mod(u64 a, u64 b, u64 q) {
   return a >= b ? a - b : a + q - b;
 }
 
+// -(a + b) mod q with the 0 fixup (poly_add_negate_xq, bfv_keygen.cuh:81-93).
+NTT_HD u64 add_neg_mod(u64 a, u64 b, u64 q) {
+  const u64 neg = q - add_mod(a, b, q);
+  return neg == q ? 0 : neg;
+}
+
 // x * w mod q for any u64 x and a constant w < q with ws = floor(w 2^64 / q).
 // x*w - floor(x*ws / 2^64)*q lies in [0, 2q).
 NTT_HD u64 mul_shoup(u64 x, u64 w, u64 ws, u64 q) {

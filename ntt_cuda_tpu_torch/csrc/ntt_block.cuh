@@ -25,8 +25,9 @@
 // 2^logn-point one whose twiddle for local (len', ps') is
 // psi[(2 + h) len' + ps'] -- the full stage has len = 2 len' and
 // ps = h len' + ps'.  The caller passes tw_mul = 2 + h and the full
-// polynomial's tables; ntt_stage.cu does stage 0 (the pairs i, i + n/2)
-// in a separate elementwise pass.
+// polynomial's tables; stage 0 (the pairs i, i + n/2, twiddle psi[1] or
+// psi^-1[1]) runs in a separate elementwise pass (ntt_stage.cu,
+// fused_ops.cu) through the same two butterflies.
 
 #pragma once
 
@@ -72,6 +73,21 @@ NTT_HD Twiddles twiddles_at(Twiddles tw, int mi, int n) {
   return t;
 }
 
+// The two butterflies, with twiddle w and its Shoup companion ws:
+// CT (a, b) -> (a + w b, a - w b); GS (a, b) -> (a + b, (a - b) w).
+NTT_HD void ct_butterfly(u64& a, u64& b, u64 w, u64 ws, u64 q) {
+  const u64 u = a;
+  const u64 v = mul_shoup(b, w, ws, q);
+  a = add_mod(u, v, q);
+  b = sub_mod(u, v, q);
+}
+
+NTT_HD void gs_butterfly(u64& a, u64& b, u64 w, u64 ws, u64 q) {
+  const u64 u = a, v = b;
+  a = add_mod(u, v, q);
+  b = mul_shoup(sub_mod(u, v, q), w, ws, q);
+}
+
 // Forward transform of s[0, 2^logn), values in [0, q) in and out.
 NTT_HD void ntt_fwd_block(u64* s, int logn, const Twiddles& tw, u64 q, int tid,
                           int nt, int tw_mul = 1) {
@@ -84,11 +100,8 @@ NTT_HD void ntt_fwd_block(u64* s, int logn, const Twiddles& tw, u64 q, int tid,
     for (int g = tid; g < half; g += nt) {
       const int ps = g >> sl;
       const int tgt = (ps << (sl + 1)) | (g & (step - 1));
-      const u64 u = s[tgt];
       const int w = tw_mul * len + ps;
-      const u64 v = mul_shoup(s[tgt + step], tw.psi[w], tw.psi_sh[w], q);
-      s[tgt] = add_mod(u, v, q);
-      s[tgt + step] = sub_mod(u, v, q);
+      ct_butterfly(s[tgt], s[tgt + step], tw.psi[w], tw.psi_sh[w], q);
     }
     BLOCK_SYNC();
   }
@@ -107,11 +120,8 @@ NTT_HD void ntt_inv_block(u64* s, int logn, const Twiddles& tw, u64 q, int tid,
     for (int g = tid; g < half; g += nt) {
       const int ps = g >> sl;
       const int tgt = (ps << (sl + 1)) | (g & (step - 1));
-      const u64 u = s[tgt];
-      const u64 v = s[tgt + step];
       const int w = tw_mul * len + ps;
-      s[tgt] = add_mod(u, v, q);
-      s[tgt + step] = mul_shoup(sub_mod(u, v, q), tw.ipsi[w], tw.ipsi_sh[w], q);
+      gs_butterfly(s[tgt], s[tgt + step], tw.ipsi[w], tw.ipsi_sh[w], q);
     }
     BLOCK_SYNC();
   }
@@ -124,6 +134,13 @@ static inline int ntt_threads(int n) { return n / 2 < 1024 ? n / 2 : 1024; }
 // The longest polynomial one block holds in shared memory: 2^14 u64, 128 KB
 // of the 227 KB a block can use (two 2^14 halves make the 2^15 transform).
 #define LOG_BLOCK_MAX 14
+
+// A launcher's return code for arguments its kernels do not take.
+#ifdef __CUDACC__
+#define NTT_EINVAL ((int)cudaErrorInvalidValue)
+#else
+#define NTT_EINVAL 1
+#endif
 
 #ifdef __CUDACC__
 // Launch a block-per-polynomial kernel with 8 * 2^logb bytes of dynamic

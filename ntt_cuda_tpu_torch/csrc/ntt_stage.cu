@@ -94,18 +94,13 @@ NTT_HD u64 prologue(const StageIO& io, int p, int i, const ModConsts& c) {
   switch (io.pro) {
     case PRO_TERNARY:
       return small_res(io.d[at_d], c.q);
-    case PRO_ADDNEG_GAUSS: {
-      // -(x + e) mod q with the 0 fixup (poly_add_negate_xq)
-      const u64 neg = c.q - add_mod(io.x[at], small_res(io.d[at_d], c.q), c.q);
-      return neg == c.q ? 0 : neg;
-    }
+    case PRO_ADDNEG_GAUSS:
+      return add_neg_mod(io.x[at], small_res(io.d[at_d], c.q), c.q);
     case PRO_MONT:
       return mont_mul(io.x[at], io.y[(size_t)(p % io.ny) * n + i], c.q,
                       c.qinv);
-    case PRO_ADDNEG: {
-      const u64 neg = c.q - add_mod(io.x[at], io.y[at], c.q);
-      return neg == c.q ? 0 : neg;
-    }
+    case PRO_ADDNEG:
+      return add_neg_mod(io.x[at], io.y[at], c.q);
     case PRO_DIGIT:
       return mod_nu(io.x[at_d], c.q, io.nu[p % io.r]);
     case PRO_KSACC: {
@@ -184,12 +179,11 @@ NTT_HD void fwd_first_body(long long k, StageIO io, Twiddles tw) {
   const int mi = p % io.r;
   const ModConsts c = load_consts(tw.consts, mi);
   const Twiddles t = twiddles_at(tw, mi, 1 << io.logn);
-  const u64 u = prologue(io, p, i, c);
-  const u64 v = mul_shoup(prologue(io, p, i + half, c), t.psi[1], t.psi_sh[1],
-                          c.q);
+  u64 u = prologue(io, p, i, c), v = prologue(io, p, i + half, c);
+  ct_butterfly(u, v, t.psi[1], t.psi_sh[1], c.q);
   u64* ob = io.out + ((size_t)p << io.logn);
-  ob[i] = add_mod(u, v, c.q);
-  ob[i + half] = sub_mod(u, v, c.q);
+  ob[i] = u;
+  ob[i + half] = v;
 }
 
 // 2^15 only: GS stage 0 and the epilogue, in place on out.
@@ -200,11 +194,10 @@ NTT_HD void inv_last_body(long long k, StageIO io, Twiddles tw) {
   const ModConsts c = load_consts(tw.consts, mi);
   const Twiddles t = twiddles_at(tw, mi, 1 << io.logn);
   u64* ob = io.out + ((size_t)p << io.logn);
-  const u64 u = ob[i], v = ob[i + half];
-  ob[i] = inv_finish(io, p, i, add_mod(u, v, c.q), c);
-  ob[i + half] = inv_finish(
-      io, p, i + half,
-      mul_shoup(sub_mod(u, v, c.q), t.ipsi[1], t.ipsi_sh[1], c.q), c);
+  u64 u = ob[i], v = ob[i + half];
+  gs_butterfly(u, v, t.ipsi[1], t.ipsi_sh[1], c.q);
+  ob[i] = inv_finish(io, p, i, u, c);
+  ob[i + half] = inv_finish(io, p, i + half, v, c);
 }
 
 static StageIO stage_io(const void* x, const void* d, const void* y,

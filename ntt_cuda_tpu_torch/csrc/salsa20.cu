@@ -12,6 +12,16 @@
 // Bound on the card: 20 rounds of 32-bit add/xor/rotate on 16 registers per
 // block, then 16 (or 24) coalesced stores; about a megabyte of output at
 // keygen sizes.  One thread per 64-byte block, nothing shared.
+//
+// Kernel 6, ntt_salsa20_batch, replaces _keystream_pallas_batch
+// (salsa20.py:249, pallas_call :283): the J streams of a batched
+// encryption in one launch, message j's nonce read from a (J,) device array
+// of u64 bit patterns (the TPU's scalar-prefetch row).  Grid: 64-byte
+// blocks in x, messages in y; one thread per (message, block) runs the
+// same salsa20_body as K1 and writes word p of block b at
+// bw[(j * 16 + p) * nb + b], the (J, 16, nb) layout.  The block counter
+// counter0 + b carries into word 9 as _salsa_chunk's does (salsa20.py:
+// 130-132).  Bound: the J * 16 * nb * 8 bytes it writes.
 
 #include "modarith.cuh"
 
@@ -79,6 +89,25 @@ extern "C" int ntt_salsa20(void* bw, void* lanes, long long nb, u32 kw,
   return (int)cudaGetLastError();
 }
 
+__global__ void k_salsa20_batch(u64* bw, long long nb, u32 kw,
+                                const u64* nonces, u64 ctr0) {
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long j = blockIdx.y;
+  if (b < nb)
+    salsa20_body(b, bw + j * 16 * nb, nullptr, nb, kw, nonces[j], ctr0);
+}
+
+extern "C" int ntt_salsa20_batch(void* bw, long long nb, u32 kw,
+                                 const void* nonces, int J, u64 ctr0,
+                                 void* stream) {
+  if (nb < 1 || J < 1 || J > 65535) return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  const dim3 grid((unsigned)((nb + threads - 1) / threads), (unsigned)J);
+  k_salsa20_batch<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (u64*)bw, nb, kw, (const u64*)nonces, ctr0);
+  return (int)cudaGetLastError();
+}
+
 extern "C" const char* ntt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
@@ -89,6 +118,16 @@ extern "C" int ntt_salsa20(void* bw, void* lanes, long long nb, u32 kw,
                            u64 nonce, u64 ctr0, void*) {
   for (long long b = 0; b < nb; ++b)
     salsa20_body(b, (u64*)bw, (u64*)lanes, nb, kw, nonce, ctr0);
+  return 0;
+}
+
+extern "C" int ntt_salsa20_batch(void* bw, long long nb, u32 kw,
+                                 const void* nonces, int J, u64 ctr0, void*) {
+  if (nb < 1 || J < 1 || J > 65535) return 1;
+  for (long long j = 0; j < J; ++j)
+    for (long long b = 0; b < nb; ++b)
+      salsa20_body(b, (u64*)bw + j * 16 * nb, nullptr, nb, kw,
+                   ((const u64*)nonces)[j], ctr0);
   return 0;
 }
 

@@ -33,8 +33,8 @@ HEADERS = ("modarith.cuh", "ntt_block.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 BLOCK_MAX_N = 16384     # one u64 polynomial per block in shared memory:
-#                         128 KB; the whole-op kernels (fused_ops.cu)
-TRANSFORM_MAX_N = 32768  # two 2^14 halves; the stage kernels (ntt_stage.cu)
+#                         128 KB
+TRANSFORM_MAX_N = 32768  # two 2^14 halves beside elementwise stage-0 passes
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +46,8 @@ _U64 = ctypes.c_uint64
 SIGNATURES = {
     # bw, lanes, nb, key word, nonce, counter0
     "ntt_salsa20": (_P, _P, _L, _U32, _U64, _U64, _P),
+    # bw, nb, key word, nonces (J,) u64, J, counter0
+    "ntt_salsa20_batch": (_P, _L, _U32, _P, _I, _U64, _P),
     # x, c0, out, per_mod, glob, J, r-1, n, pow2, t, neg_t, nu_t, inv_gt
     "ntt_decrypt_tail": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _U64, _U64,
                          _U64, _U64, _P),
@@ -143,6 +145,18 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The kernels' library, built if needed and loaded once per process."""
     return bind(ctypes.CDLL(str(build())))
+
+
+def default_device(device, name: str) -> torch.device:
+    """`device`, where None is the current CUDA device; raises where there
+    is none.  The CPU (the kernels' plain versions) only when asked for."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{name}: no CUDA device (torch.cuda.is_available()"
+                           f" is False); pass device='cpu' to run the "
+                           f"kernels' plain versions")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def kernel_device(name: str, t: torch.Tensor, tables,

@@ -5,18 +5,23 @@ Counterpart of `ntt_cuda_tpu/models/bfv.py` (the reference's
 bfv_keygen.cuh:95, bfv_encryption.cuh:223, bfv_decryption.cuh:76) with the
 integer uniform spec, on the JAX package's two kernel schedules:
 
-* "op": one whole-op kernel per operation (ops/fused_ops.py), n <= 16384;
+* "op": one whole-op kernel per operation (ops/fused_ops.py; at
+  n = 32768 over two 2^14 halves beside elementwise stage-0 passes);
 * "stage": one kernel per transform with its elementwise neighbours fused
-  in (ops/ntt_stage.py, bfv_tail.encrypt_fused), n <= 32768.
+  in (ops/ntt_stage.py, bfv_tail.encrypt_fused).
 
 `fusion="auto"` picks as the JAX package does: "op" up to n = 16384,
-"stage" above.  The evaluator (mul, square, relin_keygen, relinearize and
-decrypt of L >= 3 ciphertexts) ignores `fusion`, as the JAX package's
-pallas backends do: its transforms are the stage kernels at every n, its
-base conversions ops/behz_kernels.py and its key switch
-fused_ops.keyswitch_fused.  Eager PyTorch: each operation is a few kernel
-launches on the context's device (the CPU runs the kernels' plain
-versions instead).
+"stage" above.  `encrypt_batch` runs the J-nonce keystream (kernel 6) and
+the whole-op encrypt kernel under either schedule, as the JAX package
+does.  The evaluator (mul, square, relin_keygen, relinearize and decrypt
+of L >= 3 ciphertexts) ignores `fusion`, as the JAX package's pallas
+backends do: its transforms are the stage kernels at every n, its base
+conversions ops/behz_kernels.py and its key switch
+fused_ops.keyswitch_fused.  The ciphertext ops (add, sub, negate,
+add_plain, sub_plain, mod_switch_to_next) are plain tensor ops on the
+device, as the JAX package leaves them to XLA; mul_plain runs the stage
+transforms.  Eager PyTorch: each operation is a few kernel launches on
+the context's device (the CPU runs the kernels' plain versions instead).
 
 Conventions are the JAX package's: sk (r, n) and pk (2, r, n) live in the
 NTT domain; ciphertexts are (2, r-1, n) coefficient-domain residues with
@@ -32,16 +37,15 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import convert, cuda
 from .. import params as params_mod
 from ..cuda import BLOCK_MAX_N, TRANSFORM_MAX_N
 from ..ops import (behz, behz_kernels, bfv_tail, fused_ops, modmath, ntt,
-                   ntt_stage, sampling)
+                   ntt_stage, poly, salsa20, sampling)
 from ..ops.modmath import I64
 from ..utils import hostmath as hm
 
 # What the port leaves out, by the ROADMAP.md Queue 1 item that adds it.
-_ROADMAP_OP32K = ("ROADMAP.md Queue 1 item 2 (the op schedule at n = 32768: "
-                  "whole-op kernels over two 2^14 halves)")
 _ROADMAP_FP64 = "ROADMAP.md Queue 1 item 4 (uniform_spec='fp64')"
 
 
@@ -139,22 +143,10 @@ class BFVContext:
             raise NotImplementedError(
                 f"n={params.n} > {TRANSFORM_MAX_N}: no transform kernel "
                 f"takes it")
-        if fusion == "op" and params.n > BLOCK_MAX_N:
-            raise NotImplementedError(
-                f"fusion='op' at n={params.n} > {BLOCK_MAX_N}: one "
-                f"polynomial no longer fits one block's shared memory; use "
-                f"fusion='stage' (or 'auto'), see {_ROADMAP_OP32K}")
         if uniform_spec == "fp64":
             raise NotImplementedError(
                 f"uniform_spec='fp64' is not ported; see {_ROADMAP_FP64}")
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "BFVContext.build: no CUDA device "
-                    "(torch.cuda.is_available() is False); pass "
-                    "device='cpu' to run the kernels' plain versions")
-            device = "cuda"
-        device = torch.device(device)
+        device = cuda.default_device(device, "BFVContext.build")
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         return BFVContext(
@@ -211,23 +203,47 @@ class BFVContext:
         return bfv_tail.encrypt_fused(u_ntt, pk, e_d, m_poly, tf,
                                       self.tail_consts)
 
+    def encrypt_batch(self, pk, m_batch, nonces):
+        """Throughput-mode encryption: pk (2, r, n) NTT domain, m_batch
+        (J, n) in [0, t), nonces (J,) distinct per message -> (J, 2, r-1,
+        n) ciphertexts, row j bit-identical to encrypt(pk, m_batch[j],
+        nonces[j]).  One keystream launch for the J nonces (kernel 6) and
+        the whole-op encrypt kernel over the batch, whatever the context's
+        fusion (the JAX package's rule, ntt_cuda_tpu/models/bfv.py:988-999).
+        The kernel's (J, 2, r, n) scratch is J 2 r n 8 bytes: 75 MB at
+        32k_9q, J = 16.  The JAX package splits larger batches for the
+        TPU's VMEM; the split changes no integer, so the port does not."""
+        p = self.params
+        pk = check_residues("pk", pk, (2, p.r, p.n),
+                            "keygen returns the NTT-domain (2, r, n) pk",
+                            self.device)
+        m_batch = _as_tensor("m_batch", m_batch)
+        if m_batch.dim() != 2:
+            raise ValueError(f"m_batch: expected (J, n), got "
+                             f"{tuple(m_batch.shape)}")
+        J = m_batch.shape[0]
+        m_batch = check_residues("m_batch", m_batch, (J, p.n),
+                                 device=self.device)
+        sampling.check_user_nonce(nonces)
+        nonces = salsa20.nonce_array(nonces)
+        if nonces.shape != (J,):
+            raise ValueError(f"nonces: expected shape ({J},), got "
+                             f"{nonces.shape}")
+        u_b, e_d = sampling.encrypt_draws_compact_batch(p.n, nonces,
+                                                        device=self.device)
+        return fused_ops.encrypt_fused(u_b, pk, e_d, m_batch,
+                                       self.tables_full, self.tail_consts)
+
     def decrypt(self, sk, ct):
         """sk (r, n) NTT domain (first r-1 residues used; (r-1, n) also
         accepted), ct (L, r-1, n) -> plaintext (n,) in [0, t)
         (decryption_rns, bfv_decryption.cuh:76-138).  L = 2 for fresh or
         relinearized ciphertexts; L >= 3 decrypts mul()'s output directly
         (c0 + c1 s + ... + c_{L-1} s^{L-1})."""
-        p = self.params
         sk = self._sk_drop(sk)
-        ct = _as_tensor("ct", ct)
-        if ct.dim() != 3 or ct.shape[0] < 2:
-            raise ValueError(f"ct: expected shape (L>=2, r-1, n), got "
-                             f"{tuple(ct.shape)}")
-        L = ct.shape[0]
-        ct = check_residues("ct", ct, (L, p.r - 1, p.n),
-                            "encrypt returns (2, r-1, n), mul() (3, r-1, n)"
-                            " — the last RNS modulus is dropped", self.device)
-        x = (self._front(ct[1], sk) if L == 2 else
+        ct = self._ct_any("ct", ct, "encrypt returns (2, r-1, n), mul() "
+                          "(3, r-1, n) — the last RNS modulus is dropped")
+        x = (self._front(ct[1], sk) if ct.shape[0] == 2 else
              self._spower_front(ct[1:], sk))
         return bfv_tail.decrypt_tail(x, ct[0], self.dec_tail_consts)
 
@@ -247,6 +263,126 @@ class BFVContext:
         x = self._front(cts[:, 1].contiguous(), sk)
         return bfv_tail.decrypt_tail(x, cts[:, 0].contiguous(),
                                      self.dec_tail_consts)
+
+    def add(self, ct_a, ct_b):
+        """Homomorphic addition: decrypts to (m1 + m2) mod t.  (2, r-1, n)
+        ciphertexts or (J, 2, r-1, n) batches of one shape.  The exact
+        mod-q add (not the strict-`>` quirk): sums equal to q reduce to 0,
+        so outputs stay canonical."""
+        a, b = self._ct_pair("add", ct_a, ct_b)
+        return modmath.add_mod(a, b, self.tables_drop.ms.q)
+
+    def sub(self, ct_a, ct_b):
+        """Homomorphic subtraction: decrypts to (m1 - m2) mod t; shapes as
+        add()."""
+        a, b = self._ct_pair("sub", ct_a, ct_b)
+        return poly.poly_sub(a, b, self.tables_drop.ms)
+
+    def add_plain(self, ct, m_poly):
+        """Ciphertext (2, r-1, n) + plaintext (n,): decrypts to (m_ct + m)
+        mod t.  Encryption's Delta-scaling (poly.add_message) on c0; no
+        noise is added."""
+        ct, m_poly = self._ct_plain(ct, m_poly)
+        c0 = poly.add_message(ct[0], m_poly, self.tail_consts.msg)
+        return torch.stack([c0, ct[1]])
+
+    def sub_plain(self, ct, m_poly):
+        """Ciphertext - plaintext: decrypts to (m_ct - m) mod t, the exact
+        inverse of add_plain."""
+        ct, m_poly = self._ct_plain(ct, m_poly)
+        c0 = poly.sub_message(ct[0], m_poly, self.tail_consts.msg)
+        return torch.stack([c0, ct[1]])
+
+    def negate(self, ct):
+        """Homomorphic negation: decrypts to (-m) mod t.  (2, r-1, n) or
+        (J, 2, r-1, n); canonical 0 stays 0."""
+        p = self.params
+        ct = _as_tensor("ct", ct)
+        if tuple(ct.shape[-3:]) != (2, p.r - 1, p.n) or ct.dim() not in (3, 4):
+            raise ValueError(f"ct: expected (2, r-1, n) or (J, 2, r-1, n),"
+                             f" got {tuple(ct.shape)}")
+        ct = check_residues("ct", ct, tuple(ct.shape), device=self.device)
+        return poly.poly_negate(ct, self.tables_drop.ms)
+
+    def mul_plain(self, ct, m_poly):
+        """Ciphertext (2, r-1, n) * plaintext (n,) in Z_t[x]/(x^n + 1):
+        decrypts to the negacyclic product (m_ct * m) mod t.  Both
+        components and m (its residues are m itself: m < t < q_i) go
+        through one forward launch (kernel 7), then one INTT(c_i (.) m^)
+        launch (kernel 8), at every n.  Noise grows with m: monomials and
+        small constants are safe, dense plaintexts can exhaust a fresh
+        ciphertext's budget."""
+        ct, m_poly = self._ct_plain(ct, m_poly)
+        td = self.tables_drop
+        x = torch.cat([ct, m_poly.expand(1, td.r, td.n)])   # (3, r-1, n)
+        f = ntt_stage.ntt_forward(x, td)
+        return ntt_stage.ntt_inverse_mul(f[:2], f[2], td)
+
+    def next_context(self) -> "BFVContext":
+        """The context one level down the modulus chain: the same scheme
+        over q[:-1], q[r-2] taking the dropped modulus's role, on the same
+        device with the same fusion.  Cached.  Decryption there takes the
+        same sk (its first r-2 rows)."""
+        nxt = self._mult_cache.get("next_ctx")
+        if nxt is None:
+            p = self.params
+            if p.r < 3:
+                raise ValueError("modulus chain exhausted: r must be >= 3 "
+                                 "to drop another modulus")
+            np_ = params_mod.BFVParams(
+                name=f"{p.name}@L{p.r - 1}", n=p.n, q=p.q[:-1],
+                psi=p.psi[:-1], t=p.t, gamma=p.gamma)
+            nxt = BFVContext.build(np_, device=self.device,
+                                   fusion=self.fusion)
+            self._mult_cache["next_ctx"] = nxt
+        return nxt
+
+    def mod_switch_to_next(self, ct):
+        """Switch a ciphertext one level down the modulus chain (SEAL's
+        mod_switch_to_next): (L, r-1, n) -> (L, r-2, n), each component
+        divided and rounded by the last kept modulus, with encryption's
+        modulus drop (bfv_encryption.cuh:111-178) under next_context()'s
+        constants.  Decrypt it under next_context()."""
+        ct = self._ct_any("ct", ct)
+        tc = self.next_context().tail_consts
+        return poly.divide_and_round_q_last(ct, tc.dr, tc.ms_drop, tc.ms_last)
+
+    def noise_budget(self, sk, ct) -> int:
+        """Invariant noise budget in bits (SEAL's invariant_noise_budget):
+        floor(log2(q / (2 |w|))) with w = [t (c0 + c1 s + ...)]_q centered;
+        0 means decryption is no longer guaranteed.  The residues of w come
+        from the decrypt front on the device (the L >= 2 front, the
+        strict-`>` add of c0, t in Montgomery form); the centered CRT and
+        the max-norm run on the host in Python ints, as in the JAX
+        package.  A diagnostic, not a hot-path op."""
+        p = self.params
+        sk = self._sk_drop(sk)
+        ct = self._ct_any("ct", ct)
+        ms = self.tables_drop.ms
+        t_mont = self._mult_cache.get("t_mont_drop")
+        if t_mont is None:
+            t_mont = modmath.const([hm.to_mont(p.t % qj, qj)
+                                    for qj in p.q[:-1]], self.device)
+            self._mult_cache["t_mont_drop"] = t_mont
+        x = poly.poly_add(self._spower_front(ct[1:], sk), ct[0], ms)
+        w = convert.to_numpy(modmath.mont_mul(x, t_mont, ms.q,
+                                              ms.qinv_neg)).tolist()
+        qs = list(p.q[: p.r - 1])
+        q_prod = 1
+        for q in qs:
+            q_prod *= q
+        lifts = [(q_prod // q) * pow((q_prod // q) % q, -1, q) for q in qs]
+        q_half = q_prod // 2
+        max_w = 0
+        for col in zip(*w):
+            x = sum(v * lift for v, lift in zip(col, lifts)) % q_prod
+            if x > q_half:
+                x = q_prod - x
+            if x > max_w:
+                max_w = x
+        if max_w == 0:
+            return q_prod.bit_length() - 1
+        return max(0, (q_prod // (2 * max_w)).bit_length() - 1)
 
     def mul(self, ct_a, ct_b, rlk=None):
         """Homomorphic multiplication (BEHZ RNS EvalMult): decrypts to the
@@ -431,6 +567,27 @@ class BFVContext:
                                device=self.device),
                 check_residues(f"{op} rhs", ct_b, tuple(ct_b.shape),
                                device=self.device))
+
+    def _ct_any(self, name: str, ct, hint: str = "") -> torch.Tensor:
+        """An (L >= 2, r-1, n) ciphertext as an int64 tensor on the
+        device."""
+        p = self.params
+        ct = _as_tensor(name, ct)
+        if ct.dim() != 3 or ct.shape[0] < 2:
+            raise ValueError(f"{name}: expected shape (L>=2, r-1, n), got "
+                             f"{tuple(ct.shape)}")
+        return check_residues(name, ct, (ct.shape[0], p.r - 1, p.n), hint,
+                              self.device)
+
+    def _ct_plain(self, ct, m_poly):
+        """A (2, r-1, n) ciphertext and an (n,) plaintext on the device."""
+        p = self.params
+        ct = check_residues("ct", ct, (2, p.r - 1, p.n),
+                            "encrypt returns (2, r-1, n)", self.device)
+        m_poly = check_residues("m_poly", m_poly, (p.n,),
+                                f"one plaintext value in [0, t) per "
+                                f"coefficient, n={p.n}", self.device)
+        return ct, m_poly
 
     def _sk_drop(self, sk):
         p = self.params

@@ -4,9 +4,11 @@ keyswitch_fused.
 Counterpart of `ntt_cuda_tpu/ops/fused_ops.py` for the main path.  On a
 CUDA device each wrapper launches its kernel in csrc/fused_ops.cu: one
 block per polynomial (message x modulus), resident in shared memory for
-its whole forward -> dyadic -> inverse chain.  The key switch is the
-exception: its k digit chains and two accumulators do not fit a block, so
-it runs as two launches of csrc/ntt_stage.cu and the encrypt tail.  On the
+its whole forward -> dyadic -> inverse chain; at n = 32768 two blocks per
+polynomial, one per 2^14 half, beside elementwise stage-0 passes (one
+wrapper call, three or four launches).  The key switch is the exception:
+its k digit chains and two accumulators do not fit a block, so it runs as
+two launches of csrc/ntt_stage.cu and the encrypt tail.  On the
 CPU each wrapper runs the plain version beside it, composed from
 ops/ntt.py, ops/poly.py and the compact-draw maps of ops/sampling.py: the
 same computation the JAX package's xla pipelines run (models/bfv.py:933-937,
@@ -42,7 +44,7 @@ def half_polymul(x, y_ntt, tables: NTTTables) -> torch.Tensor:
     every leading index of x."""
     if x.device.type == "cpu":
         return half_polymul_plain(x, y_ntt, tables)
-    dev = cuda.kernel_device("half_polymul", x, tables, cuda.BLOCK_MAX_N)
+    dev = cuda.kernel_device("half_polymul", x, tables, cuda.TRANSFORM_MAX_N)
     r, n = tables.r, tables.n
     if x.dim() < 2 or tuple(x.shape[-2:]) != (r, n):
         raise ValueError(f"half_polymul: x shape {tuple(x.shape)}, expected "
@@ -77,7 +79,7 @@ def keygen_fused(s_b, a, e_d, tables: NTTTables):
     (n,) int32 Gaussian e_d -> (sk, pk0), both (r, n) NTT domain."""
     if a.device.type == "cpu":
         return keygen_fused_plain(s_b, a, e_d, tables)
-    dev = cuda.kernel_device("keygen_fused", a, tables, cuda.BLOCK_MAX_N)
+    dev = cuda.kernel_device("keygen_fused", a, tables, cuda.TRANSFORM_MAX_N)
     r, n = tables.r, tables.n
     cuda.require("s_b", s_b, torch.int32, (n,), dev)
     cuda.require("a", a, I64, (r, n), dev)
@@ -111,12 +113,13 @@ def encrypt_fused(u_b, pk, e_d, m_poly, tables: NTTTables,
     """The whole encryption after the draws, J-batched.  u_b (J, n) compact
     ternary, pk (2, r, n) NTT domain, e_d (J, 2, n) compact Gaussian,
     m_poly (J, n) int64 messages -> (J, 2, r-1, n) ciphertexts; the J axis
-    may be left out for one message.  Two launches on the card: the
-    transforms into a (J, 2, r, n) scratch, then the elementwise tail."""
+    may be left out for one message.  On the card: the transforms into a
+    (J, 2, r, n) scratch (J 2 r n 8 bytes: 75 MB at 32k_9q, J = 16), then
+    the elementwise tail."""
     if pk.device.type == "cpu":
         return encrypt_fused_plain(u_b, pk, e_d, m_poly, tables, consts)
     dev = cuda.kernel_device("encrypt_fused", pk, tables,
-                             cuda.BLOCK_MAX_N)
+                             cuda.TRANSFORM_MAX_N)
     single = u_b.dim() == 1
     if single:
         u_b, e_d, m_poly = u_b[None], e_d[None], m_poly[None]

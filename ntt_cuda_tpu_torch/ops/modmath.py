@@ -98,6 +98,13 @@ def sub_mod(a, b, q):
     return a + q * (a < b).to(I64) - b
 
 
+def negate_mod(x, q):
+    """q - x with the 0 fixup (poly_negate, poly_arithmetic.cuh:332-338):
+    0 stays 0."""
+    r = q - x
+    return r * (r != q).to(I64)
+
+
 def halve_mod(x, q):
     """x * 2^-1 mod q for x in [0, q): `(x>>1) + ((q+1)>>1)*(x&1)`."""
     return (x >> 1) + ((q + 1) >> 1) * (x & 1)

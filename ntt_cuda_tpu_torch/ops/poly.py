@@ -5,8 +5,10 @@ elementwise ops over (..., r, n) residue tensors plus BFV's two
 cross-residue steps, the last-modulus divide-and-round and the BEHZ fast
 base conversion to {t, gamma} with the decryption rounding.  These are the
 bodies of the plain versions of the decrypt and encrypt kernels
-(ops/bfv_tail.py, ops/fused_ops.py).  The reference's strict-`>` add is
-reproduced, not fixed.
+(ops/bfv_tail.py, ops/fused_ops.py) and of the ciphertext ops.  The
+reference's strict-`>` add is reproduced, not fixed; its poly_sub, which
+never subtracts, is not: `poly_sub` is the corrected subtraction, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -24,6 +26,20 @@ def poly_add(a, b, ms: ModulusSet):
     """c = a + b mod q with the reference's `>` quirk (poly_add_xq,
     bfv_encryption.cuh:180-191)."""
     return modmath.add_mod_lazy_gt(a, b, ms.q)
+
+
+def poly_negate(a, ms: ModulusSet):
+    """c = -a mod q, canonical 0 -> 0 (poly_negate,
+    poly_arithmetic.cuh:332-343)."""
+    return modmath.negate_mod(a, ms.q)
+
+
+def poly_sub(a, b, ms: ModulusSet):
+    """c = a - b mod q.  The reference's poly_sub kernel never subtracts b
+    (poly_arithmetic.cuh:167-178; unused by its pipeline): this is the
+    corrected subtraction of the JAX package, not the bug."""
+    d = a - b
+    return torch.where(a >= b, d, d + ms.q)
 
 
 def poly_add_negate(a, b, ms: ModulusSet):
@@ -98,6 +114,16 @@ def add_message(c0, m_poly, mc: MessageConsts):
     fix = torch.div(m + ((t + 1) >> 1), t, rounding_mode="floor")
     v = c0 + m * mc.qi_div_t + fix
     return modmath.mod_u64(v, mc.q, mc.nu)
+
+
+def sub_message(c0, m_poly, mc: MessageConsts):
+    """c0_i -= Delta_i * m + fix, mod q_i: the exact inverse of add_message
+    (SEAL's sub_plain; no reference counterpart)."""
+    t = mc.t
+    m = m_poly.to(I64)[..., None, :]
+    fix = torch.div(m + ((t + 1) >> 1), t, rounding_mode="floor")
+    d = modmath.mod_u64(m * mc.qi_div_t + fix, mc.q, mc.nu)
+    return modmath.sub_mod(c0, d, mc.q)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,10 +14,16 @@ planes; `block_words_u64_planes` slices it.
 
 `keystream_block_words` launches the CUDA kernel (csrc/salsa20.cu) for a
 CUDA device and runs `keystream_plain` for the CPU.
+`keystream_block_words_batch` is its J-nonce counterpart (kernel 6): (J,)
+nonces -> (J, 16, nblocks), one launch, row j equal to the single stream of
+nonce j; the `_batch` slicers cut all J rows at once.  `device` None is the
+current CUDA device (raising where there is none); the CPU only when asked
+for.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import cuda
@@ -47,31 +53,94 @@ def _double_round(x):
         x[a] = x[a] ^ _rotl((x[d] + x[c]) & MASK32, 18)
 
 
+def _block_words(nblocks: int, key_byte: int, nonce_lo, nonce_hi,
+                 counter0: int, device) -> torch.Tensor:
+    """The 20-round keystream for nonce words of shape (..., 1) (or ()):
+    (..., 16, nblocks) int64 words."""
+    ctr = torch.arange(nblocks, dtype=I64, device=device) + (counter0 & MASK32)
+    ctr_hi = ((ctr >> 32) + (counter0 >> 32)) & MASK32
+    ctr = ctr & MASK32
+    kw = _key_word(key_byte)
+    shape = torch.broadcast_shapes(nonce_lo.shape, (nblocks,))
+
+    def full(v):
+        return torch.full(shape, v, dtype=I64, device=device)
+
+    j = [full(SIGMA_WORDS[0]), full(kw), full(kw), full(kw), full(kw),
+         full(SIGMA_WORDS[1]), nonce_lo.expand(shape), nonce_hi.expand(shape),
+         ctr.expand(shape), ctr_hi.expand(shape), full(SIGMA_WORDS[2]),
+         full(kw), full(kw), full(kw), full(kw), full(SIGMA_WORDS[3])]
+    x = list(j)
+    for _ in range(ROUNDS // 2):
+        _double_round(x)
+    return torch.stack([(x[i] + j[i]) & MASK32 for i in range(16)], dim=-2)
+
+
 def keystream_plain(nblocks: int, key_byte: int = DEFAULT_KEY_BYTE, nonce=0,
                     counter0=0, with_u64: bool = False, device=None):
     """Plain tensor keystream (the counterpart of `_keystream_xla`):
     (16, nblocks) int64 words, plus the (8, nblocks) u64 lanes when
     `with_u64`.  `nonce` and `counter0` are Python ints in [0, 2^64)."""
-    nonce, counter0 = int(nonce), int(counter0)
-    ctr = torch.arange(nblocks, dtype=I64, device=device) + (counter0 & MASK32)
-    ctr_hi = ((ctr >> 32) + (counter0 >> 32)) & MASK32
-    ctr = ctr & MASK32
-    kw = _key_word(key_byte)
-
-    def full(v):
-        return torch.full((nblocks,), v, dtype=I64, device=device)
-
-    j = [full(SIGMA_WORDS[0]), full(kw), full(kw), full(kw), full(kw),
-         full(SIGMA_WORDS[1]), full(nonce & MASK32), full(nonce >> 32),
-         ctr, ctr_hi, full(SIGMA_WORDS[2]), full(kw), full(kw), full(kw),
-         full(kw), full(SIGMA_WORDS[3])]
-    x = list(j)
-    for _ in range(ROUNDS // 2):
-        _double_round(x)
-    bw = torch.stack([(x[i] + j[i]) & MASK32 for i in range(16)])
+    nonce = int(nonce)
+    word = lambda v: torch.tensor(v, dtype=I64, device=device)
+    bw = _block_words(nblocks, key_byte, word(nonce & MASK32),
+                      word(nonce >> 32), int(counter0), device)
     if not with_u64:
         return bw
     return bw, bw[0::2] | (bw[1::2] << 32)
+
+
+def nonce_array(nonces) -> np.ndarray:
+    """A nonce or (J,) nonces (ints, a uint64 array, or an int64 tensor of
+    u64 bit patterns) as uint64."""
+    if isinstance(nonces, torch.Tensor):
+        return nonces.detach().cpu().to(I64).numpy().view(np.uint64)
+    return np.asarray(nonces, dtype=np.uint64)
+
+
+def nonce_tensor(nonces, device) -> torch.Tensor:
+    """(J,) nonces as one int64 tensor of their u64 bit patterns on
+    `device`."""
+    return torch.from_numpy(nonce_array(nonces).view(np.int64).copy()).to(
+        device)
+
+
+def keystream_batch_plain(nblocks: int, nonces,
+                          key_byte: int = DEFAULT_KEY_BYTE, counter0=0,
+                          device=None) -> torch.Tensor:
+    """Plain J-nonce keystream (the counterpart of the xla path's vmap):
+    (J, 16, nblocks) int64 words, row j equal to
+    keystream_plain(nblocks, nonce=nonces[j])."""
+    v = nonce_tensor(nonces, device)[:, None]
+    return _block_words(nblocks, key_byte, v & MASK32, (v >> 32) & MASK32,
+                        int(counter0), device)
+
+
+def keystream_block_words_batch(nblocks: int, nonces,
+                                key_byte: int = DEFAULT_KEY_BYTE,
+                                counter0=0, device=None) -> torch.Tensor:
+    """(J,) nonces -> (J, 16, nblocks) keystream words on `device`: kernel 6
+    on a CUDA device (the nonces go to the card as one (J,) int64 tensor of
+    u64 bit patterns), the plain version on the CPU."""
+    device = cuda.default_device(device, "keystream_block_words_batch")
+    if device.type == "cpu":
+        return keystream_batch_plain(nblocks, nonces, key_byte=key_byte,
+                                     counter0=counter0, device=device)
+    if device.type != "cuda":
+        raise ValueError(f"keystream_block_words_batch: no kernel for "
+                         f"{device}")
+    v = nonce_tensor(nonces, device)
+    if v.dim() != 1:
+        raise ValueError(f"nonces: expected shape (J,), got {tuple(v.shape)}")
+    bw = torch.empty((v.shape[0], 16, nblocks), dtype=I64, device=device)
+    cuda.launch("ntt_salsa20_batch", device, bw.data_ptr(), nblocks,
+                _key_word(key_byte), v.data_ptr(), v.shape[0],
+                int(counter0))
+    keystream_block_words_batch.launches += 1
+    return bw
+
+
+keystream_block_words_batch.launches = 0
 
 
 def keystream_block_words(nblocks: int, key_byte: int = DEFAULT_KEY_BYTE,
@@ -80,7 +149,7 @@ def keystream_block_words(nblocks: int, key_byte: int = DEFAULT_KEY_BYTE,
     """(16, nblocks) keystream words [and (8, nblocks) u64 lanes] on
     `device`: the Salsa20 kernel on a CUDA device, the plain version on
     the CPU."""
-    device = torch.device(device if device is not None else "cpu")
+    device = cuda.default_device(device, "keystream_block_words")
     if device.type == "cpu":
         return keystream_plain(nblocks, key_byte=key_byte, nonce=nonce,
                                counter0=counter0, with_u64=with_u64,
@@ -127,3 +196,23 @@ def block_words_u64_planes(lanes: torch.Tensor, start: int,
     blk0 = start // 64
     nb = count // 8
     return lanes[:, blk0:blk0 + nb].T.reshape(-1)
+
+
+def block_words_u32_batch(bw: torch.Tensor, start: int,
+                          count: int) -> torch.Tensor:
+    """Batched block_words_u32: (J, 16, nb_total) -> (J, count) stream
+    words from block-aligned byte offset `start`, every row at once."""
+    if start % 64:
+        raise ValueError(f"start={start} is not 64-byte block aligned")
+    blk0 = start // 64
+    nb = -(-count // 16)
+    w = bw[:, :, blk0:blk0 + nb].transpose(1, 2)
+    return w.reshape(bw.shape[0], nb * 16)[:, :count]
+
+
+def block_words_u8_batch(bw: torch.Tensor, start: int,
+                         count: int) -> torch.Tensor:
+    """Batched block_words_u8: (J, 16, nb_total) -> (J, count) bytes."""
+    w = block_words_u32_batch(bw, start, -(-count // 4))
+    b = torch.stack([(w >> (8 * k)) & 0xFF for k in range(4)], dim=2)
+    return b.reshape(w.shape[0], -1)[:, :count]

@@ -27,11 +27,11 @@ _NONCE_HIGH_BIT = 1 << 63
 
 
 def check_user_nonce(nonce) -> None:
-    """Reject user nonces with bit 63 set.  That bit is reserved for the
-    keygen/encrypt domain separation: two raw nonces differing only in
-    bit 63 would map to the same effective stream, and keygen(2**63) would
-    reproduce the nonce-0 secret key."""
-    v = np.asarray(nonce, dtype=np.uint64)
+    """Reject user nonces with bit 63 set (one nonce or a (J,) batch).
+    That bit is reserved for the keygen/encrypt domain separation: two raw
+    nonces differing only in bit 63 would map to the same effective stream,
+    and keygen(2**63) would reproduce the nonce-0 secret key."""
+    v = salsa20.nonce_array(nonce)
     if np.any(v >> np.uint64(63)):
         raise ValueError(
             "nonce bit 63 is reserved for keygen/encrypt domain "
@@ -49,6 +49,12 @@ def encrypt_nonce(nonce: int) -> int:
     which shares the keygen stream by design)."""
     nonce = int(nonce)
     return nonce if nonce == 0 else nonce | _NONCE_HIGH_BIT
+
+
+def encrypt_nonces(nonces) -> np.ndarray:
+    """encrypt_nonce of each of (J,) nonces, as one uint64 array."""
+    v = salsa20.nonce_array(nonces)
+    return np.where(v == 0, v, v | np.uint64(_NONCE_HIGH_BIT))
 
 
 def ternary_int(bytes_u8: torch.Tensor) -> torch.Tensor:
@@ -128,7 +134,8 @@ def keygen_draws_compact(n: int, r: int, ms: modmath.ModulusSet,
 def encrypt_draws_compact(n: int, key_byte: int = salsa20.DEFAULT_KEY_BYTE,
                           nonce=0, device=None):
     """Encryption draws: (u_b (n,) int32, e_d (2, n) int32).  Layout
-    (bfv_encryption.cuh:247): ternary bytes at 0, e0 at n, e1 at 5n."""
+    (bfv_encryption.cuh:247): ternary bytes at 0, e0 at n, e1 at 5n.
+    `device` None is the current CUDA device."""
     nbytes = encrypt_entropy_bytes(n)
     bw = salsa20.keystream_block_words((nbytes + 63) // 64, key_byte=key_byte,
                                        nonce=encrypt_nonce(nonce),
@@ -137,6 +144,37 @@ def encrypt_draws_compact(n: int, key_byte: int = salsa20.DEFAULT_KEY_BYTE,
     e_d = torch.stack([gaussian_int(salsa20.block_words_u32(bw, n, n)),
                        gaussian_int(salsa20.block_words_u32(bw, 5 * n, n))])
     return u_b, e_d
+
+
+def encrypt_draws_compact_batch(n: int, nonces,
+                                key_byte: int = salsa20.DEFAULT_KEY_BYTE,
+                                device=None):
+    """Batched compact encryption draws: (J,) nonces -> (u_b (J, n) int32,
+    e_d (J, 2, n) int32), row j equal to encrypt_draws_compact(n,
+    nonce=nonces[j]).  One keystream launch (kernel 6) for the J mapped
+    nonces, and every slice taken for all J rows at once.  `device` None
+    is the current CUDA device."""
+    nbytes = encrypt_entropy_bytes(n)
+    bw = salsa20.keystream_block_words_batch(
+        (nbytes + 63) // 64, encrypt_nonces(nonces), key_byte=key_byte,
+        device=device)
+    u_b = ternary_int(salsa20.block_words_u8_batch(bw, 0, n))
+    e_d = gaussian_int(torch.stack(
+        [salsa20.block_words_u32_batch(bw, n, n),
+         salsa20.block_words_u32_batch(bw, 5 * n, n)], dim=1))
+    return u_b, e_d
+
+
+def encrypt_draws_batch(n: int, r: int, ms: modmath.ModulusSet, nonces,
+                        key_byte: int = salsa20.DEFAULT_KEY_BYTE):
+    """Batched encryption draws as residues on ms's device: (J,) nonces ->
+    (u (J, r, n), e (J, 2, r, n)), the plain counterpart of the JAX
+    package's encrypt_draws_batch."""
+    if ms.r != r:
+        raise ValueError(f"ms has {ms.r} moduli, expected r={r}")
+    u_b, e_d = encrypt_draws_compact_batch(n, nonces, key_byte=key_byte,
+                                           device=ms.q.device)
+    return small_res(u_b, ms.q), small_res(e_d, ms.q)
 
 
 # Relinearization-key draws: their own Salsa20 key byte (0x02), so every

@@ -93,7 +93,7 @@ def test_encrypt_fused_plain(pair, J):
     pk = np.stack([_rand(rng, jp.q, jp.n), _rand(rng, jp.q, jp.n)])
     m = rng.integers(0, jp.t, (J, jp.n), dtype=np.int64)
     m[:, :4] = [0, jp.t - 1, jp.t // 2, (jp.t + 1) // 2]
-    draws = [sampling.encrypt_draws_compact(jp.n, nonce=k + 1)
+    draws = [sampling.encrypt_draws_compact(jp.n, nonce=k + 1, device="cpu")
              for k in range(J)]
     u_b = torch.stack([d[0] for d in draws])
     e_d = torch.stack([d[1] for d in draws])

@@ -102,6 +102,105 @@ def test_host_salsa20(host_lib, with_u64):
             torch.testing.assert_close(lanes, ref[1], rtol=0, atol=0)
 
 
+def test_host_salsa20_batch(host_lib):
+    """Kernel 6: J nonces' streams in one launch, nonces >= 2^63 read as
+    u64 bit patterns, counter0's carry into word 9."""
+    nb = 300
+    nonces = [0, 1, 2**62 + 5, 7 | (1 << 63)]
+    v = salsa20.nonce_tensor(nonces, "cpu")
+    for ctr0 in (0, 2**32 - 5):
+        bw = torch.empty((len(nonces), 16, nb), dtype=torch.int64)
+        assert host_lib.ntt_salsa20_batch(bw.data_ptr(), nb, 0x01010101,
+                                          v.data_ptr(), len(nonces), ctr0,
+                                          None) == 0
+        ref = salsa20.keystream_batch_plain(nb, nonces, counter0=ctr0)
+        torch.testing.assert_close(bw, ref, rtol=0, atol=0)
+        for j, nonce in enumerate(nonces):
+            torch.testing.assert_close(
+                bw[j], salsa20.keystream_plain(nb, nonce=nonce, counter0=ctr0),
+                rtol=0, atol=0)
+    assert host_lib.ntt_salsa20_batch(bw.data_ptr(), nb, 0, v.data_ptr(), 0,
+                                      0, None) != 0
+
+
+@pytest.fixture(scope="module")
+def op32_ctx():
+    return BFVContext.build(get_bfv_params("32k_9q"), device="cpu",
+                            fusion="op")
+
+
+def _enc_inputs(ctx, rng, J):
+    """K5's inputs for J messages: pk, compact draws of nonces 1..J and
+    messages with the Delta*m + fix boundaries."""
+    p = ctx.params
+    _, pk = ctx.keygen(nonce=1)
+    u_b, e_d = sampling.encrypt_draws_compact_batch(p.n, range(1, J + 1),
+                                                    device=ctx.device)
+    m = torch.from_numpy(rng.integers(0, p.t, (J, p.n), dtype=np.int64))
+    m[:, :4] = torch.tensor([0, p.t - 1, p.t // 2, p.t // 2 - 1])
+    return pk.to(ctx.device), u_b, e_d, m.to(ctx.device)
+
+
+def _host_encrypt(host_lib, ctx, u_b, pk, e_d, m):
+    p, tc = ctx.params, ctx.tail_consts
+    J = u_b.shape[0]
+    scratch = torch.empty((J, 2, p.r, p.n), dtype=torch.int64)
+    ct = torch.empty((J, 2, p.r - 1, p.n), dtype=torch.int64)
+    assert host_lib.ntt_encrypt_transform(u_b.data_ptr(), pk.data_ptr(),
+                                          e_d.data_ptr(), scratch.data_ptr(),
+                                          *ctx.tables_full.kernel_args(), J,
+                                          p.r, p.logn, None) == 0
+    assert host_lib.ntt_encrypt_tail(scratch.data_ptr(), m.data_ptr(),
+                                     ct.data_ptr(), tc.per_mod.data_ptr(),
+                                     tc.q_last, tc.half, tc.fix_th, J, p.r,
+                                     p.n, None) == 0
+    return ct
+
+
+@pytest.mark.parametrize("J", [1, 2])
+def test_host_op_kernels_32k(host_lib, op32_ctx, J):
+    """K3, K4 and K5 at n = 2^15 (32k_9q constants): the CT stage-0 pass,
+    two 2^14 half blocks per polynomial, the GS stage-0 pass (and K4's
+    second forward over the halves) against the plain versions."""
+    ctx = op32_ctx
+    p, tf, td = ctx.params, ctx.tables_full, ctx.tables_drop
+    rng = np.random.default_rng(100 + J)
+    x = _rand_res(rng, p.q[:-1], p.n, (J,))
+    y = _rand_res(rng, p.q[:-1], p.n)
+    out = torch.empty_like(x)
+    assert host_lib.ntt_half_polymul(x.data_ptr(), y.data_ptr(),
+                                     out.data_ptr(), *td.kernel_args(),
+                                     J * td.r, td.r, p.logn, None) == 0
+    torch.testing.assert_close(out, fused_ops.half_polymul_plain(x, y, td),
+                               rtol=0, atol=0)
+    s_b, a, e_d = sampling.keygen_draws_compact(p.n, p.r, tf.ms, nonce=J)
+    sk, pk0 = torch.empty_like(a), torch.empty_like(a)
+    assert host_lib.ntt_keygen_fused(s_b.data_ptr(), a.data_ptr(),
+                                     e_d.data_ptr(), sk.data_ptr(),
+                                     pk0.data_ptr(), *tf.kernel_args(), p.r,
+                                     p.logn, None) == 0
+    for got, ref in zip((sk, pk0), fused_ops.keygen_fused_plain(s_b, a, e_d,
+                                                                 tf)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    pk, u_b, e_d, m = _enc_inputs(ctx, rng, J)
+    torch.testing.assert_close(
+        _host_encrypt(host_lib, ctx, u_b, pk, e_d, m),
+        fused_ops.encrypt_fused_plain(u_b, pk, e_d, m, tf, ctx.tail_consts),
+        rtol=0, atol=0)
+
+
+def test_host_op_kernels_reject_bad_arguments(host_lib, op32_ctx):
+    p, tf = op32_ctx.params, op32_ctx.tables_full
+    x = torch.zeros((p.r, p.n), dtype=torch.int64)
+    for blocks, logn in ((p.r + 1, p.logn), (p.r, 16), (p.r, 0)):
+        assert host_lib.ntt_half_polymul(x.data_ptr(), x.data_ptr(),
+                                         x.data_ptr(), *tf.kernel_args(),
+                                         blocks, p.r, logn, None) != 0
+    assert host_lib.ntt_encrypt_transform(None, None, None, None,
+                                          *tf.kernel_args(), 0, p.r, p.logn,
+                                          None) != 0
+
+
 @pytest.mark.parametrize("J", [1, 3])
 def test_host_half_polymul(host_lib, ctx, J):
     p = ctx.params
@@ -139,7 +238,7 @@ def test_host_encrypt_fused(host_lib, ctx, J):
     p = ctx.params
     rng = np.random.default_rng(10 + J)
     _, pk = ctx.keygen(nonce=1)
-    draws = [sampling.encrypt_draws_compact(p.n, nonce=k + 1)
+    draws = [sampling.encrypt_draws_compact(p.n, nonce=k + 1, device="cpu")
              for k in range(J)]
     u_b = torch.stack([d[0] for d in draws])
     e_d = torch.stack([d[1] for d in draws])
@@ -522,4 +621,33 @@ def test_cuda_mult_kernels_match_plain(cuda_device, name):
     e = _rand_res(rng, p.q, p.n, (k,)).to(cuda_device)
     assert torch.equal(ntt_stage.ntt_forward_addneg(x, e, tf),
                        ntt_stage.ntt_forward_addneg_plain(x, e, tf))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["32k_9q", "32k_16q"])
+def test_cuda_op32_kernels_match_plain(cuda_device, name):
+    """Kernel 6 and K3-K5 at n = 2^15 on the card, J = 1 and 3."""
+    p = get_bfv_params(name)
+    ctx = BFVContext.build(p, device=cuda_device, fusion="op")
+    tf, td, tc = ctx.tables_full, ctx.tables_drop, ctx.tail_consts
+    rng = np.random.default_rng(4)
+    nb = (sampling.encrypt_entropy_bytes(p.n) + 63) // 64
+    nonces = [0, 1, 2**62 + 5, 7 | (1 << 63)]
+    assert torch.equal(
+        salsa20.keystream_block_words_batch(nb, nonces, device=cuda_device),
+        salsa20.keystream_batch_plain(nb, nonces, device=cuda_device))
+    s_b, a, e_d = sampling.keygen_draws_compact(p.n, p.r, tf.ms, nonce=1)
+    got = fused_ops.keygen_fused(s_b, a, e_d, tf)
+    ref = fused_ops.keygen_fused_plain(s_b, a, e_d, tf)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    for J in (1, 3):
+        x = _rand_res(rng, p.q[:-1], p.n, (J,)).to(cuda_device)
+        y = _rand_res(rng, p.q[:-1], p.n).to(cuda_device)
+        assert torch.equal(fused_ops.half_polymul(x, y, td),
+                           fused_ops.half_polymul_plain(x, y, td))
+        pk, u_b, e2, m = _enc_inputs(ctx, rng, J)
+        assert torch.equal(fused_ops.encrypt_fused(u_b, pk, e2, m, tf, tc),
+                           fused_ops.encrypt_fused_plain(u_b, pk, e2, m, tf,
+                                                         tc))
     torch.cuda.synchronize()

@@ -28,7 +28,8 @@ def _bytes(words: torch.Tensor) -> np.ndarray:
 def test_keystream_matches_jax_xla(nonce, counter0):
     nb = 333
     bw, lanes = salsa20.keystream_block_words(nb, nonce=nonce,
-                                              counter0=counter0, with_u64=True)
+                                              counter0=counter0, with_u64=True,
+                                              device="cpu")
     ref = np.asarray(jsalsa._keystream_xla(nb, nonce=jnp.uint64(nonce),
                                            counter0=jnp.uint64(counter0)))
     np.testing.assert_array_equal(bw.numpy(), ref.astype(np.int64))
@@ -36,8 +37,8 @@ def test_keystream_matches_jax_xla(nonce, counter0):
     np.testing.assert_array_equal(convert.to_numpy(lanes), pairs)
     # without the lanes: the same words
     np.testing.assert_array_equal(
-        salsa20.keystream_block_words(nb, nonce=nonce,
-                                      counter0=counter0).numpy(),
+        salsa20.keystream_block_words(nb, nonce=nonce, counter0=counter0,
+                                      device="cpu").numpy(),
         bw.numpy())
 
 
@@ -45,13 +46,14 @@ def test_keystream_and_lanes_match_golden():
     """Words and pre-paired u64 lanes against the golden byte stream (the
     lanes held against golden, not only against the JAX planes)."""
     nb = 37
-    bw, lanes = salsa20.keystream_block_words(nb, with_u64=True)
+    bw, lanes = salsa20.keystream_block_words(nb, with_u64=True, device="cpu")
     exp = golden.salsa20_keystream(64 * nb)
     np.testing.assert_array_equal(_bytes(bw.T), exp)
     np.testing.assert_array_equal(
         convert.to_numpy(salsa20.block_words_u64_planes(lanes, 0, 8 * nb)),
         exp.view(np.uint64))
-    got = _bytes(salsa20.keystream_block_words(2, key_byte=0x4D).T)
+    got = _bytes(salsa20.keystream_block_words(2, key_byte=0x4D,
+                                               device="cpu").T)
     np.testing.assert_array_equal(got, golden.salsa20_keystream(
         128, key=b"\x4d" * 32))
 
@@ -74,7 +76,8 @@ def test_salsa20_core_ecrypt_vector():
 
 def test_slicers_match_jax():
     nb = 300
-    bw, lanes = salsa20.keystream_block_words(nb, nonce=11, with_u64=True)
+    bw, lanes = salsa20.keystream_block_words(nb, nonce=11, with_u64=True,
+                                              device="cpu")
     jbw, jlo, jhi = jsalsa.keystream_block_words64(nb, nonce=11, impl="xla")
     np.testing.assert_array_equal(
         salsa20.block_words_u8(bw, 128, 1001).numpy(),
@@ -117,7 +120,7 @@ def test_keygen_draws_compact_match_jax(nonce):
 @pytest.mark.parametrize("nonce", NONCES)
 def test_encrypt_draws_compact_match_jax(nonce):
     n = 4096
-    u_b, e_d = sampling.encrypt_draws_compact(n, nonce=nonce)
+    u_b, e_d = sampling.encrypt_draws_compact(n, nonce=nonce, device="cpu")
     ju, je = jsamp.encrypt_draws_compact(n, nonce=nonce, ks_impl="xla")
     np.testing.assert_array_equal(u_b.numpy(), np.asarray(ju))
     np.testing.assert_array_equal(e_d.numpy(), np.asarray(je))
@@ -164,3 +167,17 @@ def test_nonce_mapping_and_bit63_rejection():
     with pytest.raises(ValueError, match="bit 63"):
         ctx.encrypt(np.zeros((2, 3, 4096), np.uint64),
                     np.zeros(4096, np.uint64), nonce=2**63 + 1)
+
+
+def test_draws_without_device_need_a_card(monkeypatch):
+    """device=None is the card: with no CUDA the keystreams and the
+    encryption draws raise and say how to ask for the CPU; they never
+    fall back to it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: salsa20.keystream_block_words(4),
+                 lambda: salsa20.keystream_block_words_batch(4, [1, 2]),
+                 lambda: sampling.encrypt_draws_compact(64, nonce=1),
+                 lambda: sampling.encrypt_draws_compact_batch(64, [1, 2])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert salsa20.keystream_block_words(4, device="cpu").shape == (16, 4)
