@@ -15,7 +15,10 @@ one Montgomery product (for each kernel's bound).  Then:
    32k_16q; the J-nonce keystream (kernel 6) at 32k_9q's encrypt size,
    J = 1 and 16, also against K1 row by row; the EvalMult kernels (BEHZ
    21a-c, kernel 11, the key switch 19) at 4k_3q, 16k_5q and 32k_9q,
-   21a-c and 19 also at 32k_16q, J = 1 and 2;
+   21a-c and 19 also at 32k_16q, J = 1 and 2; kernel 22 at n = 2^11,
+   2^14, 2^15 (one block) and 2^16 (stage-0 passes beside two halves),
+   (1, 1, n) and (16, 1, n), int32 and int64, forward and inverse, and
+   equal to the 64-bit plain transform on the same modulus;
 2. the reference's golden ciphertext, on both schedules;
 3. the op schedule's main path at 16k_5q and the stage schedule's at
    32k_9q through the public API (keygen, encrypt of three seeded
@@ -44,11 +47,25 @@ one Montgomery product (for each kernel's bound).  Then:
    and mul_plain by a seeded sparse plaintext decrypt to their mod-t
    results, mod_switch_to_next decrypts under next_context(), and
    noise_budget is positive and falls after mul_plain;
-9. CUDA-event times: the 32k_9q ops and EvalMult ops, the 16k_5q EvalMult
+9. the CLI in-process on the default device, each command returning 0
+   and printing PASS: `ntt-test --family 30bit --n 65536` (kernel 22's
+   main path, counts read as in 3), `ntt-test --family 60bit --n 32768`,
+   `decryption-test`, `keygen-test`, `--params 32k_9q demo --mul --time`,
+   and `keys` / `encrypt` / `decrypt` at 16k_5q in a temporary directory;
+10. the Galois path: at 32k_9q galois_keygen for {3, 2n - 1} and
+   apply_galois decrypting to tau_g(m) mod t; the encrypted dot product
+   (ntt_cuda_tpu_torch/examples, the batching encoder, mul + relin, 14
+   rotations and a column swap) at n = 32768, every slot the expected
+   value and the noise budget positive, counts read as in 3; and at
+   n = 2048 its keys and ciphertexts equal to the same run on the CPU;
+11. CUDA-event times: the 32k_9q ops and EvalMult ops, the 16k_5q EvalMult
    ops, the 16k_5q op-vs-stage and 32k_9q op-vs-stage A/Bs (in turns op,
-   stage, stage, op), encrypt_batch at J = 16, each around one call; every
-   kernel and its plain version around a run of calls back to back,
-   beside the kernel's bound (K3-K5 and K5 at J = 16 also at 32k_9q).
+   stage, stage, op), encrypt_batch at J = 16, galois_keygen (one
+   element) and apply_galois at 32k_9q, ntt-test's product for both
+   families and the whole dot product, each around one call; every kernel
+   and its plain version around a run of calls back to back, beside the
+   kernel's bound (K3-K5 and K5 at J = 16 also at 32k_9q; kernel 22 at
+   (16, 1, n), n = 2^15 and 2^16, both directions).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and last `{"ok": true, "device": {...}}`.  Any failure raises,
@@ -57,11 +74,14 @@ so the exit code is not 0 and no result line is printed.  Imports no jax.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -71,10 +91,14 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from ntt_cuda_tpu_torch import BFVContext, cuda, get_bfv_params  # noqa: E402
+from ntt_cuda_tpu_torch import BFVContext, cli, cuda, get_bfv_params  # noqa: E402
+from ntt_cuda_tpu_torch.examples import (  # noqa: E402
+    encrypted_dot_product as example)
 from ntt_cuda_tpu_torch.ops import (behz_kernels, bfv_tail,  # noqa: E402
-                                    fused_ops, ntt, ntt_stage, salsa20,
-                                    sampling)
+                                    fused_ops, ntt, ntt30, ntt_stage, poly,
+                                    salsa20, sampling)
+from ntt_cuda_tpu_torch.params import get_params  # noqa: E402
+from ntt_cuda_tpu_torch.utils.profiling import median_ms  # noqa: E402
 
 SEED = 20261016
 OP_SET = "16k_5q"        # the op schedule's main path (n <= 16384)
@@ -86,6 +110,14 @@ MULT_CHECK_SETS = ("4k_3q", "16k_5q", "32k_9q", "32k_16q")
 OP32_CHECK_SETS = ("32k_9q", "32k_16q")   # K3-K5 over two 2^14 halves
 OP32_KERNELS = ("half_polymul", "keygen_fused", "encrypt_fused")
 BATCH_J = 16
+NTT30_SIZES = (2048, 16384, 32768, 65536)   # one block up to 2^15; 2^16
+NTT30_BATCH = 16                            # bench.py's 16 polynomials
+DOT_N = 32768                               # the dot product at full width,
+DOT_R = 4        # over four 45-bit moduli: three fail EvalMult's aux-base
+#                  bound at n = 32768, t = 65537 (ops/behz.py, as in JAX)
+# the kernels the Galois path must launch: K1, 7, 8, 11, 19 and K2
+GALOIS_NEED = ("salsa20_keystream", "ntt_transform", "ntt_inverse_mul",
+               "ntt_forward_addneg", "keyswitch_fused", "decrypt_tail")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
 
@@ -153,6 +185,11 @@ KERNELS = {
     "behz_bsk_to_q": ((behz_kernels.bsk_to_q,),
                       "ntt_cuda_tpu_torch/csrc/behz.cu",
                       "ntt_cuda_tpu/ops/behz_pallas.py:258", ("mult",)),
+    # kernel 22, both directions; its times below are the forward's at
+    # (16, 1, 65536)
+    "ntt30_transform": ((ntt30.ntt_forward, ntt30.ntt_inverse),
+                        "ntt_cuda_tpu_torch/csrc/ntt30.cu",
+                        "ntt_cuda_tpu/ops/ntt_pallas30.py:257", ("cli30",)),
 }
 
 # One multiply-heavy primitive per probe kernel; its SASS gives the
@@ -173,6 +210,9 @@ extern "C" __global__ void probe_mullo(const u64* a, u64* o) {
 }
 extern "C" __global__ void probe_mul32(const u64* a, u64* o) {
   o[0] = (u32)a[0] * (u32)a[1];
+}
+extern "C" __global__ void probe_shoup32(const u32* a, u32* o) {
+  o[0] = mul_shoup32(a[0], a[1], a[2], a[3]);
 }
 """
 
@@ -222,7 +262,8 @@ def probe_mults(proc: subprocess.Popen, cubin: Path) -> dict[str, int]:
             if op.startswith(("IMAD", "IMUL")) and not any(
                     k in op for k in (".MOV", ".SHL", ".IADD")):
                 counts[fn] += 1
-    if sorted(counts) != ["mod_nu", "mont", "mul32", "mullo", "shoup"]:
+    if sorted(counts) != ["mod_nu", "mont", "mul32", "mullo", "shoup",
+                          "shoup32"]:
         raise RuntimeError(f"SASS probe: functions {sorted(counts)}")
     return counts
 
@@ -243,23 +284,6 @@ def compare(name: str, got, ref, errs: dict) -> None:
         if err != 0.0 or not torch.equal(g, r):
             raise AssertionError(f"{name}: kernel != plain version "
                                  f"(max abs err {err})")
-
-
-def median_ms(fn, reps: int = 15, warmup: int = 3) -> float:
-    """Median CUDA-event time around one call: an op's latency, the
-    host's dispatch included."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def kernel_ms(fn, reps: int = 20, runs: int = 3) -> float:
@@ -294,7 +318,7 @@ class Work:
     """Bytes a function must move (each input read once, each output
     written once) and integer multiply instructions it must issue, in
     units of the probed primitives: `shoup`, `mont`, `mod_nu`, `mullo`,
-    `mul32`."""
+    `mul32`, `shoup32`."""
 
     def __init__(self, nbytes: int, **prims):
         self.nbytes, self.prims = nbytes, prims
@@ -666,6 +690,92 @@ def check_ctops(ctx: BFVContext, res: dict, msgs: np.ndarray, dev) -> dict:
     return budget
 
 
+def ntt30_work(x, tb, inverse: bool) -> Work:
+    """Kernel 22 over x: one table and its companions read, x read and
+    written once; a 32-bit Shoup multiply per butterfly, and per
+    coefficient for the inverse's n^-1."""
+    tabs = [tb.psiinv, tb.psiinv_shoup] if inverse else [tb.psi,
+                                                          tb.psi_shoup]
+    shoups = transform_butterflies(x.numel() // tb.n, tb.n)
+    return Work(nbytes(x, *tabs, tb.consts, x),
+                shoup32=shoups + (x.numel() if inverse else 0))
+
+
+def ntt30_checks(dev, rng, errs: dict) -> dict:
+    """Kernel 22 against its plain version and the 64-bit plain transform
+    at every size and shape; returns the (16, 1, n) int32 timing cases at
+    2^15 and 2^16 by (n, direction)."""
+    timing = {}
+    for n in NTT30_SIZES:
+        q, psi, *_ = get_params(n, "30bit")
+        tb = ntt30.NTTTables30.build([q], [psi], n, dev)
+        tb64 = ntt.NTTTables.build([q], [psi], n, dev)
+        for lead in ((1, 1), (NTT30_BATCH, 1)):
+            x = torch.from_numpy(rng.integers(0, q, lead + (n,))).to(dev)
+            ref64 = ntt.ntt_forward(x, tb64)
+            for dtype in (torch.int32, torch.int64):
+                xd = x.to(dtype)
+                f = ntt30.ntt_forward(xd, tb)
+                compare("ntt30_transform", f, ntt30.ntt_forward_plain(xd, tb),
+                        errs)
+                compare("ntt30_transform", f.to(torch.int64), ref64, errs)
+                i = ntt30.ntt_inverse(f, tb)
+                compare("ntt30_transform", i,
+                        ntt30.ntt_inverse_plain(f, tb), errs)
+                compare("ntt30_transform", i, xd, errs)
+            log(f"check ntt30_transform n={n} {lead + (n,)} int32/int64 "
+                f"fwd/inv: equal to the plain versions and the 64-bit "
+                f"transform")
+            if lead[0] == NTT30_BATCH and n >= 32768:
+                x32 = x.to(torch.int32)
+                f32 = ntt30.ntt_forward(x32, tb)
+                timing[(n, "fwd")] = (
+                    lambda x32=x32, tb=tb: ntt30.ntt_forward(x32, tb),
+                    lambda x32=x32, tb=tb: ntt30.ntt_forward_plain(x32, tb),
+                    ntt30_work(x32, tb, False))
+                timing[(n, "inv")] = (
+                    lambda f32=f32, tb=tb: ntt30.ntt_inverse(f32, tb),
+                    lambda f32=f32, tb=tb: ntt30.ntt_inverse_plain(f32, tb),
+                    ntt30_work(f32, tb, True))
+    return timing
+
+
+def run_cli(argv: list[str], passes: int = 0) -> str:
+    """cli.main(argv) in this process; raises unless it returns 0, prints
+    no FAIL and at least `passes` PASS lines.  Returns its output."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  {line}")
+    if rc != 0 or "FAIL" in out or out.count("PASS") < passes:
+        raise AssertionError(f"cli {' '.join(argv)}: rc {rc}, output "
+                             f"{out!r}")
+    return out
+
+
+def tau_mod_t(m, g: int, p, dev) -> torch.Tensor:
+    """tau_g of a plaintext m (n,) in Z_t[x]/(x^n + 1)."""
+    perm, neg = poly.galois_maps(p.n, g)
+    y = torch.as_tensor(m, device=dev)[torch.from_numpy(
+        perm.astype(np.int64)).to(dev)]
+    return torch.where(torch.from_numpy(neg).to(dev), (p.t - y) % p.t, y)
+
+
+def check_dot(name: str, out: dict, dev) -> None:
+    """Every slot of the folded ciphertext holds the dot product, the
+    noise budget is positive, and everything lives on `dev`."""
+    want = torch.full_like(out["slots"], out["expected"])
+    if not (out["result"] == out["expected"]
+            and torch.equal(out["slots"], want) and out["budget"] > 0):
+        raise AssertionError(f"{name}: dot product {out['result']} "
+                             f"(expected {out['expected']}), budget "
+                             f"{out['budget']}")
+    if out["ct"].device != dev:
+        raise AssertionError(f"{name}: ran on {out['ct'].device}")
+
+
 def reset_counts() -> None:
     for wrappers, *_ in KERNELS.values():
         for w in wrappers:
@@ -788,6 +898,7 @@ def main() -> int:
             log(f"check {name} {kname} J={J}: equal")
             if name == STAGE_SET and J == 1:
                 timing[kname] = (kern, plain, work)
+    timing30 = ntt30_checks(dev, rng, errs)
     torch.cuda.synchronize()
     log(f"checks: {time.perf_counter() - t0:.1f} s")
 
@@ -932,7 +1043,75 @@ def main() -> int:
         f"decrypts under next_context(); noise budget bits "
         f"{json.dumps(budget)}")
 
-    # Phase 9: times on the card.
+    # Phase 9: the CLI in-process on the default device.
+    t0 = time.perf_counter()
+    reset_counts()
+    run_cli(["ntt-test", "--family", "30bit", "--n", "65536"], passes=1)
+    torch.cuda.synchronize()
+    counts["cli30"] = read_counts()
+    log(f"launch counts in the ntt-test 30bit run: "
+        f"{json.dumps(counts['cli30'])}")
+    if counts["cli30"]["ntt30_transform"] < 2:
+        raise AssertionError("ntt-test --family 30bit did not launch "
+                             "kernel 22 forward and inverse")
+    run_cli(["ntt-test", "--family", "60bit", "--n", "32768"], passes=1)
+    run_cli(["decryption-test", "--fixtures", str(fix)], passes=1)
+    run_cli(["keygen-test"], passes=1)
+    run_cli(["--params", STAGE_SET, "demo", "--mul", "--time"], passes=2)
+    with tempfile.TemporaryDirectory() as d:
+        keys, ctf = str(Path(d) / "keys.npz"), str(Path(d) / "ct.npz")
+        run_cli(["--params", OP_SET, "keys", "--out", keys])
+        run_cli(["--params", OP_SET, "encrypt", "--keys", keys, "--out", ctf])
+        out = run_cli(["--params", OP_SET, "decrypt", "--keys", keys, "--ct",
+                       ctf])
+        if f"plaintext head: {list(range(16))}" not in out:
+            raise AssertionError("cli keys/encrypt/decrypt: not the ramp")
+    log(f"cli: every command returned 0 and passed "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # Phase 10: the Galois path.
+    t0 = time.perf_counter()
+    p32 = ctx32.params
+    sk32, ct32 = res32["sk"], res32["cts"][0]
+    gks32 = ctx32.galois_keygen(sk32, [3, 2 * p32.n - 1], nonce=1)
+    for g, gk in gks32.items():
+        got = ctx32.decrypt(sk32, ctx32.apply_galois(ct32, g, gk))
+        if not torch.equal(got, tau_mod_t(msgs32[0], g, p32, dev)):
+            raise AssertionError(f"{STAGE_SET}: apply_galois({g}) does not "
+                                 f"decrypt to tau_g(m) mod t")
+    log(f"galois {STAGE_SET}: galois_keygen for {sorted(gks32)}; "
+        f"apply_galois decrypts to tau_g(m) mod t for each")
+    reset_counts()
+    dot = example.encrypted_dot_product(n=DOT_N, r=DOT_R, verbose=False)
+    torch.cuda.synchronize()
+    counts["galois"] = read_counts()
+    check_dot(f"dot product n={DOT_N}", dot, dev)
+    log(f"dot product n={DOT_N} r={DOT_R} t={dot['t']}: every slot holds "
+        f"{dot['expected']}; noise budget {dot['budget']} bits")
+    log(f"launch counts in the dot-product run: "
+        f"{json.dumps(counts['galois'])}")
+    missing = [k for k in GALOIS_NEED if counts["galois"][k] < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched on the Galois path: "
+                             f"{missing}")
+    small = example.encrypted_dot_product(n=2048, verbose=False)
+    small_cpu = example.encrypted_dot_product(n=2048, verbose=False,
+                                              device="cpu")
+    check_dot("dot product n=2048", small, dev)
+    same = all(torch.equal(small[k].cpu(), small_cpu[k].cpu())
+               for k in ("sk", "pk", "rlk", "ct", "slots"))
+    same = same and all(torch.equal(a.cpu(), b.cpu()) for a, b in
+                        zip(small["cts"], small_cpu["cts"]))
+    same = same and sorted(small["gks"]) == sorted(small_cpu["gks"]) and all(
+        torch.equal(small["gks"][g].cpu(), small_cpu["gks"][g].cpu())
+        for g in small["gks"])
+    if not same:
+        raise AssertionError("dot product n=2048: keys/ciphertexts != the "
+                             "CPU run")
+    log(f"dot product n=2048: keys, Galois keys and ciphertexts equal the "
+        f"CPU plain path bit for bit ({time.perf_counter() - t0:.1f} s)")
+
+    # Phase 11: times on the card.
     ab32 = {"op": [], "stage": []}
     for sched, ctx, res in (("op", ctx_op32, res_op32),
                             ("stage", ctx32, res32), ("stage", ctx32, res32),
@@ -986,6 +1165,36 @@ def main() -> int:
     log(f"op kernels at {STAGE_SET} (n = 2^15, two 2^14 halves; J = 1, K5 "
         f"also J = {BATCH_J}; launches on the op32 path, K5 J = 16 on the "
         f"batch path): {json.dumps(op32)}")
+    ntt30_times = {}
+    for (n, direction), (kern, plain, work) in timing30.items():
+        bound_ms, bound_by = work.bound(mults, clock_hz)
+        ntt30_times[f"n={n} {direction}"] = {
+            "ms": kernel_ms(kern), "plain_ms": kernel_ms(plain, reps=5),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "terms": work.terms(mults, clock_hz)}
+    log(f"kernel 22 at ({NTT30_BATCH}, 1, n) int32 (launches on the ntt-test "
+        f"30bit path: {counts['cli30']['ntt30_transform']}): "
+        f"{json.dumps(ntt30_times)}")
+    k22 = ntt30_times["n=65536 fwd"]
+    bounds["ntt30_transform"] = (k22["ms"], k22["plain_ms"], k22["bound_ms"],
+                                 k22["bound_by"])
+    more = {}
+    for family, n in (("30bit", 65536), ("60bit", 32768)):
+        q, psi, *_ = get_params(n, family)
+        x = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, q, (2, 1, n))).to(dev)
+        tb = cli.ntt_tables(q, psi, n, family, dev)
+        more[f"ntt-test polymul {family} n={n}"] = median_ms(
+            lambda: cli.ntt_polymul(x, tb, q, family), 10)
+    more[f"galois_keygen {STAGE_SET} one element"] = median_ms(
+        lambda: ctx32.galois_keygen(sk32, [3], nonce=1), 10)
+    more[f"apply_galois {STAGE_SET}"] = median_ms(
+        lambda: ctx32.apply_galois(ct32, 3, gks32[3]), 10)
+    more[f"dot product n={DOT_N} r={DOT_R}, set-up included"] = median_ms(
+        lambda: example.encrypted_dot_product(n=DOT_N, r=DOT_R,
+                                              verbose=False), 3, 1)
+    log(f"CLI and Galois times (ms, median of CUDA-event timings around "
+        f"one call): {json.dumps(more)}")
     inv = bounds.pop("ntt_inverse")
     log(f"kernel 7 inverse ({STAGE_SET}, x (r-1, n)): ms {inv[0]}, plain "
         f"ms {inv[1]}, bound ms {inv[2]} ({inv[3]})")

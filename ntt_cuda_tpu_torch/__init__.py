@@ -11,6 +11,10 @@ version.
     sk, pk = ctx.keygen(nonce=1)
     ct = ctx.encrypt(pk, m, nonce=1)
     assert (ctx.decrypt(sk, ct) == m).all()
+
+The reference's main() programs are `python -m ntt_cuda_tpu_torch <command>`
+(cli.py): demo, ntt-test (both NTT families), decryption-test,
+keygen-test, keys / encrypt / decrypt.
 """
 
 from .models.bfv import BFVContext

@@ -6,7 +6,9 @@
 //   * add/sub with one conditional correction (values < q < 2^62);
 //   * Shoup multiply by a constant w with companion floor(w 2^64 / q);
 //   * Montgomery REDC (R = 2^64) for products of two runtime operands;
-//   * Barrett reduction of any u64 by nu = floor(2^64 / q).
+//   * Barrett reduction of any u64 by nu = floor(2^64 / q);
+//   * and for the 30-bit family's u32 residues, add/sub and a 32-bit Shoup
+//     multiply on __umulhi.
 // All functions are __host__ __device__: the same header builds with g++
 // (no CUDA compiler) so that the CPU tests can run the kernel bodies.
 
@@ -87,6 +89,31 @@ NTT_HD u64 mont_mul(u64 a, u64 b, u64 q, u64 qinv_neg) {
 // most one q.
 NTT_HD u64 mod_nu(u64 x, u64 q, u64 nu) {
   u64 r = x - mulhi64(x, nu) * q;
+  return r >= q ? r - q : r;
+}
+
+// --- u32 arithmetic of the 30-bit family (q < 2^30), kernel 22 ----------
+
+NTT_HD u32 mulhi32(u32 a, u32 b) {
+#ifdef __CUDA_ARCH__
+  return __umulhi(a, b);
+#else
+  return (u32)(((u64)a * b) >> 32);
+#endif
+}
+
+NTT_HD u32 add_mod32(u32 a, u32 b, u32 q) {
+  const u32 s = a + b;
+  return s >= q ? s - q : s;
+}
+
+NTT_HD u32 sub_mod32(u32 a, u32 b, u32 q) { return a >= b ? a - b : a + q - b; }
+
+// x * w mod q for any u32 x and a constant w < q < 2^30 with
+// ws = floor(w 2^32 / q): x*w - mulhi(x, ws)*q (mod 2^32) lies in [0, 2q)
+// (Shoup at half width, ntt_cuda_tpu/ops/ntt_pallas30.py _shoup32).
+NTT_HD u32 mul_shoup32(u32 x, u32 w, u32 ws, u32 q) {
+  const u32 r = x * w - mulhi32(x, ws) * q;
   return r >= q ? r - q : r;
 }
 

@@ -28,6 +28,10 @@
 // polynomial's tables; stage 0 (the pairs i, i + n/2, twiddle psi[1] or
 // psi^-1[1]) runs in a separate elementwise pass (ntt_stage.cu,
 // fused_ops.cu) through the same two butterflies.
+//
+// The stage loops are templated over the word: u64 for the RNS moduli,
+// u32 for the 30-bit family (ntt30.cu, kernel 22), each with its own
+// butterflies and tables.
 
 #pragma once
 
@@ -88,9 +92,43 @@ NTT_HD void gs_butterfly(u64& a, u64& b, u64 w, u64 ws, u64 q) {
   b = mul_shoup(sub_mod(u, v, q), w, ws, q);
 }
 
-// Forward transform of s[0, 2^logn), values in [0, q) in and out.
-NTT_HD void ntt_fwd_block(u64* s, int logn, const Twiddles& tw, u64 q, int tid,
-                          int nt, int tw_mul = 1) {
+// The 30-bit family's tables (ops/ntt30.py NTTTables30): u32 psi / psi^-1
+// powers with 32-bit Shoup companions floor(w 2^32 / q), and per modulus
+// (q, n^-1, its companion, 0).
+struct Twiddles32 {
+  const u32* psi;
+  const u32* psi_sh;
+  const u32* ipsi;
+  const u32* ipsi_sh;
+  const u32* consts;
+};
+
+NTT_HD Twiddles32 twiddles_at(Twiddles32 tw, int mi, int n) {
+  const size_t off = (size_t)mi * n;
+  Twiddles32 t = {tw.psi + off, tw.psi_sh + off, tw.ipsi + off,
+                  tw.ipsi_sh + off, tw.consts};
+  return t;
+}
+
+// The same butterflies on u32 residues, every value in [0, q).
+NTT_HD void ct_butterfly(u32& a, u32& b, u32 w, u32 ws, u32 q) {
+  const u32 u = a;
+  const u32 v = mul_shoup32(b, w, ws, q);
+  a = add_mod32(u, v, q);
+  b = sub_mod32(u, v, q);
+}
+
+NTT_HD void gs_butterfly(u32& a, u32& b, u32 w, u32 ws, u32 q) {
+  const u32 u = a, v = b;
+  a = add_mod32(u, v, q);
+  b = mul_shoup32(sub_mod32(u, v, q), w, ws, q);
+}
+
+// Forward transform of s[0, 2^logn), values in [0, q) in and out; W is the
+// word (u64, or u32 for the 30-bit family) and TW its tables.
+template <typename W, typename TW>
+NTT_HD void ntt_fwd_block(W* s, int logn, const TW& tw, W q, int tid, int nt,
+                          int tw_mul = 1) {
   const int half = 1 << (logn - 1);
   BLOCK_SYNC();
   for (int lg = 0; lg < logn; ++lg) {
@@ -109,8 +147,9 @@ NTT_HD void ntt_fwd_block(u64* s, int logn, const Twiddles& tw, u64 q, int tid,
 
 // Inverse transform WITHOUT the n^-1 factor: the caller multiplies by
 // n^-1 (times 2^64 when a Montgomery product came before) at the end.
-NTT_HD void ntt_inv_block(u64* s, int logn, const Twiddles& tw, u64 q, int tid,
-                          int nt, int tw_mul = 1) {
+template <typename W, typename TW>
+NTT_HD void ntt_inv_block(W* s, int logn, const TW& tw, W q, int tid, int nt,
+                          int tw_mul = 1) {
   const int half = 1 << (logn - 1);
   BLOCK_SYNC();
   for (int lg = logn - 1; lg >= 0; --lg) {
@@ -143,13 +182,14 @@ static inline int ntt_threads(int n) { return n / 2 < 1024 ? n / 2 : 1024; }
 #endif
 
 #ifdef __CUDACC__
-// Launch a block-per-polynomial kernel with 8 * 2^logb bytes of dynamic
-// shared memory (above 48 KB only after raising the kernel's limit).
-template <typename K, typename... A>
+// Launch a block-per-polynomial kernel with sizeof(W) * 2^logb bytes of
+// dynamic shared memory, at most 128 KB (2^14 u64 or 2^15 u32; above 48 KB
+// only after raising the kernel's limit).
+template <typename W = u64, typename K, typename... A>
 static int launch_poly(K kernel, int blocks, int logb, void* stream, A... args) {
   const int nb = 1 << logb;
-  const size_t smem = (size_t)nb * sizeof(u64);
-  if (logb < 1 || logb > LOG_BLOCK_MAX || blocks < 1)
+  const size_t smem = (size_t)nb * sizeof(W);
+  if (logb < 1 || smem > (sizeof(u64) << LOG_BLOCK_MAX) || blocks < 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -28,13 +28,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("salsa20.cu", "decrypt_tail.cu", "fused_ops.cu", "ntt_stage.cu",
-           "behz.cu")
+           "behz.cu", "ntt30.cu")
 HEADERS = ("modarith.cuh", "ntt_block.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 BLOCK_MAX_N = 16384     # one u64 polynomial per block in shared memory:
 #                         128 KB
 TRANSFORM_MAX_N = 32768  # two 2^14 halves beside elementwise stage-0 passes
+TRANSFORM30_MAX_N = 65536  # kernel 22 (u32): one block up to 2^15, two
+#                            2^15 halves beside stage-0 passes at 2^16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,6 +70,8 @@ SIGNATURES = {
                           _I, _P),
     # which, x, xb, out, 7 banks, C, k, n
     "ntt_behz": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, out, 4 tables, consts, inverse, P, r, log n
+    "ntt30_transform": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 # The stage kernels' prologues (ntt_stage.cu PRO_*).

@@ -13,10 +13,11 @@ integer uniform spec, on the JAX package's two kernel schedules:
 `fusion="auto"` picks as the JAX package does: "op" up to n = 16384,
 "stage" above.  `encrypt_batch` runs the J-nonce keystream (kernel 6) and
 the whole-op encrypt kernel under either schedule, as the JAX package
-does.  The evaluator (mul, square, relin_keygen, relinearize and decrypt
-of L >= 3 ciphertexts) ignores `fusion`, as the JAX package's pallas
-backends do: its transforms are the stage kernels at every n, its base
-conversions ops/behz_kernels.py and its key switch
+does.  The evaluator (mul, square, relin_keygen, relinearize, decrypt
+of L >= 3 ciphertexts, and the Galois automorphisms galois_keygen,
+apply_galois, rotate_rows and rotate_columns) ignores `fusion`, as the JAX
+package's pallas backends do: its transforms are the stage kernels at
+every n, its base conversions ops/behz_kernels.py and its key switch
 fused_ops.keyswitch_fused.  The ciphertext ops (add, sub, negate,
 add_plain, sub_plain, mod_switch_to_next) are plain tensor ops on the
 device, as the JAX package leaves them to XLA; mul_plain runs the stage
@@ -44,6 +45,7 @@ from ..ops import (behz, behz_kernels, bfv_tail, fused_ops, modmath, ntt,
                    ntt_stage, poly, salsa20, sampling)
 from ..ops.modmath import I64
 from ..utils import hostmath as hm
+from . import encoder
 
 # What the port leaves out, by the ROADMAP.md Queue 1 item that adds it.
 _ROADMAP_FP64 = "ROADMAP.md Queue 1 item 4 (uniform_spec='fp64')"
@@ -429,18 +431,80 @@ class BFVContext:
         sk = check_residues("sk", sk, (p.r, p.n),
                             "keygen returns the NTT-domain (r, n) sk",
                             self.device)
+        ms = self.tables_full.ms
+        a, e = sampling.relin_draws(p.n, p.r, p.r - 1, ms, nonce=int(nonce))
+        return self._kskeygen(a, e, sk, ntt.dyadic_mul(sk, sk, ms))
+
+    def galois_keygen(self, sk, elts, nonce=0):
+        """Switching keys for the Galois automorphisms x -> x^g: {g: (2,
+        r-1, r, n)} for each g in `elts` (odd, 0 < g < 2n), NTT domain.
+        Key j of element g encrypts P * q~_j * tau_g(s) as relin_keygen's
+        encrypt s^2.  tau_g(s) is kernel 7's inverse of sk, the
+        coefficient permutation, and kernel 7's forward, for all elements
+        in one launch each way.  Draws run under Salsa20 key byte 0x03
+        with each element's stream at a region indexed by its value, so a
+        second call at the same nonce reproduces a shared element's key;
+        nonces must be < 2**63."""
+        sampling.check_user_nonce(nonce)
+        p = self.params
+        sk = check_residues("sk", sk, (p.r, p.n),
+                            "keygen returns the NTT-domain (r, n) sk",
+                            self.device)
+        elts = sorted({int(g) for g in elts})
+        maps = [self._galois_map(g) for g in elts]     # validates each g
         tf = self.tables_full
-        ms, k = tf.ms, p.r - 1
-        a, e = sampling.relin_draws(p.n, p.r, k, ms, nonce=int(nonce))
-        x = ntt_stage.ntt_inverse_mul(a, sk, tf)            # (k, r, n)
-        x = ntt_stage.ntt_forward_addneg(x, e, tf)
-        # P * s^2 on key j's own modulus row j: plain tensor ops, as the
-        # JAX package leaves them to XLA
-        term = modmath.mont_mul(ntt.dyadic_mul(sk, sk, ms),
-                                self._p_mont_bank(), ms.q, ms.qinv_neg)
-        j = torch.arange(k, device=self.device)
-        x[j, j] = modmath.add_mod(x[j, j], term[:k], ms.q[:k])
-        return torch.stack([x, a])
+        a, e = sampling.galois_draws(p.n, p.r, p.r - 1, elts, tf.ms,
+                                     nonce=int(nonce))
+        s_coef = ntt_stage.ntt_inverse(sk, tf)
+        ts = torch.stack([poly.galois_apply(s_coef, perm, neg, tf.ms)
+                          for perm, neg in maps])        # (E, r, n)
+        keys = self._kskeygen(a, e, sk, ntt_stage.ntt_forward(ts, tf))
+        return {g: keys[i] for i, g in enumerate(elts)}
+
+    def apply_galois(self, ct, g, gk):
+        """Homomorphic automorphism: decrypts to tau_g(m), out[j] =
+        +-m[(j g^-1 mod 2n) mod n] with the negacyclic sign, mod t.  `gk`
+        is galois_keygen(...)[g].  (2, r-1, n) ciphertexts or (J, 2, r-1,
+        n) batches: the permutation of both components, the key switch of
+        the permuted c1 (kernel 19) and an exact mod-q add into c0."""
+        p = self.params
+        ct = _as_tensor("ct", ct)
+        base = (2, p.r - 1, p.n)
+        if tuple(ct.shape[-3:]) != base or ct.dim() not in (3, 4):
+            raise ValueError(f"ct: expected (2, r-1, n) or (J, 2, r-1, n) "
+                             f"= (..., {base}), got {tuple(ct.shape)}")
+        ct = check_residues("ct", ct, tuple(ct.shape), device=self.device)
+        gk = check_residues("gk", gk, (2, p.r - 1, p.r, p.n),
+                            "pass one key from galois_keygen()", self.device)
+        perm, neg = self._galois_map(int(g))
+        ms = self.tables_drop.ms
+        tc = poly.galois_apply(ct, perm, neg, ms)
+        cc = fused_ops.keyswitch_fused(tc[..., 1, :, :].contiguous(), gk,
+                                       self.tables_full, self.tail_consts)
+        c0 = modmath.add_mod(tc[..., 0, :, :], cc[..., 0, :, :], ms.q)
+        return torch.stack([c0, cc[..., 1, :, :]], dim=-3)
+
+    def rotate_rows(self, ct, steps, gks):
+        """Cyclic rotation of both batching rows by `steps` (SEAL
+        rotate_rows; a prime batching t and models/encoder.BatchEncoder).
+        `gks` is galois_keygen's dict and must hold
+        encoder.rotation_element(n, steps)."""
+        g = encoder.rotation_element(self.params.n, steps)
+        if g not in gks:
+            raise KeyError(
+                f"gks lacks the rotation element {g} for steps={steps}; "
+                f"generate with galois_keygen(sk, "
+                f"[rotation_element(n, {steps})])")
+        return self.apply_galois(ct, g, gks[g])
+
+    def rotate_columns(self, ct, gks):
+        """Swap the two batching rows (SEAL rotate_columns; Galois
+        element 2n - 1)."""
+        g = encoder.column_element(self.params.n)
+        if g not in gks:
+            raise KeyError(f"gks lacks the column element {g}; generate "
+                           f"with galois_keygen(sk, [2*n - 1])")
+        return self.apply_galois(ct, g, gks[g])
 
     def relinearize(self, ct3, rlk):
         """(3, r-1, n) or (J, 3, r-1, n) mul() output + relin keys ->
@@ -525,6 +589,37 @@ class BFVContext:
                              out[..., 2 if square else 3, :, :], q)
         return torch.stack([out[..., 0, :, :], c1, out[..., 1, :, :]],
                            dim=-3)
+
+    def _kskeygen(self, a, e, sk, target_hat):
+        """Switching keys encrypting NTT-domain targets under sk (the JAX
+        package's _kskeygen_body): a, e (..., k, r, n) draws, target_hat
+        (..., r, n) -> (..., 2, k, r, n).  key0_j = NTT(-(a_j s + e_j)) +
+        P * target at modulus row j (P = q_last), key1_j = a_j: one
+        INTT(a (.) sk) launch (kernel 8) and one NTT(-(x + e)) launch
+        (kernel 11) over every key, then the P * target term as plain
+        tensor ops, as the JAX package leaves it to XLA."""
+        tf = self.tables_full
+        ms, (k, r, n) = tf.ms, a.shape[-3:]
+        x = ntt_stage.ntt_inverse_mul(a.reshape(-1, r, n), sk, tf)
+        x = ntt_stage.ntt_forward_addneg(x, e.reshape(-1, r, n),
+                                         tf).reshape(a.shape)
+        term = modmath.mont_mul(target_hat, self._p_mont_bank(), ms.q,
+                                ms.qinv_neg)
+        j = torch.arange(k, device=self.device)
+        x[..., j, j, :] = modmath.add_mod(x[..., j, j, :], term[..., :k, :],
+                                          ms.q[:k])
+        return torch.stack([x, a], dim=-4)
+
+    def _galois_map(self, g: int):
+        """tau_g's (perm, neg) as tensors on the device; cached."""
+        key = ("galois", g)
+        m = self._mult_cache.get(key)
+        if m is None:
+            perm, neg = poly.galois_maps(self.params.n, g)
+            m = (torch.from_numpy(perm.astype(np.int64)).to(self.device),
+                 torch.from_numpy(neg).to(self.device))
+            self._mult_cache[key] = m
+        return m
 
     def _p_mont_bank(self):
         """(r, 1) P * R mod q_i (P = q_last): the switching keys' P factor

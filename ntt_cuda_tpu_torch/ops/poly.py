@@ -14,7 +14,9 @@ JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 from ..utils import hostmath as hm
@@ -218,3 +220,29 @@ def fast_convert_and_round(c1, dc: DecryptConsts):
     # the rounded value is gamma*m mod t: undo gamma (trivial for the
     # reference's gamma === 1 mod t; required for batching primes)
     return modmath.mont_mul(corr, _scalar(dc.inv_gamma_t_mont, c1), tt, tqi)
+
+
+# --- Galois automorphisms a(x) -> a(x^g) mod x^n + 1 (SEAL's apply_galois;
+# beyond the reference, which stops at encrypt/decrypt) ---------------------
+
+@functools.lru_cache(maxsize=1024)
+def galois_maps(n: int, g: int) -> tuple[np.ndarray, np.ndarray]:
+    """(perm int32 (n,), neg bool (n,)) for tau_g: out[j] = +-a[perm[j]].
+
+    Output index j has the unique source i0 = j g^-1 mod 2n; its
+    coefficient is a[i0 mod n], negated when i0 >= n (the negacyclic
+    wrap).  g must be odd with 0 < g < 2n.  Host numpy, cached."""
+    if not (0 < g < 2 * n) or g % 2 == 0:
+        raise ValueError(f"galois element must be odd in (0, {2 * n}), "
+                         f"got {g}")
+    ginv = pow(g, -1, 2 * n)
+    i0 = (np.arange(n, dtype=np.int64) * ginv) % (2 * n)
+    return (i0 % n).astype(np.int32), i0 >= n
+
+
+def galois_apply(x, perm, neg, ms: ModulusSet):
+    """tau_g of (..., r, n) residues: one gather on the coefficient axis
+    (perm, an int64 tensor on x's device) and a modular negate where `neg`
+    (a bool tensor) holds, 0 staying 0."""
+    y = x[..., perm]
+    return torch.where(neg, modmath.negate_mod(y, ms.q), y)

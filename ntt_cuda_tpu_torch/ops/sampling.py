@@ -198,6 +198,12 @@ def relin_draws(n: int, r: int, k: int, ms: modmath.ModulusSet, nonce=0):
     bw, lanes = salsa20.keystream_block_words(
         (nbytes + 63) // 64, key_byte=RELIN_KEY_BYTE,
         nonce=keygen_nonce(nonce), with_u64=True, device=ms.q.device)
+    return _key_draws(bw, lanes, n, r, k, ms)
+
+
+def _key_draws(bw, lanes, n: int, r: int, k: int, ms: modmath.ModulusSet):
+    """The k switching keys' (a, e) from one stream whose key j owns the
+    bytes from j*(8rn + 4n)."""
     kb = (8 * r * n + 4 * n) // 64       # blocks per key
     ub = 8 * r * n // 64                 # of them, the uniform lanes'
     u = (lanes[:, :k * kb].reshape(8, k, kb)[:, :, :ub]
@@ -205,3 +211,31 @@ def relin_draws(n: int, r: int, k: int, ms: modmath.ModulusSet, nonce=0):
     w = (bw[:, :k * kb].reshape(16, k, kb)[:, :, ub:ub + n // 16]
          .permute(1, 2, 0).reshape(k, n))
     return uniform(u, ms), small_res(gaussian_int(w), ms.q)
+
+
+# Galois-key draws: their own key byte (0x03), independent of the keygen /
+# encrypt (0x01) and relin (0x02) streams at any nonce.
+GALOIS_KEY_BYTE = 0x03
+
+
+def galois_draws(n: int, r: int, k: int, elts, ms: modmath.ModulusSet,
+                 nonce=0):
+    """Draws of the Galois switching keys of `elts` on ms's device:
+    (a (E, k, r, n), e (E, k, r, n)), one keystream launch per element.
+
+    The stream region is indexed by the ELEMENT VALUE, not its rank in the
+    call (the JAX package's layout, ntt_cuda_tpu/ops/sampling.py:527-558):
+    element g's k keys start at block counter g * ceil(k (8rn + 4n) / 64),
+    laid out as relin_draws' keys.  Two calls at one nonce therefore give a
+    shared element the same key, and distinct elements never share
+    randomness."""
+    region = (relin_entropy_bytes(n, r, k) + 63) // 64   # blocks per element
+    a_rows, e_rows = [], []
+    for g in elts:
+        bw, lanes = salsa20.keystream_block_words(
+            region, key_byte=GALOIS_KEY_BYTE, nonce=keygen_nonce(nonce),
+            counter0=int(g) * region, with_u64=True, device=ms.q.device)
+        a, e = _key_draws(bw, lanes, n, r, k, ms)
+        a_rows.append(a)
+        e_rows.append(e)
+    return torch.stack(a_rows), torch.stack(e_rows)

@@ -1,5 +1,5 @@
-"""Parameter registry: the published BFV RNS sets and their exact-int
-precompute.
+"""Parameter registry: the single-modulus NTT families, the published BFV
+RNS sets and their exact-int precompute.
 
 PyTorch-side counterpart of `ntt_cuda_tpu/params.py` (the reference's
 `BFV_Scheme/parameter.h` tables and the host precompute of
@@ -15,6 +15,36 @@ import dataclasses
 import functools
 
 from .utils import hostmath as hm
+
+# Single-modulus NTT parameter families (parameter.h getParams /
+# getParams30).  Tuples are (q, psi, psiinv, ninv, q_bit).
+PARAMS_60BIT = {
+    2048: (137438691329, 22157790, 88431458764, 137371582593, 37),
+    4096: (33538049, 2386, 26102329, 33529861, 25),
+    8192: (8796092858369, 1734247217, 5727406356888, 8795019116565, 43),
+    16384: (281474976546817, 23720796222, 129310633907832, 281457796677643, 48),
+    32768: (36028797017456641, 1155186985540, 31335194304461613, 36027697505828911, 55),
+}
+
+# Alternative n=4096 set kept commented in the reference (parameter.h:43-47).
+PARAMS_60BIT_ALT4096 = (288230376135196673, 60193018759093, 236271020333049746, 288160007391023041, 58)
+
+PARAMS_30BIT = {
+    2048: (536608769, 284166, 208001377, 536346753, 29),
+    4096: (33538049, 2386, 26102329, 33529861, 25),
+    8192: (8716289, 1089, 8196033, 8715225, 24),
+    16384: (13664257, 273, 8959348, 13663423, 24),
+    32768: (19070977, 377, 16642842, 19070395, 25),
+    65536: (13631489, 13, 12582913, 13631281, 24),
+}
+
+
+def get_params(n: int, family: str = "60bit"):
+    """(q, psi, psiinv, ninv, q_bit) for a single-modulus NTT at size n
+    (parameter.h getParams for the 60-bit family, getParams30)."""
+    table = PARAMS_60BIT if family == "60bit" else PARAMS_30BIT
+    return table[n]
+
 
 # All published sets use t = 1024 and gamma = 2305843009213683713 (61-bit).
 T_DEFAULT = 1024

@@ -127,8 +127,8 @@ def load_relin_keys(path, params):
 
 
 def save_galois_keys(path, params, gks: dict) -> None:
-    """gks: {galois element g: (2, r-1, r, n)} (the JAX package's
-    galois_keygen; the port has no Galois keygen yet)."""
+    """gks: {galois element g: (2, r-1, r, n)} (BFVContext.galois_keygen,
+    the port's or the JAX package's)."""
     want = (2, params.r - 1, params.r, params.n)
     elts = sorted(int(g) for g in gks)
     stack = []

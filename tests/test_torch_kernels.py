@@ -25,8 +25,9 @@ import torch
 from ntt_cuda_tpu_torch import cuda, get_bfv_params
 from ntt_cuda_tpu_torch.models.bfv import BFVContext
 from ntt_cuda_tpu_torch.ops import (behz, behz_kernels, bfv_tail, fused_ops,
-                                    ntt, ntt_stage, salsa20, sampling)
-from ntt_cuda_tpu_torch.params import BFVParams
+                                    ntt, ntt30, ntt_stage, salsa20, sampling)
+from ntt_cuda_tpu_torch.params import BFVParams, get_params
+from ntt_cuda_tpu_torch.utils import primegen
 
 # A 1024-point set with three 40-bit moduli (generated like
 # ntt_cuda_tpu.utils.primegen.make_bfv_params(1024, 40, 3)), and the same
@@ -503,6 +504,60 @@ def test_host_stage_bsk_tables(host_lib, stage_ctx):
         torch.testing.assert_close(out, plain(), rtol=0, atol=0)
 
 
+# --- kernel 22: the 30-bit family transform (u32, n up to 2^16) -----------
+
+def _tables30(n, two_moduli=False):
+    """NTTTables30 of the family's modulus at n, or of two generated 30-bit
+    moduli (polynomial p takes modulus p % 2)."""
+    if two_moduli:
+        qs = primegen.generate_moduli(n, 30, 2)
+        psis = [primegen.find_primitive_2n_root(q, n) for q in qs]
+    else:
+        q, psi, *_ = get_params(n, "30bit")
+        qs, psis = [q], [psi]
+    return ntt30.NTTTables30.build(qs, psis, n)
+
+
+def _rand30(rng, tb, polys):
+    qs = [int(v) for v in tb.consts[:, 0]]
+    return torch.from_numpy(np.stack(
+        [rng.integers(0, qs[p % tb.r], tb.n) for p in range(polys)])
+        .astype(np.int32))
+
+
+@pytest.mark.parametrize("n,two", [(2048, True), (65536, False)])
+def test_host_ntt30(host_lib, n, two):
+    """Kernel 22 forward and inverse: one block per polynomial at 2^11, the
+    CT / GS stage-0 passes beside two 2^15 halves at 2^16; in place too."""
+    tb = _tables30(n, two)
+    rng = np.random.default_rng(110)
+    P = 2 * tb.r
+    x = _rand30(rng, tb, P)
+    x[:, :2] = 0
+    for inverse, plain in ((0, ntt30.ntt_forward_plain),
+                           (1, ntt30.ntt_inverse_plain)):
+        ref = plain(x, tb)
+        out = torch.empty_like(x)
+        assert host_lib.ntt30_transform(x.data_ptr(), out.data_ptr(),
+                                        *tb.kernel_args(), inverse, P, tb.r,
+                                        tb.logn, None) == 0
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+        y = x.clone()
+        assert host_lib.ntt30_transform(y.data_ptr(), y.data_ptr(),
+                                        *tb.kernel_args(), inverse, P, tb.r,
+                                        tb.logn, None) == 0
+        torch.testing.assert_close(y, ref, rtol=0, atol=0)
+
+
+def test_host_ntt30_rejects_bad_arguments(host_lib):
+    tb = _tables30(2048, two_moduli=True)
+    x = torch.zeros((2, 2048), dtype=torch.int32)
+    for P, logn in ((3, tb.logn), (2, 17), (2, 0), (0, tb.logn)):
+        assert host_lib.ntt30_transform(x.data_ptr(), x.data_ptr(),
+                                        *tb.kernel_args(), 0, P, tb.r, logn,
+                                        None) != 0
+
+
 # --- on the card -----------------------------------------------------------
 
 @pytest.fixture
@@ -650,4 +705,27 @@ def test_cuda_op32_kernels_match_plain(cuda_device, name):
         assert torch.equal(fused_ops.encrypt_fused(u_b, pk, e2, m, tf, tc),
                            fused_ops.encrypt_fused_plain(u_b, pk, e2, m, tf,
                                                          tc))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2048, 16384, 32768, 65536])
+def test_cuda_ntt30_matches_plain(cuda_device, n):
+    """Kernel 22 on the card, (1, 1, n) and bench.py's (16, 1, n), int32
+    and int64, forward and inverse, and equal to the 64-bit transform."""
+    q, psi, *_ = get_params(n, "30bit")
+    tb = ntt30.NTTTables30.build([q], [psi], n, cuda_device)
+    tb64 = ntt.NTTTables.build([q], [psi], n, cuda_device)
+    rng = np.random.default_rng(5)
+    for lead in ((1, 1), (16, 1)):
+        x = torch.from_numpy(rng.integers(0, q, lead + (n,))).to(cuda_device)
+        for dtype in (torch.int32, torch.int64):
+            xd = x.to(dtype)
+            f = ntt30.ntt_forward(xd, tb)
+            assert f.dtype == dtype
+            assert torch.equal(f, ntt30.ntt_forward_plain(xd, tb))
+            assert torch.equal(f.to(torch.int64), ntt.ntt_forward(x, tb64))
+            i = ntt30.ntt_inverse(f, tb)
+            assert torch.equal(i, ntt30.ntt_inverse_plain(f, tb))
+            assert torch.equal(i, xd)
     torch.cuda.synchronize()

@@ -20,6 +20,7 @@ from ntt_cuda_tpu.utils import primegen
 from ntt_cuda_tpu_torch import params as tparams
 from ntt_cuda_tpu_torch.ops import modmath as mm
 from ntt_cuda_tpu_torch.utils import hostmath as thm
+from ntt_cuda_tpu_torch.utils import primegen as tprimegen
 
 REPO = Path(__file__).resolve().parents[1]
 M64 = (1 << 64) - 1
@@ -47,7 +48,12 @@ def test_import_is_jax_free():
     code = ("import sys, ntt_cuda_tpu_torch, ntt_cuda_tpu_torch.convert, "
             "ntt_cuda_tpu_torch.cuda, ntt_cuda_tpu_torch.ops.fused_ops, "
             "ntt_cuda_tpu_torch.ops.bfv_tail, ntt_cuda_tpu_torch.ops.poly, "
-            "ntt_cuda_tpu_torch.ops.sampling, ntt_cuda_tpu_torch.models.bfv; "
+            "ntt_cuda_tpu_torch.ops.sampling, ntt_cuda_tpu_torch.models.bfv, "
+            "ntt_cuda_tpu_torch.ops.ntt30, ntt_cuda_tpu_torch.models.encoder, "
+            "ntt_cuda_tpu_torch.cli, ntt_cuda_tpu_torch.utils.golden, "
+            "ntt_cuda_tpu_torch.utils.profiling, "
+            "ntt_cuda_tpu_torch.utils.primegen, "
+            "ntt_cuda_tpu_torch.examples.encrypted_dot_product; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'ntt_cuda_tpu.'))]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -165,3 +171,32 @@ def test_psi_tables_match_jax(name):
     t, j = tparams.get_bfv_params(name), jparams.get_bfv_params(name)
     for i in (0, t.r - 1):
         assert t.psi_tables(i) == j.psi_tables(i)
+
+
+def test_ntt_families_match_jax():
+    """The single-modulus NTT families (parameter.h getParams /
+    getParams30) and get_params, equal to the JAX package's."""
+    assert tparams.PARAMS_60BIT == jparams.PARAMS_60BIT
+    assert tparams.PARAMS_60BIT_ALT4096 == jparams.PARAMS_60BIT_ALT4096
+    assert tparams.PARAMS_30BIT == jparams.PARAMS_30BIT
+    for family, table in (("60bit", tparams.PARAMS_60BIT),
+                          ("30bit", tparams.PARAMS_30BIT)):
+        for n in table:
+            assert tparams.get_params(n, family) == jparams.get_params(
+                n, family)
+    assert all(q < (1 << 30) for q, *_ in tparams.PARAMS_30BIT.values())
+
+
+@pytest.mark.parametrize("n,bits,r", [(1024, 40, 3), (2048, 45, 3),
+                                      (32768, 45, 3)])
+def test_primegen_params_match_jax(n, bits, r):
+    """find_plain_modulus and make_bfv_params (the batching sets of the
+    encoder and the dot-product example), equal to the JAX package's."""
+    t = tprimegen.find_plain_modulus(n, 17)
+    assert t == primegen.find_plain_modulus(n, 17)
+    got = tprimegen.make_bfv_params(n, bits, r, t=t)
+    ref = primegen.make_bfv_params(n, bits, r, t=t)
+    assert (got.name, got.n, got.q, got.psi, got.t, got.gamma) == \
+        (ref.name, ref.n, ref.q, ref.psi, ref.t, ref.gamma)
+    pow2 = tprimegen.make_bfv_params(n, bits, r)
+    assert pow2.q == primegen.make_bfv_params(n, bits, r).q
