@@ -58,14 +58,29 @@ one Montgomery product (for each kernel's bound).  Then:
    rotations and a column swap) at n = 32768, every slot the expected
    value and the noise budget positive, counts read as in 3; and at
    n = 2048 its keys and ciphertexts equal to the same run on the CPU;
-11. CUDA-event times: the 32k_9q ops and EvalMult ops, the 16k_5q EvalMult
+11. the RNS-sharded program (ntt_cuda_tpu_torch/parallel/spmd.py) at
+   32k_9q: kernels 16, 17 and 18 against their plain versions at rank
+   shapes (rows 0-3 and 6-9 of R = 3, rows 0-9 of R = 1; power-of-two and
+   odd prime t; 17 also at level 1 with a q = 1 pad row); then
+   SpmdBFVContext at world size 1 over NCCL through the public API
+   (keygen, encrypt of three seeded messages, add, sub, decrypt,
+   mod_switch_to_next, the level-1 decrypt), counts read as in 3, keys
+   and live ciphertext rows equal to BFVContext.build(params)'s, every
+   message round-tripped, one all-reduce per encrypt, decrypt and mod
+   switch and none in keygen; and the same path in three processes on the
+   one card over gloo (this script re-run as `--spmd-worker`), every
+   tensor equal to the world-size-1 run;
+12. CUDA-event times: the 32k_9q ops and EvalMult ops, the 16k_5q EvalMult
    ops, the 16k_5q op-vs-stage and 32k_9q op-vs-stage A/Bs (in turns op,
    stage, stage, op), encrypt_batch at J = 16, galois_keygen (one
    element) and apply_galois at 32k_9q, ntt-test's product for both
-   families and the whole dot product, each around one call; every kernel
+   families, the whole dot product, and SPMD keygen / encrypt / decrypt
+   at world size 1 beside BFVContext's (turns stage, op, spmd, spmd, op,
+   stage), each around one call; every kernel
    and its plain version around a run of calls back to back, beside the
    kernel's bound (K3-K5 and K5 at J = 16 also at 32k_9q; kernel 22 at
-   (16, 1, n), n = 2^15 and 2^16, both directions).
+   (16, 1, n), n = 2^15 and 2^16, both directions; kernels 16-18 at
+   32k_9q's world-size-1 shapes, rl = 9).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and last `{"ok": true, "device": {...}}`.  Any failure raises,
@@ -78,6 +93,7 @@ import contextlib
 import io
 import json
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -97,7 +113,10 @@ from ntt_cuda_tpu_torch.examples import (  # noqa: E402
 from ntt_cuda_tpu_torch.ops import (behz_kernels, bfv_tail,  # noqa: E402
                                     fused_ops, ntt, ntt30, ntt_stage, poly,
                                     salsa20, sampling)
-from ntt_cuda_tpu_torch.params import get_params  # noqa: E402
+from ntt_cuda_tpu_torch.params import BFVParams, get_params  # noqa: E402
+from ntt_cuda_tpu_torch.parallel import (mesh as pmesh,  # noqa: E402
+                                         multihost, spmd)
+from ntt_cuda_tpu_torch.utils import primegen  # noqa: E402
 from ntt_cuda_tpu_torch.utils.profiling import median_ms  # noqa: E402
 
 SEED = 20261016
@@ -118,6 +137,12 @@ DOT_R = 4        # over four 45-bit moduli: three fail EvalMult's aux-base
 # the kernels the Galois path must launch: K1, 7, 8, 11, 19 and K2
 GALOIS_NEED = ("salsa20_keystream", "ntt_transform", "ntt_inverse_mul",
                "ntt_forward_addneg", "keyswitch_fused", "decrypt_tail")
+SPMD_SET = "32k_9q"          # the RNS-sharded program's path
+SPMD_R = 3                   # its ranks in the one-card gloo run, rl = 3
+# rank rows of kernels 16-18's checks: R = 3's rank 0 (no dropped row) and
+# rank 2 (the dropped row), and R = 1's rows (also the timed shape)
+SPMD_BANDS = ((0, 3), (6, 9), (0, 9))
+SPMD_MSGS = 3
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
 
@@ -128,7 +153,7 @@ KERNELS = {
     "salsa20_keystream": ((salsa20.keystream_block_words,),
                           "ntt_cuda_tpu_torch/csrc/salsa20.cu",
                           "ntt_cuda_tpu/ops/salsa20.py:174",
-                          ("mult", "op", "stage", "op32")),
+                          ("mult", "op", "stage", "op32", "spmd")),
     "salsa20_keystream_batch": ((salsa20.keystream_block_words_batch,),
                                 "ntt_cuda_tpu_torch/csrc/salsa20.cu",
                                 "ntt_cuda_tpu/ops/salsa20.py:249",
@@ -139,10 +164,12 @@ KERNELS = {
                      ("mult", "op", "stage", "batch", "op32")),
     "half_polymul": ((fused_ops.half_polymul,),
                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
-                     "ntt_cuda_tpu/ops/fused_ops.py:213", ("op", "op32")),
+                     "ntt_cuda_tpu/ops/fused_ops.py:213",
+                     ("op", "op32", "spmd")),
     "keygen_fused": ((fused_ops.keygen_fused,),
                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
-                     "ntt_cuda_tpu/ops/fused_ops.py:137", ("op", "op32")),
+                     "ntt_cuda_tpu/ops/fused_ops.py:137",
+                     ("op", "op32", "spmd")),
     "encrypt_fused": ((fused_ops.encrypt_fused,),
                       "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                       "ntt_cuda_tpu/ops/fused_ops.py:466",
@@ -190,6 +217,16 @@ KERNELS = {
     "ntt30_transform": ((ntt30.ntt_forward, ntt30.ntt_inverse),
                         "ntt_cuda_tpu_torch/csrc/ntt30.cu",
                         "ntt_cuda_tpu/ops/ntt_pallas30.py:257", ("cli30",)),
+    # the RNS-sharded program's kernels (parallel/spmd.py): 18, 16, 17
+    "encrypt_front": ((fused_ops.encrypt_front,),
+                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
+                      "ntt_cuda_tpu/ops/fused_ops.py:301", ("spmd",)),
+    "encrypt_tail_padded": ((bfv_tail.encrypt_tail_padded,),
+                            "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
+                            "ntt_cuda_tpu/ops/bfv_tail.py:760", ("spmd",)),
+    "decrypt_tail_partial": ((bfv_tail.decrypt_tail_partial,),
+                             "ntt_cuda_tpu_torch/csrc/decrypt_tail.cu",
+                             "ntt_cuda_tpu/ops/bfv_tail.py:886", ("spmd",)),
 }
 
 # One multiply-heavy primitive per probe kernel; its SASS gives the
@@ -776,6 +813,229 @@ def check_dot(name: str, out: dict, dev) -> None:
         raise AssertionError(f"{name}: ran on {out['ct'].device}")
 
 
+def odd_t_params(p: BFVParams) -> BFVParams:
+    """p with an odd batching prime t (t = 1 mod 2n, about 17 bits)."""
+    return BFVParams(name=f"{p.name}_oddt", n=p.n, q=p.q, psi=p.psi,
+                     t=primegen.find_plain_modulus(p.n, 17), gamma=p.gamma)
+
+
+def spmd_cases(p: BFVParams, dev, rng):
+    """(kernel, label, wrapper call, plain call, Work) for kernels 16-18 at
+    the rank shapes of p's RNS-sharded program (rows SPMD_BANDS), for p's
+    power-of-two t and an odd prime t (18 does not read t); kernel 17 also
+    over a level-1 rank whose last row is a q = 1 pad row."""
+    cases = []
+    n = p.n
+    for pt in (p, odd_t_params(p)):
+        for lo, hi in SPMD_BANDS:
+            rl, label = hi - lo, f"{pt.name} rows {lo}-{hi}"
+            if pt is p:
+                tb = ntt.NTTTables.build(p.q[lo:hi], p.psi[lo:hi], n, dev)
+                u_b, _ = sampling.encrypt_draws_compact(n, nonce=1,
+                                                        device=dev)
+                pk = rand_res(rng, p.q[lo:hi], n, (2,), dev)
+                cases.append((
+                    "encrypt_front", label,
+                    lambda u=u_b, k=pk, tb=tb: fused_ops.encrypt_front(u, k, tb),
+                    lambda u=u_b, k=pk, tb=tb: fused_ops.encrypt_front_plain(
+                        u, k, tb),
+                    Work(nbytes(u_b, pk, *tables(tb), pk),
+                         shoup=transform_butterflies(3 * rl, n) + 2 * rl * n,
+                         mont=2 * rl * n)))
+            tc = bfv_tail.build_tail_consts_padded(pt, lo, hi, dev)
+            c, e = (rand_res(rng, pt.q[lo:hi], n, (2,), dev)
+                    for _ in range(2))
+            ra = torch.from_numpy(rng.integers(0, pt.q[-1], (2, n))).to(dev)
+            m = torch.from_numpy(rng.integers(0, pt.t, n)).to(dev)
+            out = 2 * rl * n
+            cases.append((
+                "encrypt_tail_padded", label,
+                lambda c=c, e=e, ra=ra, m=m, tc=tc:
+                    bfv_tail.encrypt_tail_padded(c, e, ra, m, tc),
+                lambda c=c, e=e, ra=ra, m=m, tc=tc:
+                    bfv_tail.encrypt_tail_padded_plain(c, e, ra, m, tc),
+                Work(nbytes(c, e, ra, m, tc.per_mod) + 8 * out, mont=out,
+                     mod_nu=out + out // 2, mullo=out // 2)))
+            levels = ((0, hi), (1, min(hi, pt.r - 1))) if hi == pt.r else (
+                (0, hi),)
+            for level, top in levels:
+                cp = spmd._chain_params(pt, level)
+                dc = bfv_tail.build_dec_tail_consts_padded(cp, lo, top,
+                                                           pad_to=hi,
+                                                           device=dev)
+                x, c0 = (rand_res(rng, pt.q[lo:hi], n, (), dev)
+                         for _ in range(2))
+                cases.append((
+                    "decrypt_tail_partial", f"{label} level {level}",
+                    lambda x=x, c0=c0, dc=dc:
+                        bfv_tail.decrypt_tail_partial(x, c0, dc),
+                    lambda x=x, c0=c0, dc=dc:
+                        bfv_tail.decrypt_tail_partial_plain(x, c0, dc),
+                    Work(nbytes(x, c0, dc.per_mod, dc.glob) + 16 * n,
+                         mont=3 * rl * n, mullo=rl * n)))
+    return cases
+
+
+def spmd_messages(p: BFVParams) -> np.ndarray:
+    return np.random.default_rng(SEED + 5).integers(0, p.t, (SPMD_MSGS, p.n))
+
+
+def drive_spmd(sctx: spmd.SpmdBFVContext, msgs: np.ndarray) -> dict:
+    """keygen, encrypt of each message, add and sub of the first two,
+    decrypt of each, mod_switch_to_next of the first and its level-1
+    decrypt; each op's collectives.  Returns the rank's local tensors."""
+    ops: dict[str, list] = {}
+
+    def counted(name, fn):
+        pmesh.collectives.clear()
+        y = fn()
+        ops.setdefault(name, []).append(list(pmesh.collectives))
+        return y
+
+    sk, pk = counted("keygen", lambda: sctx.keygen(nonce=1))
+    cts = [counted("encrypt", lambda j=j: sctx.encrypt(pk, msgs[j],
+                                                       nonce=j + 1))
+           for j in range(len(msgs))]
+    add = counted("add", lambda: sctx.add(cts[0], cts[1]))
+    sub = counted("sub", lambda: sctx.sub(cts[0], cts[1]))
+    outs = [counted("decrypt", lambda c=c: sctx.decrypt(sk, c)) for c in cts]
+    sw = counted("mod_switch", lambda: sctx.mod_switch_to_next(cts[0]))
+    res = dict(sk=sk, pk=pk, add=add, sub=sub, sw=sw,
+               dec_add=sctx.decrypt(sk, add), dec_sub=sctx.decrypt(sk, sub),
+               dec_sw=sctx.decrypt(sk, sw, level=1))
+    res.update({f"ct{j}": c for j, c in enumerate(cts)})
+    res.update({f"dec{j}": o for j, o in enumerate(outs)})
+    torch.cuda.synchronize()
+    return {"local": {k: v.to_local() for k, v in res.items()},
+            "dtensor": res, "collectives": ops}
+
+
+def check_spmd(p: BFVParams, local: dict, collectives: dict,
+               msgs: np.ndarray, ref: dict, ref_sw) -> None:
+    """Round trips (level 1 included), add / sub mod t, keys and live
+    ciphertext rows equal to the single-card run `ref` and mod switch
+    `ref_sw`, and the collectives: keygen none, encrypt one (2, n)
+    all-reduce, decrypt one (3, n), mod_switch one (2, n)."""
+    t, r, n = p.t, p.r, p.n
+    m = [torch.from_numpy(msgs[j]).to(local["dec0"].device)
+         for j in range(len(msgs))]
+    want = {f"dec{j}": m[j] for j in range(len(msgs))}
+    want.update(dec_add=(m[0] + m[1]) % t, dec_sub=(m[0] - m[1]) % t,
+                dec_sw=m[0])
+    for k, w in want.items():
+        if not torch.equal(local[k], w):
+            raise AssertionError(f"SPMD {p.name}: {k} does not decrypt to "
+                                 f"its message")
+    same = (torch.equal(local["sk"], ref["sk"]) and
+            torch.equal(local["pk"], ref["pk"]) and
+            all(torch.equal(local[f"ct{j}"][:, :r - 1], ref["cts"][j])
+                for j in range(len(msgs))) and
+            torch.equal(local["sw"][:, :r - 2], ref_sw))
+    if not same:
+        raise AssertionError(f"SPMD {p.name}: keys / live ciphertext rows != "
+                             f"the single-card BFVContext")
+    budget = {"keygen": [[]], "encrypt": [[("all_reduce", (2, n))]] * len(
+        msgs), "add": [[]], "sub": [[]],
+              "decrypt": [[("all_reduce", (3, n))]] * len(msgs),
+              "mod_switch": [[("all_reduce", (2, n))]]}
+    got = {k: [[(op, tuple(sh)) for op, sh in call] for call in v]
+           for k, v in collectives.items()}
+    if got != budget:
+        raise AssertionError(f"SPMD {p.name}: collectives {got}, expected "
+                             f"{budget}")
+
+
+def free_address() -> str:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return f"tcp://localhost:{sock.getsockname()[1]}"
+
+
+def spmd_worker(rank: int, R: int, address: str, out: Path) -> None:
+    """One rank of the one-card gloo run (chip_smoke.py re-run as
+    `--spmd-worker rank R address out`): first an all-reduce of a CUDA
+    tensor over gloo (on failure its error goes to probe<rank>.txt and the
+    rank ends), then the SPMD path at SPMD_SET; the rank's local tensors
+    and collectives go to rank<rank>.npz / .json."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    multihost.initialize(address, R, rank, backend="gloo")
+    try:
+        x = torch.full((4,), rank + 1, dtype=torch.int64, device=dev)
+        try:
+            torch.distributed.all_reduce(x)
+        except RuntimeError as e:   # gloo without CUDA tensors: (c) left out
+            (out / f"probe{rank}.txt").write_text(f"{type(e).__name__}: {e}")
+            return
+        if x.tolist() != [R * (R + 1) // 2] * 4:
+            raise AssertionError(f"gloo all_reduce of CUDA tensors: {x}")
+        p = get_bfv_params(SPMD_SET)
+        sctx = spmd.SpmdBFVContext.build(p)
+        if (sctx.device != dev or sctx.shards != R
+                or pmesh.collectives):
+            raise AssertionError(f"rank {rank}: built on {sctx.device} over "
+                                 f"{sctx.shards} ranks")
+        res = drive_spmd(sctx, spmd_messages(p))
+        np.savez(out / f"rank{rank}.npz",
+                 **{k: v.cpu().numpy() for k, v in res["local"].items()})
+        (out / f"rank{rank}.json").write_text(json.dumps(res["collectives"]))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_spmd_ranks(R: int) -> tuple[dict | None, str]:
+    """SPMD_SET's path in R processes on the one card over gloo: each rank's
+    local tensors put back together along the sharded axis (the
+    plaintexts, replicated, must agree on every rank), or None and the
+    reason where gloo takes no CUDA tensors."""
+    address = free_address()
+    with tempfile.TemporaryDirectory() as d:
+        out = Path(d)
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--spmd-worker",
+             str(rank), str(R), address, str(out)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(R)]
+        try:
+            logs = [proc.communicate(timeout=600)[0] for proc in procs]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        for rank, (proc, text) in enumerate(zip(procs, logs)):
+            if proc.returncode != 0:
+                raise AssertionError(f"SPMD worker {rank}/{R} failed "
+                                     f"({proc.returncode}):\n{text}")
+        probes = sorted(out.glob("probe*.txt"))
+        if probes:
+            return None, probes[0].read_text()
+        ranks = [dict(np.load(out / f"rank{k}.npz")) for k in range(R)]
+        colls = [json.loads((out / f"rank{k}.json").read_text())
+                 for k in range(R)]
+    whole = {}
+    for k in ranks[0]:
+        parts = [torch.from_numpy(rk[k]) for rk in ranks]
+        if k.startswith("dec"):
+            if not all(torch.equal(parts[0], q) for q in parts[1:]):
+                raise AssertionError(f"SPMD R={R}: {k} differs across ranks")
+            whole[k] = parts[0]
+        else:
+            whole[k] = torch.cat(parts, dim=0 if k == "sk" else 1)
+    if any(c != colls[0] for c in colls[1:]):
+        raise AssertionError(f"SPMD R={R}: collectives differ across ranks")
+    return {"local": whole, "collectives": colls[0]}, ""
+
+
+def kge_times(ctx, sk, pk, ct, m0, reps: int) -> dict:
+    """keygen, encrypt and decrypt of one message, ms per call."""
+    return {
+        "keygen": median_ms(lambda: ctx.keygen(nonce=1), reps),
+        "encrypt": median_ms(lambda: ctx.encrypt(pk, m0, nonce=1), reps),
+        "decrypt": median_ms(lambda: ctx.decrypt(sk, ct), reps),
+    }
+
+
 def reset_counts() -> None:
     for wrappers, *_ in KERNELS.values():
         for w in wrappers:
@@ -1111,7 +1371,62 @@ def main() -> int:
     log(f"dot product n=2048: keys, Galois keys and ciphertexts equal the "
         f"CPU plain path bit for bit ({time.perf_counter() - t0:.1f} s)")
 
-    # Phase 11: times on the card.
+    # Phase 11: the RNS-sharded program (parallel/spmd.py) at SPMD_SET.
+    t0 = time.perf_counter()
+    p_s = get_bfv_params(SPMD_SET)
+    timing_spmd = {}
+    # (a) kernels 16-18 == plain at the rank shapes, both kinds of t
+    for kname, label, kern, plain, work in spmd_cases(p_s, dev, rng):
+        compare(kname, kern(), plain(), errs)
+        log(f"check SPMD {kname} {label}: equal")
+        if label == f"{SPMD_SET} rows 0-{p_s.r}" + (
+                " level 0" if kname == "decrypt_tail_partial" else ""):
+            timing_spmd[kname] = (kern, plain, work)
+    # (b) world size 1 over NCCL, the path through the public API
+    multihost.initialize(free_address(), 1, 0)
+    sctx = spmd.SpmdBFVContext.build(p_s)     # the default mesh and device
+    if sctx.device != dev or sctx.shards != 1:
+        raise AssertionError(f"SPMD: built on {sctx.device} over "
+                             f"{sctx.shards} ranks")
+    msgs_s = spmd_messages(p_s)
+    ref_s = drive(ctx32, msgs_s, dev)          # BFVContext.build(params)
+    ref_sw = ctx32.mod_switch_to_next(ref_s["cts"][0])
+    torch.cuda.synchronize()
+    reset_counts()
+    res_s = drive_spmd(sctx, msgs_s)
+    counts["spmd"] = read_counts()
+    check_spmd(p_s, res_s["local"], res_s["collectives"], msgs_s, ref_s,
+               ref_sw)
+    log(f"SPMD {SPMD_SET} world size 1 (NCCL): {SPMD_MSGS} messages "
+        f"round-trip, add / sub and the level-1 decrypt after "
+        f"mod_switch_to_next too; keys and live ciphertext rows equal "
+        f"BFVContext.build(params)'s; collectives per op "
+        f"{json.dumps(res_s['collectives'])}")
+    log(f"launch counts in the SPMD run: {json.dumps(counts['spmd'])}")
+    missing = [k for k, (*_, s) in KERNELS.items()
+               if "spmd" in s and counts["spmd"][k] < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched on the SPMD path: "
+                             f"{missing}")
+    # (c) SPMD_R processes on the one card over gloo == (b), every row
+    r3, why = run_spmd_ranks(SPMD_R)
+    if r3 is None:
+        log(f"SPMD R={SPMD_R} over gloo on one card: left out, gloo's "
+            f"all_reduce refused a CUDA tensor: {why}")
+    else:
+        local3 = {k: v.to(dev) for k, v in r3["local"].items()}
+        check_spmd(p_s, local3, r3["collectives"], msgs_s, ref_s, ref_sw)
+        diff = [k for k, v in res_s["local"].items()
+                if not torch.equal(local3[k], v)]
+        if diff:
+            raise AssertionError(f"SPMD R={SPMD_R} != world size 1: {diff}")
+        log(f"SPMD {SPMD_SET} R={SPMD_R} (gloo, {SPMD_R} processes on one "
+            f"card, rl = {p_s.r // SPMD_R}): every tensor, padding rows "
+            f"included, equals the world-size-1 run; collectives per op as "
+            f"there")
+    log(f"SPMD phase: {time.perf_counter() - t0:.1f} s")
+
+    # Phase 12: times on the card.
     ab32 = {"op": [], "stage": []}
     for sched, ctx, res in (("op", ctx_op32, res_op32),
                             ("stage", ctx32, res32), ("stage", ctx32, res32),
@@ -1136,6 +1451,21 @@ def main() -> int:
     for sched, runs in ab.items():
         log(f"op times {OP_SET} {sched} (ms, median of CUDA-event timings; "
             f"two turns of op, stage, stage, op): {json.dumps(runs)}")
+    ds = res_s["dtensor"]
+    m_s = torch.from_numpy(msgs_s[0]).to(dev)
+    turns = {"stage": [], "op": [], "spmd": []}
+    for which, c, sk_, pk_, ct_ in (
+            ("stage", ctx32, ref_s["sk"], ref_s["pk"], ref_s["cts"][0]),
+            ("op", ctx_op32, ref_s["sk"], ref_s["pk"], ref_s["cts"][0]),
+            ("spmd", sctx, ds["sk"], ds["pk"], ds["ct0"]),
+            ("spmd", sctx, ds["sk"], ds["pk"], ds["ct0"]),
+            ("op", ctx_op32, ref_s["sk"], ref_s["pk"], ref_s["cts"][0]),
+            ("stage", ctx32, ref_s["sk"], ref_s["pk"], ref_s["cts"][0])):
+        turns[which].append(kge_times(c, sk_, pk_, ct_, m_s, 10))
+    log(f"SPMD world size 1 against BFVContext at {SPMD_SET} (ms, median of "
+        f"CUDA-event timings around one call; turns stage, op, spmd, spmd, "
+        f"op, stage): {json.dumps(turns)}")
+    timing.update(timing_spmd)
     bounds, terms = {}, {}
     for kname, (kern, plain, work) in timing.items():
         terms[kname] = work.terms(mults, clock_hz)
@@ -1209,6 +1539,7 @@ def main() -> int:
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
     torch.cuda.synchronize()
+    torch.distributed.destroy_process_group()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1218,4 +1549,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--spmd-worker"]:
+        spmd_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                    Path(sys.argv[5]))
+        sys.exit(0)
     sys.exit(main())

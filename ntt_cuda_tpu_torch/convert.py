@@ -5,7 +5,10 @@ The JAX package holds u64 residues as numpy/jax `uint64`; the port holds
 the same bit patterns in `torch.int64`.  Both directions reinterpret the
 bits, so every value round-trips unchanged.  Parameters cross as the six
 fields that define a set (name, n, q, psi, t, gamma); the port recomputes
-every derived constant from them.
+every derived constant from them.  The sharded programs' keys and
+ciphertexts cross as full arrays: `to_dtensor` gives one rank its rows of
+a JAX key or padded ciphertext as a DTensor (no collective), and
+`from_dtensor` brings a DTensor back whole through `full_tensor()`.
 """
 
 from __future__ import annotations
@@ -35,3 +38,28 @@ def params_from(p) -> BFVParams:
                      q=tuple(int(q) for q in p.q),
                      psi=tuple(int(x) for x in p.psi),
                      t=int(p.t), gamma=int(p.gamma))
+
+
+def to_dtensor(x, mesh, dim: int | None):
+    """A full uint64 array (a JAX key or padded ciphertext) -> this rank's
+    DTensor on a 1-D ('rns',) `mesh`, on the mesh's device: rows [lo, hi)
+    of axis `dim` as Shard(dim), or the whole as Replicate() for dim None.
+    Each rank slices its own rows; nothing is sent."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    t = to_torch(x)
+    if dim is not None:
+        R, idx = mesh.size(0), mesh.get_local_rank(0)
+        if t.shape[dim] % R:
+            raise ValueError(f"axis {dim} of length {t.shape[dim]} does not "
+                             f"split over {R} ranks")
+        rl = t.shape[dim] // R
+        t = t.narrow(dim, idx * rl, rl)
+    return DTensor.from_local(t.contiguous().to(mesh.device_type), mesh,
+                              [Replicate() if dim is None else Shard(dim)],
+                              run_check=False)
+
+
+def from_dtensor(x) -> np.ndarray:
+    """A DTensor -> its full value as numpy uint64 (an all-gather over the
+    mesh for a sharded one: every rank must call it)."""
+    return to_numpy(x.full_tensor())

@@ -17,21 +17,37 @@
 // forms (poly_arithmetic.cuh:217-268); odd t < 2^31 reduces by Barrett with
 // nu_t = floor(2^64 / t) and ends with the gamma^-1 mod t undo.
 //
+// Kernel 17, decrypt_tail_partial, replaces ntt_cuda_tpu/ops/bfv_tail.py
+// decrypt_tail_partial (bfv_tail.py:886, pallas_call :908): one rank of the
+// RNS-sharded decrypt runs the same residue loop over its own rows (the
+// dropped modulus's and any pad rows give 0: their padded constants are 0)
+// and stops before the scaling and rounding.  It writes the rank's two
+// partial sums, which the caller all-reduces and rounds
+// (bfv_tail.dec_round_from_sums): x_t as the low 32 bits of the sum for pow2
+// t (the TPU kernel's wrapping u32 sum, bfv_tail.py:275-279), below t for
+// odd t; x_g below gamma, before the neg_inv_q multiply.  Bound as above:
+// 16 rl bytes read and 16 written per coefficient.
+//
 // pm: DecTailConsts.per_mod rows (q, -q^-1, t*gamma * 2^64, inv_punctured
 // * 2^64, bcm_t, bcm_gamma * 2^64 mod gamma); gl: gamma, -gamma^-1 mod
 // 2^64, gamma / 2, neg_inv_q mod gamma * 2^64.
 
 #include "modarith.cuh"
 
-NTT_HD void decrypt_tail_body(long long idx, const u64* x, const u64* c0,
-                              u64* out, const u64* pm, const u64* gl, int rk,
-                              int n, int pow2, u64 t, u64 neg_t, u64 nu_t,
-                              u64 inv_gt) {
-  const long long j = idx / n;
-  const int k = (int)(idx % n);
-  const u64 gamma = gl[0], ginv = gl[1], gdiv2 = gl[2], negg = gl[3];
+// The BEHZ sums of coefficient k of message j over the rk residue rows: x_t
+// (pow2 t: the sum of (y * bcm_t) & (t-1), wrapping mod 2^64; odd t: mod t)
+// and x_g (mod gamma, before the neg_inv_q multiply), where y_i =
+// ((x_i +> c0_i) * t*gamma * inv_punctured) mod q_i.
+struct BehzSums {
+  u64 xt, xg;
+};
+
+NTT_HD BehzSums behz_sums(long long j, int k, const u64* x, const u64* c0,
+                          const u64* pm, const u64* gl, int rk, int n, int pow2,
+                          u64 t, u64 nu_t) {
+  const u64 gamma = gl[0], ginv = gl[1];
   const u64 mask = t - 1;
-  u64 xt = 0, xg = 0;
+  BehzSums acc = {0, 0};
   for (int i = 0; i < rk; ++i) {
     const u64* p = pm + 6 * i;
     const u64 q = p[0], qinv = p[1];
@@ -39,14 +55,26 @@ NTT_HD void decrypt_tail_body(long long idx, const u64* x, const u64* c0,
     const u64 s = add_mod_gt(x[off], c0[off], q);  // poly_add_xq_d quirk
     const u64 y = mont_mul(mont_mul(s, p[2], q, qinv), p[3], q, qinv);
     if (pow2) {
-      xt += (y * p[4]) & mask;
+      acc.xt += (y * p[4]) & mask;
     } else {
-      xt += mod_nu(mod_nu(y, t, nu_t) * p[4], t, nu_t);
-      if (xt >= t) xt -= t;
+      acc.xt += mod_nu(mod_nu(y, t, nu_t) * p[4], t, nu_t);
+      if (acc.xt >= t) acc.xt -= t;
     }
-    xg = add_mod(xg, mont_mul(y, p[5], gamma, ginv), gamma);
+    acc.xg = add_mod(acc.xg, mont_mul(y, p[5], gamma, ginv), gamma);
   }
-  xg = mont_mul(xg, negg, gamma, ginv);
+  return acc;
+}
+
+NTT_HD void decrypt_tail_body(long long idx, const u64* x, const u64* c0,
+                              u64* out, const u64* pm, const u64* gl, int rk,
+                              int n, int pow2, u64 t, u64 neg_t, u64 nu_t,
+                              u64 inv_gt) {
+  const u64 gamma = gl[0], ginv = gl[1], gdiv2 = gl[2], negg = gl[3];
+  const u64 mask = t - 1;
+  const BehzSums acc =
+      behz_sums(idx / n, (int)(idx % n), x, c0, pm, gl, rk, n, pow2, t, nu_t);
+  u64 xt = acc.xt;
+  const u64 xg = mont_mul(acc.xg, negg, gamma, ginv);
   u64 res;
   if (pow2) {
     xt = ((xt & mask) * neg_t) & mask;
@@ -62,6 +90,16 @@ NTT_HD void decrypt_tail_body(long long idx, const u64* x, const u64* c0,
   out[idx] = res;
 }
 
+// Kernel 17: coefficient k's partial sums over the rank's rl rows, x_t to
+// out[k] (its low 32 bits) and x_g to out[n + k].
+NTT_HD void decrypt_partial_body(long long k, const u64* x, const u64* c0,
+                                 u64* out, const u64* pm, const u64* gl, int rl,
+                                 int n, int pow2, u64 t, u64 nu_t) {
+  const BehzSums acc = behz_sums(0, (int)k, x, c0, pm, gl, rl, n, pow2, t, nu_t);
+  out[k] = acc.xt & 0xFFFFFFFFull;
+  out[n + k] = acc.xg;
+}
+
 #ifdef __CUDACC__
 
 __global__ void k_decrypt_tail(const u64* x, const u64* c0, u64* out,
@@ -72,6 +110,13 @@ __global__ void k_decrypt_tail(const u64* x, const u64* c0, u64* out,
   if (idx < total)
     decrypt_tail_body(idx, x, c0, out, pm, gl, rk, n, pow2, t, neg_t, nu_t,
                       inv_gt);
+}
+
+__global__ void k_decrypt_partial(const u64* x, const u64* c0, u64* out,
+                                  const u64* pm, const u64* gl, int rl, int n,
+                                  int pow2, u64 t, u64 nu_t) {
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k < n) decrypt_partial_body(k, x, c0, out, pm, gl, rl, n, pow2, t, nu_t);
 }
 
 extern "C" int ntt_decrypt_tail(const void* x, const void* c0, void* out,
@@ -88,16 +133,41 @@ extern "C" int ntt_decrypt_tail(const void* x, const void* c0, void* out,
   return (int)cudaGetLastError();
 }
 
+extern "C" int ntt_decrypt_tail_partial(const void* x, const void* c0,
+                                        void* out, const void* pm,
+                                        const void* gl, int rl, int n, int pow2,
+                                        u64 t, u64 nu_t, void* stream) {
+  if (n < 1 || rl < 1) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  k_decrypt_partial<<<(n + threads - 1) / threads, threads, 0,
+                      (cudaStream_t)stream>>>(
+      (const u64*)x, (const u64*)c0, (u64*)out, (const u64*)pm,
+      (const u64*)gl, rl, n, pow2, t, nu_t);
+  return (int)cudaGetLastError();
+}
+
 #else  // host build for the CPU tests
 
 extern "C" int ntt_decrypt_tail(const void* x, const void* c0, void* out,
                                 const void* pm, const void* gl, int J, int rk,
                                 int n, int pow2, u64 t, u64 neg_t, u64 nu_t,
                                 u64 inv_gt, void*) {
+  if ((long long)J * n < 1 || rk < 1) return 1;
   for (long long idx = 0; idx < (long long)J * n; ++idx)
     decrypt_tail_body(idx, (const u64*)x, (const u64*)c0, (u64*)out,
                       (const u64*)pm, (const u64*)gl, rk, n, pow2, t, neg_t,
                       nu_t, inv_gt);
+  return 0;
+}
+
+extern "C" int ntt_decrypt_tail_partial(const void* x, const void* c0,
+                                        void* out, const void* pm,
+                                        const void* gl, int rl, int n, int pow2,
+                                        u64 t, u64 nu_t, void*) {
+  if (n < 1 || rl < 1) return 1;
+  for (long long k = 0; k < n; ++k)
+    decrypt_partial_body(k, (const u64*)x, (const u64*)c0, (u64*)out,
+                         (const u64*)pm, (const u64*)gl, rl, n, pow2, t, nu_t);
   return 0;
 }
 

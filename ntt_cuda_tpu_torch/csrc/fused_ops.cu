@@ -1,9 +1,15 @@
-// Whole-op transform kernels: half_polymul, keygen_fused, encrypt_fused.
+// Whole-op transform kernels: half_polymul, keygen_fused, encrypt_fused,
+// encrypt_front, and the RNS-sharded program's encrypt tail.
 //
 // Replace the TPU kernels of ntt_cuda_tpu/ops/fused_ops.py:
 //   half_polymul  (fused_ops.py:213, pallas_call :260)
 //   keygen_fused  (fused_ops.py:137, pallas_call :174)
 //   encrypt_fused (fused_ops.py:466, pallas_call :541)
+//   encrypt_front (fused_ops.py:301, pallas_call :337): encrypt_fused's
+//                 transform with no e, c[h] = INTT(NTT(u) . pk_h)
+// and of ntt_cuda_tpu/ops/bfv_tail.py:
+//   encrypt_tail_padded (bfv_tail.py:760, pallas_call :794): encrypt_fused's
+//                 tail on one rank's rows, ra from its own all-reduced input
 // n <= 2^14: each block owns one polynomial (message x modulus).  It stays
 // in dynamic shared memory while the forward -> dyadic -> inverse chain
 // runs in place (ntt_block.cuh).  The dyadic product is one Montgomery
@@ -24,10 +30,12 @@
 //                  | GS0, n^-1, -(x + e), CT0 | forward halves: pk0
 //   encrypt_fused  CT0(u) | halves: NTT(u) parked in the c1 slot, both
 //                  products | GS0 of both, n^-1, +> e | the encrypt tail
+//   encrypt_front  the same transform with no e
 // Each thread of a half block reads back exactly the indices it wrote, so
 // NTT(u) parked in the c1 slot is safe as at n <= 2^14.  No cluster yet
-// (ROADMAP.md Queue 1 item 12): a two-block cluster exchanging stage 0
-// through distributed shared memory would make each op one launch.
+// (ROADMAP.md, perf work "Transform latency"): a two-block cluster
+// exchanging stage 0 through distributed shared memory would make each op
+// one launch.
 //
 // Bound on the card: shared memory, 8n bytes per block (128 KB at
 // n = 16384 and per half at 2^15: one block per SM, so a call fills
@@ -35,7 +43,10 @@
 // The design keeps every intermediate of an op out of device memory
 // except where noted (at 2^15 each stage-0 pass is one round trip), and
 // reads compact i32 draws (the ternary u and s, the Gaussian e) instead of
-// (r, n) u64 residues.
+// (r, n) u64 residues.  encrypt_front is the same transform, bound the same
+// way.  The encrypt tails are elementwise, one thread per output
+// coefficient, bound by device memory (the padded tail reads c, e, ra and m
+// once and writes ct once: 8 (6 rl + 3) bytes per coefficient of m).
 //
 // encrypt_fused cannot carry the last residue across grid steps as the TPU
 // grid does (fused_ops.py:397-407): blocks run in no order.  Its transform
@@ -221,17 +232,28 @@ struct ForwardHalves {
 };
 
 // --- encrypt_fused, transform: scratch[j, h, mi] = INTT(NTT(u_j) . pk_h) +> e_jh
+// With ed null it is encrypt_front (kernel 18): the products alone.
 
 struct EncryptTransform {
   const int* ub;  // (J, n) compact ternary u
   const u64* pk;  // (2, r, n)
-  const int* ed;  // (J, 2, n) compact Gaussian e
+  const int* ed;  // (J, 2, n) compact Gaussian e, or null
   u64* scratch;   // (J, 2, r, n)
   Twiddles tw;
   int r, logn;
 
   OP_HD u64* slot(int j, int h, int mi) const {
     return scratch + (((size_t)(2 * j + h) * r + mi) << logn);
+  }
+
+  // The draw plane of row 2 j + h, or null when there is no e.
+  OP_HD const int* e_row(int row) const {
+    return ed ? ed + ((size_t)row << logn) : nullptr;
+  }
+
+  // x +> e[i] (strict `>`), or x where there is no e.
+  static OP_HD u64 plus_e(u64 x, const int* e, size_t i, u64 q) {
+    return e ? add_mod_gt(x, small_res(e[i], q), q) : x;
   }
 
   OP_HD void block(int b, int tid, int nt, u64* s) const {
@@ -244,8 +266,8 @@ struct EncryptTransform {
     u64* c1 = slot(j, 1, mi) + at.hoff;
     const u64* pk0 = pk + ((size_t)mi << logn) + at.hoff;
     const u64* pk1 = pk + ((size_t)(r + mi) << logn) + at.hoff;
-    const int* e0 = ed + ((size_t)(2 * j) << logn);
-    const int* e1 = ed + ((size_t)(2 * j + 1) << logn);
+    const int* e0 = e_row(2 * j);
+    const int* e1 = e_row(2 * j + 1);
     const int* u = ub + ((size_t)j << logn);
     for (int i = tid; i < at.nb; i += nt)  // 2^15: CT stage 0 in the c1 slot
       s[i] = split ? c1[i] : small_res(u[i], c.q);
@@ -257,15 +279,15 @@ struct EncryptTransform {
     ntt_inv_block(s, at.logb, t, c.q, tid, nt, at.tw_mul);
     for (int i = tid; i < at.nb; i += nt) {
       c0[i] = split ? s[i]
-                    : add_mod_gt(mul_shoup(s[i], c.ninv, c.ninv_sh, c.q),
-                                 small_res(e0[i], c.q), c.q);
+                    : plus_e(mul_shoup(s[i], c.ninv, c.ninv_sh, c.q), e0, i,
+                             c.q);
       s[i] = mont_mul(c1[i], pk1[i], c.q, c.qinv);
     }
     ntt_inv_block(s, at.logb, t, c.q, tid, nt, at.tw_mul);
     for (int i = tid; i < at.nb; i += nt)
       c1[i] = split ? s[i]
-                    : add_mod_gt(mul_shoup(s[i], c.ninv, c.ninv_sh, c.q),
-                                 small_res(e1[i], c.q), c.q);
+                    : plus_e(mul_shoup(s[i], c.ninv, c.ninv_sh, c.q), e1, i,
+                             c.q);
   }
 
   // Pair k over the J r polynomials (j, mi): CT stage 0 of u into the c1 slot.
@@ -288,33 +310,42 @@ struct EncryptTransform {
     const int row = pa.p / r, mi = pa.p % r;  // row = 2 j + h
     const ModConsts c = load_consts(tw.consts, mi);
     const Twiddles t = twiddles_at(tw, mi, 1 << logn);
-    const int* e = ed + ((size_t)row << logn);
+    const int* e = e_row(row);
     u64 a = scratch[pa.lo], b = scratch[pa.lo + pa.half];
     gs_butterfly(a, b, t.ipsi[1], t.ipsi_sh[1], c.q);
-    scratch[pa.lo] = add_mod_gt(mul_shoup(a, c.ninv, c.ninv_sh, c.q),
-                                small_res(e[pa.i], c.q), c.q);
+    scratch[pa.lo] = plus_e(mul_shoup(a, c.ninv, c.ninv_sh, c.q), e, pa.i, c.q);
     scratch[pa.lo + pa.half] =
-        add_mod_gt(mul_shoup(b, c.ninv, c.ninv_sh, c.q),
-                   small_res(e[pa.i + pa.half], c.q), c.q);
+        plus_e(mul_shoup(b, c.ninv, c.ninv_sh, c.q), e, pa.i + pa.half, c.q);
   }
 };
 
 // --- encrypt_fused, tail: the modulus drop and Delta*m + fix --------------
 // tc: TailConsts.per_mod rows (q, -q^-1, nu, half_mod, inv_q_last * 2^64,
-// q_i / t); one thread per output coefficient of ct (J, 2, r-1, n).  With
+// q_i / t); one thread per output coefficient of ct (J, 2, rk, n).  With
 // m null it is the modulus drop alone: the key switch's last launch
 // (divide_and_round_q_last of the accumulated (J, 2, r, n) pair).
+//
+// Two forms.  encrypt_fused's: scratch holds c +> e over all r = rk + 1
+// moduli and ra is its last row, + half mod q_last.  encrypt_tail_padded's
+// (kernel 16, one rank of the RNS-sharded program): scratch is the rank's
+// c (J, 2, rk, n) with r = rk, e (the same shape) is added here, and ra
+// (J, 2, n) arrives ready, all-reduced from the dropped modulus's owner
+// ((c_last +> e_last) + half mod q_last; the caller passes half = 0).  The
+// rank's padded constants give the dropped modulus's own row, if it holds
+// it, half_mod 0, inv_q_last 1 and q_i / t 0: that slot is well defined
+// and the caller ignores it.
 
 struct EncryptTail {
   const u64* scratch;
+  const u64* e;   // null, or the (J, 2, rk, n) e of the padded form
+  const u64* ra;  // null, or the (J, 2, n) ready ra of the padded form
   const long long* m;
   u64* ct;
   const u64* tc;
   u64 q_last, half, fix_th;
-  int r, n;
+  int r, rk, n;
 
   OP_HD void operator()(long long idx) const {
-    const int rk = r - 1;
     const int k = (int)(idx % n);
     long long rest = idx / n;
     const int ki = (int)(rest % rk);
@@ -324,11 +355,12 @@ struct EncryptTail {
     const u64* p = tc + 6 * ki;
     const u64 q = p[0], qinv = p[1], nu = p[2], half_mod = p[3], invq = p[4],
               qi_div_t = p[5];
-    const size_t base = (size_t)(2 * j + h) * r;
-    const u64 sv = scratch[(base + ki) * n + k];
-    u64 ra = scratch[(base + rk) * n + k] + half;
-    if (ra >= q_last) ra -= q_last;
-    u64 tmp = mod_nu(ra, q, nu);
+    const size_t row = (size_t)(2 * j + h);
+    u64 sv = scratch[(row * r + ki) * n + k];
+    if (e) sv = add_mod_gt(sv, e[(row * rk + ki) * n + k], q);
+    u64 ra_v = (ra ? ra[row * n + k] : scratch[(row * r + rk) * n + k]) + half;
+    if (ra_v >= q_last) ra_v -= q_last;
+    u64 tmp = mod_nu(ra_v, q, nu);
     tmp = tmp < half_mod ? tmp + q - half_mod : tmp - half_mod;
     const u64 v = sv < tmp ? sv + q - tmp : sv - tmp;
     u64 out = mont_mul(v, invq, q, qinv);
@@ -462,7 +494,35 @@ extern "C" int ntt_encrypt_tail(const void* scratch, const void* m, void* ct,
                                 const void* tc, u64 q_last, u64 half,
                                 u64 fix_th, int J, int r, int n, void* stream) {
   if (r < 2) return NTT_EINVAL;
-  const EncryptTail f = {(const u64*)scratch, (const long long*)m, (u64*)ct,
-                         (const u64*)tc, q_last, half, fix_th, r, n};
+  const EncryptTail f = {(const u64*)scratch, nullptr, nullptr,
+                         (const long long*)m, (u64*)ct, (const u64*)tc,
+                         q_last, half, fix_th, r, r - 1, n};
   return run_each(f, (long long)J * 2 * (r - 1) * n, stream);
+}
+
+// Kernel 18: c (2, r, n) = INTT(NTT(u) . pk_h) for one message, NTT(u)
+// computed once per modulus (the transform above with no e).
+extern "C" int ntt_encrypt_front(const void* ub, const void* pk, void* c,
+                                 const void* psi, const void* psi_sh,
+                                 const void* ipsi, const void* ipsi_sh,
+                                 const void* consts, int r, int logn,
+                                 void* stream) {
+  if (r < 1) return NTT_EINVAL;
+  const EncryptTransform f = {(const int*)ub, (const u64*)pk, nullptr, (u64*)c,
+                              make_tw(psi, psi_sh, ipsi, ipsi_sh, consts), r,
+                              logn};
+  return run_op(f, r, 2 * r, logn, stream);
+}
+
+// Kernel 16: one rank's padded tail, c and e (2, rl, n), ra (2, n) ready,
+// m (n,) -> ct (2, rl, n).
+extern "C" int ntt_encrypt_tail_padded(const void* c, const void* e,
+                                       const void* ra, const void* m, void* ct,
+                                       const void* tc, u64 q_last, u64 fix_th,
+                                       int rl, int n, void* stream) {
+  if (rl < 1 || !e || !ra) return NTT_EINVAL;
+  const EncryptTail f = {(const u64*)c, (const u64*)e, (const u64*)ra,
+                         (const long long*)m, (u64*)ct, (const u64*)tc,
+                         q_last, 0, fix_th, rl, rl, n};
+  return run_each(f, 2LL * rl * n, stream);
 }

@@ -62,6 +62,14 @@ SIGNATURES = {
                               _I, _P),
     # scratch, m, ct, per_mod, q_last, half, fix_th, J, r, n
     "ntt_encrypt_tail": (_P, _P, _P, _P, _U64, _U64, _U64, _I, _I, _I, _P),
+    # u_b, pk, c, 4 tables, consts, r, log n
+    "ntt_encrypt_front": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # c, e, ra, m, ct, per_mod, q_last, fix_th, rl, n
+    "ntt_encrypt_tail_padded": (_P, _P, _P, _P, _P, _P, _U64, _U64, _I, _I,
+                                _P),
+    # x, c0, out, per_mod, glob, rl, n, pow2, t, nu_t
+    "ntt_decrypt_tail_partial": (_P, _P, _P, _P, _P, _I, _I, _I, _U64, _U64,
+                                 _P),
     # x, d, y, nu, out, 4 tables, consts, prologue, P, r, log n
     "ntt_stage_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _I, _P),

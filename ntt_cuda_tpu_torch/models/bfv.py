@@ -48,7 +48,7 @@ from ..utils import hostmath as hm
 from . import encoder
 
 # What the port leaves out, by the ROADMAP.md Queue 1 item that adds it.
-_ROADMAP_FP64 = "ROADMAP.md Queue 1 item 4 (uniform_spec='fp64')"
+_ROADMAP_FP64 = "ROADMAP.md Queue 1, the item \"uniform_spec='fp64'\""
 
 
 def _as_tensor(name: str, x) -> torch.Tensor:

@@ -16,6 +16,13 @@ Counterpart of `ntt_cuda_tpu/ops/bfv_tail.py` for the main path:
   drop and Delta*m + fix), read by the encrypt kernels.
 * `DecTailConsts` and `_t_strategy`: the decrypt kernel's constants and
   its static mod-t strategy (pow2 masks, or Barrett-by-t for odd t < 2^31).
+* The RNS-sharded program's tails (parallel/spmd.py), one rank's rows of
+  the padded (2, r, n) layout: `encrypt_tail_padded` (kernel 16, K5's tail
+  launch with e added and ra from its own all-reduced input) and
+  `decrypt_tail_partial` (kernel 17, K2's residue loop stopped at the BEHZ
+  sums), each with its `_plain` version and padded constants, and the
+  plain tensor steps around the all-reduce: `psum_behz_partials`,
+  `combine_gamma_halves`, `dec_round_from_sums`.
 
 Constants are int64 bit-pattern tensors on the context's device, rows of
 u64 words in the order the kernels read them.
@@ -92,28 +99,56 @@ class DecTailConsts:
     @staticmethod
     def build(params, device=None) -> "DecTailConsts":
         qs = params.q[:-1]
-        g, t = params.gamma, params.t
-        bcm_t, bcm_g = params.base_change_matrix
-        neg_t, neg_g = params.neg_inv_q_mod_t_gamma
-        if t & (t - 1) == 0:
-            nu_t = inv_gt = 0
-        elif t % 2 == 1 and t < (1 << 31):
-            nu_t, inv_gt = (1 << 64) // t, pow(g % t, -1, t)
-        else:
-            raise ValueError(f"decrypt tail needs a power-of-two t or an odd "
-                             f"t < 2^31, got {t}")
-        rows = [(q, hm.mont_qinv_neg(q),
-                 hm.to_mont(params.prod_t_gamma_mod_q[i], q),
-                 hm.to_mont(params.inv_punctured_q[i], q),
-                 bcm_t[i], hm.to_mont(bcm_g[i], g))
-                for i, q in enumerate(qs)]
-        glob = (g, hm.mont_qinv_neg(g), params.gamma_div_2,
-                hm.to_mont(neg_g, g))
+        nu_t, inv_gt = _t_fields(params)
         return DecTailConsts(
-            per_mod=_rows(rows, device), glob=_rows([glob], device)[0],
+            per_mod=_dec_rows(params, 0, len(qs), device),
+            glob=_dec_glob(params, device),
             dec=poly.DecryptConsts.build(params, device),
             ms=modmath.ModulusSet.from_moduli(qs, device),
-            t=t, neg_t=neg_t, nu_t=nu_t, inv_gt=inv_gt)
+            t=params.t, neg_t=params.neg_inv_q_mod_t_gamma[0], nu_t=nu_t,
+            inv_gt=inv_gt)
+
+
+def _t_fields(params) -> tuple[int, int]:
+    """(nu_t, inv_gt) of the decrypt kernels' mod-t strategy: 0, 0 for a
+    power-of-two t; floor(2^64 / t) and (gamma mod t)^-1 for an odd
+    t < 2^31."""
+    g, t = params.gamma, params.t
+    if t & (t - 1) == 0:
+        return 0, 0
+    if t % 2 == 1 and t < (1 << 31):
+        return (1 << 64) // t, pow(g % t, -1, t)
+    raise ValueError(f"decrypt tail needs a power-of-two t or an odd "
+                     f"t < 2^31, got {t}")
+
+
+def _dec_rows(params, lo: int, hi: int, device,
+              pad_to: int | None = None) -> torch.Tensor:
+    """DecTailConsts.per_mod rows of moduli [lo, hi): the dropped (global
+    last) modulus's row keeps q and -q^-1 with its four BEHZ constants 0,
+    so it adds nothing to the sums; rows up to pad_to - lo beyond hi - lo
+    are pad rows, q = 1 and all else 0 (well defined, adding nothing)."""
+    g = params.gamma
+    bcm_t, bcm_g = params.base_change_matrix
+    rows = []
+    for i in range(lo, hi):
+        q = params.q[i]
+        kept = i < params.r - 1
+        rows.append((q, hm.mont_qinv_neg(q))
+                    + ((hm.to_mont(params.prod_t_gamma_mod_q[i], q),
+                        hm.to_mont(params.inv_punctured_q[i], q),
+                        bcm_t[i], hm.to_mont(bcm_g[i], g)) if kept
+                       else (0, 0, 0, 0)))
+    for _ in range(len(rows), (pad_to or 0) - lo):
+        rows.append((1, hm.mont_qinv_neg(1), 0, 0, 0, 0))
+    return _rows(rows, device)
+
+
+def _dec_glob(params, device) -> torch.Tensor:
+    g = params.gamma
+    return _rows([(g, hm.mont_qinv_neg(g), params.gamma_div_2,
+                   hm.to_mont(params.neg_inv_q_mod_t_gamma[1], g))],
+                 device)[0]
 
 
 def _t_strategy(tmeta: tuple) -> tuple[int, int, int, int, int]:
@@ -213,3 +248,227 @@ def encrypt_fused(u_ntt, pk, e_d, m_poly, tables: NTTTables,
 
 
 encrypt_fused.launches = 0
+
+
+# --- the RNS-sharded program's tails: one rank's rows [lo, hi) of the padded
+# (2, r, n) layout, their cross-rank inputs and outputs explicit so that the
+# collectives live in parallel/spmd.py ------------------------------------
+
+def _cols(per_mod: torch.Tensor) -> list[torch.Tensor]:
+    """The (rows, 1) columns of a per-modulus constant table."""
+    return [per_mod[:, j:j + 1] for j in range(per_mod.shape[1])]
+
+
+@dataclasses.dataclass(frozen=True)
+class PaddedTailConsts:
+    """encrypt_tail_padded's constants for one rank's rows: per_mod as
+    TailConsts.per_mod (q, -q^-1, nu, half_mod, inv_q_last (Montgomery
+    form), q_i // t), the dropped modulus's own row, where the rank holds
+    it, with half_mod 0, inv_q_last 1 and q_i // t 0.  There is no half:
+    the caller folds it into ra."""
+
+    per_mod: torch.Tensor  # (hi - lo, 6)
+    q_last: int
+    fix_th: int
+
+
+def build_tail_consts_padded(params, lo: int, hi: int,
+                             device=None) -> PaddedTailConsts:
+    """Rows [lo, hi) of the JAX package's build_tail_consts_padded."""
+    rows = []
+    for i in range(lo, hi):
+        q = params.q[i]
+        kept = i < params.r - 1
+        rows.append((q, hm.mont_qinv_neg(q), (1 << 64) // q,
+                     params.half_mod_q[i] if kept else 0,
+                     hm.to_mont(params.inv_q_last_mod_q[i] if kept else 1, q),
+                     params.qi_div_t[i] if kept else 0))
+    return PaddedTailConsts(per_mod=_rows(rows, device), q_last=params.q[-1],
+                            fix_th=_fix_threshold(params.t))
+
+
+def encrypt_tail_padded_plain(c, e, ra_ready, m_poly,
+                              consts: PaddedTailConsts) -> torch.Tensor:
+    """c +> e, the modulus drop by q_last from ra_ready, then c0 +=
+    Delta*m + fix: (2, rl, n) x2, (2, n), (n,) -> (2, rl, n)."""
+    q, qinv, nu, half_mod, invq, qi_div_t = _cols(consts.per_mod)
+    s = modmath.add_mod_lazy_gt(c, e, q)
+    ra = ra_ready - consts.q_last * (ra_ready >= consts.q_last).to(I64)
+    tmp = modmath.mod_u64(ra[:, None, :], q, nu)
+    tmp = tmp + q * (tmp < half_mod).to(I64) - half_mod
+    out = modmath.mont_mul(s + q * (s < tmp).to(I64) - tmp, invq, q, qinv)
+    m = m_poly[None, :]
+    c0 = modmath.mod_u64(out[0] + m * qi_div_t + (m >= consts.fix_th).to(I64),
+                         q, nu)
+    return torch.stack([c0, out[1]])
+
+
+def encrypt_tail_padded(c, e, ra_ready, m_poly,
+                        consts: PaddedTailConsts) -> torch.Tensor:
+    """Kernel 16, one rank's encrypt tail (the JAX package's
+    encrypt_tail_padded): c = INTT(NTT(u) (.) pk) and e over the rank's
+    rows (2, rl, n), ra_ready (2, n) = ((c_last +> e_last) + half) mod
+    q_last as all-reduced from the dropped modulus's owner, m_poly (n,) in
+    [0, t) -> (2, rl, n).  Every local row is processed; the dropped
+    modulus's slot, where the rank holds it, is padding."""
+    rl = consts.per_mod.shape[0]
+    n = m_poly.shape[-1]
+    for name, t, shape in (("c", c, (2, rl, n)), ("e", e, (2, rl, n)),
+                           ("ra_ready", ra_ready, (2, n)),
+                           ("m_poly", m_poly, (n,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    if c.device.type == "cpu":
+        return encrypt_tail_padded_plain(c, e, ra_ready, m_poly, consts)
+    if c.device.type != "cuda":
+        raise ValueError(f"encrypt_tail_padded: no kernel for {c.device}")
+    dev = consts.per_mod.device
+    for name, t in (("c", c), ("e", e), ("ra_ready", ra_ready),
+                    ("m_poly", m_poly)):
+        cuda.require(name, t, I64, tuple(t.shape), dev)
+    ct = torch.empty((2, rl, n), dtype=I64, device=dev)
+    cuda.launch("ntt_encrypt_tail_padded", dev, c.data_ptr(), e.data_ptr(),
+                ra_ready.data_ptr(), m_poly.data_ptr(), ct.data_ptr(),
+                consts.per_mod.data_ptr(), consts.q_last, consts.fix_th, rl, n)
+    encrypt_tail_padded.launches += 1
+    return ct
+
+
+encrypt_tail_padded.launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class DecPartialConsts:
+    """decrypt_tail_partial's constants for one rank's rows: per_mod and
+    glob as DecTailConsts's (the dropped modulus's BEHZ row zeroed, pad
+    rows q = 1), and the mod-t strategy's t and nu_t (0 for pow2 t)."""
+
+    per_mod: torch.Tensor  # (rows, 6)
+    glob: torch.Tensor     # (4,)
+    t: int
+    nu_t: int
+
+
+def build_dec_tail_consts_padded(params, lo: int, hi: int,
+                                 pad_to: int | None = None,
+                                 device=None) -> DecPartialConsts:
+    """The JAX package's build_dec_tail_consts_padded for moduli [lo, hi)
+    of `params`, padded with q = 1 rows to pad_to - lo rows.  A rank at
+    level l (params the level's chain, r - l moduli) takes
+    (lo, min(hi, r - l), pad_to=hi)."""
+    return DecPartialConsts(per_mod=_dec_rows(params, lo, hi, device, pad_to),
+                            glob=_dec_glob(params, device), t=params.t,
+                            nu_t=_t_fields(params)[0])
+
+
+def decrypt_tail_partial_plain(x, ct0, consts: DecPartialConsts):
+    """(rl, n) x, c0 -> (x_t, x_g), the rank's BEHZ partial sums as (n,)
+    int64: x_t the low 32 bits of sum_i (y_i bcm_t_i) & (t-1) for pow2 t
+    (the JAX kernel's wrapping u32 sum), sum_i (y_i bcm_t_i) mod t for odd
+    t; x_g = sum_i y_i bcm_g_i mod gamma."""
+    q, qinv, ptg, ipq, bcm_t, bcm_g = _cols(consts.per_mod)
+    gamma, ginv = consts.glob[0], consts.glob[1]
+    y = modmath.add_mod_lazy_gt(x, ct0, q)
+    y = modmath.mont_mul(modmath.mont_mul(y, ptg, q, qinv), ipq, q, qinv)
+    t = consts.t
+    if t & (t - 1) == 0:
+        x_t = ((y * bcm_t) & (t - 1)).sum(dim=-2) & modmath.MASK32
+    else:
+        tt, nu = poly._scalar(t, x), poly._scalar(consts.nu_t, x)
+        part = modmath.mod_u64(modmath.mod_u64(y, tt, nu) * bcm_t, tt, nu)
+        x_t = part.sum(dim=-2) % t
+    part_g = modmath.mont_mul(y, bcm_g, gamma, ginv)
+    x_g = part_g[0]
+    for i in range(1, part_g.shape[0]):
+        x_g = modmath.add_mod(x_g, part_g[i], gamma)
+    return x_t, x_g
+
+
+def decrypt_tail_partial(x, ct0, consts: DecPartialConsts):
+    """Kernel 17, one rank's decrypt tail up to the BEHZ sums (the JAX
+    package's decrypt_tail_partial): (rl, n) x = INTT(NTT(c1) (.) sk) and
+    c0 over the rank's rows -> (x_t, x_g), each (n,) int64, to be
+    all-reduced (psum_behz_partials) and rounded (dec_round_from_sums)."""
+    rl = consts.per_mod.shape[0]
+    n = x.shape[-1]
+    for name, t in (("x", x), ("ct0", ct0)):
+        if tuple(t.shape) != (rl, n):
+            raise ValueError(f"{name}: expected shape {(rl, n)}, got "
+                             f"{tuple(t.shape)}")
+    if x.device.type == "cpu":
+        return decrypt_tail_partial_plain(x, ct0, consts)
+    if x.device.type != "cuda":
+        raise ValueError(f"decrypt_tail_partial: no kernel for {x.device}")
+    dev = consts.per_mod.device
+    cuda.require("x", x, I64, (rl, n), dev)
+    cuda.require("ct0", ct0, I64, (rl, n), dev)
+    out = torch.empty((2, n), dtype=I64, device=dev)
+    t = consts.t
+    cuda.launch("ntt_decrypt_tail_partial", dev, x.data_ptr(), ct0.data_ptr(),
+                out.data_ptr(), consts.per_mod.data_ptr(),
+                consts.glob.data_ptr(), rl, n, int(t & (t - 1) == 0), t,
+                consts.nu_t)
+    decrypt_tail_partial.launches += 1
+    return out[0], out[1]
+
+
+decrypt_tail_partial.launches = 0
+
+
+def _gamma_scalars(params, like: torch.Tensor):
+    """gamma, floor(2^64 / gamma) and -gamma^-1 mod 2^64 as 0-d tensors on
+    like's device."""
+    g = params.gamma
+    return (poly._scalar(g, like), poly._scalar((1 << 64) // g, like),
+            poly._scalar(modmath.as_i64(hm.mont_qinv_neg(g)), like))
+
+
+def combine_gamma_halves(lo_sum, hi_sum, params) -> torch.Tensor:
+    """The gamma-row total mod gamma from the all-reduced 32-bit halves of
+    the ranks' partials: hi 2^32 + lo, as mont_mul(hi mod gamma,
+    Mont(2^32)) + (lo mod gamma) < 2 gamma.  Each half sum stays below
+    R 2^32, so no rank count below 2^31 wraps int64."""
+    gq, nu, ginv = _gamma_scalars(params, lo_sum)
+    hi = modmath.mont_mul(modmath.mod_u64(hi_sum, gq, nu),
+                          poly._scalar(hm.to_mont(1 << 32, params.gamma),
+                                       lo_sum), gq, ginv)
+    return hi + modmath.mod_u64(lo_sum, gq, nu)
+
+
+def psum_behz_partials(x_t, x_g, group, params):
+    """All-reduce the ranks' BEHZ partials over `group` in one stacked
+    (3, n) int64 sum, [x_t, x_g's low 32 bits, x_g's high bits]: x_t
+    partials are below 2^32 and so are the halves, so for R < 2^31 no sum
+    wraps.  Returns (x_t sum, x_g total mod gamma, below 2 gamma)."""
+    from ..parallel import mesh
+    parts = torch.stack([x_t, x_g & modmath.MASK32,
+                         (x_g >> 32) & modmath.MASK32])
+    mesh.all_reduce(parts, group)
+    return parts[0], combine_gamma_halves(parts[1], parts[2], params)
+
+
+def dec_round_from_sums(x_t_sum, x_g_sum, params) -> torch.Tensor:
+    """The plaintext (n,) from the all-reduced sums: x_g_sum any
+    representative of the gamma total mod gamma; then neg_inv_q scaling
+    and dec_round, as decrypt_tail's finish (pow2 t: the reference's
+    masks; odd t: exact mod t, with the gamma undo)."""
+    g, t = params.gamma, params.t
+    neg_t, neg_g = params.neg_inv_q_mod_t_gamma
+    gq, nu_g, ginv = _gamma_scalars(params, x_g_sum)
+    x_g = modmath.mont_mul(modmath.mod_u64(x_g_sum, gq, nu_g),
+                           poly._scalar(hm.to_mont(neg_g, g), x_g_sum), gq,
+                           ginv)
+    over = x_g > params.gamma_div_2
+    if t & (t - 1) == 0:
+        mask = t - 1
+        x_t = ((x_t_sum & mask) * neg_t) & mask
+        return torch.where(over, x_t + (gq - x_g), x_t - x_g) & mask
+    tt, nu_t = poly._scalar(t, x_t_sum), poly._scalar((1 << 64) // t,
+                                                       x_t_sum)
+    x_t = modmath.mod_u64(x_t_sum, tt, nu_t)
+    x_t = modmath.mod_u64(x_t * neg_t, tt, nu_t)
+    plus = modmath.add_mod(x_t, modmath.mod_u64(gq - x_g, tt, nu_t), tt)
+    minus = modmath.sub_mod(x_t, modmath.mod_u64(x_g, tt, nu_t), tt)
+    corr = torch.where(over, plus, minus)
+    return modmath.mod_u64(corr * pow(g % t, -1, t), tt, nu_t)

@@ -1,5 +1,6 @@
 """Whole-BFV-op transforms: half_polymul, keygen_fused, encrypt_fused,
-keyswitch_fused.
+keyswitch_fused, and encrypt_front (encrypt_fused's transform alone, for
+the RNS-sharded program).
 
 Counterpart of `ntt_cuda_tpu/ops/fused_ops.py` for the main path.  On a
 CUDA device each wrapper launches its kernel in csrc/fused_ops.cu: one
@@ -143,6 +144,43 @@ def encrypt_fused(u_b, pk, e_d, m_poly, tables: NTTTables,
 
 
 encrypt_fused.launches = 0
+
+
+# --- encrypt_front: c_h = INTT(NTT(u) (.) pk_h), no tail -------------------
+
+def encrypt_front_plain(u_b, pk, tables: NTTTables) -> torch.Tensor:
+    """NTT(u) once, then INTT(NTT(u) (.) pk_h) for both halves: (n,),
+    (2, r, n) -> (2, r, n)."""
+    u_ntt = ntt.ntt_forward(sampling.small_res(u_b, tables.ms.q), tables)
+    return ntt.ntt_inverse(ntt.dyadic_mul(u_ntt[None], pk, tables.ms), tables)
+
+
+def encrypt_front(u_b, pk, tables: NTTTables) -> torch.Tensor:
+    """Kernel 18, encryption's transform front (the JAX package's
+    encrypt_front, used by the RNS-sharded program, whose tail needs an
+    all-reduce first): compact (n,) int32 ternary u_b and (2, r, n)
+    NTT-domain pk over the tables' moduli -> (2, r, n) c with c[h] =
+    INTT(NTT(u) (.) pk[h]).  On the card: K5's transform with no e, one
+    launch (three at n = 32768: two 2^14 halves beside stage-0 passes)."""
+    r, n = tables.r, tables.n
+    for name, t, shape in (("u_b", u_b, (n,)), ("pk", pk, (2, r, n))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    if pk.device.type == "cpu":
+        return encrypt_front_plain(u_b, pk, tables)
+    dev = cuda.kernel_device("encrypt_front", pk, tables,
+                             cuda.TRANSFORM_MAX_N)
+    cuda.require("u_b", u_b, torch.int32, (n,), dev)
+    cuda.require("pk", pk, I64, (2, r, n), dev)
+    c = torch.empty((2, r, n), dtype=I64, device=dev)
+    cuda.launch("ntt_encrypt_front", dev, u_b.data_ptr(), pk.data_ptr(),
+                c.data_ptr(), *tables.kernel_args(), r, tables.logn)
+    encrypt_front.launches += 1
+    return c
+
+
+encrypt_front.launches = 0
 
 
 # --- keyswitch_fused: c2 digits through a switching key, then / q_last -----

@@ -131,6 +131,29 @@ def keygen_draws_compact(n: int, r: int, ms: modmath.ModulusSet,
     return s_b, a, e_d
 
 
+def keygen_draws_rank(n: int, r: int, lo: int, hi: int,
+                      ms: modmath.ModulusSet,
+                      key_byte: int = salsa20.DEFAULT_KEY_BYTE, nonce=0):
+    """One rank's keygen draws in the RNS-sharded program (the JAX
+    package's parallel/spmd.py:139-155), on ms's device (ms: moduli
+    [lo, hi)): the s_b and e_d planes, the same on every rank, and the
+    uniform a (hi - lo, n) of rows [lo, hi) alone, from the rank's own
+    slice of the stream at block counter0 = n/64 + lo n/8.  Each equals
+    keygen_draws_compact's (a: its rows [lo, hi)); three launches of K1."""
+    kn, dev = keygen_nonce(nonce), ms.q.device
+    stream = dict(key_byte=key_byte, nonce=kn, device=dev)
+    s_b = ternary_int(salsa20.block_words_u8(
+        salsa20.keystream_block_words(n // 64, **stream), 0, n))
+    rl = hi - lo
+    _, lanes = salsa20.keystream_block_words(
+        rl * n // 8, counter0=n // 64 + lo * n // 8, with_u64=True, **stream)
+    a = uniform(salsa20.block_words_u64_planes(lanes, 0, rl * n)
+                .reshape(rl, n), ms)
+    e_d = gaussian_int(salsa20.block_words_u32(salsa20.keystream_block_words(
+        n // 16, counter0=(n + 8 * r * n) // 64, **stream), 0, n))
+    return s_b, a, e_d
+
+
 def encrypt_draws_compact(n: int, key_byte: int = salsa20.DEFAULT_KEY_BYTE,
                           nonce=0, device=None):
     """Encryption draws: (u_b (n,) int32, e_d (2, n) int32).  Layout

@@ -1,12 +1,14 @@
 """Where the time of each BFV op of the PyTorch/CUDA port goes, on one card.
 
     python3 tools/profile_ops.py [--set 32k_9q] [--fusion auto] [--reps 30]
-                                 [--ops keygen,encrypt,...]
+                                 [--ops keygen,encrypt,...] [--spmd]
 
 For keygen, encrypt, decrypt, decrypt_batch (J = 3), encrypt_batch
 (J = 16, nonces 1..16) and the EvalMult ops (mul, mul with
 relinearization, relin_keygen) of one parameter set, through
-`BFVContext` (`--ops` picks some of them), prints one JSON line per op:
+`BFVContext` (`--ops` picks some of them), or with `--spmd` for keygen,
+encrypt, decrypt and mod_switch_to_next through the RNS-sharded
+`SpmdBFVContext` at world size 1 over NCCL, prints one JSON line per op:
 
 * `event_ms`: median CUDA-event time around one call;
 * `sync_wall_ms`: median host time of one call ending in
@@ -14,8 +16,10 @@ relinearization, relin_keygen) of one parameter set, through
 * under `torch.profiler` over `--reps` calls: `kernels_per_call` (CUDA
   kernels and copies), `busy_us` (the union of their device intervals, per
   call), `port_kernels_us` (the csrc kernels, `k_*`, by name, per call;
-  fused_ops.cu's kernels carry the op's struct as a template argument)
-  and `idle_share` = 1 - busy / sync wall.
+  fused_ops.cu's kernels carry the op's struct as a template argument),
+  `idle_share` = 1 - busy / sync wall, and `host_top_us`: the eight host
+  events (PyTorch ops and CUDA runtime calls) with the most self time,
+  per call.
 
 Needs a CUDA card and raises without one.  Imports no jax.
 """
@@ -25,6 +29,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import socket
 import statistics
 import subprocess
 import sys
@@ -38,6 +43,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from ntt_cuda_tpu_torch import BFVContext, get_bfv_params  # noqa: E402
+from ntt_cuda_tpu_torch.parallel import multihost, spmd  # noqa: E402
 
 
 def device_intervals(prof) -> list[tuple[float, float, str]]:
@@ -86,6 +92,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--ops", default="",
                     help="comma-separated op names (default: all)")
+    ap.add_argument("--spmd", action="store_true",
+                    help="the RNS-sharded program at world size 1 (NCCL)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_ops.py needs a CUDA card")
@@ -93,31 +101,16 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     p = get_bfv_params(args.set)
-    ctx = BFVContext.build(p, fusion=args.fusion)
     msgs = np.random.default_rng(1).integers(0, p.t, (16, p.n))
-    sk, pk = ctx.keygen(nonce=1)
-    cts = torch.stack([ctx.encrypt(pk, msgs[j], nonce=j + 1)
-                       for j in range(3)])
-    m16 = torch.from_numpy(msgs).to(ctx.device)
-    rlk = ctx.relin_keygen(sk, nonce=1)
-    ops = {
-        "keygen": lambda: ctx.keygen(nonce=1),
-        "encrypt": lambda: ctx.encrypt(pk, m16[0], nonce=1),
-        "decrypt": lambda: ctx.decrypt(sk, cts[0]),
-        "decrypt_batch_J3": lambda: ctx.decrypt_batch(sk, cts),
-        "encrypt_batch_J16": lambda: ctx.encrypt_batch(pk, m16,
-                                                       list(range(1, 17))),
-        "mul": lambda: ctx.mul(cts[0], cts[1]),
-        "mul_relin": lambda: ctx.mul(cts[0], cts[1], rlk=rlk),
-        "relin_keygen": lambda: ctx.relin_keygen(sk, nonce=1),
-    }
+    fusion, ops = (spmd_ops(p, msgs) if args.spmd
+                   else bfv_ops(p, args.fusion, msgs))
     if args.ops:
         ops = {k: ops[k] for k in args.ops.split(",")}
     for name, fn in ops.items():
         for _ in range(10):
             fn()
         torch.cuda.synchronize()
-        row = {"set": args.set, "fusion": ctx.fusion, "op": name,
+        row = {"set": args.set, "fusion": fusion, "op": name,
                "event_ms": event_ms(fn, args.reps),
                "sync_wall_ms": wall_ms(fn, args.reps)}
         with profile(activities=[ProfilerActivity.CPU,
@@ -138,8 +131,55 @@ def main() -> int:
             row.update(kernels_per_call=len(iv) / args.reps, busy_us=busy,
                        port_kernels_us=dict(port),
                        idle_share=1 - busy / (row["sync_wall_ms"] * 1e3))
+        top = sorted(prof.key_averages(),
+                     key=lambda a: -a.self_cpu_time_total)
+        row["host_top_us"] = {a.key: a.self_cpu_time_total / args.reps
+                              for a in top[:8]}
         print(json.dumps(row), flush=True)
+    if args.spmd:
+        torch.distributed.destroy_process_group()
     return 0
+
+
+def bfv_ops(p, fusion: str, msgs) -> tuple[str, dict]:
+    """(the schedule, BFVContext's ops by name)."""
+    ctx = BFVContext.build(p, fusion=fusion)
+    sk, pk = ctx.keygen(nonce=1)
+    cts = torch.stack([ctx.encrypt(pk, msgs[j], nonce=j + 1)
+                       for j in range(3)])
+    m16 = torch.from_numpy(msgs).to(ctx.device)
+    rlk = ctx.relin_keygen(sk, nonce=1)
+    ops = {
+        "keygen": lambda: ctx.keygen(nonce=1),
+        "encrypt": lambda: ctx.encrypt(pk, m16[0], nonce=1),
+        "decrypt": lambda: ctx.decrypt(sk, cts[0]),
+        "decrypt_batch_J3": lambda: ctx.decrypt_batch(sk, cts),
+        "encrypt_batch_J16": lambda: ctx.encrypt_batch(pk, m16,
+                                                       list(range(1, 17))),
+        "mul": lambda: ctx.mul(cts[0], cts[1]),
+        "mul_relin": lambda: ctx.mul(cts[0], cts[1], rlk=rlk),
+        "relin_keygen": lambda: ctx.relin_keygen(sk, nonce=1),
+    }
+    return ctx.fusion, ops
+
+
+def spmd_ops(p, msgs) -> tuple[str, dict]:
+    """("spmd", SpmdBFVContext's ops by name) at world size 1 over NCCL
+    (the default mesh and device)."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(f"tcp://localhost:{port}", 1, 0)
+    ctx = spmd.SpmdBFVContext.build(p)
+    sk, pk = ctx.keygen(nonce=1)
+    m0 = torch.from_numpy(msgs[0]).to(ctx.device)
+    ct = ctx.encrypt(pk, m0, nonce=1)
+    return "spmd", {
+        "keygen": lambda: ctx.keygen(nonce=1),
+        "encrypt": lambda: ctx.encrypt(pk, m0, nonce=1),
+        "decrypt": lambda: ctx.decrypt(sk, ct),
+        "mod_switch": lambda: ctx.mod_switch_to_next(ct),
+    }
 
 
 if __name__ == "__main__":
