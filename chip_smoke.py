@@ -58,29 +58,40 @@ one Montgomery product (for each kernel's bound).  Then:
    rotations and a column swap) at n = 32768, every slot the expected
    value and the noise budget positive, counts read as in 3; and at
    n = 2048 its keys and ciphertexts equal to the same run on the CPU;
-11. the RNS-sharded program (ntt_cuda_tpu_torch/parallel/spmd.py) at
-   32k_9q: kernels 16, 17 and 18 against their plain versions at rank
-   shapes (rows 0-3 and 6-9 of R = 3, rows 0-9 of R = 1; power-of-two and
-   odd prime t; 17 also at level 1 with a q = 1 pad row); then
-   SpmdBFVContext at world size 1 over NCCL through the public API
-   (keygen, encrypt of three seeded messages, add, sub, decrypt,
-   mod_switch_to_next, the level-1 decrypt), counts read as in 3, keys
-   and live ciphertext rows equal to BFVContext.build(params)'s, every
-   message round-tripped, one all-reduce per encrypt, decrypt and mod
-   switch and none in keygen; and the same path in three processes on the
-   one card over gloo (this script re-run as `--spmd-worker`), every
-   tensor equal to the world-size-1 run;
+11. the RNS-sharded programs (ntt_cuda_tpu_torch/parallel/spmd.py and
+   spmd_mult.py) at 32k_9q: kernels 16, 17 and 18, and the sharded
+   EvalMult's kernel 20, 21a-c in band form and kernel 16's drop launch,
+   against their plain versions at rank shapes (rows 0-3 and 6-9 of
+   R = 3, rows 0-9 of R = 1; rows 6-9 hold q_last and m_sk, and
+   bsk_to_q's zero pad row; power-of-two and odd prime t; 17 also at
+   level 1 with a q = 1 pad row); then SpmdBFVContext at world size 1
+   over NCCL through the public API (keygen, encrypt of three seeded
+   messages, add, sub, decrypt, mod_switch_to_next, the level-1 decrypt),
+   counts read as in 3, keys and live ciphertext rows equal to
+   BFVContext.build(params)'s, every message round-tripped, one
+   all-reduce per encrypt, decrypt and mod switch and none in keygen;
+   SpmdMultContext on its keys and ciphertexts (relin_keygen, mul,
+   relinearize, mul with rlk, decrypt3, galois_keygen([3]),
+   apply_galois), counts read as in 3, the products decrypting to the
+   negacyclic m1 m2 mod t and the rotation to tau_3(m1), keys and live
+   rows equal to BFVContext.build(params)'s, mul's pad row 0, the
+   collectives mul four all-gathers, relinearize and apply_galois one
+   all-gather and one all-reduce, decrypt3 one all-reduce, the keygens
+   none; and both in three processes on the one card over gloo (this
+   script re-run as `--spmd-worker`; gloo must take CUDA tensors, or the
+   run fails), every tensor equal to the world-size-1 run;
 12. CUDA-event times: the 32k_9q ops and EvalMult ops, the 16k_5q EvalMult
    ops, the 16k_5q op-vs-stage and 32k_9q op-vs-stage A/Bs (in turns op,
    stage, stage, op), encrypt_batch at J = 16, galois_keygen (one
    element) and apply_galois at 32k_9q, ntt-test's product for both
-   families, the whole dot product, and SPMD keygen / encrypt / decrypt
-   at world size 1 beside BFVContext's (turns stage, op, spmd, spmd, op,
-   stage), each around one call; every kernel
-   and its plain version around a run of calls back to back, beside the
-   kernel's bound (K3-K5 and K5 at J = 16 also at 32k_9q; kernel 22 at
-   (16, 1, n), n = 2^15 and 2^16, both directions; kernels 16-18 at
-   32k_9q's world-size-1 shapes, rl = 9).
+   families, the whole dot product, and SPMD keygen / encrypt / decrypt /
+   mul / relinearize / apply_galois at world size 1 beside BFVContext's
+   (turns stage, op, spmd, spmd, op, stage), each around one call; every
+   kernel and its plain version around a run of calls back to back,
+   beside the kernel's bound (K3-K5 and K5 at J = 16 also at 32k_9q;
+   kernel 22 at (16, 1, n), n = 2^15 and 2^16, both directions; kernels
+   16-18, 20 and 21a-c's bands at 32k_9q's world-size-1 shapes, rl = 9;
+   16's drop launch logged beside).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and last `{"ok": true, "device": {...}}`.  Any failure raises,
@@ -110,12 +121,12 @@ sys.path.insert(0, str(ROOT))
 from ntt_cuda_tpu_torch import BFVContext, cli, cuda, get_bfv_params  # noqa: E402
 from ntt_cuda_tpu_torch.examples import (  # noqa: E402
     encrypted_dot_product as example)
-from ntt_cuda_tpu_torch.ops import (behz_kernels, bfv_tail,  # noqa: E402
-                                    fused_ops, ntt, ntt30, ntt_stage, poly,
-                                    salsa20, sampling)
+from ntt_cuda_tpu_torch.ops import (behz, behz_kernels,  # noqa: E402
+                                    bfv_tail, fused_ops, ntt, ntt30,
+                                    ntt_stage, poly, salsa20, sampling)
 from ntt_cuda_tpu_torch.params import BFVParams, get_params  # noqa: E402
 from ntt_cuda_tpu_torch.parallel import (mesh as pmesh,  # noqa: E402
-                                         multihost, spmd)
+                                         multihost, spmd, spmd_mult)
 from ntt_cuda_tpu_torch.utils import primegen  # noqa: E402
 from ntt_cuda_tpu_torch.utils.profiling import median_ms  # noqa: E402
 
@@ -143,6 +154,10 @@ SPMD_R = 3                   # its ranks in the one-card gloo run, rl = 3
 # rank 2 (the dropped row), and R = 1's rows (also the timed shape)
 SPMD_BANDS = ((0, 3), (6, 9), (0, 9))
 SPMD_MSGS = 3
+SPMD_GALOIS = 3              # the sharded EvalMult path's Galois element
+# where drive_spmd / drive_spmd_mult's tensors are sharded (else axis 1;
+# the plaintexts, "dec*", are replicated)
+SPMD_SHARD_DIM = {"sk": 0, "rlk": 2, "gk": 2}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
 
@@ -153,7 +168,8 @@ KERNELS = {
     "salsa20_keystream": ((salsa20.keystream_block_words,),
                           "ntt_cuda_tpu_torch/csrc/salsa20.cu",
                           "ntt_cuda_tpu/ops/salsa20.py:174",
-                          ("mult", "op", "stage", "op32", "spmd")),
+                          ("mult", "op", "stage", "op32", "spmd",
+                           "spmd_mult")),
     "salsa20_keystream_batch": ((salsa20.keystream_block_words_batch,),
                                 "ntt_cuda_tpu_torch/csrc/salsa20.cu",
                                 "ntt_cuda_tpu/ops/salsa20.py:249",
@@ -165,7 +181,7 @@ KERNELS = {
     "half_polymul": ((fused_ops.half_polymul,),
                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                      "ntt_cuda_tpu/ops/fused_ops.py:213",
-                     ("op", "op32", "spmd")),
+                     ("op", "op32", "spmd", "spmd_mult")),
     "keygen_fused": ((fused_ops.keygen_fused,),
                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                      "ntt_cuda_tpu/ops/fused_ops.py:137",
@@ -179,11 +195,11 @@ KERNELS = {
     "ntt_transform": ((ntt_stage.ntt_forward, ntt_stage.ntt_inverse),
                       "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                       "ntt_cuda_tpu/ops/ntt_pallas.py:558",
-                      ("mult", "stage")),
+                      ("mult", "stage", "spmd_mult")),
     "ntt_inverse_mul": ((ntt_stage.ntt_inverse_mul,),
                         "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                         "ntt_cuda_tpu/ops/ntt_pallas.py:685",
-                        ("mult", "stage")),
+                        ("mult", "stage", "spmd_mult")),
     "ntt_forward_ternary": ((ntt_stage.ntt_forward_ternary,),
                             "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                             "ntt_cuda_tpu/ops/ntt_pallas.py:782",
@@ -198,7 +214,8 @@ KERNELS = {
                             ("mult", "stage")),
     "ntt_forward_addneg": ((ntt_stage.ntt_forward_addneg,),
                            "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
-                           "ntt_cuda_tpu/ops/ntt_pallas.py:868", ("mult",)),
+                           "ntt_cuda_tpu/ops/ntt_pallas.py:868",
+                           ("mult", "spmd_mult")),
     # three launches: two of ntt_stage.cu and fused_ops.cu's tail
     "keyswitch_fused": ((fused_ops.keyswitch_fused,),
                         "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
@@ -221,12 +238,33 @@ KERNELS = {
     "encrypt_front": ((fused_ops.encrypt_front,),
                       "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                       "ntt_cuda_tpu/ops/fused_ops.py:301", ("spmd",)),
-    "encrypt_tail_padded": ((bfv_tail.encrypt_tail_padded,),
+    # 16 also as the sharded key switch's modulus drop (no e, no message)
+    "encrypt_tail_padded": ((bfv_tail.encrypt_tail_padded,
+                             bfv_tail.drop_last_padded),
                             "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
-                            "ntt_cuda_tpu/ops/bfv_tail.py:760", ("spmd",)),
+                            "ntt_cuda_tpu/ops/bfv_tail.py:760",
+                            ("spmd", "spmd_mult")),
     "decrypt_tail_partial": ((bfv_tail.decrypt_tail_partial,),
                              "ntt_cuda_tpu_torch/csrc/decrypt_tail.cu",
-                             "ntt_cuda_tpu/ops/bfv_tail.py:886", ("spmd",)),
+                             "ntt_cuda_tpu/ops/bfv_tail.py:886",
+                             ("spmd", "spmd_mult")),
+    # the sharded EvalMult's kernels (parallel/spmd_mult.py): 20 (kernel
+    # 19's two transform launches over a rank's rows) and 21a-c in band form
+    "keyswitch_front": ((fused_ops.keyswitch_front,),
+                        "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
+                        "ntt_cuda_tpu/ops/fused_ops.py:766", ("spmd_mult",)),
+    "behz_rns_to_bsk_rows": ((behz_kernels.rns_to_bsk_rows,),
+                             "ntt_cuda_tpu_torch/csrc/behz.cu",
+                             "ntt_cuda_tpu/ops/behz_pallas.py:431",
+                             ("spmd_mult",)),
+    "behz_fast_floor_rows": ((behz_kernels.fast_floor_rows,),
+                             "ntt_cuda_tpu_torch/csrc/behz.cu",
+                             "ntt_cuda_tpu/ops/behz_pallas.py:447",
+                             ("spmd_mult",)),
+    "behz_bsk_to_q_rows": ((behz_kernels.bsk_to_q_rows,),
+                           "ntt_cuda_tpu_torch/csrc/behz.cu",
+                           "ntt_cuda_tpu/ops/behz_pallas.py:464",
+                           ("spmd_mult",)),
 }
 
 # One multiply-heavy primitive per probe kernel; its SASS gives the
@@ -876,6 +914,72 @@ def spmd_cases(p: BFVParams, dev, rng):
     return cases
 
 
+def spmd_mult_cases(p: BFVParams, dev, rng):
+    """(kernel, label, wrapper call, plain call, Work) for the sharded
+    EvalMult's kernels at p's rank shapes (rows SPMD_BANDS): kernel 20 over
+    the (k, n) digits and the rank's (2, k, rl, n) key rows, 21a-c in band
+    form over mul's operands ((2, 2, k, n); (3, k, n) with the band's
+    (3, rl, n); (3, k+1, n)), and kernel 16's drop launch over (2, rl, n)."""
+    n, k = p.n, p.r - 1
+    aux = behz.AuxBase.build(p)
+    mc = behz_kernels.SpmdMultConsts.build(p, aux, dev)
+    mb = mc.banks
+    banks = [mb.qsrc, mb.tgt, mb.amat, mb.bsrc, mb.bmat, mb.bfin, mb.glob]
+    cases = []
+    for lo, hi in SPMD_BANDS:
+        rl, label = hi - lo, f"{p.name} rows {lo}-{hi}"
+        live = min(hi, k) - lo
+        tb = ntt.NTTTables.build(p.q[lo:hi], p.psi[lo:hi], n, dev)
+        c2 = rand_res(rng, p.q[:k], n, (), dev)
+        ksk = rand_res(rng, p.q[lo:hi], n, (2, k), dev)
+        xa = rand_res(rng, p.q[:k], n, (2, 2), dev)
+        xq = rand_res(rng, p.q[:k], n, (3,), dev)
+        xb = rand_res(rng, aux.bsk[lo:hi], n, (3,), dev)
+        fl = rand_res(rng, aux.bsk, n, (3,), dev)
+        cc = rand_res(rng, p.q[lo:hi], n, (2,), dev)
+        ra = torch.from_numpy(rng.integers(0, p.q[-1], (2, n))).to(dev)
+        tc = spmd_mult.drop_consts(mc, p.q[-1], lo, hi)
+        coefs_a, coefs_f, out = 4 * n, 3 * n, 2 * rl * n
+        cases += [
+            ("keyswitch_front", label,
+             lambda c=c2, s=ksk, tb=tb: fused_ops.keyswitch_front(c, s, tb),
+             lambda c=c2, s=ksk, tb=tb: fused_ops.keyswitch_front_plain(
+                 c, s, tb),
+             Work(nbytes(c2, ksk, *tables(tb)) + 8 * out,
+                  shoup=transform_butterflies((k + 2) * rl, n) + out,
+                  mod_nu=k * rl * n, mont=k * out)),
+            ("behz_rns_to_bsk_rows", label,
+             lambda x=xa, lo=lo, rl=rl: behz_kernels.rns_to_bsk_rows(
+                 x, mc, lo, rl),
+             lambda x=xa, lo=lo, rl=rl: behz_kernels.rns_to_bsk_rows_plain(
+                 x, mc, lo, rl),
+             Work(nbytes(xa, *banks) + 8 * coefs_a * rl,
+                  shoup=coefs_a * (k + rl * (k + 2)),
+                  mul32=coefs_a * (k + 1))),
+            ("behz_fast_floor_rows", label,
+             lambda a=xq, b=xb, lo=lo, rl=rl: behz_kernels.fast_floor_rows(
+                 a, b, mc, lo, rl),
+             lambda a=xq, b=xb, lo=lo, rl=rl:
+                 behz_kernels.fast_floor_rows_plain(a, b, mc, lo, rl),
+             Work(nbytes(xq, xb, *banks) + nbytes(xb),
+                  shoup=coefs_f * (k + rl * (k + 2)))),
+            ("behz_bsk_to_q_rows", label,
+             lambda x=fl, lo=lo, rl=rl: behz_kernels.bsk_to_q_rows(
+                 x, mc, lo, rl),
+             lambda x=fl, lo=lo, rl=rl: behz_kernels.bsk_to_q_rows_plain(
+                 x, mc, lo, rl),
+             Work(nbytes(fl, *banks) + 8 * coefs_f * rl,
+                  shoup=coefs_f * (2 * k + 1 + live * (k + 1)))),
+            ("encrypt_tail_padded", f"{label} drop",
+             lambda c=cc, ra=ra, tc=tc: bfv_tail.drop_last_padded(c, ra, tc),
+             lambda c=cc, ra=ra, tc=tc: bfv_tail.drop_last_padded_plain(
+                 c, ra, tc),
+             Work(nbytes(cc, ra, tc.per_mod) + 8 * out, mont=out,
+                  mod_nu=out)),
+        ]
+    return cases
+
+
 def spmd_messages(p: BFVParams) -> np.ndarray:
     return np.random.default_rng(SEED + 5).integers(0, p.t, (SPMD_MSGS, p.n))
 
@@ -945,6 +1049,87 @@ def check_spmd(p: BFVParams, local: dict, collectives: dict,
                              f"{budget}")
 
 
+def drive_spmd_mult(mctx: spmd_mult.SpmdMultContext, res: dict) -> dict:
+    """On drive_spmd's keys and first two ciphertexts: relin_keygen, mul,
+    relinearize, mul with rlk, decrypt3, galois_keygen([SPMD_GALOIS]) and
+    apply_galois of the first, then the decrypts of the relinearized and
+    rotated ciphertexts; each op's collectives.  Returns the rank's local
+    tensors."""
+    ops: dict[str, list] = {}
+
+    def counted(name, fn):
+        pmesh.collectives.clear()
+        y = fn()
+        ops.setdefault(name, []).append(list(pmesh.collectives))
+        return y
+
+    base, ds = mctx.base, res["dtensor"]
+    sk, c0, c1 = ds["sk"], ds["ct0"], ds["ct1"]
+    rlk = counted("relin_keygen", lambda: mctx.relin_keygen(sk, nonce=1))
+    mul3 = counted("mul", lambda: mctx.mul(c0, c1))
+    rel = counted("relinearize", lambda: mctx.relinearize(mul3, rlk))
+    gk = counted("galois_keygen", lambda: mctx.galois_keygen(
+        sk, [SPMD_GALOIS], nonce=1))[SPMD_GALOIS]
+    gal = counted("apply_galois", lambda: mctx.apply_galois(c0, SPMD_GALOIS,
+                                                            gk))
+    out = dict(rlk=rlk, mul3=mul3, rel=rel, gk=gk, gal=gal,
+               mul_rlk=mctx.mul(c0, c1, rlk=rlk),
+               dec3=counted("decrypt3", lambda: mctx.decrypt3(sk, mul3)),
+               dec_rel=base.decrypt(sk, rel), dec_gal=base.decrypt(sk, gal))
+    torch.cuda.synchronize()
+    return {"local": {k: v.to_local() for k, v in out.items()},
+            "dtensor": out, "collectives": ops}
+
+
+def spmd_mult_reference(ctx: BFVContext, ref: dict) -> dict:
+    """drive_spmd_mult's keys and ciphertexts from the single card, on
+    drive(ctx)'s keys and ciphertexts `ref`."""
+    sk, (c0, c1) = ref["sk"], ref["cts"][:2]
+    rlk = ctx.relin_keygen(sk, nonce=1)
+    mul3 = ctx.mul(c0, c1)
+    gk = ctx.galois_keygen(sk, [SPMD_GALOIS], nonce=1)[SPMD_GALOIS]
+    return dict(rlk=rlk, mul3=mul3, rel=ctx.relinearize(mul3, rlk), gk=gk,
+                gal=ctx.apply_galois(c0, SPMD_GALOIS, gk))
+
+
+def check_spmd_mult(p: BFVParams, local: dict, collectives: dict,
+                    msgs: np.ndarray, ref: dict) -> None:
+    """The product's decrypts (decrypt3, relinearized) equal the negacyclic
+    m1 m2 mod t and the rotation's tau_g(m1); keys and live rows equal the
+    single card's `ref` (spmd_mult_reference), mul's pad row 0; the
+    collectives: mul four all-gathers, relinearize and apply_galois one
+    (r, n) all-gather and one (2, n) all-reduce, decrypt3 one (3, n)
+    all-reduce, the keygens none."""
+    r, n, k = p.r, p.n, p.r - 1
+    dev = local["dec3"].device
+    prod = negacyclic_mod_t(msgs[0], msgs[1], p, dev)
+    want = {"dec3": prod, "dec_rel": prod,
+            "dec_gal": tau_mod_t(msgs[0], SPMD_GALOIS, p, dev)}
+    for key, w in want.items():
+        if not torch.equal(local[key], w):
+            raise AssertionError(f"SPMD EvalMult {p.name}: {key} does not "
+                                 f"decrypt to its mod-t result")
+    same = all(torch.equal(local[key], ref[key]) for key in ("rlk", "gk"))
+    same = same and all(torch.equal(local[key][:, :k], ref[w]) for key, w in
+                        (("mul3", "mul3"), ("rel", "rel"),
+                         ("mul_rlk", "rel"), ("gal", "gal")))
+    if not same or local["mul3"][:, k].any():
+        raise AssertionError(f"SPMD EvalMult {p.name}: keys / live rows != "
+                             f"the single-card BFVContext, or mul's pad row "
+                             f"not 0")
+    switch = [[("all_gather", (r, n)), ("all_reduce", (2, n))]]
+    budget = {"relin_keygen": [[]], "galois_keygen": [[]],
+              "mul": [[("all_gather", (2, r, n))] * 2
+                      + [("all_gather", (3, r, n))] * 2],
+              "relinearize": switch, "apply_galois": switch,
+              "decrypt3": [[("all_reduce", (3, n))]]}
+    got = {k: [[(op, tuple(sh)) for op, sh in call] for call in v]
+           for k, v in collectives.items()}
+    if got != budget:
+        raise AssertionError(f"SPMD EvalMult {p.name}: collectives {got}, "
+                             f"expected {budget}")
+
+
 def free_address() -> str:
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -954,19 +1139,16 @@ def free_address() -> str:
 def spmd_worker(rank: int, R: int, address: str, out: Path) -> None:
     """One rank of the one-card gloo run (chip_smoke.py re-run as
     `--spmd-worker rank R address out`): first an all-reduce of a CUDA
-    tensor over gloo (on failure its error goes to probe<rank>.txt and the
-    rank ends), then the SPMD path at SPMD_SET; the rank's local tensors
-    and collectives go to rank<rank>.npz / .json."""
+    tensor over gloo (a refusal ends the rank with an error, and the run
+    fails), then the SPMD path at SPMD_SET and the sharded EvalMult on its
+    keys and ciphertexts; the rank's local tensors and collectives go to
+    rank<rank>.npz / .json."""
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     multihost.initialize(address, R, rank, backend="gloo")
     try:
         x = torch.full((4,), rank + 1, dtype=torch.int64, device=dev)
-        try:
-            torch.distributed.all_reduce(x)
-        except RuntimeError as e:   # gloo without CUDA tensors: (c) left out
-            (out / f"probe{rank}.txt").write_text(f"{type(e).__name__}: {e}")
-            return
+        torch.distributed.all_reduce(x)
         if x.tolist() != [R * (R + 1) // 2] * 4:
             raise AssertionError(f"gloo all_reduce of CUDA tensors: {x}")
         p = get_bfv_params(SPMD_SET)
@@ -976,18 +1158,21 @@ def spmd_worker(rank: int, R: int, address: str, out: Path) -> None:
             raise AssertionError(f"rank {rank}: built on {sctx.device} over "
                                  f"{sctx.shards} ranks")
         res = drive_spmd(sctx, spmd_messages(p))
+        resm = drive_spmd_mult(spmd_mult.SpmdMultContext.build(sctx), res)
+        local = {**res["local"], **resm["local"]}
         np.savez(out / f"rank{rank}.npz",
-                 **{k: v.cpu().numpy() for k, v in res["local"].items()})
-        (out / f"rank{rank}.json").write_text(json.dumps(res["collectives"]))
+                 **{k: v.cpu().numpy() for k, v in local.items()})
+        (out / f"rank{rank}.json").write_text(json.dumps(
+            {**res["collectives"], **resm["collectives"]}))
     finally:
         torch.distributed.destroy_process_group()
 
 
-def run_spmd_ranks(R: int) -> tuple[dict | None, str]:
-    """SPMD_SET's path in R processes on the one card over gloo: each rank's
-    local tensors put back together along the sharded axis (the
-    plaintexts, replicated, must agree on every rank), or None and the
-    reason where gloo takes no CUDA tensors."""
+def run_spmd_ranks(R: int) -> dict:
+    """SPMD_SET's path and the sharded EvalMult in R processes on the one
+    card over gloo: each rank's local tensors put back together along the
+    sharded axis (the plaintexts, replicated, must agree on every rank).
+    Raises with the log of any rank that fails."""
     address = free_address()
     with tempfile.TemporaryDirectory() as d:
         out = Path(d)
@@ -1007,9 +1192,6 @@ def run_spmd_ranks(R: int) -> tuple[dict | None, str]:
             if proc.returncode != 0:
                 raise AssertionError(f"SPMD worker {rank}/{R} failed "
                                      f"({proc.returncode}):\n{text}")
-        probes = sorted(out.glob("probe*.txt"))
-        if probes:
-            return None, probes[0].read_text()
         ranks = [dict(np.load(out / f"rank{k}.npz")) for k in range(R)]
         colls = [json.loads((out / f"rank{k}.json").read_text())
                  for k in range(R)]
@@ -1021,10 +1203,10 @@ def run_spmd_ranks(R: int) -> tuple[dict | None, str]:
                 raise AssertionError(f"SPMD R={R}: {k} differs across ranks")
             whole[k] = parts[0]
         else:
-            whole[k] = torch.cat(parts, dim=0 if k == "sk" else 1)
+            whole[k] = torch.cat(parts, dim=SPMD_SHARD_DIM.get(k, 1))
     if any(c != colls[0] for c in colls[1:]):
         raise AssertionError(f"SPMD R={R}: collectives differ across ranks")
-    return {"local": whole, "collectives": colls[0]}, ""
+    return {"local": whole, "collectives": colls[0]}
 
 
 def kge_times(ctx, sk, pk, ct, m0, reps: int) -> dict:
@@ -1033,6 +1215,19 @@ def kge_times(ctx, sk, pk, ct, m0, reps: int) -> dict:
         "keygen": median_ms(lambda: ctx.keygen(nonce=1), reps),
         "encrypt": median_ms(lambda: ctx.encrypt(pk, m0, nonce=1), reps),
         "decrypt": median_ms(lambda: ctx.decrypt(sk, ct), reps),
+    }
+
+
+def mult_turn_times(ctx, a, b, keys: dict, reps: int) -> dict:
+    """mul, relinearize and apply_galois(SPMD_GALOIS) of one message, ms
+    per call; `keys` holds mul3, rlk and gk (drive_spmd_mult's or
+    spmd_mult_reference's)."""
+    return {
+        "mul": median_ms(lambda: ctx.mul(a, b), reps),
+        "relinearize": median_ms(lambda: ctx.relinearize(keys["mul3"],
+                                                         keys["rlk"]), reps),
+        "apply_galois": median_ms(lambda: ctx.apply_galois(
+            a, SPMD_GALOIS, keys["gk"]), reps),
     }
 
 
@@ -1221,7 +1416,8 @@ def main() -> int:
         # the 32k_9q run is the whole path; at 16k_5q keygen and encrypt
         # take the op kernels, so only the EvalMult kernels are required
         need = [k for k, (*_, s) in KERNELS.items()
-                if ("mult" in s if name == STAGE_SET else s == ("mult",))]
+                if "mult" in s and (name == STAGE_SET
+                                    or not {"op", "stage"} & set(s))]
         missing = [k for k in need if cnt[k] < 1]
         if missing:
             raise AssertionError(f"kernels not launched on the {name} "
@@ -1375,13 +1571,17 @@ def main() -> int:
     t0 = time.perf_counter()
     p_s = get_bfv_params(SPMD_SET)
     timing_spmd = {}
-    # (a) kernels 16-18 == plain at the rank shapes, both kinds of t
-    for kname, label, kern, plain, work in spmd_cases(p_s, dev, rng):
+    # (a) kernels 16-18, and the sharded EvalMult's 20, 21a-c in band form
+    # and 16's drop launch, == plain at the rank shapes
+    for kname, label, kern, plain, work in (spmd_cases(p_s, dev, rng)
+                                            + spmd_mult_cases(p_s, dev, rng)):
         compare(kname, kern(), plain(), errs)
         log(f"check SPMD {kname} {label}: equal")
         if label == f"{SPMD_SET} rows 0-{p_s.r}" + (
                 " level 0" if kname == "decrypt_tail_partial" else ""):
             timing_spmd[kname] = (kern, plain, work)
+        elif label == f"{SPMD_SET} rows 0-{p_s.r} drop":
+            drop_case = (kern, plain, work)
     # (b) world size 1 over NCCL, the path through the public API
     multihost.initialize(free_address(), 1, 0)
     sctx = spmd.SpmdBFVContext.build(p_s)     # the default mesh and device
@@ -1408,22 +1608,45 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the SPMD path: "
                              f"{missing}")
-    # (c) SPMD_R processes on the one card over gloo == (b), every row
-    r3, why = run_spmd_ranks(SPMD_R)
-    if r3 is None:
-        log(f"SPMD R={SPMD_R} over gloo on one card: left out, gloo's "
-            f"all_reduce refused a CUDA tensor: {why}")
-    else:
-        local3 = {k: v.to(dev) for k, v in r3["local"].items()}
-        check_spmd(p_s, local3, r3["collectives"], msgs_s, ref_s, ref_sw)
-        diff = [k for k, v in res_s["local"].items()
-                if not torch.equal(local3[k], v)]
-        if diff:
-            raise AssertionError(f"SPMD R={SPMD_R} != world size 1: {diff}")
-        log(f"SPMD {SPMD_SET} R={SPMD_R} (gloo, {SPMD_R} processes on one "
-            f"card, rl = {p_s.r // SPMD_R}): every tensor, padding rows "
-            f"included, equals the world-size-1 run; collectives per op as "
-            f"there")
+    # (b') the sharded EvalMult at world size 1 on (b)'s keys and
+    # ciphertexts, counts read as in 3
+    mctx = spmd_mult.SpmdMultContext.build(sctx)
+    ref_m = spmd_mult_reference(ctx32, ref_s)
+    torch.cuda.synchronize()
+    reset_counts()
+    res_m = drive_spmd_mult(mctx, res_s)
+    counts["spmd_mult"] = read_counts()
+    check_spmd_mult(p_s, res_m["local"], res_m["collectives"], msgs_s, ref_m)
+    log(f"SPMD EvalMult {SPMD_SET} world size 1 (NCCL): decrypt3 and the "
+        f"relinearized decrypt equal the negacyclic m1 m2 mod t, "
+        f"apply_galois({SPMD_GALOIS}) tau_g(m1); relin and Galois keys and "
+        f"the live rows of mul, relinearize, mul with rlk and apply_galois "
+        f"equal BFVContext.build(params)'s, mul's pad row 0; collectives "
+        f"per op {json.dumps(res_m['collectives'])}")
+    log(f"launch counts in the SPMD EvalMult run: "
+        f"{json.dumps(counts['spmd_mult'])}")
+    missing = [k for k, (*_, s) in KERNELS.items()
+               if "spmd_mult" in s and counts["spmd_mult"][k] < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched on the SPMD EvalMult "
+                             f"path: {missing}")
+    # (c) SPMD_R processes on the one card over gloo == (b) and (b'), every
+    # row
+    r3 = run_spmd_ranks(SPMD_R)
+    local3 = {k: v.to(dev) for k, v in r3["local"].items()}
+    colls3 = r3["collectives"]
+    check_spmd(p_s, local3, {k: colls3[k] for k in res_s["collectives"]},
+               msgs_s, ref_s, ref_sw)
+    check_spmd_mult(p_s, local3, {k: colls3[k] for k in res_m["collectives"]},
+                    msgs_s, ref_m)
+    ws1 = {**res_s["local"], **res_m["local"]}
+    diff = [k for k, v in ws1.items() if not torch.equal(local3[k], v)]
+    if diff or sorted(local3) != sorted(ws1):
+        raise AssertionError(f"SPMD R={SPMD_R} != world size 1: {diff}")
+    log(f"SPMD {SPMD_SET} R={SPMD_R} (gloo, {SPMD_R} processes on one "
+        f"card, rl = {p_s.r // SPMD_R}): every tensor of the SPMD path and "
+        f"the sharded EvalMult, padding rows included, equals the "
+        f"world-size-1 run; collectives per op as there")
     log(f"SPMD phase: {time.perf_counter() - t0:.1f} s")
 
     # Phase 12: times on the card.
@@ -1451,26 +1674,34 @@ def main() -> int:
     for sched, runs in ab.items():
         log(f"op times {OP_SET} {sched} (ms, median of CUDA-event timings; "
             f"two turns of op, stage, stage, op): {json.dumps(runs)}")
-    ds = res_s["dtensor"]
+    ds, dm = res_s["dtensor"], res_m["dtensor"]
     m_s = torch.from_numpy(msgs_s[0]).to(dev)
+    single = (ref_s["sk"], ref_s["pk"], ref_s["cts"][0], ref_s["cts"][1],
+              ref_m)
+    sharded = (ds["sk"], ds["pk"], ds["ct0"], ds["ct1"], dm)
     turns = {"stage": [], "op": [], "spmd": []}
-    for which, c, sk_, pk_, ct_ in (
-            ("stage", ctx32, ref_s["sk"], ref_s["pk"], ref_s["cts"][0]),
-            ("op", ctx_op32, ref_s["sk"], ref_s["pk"], ref_s["cts"][0]),
-            ("spmd", sctx, ds["sk"], ds["pk"], ds["ct0"]),
-            ("spmd", sctx, ds["sk"], ds["pk"], ds["ct0"]),
-            ("op", ctx_op32, ref_s["sk"], ref_s["pk"], ref_s["cts"][0]),
-            ("stage", ctx32, ref_s["sk"], ref_s["pk"], ref_s["cts"][0])):
-        turns[which].append(kge_times(c, sk_, pk_, ct_, m_s, 10))
+    for which, c, cm, (sk_, pk_, ct_, ct1_, keys) in (
+            ("stage", ctx32, ctx32, single), ("op", ctx_op32, ctx_op32, single),
+            ("spmd", sctx, mctx, sharded), ("spmd", sctx, mctx, sharded),
+            ("op", ctx_op32, ctx_op32, single),
+            ("stage", ctx32, ctx32, single)):
+        t = kge_times(c, sk_, pk_, ct_, m_s, 10)
+        t.update(mult_turn_times(cm, ct_, ct1_, keys, 10))
+        turns[which].append(t)
     log(f"SPMD world size 1 against BFVContext at {SPMD_SET} (ms, median of "
         f"CUDA-event timings around one call; turns stage, op, spmd, spmd, "
-        f"op, stage): {json.dumps(turns)}")
+        f"op, stage; apply_galois of g = {SPMD_GALOIS}): "
+        f"{json.dumps(turns)}")
     timing.update(timing_spmd)
     bounds, terms = {}, {}
     for kname, (kern, plain, work) in timing.items():
         terms[kname] = work.terms(mults, clock_hz)
         bounds[kname] = (kernel_ms(kern), kernel_ms(plain),
                          *work.bound(mults, clock_hz))
+    kern, plain, work = drop_case
+    log(f"kernel 16 as the key switch's drop ({SPMD_SET}, (2, {p_s.r}, n)): "
+        f"ms {kernel_ms(kern)}, plain ms {kernel_ms(plain)}, bound ms "
+        f"{work.bound(mults, clock_hz)}")
     log(f"bound terms (bytes moved, integer multiply instructions, and their "
         f"times at {HBM_BYTES_PER_S:.3g} B/s and {SMS} SMs x "
         f"{IMAD_PER_CLOCK}/clock): {json.dumps(terms)}")

@@ -9,8 +9,20 @@
 // prescaled source residues in VMEM scratch at the first target step.
 // Here every conversion is independent per coefficient, so thread (c, i)
 // loads the k source residues x[c, j, i] (a warp reads consecutive i:
-// coalesced), prescales them into registers (at most 16 u64, k <= 15) and
-// loops over the targets, writing out[c, t, i].
+// coalesced), prescales them into a 16-entry array (k <= 15) and loops
+// over the targets, writing out[c, t, i].  k is a runtime bound, so nvcc
+// keeps the array in local memory (128 bytes of stack a thread, cached in
+// L1; `-Xptxas -v`: 32-34 registers, no spills).
+//
+// Band form: the same kernels for target rows [row0, row0 + rl) alone
+// replace behz_pallas.py's rns_to_bsk_rows (:431), fast_floor_rows (:447)
+// and bsk_to_q_rows (:464), all through _run's pallas_call (:339): one rank
+// of the RNS-sharded EvalMult (parallel/spmd_mult.py) gathers every source
+// row and computes its own band of targets.  out (and fast_floor's xb) hold
+// rl rows; the targets index the banks at t in [row0, row0 + rl).
+// bsk_to_q's target k is the padded layout's dropped-modulus slot and
+// writes 0.  The full conversions are row0 = 0, rl = k + 1 (k for
+// bsk_to_q).
 //
 // Arithmetic: every multiply is data x constant, so each is one Shoup
 // multiply (modarith.cuh mul_shoup, canonical out) with a (w, floor(w
@@ -44,8 +56,8 @@
 
 struct BehzIO {
   const u64* x;    // (C, k or k+1, n) source residues
-  const u64* xb;   // (C, k+1, n) fast_floor's Bsk operand, else null
-  u64* out;        // (C, k+1 or k, n)
+  const u64* xb;   // (C, rl, n) fast_floor's Bsk rows, else null
+  u64* out;        // (C, rl, n): target rows [row0, row0 + rl)
   const u64* __restrict__ qsrc;
   const u64* __restrict__ tgt;
   const u64* __restrict__ amat;
@@ -53,7 +65,7 @@ struct BehzIO {
   const u64* __restrict__ bmat;
   const u64* __restrict__ bfin;
   const u64* __restrict__ glob;
-  int k, n;
+  int k, n, row0, rl;
 };
 
 // Sum_j zp_j * w[j] mod m, canonical; w holds k (w, ws) pairs.
@@ -80,14 +92,15 @@ NTT_HD void rns_to_bsk_body(long long idx, const BehzIO& io) {
     ymt += (u32)zp[j] * (u32)s[5];
   }
   const u32 rr = ymt * (u32)io.glob[4];
-  u64* o = io.out + (size_t)c * (k + 1) * n + i;
-  for (int t = 0; t <= k; ++t) {
+  u64* o = io.out + (size_t)c * io.rl * n + i;
+  for (int b = 0; b < io.rl; ++b) {
+    const int t = io.row0 + b;
     const u64* g = io.tgt + 9 * t;
     const u64 m = g[0];
     const u64 y = inner(zp, io.amat + (size_t)2 * k * t, k, m);
     const u64 temp = rr >= (1u << 31) ? (u64)rr + (m - (1ull << 32)) : rr;
     const u64 s = add_mod(y, mul_shoup(temp, g[1], g[2], m), m);
-    o[(size_t)t * n] = mul_shoup(s, g[3], g[4], m);
+    o[(size_t)b * n] = mul_shoup(s, g[3], g[4], m);
   }
 }
 
@@ -97,25 +110,26 @@ NTT_HD void fast_floor_body(long long idx, const BehzIO& io) {
   const long long c = idx / n;
   const int i = (int)(idx % n);
   const u64* xq = io.x + (size_t)c * k * n + i;
-  const u64* xb = io.xb + (size_t)c * (k + 1) * n + i;
+  const u64* xb = io.xb + (size_t)c * io.rl * n + i;
   u64 zp[BEHZ_MAX_K];
   for (int j = 0; j < k; ++j) {
     const u64* s = io.qsrc + 6 * j;
     zp[j] = mul_shoup(xq[(size_t)j * n], s[3], s[4], s[0]);
   }
-  u64* o = io.out + (size_t)c * (k + 1) * n + i;
-  for (int t = 0; t <= k; ++t) {
+  u64* o = io.out + (size_t)c * io.rl * n + i;
+  for (int b = 0; b < io.rl; ++b) {
+    const int t = io.row0 + b;
     const u64* g = io.tgt + 9 * t;
     const u64 m = g[0];
-    const u64 yb = mul_shoup(xb[(size_t)t * n], g[5], g[6], m);
+    const u64 yb = mul_shoup(xb[(size_t)b * n], g[5], g[6], m);
     const u64 conv = inner(zp, io.amat + (size_t)2 * k * t, k, m);
-    o[(size_t)t * n] = mul_shoup(sub_mod(yb, conv, m), g[7], g[8], m);
+    o[(size_t)b * n] = mul_shoup(sub_mod(yb, conv, m), g[7], g[8], m);
   }
 }
 
 // 21c: Shenoy-Kumaresan.  alpha = (conv_msk(xp) - x_msk) prod(B)^-1 mod
 // m_sk, negative when alpha > m_sk / 2 (strict); out_t = conv_qt(xp) -/+
-// |alpha| prod(B) mod q_t.
+// |alpha| prod(B) mod q_t, and 0 at the pad target t = k.
 NTT_HD void bsk_to_q_body(long long idx, const BehzIO& io) {
   const int k = io.k, n = io.n;
   const long long c = idx / n;
@@ -133,12 +147,18 @@ NTT_HD void bsk_to_q_body(long long idx, const BehzIO& io) {
                               io.glob[3], msk);
   const bool neg = alpha > io.glob[1];
   const u64 mag = neg ? msk - alpha : alpha;
-  u64* o = io.out + (size_t)c * k * n + i;
-  for (int t = 0; t < k; ++t) {
+  u64* o = io.out + (size_t)c * io.rl * n + i;
+  for (int b = 0; b < io.rl; ++b) {
+    const int t = io.row0 + b;
+    u64* ot = o + (size_t)b * n;
+    if (t == k) {
+      *ot = 0;
+      continue;
+    }
     const u64 q = io.qsrc[6 * t];
     const u64 cq = inner(xp, io.bmat + (size_t)2 * k * t, k, q);
     const u64 corr = mul_shoup(mag, io.bfin[2 * t], io.bfin[2 * t + 1], q);
-    o[(size_t)t * n] = neg ? add_mod(cq, corr, q) : sub_mod(cq, corr, q);
+    *ot = neg ? add_mod(cq, corr, q) : sub_mod(cq, corr, q);
   }
 }
 
@@ -147,18 +167,21 @@ enum { BEHZ_RNS_TO_BSK = 0, BEHZ_FAST_FLOOR = 1, BEHZ_BSK_TO_Q = 2 };
 static BehzIO behz_io(const void* x, const void* xb, void* out,
                       const void* qsrc, const void* tgt, const void* amat,
                       const void* bsrc, const void* bmat, const void* bfin,
-                      const void* glob, int k, int n) {
+                      const void* glob, int k, int n, int row0, int rl) {
   BehzIO io = {(const u64*)x,    (const u64*)xb,   (u64*)out,
                (const u64*)qsrc, (const u64*)tgt,  (const u64*)amat,
                (const u64*)bsrc, (const u64*)bmat, (const u64*)bfin,
-               (const u64*)glob, k,                n};
+               (const u64*)glob, k,                n,
+               row0,             rl};
   return io;
 }
 
-static bool behz_args_ok(int which, const void* xb, int C, int k, int n) {
+// Targets: Bsk's k + 1 rows, or q's k rows and the pad slot k.
+static bool behz_args_ok(int which, const void* xb, int C, int k, int n,
+                         int row0, int rl) {
   return which >= BEHZ_RNS_TO_BSK && which <= BEHZ_BSK_TO_Q && C >= 1 &&
-         k >= 1 && k <= BEHZ_MAX_K && n >= 1 &&
-         (which != BEHZ_FAST_FLOOR || xb != nullptr);
+         k >= 1 && k <= BEHZ_MAX_K && n >= 1 && row0 >= 0 && rl >= 1 &&
+         row0 + rl <= k + 1 && (which != BEHZ_FAST_FLOOR || xb != nullptr);
 }
 
 #ifdef __CUDACC__
@@ -178,15 +201,18 @@ __global__ void k_bsk_to_q(BehzIO io, long long total) {
   if (idx < total) bsk_to_q_body(idx, io);
 }
 
-// which: BEHZ_*; x (C, k or k+1, n), xb (C, k+1, n) for fast_floor;
-// every bank pointer is passed (a kernel reads its own).
+// which: BEHZ_*; x (C, k or k+1, n), xb (C, rl, n) for fast_floor, out
+// (C, rl, n) for target rows [row0, row0 + rl); every bank pointer is
+// passed (a kernel reads its own).
 extern "C" int ntt_behz(int which, const void* x, const void* xb, void* out,
                         const void* qsrc, const void* tgt, const void* amat,
                         const void* bsrc, const void* bmat, const void* bfin,
-                        const void* glob, int C, int k, int n, void* stream) {
-  if (!behz_args_ok(which, xb, C, k, n)) return (int)cudaErrorInvalidValue;
-  const BehzIO io =
-      behz_io(x, xb, out, qsrc, tgt, amat, bsrc, bmat, bfin, glob, k, n);
+                        const void* glob, int C, int k, int n, int row0,
+                        int rl, void* stream) {
+  if (!behz_args_ok(which, xb, C, k, n, row0, rl))
+    return (int)cudaErrorInvalidValue;
+  const BehzIO io = behz_io(x, xb, out, qsrc, tgt, amat, bsrc, bmat, bfin,
+                            glob, k, n, row0, rl);
   const long long total = (long long)C * n;
   const int threads = 256;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
@@ -205,10 +231,11 @@ extern "C" int ntt_behz(int which, const void* x, const void* xb, void* out,
 extern "C" int ntt_behz(int which, const void* x, const void* xb, void* out,
                         const void* qsrc, const void* tgt, const void* amat,
                         const void* bsrc, const void* bmat, const void* bfin,
-                        const void* glob, int C, int k, int n, void*) {
-  if (!behz_args_ok(which, xb, C, k, n)) return 1;
-  const BehzIO io =
-      behz_io(x, xb, out, qsrc, tgt, amat, bsrc, bmat, bfin, glob, k, n);
+                        const void* glob, int C, int k, int n, int row0,
+                        int rl, void*) {
+  if (!behz_args_ok(which, xb, C, k, n, row0, rl)) return 1;
+  const BehzIO io = behz_io(x, xb, out, qsrc, tgt, amat, bsrc, bmat, bfin,
+                            glob, k, n, row0, rl);
   for (long long idx = 0; idx < (long long)C * n; ++idx) {
     if (which == BEHZ_RNS_TO_BSK)
       rns_to_bsk_body(idx, io);

@@ -9,7 +9,9 @@
 //                 transform with no e, c[h] = INTT(NTT(u) . pk_h)
 // and of ntt_cuda_tpu/ops/bfv_tail.py:
 //   encrypt_tail_padded (bfv_tail.py:760, pallas_call :794): encrypt_fused's
-//                 tail on one rank's rows, ra from its own all-reduced input
+//                 tail on one rank's rows, ra from its own all-reduced input;
+//                 with no e and no message it is also the sharded key
+//                 switch's modulus drop (ntt_drop_last_padded)
 // n <= 2^14: each block owns one polynomial (message x modulus).  It stays
 // in dynamic shared memory while the forward -> dyadic -> inverse chain
 // runs in place (ntt_block.cuh).  The dyadic product is one Montgomery
@@ -524,5 +526,19 @@ extern "C" int ntt_encrypt_tail_padded(const void* c, const void* e,
   const EncryptTail f = {(const u64*)c, (const u64*)e, (const u64*)ra,
                          (const long long*)m, (u64*)ct, (const u64*)tc,
                          q_last, 0, fix_th, rl, rl, n};
+  return run_each(f, 2LL * rl * n, stream);
+}
+
+// Kernel 16's tail with no e and no message: the sharded key switch's
+// modulus drop (parallel/spmd_mult.py) of one rank's accumulators c
+// (2, rl, n) from the all-reduced ra (2, n) -> ct (2, rl, n).
+extern "C" int ntt_drop_last_padded(const void* c, const void* ra, void* ct,
+                                    const void* tc, u64 q_last, int rl, int n,
+                                    void* stream) {
+  if (rl < 1 || !ra) return NTT_EINVAL;
+  const EncryptTail f = {(const u64*)c, nullptr,  (const u64*)ra,
+                         nullptr,       (u64*)ct, (const u64*)tc,
+                         q_last,        0,        0,
+                         rl,            rl,       n};
   return run_each(f, 2LL * rl * n, stream);
 }

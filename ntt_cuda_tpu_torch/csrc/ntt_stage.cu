@@ -10,10 +10,14 @@
 //   11 _transform_fwd_addneg       (ntt_pallas.py:868, pallas_call :902)
 // the transform half of ntt_cuda_tpu/ops/bfv_tail.py encrypt_fused
 // (13: bfv_tail.py:661, pallas_call :717), whose modulus drop and
-// Delta*m + fix run in fused_ops.cu's ntt_encrypt_tail, and the two
+// Delta*m + fix run in fused_ops.cu's ntt_encrypt_tail, the two
 // transforms of the key switch (19: fused_ops.py:651, pallas_call :697),
-// whose modulus drop is the same tail launch.  The TPU kernels share one
-// four-step transform (_stage_a / _stage_b) and differ in the prologue;
+// whose modulus drop is the same tail launch, and the sharded key switch's
+// front (20: keyswitch_front_fused, fused_ops.py:766, pallas_call :808):
+// the same two launches over one rank's band of rl moduli, r := rl, the
+// digits read whole and the key rows (2, k, rl, n) the rank's own.  The
+// TPU kernels share one four-step transform (_stage_a / _stage_b) and
+// differ in the prologue;
 // here they share ntt_block.cuh's transform and differ in `pro`:
 //   PRO_COPY          x                          (7)
 //   PRO_TERNARY       small_res(d)               (9, d a compact ternary)

@@ -67,6 +67,8 @@ SIGNATURES = {
     # c, e, ra, m, ct, per_mod, q_last, fix_th, rl, n
     "ntt_encrypt_tail_padded": (_P, _P, _P, _P, _P, _P, _U64, _U64, _I, _I,
                                 _P),
+    # c, ra, ct, per_mod, q_last, rl, n
+    "ntt_drop_last_padded": (_P, _P, _P, _P, _U64, _I, _I, _P),
     # x, c0, out, per_mod, glob, rl, n, pow2, t, nu_t
     "ntt_decrypt_tail_partial": (_P, _P, _P, _P, _P, _I, _I, _I, _U64, _U64,
                                  _P),
@@ -76,8 +78,9 @@ SIGNATURES = {
     # x, y, e, out, 4 tables, consts, prologue, ny, P, r, log n
     "ntt_stage_inverse": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _P),
-    # which, x, xb, out, 7 banks, C, k, n
-    "ntt_behz": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # which, x, xb, out, 7 banks, C, k, n, row0, rl
+    "ntt_behz": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                 _I, _P),
     # x, out, 4 tables, consts, inverse, P, r, log n
     "ntt30_transform": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }

@@ -18,7 +18,9 @@ Counterpart of `ntt_cuda_tpu/ops/bfv_tail.py` for the main path:
   its static mod-t strategy (pow2 masks, or Barrett-by-t for odd t < 2^31).
 * The RNS-sharded program's tails (parallel/spmd.py), one rank's rows of
   the padded (2, r, n) layout: `encrypt_tail_padded` (kernel 16, K5's tail
-  launch with e added and ra from its own all-reduced input) and
+  launch with e added and ra from its own all-reduced input),
+  `drop_last_padded` (kernel 16's launch with no e and no message: the
+  sharded key switch's modulus drop, parallel/spmd_mult.py) and
   `decrypt_tail_partial` (kernel 17, K2's residue loop stopped at the BEHZ
   sums), each with its `_plain` version and padded constants, and the
   plain tensor steps around the all-reduce: `psum_behz_partials`,
@@ -287,16 +289,25 @@ def build_tail_consts_padded(params, lo: int, hi: int,
                             fix_th=_fix_threshold(params.t))
 
 
+def drop_last_padded_plain(s, ra_ready,
+                           consts: PaddedTailConsts) -> torch.Tensor:
+    """The modulus drop by q_last of (2, rl, n) s from ra_ready (2, n),
+    the JAX package's _keyswitch_shard tail (parallel/spmd_mult.py:331-341):
+    (s - (ra - half mod q_i)) inv_q_last mod q_i."""
+    q, qinv, nu, half_mod, invq, _ = _cols(consts.per_mod)
+    ra = ra_ready - consts.q_last * (ra_ready >= consts.q_last).to(I64)
+    tmp = modmath.mod_u64(ra[:, None, :], q, nu)
+    tmp = tmp + q * (tmp < half_mod).to(I64) - half_mod
+    return modmath.mont_mul(s + q * (s < tmp).to(I64) - tmp, invq, q, qinv)
+
+
 def encrypt_tail_padded_plain(c, e, ra_ready, m_poly,
                               consts: PaddedTailConsts) -> torch.Tensor:
     """c +> e, the modulus drop by q_last from ra_ready, then c0 +=
     Delta*m + fix: (2, rl, n) x2, (2, n), (n,) -> (2, rl, n)."""
-    q, qinv, nu, half_mod, invq, qi_div_t = _cols(consts.per_mod)
-    s = modmath.add_mod_lazy_gt(c, e, q)
-    ra = ra_ready - consts.q_last * (ra_ready >= consts.q_last).to(I64)
-    tmp = modmath.mod_u64(ra[:, None, :], q, nu)
-    tmp = tmp + q * (tmp < half_mod).to(I64) - half_mod
-    out = modmath.mont_mul(s + q * (s < tmp).to(I64) - tmp, invq, q, qinv)
+    q, _, nu, _, _, qi_div_t = _cols(consts.per_mod)
+    out = drop_last_padded_plain(modmath.add_mod_lazy_gt(c, e, q), ra_ready,
+                                 consts)
     m = m_poly[None, :]
     c0 = modmath.mod_u64(out[0] + m * qi_div_t + (m >= consts.fix_th).to(I64),
                          q, nu)
@@ -336,6 +347,36 @@ def encrypt_tail_padded(c, e, ra_ready, m_poly,
 
 
 encrypt_tail_padded.launches = 0
+
+
+def drop_last_padded(c, ra_ready, consts: PaddedTailConsts) -> torch.Tensor:
+    """The sharded key switch's modulus drop: one rank's accumulators c
+    (2, rl, n) and ra_ready (2, n) = (c_last + half) mod q_last, all-reduced
+    from the dropped modulus's owner -> (2, rl, n).  On the card kernel
+    16's tail launch with no e and no message (csrc/fused_ops.cu
+    ntt_drop_last_padded)."""
+    rl, n = consts.per_mod.shape[0], c.shape[-1]
+    for name, t, shape in (("c", c, (2, rl, n)),
+                           ("ra_ready", ra_ready, (2, n))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    if c.device.type == "cpu":
+        return drop_last_padded_plain(c, ra_ready, consts)
+    if c.device.type != "cuda":
+        raise ValueError(f"drop_last_padded: no kernel for {c.device}")
+    dev = consts.per_mod.device
+    for name, t in (("c", c), ("ra_ready", ra_ready)):
+        cuda.require(name, t, I64, tuple(t.shape), dev)
+    ct = torch.empty((2, rl, n), dtype=I64, device=dev)
+    cuda.launch("ntt_drop_last_padded", dev, c.data_ptr(), ra_ready.data_ptr(),
+                ct.data_ptr(), consts.per_mod.data_ptr(), consts.q_last, rl,
+                n)
+    drop_last_padded.launches += 1
+    return ct
+
+
+drop_last_padded.launches = 0
 
 
 @dataclasses.dataclass(frozen=True)

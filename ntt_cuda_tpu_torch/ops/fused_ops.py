@@ -1,6 +1,7 @@
 """Whole-BFV-op transforms: half_polymul, keygen_fused, encrypt_fused,
-keyswitch_fused, and encrypt_front (encrypt_fused's transform alone, for
-the RNS-sharded program).
+keyswitch_fused, and for the RNS-sharded programs encrypt_front
+(encrypt_fused's transform alone) and keyswitch_front (keyswitch_fused's
+transforms alone, over a band of moduli).
 
 Counterpart of `ntt_cuda_tpu/ops/fused_ops.py` for the main path.  On a
 CUDA device each wrapper launches its kernel in csrc/fused_ops.cu: one
@@ -9,7 +10,7 @@ its whole forward -> dyadic -> inverse chain; at n = 32768 two blocks per
 polynomial, one per 2^14 half, beside elementwise stage-0 passes (one
 wrapper call, three or four launches).  The key switch is the exception:
 its k digit chains and two accumulators do not fit a block, so it runs as
-two launches of csrc/ntt_stage.cu and the encrypt tail.  On the
+two launches of csrc/ntt_stage.cu (its front) and the encrypt tail.  On the
 CPU each wrapper runs the plain version beside it, composed from
 ops/ntt.py, ops/poly.py and the compact-draw maps of ops/sampling.py: the
 same computation the JAX package's xla pipelines run (models/bfv.py:933-937,
@@ -183,17 +184,17 @@ def encrypt_front(u_b, pk, tables: NTTTables) -> torch.Tensor:
 encrypt_front.launches = 0
 
 
-# --- keyswitch_fused: c2 digits through a switching key, then / q_last -----
+# --- keyswitch_front (kernel 20) and keyswitch_fused (19): c2's digits
+# through a switching key, then (19) / q_last ------------------------------
 
-def keyswitch_fused_plain(c2, ksk, tables: NTTTables,
-                          consts: TailConsts) -> torch.Tensor:
-    """The JAX package's xla key switch (models/bfv.py:1185-1197): digits
-    d_j = [c2_j] lifted to all r moduli, NTT, sum_j d^_j (.) ksk[h, j],
-    INTT, divide_and_round_q_last.  c2 (..., k, n), ksk (2, k, r, n) ->
-    (..., 2, k, n)."""
+def keyswitch_front_plain(c2, ksk, tables: NTTTables) -> torch.Tensor:
+    """The JAX package's unfused key-switch front (parallel/spmd_mult.py:
+    316-327): digits d_j = [c2_j] lifted to the tables' moduli, NTT,
+    sum_j d^_j (.) ksk[h, j], INTT.  c2 (..., k, n), ksk (2, k, rl, n) ->
+    (..., 2, rl, n) canonical accumulators, with no modulus drop."""
     ms = tables.ms
     d = modmath.mod_u64(c2[..., :, None, :], ms.q, ms.nu)
-    dhat = ntt.ntt_forward(d, tables)                    # (..., k, r, n)
+    dhat = ntt.ntt_forward(d, tables)                    # (..., k, rl, n)
     acc0 = acc1 = None
     for j in range(c2.shape[-2]):
         dj = dhat[..., j, :, :]
@@ -201,8 +202,70 @@ def keyswitch_fused_plain(c2, ksk, tables: NTTTables,
         t1 = ntt.dyadic_mul(dj, ksk[1, j], ms)
         acc0 = t0 if acc0 is None else modmath.add_mod(acc0, t0, ms.q)
         acc1 = t1 if acc1 is None else modmath.add_mod(acc1, t1, ms.q)
-    cc = ntt.ntt_inverse(torch.stack([acc0, acc1], dim=-3), tables)
-    return poly.divide_and_round_q_last(cc, consts.dr, consts.ms_drop,
+    return ntt.ntt_inverse(torch.stack([acc0, acc1], dim=-3), tables)
+
+
+def _front_args(c2, ksk, tables: NTTTables) -> tuple[int, int]:
+    """(J, k) of a key switch of c2 (k, n) or (J, k, n) through ksk (2, k,
+    tables.r, n); raises on any other shape."""
+    r, n = tables.r, tables.n
+    if c2.dim() not in (2, 3) or c2.shape[-1] != n:
+        raise ValueError(f"c2: expected shape (k, {n}) or (J, k, {n}), got "
+                         f"{tuple(c2.shape)}")
+    k = c2.shape[-2]
+    if tuple(ksk.shape) != (2, k, r, n):
+        raise ValueError(f"ksk: expected shape {(2, k, r, n)}, got "
+                         f"{tuple(ksk.shape)}")
+    return (1 if c2.dim() == 2 else c2.shape[0]), k
+
+
+def _front_launch(dev, c2, ksk, tables: NTTTables, J: int,
+                  k: int) -> torch.Tensor:
+    """The key-switch front on the card, two launches of csrc/ntt_stage.cu
+    over the tables' r moduli: the PRO_DIGIT forward into d^ (J, k, r, n)
+    (polynomial (J k + j) r + mi reads digit row J k + j, reduced with the
+    tables' nu = floor(2^64 / q)), then the PRO_KSACC inverse into
+    (J, 2, r, n)."""
+    r, n = tables.r, tables.n
+    cuda.require("c2", c2, I64, tuple(c2.shape), dev)
+    cuda.require("ksk", ksk, I64, (2, k, r, n), dev)
+    dhat = torch.empty((J, k, r, n), dtype=I64, device=dev)
+    acc = torch.empty((J, 2, r, n), dtype=I64, device=dev)
+    ntt_stage.forward_launch(dev, c2, None, dhat, tables, cuda.PRO_DIGIT,
+                             nu=tables.ms.nu)
+    cuda.launch("ntt_stage_inverse", dev, dhat.data_ptr(), ksk.data_ptr(),
+                None, acc.data_ptr(), *tables.kernel_args(), cuda.PRO_KSACC,
+                k, J * 2 * r, r, tables.logn)
+    return acc
+
+
+def keyswitch_front(c2, ksk, tables: NTTTables) -> torch.Tensor:
+    """Kernel 20, the key-switch front over a band of moduli (the JAX
+    package's keyswitch_front_fused, run by one rank of the sharded key
+    switch): c2 (k, n) or (J, k, n) digit sources, ksk (2, k, rl, n) key
+    rows over the tables' rl moduli -> (2, rl, n) or (J, 2, rl, n)
+    accumulators, with no modulus drop.  On the card kernel 19's first two
+    launches with r := rl (four at n = 32768)."""
+    J, k = _front_args(c2, ksk, tables)
+    if c2.device.type == "cpu":
+        return keyswitch_front_plain(c2, ksk, tables)
+    dev = cuda.kernel_device("keyswitch_front", c2, tables,
+                             cuda.TRANSFORM_MAX_N)
+    acc = _front_launch(dev, c2, ksk, tables, J, k)
+    keyswitch_front.launches += 1
+    return acc[0] if c2.dim() == 2 else acc
+
+
+keyswitch_front.launches = 0
+
+
+def keyswitch_fused_plain(c2, ksk, tables: NTTTables,
+                          consts: TailConsts) -> torch.Tensor:
+    """The JAX package's xla key switch (models/bfv.py:1185-1197): the
+    front over all r moduli, then divide_and_round_q_last.  c2 (..., k, n),
+    ksk (2, k, r, n) -> (..., 2, k, n)."""
+    return poly.divide_and_round_q_last(keyswitch_front_plain(c2, ksk, tables),
+                                        consts.dr, consts.ms_drop,
                                         consts.ms_last)
 
 
@@ -210,38 +273,25 @@ def keyswitch_fused(c2, ksk, tables: NTTTables,
                     consts: TailConsts) -> torch.Tensor:
     """Key switch of c2 (k, n) or (J, k, n) through ksk (2, k, r, n), NTT
     domain over all r moduli -> (2, k, n) or (J, 2, k, n), k = r-1.  On the
-    card: the PRO_DIGIT forward into d^ (J, k, r, n) (digits reduced with
-    the tables' nu = floor(2^64 / q)), the PRO_KSACC inverse into
-    (J, 2, r, n), and the encrypt tail without a message."""
+    card: the front's two launches (_front_launch) and the encrypt tail
+    without a message."""
     r, n = tables.r, tables.n
     k = r - 1
     if c2.dim() not in (2, 3) or tuple(c2.shape[-2:]) != (k, n):
         raise ValueError(f"c2: expected shape ({k}, {n}) or (J, {k}, {n}), "
                          f"got {tuple(c2.shape)}")
-    if tuple(ksk.shape) != (2, k, r, n):
-        raise ValueError(f"ksk: expected shape {(2, k, r, n)}, got "
-                         f"{tuple(ksk.shape)}")
+    J, _ = _front_args(c2, ksk, tables)
     if c2.device.type == "cpu":
         return keyswitch_fused_plain(c2, ksk, tables, consts)
     dev = cuda.kernel_device("keyswitch_fused", c2, tables,
                              cuda.TRANSFORM_MAX_N)
-    single = c2.dim() == 2
-    J = 1 if single else c2.shape[0]
-    cuda.require("c2", c2, I64, tuple(c2.shape), dev)
-    cuda.require("ksk", ksk, I64, (2, k, r, n), dev)
-    dhat = torch.empty((J, k, r, n), dtype=I64, device=dev)
-    acc = torch.empty((J, 2, r, n), dtype=I64, device=dev)
+    acc = _front_launch(dev, c2, ksk, tables, J, k)
     out = torch.empty((J, 2, k, n), dtype=I64, device=dev)
-    ntt_stage.forward_launch(dev, c2, None, dhat, tables, cuda.PRO_DIGIT,
-                             nu=tables.ms.nu)
-    cuda.launch("ntt_stage_inverse", dev, dhat.data_ptr(), ksk.data_ptr(),
-                None, acc.data_ptr(), *tables.kernel_args(), cuda.PRO_KSACC,
-                k, J * 2 * r, r, tables.logn)
     cuda.launch("ntt_encrypt_tail", dev, acc.data_ptr(), None,
                 out.data_ptr(), consts.per_mod.data_ptr(), consts.q_last,
                 consts.half, consts.fix_th, J, r, n)
     keyswitch_fused.launches += 1
-    return out[0] if single else out
+    return out[0] if c2.dim() == 2 else out
 
 
 keyswitch_fused.launches = 0

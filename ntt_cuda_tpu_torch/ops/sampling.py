@@ -224,6 +224,39 @@ def relin_draws(n: int, r: int, k: int, ms: modmath.ModulusSet, nonce=0):
     return _key_draws(bw, lanes, n, r, k, ms)
 
 
+def relin_draws_rank(n: int, r: int, k: int, lo: int, hi: int,
+                     ms: modmath.ModulusSet, nonce=0):
+    """One rank's relin_draws in the RNS-sharded program (the JAX package's
+    parallel/spmd_mult.py:700-714), ms the moduli [lo, hi): (a (k, hi - lo,
+    n), e (k, hi - lo, n)), equal to relin_draws' rows [lo, hi)."""
+    return _key_draws_rank(n, r, k, lo, hi, ms, RELIN_KEY_BYTE, nonce, 0)
+
+
+def _key_draws_rank(n: int, r: int, k: int, lo: int, hi: int,
+                    ms: modmath.ModulusSet, key_byte: int, nonce,
+                    block0: int):
+    """Rows [lo, hi) of the k switching keys of the stream region that
+    starts at block `block0` (laid out as _key_draws'): key j's uniform
+    rows from block block0 + j (8rn + 4n)/64 + lo n/8, its Gaussian words,
+    drawn whole on every rank, from block block0 + (j (8rn + 4n) + 8rn)/64.
+    Two K1 launches a key."""
+    kb = (8 * r * n + 4 * n) // 64       # blocks per key
+    rl = hi - lo
+    stream = dict(key_byte=key_byte, nonce=keygen_nonce(nonce),
+                  device=ms.q.device)
+    u, w = [], []
+    for j in range(k):
+        _, lanes = salsa20.keystream_block_words(
+            rl * n // 8, counter0=block0 + j * kb + lo * n // 8,
+            with_u64=True, **stream)
+        u.append(salsa20.block_words_u64_planes(lanes, 0, rl * n)
+                 .reshape(rl, n))
+        w.append(salsa20.block_words_u32(salsa20.keystream_block_words(
+            n // 16, counter0=block0 + j * kb + r * n // 8, **stream), 0, n))
+    return uniform(torch.stack(u), ms), small_res(gaussian_int(
+        torch.stack(w)), ms.q)
+
+
 def _key_draws(bw, lanes, n: int, r: int, k: int, ms: modmath.ModulusSet):
     """The k switching keys' (a, e) from one stream whose key j owns the
     bytes from j*(8rn + 4n)."""
@@ -262,3 +295,16 @@ def galois_draws(n: int, r: int, k: int, elts, ms: modmath.ModulusSet,
         a_rows.append(a)
         e_rows.append(e)
     return torch.stack(a_rows), torch.stack(e_rows)
+
+
+def galois_draws_rank(n: int, r: int, k: int, elts, lo: int, hi: int,
+                      ms: modmath.ModulusSet, nonce=0):
+    """One rank's galois_draws in the RNS-sharded program (the JAX
+    package's parallel/spmd_mult.py:539-558), ms the moduli [lo, hi): (a
+    (E, k, hi - lo, n), e (E, k, hi - lo, n)), equal to galois_draws' rows
+    [lo, hi)."""
+    region = (relin_entropy_bytes(n, r, k) + 63) // 64
+    draws = [_key_draws_rank(n, r, k, lo, hi, ms, GALOIS_KEY_BYTE, nonce,
+                             int(g) * region) for g in elts]
+    return (torch.stack([a for a, _ in draws]),
+            torch.stack([e for _, e in draws]))

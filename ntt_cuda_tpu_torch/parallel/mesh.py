@@ -9,12 +9,13 @@ PartitionSpec becomes a DTensor placement list, one entry per mesh axis:
 P('rns') on an (r, n) tensor is [Shard(0)] on a 1-D ('rns',) mesh, and on
 a (2, r, n) tensor [Shard(1)].
 
-`all_reduce` is the one way the sharded programs talk across ranks.  Each
-call is logged in `collectives` as ("all_reduce", shape) before it runs
-(clear the list to start a count): torch has no compiled program to
-inspect, so this log stands in for the JAX package's `lowered_*` HLO
-counts (tests/test_collectives.py), as the kernels' `launches` counters
-do for their launches.
+`all_reduce` and `all_gather` are the only ways the sharded programs talk
+across ranks.  Each call is logged in `collectives` as ("all_reduce",
+shape) or ("all_gather", gathered shape) before it runs (clear the list to
+start a count): torch has no compiled program to inspect, so this log
+stands in for the JAX package's `lowered_*` HLO counts
+(tests/test_collectives.py), as the kernels' `launches` counters do for
+their launches.
 """
 
 from __future__ import annotations
@@ -88,3 +89,16 @@ def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     collectives.append(("all_reduce", tuple(x.shape)))
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
+
+
+def all_gather(x: torch.Tensor, group=None, dim: int = -2) -> torch.Tensor:
+    """The ranks' x tiled along `dim` in rank order (jax.lax.all_gather(...,
+    tiled=True)), logged in `collectives` with the gathered shape.  A list
+    all_gather then a cat: gloo's all_gather_into_tensor is not relied on."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    shape = list(x.shape)
+    shape[dim] *= len(parts)
+    collectives.append(("all_gather", tuple(shape)))
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)

@@ -388,12 +388,15 @@ def _xm_at_half(xb_col, aux) -> int:
     return (cm - (msk >> 1) * b_prod) % msk
 
 
-def _host_behz(host_lib, which, x, xb, out, mb):
-    k, n = mb.k, x.shape[-1]
-    C = out.numel() // (out.shape[-2] * n)
+def _host_behz(host_lib, which, x, xb, out, mb, row0=0):
+    """One conversion into out (..., rl, n): target rows [row0, row0 + rl),
+    the whole output at row0 = 0."""
+    k, n, rl = mb.k, x.shape[-1], out.shape[-2]
+    C = out.numel() // (rl * n)
     return host_lib.ntt_behz(which, x.data_ptr(),
                              None if xb is None else xb.data_ptr(),
-                             out.data_ptr(), *mb.kernel_args(), C, k, n, None)
+                             out.data_ptr(), *mb.kernel_args(), C, k, n, row0,
+                             rl, None)
 
 
 def test_host_behz(host_lib, banks):
@@ -429,7 +432,8 @@ def test_host_behz_rejects_bad_arguments(host_lib, banks):
     assert _host_behz(host_lib, behz_kernels.FAST_FLOOR, x, None, x,
                       mb) != 0                  # fast_floor needs xb
     assert host_lib.ntt_behz(7, x.data_ptr(), None, x.data_ptr(),
-                             *mb.kernel_args(), 1, mb.k, 64, None) != 0
+                             *mb.kernel_args(), 1, mb.k, 64, 0, mb.k,
+                             None) != 0
 
 
 @pytest.mark.parametrize("J", [1, 2])

@@ -4,11 +4,13 @@
                                  [--ops keygen,encrypt,...] [--spmd]
 
 For keygen, encrypt, decrypt, decrypt_batch (J = 3), encrypt_batch
-(J = 16, nonces 1..16) and the EvalMult ops (mul, mul with
-relinearization, relin_keygen) of one parameter set, through
-`BFVContext` (`--ops` picks some of them), or with `--spmd` for keygen,
-encrypt, decrypt and mod_switch_to_next through the RNS-sharded
-`SpmdBFVContext` at world size 1 over NCCL, prints one JSON line per op:
+(J = 16, nonces 1..16), the EvalMult ops (mul, mul with
+relinearization, relin_keygen, relinearize) and apply_galois (g = 3) of
+one parameter set, through `BFVContext` (`--ops` picks some of them), or
+with `--spmd` for keygen, encrypt, decrypt and mod_switch_to_next through
+the RNS-sharded `SpmdBFVContext` and mul, relinearize and apply_galois
+(g = 3) through its `SpmdMultContext`, at world size 1 over NCCL, prints
+one JSON line per op:
 
 * `event_ms`: median CUDA-event time around one call;
 * `sync_wall_ms`: median host time of one call ending in
@@ -43,7 +45,8 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from ntt_cuda_tpu_torch import BFVContext, get_bfv_params  # noqa: E402
-from ntt_cuda_tpu_torch.parallel import multihost, spmd  # noqa: E402
+from ntt_cuda_tpu_torch.parallel import (multihost, spmd,  # noqa: E402
+                                         spmd_mult)
 
 
 def device_intervals(prof) -> list[tuple[float, float, str]]:
@@ -149,6 +152,8 @@ def bfv_ops(p, fusion: str, msgs) -> tuple[str, dict]:
                        for j in range(3)])
     m16 = torch.from_numpy(msgs).to(ctx.device)
     rlk = ctx.relin_keygen(sk, nonce=1)
+    gk = ctx.galois_keygen(sk, [3], nonce=1)[3]
+    ct3 = ctx.mul(cts[0], cts[1])
     ops = {
         "keygen": lambda: ctx.keygen(nonce=1),
         "encrypt": lambda: ctx.encrypt(pk, m16[0], nonce=1),
@@ -159,13 +164,15 @@ def bfv_ops(p, fusion: str, msgs) -> tuple[str, dict]:
         "mul": lambda: ctx.mul(cts[0], cts[1]),
         "mul_relin": lambda: ctx.mul(cts[0], cts[1], rlk=rlk),
         "relin_keygen": lambda: ctx.relin_keygen(sk, nonce=1),
+        "relinearize": lambda: ctx.relinearize(ct3, rlk),
+        "apply_galois": lambda: ctx.apply_galois(cts[0], 3, gk),
     }
     return ctx.fusion, ops
 
 
 def spmd_ops(p, msgs) -> tuple[str, dict]:
-    """("spmd", SpmdBFVContext's ops by name) at world size 1 over NCCL
-    (the default mesh and device)."""
+    """("spmd", the ops of SpmdBFVContext and SpmdMultContext by name) at
+    world size 1 over NCCL (the default mesh and device)."""
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -174,11 +181,19 @@ def spmd_ops(p, msgs) -> tuple[str, dict]:
     sk, pk = ctx.keygen(nonce=1)
     m0 = torch.from_numpy(msgs[0]).to(ctx.device)
     ct = ctx.encrypt(pk, m0, nonce=1)
+    ct2 = ctx.encrypt(pk, torch.from_numpy(msgs[1]).to(ctx.device), nonce=2)
+    mctx = spmd_mult.SpmdMultContext.build(ctx)
+    rlk = mctx.relin_keygen(sk, nonce=1)
+    gk = mctx.galois_keygen(sk, [3], nonce=1)[3]
+    ct3 = mctx.mul(ct, ct2)
     return "spmd", {
         "keygen": lambda: ctx.keygen(nonce=1),
         "encrypt": lambda: ctx.encrypt(pk, m0, nonce=1),
         "decrypt": lambda: ctx.decrypt(sk, ct),
         "mod_switch": lambda: ctx.mod_switch_to_next(ct),
+        "mul": lambda: mctx.mul(ct, ct2),
+        "relinearize": lambda: mctx.relinearize(ct3, rlk),
+        "apply_galois": lambda: mctx.apply_galois(ct, 3, gk),
     }
 
 
