@@ -93,6 +93,30 @@ one Montgomery product (for each kernel's bound).  Then:
    16-18, 20 and 21a-c's bands at 32k_9q's world-size-1 shapes, rl = 9;
    16's drop launch logged beside).
 
+13. kernels 12, 14 and 15 (the op-level entry points ntt_forward /
+   ntt_inverse with mod_idx, encrypt_tail, decrypt_fused) against their
+   plain versions: 12 over the standard and a permuted index (B = 2r + 1)
+   at 4k_3q, 16k_5q and 32k_9q, both directions; 14 at 16k_5q and
+   32k_9q; 15 at 32k_9q, 32k_16q and on the golden ciphertext; then the
+   ops path at 32k_9q on the stage path's keys (counts read as in 3):
+   encrypt of its three messages through kernels 12, 8 and 14 equal to
+   BFVContext.encrypt's ciphertexts, decrypt through 12 and 15
+   round-tripping, 15 equal to the decrypt's back half (8 + K2);
+14. the coefficient-sharded transform (parallel/coef_kernels.py) at
+   32k_9q, C = 2 and 4 shards driven in one process (counts read as in
+   3), equal to kernels 7 and 8 on the whole polynomial; and the 2-D
+   program (parallel/spmd2d.py: keygen, encrypt of three messages,
+   decrypt) at world size 1 over NCCL, mesh (1, 1), and over gloo on the
+   one card at meshes (1, 2) and (3, 2) (this script re-run as
+   `--spmd2d-worker`), keys and live rows equal to BFVContext.build(
+   params)'s, every message round-tripped, the collectives JAX's budget
+   (keygen 3 log2 C ppermutes, encrypt and decrypt 2 log2 C and one
+   all-reduce), every gloo tensor equal to world size 1's;
+15. times: 12, 14, 15 and the cross-stage glue beside their bounds and
+   plain versions; 15 beside kernel 8 + K2 and, forward included, 7 + 15
+   beside K3 + K2; 2-D keygen / encrypt / decrypt at world size 1 in
+   turns beside SpmdBFVContext and BFVContext.
+
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and last `{"ok": true, "device": {...}}`.  Any failure raises,
 so the exit code is not 0 and no result line is printed.  Imports no jax.
@@ -126,7 +150,8 @@ from ntt_cuda_tpu_torch.ops import (behz, behz_kernels,  # noqa: E402
                                     ntt_stage, poly, salsa20, sampling)
 from ntt_cuda_tpu_torch.params import BFVParams, get_params  # noqa: E402
 from ntt_cuda_tpu_torch.parallel import (mesh as pmesh,  # noqa: E402
-                                         multihost, spmd, spmd_mult)
+                                         coef_kernels, multihost, sharded,
+                                         spmd, spmd2d, spmd_mult)
 from ntt_cuda_tpu_torch.utils import primegen  # noqa: E402
 from ntt_cuda_tpu_torch.utils.profiling import median_ms  # noqa: E402
 
@@ -158,6 +183,13 @@ SPMD_GALOIS = 3              # the sharded EvalMult path's Galois element
 # where drive_spmd / drive_spmd_mult's tensors are sharded (else axis 1;
 # the plaintexts, "dec*", are replicated)
 SPMD_SHARD_DIM = {"sk": 0, "rlk": 2, "gk": 2}
+OPS_SET = "32k_9q"           # the op-level entry points' path (12, 14, 15)
+OPS_MSGS = 3
+IDX_CHECK_SETS = ("4k_3q", "16k_5q", "32k_9q")   # kernel 12
+TAIL_CHECK_SETS = ("16k_5q", "32k_9q")           # kernel 14
+DEC_FUSED_SETS = ("32k_9q", "32k_16q")           # kernel 15
+COEF_SET, COEF_CS = "32k_9q", (2, 4)   # the coefficient-sharded transform
+SPMD2D_MESHES = ((1, 2), (3, 2))       # (rns, coef) over gloo on one card
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
 
@@ -169,7 +201,7 @@ KERNELS = {
                           "ntt_cuda_tpu_torch/csrc/salsa20.cu",
                           "ntt_cuda_tpu/ops/salsa20.py:174",
                           ("mult", "op", "stage", "op32", "spmd",
-                           "spmd_mult")),
+                           "spmd_mult", "spmd2d")),
     "salsa20_keystream_batch": ((salsa20.keystream_block_words_batch,),
                                 "ntt_cuda_tpu_torch/csrc/salsa20.cu",
                                 "ntt_cuda_tpu/ops/salsa20.py:249",
@@ -192,14 +224,18 @@ KERNELS = {
                       ("op", "batch", "op32")),
     # kernel 7, both directions (one TPU kernel with an `inverse` flag);
     # its times below are the forward's, the direction the main path runs
-    "ntt_transform": ((ntt_stage.ntt_forward, ntt_stage.ntt_inverse),
+    # (also its shard-offset launch, coef_kernels.local_forward, on the
+    # 2-D program's path)
+    "ntt_transform": ((ntt_stage.ntt_forward, ntt_stage.ntt_inverse,
+                       coef_kernels.local_forward),
                       "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                       "ntt_cuda_tpu/ops/ntt_pallas.py:558",
-                      ("mult", "stage", "spmd_mult")),
-    "ntt_inverse_mul": ((ntt_stage.ntt_inverse_mul,),
+                      ("mult", "stage", "spmd_mult", "spmd2d", "coef")),
+    "ntt_inverse_mul": ((ntt_stage.ntt_inverse_mul,
+                         coef_kernels.local_inverse_mul),
                         "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                         "ntt_cuda_tpu/ops/ntt_pallas.py:685",
-                        ("mult", "stage", "spmd_mult")),
+                        ("mult", "stage", "spmd_mult", "spmd2d", "coef")),
     "ntt_forward_ternary": ((ntt_stage.ntt_forward_ternary,),
                             "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                             "ntt_cuda_tpu/ops/ntt_pallas.py:782",
@@ -243,11 +279,11 @@ KERNELS = {
                              bfv_tail.drop_last_padded),
                             "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                             "ntt_cuda_tpu/ops/bfv_tail.py:760",
-                            ("spmd", "spmd_mult")),
+                            ("spmd", "spmd_mult", "spmd2d")),
     "decrypt_tail_partial": ((bfv_tail.decrypt_tail_partial,),
                              "ntt_cuda_tpu_torch/csrc/decrypt_tail.cu",
                              "ntt_cuda_tpu/ops/bfv_tail.py:886",
-                             ("spmd", "spmd_mult")),
+                             ("spmd", "spmd_mult", "spmd2d")),
     # the sharded EvalMult's kernels (parallel/spmd_mult.py): 20 (kernel
     # 19's two transform launches over a rank's rows) and 21a-c in band form
     "keyswitch_front": ((fused_ops.keyswitch_front,),
@@ -265,6 +301,23 @@ KERNELS = {
                            "ntt_cuda_tpu_torch/csrc/behz.cu",
                            "ntt_cuda_tpu/ops/behz_pallas.py:464",
                            ("spmd_mult",)),
+    # the op-level entry points (the ops path): 12 (ntt_forward /
+    # ntt_inverse with mod_idx), 14 (encrypt_tail), 15 (decrypt_fused)
+    "ntt_transform_idx": ((ntt_stage.ntt_transform_idx,),
+                          "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
+                          "ntt_cuda_tpu/ops/ntt_pallas.py:496", ("ops",)),
+    "encrypt_tail": ((bfv_tail.encrypt_tail,),
+                     "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
+                     "ntt_cuda_tpu/ops/bfv_tail.py:144", ("ops",)),
+    "decrypt_fused": ((bfv_tail.decrypt_fused,),
+                      "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
+                      "ntt_cuda_tpu/ops/bfv_tail.py:507", ("ops",)),
+    # glue of the coefficient-sharded transform, not a TPU kernel: the
+    # cross-shard butterfly, XLA in the JAX package (parallel/sharded.py
+    # _cross_forward_stage); its launches are the one-process coef path's
+    "coef_cross_stage": ((coef_kernels.cross_stage,),
+                         "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
+                         "ntt_cuda_tpu/parallel/sharded.py:102", ("coef",)),
 }
 
 # One multiply-heavy primitive per probe kernel; its SASS gives the
@@ -1176,22 +1229,9 @@ def run_spmd_ranks(R: int) -> dict:
     address = free_address()
     with tempfile.TemporaryDirectory() as d:
         out = Path(d)
-        procs = [subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--spmd-worker",
-             str(rank), str(R), address, str(out)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for rank in range(R)]
-        try:
-            logs = [proc.communicate(timeout=600)[0] for proc in procs]
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.communicate()
-        for rank, (proc, text) in enumerate(zip(procs, logs)):
-            if proc.returncode != 0:
-                raise AssertionError(f"SPMD worker {rank}/{R} failed "
-                                     f"({proc.returncode}):\n{text}")
+        wait_workers(start_workers(
+            ["--spmd-worker"], [[str(rank), str(R), address, str(out)]
+                                for rank in range(R)]), f"SPMD R={R}")
         ranks = [dict(np.load(out / f"rank{k}.npz")) for k in range(R)]
         colls = [json.loads((out / f"rank{k}.json").read_text())
                  for k in range(R)]
@@ -1229,6 +1269,324 @@ def mult_turn_times(ctx, a, b, keys: dict, reps: int) -> dict:
         "apply_galois": median_ms(lambda: ctx.apply_galois(
             a, SPMD_GALOIS, keys["gk"]), reps),
     }
+
+
+def idx_work(x, idx, tb, inverse: bool) -> Work:
+    """Kernel 12 over B polynomials: a transform each, x in and out once,
+    one direction's tables and the index."""
+    return Work(nbytes(x, idx, *tables(tb, "inv" if inverse else "fwd"), x),
+                shoup=transform_butterflies(x.shape[0], tb.n)
+                + (x.numel() if inverse else 0))
+
+
+def ops_cases(rng, dev):
+    """(kernel, label, wrapper call, plain call, Work) for kernels 12, 14
+    and 15 at the shapes their entry points take on the ops path: 12 over
+    the standard index (B = r) and a permuted one (B = 2r + 1) in both
+    directions; 14 over (2, r, n) c and e; 15 over the r-1 kept moduli."""
+    cases = []
+    for name in IDX_CHECK_SETS:
+        p = get_bfv_params(name)
+        tb = ntt.tables_for(p, device=dev)
+        for kind, idx in (("standard", np.arange(p.r)),
+                          ("permuted", rng.permutation(
+                              np.arange(2 * p.r + 1) % p.r))):
+            # a host index, as on the ops path (a CUDA one costs the host's
+            # range check a device sync)
+            idx = torch.from_numpy(idx.astype(np.int32))
+            x = torch.stack([torch.from_numpy(rng.integers(
+                0, p.q[i], p.n)).to(dev) for i in idx.tolist()])
+            for inverse in (False, True):
+                cases.append((
+                    "ntt_transform_idx",
+                    f"{name} {kind} B={len(idx)} "
+                    f"{'inv' if inverse else 'fwd'}",
+                    lambda x=x, i=idx, tb=tb, v=inverse:
+                        ntt_stage.ntt_transform_idx(x, tb, i, inverse=v),
+                    lambda x=x, i=idx, tb=tb, v=inverse:
+                        ntt_stage.ntt_transform_idx_plain(x, tb, i,
+                                                          inverse=v),
+                    idx_work(x, idx, tb, inverse)))
+    for name in TAIL_CHECK_SETS:
+        p = get_bfv_params(name)
+        tc = bfv_tail.TailConsts.build(p, dev)
+        c, e = (rand_res(rng, p.q, p.n, (2,), dev) for _ in range(2))
+        m = torch.from_numpy(rng.integers(0, p.t, p.n)).to(dev)
+        out = 2 * (p.r - 1) * p.n
+        cases.append((
+            "encrypt_tail", name,
+            lambda c=c, e=e, m=m, tc=tc: bfv_tail.encrypt_tail(c, e, m, tc),
+            lambda c=c, e=e, m=m, tc=tc: bfv_tail.encrypt_tail_plain(
+                c, e, m, tc),
+            Work(nbytes(c, e, m, tc.per_mod) + 8 * out, mont=out,
+                 mod_nu=out + out // 2, mullo=out // 2)))
+    for name in DEC_FUSED_SETS:
+        p = get_bfv_params(name)
+        td = ntt.tables_for(p, p.r - 1, device=dev)
+        dt = bfv_tail.DecTailConsts.build(p, dev)
+        x, sk, c0 = (rand_res(rng, p.q[:-1], p.n, (), dev) for _ in range(3))
+        cases.append((
+            "decrypt_fused", name,
+            lambda x=x, sk=sk, c0=c0, td=td, dt=dt: bfv_tail.decrypt_fused(
+                x, sk, c0, td, dt),
+            lambda x=x, sk=sk, c0=c0, td=td, dt=dt:
+                bfv_tail.decrypt_fused_plain(x, sk, c0, td, dt),
+            decrypt_fused_work(x, sk, c0, td, dt)))
+    return cases
+
+
+def decrypt_fused_work(x, sk, c0, td, dt) -> Work:
+    """Kernel 15: kernel 8's inverse (the Montgomery product, the
+    butterflies, the n^-1 Shoup) and K2's residue loop, x, sk and c0 read
+    once and the (n,) plaintext written once."""
+    rk, n = x.shape
+    return Work(nbytes(x, sk, c0, *tables(td, "inv"), dt.per_mod, dt.glob)
+                + 8 * n, shoup=transform_butterflies(rk, n) + rk * n,
+                mont=rk * n + n * (3 * rk + 1), mullo=n * (rk + 1))
+
+
+def drive_ops(ctx: BFVContext, pk, sk, msgs: np.ndarray, dev) -> dict:
+    """The op-level entry points on real ciphertexts: encrypt of each
+    message as NTT(u) (kernel 12 over the standard index), INTT(NTT(u) .
+    pk) and kernel 14 with the message's own draws; decrypt as NTT(c1)
+    (kernel 12 over the kept moduli) then kernel 15; and kernel 12's
+    inverse over a permuted index, back to the draws' residues."""
+    p = ctx.params
+    tf, td = ctx.tables_full, ctx.tables_drop
+    full = torch.arange(p.r, dtype=torch.int32)
+    kept = torch.arange(p.r - 1, dtype=torch.int32)
+    cts, outs, u_res = [], [], []
+    for j in range(len(msgs)):
+        u_b, e_d = sampling.encrypt_draws_compact(p.n, nonce=j + 1,
+                                                  device=dev)
+        u = sampling.small_res(u_b, tf.ms.q)
+        u_res.append(u)
+        u_ntt = ntt_stage.ntt_forward(u, tf, mod_idx=full)
+        c = ntt_stage.ntt_inverse_mul(torch.stack([u_ntt, u_ntt]), pk, tf)
+        ct = bfv_tail.encrypt_tail(c, sampling.small_res(e_d, tf.ms.q),
+                                   torch.from_numpy(msgs[j]).to(dev),
+                                   ctx.tail_consts)
+        x = ntt_stage.ntt_forward(ct[1].contiguous(), td, mod_idx=kept)
+        outs.append(bfv_tail.decrypt_fused(x, sk[:p.r - 1].contiguous(),
+                                           ct[0].contiguous(), td,
+                                           ctx.dec_tail_consts))
+        cts.append(ct)
+    perm = torch.from_numpy(np.random.default_rng(SEED + 7).permutation(
+        np.arange(2 * p.r + 1) % p.r).astype(np.int32))
+    rows = torch.stack([u_res[0][i] for i in perm.tolist()])
+    fwd = ntt_stage.ntt_forward(rows, tf, mod_idx=perm)
+    back = ntt_stage.ntt_inverse(fwd, tf, mod_idx=perm)
+    torch.cuda.synchronize()
+    return dict(cts=cts, outs=outs, rows=rows, back=back)
+
+
+def coef_path(p: BFVParams, C: int, rng, dev, errs: dict) -> dict:
+    """The coefficient-sharded transform at C shards in one process, every
+    shard driven stage by stage with its partner's tensor handed in (what
+    ppermute brings): forward of x (r, n) and INTT(x (.) y), counted (the
+    reference launches come after).  Each shard's offset launch is held
+    against the plain local stages on its inputs, the assembled result
+    against the plain whole transform and kernels 7 and 8, and the
+    cross-stage glue of every stage against its plain version."""
+    tb = ntt.tables_for(p, device=dev)
+    logc, S = sharded.log2_shards(C), p.n // C
+    x, y = (rand_res(rng, p.q, p.n, (), dev) for _ in range(2))
+    split = lambda v: [v[..., c * S:(c + 1) * S].contiguous()
+                       for c in range(C)]
+
+    def cross(xs, s, inverse):
+        k = sharded.cross_stride(C, s)
+        return [coef_kernels.cross_stage(xs[c], xs[c ^ k], tb, C, s, c,
+                                         inverse) for c in range(C)]
+    reset_counts()
+    xs = split(x)
+    for s in range(logc):
+        xs = cross(xs, s, False)
+    fwd_in = xs
+    fwd_out = [coef_kernels.local_forward(xs[c], tb, logc, c)
+               for c in range(C)]
+    fwd = torch.cat(fwd_out, -1)
+    ys, inv_in = split(y), split(x)
+    xs = inv_out = [coef_kernels.local_inverse_mul(v, ys[c], tb, logc, c)
+                    for c, v in enumerate(inv_in)]
+    for s in reversed(range(logc)):
+        xs = cross(xs, s, True)
+    invmul = torch.cat(xs, -1)
+    torch.cuda.synchronize()
+    cnt = read_counts()
+    # each shard's offset launch against the plain local stages on the
+    # same inputs, then the assembled transforms against the plain whole
+    # ones and kernels 7 and 8 on the whole polynomial
+    for c in range(C):
+        compare("ntt_transform", fwd_out[c],
+                sharded.local_forward_stages(fwd_in[c], tb, C, c), errs)
+        compare("ntt_inverse_mul", inv_out[c],
+                coef_kernels.local_inverse_mul_plain(inv_in[c], ys[c], tb, C,
+                                                     c), errs)
+    compare("ntt_transform", fwd, ntt_stage.ntt_forward_plain(x, tb), errs)
+    compare("ntt_inverse_mul", invmul,
+            ntt_stage.ntt_inverse_mul_plain(x, y, tb), errs)
+    if not (torch.equal(fwd, ntt_stage.ntt_forward(x, tb)) and
+            torch.equal(invmul, ntt_stage.ntt_inverse_mul(x, y, tb))):
+        raise AssertionError(f"coef-sharded transform {p.name} C={C} != "
+                             f"kernels 7 and 8 on the whole polynomial")
+    for inverse in (False, True):
+        for s in range(logc):
+            xs, k = split(x), sharded.cross_stride(C, s)
+            for c in range(C):
+                plain = (sharded.cross_inverse_stage(xs[c], xs[c ^ k], tb, C,
+                                                     s, c, halve=False)
+                         if inverse else sharded.cross_forward_stage(
+                             xs[c], xs[c ^ k], tb, C, s, c))
+                compare("coef_cross_stage", coef_kernels.cross_stage(
+                    xs[c], xs[c ^ k], tb, C, s, c, inverse), plain, errs)
+    glue = split(x)
+    return {"counts": cnt, "cross": (
+        lambda: coef_kernels.cross_stage(glue[0], glue[1], tb, C, 0, 0,
+                                         False),
+        lambda: sharded.cross_forward_stage(glue[0], glue[1], tb, C, 0, 0),
+        Work(3 * nbytes(glue[0]), shoup=glue[0].numel()))}
+
+
+def drive_spmd2d(ctx2: spmd2d.Spmd2DBFVContext, msgs: np.ndarray) -> dict:
+    """keygen, encrypt of each message, decrypt of each; each op's
+    collectives.  Returns the rank's local tensors."""
+    ops: dict[str, list] = {}
+
+    def counted(name, fn):
+        pmesh.collectives.clear()
+        y = fn()
+        ops.setdefault(name, []).append(list(pmesh.collectives))
+        return y
+
+    sk, pk = counted("keygen", lambda: ctx2.keygen(nonce=1))
+    cts = [counted("encrypt", lambda j=j: ctx2.encrypt(pk, msgs[j],
+                                                       nonce=j + 1))
+           for j in range(len(msgs))]
+    outs = [counted("decrypt", lambda c=c: ctx2.decrypt(sk, c)) for c in cts]
+    res = dict(sk=sk, pk=pk)
+    res.update({f"ct{j}": c for j, c in enumerate(cts)})
+    res.update({f"dec{j}": o for j, o in enumerate(outs)})
+    torch.cuda.synchronize()
+    return {"local": {k: v.to_local() for k, v in res.items()},
+            "dtensor": res, "collectives": ops}
+
+
+def check_spmd2d(p: BFVParams, whole: dict, collectives: dict, R: int,
+                 C: int, msgs: np.ndarray, ref: dict) -> None:
+    """Round trips; keys and live ciphertext rows equal to the single-card
+    run `ref`; the collectives JAX's budget: keygen 3 log2 C ppermutes of
+    the (rl, S) block, encrypt and decrypt 2 log2 C and one all-reduce
+    ((2, S) and (3, S))."""
+    r, rl, S = p.r, p.r // R, p.n // C
+    logc = sharded.log2_shards(C)
+    for j in range(len(msgs)):
+        if not np.array_equal(whole[f"dec{j}"].cpu().numpy(), msgs[j]):
+            raise AssertionError(f"2-D {R}x{C}: dec{j} != m{j}")
+    same = (torch.equal(whole["sk"], ref["sk"]) and
+            torch.equal(whole["pk"], ref["pk"]) and
+            all(torch.equal(whole[f"ct{j}"][:, :r - 1], ref["cts"][j])
+                for j in range(len(msgs))))
+    if not same:
+        raise AssertionError(f"2-D {R}x{C}: keys / live ciphertext rows != "
+                             f"the single-card BFVContext")
+    blk = ("ppermute", (rl, S))
+    budget = {"keygen": [[blk] * (3 * logc)],
+              "encrypt": [[blk] * logc + [("ppermute", (2, rl, S))] * logc
+                          + [("all_reduce", (2, S))]] * len(msgs),
+              "decrypt": [[blk] * (2 * logc)
+                          + [("all_reduce", (3, S))]] * len(msgs)}
+    got = {k: [[(op, tuple(sh)) for op, sh in call] for call in v]
+           for k, v in collectives.items()}
+    if got != budget:
+        raise AssertionError(f"2-D {R}x{C}: collectives {got}, expected "
+                             f"{budget}")
+
+
+def spmd2d_worker(rank: int, R: int, C: int, address: str,
+                  out: Path) -> None:
+    """One rank of a one-card gloo run of the 2-D program (chip_smoke.py
+    re-run as `--spmd2d-worker rank R C address out`) on an (R, C) pod
+    mesh at SPMD_SET: drive_spmd2d, counts read around it; the rank's
+    local tensors, collectives and counts go to rank<rank>.npz / .json."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    multihost.initialize(address, R * C, rank, backend="gloo")
+    try:
+        p = get_bfv_params(SPMD_SET)
+        ctx2 = spmd2d.Spmd2DBFVContext.build(
+            p, mesh=multihost.pod_mesh(R, C))
+        reset_counts()
+        res = drive_spmd2d(ctx2, spmd_messages(p))
+        np.savez(out / f"rank{rank}.npz",
+                 **{k: v.cpu().numpy() for k, v in res["local"].items()})
+        (out / f"rank{rank}.json").write_text(json.dumps(
+            {"collectives": res["collectives"], "counts": read_counts(),
+             "block": [ctx2.rns_index, ctx2.coef_index]}))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def start_workers(flag: list, rank_args: list) -> list:
+    """This script re-run once per rank with `flag` and the rank's
+    arguments, all started together."""
+    return [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), *flag, *args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for args in rank_args]
+
+
+def wait_workers(procs: list, label: str) -> None:
+    """Wait for start_workers' processes (killing any left after the
+    timeout); raise with the log of any that failed."""
+    try:
+        logs = [proc.communicate(timeout=600)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for rank, (proc, text) in enumerate(zip(procs, logs)):
+        if proc.returncode != 0:
+            raise AssertionError(f"{label}: worker {rank} failed "
+                                 f"({proc.returncode}):\n{text}")
+
+
+def start_spmd2d_ranks(R: int, C: int, out: Path) -> list:
+    address = free_address()
+    return start_workers(["--spmd2d-worker"],
+                         [[str(rank), str(R), str(C), address, str(out)]
+                          for rank in range(R * C)])
+
+
+def finish_spmd2d_ranks(R: int, C: int, procs: list, out: Path) -> dict:
+    """Wait for start_spmd2d_ranks' workers; their blocks put back together
+    (rank i C + c holds rows block i and coefficients block c); the
+    plaintexts must agree across the rns axis, the collectives across all
+    ranks."""
+    wait_workers(procs, f"2-D {R}x{C}")
+    ranks = [dict(np.load(out / f"rank{k}.npz")) for k in range(R * C)]
+    meta = [json.loads((out / f"rank{k}.json").read_text())
+            for k in range(R * C)]
+    if [m["block"] for m in meta] != [[i, c] for i in range(R)
+                                      for c in range(C)]:
+        raise AssertionError(f"2-D {R}x{C}: rank blocks {meta}")
+    whole = {}
+    for k in ranks[0]:
+        blocks = [[torch.from_numpy(ranks[i * C + c][k]) for c in range(C)]
+                  for i in range(R)]
+        if k.startswith("dec"):
+            rows = [torch.cat(b, -1) for b in blocks]
+            if not all(torch.equal(rows[0], q) for q in rows[1:]):
+                raise AssertionError(f"2-D {R}x{C}: {k} differs across rns")
+            whole[k] = rows[0]
+        else:
+            dim = SPMD_SHARD_DIM.get(k, 1)
+            whole[k] = torch.cat([torch.cat(b, -1) for b in blocks], dim)
+    if any(m["collectives"] != meta[0]["collectives"] for m in meta[1:]):
+        raise AssertionError(f"2-D {R}x{C}: collectives differ across ranks")
+    return {"local": whole, "collectives": meta[0]["collectives"],
+            "counts": [m["counts"] for m in meta]}
 
 
 def reset_counts() -> None:
@@ -1354,6 +1712,12 @@ def main() -> int:
             if name == STAGE_SET and J == 1:
                 timing[kname] = (kern, plain, work)
     timing30 = ntt30_checks(dev, rng, errs)
+    r_ops = get_bfv_params(OPS_SET).r
+    for kname, label, kern, plain, work in ops_cases(rng, dev):
+        compare(kname, kern(), plain(), errs)
+        log(f"check {kname} {label}: equal")
+        if label in (OPS_SET, f"{OPS_SET} permuted B={2 * r_ops + 1} fwd"):
+            timing[kname] = (kern, plain, work)
     torch.cuda.synchronize()
     log(f"checks: {time.perf_counter() - t0:.1f} s")
 
@@ -1367,7 +1731,17 @@ def main() -> int:
         m = ctx4.decrypt(sk4, ct).cpu().numpy()
         if not np.array_equal(m, np.arange(ctx4.params.n) % 10):
             raise AssertionError(f"golden dec4k ({fusion}) != i % 10")
-    log("golden: dec4k decrypts to i % 10 on the card, op and stage")
+    c0g, c1g, skg = (torch.from_numpy(np.ascontiguousarray(a).view(
+        np.int64)).to(dev) for a in (ct[0], ct[1], sk4))
+    td4, dt4 = ctx4.tables_drop, ctx4.dec_tail_consts
+    xg = ntt_stage.ntt_forward(c1g, td4)
+    mg = bfv_tail.decrypt_fused(xg, skg, c0g, td4, dt4)
+    compare("decrypt_fused", mg, bfv_tail.decrypt_fused_plain(
+        xg, skg, c0g, td4, dt4), errs)
+    if not np.array_equal(mg.cpu().numpy(), np.arange(ctx4.params.n) % 10):
+        raise AssertionError("golden dec4k through kernel 15 != i % 10")
+    log("golden: dec4k decrypts to i % 10 on the card, op and stage, and "
+        "through kernel 15 (equal to its plain version)")
 
     # Phase 3: the main paths through the public API, counts read per path.
     counts, paths = {}, {}
@@ -1395,6 +1769,65 @@ def main() -> int:
             raise AssertionError(f"kernels not launched on the {sched} "
                                  f"main path: {missing}")
         paths[sched] = (ctx, res, msgs)
+
+    # Phase 3b: the op-level entry points (kernels 12, 14, 15) on the
+    # 32k_9q stage path's keys: encrypt and decrypt of its messages.
+    ctx_o, res_o, msgs_o = paths["stage"]
+    reset_counts()
+    ops_res = drive_ops(ctx_o, res_o["pk"], res_o["sk"], msgs_o, dev)
+    counts["ops"] = read_counts()
+    for j in range(len(msgs_o)):
+        if not torch.equal(ops_res["cts"][j], res_o["cts"][j]):
+            raise AssertionError(f"ops path: encrypt_tail's ciphertext {j} "
+                                 f"!= BFVContext.encrypt's")
+        if not np.array_equal(ops_res["outs"][j].cpu().numpy(), msgs_o[j]):
+            raise AssertionError(f"ops path: decrypt_fused(m{j}) != m{j}")
+    if not torch.equal(ops_res["back"], ops_res["rows"]):
+        raise AssertionError("ops path: the mod_idx inverse of the forward "
+                             "!= its input")
+    td_o, sk_o = ctx_o.tables_drop, res_o["sk"][:ctx_o.params.r - 1]
+    for ct_j in ops_res["cts"]:
+        x_j = ntt_stage.ntt_forward(ct_j[1].contiguous(), td_o)
+        half = bfv_tail.decrypt_tail(ntt_stage.ntt_inverse_mul(
+            x_j, sk_o, td_o), ct_j[0], ctx_o.dec_tail_consts)
+        fused = bfv_tail.decrypt_fused(x_j, sk_o.contiguous(),
+                                       ct_j[0].contiguous(), td_o,
+                                       ctx_o.dec_tail_consts)
+        if not torch.equal(fused, half):
+            raise AssertionError("kernel 15 != BFVContext.decrypt's back "
+                                 "half (kernel 8 + K2)")
+    log(f"ops path {OPS_SET}: {len(msgs_o)} messages encrypted through "
+        f"kernel 12 (mod_idx), kernel 8 and kernel 14 equal "
+        f"BFVContext.encrypt's ciphertexts; decrypted through kernel 12 "
+        f"and kernel 15 they round-trip; kernel 15 equals the decrypt's "
+        f"back half (kernel 8 + K2); the mod_idx inverse over a permuted "
+        f"index restores its input")
+    log(f"launch counts in the ops run: {json.dumps(counts['ops'])}")
+    missing = [k for k, (*_, s) in KERNELS.items()
+               if "ops" in s and counts["ops"][k] < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched on the ops path: "
+                             f"{missing}")
+
+    # Phase 3c: the coefficient-sharded transform (parallel/coef_kernels)
+    # at C shards in one process, == kernels 7 and 8 on the whole.
+    p_c = get_bfv_params(COEF_SET)
+    coef_runs = {C: coef_path(p_c, C, rng, dev, errs) for C in COEF_CS}
+    counts["coef"] = coef_runs[COEF_CS[0]]["counts"]
+    for C, run in coef_runs.items():
+        missing = [k for k, (*_, s) in KERNELS.items()
+                   if "coef" in s and run["counts"][k] < 1]
+        if missing:
+            raise AssertionError(f"coef path C={C}: kernels not launched "
+                                 f"{missing}")
+        log(f"coef path {COEF_SET} C={C} (local n = {p_c.n // C}): every "
+            f"shard's offset launch of kernels 7 and 8 equals the plain "
+            f"local stages on its inputs; the forward and INTT(x . y), "
+            f"shard by shard, equal the plain whole transforms and kernels "
+            f"7 and 8 on the whole; every cross stage of either direction "
+            f"equals its plain version; launch counts "
+            f"{json.dumps(run['counts'])}")
+    timing["coef_cross_stage"] = coef_runs[COEF_CS[0]]["cross"]
 
     # Phase 4: the EvalMult main path, counts read per set.
     mult_paths = {}
@@ -1630,6 +2063,31 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the SPMD EvalMult "
                              f"path: {missing}")
+    # (b'') the 2-D program (parallel/spmd2d.py) at world size 1 over NCCL,
+    # its gloo meshes started first (their workers run beside (b'') and
+    # (c))
+    dirs2d = {m: tempfile.TemporaryDirectory() for m in SPMD2D_MESHES}
+    procs2d = {m: start_spmd2d_ranks(*m, Path(dirs2d[m].name))
+               for m in SPMD2D_MESHES}
+    ctx2 = spmd2d.Spmd2DBFVContext.build(p_s)   # the default mesh, device
+    if ctx2.device != dev or (ctx2.R, ctx2.C) != (1, 1):
+        raise AssertionError(f"2-D: built on {ctx2.device} over "
+                             f"{ctx2.R}x{ctx2.C}")
+    reset_counts()
+    res2 = drive_spmd2d(ctx2, msgs_s)
+    counts["spmd2d"] = read_counts()
+    check_spmd2d(p_s, res2["local"], res2["collectives"], 1, 1, msgs_s,
+                 ref_s)
+    log(f"2-D {SPMD_SET} world size 1 (NCCL, mesh (1, 1)): {SPMD_MSGS} "
+        f"messages round-trip; keys and live ciphertext rows equal "
+        f"BFVContext.build(params)'s; collectives per op "
+        f"{json.dumps(res2['collectives'])}")
+    log(f"launch counts in the 2-D run: {json.dumps(counts['spmd2d'])}")
+    missing = [k for k, (*_, s) in KERNELS.items()
+               if "spmd2d" in s and counts["spmd2d"][k] < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched on the 2-D path: "
+                             f"{missing}")
     # (c) SPMD_R processes on the one card over gloo == (b) and (b'), every
     # row
     r3 = run_spmd_ranks(SPMD_R)
@@ -1647,6 +2105,27 @@ def main() -> int:
         f"card, rl = {p_s.r // SPMD_R}): every tensor of the SPMD path and "
         f"the sharded EvalMult, padding rows included, equals the "
         f"world-size-1 run; collectives per op as there")
+    # (c') the 2-D program's gloo meshes on the one card == (b'')
+    for (R2, C2), procs in procs2d.items():
+        got = finish_spmd2d_ranks(R2, C2, procs, Path(dirs2d[R2, C2].name))
+        dirs2d[R2, C2].cleanup()
+        local2 = {k: v.to(dev) for k, v in got["local"].items()}
+        check_spmd2d(p_s, local2, got["collectives"], R2, C2, msgs_s, ref_s)
+        diff = [k for k, v in res2["local"].items()
+                if not torch.equal(local2[k], v)]
+        if diff:
+            raise AssertionError(f"2-D {R2}x{C2} != world size 1: {diff}")
+        lacking = [k for k, (*_, s) in KERNELS.items()
+                   if ("spmd2d" in s or k == "coef_cross_stage")
+                   and min(c[k] for c in got["counts"]) < 1]
+        if lacking:
+            raise AssertionError(f"2-D {R2}x{C2}: kernels not launched on "
+                                 f"every rank: {lacking}")
+        log(f"2-D {SPMD_SET} {R2}x{C2} (gloo, {R2 * C2} processes on one "
+            f"card, blocks ({p_s.r // R2}, {p_s.n // C2})): every tensor "
+            f"equals the world-size-1 run, padding rows included; "
+            f"collectives per op {json.dumps(got['collectives'])}; rank "
+            f"0's launch counts {json.dumps(got['counts'][0])}")
     log(f"SPMD phase: {time.perf_counter() - t0:.1f} s")
 
     # Phase 12: times on the card.
@@ -1678,11 +2157,11 @@ def main() -> int:
     m_s = torch.from_numpy(msgs_s[0]).to(dev)
     single = (ref_s["sk"], ref_s["pk"], ref_s["cts"][0], ref_s["cts"][1],
               ref_m)
-    sharded = (ds["sk"], ds["pk"], ds["ct0"], ds["ct1"], dm)
+    spmd_keys = (ds["sk"], ds["pk"], ds["ct0"], ds["ct1"], dm)
     turns = {"stage": [], "op": [], "spmd": []}
     for which, c, cm, (sk_, pk_, ct_, ct1_, keys) in (
             ("stage", ctx32, ctx32, single), ("op", ctx_op32, ctx_op32, single),
-            ("spmd", sctx, mctx, sharded), ("spmd", sctx, mctx, sharded),
+            ("spmd", sctx, mctx, spmd_keys), ("spmd", sctx, mctx, spmd_keys),
             ("op", ctx_op32, ctx_op32, single),
             ("stage", ctx32, ctx32, single)):
         t = kge_times(c, sk_, pk_, ct_, m_s, 10)
@@ -1692,6 +2171,40 @@ def main() -> int:
         f"CUDA-event timings around one call; turns stage, op, spmd, spmd, "
         f"op, stage; apply_galois of g = {SPMD_GALOIS}): "
         f"{json.dumps(turns)}")
+    d2 = res2["dtensor"]
+    turns2 = {"stage": [], "spmd": [], "spmd2d": []}
+    for which, c, (sk_, pk_, ct_) in (
+            ("stage", ctx32, single[:3]), ("spmd", sctx, spmd_keys[:3]),
+            ("spmd2d", ctx2, (d2["sk"], d2["pk"], d2["ct0"])),
+            ("spmd2d", ctx2, (d2["sk"], d2["pk"], d2["ct0"])),
+            ("spmd", sctx, spmd_keys[:3]), ("stage", ctx32, single[:3])):
+        turns2[which].append(kge_times(c, sk_, pk_, ct_, m_s, 10))
+    log(f"2-D world size 1 against SpmdBFVContext and BFVContext at "
+        f"{SPMD_SET} (ms, median of CUDA-event timings around one call; "
+        f"turns stage, spmd, spmd2d, spmd2d, spmd, stage): "
+        f"{json.dumps(turns2)}")
+    td9, dt9 = ctx32.tables_drop, ctx32.dec_tail_consts
+    r9 = ctx32.params.r
+    x9, c09, c19 = (rand_res(rng, ctx32.params.q[:-1], ctx32.params.n, (),
+                             dev) for _ in range(3))
+    sk9 = ref_s["sk"][:r9 - 1].contiguous()
+    back = {}
+    for turn in range(2):
+        for label, fn in (
+                ("15", lambda: bfv_tail.decrypt_fused(x9, sk9, c09, td9,
+                                                      dt9)),
+                ("8 + K2", lambda: bfv_tail.decrypt_tail(
+                    ntt_stage.ntt_inverse_mul(x9, sk9, td9), c09, dt9)),
+                ("7 + 15", lambda: bfv_tail.decrypt_fused(
+                    ntt_stage.ntt_forward(c19, td9), sk9, c09, td9, dt9)),
+                ("K3 + K2", lambda: bfv_tail.decrypt_tail(
+                    fused_ops.half_polymul(c19, sk9, td9), c09, dt9))):
+            back.setdefault(label, []).append(kernel_ms(fn))
+    log(f"decrypt back half at {SPMD_SET} (ms per call, CUDA events "
+        f"around 20 calls, median of 3; two turns): kernel 15 against "
+        f"kernel 8 + K2 (the stage schedule's), and kernel 7 + 15 against "
+        f"K3 + K2 (the op schedule's, forward included): "
+        f"{json.dumps(back)}")
     timing.update(timing_spmd)
     bounds, terms = {}, {}
     for kname, (kern, plain, work) in timing.items():
@@ -1783,5 +2296,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--spmd-worker"]:
         spmd_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                     Path(sys.argv[5]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--spmd2d-worker"]:
+        spmd2d_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                      sys.argv[5], Path(sys.argv[6]))
         sys.exit(0)
     sys.exit(main())

@@ -6,8 +6,9 @@ the same bit patterns in `torch.int64`.  Both directions reinterpret the
 bits, so every value round-trips unchanged.  Parameters cross as the six
 fields that define a set (name, n, q, psi, t, gamma); the port recomputes
 every derived constant from them.  The sharded programs' keys and
-ciphertexts cross as full arrays: `to_dtensor` gives one rank its rows of
-a JAX key or padded ciphertext as a DTensor (no collective), and
+ciphertexts cross as full arrays: `to_dtensor` gives one rank its rows
+(and, on an ('rns', 'coef') mesh, its coefficients) of a JAX key or padded
+ciphertext as a DTensor (no collective), and
 `from_dtensor` brings a DTensor back whole through `full_tensor()`.
 """
 
@@ -40,23 +41,30 @@ def params_from(p) -> BFVParams:
                      t=int(p.t), gamma=int(p.gamma))
 
 
-def to_dtensor(x, mesh, dim: int | None):
+def to_dtensor(x, mesh, dim: int | None, coef_dim: int | None = None):
     """A full uint64 array (a JAX key or padded ciphertext) -> this rank's
-    DTensor on a 1-D ('rns',) `mesh`, on the mesh's device: rows [lo, hi)
-    of axis `dim` as Shard(dim), or the whole as Replicate() for dim None.
-    Each rank slices its own rows; nothing is sent."""
+    DTensor on `mesh`, on the mesh's device: on an ('rns',) mesh, rows
+    [lo, hi) of axis `dim` as Shard(dim), or the whole as Replicate() for
+    dim None; on an ('rns', 'coef') mesh also the rank's coefficient range
+    of axis `coef_dim` as Shard(coef_dim) (Replicate() for None).  Each
+    rank slices its own block; nothing is sent."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     t = to_torch(x)
-    if dim is not None:
-        R, idx = mesh.size(0), mesh.get_local_rank(0)
-        if t.shape[dim] % R:
-            raise ValueError(f"axis {dim} of length {t.shape[dim]} does not "
-                             f"split over {R} ranks")
-        rl = t.shape[dim] // R
-        t = t.narrow(dim, idx * rl, rl)
+    placements = []
+    for i, name in enumerate(mesh.mesh_dim_names or ("rns",)):
+        d = coef_dim if name == "coef" else dim
+        if d is None:
+            placements.append(Replicate())
+            continue
+        parts, idx = mesh.size(i), mesh.get_local_rank(i)
+        if t.shape[d] % parts:
+            raise ValueError(f"axis {d} of length {t.shape[d]} does not "
+                             f"split over {parts} ranks")
+        w = t.shape[d] // parts
+        t = t.narrow(d, idx * w, w)
+        placements.append(Shard(d))
     return DTensor.from_local(t.contiguous().to(mesh.device_type), mesh,
-                              [Replicate() if dim is None else Shard(dim)],
-                              run_check=False)
+                              placements, run_check=False)
 
 
 def from_dtensor(x) -> np.ndarray:

@@ -27,67 +27,16 @@
 // t (the TPU kernel's wrapping u32 sum, bfv_tail.py:275-279), below t for
 // odd t; x_g below gamma, before the neg_inv_q multiply.  Bound as above:
 // 16 rl bytes read and 16 written per coefficient.
-//
-// pm: DecTailConsts.per_mod rows (q, -q^-1, t*gamma * 2^64, inv_punctured
-// * 2^64, bcm_t, bcm_gamma * 2^64 mod gamma); gl: gamma, -gamma^-1 mod
-// 2^64, gamma / 2, neg_inv_q mod gamma * 2^64.
 
-#include "modarith.cuh"
-
-// The BEHZ sums of coefficient k of message j over the rk residue rows: x_t
-// (pow2 t: the sum of (y * bcm_t) & (t-1), wrapping mod 2^64; odd t: mod t)
-// and x_g (mod gamma, before the neg_inv_q multiply), where y_i =
-// ((x_i +> c0_i) * t*gamma * inv_punctured) mod q_i.
-struct BehzSums {
-  u64 xt, xg;
-};
-
-NTT_HD BehzSums behz_sums(long long j, int k, const u64* x, const u64* c0,
-                          const u64* pm, const u64* gl, int rk, int n, int pow2,
-                          u64 t, u64 nu_t) {
-  const u64 gamma = gl[0], ginv = gl[1];
-  const u64 mask = t - 1;
-  BehzSums acc = {0, 0};
-  for (int i = 0; i < rk; ++i) {
-    const u64* p = pm + 6 * i;
-    const u64 q = p[0], qinv = p[1];
-    const size_t off = ((size_t)j * rk + i) * n + k;
-    const u64 s = add_mod_gt(x[off], c0[off], q);  // poly_add_xq_d quirk
-    const u64 y = mont_mul(mont_mul(s, p[2], q, qinv), p[3], q, qinv);
-    if (pow2) {
-      acc.xt += (y * p[4]) & mask;
-    } else {
-      acc.xt += mod_nu(mod_nu(y, t, nu_t) * p[4], t, nu_t);
-      if (acc.xt >= t) acc.xt -= t;
-    }
-    acc.xg = add_mod(acc.xg, mont_mul(y, p[5], gamma, ginv), gamma);
-  }
-  return acc;
-}
+#include "behz_sums.cuh"
 
 NTT_HD void decrypt_tail_body(long long idx, const u64* x, const u64* c0,
                               u64* out, const u64* pm, const u64* gl, int rk,
                               int n, int pow2, u64 t, u64 neg_t, u64 nu_t,
                               u64 inv_gt) {
-  const u64 gamma = gl[0], ginv = gl[1], gdiv2 = gl[2], negg = gl[3];
-  const u64 mask = t - 1;
-  const BehzSums acc =
-      behz_sums(idx / n, (int)(idx % n), x, c0, pm, gl, rk, n, pow2, t, nu_t);
-  u64 xt = acc.xt;
-  const u64 xg = mont_mul(acc.xg, negg, gamma, ginv);
-  u64 res;
-  if (pow2) {
-    xt = ((xt & mask) * neg_t) & mask;
-    res = (xg > gdiv2 ? xt + (gamma - xg) : xt - xg) & mask;
-  } else {
-    xt = mod_nu(xt * neg_t, t, nu_t);
-    u64 plus = xt + mod_nu(gamma - xg, t, nu_t);
-    if (plus >= t) plus -= t;
-    u64 minus = xt + t - mod_nu(xg, t, nu_t);
-    if (minus >= t) minus -= t;
-    res = mod_nu((xg > gdiv2 ? plus : minus) * inv_gt, t, nu_t);
-  }
-  out[idx] = res;
+  out[idx] = dec_round(
+      behz_sums(idx / n, (int)(idx % n), x, c0, pm, gl, rk, n, pow2, t, nu_t),
+      gl, pow2, t, neg_t, nu_t, inv_gt);
 }
 
 // Kernel 17: coefficient k's partial sums over the rank's rl rows, x_t to

@@ -12,6 +12,9 @@
 //                 tail on one rank's rows, ra from its own all-reduced input;
 //                 with no e and no message it is also the sharded key
 //                 switch's modulus drop (ntt_drop_last_padded)
+//   encrypt_tail (bfv_tail.py:144, pallas_call :175; kernel 14): the same
+//                 tail with e added from its own (2, r, n) input and ra from
+//                 the last residue of c +> e (ntt_encrypt_tail_e)
 // n <= 2^14: each block owns one polynomial (message x modulus).  It stays
 // in dynamic shared memory while the forward -> dyadic -> inverse chain
 // runs in place (ntt_block.cuh).  The dyadic product is one Montgomery
@@ -335,17 +338,22 @@ struct EncryptTransform {
 // ((c_last +> e_last) + half mod q_last; the caller passes half = 0).  The
 // rank's padded constants give the dropped modulus's own row, if it holds
 // it, half_mod 0, inv_q_last 1 and q_i / t 0: that slot is well defined
-// and the caller ignores it.
+// and the caller ignores it.  encrypt_tail's (kernel 14): scratch is c
+// (2, r, n) after the inverse with r = rk + 1, e (2, r, n) is added here,
+// and ra is the last row of c +> e (strict `>`), + half mod q_last.  The
+// TPU kernel's (r-1, 2) grid reads the last residue at every step; here
+// each thread reads it for its own coefficient.
 
 struct EncryptTail {
   const u64* scratch;
-  const u64* e;   // null, or the (J, 2, rk, n) e of the padded form
+  const u64* e;   // null, or (J, 2, re, n): the padded form's (re = rk) or
+                  // encrypt_tail's (re = r)
   const u64* ra;  // null, or the (J, 2, n) ready ra of the padded form
   const long long* m;
   u64* ct;
   const u64* tc;
   u64 q_last, half, fix_th;
-  int r, rk, n;
+  int r, rk, n, re;
 
   OP_HD void operator()(long long idx) const {
     const int k = (int)(idx % n);
@@ -359,8 +367,15 @@ struct EncryptTail {
               qi_div_t = p[5];
     const size_t row = (size_t)(2 * j + h);
     u64 sv = scratch[(row * r + ki) * n + k];
-    if (e) sv = add_mod_gt(sv, e[(row * rk + ki) * n + k], q);
-    u64 ra_v = (ra ? ra[row * n + k] : scratch[(row * r + rk) * n + k]) + half;
+    if (e) sv = add_mod_gt(sv, e[(row * re + ki) * n + k], q);
+    u64 ra_v;
+    if (ra) {
+      ra_v = ra[row * n + k];
+    } else {
+      ra_v = scratch[(row * r + rk) * n + k];
+      if (e) ra_v = add_mod_gt(ra_v, e[(row * re + rk) * n + k], q_last);
+    }
+    ra_v += half;
     if (ra_v >= q_last) ra_v -= q_last;
     u64 tmp = mod_nu(ra_v, q, nu);
     tmp = tmp < half_mod ? tmp + q - half_mod : tmp - half_mod;
@@ -498,8 +513,20 @@ extern "C" int ntt_encrypt_tail(const void* scratch, const void* m, void* ct,
   if (r < 2) return NTT_EINVAL;
   const EncryptTail f = {(const u64*)scratch, nullptr, nullptr,
                          (const long long*)m, (u64*)ct, (const u64*)tc,
-                         q_last, half, fix_th, r, r - 1, n};
+                         q_last, half, fix_th, r, r - 1, n, 0};
   return run_each(f, (long long)J * 2 * (r - 1) * n, stream);
+}
+
+// Kernel 14: c and e (2, r, n), m (n,) -> ct (2, r-1, n).
+extern "C" int ntt_encrypt_tail_e(const void* c, const void* e, const void* m,
+                                  void* ct, const void* tc, u64 q_last,
+                                  u64 half, u64 fix_th, int r, int n,
+                                  void* stream) {
+  if (r < 2 || !e) return NTT_EINVAL;
+  const EncryptTail f = {(const u64*)c, (const u64*)e, nullptr,
+                         (const long long*)m, (u64*)ct, (const u64*)tc,
+                         q_last, half, fix_th, r, r - 1, n, r};
+  return run_each(f, 2LL * (r - 1) * n, stream);
 }
 
 // Kernel 18: c (2, r, n) = INTT(NTT(u) . pk_h) for one message, NTT(u)
@@ -525,7 +552,7 @@ extern "C" int ntt_encrypt_tail_padded(const void* c, const void* e,
   if (rl < 1 || !e || !ra) return NTT_EINVAL;
   const EncryptTail f = {(const u64*)c, (const u64*)e, (const u64*)ra,
                          (const long long*)m, (u64*)ct, (const u64*)tc,
-                         q_last, 0, fix_th, rl, rl, n};
+                         q_last, 0, fix_th, rl, rl, n, rl};
   return run_each(f, 2LL * rl * n, stream);
 }
 
@@ -539,6 +566,7 @@ extern "C" int ntt_drop_last_padded(const void* c, const void* ra, void* ct,
   const EncryptTail f = {(const u64*)c, nullptr,  (const u64*)ra,
                          nullptr,       (u64*)ct, (const u64*)tc,
                          q_last,        0,        0,
-                         rl,            rl,       n};
+                         rl,            rl,       n,
+                         0};
   return run_each(f, 2LL * rl * n, stream);
 }

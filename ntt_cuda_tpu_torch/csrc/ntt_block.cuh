@@ -25,7 +25,8 @@
 // 2^logn-point one whose twiddle for local (len', ps') is
 // psi[(2 + h) len' + ps'] -- the full stage has len = 2 len' and
 // ps = h len' + ps'.  The caller passes tw_mul = 2 + h and the full
-// polynomial's tables; stage 0 (the pairs i, i + n/2, twiddle psi[1] or
+// polynomial's tables (a coefficient shard c of C passes C + c, or
+// 2 (C + c) + h for its halves: ntt_stage.cu); stage 0 (the pairs i, i + n/2, twiddle psi[1] or
 // psi^-1[1]) runs in a separate elementwise pass (ntt_stage.cu,
 // fused_ops.cu) through the same two butterflies.
 //

@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("salsa20.cu", "decrypt_tail.cu", "fused_ops.cu", "ntt_stage.cu",
            "behz.cu", "ntt30.cu")
-HEADERS = ("modarith.cuh", "ntt_block.cuh")
+HEADERS = ("modarith.cuh", "ntt_block.cuh", "behz_sums.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 BLOCK_MAX_N = 16384     # one u64 polynomial per block in shared memory:
@@ -72,12 +72,24 @@ SIGNATURES = {
     # x, c0, out, per_mod, glob, rl, n, pow2, t, nu_t
     "ntt_decrypt_tail_partial": (_P, _P, _P, _P, _P, _I, _I, _I, _U64, _U64,
                                  _P),
-    # x, d, y, nu, out, 4 tables, consts, prologue, P, r, log n
+    # scratch c, e, m, ct, per_mod, q_last, half, fix_th, r, n
+    "ntt_encrypt_tail_e": (_P, _P, _P, _P, _P, _U64, _U64, _U64, _I, _I, _P),
+    # x, d, y, nu, out, 4 tables, consts, prologue, P, r, log n, mod_idx,
+    # log2 C, shard
     "ntt_stage_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _I, _P),
-    # x, y, e, out, 4 tables, consts, prologue, ny, P, r, log n
+                          _I, _P, _I, _I, _P),
+    # x, y, e, out, 4 tables, consts, prologue, ny, P, r, log n, mod_idx,
+    # log2 C, shard
     "ntt_stage_inverse": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _P),
+                          _I, _P, _I, _I, _P),
+    # x, partner, out, 4 tables, consts, inverse, u_side, w, P, r, log n,
+    # log2 C
+    "ntt_cross_stage": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _P),
+    # x, sk, c0, scratch, out, 4 tables, consts, per_mod, glob, r-1, log n,
+    # pow2, t, neg_t, nu_t, inv_gt
+    "ntt_decrypt_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _I, _U64, _U64, _U64, _U64, _P),
     # which, x, xb, out, 7 banks, C, k, n, row0, rl
     "ntt_behz": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                  _I, _P),

@@ -12,6 +12,14 @@ Counterpart of `ntt_cuda_tpu/ops/bfv_tail.py` for the main path:
   On a CUDA device: the inverse kernel of csrc/ntt_stage.cu into a
   (2, r, n) scratch, then csrc/fused_ops.cu's encrypt tail; on the CPU
   `encrypt_fused_plain`, which the op schedule's plain encrypt shares.
+* `encrypt_tail` (kernel 14): c + e per residue, the modulus drop and
+  Delta*m + fix, from c (2, r, n) after the inverse and e (2, r, n); K5's
+  tail launch (csrc/fused_ops.cu ntt_encrypt_tail_e) on the card,
+  `encrypt_tail_plain` on the CPU.
+* `decrypt_fused` (kernel 15): the decrypt back half, INTT(x (.) sk) and
+  the decrypt tail, in one cooperative launch (csrc/ntt_stage.cu
+  k_decrypt_fused); `decrypt_fused_plain` on the CPU.  BFVContext.decrypt
+  keeps its two launches (as the JAX context does).
 * `TailConsts`: the per-modulus constants of encryption's tail (modulus
   drop and Delta*m + fix), read by the encrypt kernels.
 * `DecTailConsts` and `_t_strategy`: the decrypt kernel's constants and
@@ -250,6 +258,93 @@ def encrypt_fused(u_ntt, pk, e_d, m_poly, tables: NTTTables,
 
 
 encrypt_fused.launches = 0
+
+
+# --- kernel 14: the encrypt tail from c and e -------------------------------
+
+def encrypt_tail_plain(c, e, m_poly, consts: TailConsts) -> torch.Tensor:
+    """poly_add, divide_and_round_q_last, add_message (the JAX docstring's
+    equivalent): (2, r, n) x2, (n,) -> (2, r-1, n)."""
+    q = torch.cat([consts.ms_drop.q, consts.ms_last.q])
+    s = modmath.add_mod_lazy_gt(c, e, q)                  # poly_add
+    s = poly.divide_and_round_q_last(s, consts.dr, consts.ms_drop,
+                                     consts.ms_last)
+    return torch.stack([poly.add_message(s[0], m_poly, consts.msg), s[1]])
+
+
+def encrypt_tail(c, e, m_poly, consts: TailConsts) -> torch.Tensor:
+    """Kernel 14 (the JAX package's bfv_tail.encrypt_tail): c (2, r, n)
+    after the inverse transform, e (2, r, n) canonical residues, m_poly
+    (n,) in [0, t) -> the (2, r-1, n) ciphertext, ra taken from the last
+    residue of c +> e.  One launch."""
+    r = consts.per_mod.shape[0] + 1
+    n = m_poly.shape[-1]
+    for name, t, shape in (("c", c, (2, r, n)), ("e", e, (2, r, n)),
+                           ("m_poly", m_poly, (n,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    if c.device.type == "cpu":
+        return encrypt_tail_plain(c, e, m_poly, consts)
+    if c.device.type != "cuda":
+        raise ValueError(f"encrypt_tail: no kernel for {c.device}")
+    dev = consts.per_mod.device
+    for name, t in (("c", c), ("e", e), ("m_poly", m_poly)):
+        cuda.require(name, t, I64, tuple(t.shape), dev)
+    ct = torch.empty((2, r - 1, n), dtype=I64, device=dev)
+    cuda.launch("ntt_encrypt_tail_e", dev, c.data_ptr(), e.data_ptr(),
+                m_poly.data_ptr(), ct.data_ptr(), consts.per_mod.data_ptr(),
+                consts.q_last, consts.half, consts.fix_th, r, n)
+    encrypt_tail.launches += 1
+    return ct
+
+
+encrypt_tail.launches = 0
+
+
+# --- kernel 15: INTT(x (.) sk) and the decrypt tail in one launch ------------
+
+def decrypt_fused_plain(x_ntt, sk, ct0, tables: NTTTables,
+                        consts: DecTailConsts) -> torch.Tensor:
+    """ntt_inverse_mul's plain version, then decrypt_tail_plain."""
+    return decrypt_tail_plain(ntt_stage.ntt_inverse_mul_plain(x_ntt, sk,
+                                                              tables),
+                              ct0, consts)
+
+
+def decrypt_fused(x_ntt, sk, ct0, tables: NTTTables,
+                  consts: DecTailConsts) -> torch.Tensor:
+    """Kernel 15 (the JAX package's bfv_tail.decrypt_fused): x_ntt (r-1, n)
+    = NTT(c1), sk (r-1, n) NTT domain, ct0 (r-1, n) -> the (n,) plaintext,
+    over the r-1 kept moduli's tables.  One cooperative launch on the card
+    (the wrapper allocates its (r-1, n) scratch)."""
+    rk, n = tables.r, tables.n
+    for name, t in (("x_ntt", x_ntt), ("sk", sk), ("ct0", ct0)):
+        if tuple(t.shape) != (rk, n):
+            raise ValueError(f"{name}: expected shape {(rk, n)}, got "
+                             f"{tuple(t.shape)}")
+    if consts.per_mod.shape[0] != rk:
+        raise ValueError(f"consts for {consts.per_mod.shape[0]} moduli, "
+                         f"tables for {rk}")
+    if x_ntt.device.type == "cpu":
+        return decrypt_fused_plain(x_ntt, sk, ct0, tables, consts)
+    dev = cuda.kernel_device("decrypt_fused", x_ntt, tables,
+                             cuda.TRANSFORM_MAX_N)
+    for name, t in (("x_ntt", x_ntt), ("sk", sk), ("ct0", ct0)):
+        cuda.require(name, t, I64, (rk, n), dev)
+    scratch = torch.empty((rk, n), dtype=I64, device=dev)
+    out = torch.empty((n,), dtype=I64, device=dev)
+    pow2, t, neg_t, nu_t, inv_gt = _t_strategy(consts.tmeta)
+    cuda.launch("ntt_decrypt_fused", dev, x_ntt.data_ptr(), sk.data_ptr(),
+                ct0.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                *tables.kernel_args(), consts.per_mod.data_ptr(),
+                consts.glob.data_ptr(), rk, tables.logn, pow2, t, neg_t,
+                nu_t, inv_gt)
+    decrypt_fused.launches += 1
+    return out
+
+
+decrypt_fused.launches = 0
 
 
 # --- the RNS-sharded program's tails: one rank's rows [lo, hi) of the padded

@@ -235,7 +235,7 @@ def _front_launch(dev, c2, ksk, tables: NTTTables, J: int,
                              nu=tables.ms.nu)
     cuda.launch("ntt_stage_inverse", dev, dhat.data_ptr(), ksk.data_ptr(),
                 None, acc.data_ptr(), *tables.kernel_args(), cuda.PRO_KSACC,
-                k, J * 2 * r, r, tables.logn)
+                k, J * 2 * r, r, tables.logn, None, 0, 0)
     return acc
 
 

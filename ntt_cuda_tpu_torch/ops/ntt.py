@@ -167,3 +167,10 @@ def dyadic_mul(a: torch.Tensor, b: torch.Tensor, ms: ModulusSet) -> torch.Tensor
     poly_arithmetic.cuh:36-66)."""
     return modmath.mulmod(a, b, ms.q, ms.qinv_neg, ms.r2)
 
+
+def negacyclic_polymul(a: torch.Tensor, b: torch.Tensor,
+                       tables: NTTTables) -> torch.Tensor:
+    """INTT(NTT(a) . NTT(b)), the negacyclic product mod (x^n + 1, q_i)
+    (full_poly_mul, poly_arithmetic.cuh:277-294), plain."""
+    return ntt_inverse(dyadic_mul(ntt_forward(a, tables),
+                                  ntt_forward(b, tables), tables.ms), tables)

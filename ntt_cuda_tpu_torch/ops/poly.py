@@ -36,6 +36,14 @@ def poly_negate(a, ms: ModulusSet):
     return modmath.negate_mod(a, ms.q)
 
 
+def poly_add_scalar(a, c, ms: ModulusSet):
+    """a + c mod q for a scalar (or (r, 1) per-modulus) addend in [0, q)
+    (poly_add_integer, poly_arithmetic.cuh:155-165)."""
+    c = c if torch.is_tensor(c) else modmath.as_i64(int(c))
+    s = a + c
+    return s - ms.q * (s >= ms.q).to(I64)
+
+
 def poly_sub(a, b, ms: ModulusSet):
     """c = a - b mod q.  The reference's poly_sub kernel never subtracts b
     (poly_arithmetic.cuh:167-178; unused by its pipeline): this is the
@@ -53,6 +61,12 @@ def poly_mul_scalar_mont(a, c_mont, ms: ModulusSet):
     """a * c mod q with a Montgomery-scaled per-modulus scalar c (r, 1)
     (poly_mul_int_xq_*, bfv_decryption.cuh:25-57)."""
     return modmath.mont_mul(a, c_mont, ms.q, ms.qinv_neg)
+
+
+def poly_mul_scalar_mod_t(a, c: int, t: int):
+    """(a * c) & (t-1), the low 64 bits of the product, t a power of two
+    (the mod_t kernel, poly_arithmetic.cuh:128-141)."""
+    return (a * modmath.as_i64(int(c))) & (t - 1)
 
 
 @dataclasses.dataclass(frozen=True)

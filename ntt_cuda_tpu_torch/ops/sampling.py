@@ -133,25 +133,54 @@ def keygen_draws_compact(n: int, r: int, ms: modmath.ModulusSet,
 
 def keygen_draws_rank(n: int, r: int, lo: int, hi: int,
                       ms: modmath.ModulusSet,
-                      key_byte: int = salsa20.DEFAULT_KEY_BYTE, nonce=0):
-    """One rank's keygen draws in the RNS-sharded program (the JAX
-    package's parallel/spmd.py:139-155), on ms's device (ms: moduli
-    [lo, hi)): the s_b and e_d planes, the same on every rank, and the
-    uniform a (hi - lo, n) of rows [lo, hi) alone, from the rank's own
-    slice of the stream at block counter0 = n/64 + lo n/8.  Each equals
-    keygen_draws_compact's (a: its rows [lo, hi)); three launches of K1."""
-    kn, dev = keygen_nonce(nonce), ms.q.device
-    stream = dict(key_byte=key_byte, nonce=kn, device=dev)
-    s_b = ternary_int(salsa20.block_words_u8(
-        salsa20.keystream_block_words(n // 64, **stream), 0, n))
-    rl = hi - lo
-    _, lanes = salsa20.keystream_block_words(
-        rl * n // 8, counter0=n // 64 + lo * n // 8, with_u64=True, **stream)
-    a = uniform(salsa20.block_words_u64_planes(lanes, 0, rl * n)
-                .reshape(rl, n), ms)
+                      key_byte: int = salsa20.DEFAULT_KEY_BYTE, nonce=0,
+                      block: int = 0, S: int | None = None):
+    """One rank's keygen draws in the sharded programs, on ms's device (ms:
+    moduli [lo, hi)): coefficients [block S, (block + 1) S) (S None: all
+    n) of keygen_draws_compact's s_b, of its uniform a's rows [lo, hi) and
+    of its e_d, each from the rank's own blocks of the stream (the JAX
+    package's parallel/spmd.py:139-155 and spmd2d.py `_draw_slices`): the
+    ternary bytes at block block S/64, row i's lanes at n/64 + i n/8 +
+    block S/8, the Gaussian words at (n + 8rn)/64 + block S/16.  K1
+    launches: one each, and one per row of a when S < n (the rows' slices
+    are then apart in the stream)."""
+    S = n if S is None else S
+    stream = dict(key_byte=key_byte, nonce=keygen_nonce(nonce),
+                  device=ms.q.device)
+    s_b = ternary_int(salsa20.block_words_u8(salsa20.keystream_block_words(
+        S // 64, counter0=block * S // 64, **stream), 0, S))
+    runs = [(lo, hi)] if S == n else [(i, i + 1) for i in range(lo, hi)]
+    rows = []
+    for a, b in runs:
+        _, lanes = salsa20.keystream_block_words(
+            (b - a) * S // 8, counter0=n // 64 + a * n // 8 + block * S // 8,
+            with_u64=True, **stream)
+        rows.append(salsa20.block_words_u64_planes(lanes, 0, (b - a) * S)
+                    .reshape(b - a, S))
     e_d = gaussian_int(salsa20.block_words_u32(salsa20.keystream_block_words(
-        n // 16, counter0=(n + 8 * r * n) // 64, **stream), 0, n))
-    return s_b, a, e_d
+        S // 16, counter0=(n + 8 * r * n) // 64 + block * S // 16, **stream),
+        0, S))
+    return s_b, uniform(torch.cat(rows), ms), e_d
+
+
+def encrypt_draws_slice(n: int, block: int, S: int,
+                        key_byte: int = salsa20.DEFAULT_KEY_BYTE, nonce=0,
+                        device=None):
+    """One rank's encryption draws in the 2-D program: coefficients
+    [block S, (block + 1) S) of encrypt_draws_compact's (u_b (S,), e_d
+    (2, S)), from the rank's own blocks (the ternary bytes at block
+    block S/64, e0 at n/64 + block S/16, e1 at 5n/64 + block S/16); three
+    K1 launches."""
+    stream = dict(key_byte=key_byte, nonce=encrypt_nonce(nonce),
+                  device=device)
+    u_b = ternary_int(salsa20.block_words_u8(salsa20.keystream_block_words(
+        S // 64, counter0=block * S // 64, **stream), 0, S))
+    e_d = torch.stack([gaussian_int(salsa20.block_words_u32(
+        salsa20.keystream_block_words(S // 16,
+                                      counter0=base // 64 + block * S // 16,
+                                      **stream), 0, S))
+        for base in (n, 5 * n)])
+    return u_b, e_d
 
 
 def encrypt_draws_compact(n: int, key_byte: int = salsa20.DEFAULT_KEY_BYTE,

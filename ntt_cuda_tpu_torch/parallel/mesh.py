@@ -9,13 +9,13 @@ PartitionSpec becomes a DTensor placement list, one entry per mesh axis:
 P('rns') on an (r, n) tensor is [Shard(0)] on a 1-D ('rns',) mesh, and on
 a (2, r, n) tensor [Shard(1)].
 
-`all_reduce` and `all_gather` are the only ways the sharded programs talk
-across ranks.  Each call is logged in `collectives` as ("all_reduce",
-shape) or ("all_gather", gathered shape) before it runs (clear the list to
-start a count): torch has no compiled program to inspect, so this log
-stands in for the JAX package's `lowered_*` HLO counts
-(tests/test_collectives.py), as the kernels' `launches` counters do for
-their launches.
+`all_reduce`, `all_gather` and `ppermute` are the only ways the sharded
+programs talk across ranks.  Each call is logged in `collectives` as
+("all_reduce", shape), ("all_gather", gathered shape) or ("ppermute",
+shape) before it runs (clear the list to start a count): torch has no
+compiled program to inspect, so this log stands in for the JAX package's
+`lowered_*` HLO counts (tests/test_collectives.py), as the kernels'
+`launches` counters do for their launches.
 """
 
 from __future__ import annotations
@@ -102,3 +102,42 @@ def all_gather(x: torch.Tensor, group=None, dim: int = -2) -> torch.Tensor:
     collectives.append(("all_gather", tuple(shape)))
     dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
+
+
+_pair_groups: dict = {}
+
+
+def _pair_group(a: int, b: int):
+    """The 2-member process group of global ranks a and b, made at first
+    use by the two of them alone (use_local_synchronization)."""
+    world = dist.group.WORLD
+    key = (id(world), min(a, b), max(a, b))
+    g = _pair_groups.get(key)
+    if g is None:
+        g = dist.new_group(list(key[1:]), use_local_synchronization=True)
+        _pair_groups[key] = g
+    return g
+
+
+def ppermute(x: torch.Tensor, pairs, group=None) -> torch.Tensor:
+    """jax.lax.ppermute over `group` for pairwise exchanges, the only kind
+    the transforms' cross stages make: each rank of `pairs` (ranks in the
+    group) sends its x to the rank it receives from, and gets that rank's
+    x.  Logged in `collectives` as ("ppermute", shape).  It is one
+    all_gather over the pair's own 2-member group, which moves the bytes
+    of one send and one receive and takes CUDA tensors on gloo too, whose
+    send / recv refuse device memory ("writev: Bad address")."""
+    group = group if group is not None else dist.group.WORLD
+    me = dist.get_rank(group)
+    dst = [d for s, d in pairs if s == me]
+    src = [s for s, d in pairs if d == me]
+    if len(dst) != 1 or dst != src or dst[0] == me:
+        raise ValueError(f"ppermute takes pairwise exchanges only: rank {me} "
+                         f"in {pairs}")
+    x = x.contiguous()
+    collectives.append(("ppermute", tuple(x.shape)))
+    a = dist.get_global_rank(group, me)
+    b = dist.get_global_rank(group, dst[0])
+    parts = [torch.empty_like(x) for _ in range(2)]
+    dist.all_gather(parts, x, group=_pair_group(a, b))
+    return parts[int(b > a)]

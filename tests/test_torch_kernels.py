@@ -303,7 +303,7 @@ def test_host_stage_forward(host_lib, stage_ctx, J):
             None if xin is None else xin.data_ptr(),
             None if din is None else din.data_ptr(), None, None,
             out.data_ptr(), *tb.kernel_args(), pro, J * p.r, p.r, p.logn,
-            None) == 0
+            None, 0, 0, None) == 0
         torch.testing.assert_close(out, plain(), rtol=0, atol=0)
 
 
@@ -320,7 +320,7 @@ def test_host_stage_inverse(host_lib, stage_ctx, J):
         assert host_lib.ntt_stage_inverse(
             x.data_ptr(), None if y is None else y.data_ptr(), None,
             out.data_ptr(), *tb.kernel_args(), pro, ny, J * p.r, p.r, p.logn,
-            None) == 0
+            None, 0, 0, None) == 0
         ref = (ntt_stage.ntt_inverse_plain(x, tb) if y is None else
                ntt_stage.ntt_inverse_mul_plain(x, y, tb))
         torch.testing.assert_close(out, ref, rtol=0, atol=0)
@@ -340,7 +340,7 @@ def test_host_stage_encrypt(host_lib, stage_ctx):
     ct = torch.empty((2, p.r - 1, p.n), dtype=torch.int64)
     assert host_lib.ntt_stage_inverse(
         pk.data_ptr(), u_ntt.data_ptr(), e_d.data_ptr(), scratch.data_ptr(),
-        *tb.kernel_args(), cuda.PRO_MONT, p.r, 2 * p.r, p.r, p.logn, None) == 0
+        *tb.kernel_args(), cuda.PRO_MONT, p.r, 2 * p.r, p.r, p.logn, None, 0, 0, None) == 0
     assert host_lib.ntt_encrypt_tail(scratch.data_ptr(), m.data_ptr(),
                                      ct.data_ptr(), tc.per_mod.data_ptr(),
                                      tc.q_last, tc.half, tc.fix_th, 1, p.r,
@@ -359,12 +359,12 @@ def test_host_stage_rejects_bad_arguments(host_lib, stage_ctx):
                          (cuda.PRO_COPY, p.r, 16)):       # 2^16
         assert host_lib.ntt_stage_forward(x.data_ptr(), None, None, None,
                                           x.data_ptr(), *tb.kernel_args(), pro,
-                                          P, p.r, logn, None) != 0
+                                          P, p.r, logn, None, 0, 0, None) != 0
     for pro, P in ((cuda.PRO_TERNARY, p.r), (cuda.PRO_DIGIT, p.r),
                    (cuda.PRO_KSACC, p.r)):               # KSACC: P % 2r
         assert host_lib.ntt_stage_inverse(x.data_ptr(), None, None,
                                           x.data_ptr(), *tb.kernel_args(), pro,
-                                          1, P, p.r, p.logn, None) != 0
+                                          1, P, p.r, p.logn, None, 0, 0, None) != 0
 
 
 # --- EvalMult: the BEHZ conversions (21a-c), kernel 11 and the key switch
@@ -449,7 +449,7 @@ def test_host_forward_addneg(host_lib, stage_ctx, J):
     assert host_lib.ntt_stage_forward(x.data_ptr(), None, e.data_ptr(), None,
                                       out.data_ptr(), *tb.kernel_args(),
                                       cuda.PRO_ADDNEG, J * p.r, p.r, p.logn,
-                                      None) == 0
+                                      None, 0, 0, None) == 0
     ref = ntt_stage.ntt_forward_addneg_plain(x, e, tb)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
@@ -469,11 +469,11 @@ def test_host_keyswitch(host_lib, stage_ctx):
     assert host_lib.ntt_stage_forward(c2.data_ptr(), None, None,
                                       tb.ms.nu.data_ptr(), dhat.data_ptr(),
                                       *tb.kernel_args(), cuda.PRO_DIGIT,
-                                      J * k * r, r, p.logn, None) == 0
+                                      J * k * r, r, p.logn, None, 0, 0, None) == 0
     assert host_lib.ntt_stage_inverse(dhat.data_ptr(), ksk.data_ptr(), None,
                                       acc.data_ptr(), *tb.kernel_args(),
                                       cuda.PRO_KSACC, k, J * 2 * r, r, p.logn,
-                                      None) == 0
+                                      None, 0, 0, None) == 0
     assert host_lib.ntt_encrypt_tail(acc.data_ptr(), None, out.data_ptr(),
                                      tc.per_mod.data_ptr(), tc.q_last,
                                      tc.half, tc.fix_th, J, r, n, None) == 0
@@ -495,7 +495,7 @@ def test_host_stage_bsk_tables(host_lib, stage_ctx):
     assert host_lib.ntt_stage_forward(x.data_ptr(), None, None, None,
                                       out.data_ptr(), *tb.kernel_args(),
                                       cuda.PRO_COPY, P, tb.r, p.logn,
-                                      None) == 0
+                                      None, 0, 0, None) == 0
     torch.testing.assert_close(out, ntt_stage.ntt_forward_plain(x, tb),
                                rtol=0, atol=0)
     for yy, plain in ((None, lambda: ntt_stage.ntt_inverse_plain(x, tb)),
@@ -504,7 +504,7 @@ def test_host_stage_bsk_tables(host_lib, stage_ctx):
             x.data_ptr(), None if yy is None else yy.data_ptr(), None,
             out.data_ptr(), *tb.kernel_args(),
             cuda.PRO_COPY if yy is None else cuda.PRO_MONT, P, P, tb.r,
-            p.logn, None) == 0
+            p.logn, None, 0, 0, None) == 0
         torch.testing.assert_close(out, plain(), rtol=0, atol=0)
 
 
@@ -732,4 +732,86 @@ def test_cuda_ntt30_matches_plain(cuda_device, n):
             i = ntt30.ntt_inverse(f, tb)
             assert torch.equal(i, ntt30.ntt_inverse_plain(f, tb))
             assert torch.equal(i, xd)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["4k_3q", "32k_9q"])
+def test_cuda_entry_kernels_match_plain(cuda_device, name):
+    """Kernels 12 (a permuted mod_idx, B = 2r + 1, both directions), 14
+    and 15 (one cooperative launch)."""
+    p = get_bfv_params(name)
+    rng = np.random.default_rng(12)
+    tb = ntt.tables_for(p, device=cuda_device)
+    idx = torch.from_numpy(
+        rng.permutation(np.arange(2 * p.r + 1) % p.r).astype(np.int32))
+    x = torch.from_numpy(np.stack([rng.integers(0, p.q[i], p.n)
+                                   for i in idx.tolist()])).to(cuda_device)
+    for inverse in (False, True):
+        assert torch.equal(
+            ntt_stage.ntt_transform_idx(x, tb, idx, inverse=inverse),
+            ntt_stage.ntt_transform_idx_plain(x, tb, idx, inverse=inverse))
+    tc = bfv_tail.TailConsts.build(p, cuda_device)
+    c, e = (_rand_res(rng, p.q, p.n, (2,)).to(cuda_device) for _ in range(2))
+    m = torch.from_numpy(rng.integers(0, p.t, p.n)).to(cuda_device)
+    assert torch.equal(bfv_tail.encrypt_tail(c, e, m, tc),
+                       bfv_tail.encrypt_tail_plain(c, e, m, tc))
+    td = ntt.tables_for(p, p.r - 1, device=cuda_device)
+    dt = bfv_tail.DecTailConsts.build(p, cuda_device)
+    xs, sk, c0 = (_rand_res(rng, p.q[:-1], p.n).to(cuda_device)
+                  for _ in range(3))
+    assert torch.equal(bfv_tail.decrypt_fused(xs, sk, c0, td, dt),
+                       bfv_tail.decrypt_fused_plain(xs, sk, c0, td, dt))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [2, 4])
+def test_cuda_shard_offset_matches_plain(cuda_device, C):
+    """The coefficient-sharded transform at 32k_9q: every shard's cross
+    stages (the glue launch) and local launch (kernels 7 and 8 with the
+    shard offset) against their plain versions on the same inputs, and
+    the assembled result against the plain whole transform and kernels 7
+    and 8 on the whole."""
+    from ntt_cuda_tpu_torch.parallel import coef_kernels, sharded
+    p = get_bfv_params("32k_9q")
+    tb = ntt.tables_for(p, device=cuda_device)
+    rng = np.random.default_rng(C)
+    x, y = (_rand_res(rng, p.q, p.n).to(cuda_device) for _ in range(2))
+    S, logc = p.n // C, sharded.log2_shards(C)
+    split = lambda v: [v[:, c * S:(c + 1) * S].contiguous() for c in range(C)]
+    xs = split(x)
+    for s in range(logc):
+        k = sharded.cross_stride(C, s)
+        nxt = [coef_kernels.cross_stage(xs[c], xs[c ^ k], tb, C, s, c, False)
+               for c in range(C)]
+        for c in range(C):
+            assert torch.equal(nxt[c], sharded.cross_forward_stage(
+                xs[c], xs[c ^ k], tb, C, s, c))
+        xs = nxt
+    outs = [coef_kernels.local_forward(xs[c], tb, logc, c) for c in range(C)]
+    for c in range(C):
+        assert torch.equal(outs[c],
+                           sharded.local_forward_stages(xs[c], tb, C, c))
+    fwd = torch.cat(outs, -1)
+    assert torch.equal(fwd, ntt_stage.ntt_forward_plain(x, tb))
+    assert torch.equal(fwd, ntt_stage.ntt_forward(x, tb))
+    xs, ys = split(x), split(y)
+    outs = [coef_kernels.local_inverse_mul(xs[c], ys[c], tb, logc, c)
+            for c in range(C)]
+    for c in range(C):
+        assert torch.equal(outs[c], coef_kernels.local_inverse_mul_plain(
+            xs[c], ys[c], tb, C, c))
+    xs = outs
+    for s in reversed(range(logc)):
+        k = sharded.cross_stride(C, s)
+        nxt = [coef_kernels.cross_stage(xs[c], xs[c ^ k], tb, C, s, c, True)
+               for c in range(C)]
+        for c in range(C):
+            assert torch.equal(nxt[c], sharded.cross_inverse_stage(
+                xs[c], xs[c ^ k], tb, C, s, c, halve=False))
+        xs = nxt
+    inv = torch.cat(xs, -1)
+    assert torch.equal(inv, ntt_stage.ntt_inverse_mul_plain(x, y, tb))
+    assert torch.equal(inv, ntt_stage.ntt_inverse_mul(x, y, tb))
     torch.cuda.synchronize()

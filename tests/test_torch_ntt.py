@@ -97,3 +97,36 @@ def test_forward_matches_golden_and_schoolbook():
     assert fwd[i].tolist() == golden.ntt_forward(a[i], psi_tab, q, jp.n)
     assert prod[i].tolist() == golden.schoolbook_negacyclic(a[i], b[i], q,
                                                             jp.n)
+
+
+def test_negacyclic_polymul_matches_jax(pair):
+    jp, tb = pair
+    rng = np.random.default_rng(11)
+    a, b = _rand(rng, jp.q, jp.n), _rand(rng, jp.q, jp.n)
+    got = ntt.negacyclic_polymul(convert.to_torch(a), convert.to_torch(b), tb)
+    ref = jntt.negacyclic_polymul_jit(jnp.asarray(a), jnp.asarray(b),
+                                      jntt.tables_for(jp),
+                                      jmm.modulus_set(jp))
+    np.testing.assert_array_equal(convert.to_numpy(got), np.asarray(ref))
+
+
+def test_poly_scalar_helpers_match_jax(pair):
+    """poly_add_scalar with a scalar and an (r, 1) addend at the edge
+    q - 1, and poly_mul_scalar_mod_t with a 64-bit scalar."""
+    from ntt_cuda_tpu.ops import poly as jpoly
+    from ntt_cuda_tpu_torch.ops import poly
+    jp, tb = pair
+    rng = np.random.default_rng(12)
+    a = _rand(rng, jp.q, jp.n)
+    jms = jmm.modulus_set(jp)
+    col = np.array([[q - 1] for q in jp.q], np.uint64)
+    for c in (min(jp.q) - 1, col):
+        got = poly.poly_add_scalar(
+            convert.to_torch(a), convert.to_torch(c) if np.ndim(c) else c,
+            tb.ms)
+        ref = jpoly.poly_add_scalar(jnp.asarray(a), jnp.asarray(c), jms)
+        np.testing.assert_array_equal(convert.to_numpy(got), np.asarray(ref))
+    c, t = 0xDEADBEEF12345677, 1024
+    got = poly.poly_mul_scalar_mod_t(convert.to_torch(a), c, t)
+    ref = jpoly.poly_mul_scalar_mod_t(jnp.asarray(a), c, t)
+    np.testing.assert_array_equal(convert.to_numpy(got), np.asarray(ref))

@@ -374,11 +374,11 @@ def test_host_keyswitch_front(host_lib, where, rng):
     assert host_lib.ntt_stage_forward(c2.data_ptr(), None, None,
                                       tb.ms.nu.data_ptr(), dhat.data_ptr(),
                                       *tb.kernel_args(), cuda.PRO_DIGIT,
-                                      J * k * rl, rl, tb.logn, None) == 0
+                                      J * k * rl, rl, tb.logn, None, 0, 0, None) == 0
     assert host_lib.ntt_stage_inverse(dhat.data_ptr(), ksk.data_ptr(), None,
                                       acc.data_ptr(), *tb.kernel_args(),
                                       cuda.PRO_KSACC, k, J * 2 * rl, rl,
-                                      tb.logn, None) == 0
+                                      tb.logn, None, 0, 0, None) == 0
     assert torch.equal(acc, fused_ops.keyswitch_front_plain(c2, ksk, tb))
 
 

@@ -5,12 +5,15 @@
 
 For keygen, encrypt, decrypt, decrypt_batch (J = 3), encrypt_batch
 (J = 16, nonces 1..16), the EvalMult ops (mul, mul with
-relinearization, relin_keygen, relinearize) and apply_galois (g = 3) of
+relinearization, relin_keygen, relinearize), apply_galois (g = 3) and
+decrypt's back half on x = NTT(c1) (`decrypt_back_15`: kernel 15;
+`decrypt_back_8_K2`: kernel 8 + K2, as `BFVContext.decrypt` runs it) of
 one parameter set, through `BFVContext` (`--ops` picks some of them), or
 with `--spmd` for keygen, encrypt, decrypt and mod_switch_to_next through
 the RNS-sharded `SpmdBFVContext` and mul, relinearize and apply_galois
-(g = 3) through its `SpmdMultContext`, at world size 1 over NCCL, prints
-one JSON line per op:
+(g = 3) through its `SpmdMultContext`, and keygen, encrypt and decrypt
+through the 2-D `Spmd2DBFVContext` (`keygen_2d`, ...; mesh (1, 1)), at
+world size 1 over NCCL, prints one JSON line per op:
 
 * `event_ms`: median CUDA-event time around one call;
 * `sync_wall_ms`: median host time of one call ending in
@@ -45,8 +48,9 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from ntt_cuda_tpu_torch import BFVContext, get_bfv_params  # noqa: E402
+from ntt_cuda_tpu_torch.ops import bfv_tail, ntt_stage  # noqa: E402
 from ntt_cuda_tpu_torch.parallel import (multihost, spmd,  # noqa: E402
-                                         spmd_mult)
+                                         spmd2d, spmd_mult)
 
 
 def device_intervals(prof) -> list[tuple[float, float, str]]:
@@ -96,7 +100,7 @@ def main() -> int:
     ap.add_argument("--ops", default="",
                     help="comma-separated op names (default: all)")
     ap.add_argument("--spmd", action="store_true",
-                    help="the RNS-sharded program at world size 1 (NCCL)")
+                    help="the sharded programs at world size 1 (NCCL)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_ops.py needs a CUDA card")
@@ -154,6 +158,10 @@ def bfv_ops(p, fusion: str, msgs) -> tuple[str, dict]:
     rlk = ctx.relin_keygen(sk, nonce=1)
     gk = ctx.galois_keygen(sk, [3], nonce=1)[3]
     ct3 = ctx.mul(cts[0], cts[1])
+    td = ctx.tables_drop
+    sk_drop = sk[:ctx.params.r - 1].contiguous()
+    c0, x = cts[0, 0].contiguous(), ntt_stage.ntt_forward(
+        cts[0, 1].contiguous(), td)
     ops = {
         "keygen": lambda: ctx.keygen(nonce=1),
         "encrypt": lambda: ctx.encrypt(pk, m16[0], nonce=1),
@@ -166,13 +174,21 @@ def bfv_ops(p, fusion: str, msgs) -> tuple[str, dict]:
         "relin_keygen": lambda: ctx.relin_keygen(sk, nonce=1),
         "relinearize": lambda: ctx.relinearize(ct3, rlk),
         "apply_galois": lambda: ctx.apply_galois(cts[0], 3, gk),
+        # decrypt's back half on x = NTT(c1): kernel 15 in one launch, and
+        # the two launches BFVContext.decrypt runs (kernel 8 + K2)
+        "decrypt_back_15": lambda: bfv_tail.decrypt_fused(
+            x, sk_drop, c0, td, ctx.dec_tail_consts),
+        "decrypt_back_8_K2": lambda: bfv_tail.decrypt_tail(
+            ntt_stage.ntt_inverse_mul(x, sk_drop, td), c0,
+            ctx.dec_tail_consts),
     }
     return ctx.fusion, ops
 
 
 def spmd_ops(p, msgs) -> tuple[str, dict]:
-    """("spmd", the ops of SpmdBFVContext and SpmdMultContext by name) at
-    world size 1 over NCCL (the default mesh and device)."""
+    """("spmd", the ops of SpmdBFVContext, SpmdMultContext and
+    Spmd2DBFVContext by name) at world size 1 over NCCL (the default meshes
+    and device)."""
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -186,6 +202,9 @@ def spmd_ops(p, msgs) -> tuple[str, dict]:
     rlk = mctx.relin_keygen(sk, nonce=1)
     gk = mctx.galois_keygen(sk, [3], nonce=1)[3]
     ct3 = mctx.mul(ct, ct2)
+    ctx2 = spmd2d.Spmd2DBFVContext.build(p)
+    sk2, pk2 = ctx2.keygen(nonce=1)
+    ct_2 = ctx2.encrypt(pk2, m0, nonce=1)
     return "spmd", {
         "keygen": lambda: ctx.keygen(nonce=1),
         "encrypt": lambda: ctx.encrypt(pk, m0, nonce=1),
@@ -194,6 +213,9 @@ def spmd_ops(p, msgs) -> tuple[str, dict]:
         "mul": lambda: mctx.mul(ct, ct2),
         "relinearize": lambda: mctx.relinearize(ct3, rlk),
         "apply_galois": lambda: mctx.apply_galois(ct, 3, gk),
+        "keygen_2d": lambda: ctx2.keygen(nonce=1),
+        "encrypt_2d": lambda: ctx2.encrypt(pk2, m0, nonce=1),
+        "decrypt_2d": lambda: ctx2.decrypt(sk2, ct_2),
     }
 
 
