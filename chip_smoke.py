@@ -5,13 +5,17 @@
 Builds the CUDA kernels from ntt_cuda_tpu_torch/csrc with nvcc (sm_90a, one
 nvcc per source, all started together) and, beside them, a probe whose
 SASS gives the integer multiply instructions of one Shoup butterfly and
-one Montgomery product (for each kernel's bound).  Then:
+one Montgomery product (for each kernel's bound) and a probe library that
+runs the stage kernels' local stages two ways (LOCAL_AB_SRC).  Then:
 
 1. every kernel exactly (tolerance 0) against its plain PyTorch version on
    the card: the op kernels K1-K5 at 4k_3q and 16k_5q, K3-K5 also at
    32k_9q and 32k_16q (two 2^14 halves beside stage-0 passes), the stage
    kernels (7-10, 13) and the decrypt tail at 4k_3q, 16k_5q and 32k_9q
-   (the 2^15 split), J = 1 and 3 where there is a batch axis, K2 also at
+   (one cluster launch at 2^15), J = 1 and 3 where there is a batch axis,
+   every stage row (7 both ways, 8-11, 12 both ways, 13's and 19/20's
+   transforms, the coefficient shards' offset launches) also at cluster
+   sizes B = 2, 4 and 8 at 32k_9q, K2 also at
    32k_16q; the J-nonce keystream (kernel 6) at 32k_9q's encrypt size,
    J = 1 and 16, also against K1 row by row; the EvalMult kernels (BEHZ
    21a-c, kernel 11, the key switch 19) at 4k_3q, 16k_5q and 32k_9q,
@@ -91,7 +95,11 @@ one Montgomery product (for each kernel's bound).  Then:
    beside the kernel's bound (K3-K5 and K5 at J = 16 also at 32k_9q;
    kernel 22 at (16, 1, n), n = 2^15 and 2^16, both directions; kernels
    16-18, 20 and 21a-c's bands at 32k_9q's world-size-1 shapes, rl = 9;
-   16's drop launch logged beside).
+   16's drop launch logged beside); the stage rows' device time
+   (torch.profiler); the stage kernels' local stages, ntt_block.cuh's
+   loop against its register-tiled passes, and kernels 7 and 8 at every
+   cluster size B at n = 2^14 and 2^15 for P = 9, 18, 36 (device time and
+   back-to-back CUDA events, each output held against its plain version).
 
 13. kernels 12, 14 and 15 (the op-level entry points ntt_forward /
    ntt_inverse with mod_idx, encrypt_tail, decrypt_fused) against their
@@ -125,6 +133,7 @@ so the exit code is not 0 and no result line is printed.  Imports no jax.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import re
@@ -138,6 +147,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -190,6 +200,21 @@ TAIL_CHECK_SETS = ("16k_5q", "32k_9q")           # kernel 14
 DEC_FUSED_SETS = ("32k_9q", "32k_16q")           # kernel 15
 COEF_SET, COEF_CS = "32k_9q", (2, 4)   # the coefficient-sharded transform
 SPMD2D_MESHES = ((1, 2), (3, 2))       # (rns, coef) over gloo on one card
+# the stage kernels' cluster sizes (csrc/ntt_stage.cu): timed at n = 2^14
+# and 2^15 (tables of 16k_9q and 32k_9q) for P = 9 (32k_9q, J = 1), 18
+# (encrypt's and keygen's 2r launches) and 36 (J = 4) polynomials at every
+# B a launch takes, and every stage row held against its plain version at
+# B = 2, 4, 8 at 32k_9q beside the rule's B of the main path
+CLUSTER_SETS = {14: "16k_9q", 15: "32k_9q"}
+CLUSTER_PS = (9, 18, 36)
+CLUSTER_BS = (1, 2, 4, 8)
+CLUSTER_CHECK_BS = (2, 4, 8)
+# the rows that run the stage kernels, as timed (12 at (19, n), 13 with its
+# tail launch, 19 its three launches, 20 at rl = 9)
+STAGE_ROWS = ("ntt_forward", "ntt_inverse", "ntt_inverse_mul",
+              "ntt_forward_ternary", "ntt_forward_addneg_gauss",
+              "ntt_forward_addneg", "ntt_transform_idx",
+              "encrypt_fused_stage", "keyswitch_fused", "keyswitch_front")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
 
@@ -345,6 +370,54 @@ extern "C" __global__ void probe_shoup32(const u32* a, u32* o) {
 """
 
 
+# The local stages of the stage kernels two ways, on P 2^c blocks of
+# 2^(logn - c) points each (block b: piece b % 2^c of polynomial b >> c,
+# the cluster schedule's tw_mul = 2^c + piece over the full tables):
+# V = 0 ntt_block.cuh's loop (one block barrier and one shared-memory
+# round trip a stage), V = 2 or 3 its register-tiled passes of V stages.
+LOCAL_AB_SRC = r"""
+#include "ntt_block.cuh"
+template <int V>
+__global__ void __launch_bounds__(1024)
+    k_ab_local(const u64* x, u64* out, Twiddles tw, int logn, int c, int r,
+               int inverse) {
+  extern __shared__ u64 s[];
+  const int logb = logn - c, nb = 1 << logb, b = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int m = (1 << c) + (b & ((1 << c) - 1));
+  const int mi = (b >> c) % r;
+  const ModConsts k = load_consts(tw.consts, mi);
+  const Twiddles t = twiddles_at(tw, mi, 1 << logn);
+  for (int i = tid; i < nb; i += nt) s[i] = x[(size_t)b * nb + i];
+  if constexpr (V == 0) {
+    if (inverse) ntt_inv_block(s, logb, t, k.q, tid, nt, m);
+    else ntt_fwd_block(s, logb, t, k.q, tid, nt, m);
+  } else {
+    if (inverse) ntt_inv_tiled<V>(s, logb, t, k.q, tid, nt, m);
+    else ntt_fwd_tiled<V>(s, logb, t, k.q, tid, nt, m);
+  }
+  for (int i = tid; i < nb; i += nt) out[(size_t)b * nb + i] = s[i];
+}
+extern "C" int ab_local(int v, int inverse, const void* x, void* out,
+                        const void* psi, const void* psi_sh, const void* ipsi,
+                        const void* ipsi_sh, const void* consts, int P, int r,
+                        int logn, int c, void* stream) {
+  const int nb = 1 << (logn - c);
+  void (*kern)(const u64*, u64*, Twiddles, int, int, int, int) =
+      v == 0 ? k_ab_local<0> : v == 2 ? k_ab_local<2> : k_ab_local<3>;
+  const int threads = v == 0 ? ntt_threads(nb)
+                      : v == 2 ? tiled_threads<2>(nb) : tiled_threads<3>(nb);
+  const cudaError_t e = smem_limit_once((const void*)kern);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<P << c, threads, nb * sizeof(u64), (cudaStream_t)stream>>>(
+      (const u64*)x, (u64*)out, make_tw(psi, psi_sh, ipsi, ipsi_sh, consts),
+      logn, c, r, inverse);
+  return (int)cudaGetLastError();
+}
+"""
+LOCAL_AB_VARIANTS = {"loop": 0, "tiled2": 2, "tiled3": 3}
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -365,6 +438,105 @@ def start_probe() -> tuple[subprocess.Popen, Path]:
            str(out / "probe.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), cubin
+
+
+def start_local_ab() -> tuple[subprocess.Popen, Path]:
+    out = ROOT / "build" / "local_ab"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "local_ab.cu").write_text(LOCAL_AB_SRC)
+    lib = out / "liblocal_ab.so"
+    cmd = [cuda.find_nvcc(), *cuda.NVCC_FLAGS, "-shared", "-I",
+           str(cuda.CSRC), "-o", str(lib), str(out / "local_ab.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), lib
+
+
+def start_ptxas_report() -> subprocess.Popen:
+    """ntt_stage.cu compiled once more with `-Xptxas -v` (registers,
+    spills and stack of each kernel), beside the library's build."""
+    out = ROOT / "build" / "ptxas"
+    out.mkdir(parents=True, exist_ok=True)
+    cmd = [cuda.find_nvcc(), *cuda.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+           str(out / "ntt_stage.o"), str(cuda.CSRC / "ntt_stage.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def ptxas_report(proc: subprocess.Popen) -> dict[str, str]:
+    """Each stage kernel's ptxas lines (registers; stack and spills)."""
+    out = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc (ptxas report) failed:\n{out}")
+    res, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"(?:entry function '|properties for )(\w+)", line)
+        if m:
+            fn = m.group(1) if "k_stage_" in m.group(1) else None
+        elif fn and ("spill" in line or "registers" in line):
+            res[fn] = (res.get(fn, "") + " " + line.split(":")[-1].strip()
+                       ).strip()
+    return res
+
+
+def device_us(fn, reps: int = 20) -> float:
+    """Device time of one call in us: torch.profiler's intervals of the
+    port's kernels (k_*) over `reps` calls, summed, over reps."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    iv = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.name.removeprefix("void ").startswith("k_")]
+    if not iv:
+        raise RuntimeError("torch.profiler saw no kernel of the port on the "
+                           "device")
+    return sum(iv) / reps
+
+
+def local_ab(proc: subprocess.Popen, path: Path, dev, rng) -> dict:
+    """The stage kernels' local stages, the loop against the tiled
+    passes, at every (n, B) of the per-B timings, P = 9: device us per
+    launch of each variant (torch.profiler), its three outputs equal."""
+    out = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc (local-stage A/B) failed:\n{out}")
+    fn = ctypes.CDLL(str(path)).ab_local
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    res = {}
+    for logn, name in CLUSTER_SETS.items():
+        p = get_bfv_params(name)
+        tb = ntt.tables_for(p, device=dev)
+        x = rand_res(rng, p.q, p.n, (), dev)
+        for c in range(4):
+            if not 2 <= p.n >> c <= cuda.BLOCK_MAX_N:
+                continue
+            for inverse in (0, 1):
+                outs, row = {}, {}
+                for label, v in LOCAL_AB_VARIANTS.items():
+                    o = torch.empty_like(x)
+
+                    def call(v=v, o=o):
+                        rc = fn(v, inverse, x.data_ptr(), o.data_ptr(),
+                                *tb.kernel_args(), p.r, p.r, logn, c,
+                                torch.cuda.current_stream().cuda_stream)
+                        if rc != 0:
+                            raise RuntimeError(f"ab_local: CUDA error {rc}")
+                    call()
+                    outs[label] = o.clone()
+                    row[label] = device_us(call)
+                if not all(torch.equal(o, outs["loop"])
+                           for o in outs.values()):
+                    raise AssertionError(f"local-stage A/B 2^{logn} "
+                                         f"B={1 << c}: the variants' "
+                                         f"integers differ")
+                res[f"2^{logn} B={1 << c} {'inv' if inverse else 'fwd'}"] = row
+    return res
 
 
 def probe_mults(proc: subprocess.Popen, cubin: Path) -> dict[str, int]:
@@ -637,6 +809,128 @@ def stage_cases(ctx: BFVContext, rng, dev):
              mont=2 * r * n + out_coefs, mod_nu=out_coefs + out_coefs // 2,
              mullo=out_coefs // 2)))
     return cases
+
+
+def cluster_checks(dev, rng, errs: dict) -> None:
+    """Every stage row through the launchers at cluster size B = 2, 4, 8
+    at 32k_9q (J = 1), against its plain version: kernel 7 both ways, 8, 9,
+    10, 11, 12 (a permuted mod_idx, both ways), 13's transform (PRO_MONT
+    with +e), 19's and 20's two launches (PRO_DIGIT, PRO_KSACC) and the
+    coefficient shards' offset launches (C = 2 and 4, forward and inverse
+    with y)."""
+    p = get_bfv_params(STAGE_SET)
+    tb = ntt.tables_for(p, device=dev)
+    ms, n, r = tb.ms, p.n, p.r
+    x, e, y = (rand_res(rng, p.q, n, (), dev) for _ in range(3))
+    d = torch.from_numpy(rng.integers(-19, 17, (2, n))
+                         .astype(np.int32)).to(dev)
+    t = d[0].clamp(-1, 2).contiguous()
+    pk = rand_res(rng, p.q, n, (2,), dev)
+    k = r - 1
+    c2 = rand_res(rng, p.q[:-1], n, (), dev)
+    ksk = rand_res(rng, p.q, n, (2, k), dev)
+    idx = torch.from_numpy(rng.permutation(np.arange(2 * r + 1) % r)
+                           .astype(np.int32))
+    xi = torch.from_numpy(np.stack([rng.integers(0, p.q[i], n)
+                                    for i in idx.tolist()])).to(dev)
+    idx_d = idx.to(dev)
+    plain = {
+        "fwd": ntt_stage.ntt_forward_plain(x, tb),
+        "inv": ntt_stage.ntt_inverse_plain(x, tb),
+        "inv_mul": ntt_stage.ntt_inverse_mul_plain(x, y, tb),
+        "ternary": ntt_stage.ntt_forward_ternary_plain(t, tb),
+        "gauss": ntt_stage.ntt_forward_addneg_gauss_plain(x, d[1], tb),
+        "addneg": ntt_stage.ntt_forward_addneg_plain(x, e, tb),
+        "idx_fwd": ntt_stage.ntt_transform_idx_plain(xi, tb, idx),
+        "idx_inv": ntt_stage.ntt_transform_idx_plain(xi, tb, idx, True),
+        "enc": poly.poly_add(ntt.ntt_inverse(ntt.dyadic_mul(y[None], pk, ms),
+                                             tb),
+                             sampling.small_res(d, ms.q), ms),
+        "front": fused_ops.keyswitch_front_plain(c2, ksk, tb),
+    }
+    empty = torch.empty_like
+    for B in CLUSTER_CHECK_BS:
+        o = {key: empty(v) for key, v in plain.items()}
+        fl, il = ntt_stage.forward_launch, ntt_stage.inverse_launch
+        fl(dev, x, None, o["fwd"], tb, cuda.PRO_COPY, cluster=B)
+        il(dev, x, None, None, o["inv"], tb, cluster=B)
+        il(dev, x, y, None, o["inv_mul"], tb, cluster=B)
+        fl(dev, None, t, o["ternary"], tb, cuda.PRO_TERNARY, cluster=B)
+        fl(dev, x, d[1].contiguous(), o["gauss"], tb, cuda.PRO_ADDNEG_GAUSS,
+           cluster=B)
+        fl(dev, x, None, o["addneg"], tb, cuda.PRO_ADDNEG, y=e, cluster=B)
+        fl(dev, xi, None, o["idx_fwd"], tb, cuda.PRO_COPY, mod_idx=idx_d,
+           cluster=B)
+        il(dev, xi, None, None, o["idx_inv"], tb, mod_idx=idx_d, cluster=B)
+        il(dev, pk, y, d, o["enc"], tb, cluster=B)
+        dhat = torch.empty((k, r, n), dtype=torch.int64, device=dev)
+        fl(dev, c2, None, dhat, tb, cuda.PRO_DIGIT, nu=ms.nu, cluster=B)
+        cuda.launch("ntt_stage_inverse_cluster", dev, dhat.data_ptr(),
+                    ksk.data_ptr(), None, o["front"].data_ptr(),
+                    *tb.kernel_args(), cuda.PRO_KSACC, k, 2 * r, r, p.logn,
+                    None, 0, 0, B)
+        for key, names in (("fwd", ("ntt_transform",)),
+                           ("inv", ("ntt_transform",)),
+                           ("inv_mul", ("ntt_inverse_mul",)),
+                           ("ternary", ("ntt_forward_ternary",)),
+                           ("gauss", ("ntt_forward_addneg_gauss",)),
+                           ("addneg", ("ntt_forward_addneg",)),
+                           ("idx_fwd", ("ntt_transform_idx",)),
+                           ("idx_inv", ("ntt_transform_idx",)),
+                           ("enc", ("encrypt_fused_stage",)),
+                           ("front", ("keyswitch_fused", "keyswitch_front"))):
+            for name in names:
+                compare(name, o[key], plain[key], errs)
+        for C in COEF_CS:
+            logc, S = C.bit_length() - 1, n // C
+            for c in range(C):
+                xs = x[:, c * S:(c + 1) * S].contiguous()
+                ys = y[:, c * S:(c + 1) * S].contiguous()
+                of, oi = empty(xs), empty(xs)
+                fl(dev, xs, None, of, tb, cuda.PRO_COPY, logc=logc, shard=c,
+                   cluster=B)
+                il(dev, xs, ys, None, oi, tb, logc=logc, shard=c, cluster=B)
+                compare("ntt_transform", of,
+                        sharded.local_forward_stages(xs, tb, C, c), errs)
+                compare("ntt_inverse_mul", oi,
+                        coef_kernels.local_inverse_mul_plain(xs, ys, tb, C, c),
+                        errs)
+        log(f"check {STAGE_SET} stage rows at cluster size B={B} (7 both "
+            f"ways, 8, 9, 10, 11, 12 both ways, 13's and 19/20's "
+            f"transforms, the shard offsets at C = {COEF_CS}): equal")
+
+
+def cluster_times(dev, rng, errs: dict) -> dict:
+    """Kernel 7 (forward) and 8 (inverse with y) at n = 2^14 and 2^15 for
+    P = 9, 18, 36 at every cluster size B a launch takes: device us per
+    launch (torch.profiler) and ms per call back to back (CUDA events),
+    and the rule's B; each output held against its plain version."""
+    res = {}
+    for logn, name in CLUSTER_SETS.items():
+        p = get_bfv_params(name)
+        tb = ntt.tables_for(p, device=dev)
+        y = rand_res(rng, p.q, p.n, (), dev)
+        for P in CLUSTER_PS:
+            x = rand_res(rng, p.q, p.n, (P // p.r,), dev)
+            ref_f = ntt_stage.ntt_forward_plain(x, tb)
+            ref_i = ntt_stage.ntt_inverse_mul_plain(x, y, tb)
+            out = torch.empty_like(x)
+            for B in CLUSTER_BS:
+                if not 2 <= p.n // B <= cuda.BLOCK_MAX_N:
+                    continue
+                fwd = lambda B=B: ntt_stage.forward_launch(
+                    dev, x, None, out, tb, cuda.PRO_COPY, cluster=B)
+                inv = lambda B=B: ntt_stage.inverse_launch(
+                    dev, x, y, None, out, tb, cluster=B)
+                fwd()
+                compare("ntt_transform", out, ref_f, errs)
+                inv()
+                compare("ntt_inverse_mul", out, ref_i, errs)
+                res[f"2^{logn} P={P} B={B}"] = {
+                    "rule": B == ntt_stage.cluster_size(p.n),
+                    "fwd_us": device_us(fwd), "inv_mul_us": device_us(inv),
+                    "fwd_ms": kernel_ms(fwd), "inv_mul_ms": kernel_ms(inv)}
+    return res
 
 
 def mult_cases(ctx: BFVContext, rng, dev, addneg: bool = True):
@@ -1654,9 +1948,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     probe = start_probe()
+    ab_build = start_local_ab()
+    ptxas = start_ptxas_report()
     cuda.library()
     mults = probe_mults(*probe)
     log(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    log(f"stage kernels' registers and spills (ptxas -v, sm_90a): "
+        f"{json.dumps(ptxas_report(ptxas))}")
     log(f"SASS integer multiplies per primitive (sm_90a): {json.dumps(mults)}")
 
     # Phase 1: every kernel == its plain version, on the card.
@@ -1703,6 +2001,10 @@ def main() -> int:
             log(f"check {name} stage {kname} J={J}: equal")
             if name == STAGE_SET and J == 1 and kname != "decrypt_tail":
                 timing[kname] = (kern, plain, work)
+    cluster_checks(dev, rng, errs)
+    rule = {n: ntt_stage.cluster_size(n) for n in (2048, 4096, 16384, 32768)}
+    log(f"stage kernels' cluster size B by the launchers' rule, by n (the "
+        f"main paths' and the checks' transforms): {json.dumps(rule)}")
     for name in MULT_CHECK_SETS:
         ctx = BFVContext.build(get_bfv_params(name), device=dev)
         for kname, J, kern, plain, work in mult_cases(
@@ -2206,11 +2508,23 @@ def main() -> int:
         f"K3 + K2 (the op schedule's, forward included): "
         f"{json.dumps(back)}")
     timing.update(timing_spmd)
+    log(f"stage kernels' local stages, ntt_block.cuh's loop against the "
+        f"register-tiled passes (device us per launch of P = 9 polynomials' "
+        f"2^c blocks, torch.profiler; outputs equal): "
+        f"{json.dumps(local_ab(*ab_build, dev, rng))}")
+    log(f"stage kernels at every cluster size B (device us per launch, "
+        f"torch.profiler; ms per call of 20 back to back, CUDA events; "
+        f"kernel 7 forward, kernel 8 inverse with y; outputs == plain): "
+        f"{json.dumps(cluster_times(dev, rng, errs))}")
     bounds, terms = {}, {}
     for kname, (kern, plain, work) in timing.items():
         terms[kname] = work.terms(mults, clock_hz)
         bounds[kname] = (kernel_ms(kern), kernel_ms(plain),
                          *work.bound(mults, clock_hz))
+    stage_dev = {k: device_us(timing[k][0]) for k in STAGE_ROWS}
+    log(f"stage rows' device time at the timed shapes (us per call, "
+        f"torch.profiler; 19: its three launches; 12: (19, n)): "
+        f"{json.dumps(stage_dev)}")
     kern, plain, work = drop_case
     log(f"kernel 16 as the key switch's drop ({SPMD_SET}, (2, {p_s.r}, n)): "
         f"ms {kernel_ms(kern)}, plain ms {kernel_ms(plain)}, bound ms "

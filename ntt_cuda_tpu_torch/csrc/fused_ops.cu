@@ -38,9 +38,8 @@
 //   encrypt_front  the same transform with no e
 // Each thread of a half block reads back exactly the indices it wrote, so
 // NTT(u) parked in the c1 slot is safe as at n <= 2^14.  No cluster yet
-// (ROADMAP.md, perf work "Transform latency"): a two-block cluster
-// exchanging stage 0 through distributed shared memory would make each op
-// one launch.
+// (ROADMAP.md, "Queue 0 - kernels to redesign for the H100"): the stage
+// kernels' cluster schedule (ntt_stage.cu) would make each op one launch.
 //
 // Bound on the card: shared memory, 8n bytes per block (128 KB at
 // n = 16384 and per half at 2^15: one block per SM, so a call fills

@@ -20,7 +20,7 @@
 // the decrypt back half in one cooperative launch (15, k_decrypt_fused).  The
 // TPU kernels share one four-step transform (_stage_a / _stage_b) and
 // differ in the prologue;
-// here they share ntt_block.cuh's transform and differ in `pro`:
+// here they share the cluster transform below and differ in `pro`:
 //   PRO_COPY          x                          (7)
 //   PRO_TERNARY       small_res(d)               (9, d a compact ternary)
 //   PRO_ADDNEG_GAUSS  -(x + small_res(d)), 0 fix (10, d a compact Gaussian)
@@ -33,8 +33,8 @@
 // constant, which is x * n^-1.  Kernel 13 then adds e (strict `>`).
 //
 // Key switch (19).  The TPU kernel keeps one modulus per grid step in VMEM
-// with k forward chains and two accumulators; a 2^14 polynomial fills a
-// block's shared memory here, so the same function is two launches of
+// with k forward chains and two accumulators; one polynomial fills a
+// cluster's shared memory here, so the same function is two launches of
 // this transform (and the tail):  PRO_DIGIT forward over P = J k r
 // polynomials, p = (J k + j) r + mi reading c2[J, j] (the digit lifted to
 // every modulus, q_last included) into d^ (J, k, r, n); then PRO_KSACC
@@ -57,28 +57,67 @@
 // [c n, (c + 1) n) of a C n-point transform whose first log2 C stages
 // (the cross-shard ones) have run.  What is left is an n-point transform
 // whose local twiddle row [m, 2m) is the full table's row
-// [m (C + c), m (C + c) + m): with base = C + c, the whole-block form
-// reads psi[base len + ps]; at a local 2^15 the stage-0 pass reads
-// psi[base] and half h reads psi[(2 base + h) len' + ps'].  The tables
-// are the full C n-point ones (row stride C n), so the inverse ends with
-// the global n^-1 and the cross GS stages after it do not halve.
-// base = 1 (logc = 0) is the unsharded transform.
+// [m (C + c), m (C + c) + m): with base = C + c, the whole-polynomial form
+// reads psi[base len + ps].  The tables are the full C n-point ones (row
+// stride C n), so the inverse ends with the global n^-1 and the cross GS
+// stages after it do not halve.  base = 1 (logc = 0) is the unsharded
+// transform.
 //
-// n <= 2^14: one launch, one block per polynomial, resident in shared
-// memory for its whole transform.  n = 2^15 (256 KB, over a block's
-// 227 KB): the reference's hybrid schedule.  The forward runs CT stage 0
-// (pairs i, i + n/2, twiddle psi[1]) with the prologue as an elementwise
-// launch, then one launch of 2 blocks per polynomial runs stages 1..14 on
-// each 2^14 half in shared memory (ntt_block.cuh's sub-range form).  The
-// inverse runs the prologue and GS stages 14..1 on the halves, then GS
-// stage 0 (ipsi[1]) and the epilogue as an elementwise launch.
+// Bound on the card.  A launch reads and writes each polynomial once (at
+// 32k_9q, J = 1, 2.5-3.1 us of device memory at 3.35 TB/s) and the
+// multiplier has less still to do; but a launch holds few polynomials
+// (P = r to 4 r at J = 1 against 132 SMs), and each of the log n stages
+// of a transform waits for the one before.  So the time is the latency of
+// the stages of one block: one polynomial (or 2^14 half) per block would
+// run 2^14-point blocks on P of the SMs.  Here it is the latency of an
+// n/B-point block, with P B blocks on the 132 SMs.
 //
-// Bound on the card: at J = 1 a launch has r (or 2r) blocks for 132 SMs,
-// and each of the log n stages ends in a block barrier, so the time is
-// the latency of one block's stages, not device memory (one polynomial
-// is read and written once per launch, twice at 2^15) or the multiplier
-// rate.  The design keeps the transform in shared memory and reads the
-// compact draws (i32 planes) instead of (r, n) u64 residues.
+// Design: one polynomial per thread-block cluster of B = 2^cl blocks
+// (cl <= 3: B <= 8, the portable cluster size), P B blocks a launch.
+// Block j (cluster.block_rank()) holds coefficients [j n/B, (j + 1) n/B)
+// in its own shared memory, n/B u64: 32 KB at n = 2^15, B = 8, and at
+// most 128 KB (2^14), so n = 2^15 is one launch at B >= 2.
+//   Forward (CT, natural order in), two phases with a cluster barrier
+//   between them (and one before, so that every block of the cluster has
+//   started before a remote write):
+//     A. the cluster's threads split the n/B columns i; a thread reads the
+//        B coefficients i + j n/B through the prologue, runs CT stages
+//        0..cl-1 on them in registers (a B-point transform with the
+//        twiddle base), and writes output j into block j's shared memory
+//        through distributed shared memory;
+//     B. block j runs stages cl..log n - 1 as an n/B-point transform in its
+//        own shared memory, the sub-range form with tw_mul = B base + j
+//        (the full stage lg >= cl has len = B len' and ps = j len' + ps'),
+//        and stores its range of out.
+//   Inverse (GS, bit-reversed in):
+//     A. block j loads its range through the prologue and runs GS stages
+//        log n - 1..cl locally with the same tw_mul;
+//     B. each thread gathers column i's B values from the cluster's blocks
+//        through distributed shared memory, runs GS stages cl-1..0 in
+//        registers, then the epilogue (n^-1, +e), and writes out; a last
+//        cluster barrier keeps every block's shared memory until the
+//        others have read it.
+// The local stages are register-tiled (ntt_block.cuh ntt_fwd_tiled /
+// ntt_inv_tiled, passes of STAGE_TILE stages): a thread carries 2^3
+// coefficients through three stages between block barriers.  On the card
+// that beat the one-barrier-a-stage loop at every local size measured
+// (chip_smoke.py's local-stage A/B; PERF.md).  Threads per block: one set
+// of 2^STAGE_TILE coefficients each, n / (B 8), at most 1024 (512 at
+// n = 2^15, B = 8): every thread of a pass has work, and the cross phases
+// give each thread n / (B^2 T) columns.
+// B: stage_cluster_log below, the rule fixed from per-B timings on the
+// card (PERF.md): 8 wherever it fits.  The launcher raises the kernel's
+// shared memory limit and checks with cudaOccupancyMaxActiveClusters
+// that a cluster of the shape fits, once per kernel, device and shape;
+// where it does not, it returns the CUDA error: there is no one-block,
+// two-launch or plain schedule behind it.  Every intermediate stays in
+// [0, q), so each prologue, epilogue, mod_idx and shard base gives the
+// plain version's integers.
+//
+// Host build (g++, the CPU tests): the launcher walks the clusters; for
+// each it runs phase A of its B blocks (one thread each) into B host
+// buffers, then phase B of each block: the same index algebra at every B
+// (ntt_stage_forward_cluster / ntt_stage_inverse_cluster take B).
 
 #include "behz_sums.cuh"
 #include "ntt_block.cuh"
@@ -175,27 +214,131 @@ NTT_HD u64 inv_finish(const StageIO& io, int p, int i, u64 v,
   return v;
 }
 
-// Block b is polynomial b >> split, half b & split (split = 1 at 2^15).
-NTT_HD void fwd_block_body(int b, int tid, int nt, u64* s, StageIO io,
-                           Twiddles tw) {
-  const int split = io.logn > LOG_BLOCK_MAX;
-  const int p = b >> split, h = b & split;
+// The cross stages on one column's B = 2^CL values in registers: global
+// stage lg < CL pairs rows k and k + B / 2^(lg+1), twiddle index
+// base 2^lg + (k >> (CL - lg)) -- the whole-polynomial form's index on B
+// points.
+template <int CL>
+NTT_HD void cross_fwd(u64* v, const Twiddles& t, u64 q, int base) {
+#pragma unroll
+  for (int lg = 0; lg < CL; ++lg) {
+    const int sl = CL - 1 - lg;
+#pragma unroll
+    for (int g = 0; g < (1 << CL) / 2; ++g) {
+      const int ps = g >> sl;
+      const int a = (ps << (sl + 1)) | (g & ((1 << sl) - 1));
+      const int w = base * (1 << lg) + ps;
+      ct_butterfly(v[a], v[a + (1 << sl)], t.psi[w], t.psi_sh[w], q);
+    }
+  }
+}
+
+template <int CL>
+NTT_HD void cross_inv(u64* v, const Twiddles& t, u64 q, int base) {
+#pragma unroll
+  for (int lg = CL - 1; lg >= 0; --lg) {
+    const int sl = CL - 1 - lg;
+#pragma unroll
+    for (int g = 0; g < (1 << CL) / 2; ++g) {
+      const int ps = g >> sl;
+      const int a = (ps << (sl + 1)) | (g & ((1 << sl) - 1));
+      const int w = base * (1 << lg) + ps;
+      gs_butterfly(v[a], v[a + (1 << sl)], t.ipsi[w], t.ipsi_sh[w], q);
+    }
+  }
+}
+
+// Local stages of the stage kernels: passes of STAGE_TILE stages.
+#define STAGE_TILE 3
+
+// The phases of the cluster schedule (the note at the head of the file).
+// Each runs on block j of polynomial p's cluster of B = 2^CL blocks, as
+// thread tid of nt; peer[k] is block k's shared memory (distributed
+// shared memory on the card, a host buffer in the host build), s the
+// block's own.
+template <int CL>
+NTT_HD void fwd_phase_a(const StageIO& io, const Twiddles& tw, int p, int j,
+                        int tid, int nt, u64* const* peer) {
+  const int nb = 1 << (io.logn - CL);
   const int mi = modulus_of(io, p);
-  const int logb = io.logn - split;
-  const int nb = 1 << logb;
   const ModConsts c = load_consts(tw.consts, mi);
   const Twiddles t = stage_twiddles(io, tw, mi);
-  u64* ob = io.out + ((size_t)p << io.logn) + (size_t)h * nb;
-  if (split) {
-    for (int i = tid; i < nb; i += nt) s[i] = ob[i];  // after stage 0
-  } else {
-    for (int i = tid; i < nb; i += nt) s[i] = prologue(io, p, i, c);
-  }
   const int base = tw_base(io);
-  ntt_fwd_block(s, logb, t, c.q, tid, nt, split ? 2 * base + h : base);
+  for (int i = j * nt + tid; i < nb; i += nt << CL) {
+    u64 v[1 << CL];
+#pragma unroll
+    for (int k = 0; k < (1 << CL); ++k) v[k] = prologue(io, p, k * nb + i, c);
+    cross_fwd<CL>(v, t, c.q, base);
+#pragma unroll
+    for (int k = 0; k < (1 << CL); ++k) peer[k][i] = v[k];
+  }
+}
+
+template <int CL>
+NTT_HD void fwd_phase_b(const StageIO& io, const Twiddles& tw, int p, int j,
+                        int tid, int nt, u64* s) {
+  const int logb = io.logn - CL, nb = 1 << logb;
+  const int mi = modulus_of(io, p);
+  const ModConsts c = load_consts(tw.consts, mi);
+  const Twiddles t = stage_twiddles(io, tw, mi);
+  ntt_fwd_tiled<STAGE_TILE>(s, logb, t, c.q, tid, nt,
+                            (tw_base(io) << CL) + j);
+  u64* ob = io.out + ((size_t)p << io.logn) + (size_t)j * nb;
   for (int i = tid; i < nb; i += nt) ob[i] = s[i];
 }
 
+template <int CL>
+NTT_HD void inv_phase_a(const StageIO& io, const Twiddles& tw, int p, int j,
+                        int tid, int nt, u64* s) {
+  const int logb = io.logn - CL, nb = 1 << logb;
+  const int mi = modulus_of(io, p);
+  const ModConsts c = load_consts(tw.consts, mi);
+  const Twiddles t = stage_twiddles(io, tw, mi);
+  for (int i = tid; i < nb; i += nt) s[i] = prologue(io, p, j * nb + i, c);
+  ntt_inv_tiled<STAGE_TILE>(s, logb, t, c.q, tid, nt,
+                            (tw_base(io) << CL) + j);
+}
+
+template <int CL>
+NTT_HD void inv_phase_b(const StageIO& io, const Twiddles& tw, int p, int j,
+                        int tid, int nt, u64* const* peer) {
+  const int nb = 1 << (io.logn - CL);
+  const int mi = modulus_of(io, p);
+  const ModConsts c = load_consts(tw.consts, mi);
+  const Twiddles t = stage_twiddles(io, tw, mi);
+  const int base = tw_base(io);
+  u64* ob = io.out + ((size_t)p << io.logn);
+  for (int i = j * nt + tid; i < nb; i += nt << CL) {
+    u64 v[1 << CL];
+#pragma unroll
+    for (int k = 0; k < (1 << CL); ++k) v[k] = peer[k][i];
+    cross_inv<CL>(v, t, c.q, base);
+#pragma unroll
+    for (int k = 0; k < (1 << CL); ++k)
+      ob[k * nb + i] = inv_finish(io, p, k * nb + i, v[k], c);
+  }
+}
+
+// log2 B of the cluster sizes a launch of 2^logn points can take: a block
+// holds at most 2^LOG_BLOCK_MAX points and at least 2, and B <= 8.
+static bool cluster_ok(int logn, int cl) {
+  return cl >= 0 && cl <= 3 && logn - cl <= LOG_BLOCK_MAX && logn - cl >= 1;
+}
+
+// The launchers' rule: the largest B a launch of 2^logn points takes, 8
+// from n = 16 on.  On the H100 B = 8 was the fastest at n = 2^14 and 2^15
+// for P = 9, 18 and 36 polynomials (PERF.md): a launch is bound by the
+// latency of its blocks' local stages, which falls with n/B, and P B
+// blocks past 132 SMs still beat fewer, longer blocks.
+static int stage_cluster_log(int logn) {
+  int cl = 3;
+  while (!cluster_ok(logn, cl)) --cl;
+  return cl;
+}
+
+// Kernel 15's inverse body (k_decrypt_fused, below): block b is
+// polynomial b >> split, half b & split (split = 1 at 2^15), the 2^15
+// transform finished by inv_last_body's GS stage 0.
 NTT_HD void inv_block_body(int b, int tid, int nt, u64* s, StageIO io,
                            Twiddles tw) {
   const int split = io.logn > LOG_BLOCK_MAX;
@@ -214,22 +357,6 @@ NTT_HD void inv_block_body(int b, int tid, int nt, u64* s, StageIO io,
   } else {
     for (int i = tid; i < nb; i += nt) ob[i] = inv_finish(io, p, i, s[i], c);
   }
-}
-
-// 2^15 only: CT stage 0 with the prologue, pair k of P * n/2 (twiddle
-// psi[1], a shard's psi[C + c]).
-NTT_HD void fwd_first_body(long long k, StageIO io, Twiddles tw) {
-  const int half = 1 << (io.logn - 1);
-  const int p = (int)(k / half), i = (int)(k % half);
-  const int mi = modulus_of(io, p);
-  const ModConsts c = load_consts(tw.consts, mi);
-  const Twiddles t = stage_twiddles(io, tw, mi);
-  const int w = tw_base(io);
-  u64 u = prologue(io, p, i, c), v = prologue(io, p, i + half, c);
-  ct_butterfly(u, v, t.psi[w], t.psi_sh[w], c.q);
-  u64* ob = io.out + ((size_t)p << io.logn);
-  ob[i] = u;
-  ob[i + half] = v;
 }
 
 // 2^15 only: GS stage 0 and the epilogue, in place on out (twiddle
@@ -319,8 +446,8 @@ static bool cross_args_ok(int w, int P, int r, int logn, int logc) {
 // sums in VMEM scratch; a 2^15 polynomial does not fit one block here, and
 // blocks run in no order, so the launch is cooperative and runs three
 // phases with a grid barrier between them:
-//   1. one block per residue (two halves at 2^15): kernel 8's PRO_MONT
-//      inverse body into the caller's (r-1, n) scratch;
+//   1. one block per residue (two halves at 2^15): the PRO_MONT inverse
+//      of one block (inv_block_body) into the caller's (r-1, n) scratch;
 //   2. at 2^15 only: GS stage 0 and n^-1, grid-strided over the pairs;
 //   3. K2's residue loop (behz_sums) and the rounding, grid-strided over
 //      the n coefficients, into out (n,).
@@ -351,24 +478,39 @@ NTT_HD void dec_fused_tail(long long k, const StageIO& io,
 
 #ifdef __CUDACC__
 
-__global__ void k_stage_fwd_block(StageIO io, Twiddles tw) {
+// One polynomial per cluster of 2^CL blocks (the head of the file).
+template <int CL>
+__global__ void __launch_bounds__(1024)
+    k_stage_fwd_block(StageIO io, Twiddles tw) {
   extern __shared__ u64 smem[];
-  fwd_block_body(blockIdx.x, threadIdx.x, blockDim.x, smem, io, tw);
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int j = (int)cluster.block_rank(), p = (int)(blockIdx.x >> CL);
+  u64* peer[1 << CL];
+#pragma unroll
+  for (int k = 0; k < (1 << CL); ++k)
+    peer[k] = cluster.map_shared_rank(smem, k);
+  cluster.sync();  // every block of the cluster has started
+  fwd_phase_a<CL>(io, tw, p, j, threadIdx.x, blockDim.x, peer);
+  cluster.sync();  // the cross stages' remote writes are visible
+  fwd_phase_b<CL>(io, tw, p, j, threadIdx.x, blockDim.x, smem);
 }
 
-__global__ void k_stage_inv_block(StageIO io, Twiddles tw) {
+template <int CL>
+__global__ void __launch_bounds__(1024)
+    k_stage_inv_block(StageIO io, Twiddles tw) {
   extern __shared__ u64 smem[];
-  inv_block_body(blockIdx.x, threadIdx.x, blockDim.x, smem, io, tw);
-}
-
-__global__ void k_stage_fwd_first(StageIO io, Twiddles tw, long long total) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < total) fwd_first_body(k, io, tw);
-}
-
-__global__ void k_stage_inv_last(StageIO io, Twiddles tw, long long total) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < total) inv_last_body(k, io, tw);
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int j = (int)cluster.block_rank(), p = (int)(blockIdx.x >> CL);
+  u64* peer[1 << CL];
+#pragma unroll
+  for (int k = 0; k < (1 << CL); ++k)
+    peer[k] = cluster.map_shared_rank(smem, k);
+  inv_phase_a<CL>(io, tw, p, j, threadIdx.x, blockDim.x, smem);
+  cluster.sync();  // every block's local stages are done
+  inv_phase_b<CL>(io, tw, p, j, threadIdx.x, blockDim.x, peer);
+  cluster.sync();  // no block exits while another reads its shared memory
 }
 
 __global__ void k_cross_stage(CrossIO io, Twiddles tw, long long total) {
@@ -393,6 +535,54 @@ __global__ void __launch_bounds__(1024, 1)
     dec_fused_tail(k, io, d);
 }
 
+// One launch of P clusters of 2^CL blocks: the kernel's shared memory
+// limit raised and the cluster's fit checked once per kernel, device and
+// transform size; a cluster that cannot run returns its CUDA error.
+template <int CL>
+static int run_cluster(void (*kernel)(StageIO, Twiddles), int P,
+                       const StageIO& io, const Twiddles& tw, void* stream) {
+  const int nb = 1 << (io.logn - CL);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)P << CL);
+  cfg.blockDim = dim3(tiled_threads<STAGE_TILE>(nb));
+  cfg.dynamicSmemBytes = (size_t)nb * sizeof(u64);
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = launch_setup().run((const void*)kernel, io.logn, [&] {
+    cudaError_t r = cudaFuncSetAttribute(
+        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(sizeof(u64) << LOG_BLOCK_MAX));
+    int clusters = 0;
+    if (r == cudaSuccess)
+      r = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel,
+                                         &cfg);
+    if (r == cudaSuccess && clusters < 1) r = cudaErrorLaunchOutOfResources;
+    return r;
+  });
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernelEx(&cfg, kernel, io, tw);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <int CL>
+static int run_forward(const StageIO& io, const Twiddles& tw, int P,
+                       void* stream) {
+  return run_cluster<CL>(k_stage_fwd_block<CL>, P, io, tw, stream);
+}
+
+template <int CL>
+static int run_inverse(const StageIO& io, const Twiddles& tw, int P,
+                       void* stream) {
+  return run_cluster<CL>(k_stage_inv_block<CL>, P, io, tw, stream);
+}
+
 template <typename K, typename IO>
 static int launch_pairs(K kernel, long long total, void* stream, IO io,
                         Twiddles tw) {
@@ -403,8 +593,86 @@ static int launch_pairs(K kernel, long long total, void* stream, IO io,
   return (int)cudaGetLastError();
 }
 
+#else  // host build for the CPU tests: one thread per block, blocks in order
+
+// Each cluster in turn: phase A of its B blocks into B host buffers, then
+// phase B of each block.
+template <int CL>
+static int run_forward(const StageIO& io, const Twiddles& tw, int P, void*) {
+  const size_t nb = (size_t)1 << (io.logn - CL);
+  std::vector<u64> buf(nb << CL);
+  u64* peer[1 << CL];
+  for (int k = 0; k < (1 << CL); ++k) peer[k] = buf.data() + k * nb;
+  for (int p = 0; p < P; ++p) {
+    for (int j = 0; j < (1 << CL); ++j)
+      fwd_phase_a<CL>(io, tw, p, j, 0, 1, peer);
+    for (int j = 0; j < (1 << CL); ++j)
+      fwd_phase_b<CL>(io, tw, p, j, 0, 1, peer[j]);
+  }
+  return 0;
+}
+
+template <int CL>
+static int run_inverse(const StageIO& io, const Twiddles& tw, int P, void*) {
+  const size_t nb = (size_t)1 << (io.logn - CL);
+  std::vector<u64> buf(nb << CL);
+  u64* peer[1 << CL];
+  for (int k = 0; k < (1 << CL); ++k) peer[k] = buf.data() + k * nb;
+  for (int p = 0; p < P; ++p) {
+    for (int j = 0; j < (1 << CL); ++j)
+      inv_phase_a<CL>(io, tw, p, j, 0, 1, peer[j]);
+    for (int j = 0; j < (1 << CL); ++j)
+      inv_phase_b<CL>(io, tw, p, j, 0, 1, peer);
+  }
+  return 0;
+}
+
+#endif
+
+// log2 of the cluster size for B (0: the rule), or -1 where a launch of
+// 2^logn points cannot take B.
+static int cluster_log(int B, int logn) {
+  if (B == 0) return stage_cluster_log(logn);
+  int cl = 0;
+  while (cl < 4 && (1 << cl) != B) ++cl;
+  return cluster_ok(logn, cl) ? cl : -1;
+}
+
+// One direction's launch at cluster size 2^cl.
+static int run_stage(bool inverse, const StageIO& io, const Twiddles& tw,
+                     int P, int cl, void* stream) {
+  typedef int (*Run)(const StageIO&, const Twiddles&, int, void*);
+  static const Run runs[2][4] = {
+      {run_forward<0>, run_forward<1>, run_forward<2>, run_forward<3>},
+      {run_inverse<0>, run_inverse<1>, run_inverse<2>, run_inverse<3>}};
+  return runs[inverse][cl](io, tw, P, stream);
+}
+
+// The cluster size B (a power of two up to 8) the launchers take for
+// polynomials of 2^logn points, or 0 where no B fits.
+extern "C" int ntt_stage_cluster_size(int logn) {
+  if (logn < 1 || logn > LOG_BLOCK_MAX + 1) return 0;
+  return 1 << stage_cluster_log(logn);
+}
+
 // x, d, y, nu: prologue inputs; out (P, n).  pro: forward_pro().  mod_idx:
 // (P,) int32 moduli or null; logc, shard: the coefficient shard (0, 0).
+// cluster: B, or 0 for ntt_stage_cluster_size's.
+extern "C" int ntt_stage_forward_cluster(
+    const void* x, const void* d, const void* y, const void* nu, void* out,
+    const void* psi, const void* psi_sh, const void* ipsi,
+    const void* ipsi_sh, const void* consts, int pro, int P, int r, int logn,
+    const void* mod_idx, int logc, int shard, int cluster, void* stream) {
+  const int cl = cluster_log(cluster, logn);
+  if (!stage_args_ok(pro, P, r, 1, logn, mod_idx, logc, shard) ||
+      !forward_pro(pro) || cl < 0)
+    return NTT_EINVAL;
+  const StageIO io = stage_io(x, d, y, nullptr, nu, out, pro, 1, r, logn,
+                              mod_idx, logc, shard);
+  return run_stage(false, io, make_tw(psi, psi_sh, ipsi, ipsi_sh, consts),
+                   P, cl, stream);
+}
+
 extern "C" int ntt_stage_forward(const void* x, const void* d, const void* y,
                                  const void* nu, void* out, const void* psi,
                                  const void* psi_sh, const void* ipsi,
@@ -412,25 +680,29 @@ extern "C" int ntt_stage_forward(const void* x, const void* d, const void* y,
                                  int pro, int P, int r, int logn,
                                  const void* mod_idx, int logc, int shard,
                                  void* stream) {
-  if (!stage_args_ok(pro, P, r, 1, logn, mod_idx, logc, shard) ||
-      !forward_pro(pro))
-    return (int)cudaErrorInvalidValue;
-  const StageIO io = stage_io(x, d, y, nullptr, nu, out, pro, 1, r, logn,
-                              mod_idx, logc, shard);
-  const Twiddles tw = make_tw(psi, psi_sh, ipsi, ipsi_sh, consts);
-  const int split = logn > LOG_BLOCK_MAX;
-  if (split) {
-    const int rc = launch_pairs(k_stage_fwd_first,
-                                (long long)P << (logn - 1), stream, io, tw);
-    if (rc != 0) return rc;
-  }
-  return launch_poly(k_stage_fwd_block, P << split, logn - split, stream, io,
-                     tw);
+  return ntt_stage_forward_cluster(x, d, y, nu, out, psi, psi_sh, ipsi,
+                                   ipsi_sh, consts, pro, P, r, logn, mod_idx,
+                                   logc, shard, 0, stream);
 }
 
 // x, y, e: prologue and epilogue inputs; out (P, n).  pro: inverse_pro();
-// ny: PRO_MONT's y rows, PRO_KSACC's digit count k.  mod_idx, logc, shard
-// as the forward's (no e with mod_idx).
+// ny: PRO_MONT's y rows, PRO_KSACC's digit count k.  mod_idx, logc, shard,
+// cluster as the forward's (no e with mod_idx).
+extern "C" int ntt_stage_inverse_cluster(
+    const void* x, const void* y, const void* e, void* out, const void* psi,
+    const void* psi_sh, const void* ipsi, const void* ipsi_sh,
+    const void* consts, int pro, int ny, int P, int r, int logn,
+    const void* mod_idx, int logc, int shard, int cluster, void* stream) {
+  const int cl = cluster_log(cluster, logn);
+  if (!stage_args_ok(pro, P, r, ny, logn, mod_idx, logc, shard) ||
+      !inverse_pro(pro) || (mod_idx && e) || cl < 0)
+    return NTT_EINVAL;
+  const StageIO io = stage_io(x, nullptr, y, e, nullptr, out, pro, ny, r,
+                              logn, mod_idx, logc, shard);
+  return run_stage(true, io, make_tw(psi, psi_sh, ipsi, ipsi_sh, consts),
+                   P, cl, stream);
+}
+
 extern "C" int ntt_stage_inverse(const void* x, const void* y, const void* e,
                                  void* out, const void* psi,
                                  const void* psi_sh, const void* ipsi,
@@ -438,19 +710,12 @@ extern "C" int ntt_stage_inverse(const void* x, const void* y, const void* e,
                                  int pro, int ny, int P, int r, int logn,
                                  const void* mod_idx, int logc, int shard,
                                  void* stream) {
-  if (!stage_args_ok(pro, P, r, ny, logn, mod_idx, logc, shard) ||
-      !inverse_pro(pro) || (mod_idx && e))
-    return (int)cudaErrorInvalidValue;
-  const StageIO io = stage_io(x, nullptr, y, e, nullptr, out, pro, ny, r,
-                              logn, mod_idx, logc, shard);
-  const Twiddles tw = make_tw(psi, psi_sh, ipsi, ipsi_sh, consts);
-  const int split = logn > LOG_BLOCK_MAX;
-  const int rc = launch_poly(k_stage_inv_block, P << split, logn - split,
-                             stream, io, tw);
-  if (rc != 0 || !split) return rc;
-  return launch_pairs(k_stage_inv_last, (long long)P << (logn - 1), stream,
-                      io, tw);
+  return ntt_stage_inverse_cluster(x, y, e, out, psi, psi_sh, ipsi, ipsi_sh,
+                                   consts, pro, ny, P, r, logn, mod_idx, logc,
+                                   shard, 0, stream);
 }
+
+#ifdef __CUDACC__
 
 // One cross-shard stage of a shard's (P, n) polynomials x with its
 // partner's, into out; w: the stage's twiddle index, the tables the full
@@ -490,8 +755,7 @@ extern "C" int ntt_decrypt_fused(const void* x, const void* sk, const void* c0,
   const int nb = 1 << (logn - split);
   const int threads = ntt_threads(nb), blocks = rk << split;
   const size_t smem = (size_t)nb * sizeof(u64);
-  cudaError_t e = cudaFuncSetAttribute(
-      k_decrypt_fused, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = smem_limit_once((const void*)k_decrypt_fused);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
@@ -511,53 +775,7 @@ extern "C" int ntt_decrypt_fused(const void* x, const void* sk, const void* c0,
   return (int)cudaGetLastError();
 }
 
-#else  // host build for the CPU tests: one thread per block, blocks in order
-
-extern "C" int ntt_stage_forward(const void* x, const void* d, const void* y,
-                                 const void* nu, void* out, const void* psi,
-                                 const void* psi_sh, const void* ipsi,
-                                 const void* ipsi_sh, const void* consts,
-                                 int pro, int P, int r, int logn,
-                                 const void* mod_idx, int logc, int shard,
-                                 void*) {
-  if (!stage_args_ok(pro, P, r, 1, logn, mod_idx, logc, shard) ||
-      !forward_pro(pro))
-    return 1;
-  const StageIO io = stage_io(x, d, y, nullptr, nu, out, pro, 1, r, logn,
-                              mod_idx, logc, shard);
-  const Twiddles tw = make_tw(psi, psi_sh, ipsi, ipsi_sh, consts);
-  const int split = logn > LOG_BLOCK_MAX;
-  if (split)
-    for (long long k = 0; k < ((long long)P << (logn - 1)); ++k)
-      fwd_first_body(k, io, tw);
-  std::vector<u64> s((size_t)1 << (logn - split));
-  for (int b = 0; b < (P << split); ++b)
-    fwd_block_body(b, 0, 1, s.data(), io, tw);
-  return 0;
-}
-
-extern "C" int ntt_stage_inverse(const void* x, const void* y, const void* e,
-                                 void* out, const void* psi,
-                                 const void* psi_sh, const void* ipsi,
-                                 const void* ipsi_sh, const void* consts,
-                                 int pro, int ny, int P, int r, int logn,
-                                 const void* mod_idx, int logc, int shard,
-                                 void*) {
-  if (!stage_args_ok(pro, P, r, ny, logn, mod_idx, logc, shard) ||
-      !inverse_pro(pro) || (mod_idx && e))
-    return 1;
-  const StageIO io = stage_io(x, nullptr, y, e, nullptr, out, pro, ny, r,
-                              logn, mod_idx, logc, shard);
-  const Twiddles tw = make_tw(psi, psi_sh, ipsi, ipsi_sh, consts);
-  const int split = logn > LOG_BLOCK_MAX;
-  std::vector<u64> s((size_t)1 << (logn - split));
-  for (int b = 0; b < (P << split); ++b)
-    inv_block_body(b, 0, 1, s.data(), io, tw);
-  if (split)
-    for (long long k = 0; k < ((long long)P << (logn - 1)); ++k)
-      inv_last_body(k, io, tw);
-  return 0;
-}
+#else  // host build
 
 extern "C" int ntt_cross_stage(const void* x, const void* partner, void* out,
                                const void* psi, const void* psi_sh,

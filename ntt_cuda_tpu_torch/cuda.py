@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 BLOCK_MAX_N = 16384     # one u64 polynomial per block in shared memory:
 #                         128 KB
-TRANSFORM_MAX_N = 32768  # two 2^14 halves beside elementwise stage-0 passes
+TRANSFORM_MAX_N = 32768  # the stage kernels: one cluster of 2-8 blocks,
+#                          2^14 u64 at most each, per polynomial
 TRANSFORM30_MAX_N = 65536  # kernel 22 (u32): one block up to 2^15, two
 #                            2^15 halves beside stage-0 passes at 2^16
 
@@ -82,6 +83,11 @@ SIGNATURES = {
     # log2 C, shard
     "ntt_stage_inverse": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _P, _I, _I, _P),
+    # the same two with the cluster size B last (0: the launchers' rule)
+    "ntt_stage_forward_cluster": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _I, _I, _I, _P, _I, _I, _I, _P),
+    "ntt_stage_inverse_cluster": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _P, _I, _I, _I, _P),
     # x, partner, out, 4 tables, consts, inverse, u_side, w, P, r, log n,
     # log2 C
     "ntt_cross_stage": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -110,6 +116,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.ntt_error_string.argtypes = [ctypes.c_int]
     lib.ntt_error_string.restype = ctypes.c_char_p
+    lib.ntt_stage_cluster_size.argtypes = [ctypes.c_int]
+    lib.ntt_stage_cluster_size.restype = ctypes.c_int
     return lib
 
 

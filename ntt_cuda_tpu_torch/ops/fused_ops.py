@@ -245,7 +245,7 @@ def keyswitch_front(c2, ksk, tables: NTTTables) -> torch.Tensor:
     switch): c2 (k, n) or (J, k, n) digit sources, ksk (2, k, rl, n) key
     rows over the tables' rl moduli -> (2, rl, n) or (J, 2, rl, n)
     accumulators, with no modulus drop.  On the card kernel 19's first two
-    launches with r := rl (four at n = 32768)."""
+    launches with r := rl."""
     J, k = _front_args(c2, ksk, tables)
     if c2.device.type == "cpu":
         return keyswitch_front_plain(c2, ksk, tables)

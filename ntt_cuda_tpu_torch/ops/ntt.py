@@ -28,6 +28,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import cuda
 from ..utils import hostmath as hm
 from . import modmath
 from .modmath import I64, ModulusSet
@@ -85,6 +86,10 @@ class NTTTables:
 
     @staticmethod
     def build(qs, psis, n: int, device=None) -> "NTTTables":
+        """The tables of moduli qs with 2n-th roots psis on `device`: None
+        is the current CUDA device, and raises where there is none;
+        "cpu" for the plain versions."""
+        device = cuda.default_device(device, "NTTTables.build")
         host = np.stack([_host_tables(int(p), int(q), n)
                          for q, p in zip(qs, psis)])        # (r, 6, n)
         t = torch.from_numpy(host).to(device)
@@ -105,6 +110,8 @@ class NTTTables:
 
 
 def tables_for(params, count: int | None = None, device=None) -> NTTTables:
+    """NTTTables of params' first `count` moduli (all: None) on `device`
+    (None: the current CUDA device, as NTTTables.build)."""
     qs = params.q if count is None else params.q[:count]
     psis = params.psi if count is None else params.psi[:count]
     return NTTTables.build(qs, psis, params.n, device)

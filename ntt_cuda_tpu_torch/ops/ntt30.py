@@ -87,6 +87,9 @@ class NTTTables30:
 
     @staticmethod
     def build(qs, psis, n: int, device=None) -> "NTTTables30":
+        """The tables on `device`: None is the current CUDA device, and
+        raises where there is none; "cpu" for the plain versions."""
+        device = cuda.default_device(device, "NTTTables30.build")
         qs = [int(q) for q in qs]
         for q in qs:
             if not 2 < q < (1 << 30):

@@ -5,7 +5,8 @@ Counterpart of the public API of `ntt_cuda_tpu/ops/ntt_pallas.py`
 (`ntt_forward`, `ntt_inverse`, `ntt_inverse_mul`, `ntt_forward_ternary`,
 `ntt_forward_addneg_gauss`, `ntt_forward_addneg`), the kernels of the JAX
 package's `fusion="stage"` schedule and of its EvalMult path.  On a CUDA
-device each wrapper launches csrc/ntt_stage.cu (n <= 32768); on the CPU
+device each wrapper launches csrc/ntt_stage.cu (n <= 32768), one
+thread-block cluster per polynomial, one launch a transform; on the CPU
 it runs the plain version beside it, composed from ops/ntt.py,
 ops/poly.py and the compact-draw map of ops/sampling.py.
 
@@ -64,32 +65,42 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+def cluster_size(n: int) -> int:
+    """The thread-block cluster size B (blocks per polynomial) the stage
+    launchers take for polynomials of n points on the card: the rule of
+    csrc/ntt_stage.cu (ntt_stage_cluster_size)."""
+    return cuda.library().ntt_stage_cluster_size(n.bit_length() - 1)
+
+
 def forward_launch(dev, x, d, out, tables: NTTTables, pro: int, y=None,
-                   nu=None, mod_idx=None, logc: int = 0,
-                   shard: int = 0) -> None:
+                   nu=None, mod_idx=None, logc: int = 0, shard: int = 0,
+                   cluster: int = 0) -> None:
     """Launch the forward kernel with prologue `pro` (cuda.PRO_*) on
     prologue inputs x, d, y, nu into out (P, n'), where n' = n / 2^logc is
     shard `shard`'s width (n' = n unsharded); mod_idx (P,) int32 or None
-    (polynomial p has modulus p % r)."""
+    (polynomial p has modulus p % r).  cluster: the blocks per polynomial,
+    0 for the launcher's rule (cluster_size); a B the launch cannot take
+    raises."""
     n = tables.n >> logc
-    cuda.launch("ntt_stage_forward", dev, _ptr(x), _ptr(d), _ptr(y), _ptr(nu),
-                out.data_ptr(), *tables.kernel_args(), pro, out.numel() // n,
-                tables.r, n.bit_length() - 1, _ptr(mod_idx), logc, shard)
+    cuda.launch("ntt_stage_forward_cluster", dev, _ptr(x), _ptr(d), _ptr(y),
+                _ptr(nu), out.data_ptr(), *tables.kernel_args(), pro,
+                out.numel() // n, tables.r, n.bit_length() - 1,
+                _ptr(mod_idx), logc, shard, cluster)
 
 
 def inverse_launch(dev, x, y, e, out, tables: NTTTables, mod_idx=None,
-                   logc: int = 0, shard: int = 0) -> None:
+                   logc: int = 0, shard: int = 0, cluster: int = 0) -> None:
     """Launch the inverse kernel: out = INTT(x (.) y) (+> e) when y is
     given, else INTT(x).  y's rows are taken in turn per polynomial (row
-    p % rows), e's per message (row p / r).  mod_idx, logc and shard as
-    forward_launch's."""
+    p % rows), e's per message (row p / r).  mod_idx, logc, shard and
+    cluster as forward_launch's."""
     n = tables.n >> logc
     pro = cuda.PRO_COPY if y is None else cuda.PRO_MONT
     ny = 1 if y is None else y.numel() // n
-    cuda.launch("ntt_stage_inverse", dev, _ptr(x), _ptr(y), _ptr(e),
+    cuda.launch("ntt_stage_inverse_cluster", dev, _ptr(x), _ptr(y), _ptr(e),
                 out.data_ptr(), *tables.kernel_args(), pro, ny,
                 out.numel() // n, tables.r, n.bit_length() - 1,
-                _ptr(mod_idx), logc, shard)
+                _ptr(mod_idx), logc, shard, cluster)
 
 
 # --- kernel 12: a per-polynomial modulus index ------------------------------

@@ -8,8 +8,8 @@ per modulus); every stage below that boundary is one launch of the stage
 kernels (kernels 7 and 8, csrc/ntt_stage.cu) with the shard offset: the
 local transform's twiddle row [m, 2m) is the full table's row [m (C + c),
 m (C + c) + m), so the launch reads the full-n tables with the base C + c
-(at a local 2^15, the halves 2 (C + c) + h and the stage-0 pass psi[C +
-c]).  The TPU kernel gathers per-shard four-step tables instead
+(block j of a polynomial's cluster of B blocks: B (C + c) + j).  The TPU
+kernel gathers per-shard four-step tables instead
 (coef_pallas.py `_gather_shard_tables`, a tiling artefact); here there is
 no per-shard table.
 

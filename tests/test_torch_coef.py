@@ -74,8 +74,9 @@ def p4k():
            "invmul": jntt.ntt_inverse_jit(
                jntt.dyadic_mul_jit(jnp.asarray(x), jnp.asarray(y), jms), jt,
                jms)}
-    return (ntt.tables_for(convert.params_from(jp)), convert.to_torch(x),
-            convert.to_torch(y), {k: np.asarray(v) for k, v in ref.items()})
+    return (ntt.tables_for(convert.params_from(jp), device="cpu"),
+            convert.to_torch(x), convert.to_torch(y),
+            {k: np.asarray(v) for k, v in ref.items()})
 
 
 def _split(x, C):
@@ -205,7 +206,7 @@ def test_host_shard_offset_local_2p15(host_lib):
     """n = 65536 over C = 2: each shard's local 2^15 is the split schedule
     (one 55-bit modulus, a host call on tensors, no BFV)."""
     p = primegen.make_bfv_params(65536, 55, 1)
-    tb = ntt.tables_for(p)
+    tb = ntt.tables_for(p, device="cpu")
     rng = np.random.default_rng(65536)
     x, y = (torch.from_numpy(rng.integers(0, p.q[0], (1, p.n),
                                           dtype=np.int64))

@@ -25,7 +25,9 @@ import torch
 from ntt_cuda_tpu_torch import cuda, get_bfv_params
 from ntt_cuda_tpu_torch.models.bfv import BFVContext
 from ntt_cuda_tpu_torch.ops import (behz, behz_kernels, bfv_tail, fused_ops,
-                                    ntt, ntt30, ntt_stage, salsa20, sampling)
+                                    modmath, ntt, ntt30, ntt_stage, poly,
+                                    salsa20, sampling)
+from ntt_cuda_tpu_torch.parallel import coef_kernels, sharded
 from ntt_cuda_tpu_torch.params import BFVParams, get_params
 from ntt_cuda_tpu_torch.utils import primegen
 
@@ -282,48 +284,179 @@ def test_host_decrypt_tail(host_lib, params, J):
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("J", [1, 3])
-def test_host_stage_forward(host_lib, stage_ctx, J):
-    """Kernels 7 (forward), 9 and 10: every forward prologue."""
+# The stage launchers' cases: (J, B), B the cluster size (blocks per
+# polynomial, 0 for the launchers' rule).  The rule at J = 1 and 3 with the
+# three prologues of kernels 7, 9 and 10 (and 7, 8); at J = 1 also every B
+# with every prologue, mod_idx (kernel 12) and a shard offset (logc = 1,
+# shards 0 and 1).  A B that a launch cannot take (B = 1 at 2^15) must be
+# refused.
+STAGE_CASES = [(1, 0), (3, 0), (1, 1), (1, 2), (1, 4), (1, 8)]
+STAGE_IDS = ["1", "3", "1-B1", "1-B2", "1-B4", "1-B8"]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _takes(B, n):
+    """Whether the stage launchers take cluster size B at n points."""
+    return B == 0 or (2 <= n // B <= 16384)
+
+
+def _host_stage(host_lib, inverse, B, out, tb, pro, P, logn, x=None, d=None,
+                y=None, e=None, nu=None, ny=1, mod_idx=None, logc=0,
+                shard=0):
+    """One host-built stage launch through the rule's entry point (B = 0)
+    or the one that takes B; its return code."""
+    if inverse:
+        args = (_ptr(x), _ptr(y), _ptr(e), out.data_ptr(), *tb.kernel_args(),
+                pro, ny, P, tb.r, logn, _ptr(mod_idx), logc, shard)
+        fn = "ntt_stage_inverse"
+    else:
+        args = (_ptr(x), _ptr(d), _ptr(y), _ptr(nu), out.data_ptr(),
+                *tb.kernel_args(), pro, P, tb.r, logn, _ptr(mod_idx), logc,
+                shard)
+        fn = "ntt_stage_forward"
+    if B == 0:
+        return getattr(host_lib, fn)(*args, None)
+    return getattr(host_lib, fn + "_cluster")(*args, B, None)
+
+
+# plain results by (set, direction, J, case): every B of a case has the
+# same seeded inputs, so the plain version runs once per case
+_PLAIN = {}
+
+
+def _check_host_stage(host_lib, key, inverse, B, n, plain, shape, **kw):
+    """The launch into a fresh (shape) output equals plain() exactly, or is
+    refused where B does not fit n points."""
+    out = torch.empty(shape, dtype=torch.int64)
+    logn = n.bit_length() - 1
+    rc = _host_stage(host_lib, inverse, B, out, pro=kw.pop("pro"),
+                     P=out.numel() // n, logn=logn, **kw)
+    if not _takes(B, n):
+        assert rc != 0
+        return
+    assert rc == 0
+    if key not in _PLAIN:
+        _PLAIN[key] = plain()
+    torch.testing.assert_close(out, _PLAIN[key], rtol=0, atol=0)
+
+
+def _mod_idx_case(rng, p):
+    """A permuted index over B = 2r + 1 polynomials and their residues."""
+    idx = torch.from_numpy(
+        rng.permutation(np.arange(2 * p.r + 1) % p.r).astype(np.int32))
+    x = torch.from_numpy(np.stack([rng.integers(0, p.q[i], p.n)
+                                   for i in idx.tolist()]))
+    return idx, x
+
+
+@pytest.mark.parametrize("J,B", STAGE_CASES, ids=STAGE_IDS)
+def test_host_stage_forward(host_lib, stage_ctx, J, B):
+    """Kernels 7 (forward), 9 and 10: every forward prologue; at J = 1 also
+    11's and 19's, kernel 12's mod_idx and the shard offset."""
     p, tb = stage_ctx.params, stage_ctx.tables_full
+    n, r = p.n, p.r
     rng = np.random.default_rng(30 + J)
-    x = _rand_res(rng, p.q, p.n, (J,))
-    d = torch.from_numpy(rng.integers(-19, 17, (J, p.n)).astype(np.int32))
+    x = _rand_res(rng, p.q, n, (J,))
+    d = torch.from_numpy(rng.integers(-19, 17, (J, n)).astype(np.int32))
     d[:, :3] = torch.tensor([1, -1, 2])
     x[:, :, 0] = torch.tensor(p.q) - 1   # x + e == q: the 0 fixup
-    cases = [(cuda.PRO_COPY, x, None,
-              lambda: ntt_stage.ntt_forward_plain(x, tb)),
-             (cuda.PRO_TERNARY, None, d.clamp(-1, 2),
-              lambda: ntt_stage.ntt_forward_ternary_plain(d.clamp(-1, 2), tb)),
-             (cuda.PRO_ADDNEG_GAUSS, x, d,
-              lambda: ntt_stage.ntt_forward_addneg_gauss_plain(x, d, tb))]
-    for pro, xin, din, plain in cases:
-        out = torch.empty_like(x)
-        assert host_lib.ntt_stage_forward(
-            None if xin is None else xin.data_ptr(),
-            None if din is None else din.data_ptr(), None, None,
-            out.data_ptr(), *tb.kernel_args(), pro, J * p.r, p.r, p.logn,
-            None, 0, 0, None) == 0
-        torch.testing.assert_close(out, plain(), rtol=0, atol=0)
+    t = d.clamp(-1, 2)
+    key = lambda case: (p.name, "fwd", J, case)
+    chk = lambda case, plain, **kw: _check_host_stage(
+        host_lib, key(case), False, B, n, plain, x.shape, tb=tb, **kw)
+    chk("copy", lambda: ntt_stage.ntt_forward_plain(x, tb),
+        pro=cuda.PRO_COPY, x=x)
+    chk("ternary", lambda: ntt_stage.ntt_forward_ternary_plain(t, tb),
+        pro=cuda.PRO_TERNARY, d=t)
+    chk("addneg_gauss",
+        lambda: ntt_stage.ntt_forward_addneg_gauss_plain(x, d, tb),
+        pro=cuda.PRO_ADDNEG_GAUSS, x=x, d=d)
+    if J != 1:
+        return
+    e = _rand_res(rng, p.q, n, (J,))
+    e[:, :, 0] = 1                        # x + e == q
+    chk("addneg", lambda: ntt_stage.ntt_forward_addneg_plain(x, e, tb),
+        pro=cuda.PRO_ADDNEG, x=x, y=e)
+    c2 = torch.from_numpy(rng.integers(0, max(p.q), (2, n)))  # digit rows
+    _check_host_stage(
+        host_lib, key("digit"), False, B, n,
+        lambda: ntt.ntt_forward(modmath.mod_u64(c2[:, None, :], tb.ms.q,
+                                                tb.ms.nu), tb),
+        (2, r, n), tb=tb, pro=cuda.PRO_DIGIT, x=c2, nu=tb.ms.nu)
+    idx, xi = _mod_idx_case(rng, p)
+    _check_host_stage(
+        host_lib, key("mod_idx"), False, B, n,
+        lambda: ntt_stage.ntt_transform_idx_plain(xi, tb, idx), xi.shape,
+        tb=tb, pro=cuda.PRO_COPY, x=xi, mod_idx=idx)
+    for c in (0, 1):
+        xs = _rand_res(rng, p.q, n // 2)
+        _check_host_stage(
+            host_lib, key(f"shard{c}"), False, B, n // 2,
+            lambda: sharded.local_forward_stages(xs, tb, 2, c), xs.shape,
+            tb=tb, pro=cuda.PRO_COPY, x=xs, logc=1, shard=c)
 
 
-@pytest.mark.parametrize("J", [1, 3])
-def test_host_stage_inverse(host_lib, stage_ctx, J):
-    """Kernels 7 (inverse) and 8, y shared by the J messages or not."""
+@pytest.mark.parametrize("J,B", STAGE_CASES, ids=STAGE_IDS)
+def test_host_stage_inverse(host_lib, stage_ctx, J, B):
+    """Kernels 7 (inverse) and 8, y shared by the J messages or not; at
+    J = 1 also 13's +e epilogue, 19's PRO_KSACC, kernel 12's mod_idx and
+    the shard offset."""
     p, tb = stage_ctx.params, stage_ctx.tables_full
+    n, r, ms = p.n, p.r, tb.ms
     rng = np.random.default_rng(40 + J)
-    x = _rand_res(rng, p.q, p.n, (J,))
-    for y in (None, _rand_res(rng, p.q, p.n), _rand_res(rng, p.q, p.n, (J,))):
-        out = torch.empty_like(x)
-        pro = cuda.PRO_COPY if y is None else cuda.PRO_MONT
-        ny = 1 if y is None else y.numel() // p.n
-        assert host_lib.ntt_stage_inverse(
-            x.data_ptr(), None if y is None else y.data_ptr(), None,
-            out.data_ptr(), *tb.kernel_args(), pro, ny, J * p.r, p.r, p.logn,
-            None, 0, 0, None) == 0
-        ref = (ntt_stage.ntt_inverse_plain(x, tb) if y is None else
-               ntt_stage.ntt_inverse_mul_plain(x, y, tb))
-        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    x = _rand_res(rng, p.q, n, (J,))
+    key = lambda case: (p.name, "inv", J, case)
+    for i, y in enumerate((None, _rand_res(rng, p.q, n),
+                           _rand_res(rng, p.q, n, (J,)))):
+        _check_host_stage(
+            host_lib, key(f"y{i}"), True, B, n,
+            (lambda: ntt_stage.ntt_inverse_plain(x, tb)) if y is None else
+            (lambda: ntt_stage.ntt_inverse_mul_plain(x, y, tb)), x.shape,
+            tb=tb, pro=cuda.PRO_COPY if y is None else cuda.PRO_MONT, x=x,
+            y=y, ny=1 if y is None else y.numel() // n)
+    if J != 1:
+        return
+    pk, u = _rand_res(rng, p.q, n, (2,)), _rand_res(rng, p.q, n)
+    e2 = torch.from_numpy(rng.integers(-19, 17, (2, n)).astype(np.int32))
+    _check_host_stage(
+        host_lib, key("mont_e"), True, B, n,
+        lambda: poly.poly_add(ntt.ntt_inverse(ntt.dyadic_mul(u[None], pk, ms),
+                                              tb),
+                              sampling.small_res(e2, ms.q), ms),
+        pk.shape, tb=tb, pro=cuda.PRO_MONT, x=pk, y=u, e=e2, ny=r)
+    k = 2
+    c2 = torch.from_numpy(rng.integers(0, max(p.q), (k, n)))
+    ksk = _rand_res(rng, p.q, n, (2, k))
+    dhat = ntt.ntt_forward(modmath.mod_u64(c2[:, None, :], ms.q, ms.nu), tb)
+    _check_host_stage(
+        host_lib, key("ksacc"), True, B, n,
+        lambda: fused_ops.keyswitch_front_plain(c2, ksk, tb), (2, r, n),
+        tb=tb, pro=cuda.PRO_KSACC, x=dhat, y=ksk, ny=k)
+    idx, xi = _mod_idx_case(rng, p)
+    _check_host_stage(
+        host_lib, key("mod_idx"), True, B, n,
+        lambda: ntt_stage.ntt_transform_idx_plain(xi, tb, idx, inverse=True),
+        xi.shape, tb=tb, pro=cuda.PRO_COPY, x=xi, mod_idx=idx)
+    for c in (0, 1):
+        xs, ys = _rand_res(rng, p.q, n // 2), _rand_res(rng, p.q, n // 2)
+        _check_host_stage(
+            host_lib, key(f"shard{c}"), True, B, n // 2,
+            lambda: coef_kernels.local_inverse_mul_plain(xs, ys, tb, 2, c),
+            xs.shape, tb=tb, pro=cuda.PRO_MONT, x=xs, y=ys, ny=r, logc=1,
+            shard=c)
+
+
+def test_host_stage_cluster_rule(host_lib):
+    """The launchers' rule: the largest cluster size B <= 8 a launch of n
+    points takes (a block holds 2 to 2^14 points); none past 2^15."""
+    for logn, B in ((15, 8), (14, 8), (12, 8), (4, 8), (3, 4), (2, 2),
+                    (1, 1)):
+        assert host_lib.ntt_stage_cluster_size(logn) == B, logn
+    for logn in (0, 16):
+        assert host_lib.ntt_stage_cluster_size(logn) == 0
 
 
 def test_host_stage_encrypt(host_lib, stage_ctx):
@@ -485,7 +618,7 @@ def test_host_stage_bsk_tables(host_lib, stage_ctx):
     """Kernels 7 and 8 over Bsk (60-bit moduli, new to the transforms)."""
     p = stage_ctx.params
     aux = behz.AuxBase.build(p)
-    tb = ntt.NTTTables.build(aux.bsk, aux.bsk_psi, p.n)
+    tb = ntt.NTTTables.build(aux.bsk, aux.bsk_psi, p.n, device="cpu")
     rng = np.random.default_rng(90)
     x = _rand_res(rng, aux.bsk, p.n, (2,))
     y = _rand_res(rng, aux.bsk, p.n, (2,))
@@ -519,7 +652,7 @@ def _tables30(n, two_moduli=False):
     else:
         q, psi, *_ = get_params(n, "30bit")
         qs, psis = [q], [psi]
-    return ntt30.NTTTables30.build(qs, psis, n)
+    return ntt30.NTTTables30.build(qs, psis, n, device="cpu")
 
 
 def _rand30(rng, tb, polys):
@@ -643,6 +776,68 @@ def test_cuda_stage_kernels_match_plain(cuda_device, name):
     e2 = e2.to(cuda_device)
     assert torch.equal(bfv_tail.encrypt_fused(u_ntt, pk, e2, m, tb, tc),
                        bfv_tail.encrypt_fused_plain(u_ntt, pk, e2, m, tb, tc))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [2, 4, 8])
+def test_cuda_stage_cluster_sizes_match_plain(cuda_device, B):
+    """At 32k_9q, every stage row through the launchers at cluster size B:
+    7 both ways, 8, 9, 10, 11, 12 both ways, 13's transform (+e), 19/20's
+    PRO_DIGIT and PRO_KSACC launches and the shard offsets (C = 2, 4)."""
+    p, dev = get_bfv_params("32k_9q"), cuda_device
+    tb = ntt.tables_for(p, device=dev)
+    ms, n, r, k = tb.ms, p.n, p.r, p.r - 1
+    rng = np.random.default_rng(B)
+    x, y, e = (_rand_res(rng, p.q, n).to(dev) for _ in range(3))
+    d = torch.from_numpy(rng.integers(-19, 17, (2, n)).astype(np.int32))
+    d, t = d.to(dev), d[0].clamp(-1, 2).to(dev)
+    pk, ksk = (_rand_res(rng, p.q, n, lead).to(dev) for lead in ((2,), (2, k)))
+    c2 = torch.from_numpy(rng.integers(0, max(p.q), (k, n))).to(dev)
+    idx, xi = _mod_idx_case(rng, p)
+    xi, idx_d = xi.to(dev), idx.to(dev)
+    fl = lambda *a, **kw: ntt_stage.forward_launch(dev, *a, cluster=B, **kw)
+    il = lambda *a, **kw: ntt_stage.inverse_launch(dev, *a, cluster=B, **kw)
+
+    def run(launch, ref):
+        out = torch.empty_like(ref)
+        launch(out)
+        assert torch.equal(out, ref)
+
+    run(lambda o: fl(x, None, o, tb, cuda.PRO_COPY),
+        ntt_stage.ntt_forward_plain(x, tb))
+    run(lambda o: il(x, None, None, o, tb), ntt_stage.ntt_inverse_plain(x, tb))
+    run(lambda o: il(x, y, None, o, tb),
+        ntt_stage.ntt_inverse_mul_plain(x, y, tb))
+    run(lambda o: fl(None, t, o, tb, cuda.PRO_TERNARY),
+        ntt_stage.ntt_forward_ternary_plain(t, tb))
+    run(lambda o: fl(x, d[1].contiguous(), o, tb, cuda.PRO_ADDNEG_GAUSS),
+        ntt_stage.ntt_forward_addneg_gauss_plain(x, d[1], tb))
+    run(lambda o: fl(x, None, o, tb, cuda.PRO_ADDNEG, y=e),
+        ntt_stage.ntt_forward_addneg_plain(x, e, tb))
+    run(lambda o: fl(xi, None, o, tb, cuda.PRO_COPY, mod_idx=idx_d),
+        ntt_stage.ntt_transform_idx_plain(xi, tb, idx))
+    run(lambda o: il(xi, None, None, o, tb, mod_idx=idx_d),
+        ntt_stage.ntt_transform_idx_plain(xi, tb, idx, inverse=True))
+    run(lambda o: il(pk, y, d, o, tb),
+        poly.poly_add(ntt.ntt_inverse(ntt.dyadic_mul(y[None], pk, ms), tb),
+                      sampling.small_res(d, ms.q), ms))
+    dhat = torch.empty((k, r, n), dtype=torch.int64, device=dev)
+    fl(c2, None, dhat, tb, cuda.PRO_DIGIT, nu=ms.nu)
+    run(lambda o: cuda.launch(
+        "ntt_stage_inverse_cluster", dev, dhat.data_ptr(), ksk.data_ptr(),
+        None, o.data_ptr(), *tb.kernel_args(), cuda.PRO_KSACC, k, 2 * r, r,
+        p.logn, None, 0, 0, B), fused_ops.keyswitch_front_plain(c2, ksk, tb))
+    for C in (2, 4):
+        S, logc = n // C, C.bit_length() - 1
+        for c in range(C):
+            xs = x[:, c * S:(c + 1) * S].contiguous()
+            ys = y[:, c * S:(c + 1) * S].contiguous()
+            run(lambda o: fl(xs, None, o, tb, cuda.PRO_COPY, logc=logc,
+                             shard=c),
+                sharded.local_forward_stages(xs, tb, C, c))
+            run(lambda o: il(xs, ys, None, o, tb, logc=logc, shard=c),
+                coef_kernels.local_inverse_mul_plain(xs, ys, tb, C, c))
     torch.cuda.synchronize()
 
 
@@ -773,7 +968,6 @@ def test_cuda_shard_offset_matches_plain(cuda_device, C):
     shard offset) against their plain versions on the same inputs, and
     the assembled result against the plain whole transform and kernels 7
     and 8 on the whole."""
-    from ntt_cuda_tpu_torch.parallel import coef_kernels, sharded
     p = get_bfv_params("32k_9q")
     tb = ntt.tables_for(p, device=cuda_device)
     rng = np.random.default_rng(C)

@@ -7,14 +7,16 @@ comparison is exact.
 
 import numpy as np
 import pytest
+import torch
 import jax.numpy as jnp
 
 from ntt_cuda_tpu.ops import ntt as jntt
 from ntt_cuda_tpu.ops import modmath as jmm
 from ntt_cuda_tpu.params import get_bfv_params as jget
 from ntt_cuda_tpu.utils import golden, primegen
-from ntt_cuda_tpu_torch import convert
-from ntt_cuda_tpu_torch.ops import ntt
+from ntt_cuda_tpu_torch import convert, get_bfv_params
+from ntt_cuda_tpu_torch.ops import ntt, ntt30
+from ntt_cuda_tpu_torch.params import get_params
 from ntt_cuda_tpu_torch.utils import hostmath as thm
 
 SETS = {
@@ -26,7 +28,7 @@ SETS = {
 @pytest.fixture(scope="module", params=sorted(SETS))
 def pair(request):
     jp = SETS[request.param]()
-    return jp, ntt.tables_for(convert.params_from(jp))
+    return jp, ntt.tables_for(convert.params_from(jp), device="cpu")
 
 
 def _rand(rng, qs, n, lead=()):
@@ -84,7 +86,7 @@ def test_dyadic_matches_jax(pair):
 
 def test_forward_matches_golden_and_schoolbook():
     jp = SETS["gen_1024"]()
-    tb = ntt.tables_for(convert.params_from(jp))
+    tb = ntt.tables_for(convert.params_from(jp), device="cpu")
     rng = np.random.default_rng(9)
     a, b = _rand(rng, jp.q, jp.n), _rand(rng, jp.q, jp.n)
     fwd = convert.to_numpy(ntt.ntt_forward(convert.to_torch(a), tb))
@@ -130,3 +132,23 @@ def test_poly_scalar_helpers_match_jax(pair):
     got = poly.poly_mul_scalar_mod_t(convert.to_torch(a), c, t)
     ref = jpoly.poly_mul_scalar_mod_t(jnp.asarray(a), c, t)
     np.testing.assert_array_equal(convert.to_numpy(got), np.asarray(ref))
+
+
+def test_tables_default_to_the_card(monkeypatch):
+    """NTTTables.build, tables_for and NTTTables30.build with no device are
+    the current CUDA device, as BFVContext.build: with no card they raise
+    rather than land on the CPU; "cpu" is asked for by name."""
+    p = get_bfv_params("4k_3q")
+    q30, psi30, *_ = get_params(2048, "30bit")
+    builds = (lambda: ntt.tables_for(p),
+              lambda: ntt.NTTTables.build(p.q, p.psi, p.n),
+              lambda: ntt30.NTTTables30.build([q30], [psi30], 2048))
+    if torch.cuda.is_available():
+        assert all(b().device.type == "cuda" for b in builds)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in builds:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    assert ntt.tables_for(p, device="cpu").device.type == "cpu"
+    assert ntt30.NTTTables30.build([q30], [psi30], 2048,
+                                   device="cpu").device.type == "cpu"

@@ -58,7 +58,7 @@ def _residues(n, lead, seed):
 @pytest.mark.parametrize("n", [2048, 8192, 32768, 65536])
 def test_plain_matches_xla(n):
     q, psi = _family(n)
-    t30 = ntt30.NTTTables30.build([q], [psi], n)
+    t30 = ntt30.NTTTables30.build([q], [psi], n, device="cpu")
     jt = jntt.NTTTables.build([q], [psi], n)
     jms = jmm.ModulusSet.from_moduli([q])
     x = _residues(n, (1,), n)
@@ -74,7 +74,7 @@ def test_plain_matches_xla(n):
 def test_plain_matches_pallas_interpret():
     n = 2048
     q, psi = _family(n)
-    t30 = ntt30.NTTTables30.build([q], [psi], n)
+    t30 = ntt30.NTTTables30.build([q], [psi], n, device="cpu")
     jt30 = ntt_pallas30.FourStepTables30.build([q], [psi], n)
     x = _residues(n, (2, 1), 7)
     ref_f = np.asarray(ntt_pallas30.ntt_forward(jnp.asarray(x), jt30,
@@ -92,7 +92,7 @@ def test_dtype_contract_on_a_batch():
     the JAX xla transform of the batch (as test_ntt_pallas30's u32 case)."""
     n = 4096
     q, psi = _family(n)
-    t30 = ntt30.NTTTables30.build([q], [psi], n)
+    t30 = ntt30.NTTTables30.build([q], [psi], n, device="cpu")
     x = _residues(n, (3, 1), 11)
     ref = np.asarray(jntt.ntt_forward_jit(
         jnp.asarray(x), jntt.NTTTables.build([q], [psi], n),
@@ -111,7 +111,7 @@ def test_dtype_contract_on_a_batch():
 
 def test_contract_refusals():
     n = 2048
-    t2 = ntt30.NTTTables30.build(*_two_moduli(n), n)
+    t2 = ntt30.NTTTables30.build(*_two_moduli(n), n, device="cpu")
     x = torch.zeros((3, n), dtype=torch.int64)
     with pytest.raises(ValueError, match="multiple of r=2"):
         ntt30.ntt_forward(x, t2)
@@ -120,7 +120,8 @@ def test_contract_refusals():
     with pytest.raises(TypeError, match="int32 or int64"):
         ntt30.ntt_inverse(torch.zeros((2, n), dtype=torch.float64), t2)
     with pytest.raises(ValueError, match="q < 2\\^30"):
-        ntt30.NTTTables30.build([get_params(n)[0]], [get_params(n)[1]], n)
+        ntt30.NTTTables30.build([get_params(n)[0]], [get_params(n)[1]], n,
+                                device="cpu")
     with pytest.raises(ValueError, match="no kernel for meta"):
         ntt30.ntt_forward(torch.zeros((2, n), dtype=torch.int64,
                                       device="meta"), t2)
@@ -131,13 +132,13 @@ def test_two_moduli_rows_take_modulus_p_mod_r():
     transformed alone."""
     n = 2048
     qs, psis = _two_moduli(n)
-    t2 = ntt30.NTTTables30.build(qs, psis, n)
+    t2 = ntt30.NTTTables30.build(qs, psis, n, device="cpu")
     rng = np.random.default_rng(5)
     x = torch.from_numpy(np.stack(
         [rng.integers(0, qq, (2, n)) for qq in qs], axis=1))
     got = ntt30.ntt_forward(x, t2)
     for i, (qq, pp) in enumerate(zip(qs, psis)):
-        one = ntt30.NTTTables30.build([qq], [pp], n)
+        one = ntt30.NTTTables30.build([qq], [pp], n, device="cpu")
         assert torch.equal(got[:, i], ntt30.ntt_forward(x[:, i], one))
     assert torch.equal(ntt30.ntt_inverse(got, t2), x)
 
@@ -146,7 +147,7 @@ def test_n65536_roundtrip():
     """The size only the 30-bit family publishes (parameter.h:129-136)."""
     n = 65536
     q, psi = _family(n)
-    t30 = ntt30.NTTTables30.build([q], [psi], n)
+    t30 = ntt30.NTTTables30.build([q], [psi], n, device="cpu")
     x = torch.from_numpy(_residues(n, (2, 1), 3).astype(np.int32))
     f = ntt30.ntt_forward(x, t30)
     assert not torch.equal(f, x)

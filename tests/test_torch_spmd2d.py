@@ -89,7 +89,7 @@ def _pipeline(R: int, C: int, rank: int, out: Path) -> None:
                convert.to_dtensor(ins["sk"], pod, 0, 1),
                convert.to_dtensor(ins["ct_padded"], pod, 1, 2))}
     arrays = {k: convert.from_dtensor(v) for k, v in res.items()}
-    full = ntt.tables_for(p)
+    full = ntt.tables_for(p, device="cpu")
     ref_inv = ntt.ntt_inverse(x, full)[blk]
     if not (torch.equal(fwd, ntt.ntt_forward(x, full)[blk]) and
             torch.equal(inv, ref_inv) and torch.equal(inv_k, ref_inv)):

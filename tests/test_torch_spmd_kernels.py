@@ -110,7 +110,7 @@ def test_encrypt_front_plain_matches_jax(sets, band, rng):
     pk = _rand_rows(rng, jp.q[lo:hi], N, (2,))
     ftab = _band_tables(J.ntt_pallas.tables_for(jp), jp.r, lo, hi)
     ref = J.fused.encrypt_front(u_b, J.jnp.asarray(pk), ftab, interpret=True)
-    tb = ntt.NTTTables.build(pp.q[lo:hi], pp.psi[lo:hi], N)
+    tb = ntt.NTTTables.build(pp.q[lo:hi], pp.psi[lo:hi], N, device="cpu")
     got = fused_ops.encrypt_front(torch.from_numpy(np.array(u_b)), _t(pk),
                                   tb)
     np.testing.assert_array_equal(convert.to_numpy(got), _u64(ref))
@@ -271,12 +271,12 @@ def test_summed_partials_equal_decrypt_tail_r16_R8(t, rng):
 @pytest.mark.parametrize("nonce", [0, 3])
 def test_keygen_draws_rank_are_rows_of_the_full_draw(nonce):
     pp = convert.params_from(_jax_params())
-    full = ntt.tables_for(pp).ms
+    full = ntt.tables_for(pp, device="cpu").ms
     s_b, a, e_d = sampling.keygen_draws_compact(N, pp.r, full, nonce=nonce)
     for rl in (1, 2, 4):
         for lo in range(0, pp.r, rl):
             ms = ntt.NTTTables.build(pp.q[lo:lo + rl], pp.psi[lo:lo + rl],
-                                     N).ms
+                                     N, device="cpu").ms
             got = sampling.keygen_draws_rank(N, pp.r, lo, lo + rl, ms,
                                              nonce=nonce)
             for g, w in zip(got, (s_b, a[lo:lo + rl], e_d)):
@@ -326,7 +326,7 @@ def test_host_encrypt_front(host_lib, where, rng):
         pp, (lo, hi) = get_bfv_params("32k_9q"), (6, 9)
     else:
         pp, (lo, hi) = convert.params_from(_jax_params()), (2, 4)
-    tb = ntt.NTTTables.build(pp.q[lo:hi], pp.psi[lo:hi], pp.n)
+    tb = ntt.NTTTables.build(pp.q[lo:hi], pp.psi[lo:hi], pp.n, device="cpu")
     u_b, _ = sampling.encrypt_draws_compact(pp.n, nonce=5, device="cpu")
     pk = _t(_rand_rows(rng, pp.q[lo:hi], pp.n, (2,)))
     assert torch.equal(_host_front(host_lib, u_b, pk, tb),

@@ -214,7 +214,7 @@ def test_keyswitch_front_plain_matches_jax(jax_refs, band):
     pp, c2, ksk = _ks_inputs(band)
     row0, rl = band
     tb = ntt.NTTTables.build(pp.q[row0:row0 + rl], pp.psi[row0:row0 + rl],
-                             KS_N)
+                             KS_N, device="cpu")
     got = fused_ops.keyswitch_front(_t(c2), _t(ksk), tb)
     ref = np.load(jax_refs / f"ks_{row0}_{rl}.npz")["ks"]
     np.testing.assert_array_equal(convert.to_numpy(got), ref)
@@ -285,13 +285,13 @@ def test_spmd_mult_consts_match_jax(name):
 def test_key_draws_rank_are_rows_of_the_full_draws(nonce):
     pp, _, _ = _consts("r4")
     n, r, k = pp.n, pp.r, pp.r - 1
-    full = ntt.tables_for(pp).ms
+    full = ntt.tables_for(pp, device="cpu").ms
     a, e = sampling.relin_draws(n, r, k, full, nonce=nonce)
     ga, ge = sampling.galois_draws(n, r, k, [3, 2 * n - 1], full, nonce=nonce)
     for rl in (1, 2, 4):
         for lo in range(0, r, rl):
             sl = slice(lo, lo + rl)
-            ms = ntt.NTTTables.build(pp.q[sl], pp.psi[sl], n).ms
+            ms = ntt.NTTTables.build(pp.q[sl], pp.psi[sl], n, device="cpu").ms
             got = sampling.relin_draws_rank(n, r, k, lo, lo + rl, ms,
                                             nonce=nonce)
             assert torch.equal(got[0], a[:, sl])
@@ -365,7 +365,7 @@ def test_host_keyswitch_front(host_lib, where, rng):
     else:
         pp, (lo, hi), J = _consts("r4")[0], (2, 4), 2
     k, n, rl = pp.r - 1, pp.n, hi - lo
-    tb = ntt.NTTTables.build(pp.q[lo:hi], pp.psi[lo:hi], n)
+    tb = ntt.NTTTables.build(pp.q[lo:hi], pp.psi[lo:hi], n, device="cpu")
     c2 = _t(_rand_rows(rng, pp.q[:k], n, (J,)))
     ksk = _t(np.stack([_rand_rows(rng, pp.q[lo:hi], n, (k,))
                        for _ in range(2)]))

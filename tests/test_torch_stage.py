@@ -165,7 +165,7 @@ def test_plain_transforms_at_32k(moduli):
     qs = [jp.q[i] for i in moduli]
     psis = [jp.psi[i] for i in moduli]
     jt, jms = jntt.NTTTables.build(qs, psis, jp.n), jmm.ModulusSet.from_moduli(qs)
-    tb = ntt.NTTTables.build(qs, psis, jp.n)
+    tb = ntt.NTTTables.build(qs, psis, jp.n, device="cpu")
     x = _rand(np.random.default_rng(7), qs, jp.n)
     fwd = np.asarray(jntt.ntt_forward_jit(jnp.asarray(x), jt, jms))
     _eq(ntt_stage.ntt_forward_plain(convert.to_torch(x), tb), fwd)

@@ -96,7 +96,7 @@ def test_mod_idx_plain_matches_jax(name, inverse):
     jms = jmm.ModulusSet.from_moduli(qs)
     ref = (jntt.ntt_inverse_jit if inverse else jntt.ntt_forward_jit)(
         jnp.asarray(x), jt, jms)
-    tb = ntt.tables_for(convert.params_from(jp))
+    tb = ntt.tables_for(convert.params_from(jp), device="cpu")
     fn = ntt_stage.ntt_inverse if inverse else ntt_stage.ntt_forward
     got = fn(convert.to_torch(x).reshape(1, -1, jp.n), tb,
              mod_idx=torch.from_numpy(idx))
@@ -113,15 +113,15 @@ def test_mod_idx_plain_matches_pallas_interpret():
                   for i in idx])
     ref = jpallas.ntt_forward(jnp.asarray(x), jpallas.tables_for(jp),
                               mod_idx=idx, interpret=True)
-    got = ntt_stage.ntt_forward(convert.to_torch(x),
-                                ntt.tables_for(convert.params_from(jp)),
-                                mod_idx=idx)
+    got = ntt_stage.ntt_forward(
+        convert.to_torch(x),
+        ntt.tables_for(convert.params_from(jp), device="cpu"), mod_idx=idx)
     np.testing.assert_array_equal(convert.to_numpy(got), np.asarray(ref))
 
 
 def test_mod_idx_refusals():
     p = get_bfv_params("4k_3q")
-    tb = ntt.tables_for(p)
+    tb = ntt.tables_for(p, device="cpu")
     x = torch.zeros((5, p.n), dtype=torch.int64)
     with pytest.raises(ValueError, match="outside"):
         ntt_stage.ntt_forward(x, tb, mod_idx=[0, 1, 2, 3, 0])
@@ -171,7 +171,8 @@ def test_decrypt_fused_golden_matches_jax():
     p = convert.params_from(jp)
     got = bfv_tail.decrypt_fused(
         convert.to_torch(x), convert.to_torch(sk), convert.to_torch(c0),
-        ntt.tables_for(p, p.r - 1), bfv_tail.DecTailConsts.build(p))
+        ntt.tables_for(p, p.r - 1, device="cpu"),
+        bfv_tail.DecTailConsts.build(p))
     np.testing.assert_array_equal(convert.to_numpy(got), ref)
     np.testing.assert_array_equal(ref, np.arange(p.n) % 10)
 
@@ -184,7 +185,7 @@ HOST_SETS = ("4k_3q", "32k_9q")
 @pytest.mark.parametrize("name", HOST_SETS)
 def test_host_mod_idx(host_lib, name):
     p = get_bfv_params(name)
-    tb = ntt.tables_for(p)
+    tb = ntt.tables_for(p, device="cpu")
     rng = np.random.default_rng(12)
     idx = torch.from_numpy(
         rng.permutation(np.arange(2 * p.r + 1) % p.r).astype(np.int32))
@@ -237,7 +238,7 @@ def test_host_decrypt_fused(host_lib, name):
     """Kernel 15's three phases in order (the 2^15 split at 32k_9q)."""
     p = _odd_t_params() if name == "odd_t" else get_bfv_params(name)
     rk = p.r - 1
-    td = ntt.tables_for(p, rk)
+    td = ntt.tables_for(p, rk, device="cpu")
     dc = bfv_tail.DecTailConsts.build(p)
     rng = np.random.default_rng(16)
     x, sk, c0 = (torch.from_numpy(_rand(rng, p.q[:rk], p.n).view(np.int64))
