@@ -5,12 +5,17 @@
 Builds the CUDA kernels from ntt_cuda_tpu_torch/csrc with nvcc (sm_90a, one
 nvcc per source, all started together) and, beside them, a probe whose
 SASS gives the integer multiply instructions of one Shoup butterfly and
-one Montgomery product (for each kernel's bound) and a probe library that
-runs the stage kernels' local stages two ways (LOCAL_AB_SRC).  Then:
+one Montgomery product (for each kernel's bound), a probe library that
+runs the cluster kernels' local stages two ways (LOCAL_AB_SRC: the stage
+kernels' loop against tiled passes, the encrypt transform's two inverses
+interleaved against in turn).  Then:
 
 1. every kernel exactly (tolerance 0) against its plain PyTorch version on
    the card: the op kernels K1-K5 at 4k_3q and 16k_5q, K3-K5 also at
-   32k_9q and 32k_16q (two 2^14 halves beside stage-0 passes), the stage
+   32k_9q and 32k_16q (K3 and K4 two 2^14 halves beside stage-0 passes,
+   K5 one cluster launch and its tail), K5 (J = 1 and 3) and kernel 18 at
+   every cluster size B at 32k_9q and 16k_5q (the B whose two n/B buffers
+   do not fit a block, 1 at 2^14 and 1, 2 at 2^15, refused), the stage
    kernels (7-10, 13) and the decrypt tail at 4k_3q, 16k_5q and 32k_9q
    (one cluster launch at 2^15), J = 1 and 3 where there is a batch axis,
    every stage row (7 both ways, 8-11, 12 both ways, 13's and 19/20's
@@ -44,7 +49,7 @@ runs the stage kernels' local stages two ways (LOCAL_AB_SRC).  Then:
    decrypt_batch, counts read as in 3 (kernel 6 and K5 once each), every
    row equal to encrypt of its message and nonce and every message
    round-tripped;
-7. the op schedule at 32k_9q (`fusion="op"`: K3-K5 over two halves),
+7. the op schedule at 32k_9q (`fusion="op"`: K3 and K4 over two halves),
    driven as in 3, its keys, ciphertexts and plaintexts equal to the stage
    schedule's;
 8. the ciphertext ops at 32k_9q: add, sub, negate, add_plain, sub_plain
@@ -99,7 +104,10 @@ runs the stage kernels' local stages two ways (LOCAL_AB_SRC).  Then:
    (torch.profiler); the stage kernels' local stages, ntt_block.cuh's
    loop against its register-tiled passes, and kernels 7 and 8 at every
    cluster size B at n = 2^14 and 2^15 for P = 9, 18, 36 (device time and
-   back-to-back CUDA events, each output held against its plain version).
+   back-to-back CUDA events, each output held against its plain version);
+   K5 at 16k_5q J = 1 and 32k_9q J = 1 and 16, and kernel 18 at 32k_9q, at
+   every cluster size B, and the transform's two local inverses at those
+   shapes interleaved (as the library runs them) and in turn, in turns.
 
 13. kernels 12, 14 and 15 (the op-level entry points ntt_forward /
    ntt_inverse with mod_idx, encrypt_tail, decrypt_fused) against their
@@ -209,6 +217,14 @@ CLUSTER_SETS = {14: "16k_9q", 15: "32k_9q"}
 CLUSTER_PS = (9, 18, 36)
 CLUSTER_BS = (1, 2, 4, 8)
 CLUSTER_CHECK_BS = (2, 4, 8)
+# K5's transform and kernel 18 (csrc/fused_ops.cu, two n/B buffers a
+# block): held against their plain versions at every B at these sets, and
+# timed at every B a launch takes at these (label, set, J) shapes, J = 0
+# for kernel 18 over all r moduli (the world-size-1 rank's shape)
+ENC_CHECK_SETS = ("32k_9q", "16k_5q")
+ENC_TIME_CASES = (("K5", "16k_5q", 1), ("K5", "32k_9q", 1),
+                  ("K5", "32k_9q", BATCH_J), ("18", "32k_9q", 0))
+ENC_ENTRIES = ("ntt_encrypt_transform_cluster", "ntt_encrypt_front_cluster")
 # the rows that run the stage kernels, as timed (12 at (19, n), 13 with its
 # tail launch, 19 its three launches, 20 at rl = 9)
 STAGE_ROWS = ("ntt_forward", "ntt_inverse", "ntt_inverse_mul",
@@ -370,13 +386,17 @@ extern "C" __global__ void probe_shoup32(const u32* a, u32* o) {
 """
 
 
-# The local stages of the stage kernels two ways, on P 2^c blocks of
+# The local stages of the cluster kernels two ways, on P 2^c blocks of
 # 2^(logn - c) points each (block b: piece b % 2^c of polynomial b >> c,
-# the cluster schedule's tw_mul = 2^c + piece over the full tables):
-# V = 0 ntt_block.cuh's loop (one block barrier and one shared-memory
-# round trip a stage), V = 2 or 3 its register-tiled passes of V stages.
+# the cluster schedule's tw_mul = 2^c + piece over the full tables).
+# k_ab_local: V = 0 ntt_block.cuh's loop (one block barrier and one
+# shared-memory round trip a stage), V = 2 or 3 its register-tiled passes
+# of V stages.  k_ab_pair: the encrypt transform's local inverse stages of
+# its two products (fused_ops.cu's phase B), two buffers a block, T = 0
+# interleaved in one tiled pass (each twiddle load serving both, as the
+# library does), T = 1 one tiled inverse after the other.
 LOCAL_AB_SRC = r"""
-#include "ntt_block.cuh"
+#include "ntt_cluster.cuh"
 template <int V>
 __global__ void __launch_bounds__(1024)
     k_ab_local(const u64* x, u64* out, Twiddles tw, int logn, int c, int r,
@@ -414,8 +434,55 @@ extern "C" int ab_local(int v, int inverse, const void* x, void* out,
       logn, c, r, inverse);
   return (int)cudaGetLastError();
 }
+template <int T>
+__global__ void __launch_bounds__(1024)
+    k_ab_pair(const u64* x, const u64* y, u64* ox, u64* oy, Twiddles tw,
+              int logn, int c, int r) {
+  extern __shared__ u64 s[];
+  const int logb = logn - c, nb = 1 << logb, b = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int m = (1 << c) + (b & ((1 << c) - 1));
+  const int mi = (b >> c) % r;
+  const ModConsts k = load_consts(tw.consts, mi);
+  const Twiddles t = twiddles_at(tw, mi, 1 << logn);
+  const size_t off = (size_t)b * nb;
+  u64* s1 = s + nb;
+  for (int i = tid; i < nb; i += nt) {
+    s[i] = x[off + i];
+    s1[i] = y[off + i];
+  }
+  if constexpr (T == 0) {
+    u64* const both[2] = {s, s1};
+    ntt_inv_tiled<STAGE_TILE, 2>(both, logb, t, k.q, tid, nt, m);
+  } else {
+    ntt_inv_tiled<STAGE_TILE>(s, logb, t, k.q, tid, nt, m);
+    ntt_inv_tiled<STAGE_TILE>(s1, logb, t, k.q, tid, nt, m);
+  }
+  for (int i = tid; i < nb; i += nt) {
+    ox[off + i] = s[i];
+    oy[off + i] = s1[i];
+  }
+}
+extern "C" int ab_pair(int turns, const void* x, const void* y, void* ox,
+                       void* oy, const void* psi, const void* psi_sh,
+                       const void* ipsi, const void* ipsi_sh,
+                       const void* consts, int P, int r, int logn, int c,
+                       void* stream) {
+  const int nb = 1 << (logn - c);
+  void (*kern)(const u64*, const u64*, u64*, u64*, Twiddles, int, int, int) =
+      turns ? k_ab_pair<1> : k_ab_pair<0>;
+  if (2 * nb > (1 << LOG_BLOCK_MAX)) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = smem_limit_once((const void*)kern);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<P << c, tiled_threads<STAGE_TILE>(nb), 2 * nb * sizeof(u64),
+         (cudaStream_t)stream>>>(
+      (const u64*)x, (const u64*)y, (u64*)ox, (u64*)oy,
+      make_tw(psi, psi_sh, ipsi, ipsi_sh, consts), logn, c, r);
+  return (int)cudaGetLastError();
+}
 """
 LOCAL_AB_VARIANTS = {"loop": 0, "tiled2": 2, "tiled3": 3}
+PAIR_ORDERS = {"interleaved": 0, "in_turn": 1}
 
 
 def log(msg: str) -> None:
@@ -445,36 +512,52 @@ def start_local_ab() -> tuple[subprocess.Popen, Path]:
     out.mkdir(parents=True, exist_ok=True)
     (out / "local_ab.cu").write_text(LOCAL_AB_SRC)
     lib = out / "liblocal_ab.so"
-    cmd = [cuda.find_nvcc(), *cuda.NVCC_FLAGS, "-shared", "-I",
-           str(cuda.CSRC), "-o", str(lib), str(out / "local_ab.cu")]
+    cmd = [cuda.find_nvcc(), *cuda.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
+           "-I", str(cuda.CSRC), "-o", str(lib), str(out / "local_ab.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), lib
 
 
-def start_ptxas_report() -> subprocess.Popen:
-    """ntt_stage.cu compiled once more with `-Xptxas -v` (registers,
-    spills and stack of each kernel), beside the library's build."""
+def start_ptxas_report() -> list[subprocess.Popen]:
+    """ntt_stage.cu and fused_ops.cu compiled once more with `-Xptxas -v`
+    (registers, spills and stack of each kernel), beside the library's
+    build."""
     out = ROOT / "build" / "ptxas"
     out.mkdir(parents=True, exist_ok=True)
-    cmd = [cuda.find_nvcc(), *cuda.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-           str(out / "ntt_stage.o"), str(cuda.CSRC / "ntt_stage.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    return [subprocess.Popen(
+        [cuda.find_nvcc(), *cuda.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+         str(out / f"{src}.o"), str(cuda.CSRC / f"{src}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in ("ntt_stage", "fused_ops")]
 
 
-def ptxas_report(proc: subprocess.Popen) -> dict[str, str]:
-    """Each stage kernel's ptxas lines (registers; stack and spills)."""
+def built(proc: subprocess.Popen, what: str) -> str:
+    """The output of a finished nvcc; raises if it failed."""
     out = proc.communicate()[0]
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc (ptxas report) failed:\n{out}")
+        raise RuntimeError(f"nvcc ({what}) failed:\n{out}")
+    return out
+
+
+def ptxas_lines(out: str, kernels: str) -> dict[str, str]:
+    """The ptxas lines (registers; stack and spills) of each kernel whose
+    mangled name matches `kernels`, from a `-Xptxas -v` build's output."""
     res, fn = {}, None
     for line in out.splitlines():
         m = re.search(r"(?:entry function '|properties for )(\w+)", line)
         if m:
-            fn = m.group(1) if "k_stage_" in m.group(1) else None
+            fn = m.group(1) if re.search(kernels, m.group(1)) else None
         elif fn and ("spill" in line or "registers" in line):
             res[fn] = (res.get(fn, "") + " " + line.split(":")[-1].strip()
                        ).strip()
+    return res
+
+
+def ptxas_report(procs: list[subprocess.Popen]) -> dict[str, str]:
+    res = {}
+    for proc in procs:
+        res.update(ptxas_lines(built(proc, "ptxas report"),
+                               "k_stage_|k_encrypt_cluster"))
     return res
 
 
@@ -497,13 +580,10 @@ def device_us(fn, reps: int = 20) -> float:
     return sum(iv) / reps
 
 
-def local_ab(proc: subprocess.Popen, path: Path, dev, rng) -> dict:
+def local_ab(path: Path, dev, rng) -> dict:
     """The stage kernels' local stages, the loop against the tiled
     passes, at every (n, B) of the per-B timings, P = 9: device us per
     launch of each variant (torch.profiler), its three outputs equal."""
-    out = proc.communicate()[0]
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc (local-stage A/B) failed:\n{out}")
     fn = ctypes.CDLL(str(path)).ab_local
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -536,6 +616,63 @@ def local_ab(proc: subprocess.Popen, path: Path, dev, rng) -> dict:
                                          f"B={1 << c}: the variants' "
                                          f"integers differ")
                 res[f"2^{logn} B={1 << c} {'inv' if inverse else 'fwd'}"] = row
+    return res
+
+
+def pair_ab(path: Path, dev, rng) -> dict:
+    """The encrypt transform's two local inverses, interleaved (as
+    fused_ops.cu runs them) against in turn, at the ENC_TIME_CASES shapes
+    (J r polynomials of 2^logn points) and every B the encrypt launchers
+    take: device us per launch (torch.profiler) in turns interleaved, in
+    turn, in turn, interleaved, both outputs equal to the one-array tiled
+    inverse of each input."""
+    lib = ctypes.CDLL(str(path))
+    lib.ab_pair.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.ab_pair.restype = ctypes.c_int
+    lib.ab_local.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+                             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.ab_local.restype = ctypes.c_int
+    res = {}
+    for label, name, J in ENC_TIME_CASES:
+        p = get_bfv_params(name)
+        tb = ntt.tables_for(p, device=dev)
+        lead = (J,) if J else ()
+        x, y = (rand_res(rng, p.q, p.n, lead, dev) for _ in range(2))
+        P = max(J, 1) * p.r
+        stream = torch.cuda.current_stream().cuda_stream
+        for c in range(4):
+            if not enc_fits(1 << c, p.n):
+                continue
+            ref = []
+            for a in (x, y):
+                o = torch.empty_like(a)
+                if lib.ab_local(3, 1, a.data_ptr(), o.data_ptr(),
+                                *tb.kernel_args(), P, p.r, p.logn, c,
+                                stream) != 0:
+                    raise RuntimeError("ab_local: CUDA error")
+                ref.append(o)
+            ox, oy = torch.empty_like(x), torch.empty_like(y)
+            calls = {}
+            for which, t in PAIR_ORDERS.items():
+                def call(t=t):
+                    rc = lib.ab_pair(t, x.data_ptr(), y.data_ptr(),
+                                     ox.data_ptr(), oy.data_ptr(),
+                                     *tb.kernel_args(), P, p.r, p.logn, c,
+                                     torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError(f"ab_pair: CUDA error {rc}")
+                call()
+                if not (torch.equal(ox, ref[0]) and torch.equal(oy, ref[1])):
+                    raise AssertionError(f"inverse-pair A/B {name} J={J} "
+                                         f"B={1 << c} {which}: not the "
+                                         f"one-array inverse's integers")
+                calls[which] = call
+            row = {which: [] for which in PAIR_ORDERS}
+            for which in ("interleaved", "in_turn", "in_turn", "interleaved"):
+                row[which].append(device_us(calls[which]))
+            res[f"{label} {name}" + (f" J={J}" if J else "")
+                + f" B={1 << c}"] = row
     return res
 
 
@@ -930,6 +1067,138 @@ def cluster_times(dev, rng, errs: dict) -> dict:
                     "rule": B == ntt_stage.cluster_size(p.n),
                     "fwd_us": device_us(fwd), "inv_mul_us": device_us(inv),
                     "fwd_ms": kernel_ms(fwd), "inv_mul_ms": kernel_ms(inv)}
+    return res
+
+
+def enc_fits(B: int, n: int) -> bool:
+    """Whether the encrypt launchers take cluster size B at n points: two
+    n/B u64 buffers in at most 2^14 u64 (128 KB) a block."""
+    return 2 <= n // B and 2 * n // B <= cuda.BLOCK_MAX_N
+
+
+def enc_inputs(ctx: BFVContext, rng, J: int, dev):
+    """K5's inputs for J messages at ctx's set: a seeded (2, r, n) pk, the
+    compact draws of nonces 1..J and seeded messages."""
+    p = ctx.params
+    pk = rand_res(rng, p.q, p.n, (2,), dev)
+    u_b, e_d = sampling.encrypt_draws_compact_batch(p.n, range(1, J + 1),
+                                                    device=dev)
+    m = torch.from_numpy(rng.integers(0, p.t, (J, p.n))).to(dev)
+    return pk, u_b, e_d, m
+
+
+def enc_calls(ctx: BFVContext, inputs, B: int):
+    """K5 over the inputs' J messages and kernel 18 on message 0 at cluster
+    size B: (kernel, wrapper call, plain call) each."""
+    pk, u_b, e_d, m = inputs
+    tf, tc = ctx.tables_full, ctx.tail_consts
+    u0 = u_b[0]
+    return (("encrypt_fused",
+             lambda: fused_ops.encrypt_fused(u_b, pk, e_d, m, tf, tc,
+                                             cluster=B),
+             lambda: fused_ops.encrypt_fused_plain(u_b, pk, e_d, m, tf, tc)),
+            ("encrypt_front",
+             lambda: fused_ops.encrypt_front(u0, pk, tf, cluster=B),
+             lambda: fused_ops.encrypt_front_plain(u0, pk, tf)))
+
+
+def enc_transform(ctx: BFVContext, inputs, B: int):
+    """K5's transform alone at cluster size B through the library's
+    launcher: the (J, 2, r, n) scratch."""
+    p, tf = ctx.params, ctx.tables_full
+    pk, u_b, e_d, _ = inputs
+    out = torch.empty((u_b.shape[0], 2, p.r, p.n), dtype=torch.int64,
+                      device=pk.device)
+    raw_launch(cuda.library(), ENC_ENTRIES[0], u_b.data_ptr(),
+               pk.data_ptr(), e_d.data_ptr(), out.data_ptr(),
+               *tf.kernel_args(), u_b.shape[0], p.r, p.logn, B)
+    return out
+
+
+def encrypt_cluster_checks(dev, rng, errs: dict) -> None:
+    """K5 (J = 1 and 3: its transform's scratch, and the wrapper's
+    ciphertexts) and kernel 18 at cluster sizes B = 1, 2, 4, 8 at 32k_9q
+    and 16k_5q against their plain versions; a B whose two n/B buffers do
+    not fit a block must be refused (the wrapper raises)."""
+    for name in ENC_CHECK_SETS:
+        ctx = BFVContext.build(get_bfv_params(name), device=dev, fusion="op")
+        n = ctx.params.n
+        for J in (1, 3):
+            inputs = enc_inputs(ctx, rng, J, dev)
+            refs = {k: plain() for k, _, plain in enc_calls(ctx, inputs, 0)}
+            pk, u_b, e_d, _ = inputs
+            ref_scratch = fused_ops.encrypt_transform_plain(
+                u_b, pk, e_d, ctx.tables_full)
+            took, refused = [], []
+            for B in CLUSTER_BS:
+                if enc_fits(B, n):
+                    compare("encrypt_fused", enc_transform(ctx, inputs, B),
+                            ref_scratch, errs)
+                for kname, kern, _ in enc_calls(ctx, inputs, B):
+                    if enc_fits(B, n):
+                        compare(kname, kern(), refs[kname], errs)
+                        continue
+                    try:
+                        kern()
+                    except RuntimeError:
+                        continue
+                    raise AssertionError(f"{name} {kname} B={B}: launched "
+                                         f"where two n/B buffers do not fit")
+                (took if enc_fits(B, n) else refused).append(B)
+        log(f"check {name} K5 (J = 1, 3) and kernel 18 at cluster sizes "
+            f"B={took}: equal to their plain versions; B={refused}: refused "
+            f"(two n/B buffers past 128 KB a block)")
+
+
+def raw_launch(lib, name: str, *args) -> None:
+    rc = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+
+
+def encrypt_cluster_times(dev, rng, errs: dict) -> dict:
+    """K5 (transform and tail) and kernel 18 at the ENC_TIME_CASES shapes
+    at every cluster size B a launch takes: device us per call
+    (torch.profiler) and ms per call of 20 back to back (CUDA events), the
+    output held against its plain version; and the transform alone (K5:
+    its scratch held against encrypt_transform_plain), device us."""
+    res, ctxs = {}, {}
+    for label, name, J in ENC_TIME_CASES:
+        if name not in ctxs:
+            ctxs[name] = BFVContext.build(get_bfv_params(name), device=dev,
+                                          fusion="op")
+        ctx = ctxs[name]
+        p, tf = ctx.params, ctx.tables_full
+        inputs = enc_inputs(ctx, rng, max(J, 1), dev)
+        pk, u_b, e_d, _ = inputs
+        kname, _, plain = enc_calls(ctx, inputs, 0)[0 if J else 1]
+        ref = plain()
+        ref_out = (fused_ops.encrypt_transform_plain(u_b, pk, e_d, tf) if J
+                   else ref)
+        if J:
+            out = torch.empty((J, 2, p.r, p.n), dtype=torch.int64, device=dev)
+            entry, args = ENC_ENTRIES[0], (u_b.data_ptr(), pk.data_ptr(),
+                                           e_d.data_ptr(), out.data_ptr(),
+                                           *tf.kernel_args(), J, p.r, p.logn)
+        else:
+            out = torch.empty((2, p.r, p.n), dtype=torch.int64, device=dev)
+            entry, args = ENC_ENTRIES[1], (u_b[0].data_ptr(), pk.data_ptr(),
+                                           out.data_ptr(), *tf.kernel_args(),
+                                           p.r, p.logn)
+        for B in CLUSTER_BS:
+            key = f"{label} {name}" + (f" J={J}" if J else "") + f" B={B}"
+            if not enc_fits(B, p.n):
+                res[key] = "refused"
+                continue
+            kern = enc_calls(ctx, inputs, B)[0 if J else 1][1]
+            compare(kname, kern(), ref, errs)
+            def transform(B=B):
+                raw_launch(cuda.library(), entry, *args, B)
+            transform()
+            compare(kname, out, ref_out, errs)
+            res[key] = {"rule": B == ntt_stage.cluster_size(p.n),
+                        "us": device_us(kern), "ms": kernel_ms(kern),
+                        "transform_us": device_us(transform)}
     return res
 
 
@@ -1952,9 +2221,14 @@ def main() -> int:
     ptxas = start_ptxas_report()
     cuda.library()
     mults = probe_mults(*probe)
+    ab_lines = ptxas_lines(built(ab_build[0], "local-stage A/B"), "k_ab_")
     log(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    log(f"stage kernels' registers and spills (ptxas -v, sm_90a): "
+    log(f"cluster kernels' registers and spills (ptxas -v, sm_90a; the "
+        f"stage kernels and the encrypt transform): "
         f"{json.dumps(ptxas_report(ptxas))}")
+    log(f"local-stage A/B probe (LOCAL_AB_SRC; k_ab_pair<0> the encrypt "
+        f"transform's two inverses interleaved, <1> in turn), registers and "
+        f"spills: {json.dumps(ab_lines)}")
     log(f"SASS integer multiplies per primitive (sm_90a): {json.dumps(mults)}")
 
     # Phase 1: every kernel == its plain version, on the card.
@@ -1976,7 +2250,7 @@ def main() -> int:
             if kname not in OP32_KERNELS:
                 continue
             compare(kname, kern(), plain(), errs)
-            log(f"check {name} op (two 2^14 halves) {kname} J={J}: equal")
+            log(f"check {name} op (n = 2^15) {kname} J={J}: equal")
             if name == STAGE_SET and J == 1:
                 timing32[kname] = (kern, plain, work)
     for kname, J, kern, plain, work in keystream_batch_cases(
@@ -2002,6 +2276,7 @@ def main() -> int:
             if name == STAGE_SET and J == 1 and kname != "decrypt_tail":
                 timing[kname] = (kern, plain, work)
     cluster_checks(dev, rng, errs)
+    encrypt_cluster_checks(dev, rng, errs)
     rule = {n: ntt_stage.cluster_size(n) for n in (2048, 4096, 16384, 32768)}
     log(f"stage kernels' cluster size B by the launchers' rule, by n (the "
         f"main paths' and the checks' transforms): {json.dumps(rule)}")
@@ -2511,11 +2786,19 @@ def main() -> int:
     log(f"stage kernels' local stages, ntt_block.cuh's loop against the "
         f"register-tiled passes (device us per launch of P = 9 polynomials' "
         f"2^c blocks, torch.profiler; outputs equal): "
-        f"{json.dumps(local_ab(*ab_build, dev, rng))}")
+        f"{json.dumps(local_ab(ab_build[1], dev, rng))}")
     log(f"stage kernels at every cluster size B (device us per launch, "
         f"torch.profiler; ms per call of 20 back to back, CUDA events; "
         f"kernel 7 forward, kernel 8 inverse with y; outputs == plain): "
         f"{json.dumps(cluster_times(dev, rng, errs))}")
+    log(f"K5 (transform and tail) and kernel 18 at every cluster size B "
+        f"(device us per call, torch.profiler; ms per call of 20 back to "
+        f"back, CUDA events; outputs == plain; transform_us: the transform "
+        f"alone): {json.dumps(encrypt_cluster_times(dev, rng, errs))}")
+    log(f"the encrypt transform's two local inverses at every cluster size "
+        f"B (device us per launch, torch.profiler, in turns interleaved, in "
+        f"turn, in turn, interleaved; both outputs == the one-array "
+        f"inverse): {json.dumps(pair_ab(ab_build[1], dev, rng))}")
     bounds, terms = {}, {}
     for kname, (kern, plain, work) in timing.items():
         terms[kname] = work.terms(mults, clock_hz)
@@ -2550,9 +2833,10 @@ def main() -> int:
             "launches": (counts["batch"]["encrypt_fused"]
                          if kname == "encrypt_fused_J16"
                          else counts["op32"][kname])}
-    log(f"op kernels at {STAGE_SET} (n = 2^15, two 2^14 halves; J = 1, K5 "
-        f"also J = {BATCH_J}; launches on the op32 path, K5 J = 16 on the "
-        f"batch path): {json.dumps(op32)}")
+    log(f"op kernels at {STAGE_SET} (n = 2^15: K3 and K4 two 2^14 halves, "
+        f"K5 one cluster launch and its tail; J = 1, K5 also J = {BATCH_J}; "
+        f"launches on the op32 path, K5 J = 16 on the batch path): "
+        f"{json.dumps(op32)}")
     ntt30_times = {}
     for (n, direction), (kern, plain, work) in timing30.items():
         bound_ms, bound_by = work.bound(mults, clock_hz)

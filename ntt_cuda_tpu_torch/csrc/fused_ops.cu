@@ -15,54 +15,77 @@
 //   encrypt_tail (bfv_tail.py:144, pallas_call :175; kernel 14): the same
 //                 tail with e added from its own (2, r, n) input and ra from
 //                 the last residue of c +> e (ntt_encrypt_tail_e)
-// n <= 2^14: each block owns one polynomial (message x modulus).  It stays
-// in dynamic shared memory while the forward -> dyadic -> inverse chain
-// runs in place (ntt_block.cuh).  The dyadic product is one Montgomery
-// REDC; its 2^-64 and the inverse's n^-1 cancel in one Shoup multiply by
-// n^-1 * 2^64 at the end.
+// The dyadic products are one Montgomery REDC each; the 2^-64 and the
+// inverse's n^-1 cancel in one Shoup multiply by n^-1 * 2^64 at the end.
 //
-// n = 2^15 (256 KB, over a block's 227 KB): the reference's hybrid
-// schedule, as in ntt_stage.cu.  One launch of two blocks per (message,
-// modulus) runs the op's whole in-block chain on its 2^14 half: forward
-// stages 1..14, the dyadic product, inverse GS stages 14..1 (ntt_block.cuh's
-// sub-range form, tw_mul = 2 + h).  The cross-half butterflies run as
-// elementwise launches beside it: CT stage 0 (pairs i, i + n/2, psi[1])
-// after the op's prologue, and GS stage 0 (psi^-1[1]) before the n^-1
-// Shoup and the op's epilogue (the Shoup cancels the product's 2^-64, so
-// it comes after the last inverse stage):
+// K3 and K4 (half_polymul, keygen_fused), n <= 2^14: each block owns one
+// polynomial (message x modulus).  It stays in dynamic shared memory while
+// the forward -> dyadic -> inverse chain runs in place (ntt_block.cuh's
+// loop).  n = 2^15 (256 KB, over a block's 227 KB): the reference's hybrid
+// schedule.  One launch of two blocks per polynomial runs the op's whole
+// in-block chain on its 2^14 half: forward stages 1..14, the dyadic
+// product, inverse GS stages 14..1 (ntt_block.cuh's sub-range form,
+// tw_mul = 2 + h).  The cross-half butterflies run as elementwise launches
+// beside it: CT stage 0 (pairs i, i + n/2, psi[1]) after the op's
+// prologue, and GS stage 0 (psi^-1[1]) before the n^-1 Shoup and the op's
+// epilogue:
 //   half_polymul   CT0(x) | halves | GS0, n^-1
 //   keygen_fused   CT0(s) | halves: sk; a . sk, GS 14..1
 //                  | GS0, n^-1, -(x + e), CT0 | forward halves: pk0
-//   encrypt_fused  CT0(u) | halves: NTT(u) parked in the c1 slot, both
-//                  products | GS0 of both, n^-1, +> e | the encrypt tail
-//   encrypt_front  the same transform with no e
-// Each thread of a half block reads back exactly the indices it wrote, so
-// NTT(u) parked in the c1 slot is safe as at n <= 2^14.  No cluster yet
-// (ROADMAP.md, "Queue 0 - kernels to redesign for the H100"): the stage
-// kernels' cluster schedule (ntt_stage.cu) would make each op one launch.
-//
 // Bound on the card: shared memory, 8n bytes per block (128 KB at
-// n = 16384 and per half at 2^15: one block per SM, so a call fills
-// r x J of the 132 SMs, 2 r J at 2^15), and log n barriers per transform.
-// The design keeps every intermediate of an op out of device memory
-// except where noted (at 2^15 each stage-0 pass is one round trip), and
-// reads compact i32 draws (the ternary u and s, the Gaussian e) instead of
-// (r, n) u64 residues.  encrypt_front is the same transform, bound the same
-// way.  The encrypt tails are elementwise, one thread per output
-// coefficient, bound by device memory (the padded tail reads c, e, ra and m
-// once and writes ct once: 8 (6 rl + 3) bytes per coefficient of m).
+// n = 16384 and per half at 2^15: one block per SM, r J of the 132 SMs,
+// 2 r J at 2^15), and log n barriers per transform; at 2^15 each stage-0
+// pass is a round trip of device memory.  (ROADMAP.md Queue 0: the
+// cluster schedule below would make each one launch.)
+//
+// K5's transform and kernel 18 (encrypt_fused, encrypt_front), every
+// n <= 2^15 in one launch: the stage kernels' cluster schedule
+// (ntt_cluster.cuh, ntt_stage.cu).  One polynomial p = j r + mi of u
+// (message j, modulus mi) per cluster of B = 2^cl blocks, J r B blocks;
+// block b holds coefficients [b n/B, (b + 1) n/B) in two buffers s0, s1
+// of n/B u64 (64 KB at 2^15, B = 8; B <= 2 at 2^15 and B = 1 at 2^14 do
+// not fit, and the launchers refuse them):
+//   A. the cluster's threads split the n/B columns: a thread reads column
+//      i's B values of u (small_res, i + k n/B), runs CT stages 0..cl-1 on
+//      them in registers and writes value k into block k's s0 through
+//      distributed shared memory (a cluster barrier before, so that every
+//      block has started, and after);
+//   B. each block runs its local forward stages (ntt_fwd_tiled, tw_mul =
+//      B + b): s0 is its range of NTT(u); s1 = NTT(u) pk1 and s0 =
+//      NTT(u) pk0; then the local GS stages of both products in one tiled
+//      pass, each twiddle and Shoup companion loaded once for the two
+//      butterflies (faster on the card than the two in turn: PERF.md,
+//      chip_smoke.py's LOCAL_AB_SRC); a cluster barrier;
+//   C. for each product h, a thread gathers column i's B values from the
+//      cluster, runs GS stages cl-1..0 in registers, the n^-1 Shoup and
+//      +> e_{2j+h} (K5; the strict `>`), into slot (j, h, mi) of the
+//      (J, 2, r, n) scratch; a last cluster barrier keeps every block's
+//      shared memory until its peers have read it.
+// B: stage_cluster_log with two buffers a block, 8 wherever it fits; the
+// launcher (run_cluster) raises the shared memory limit to the shape's
+// need and checks the cluster's fit once per kernel, device and shape,
+// and returns the CUDA error where it does not: there is no two-halves,
+// one-block or plain schedule behind it.  Bound on the card: the latency
+// of a block's local stages, as the stage kernels' (PERF.md); device
+// memory is read once (u, pk, e, the tables) and the scratch written once.
 //
 // encrypt_fused cannot carry the last residue across grid steps as the TPU
 // grid does (fused_ops.py:397-407): blocks run in no order.  Its transform
 // writes c_h +> e_h for all r moduli to a (J, 2, r, n) scratch, and an
-// elementwise tail launch does the modulus drop and Delta*m + fix.
+// elementwise tail launch does the modulus drop and Delta*m + fix.  The
+// encrypt tails are elementwise, one thread per output coefficient, bound
+// by device memory (the padded tail reads c, e, ra and m once and writes
+// ct once: 8 (6 rl + 3) bytes per coefficient of m).  Every op reads
+// compact i32 draws (the ternary u and s, the Gaussian e) instead of
+// (r, n) u64 residues.
 //
-// Each op is a struct of its arguments with `block` (one block's work,
+// K3 and K4 are structs of their arguments with `block` (one block's work,
 // `tid`/`nt` its thread and thread count), `first` and `last` (pair k of
-// the 2^15 stage-0 passes); the same struct runs as CUDA launches or, in
-// the host build of the tests, as loops with one thread per block.
+// the 2^15 stage-0 passes); the encrypt transform is a struct with the
+// three cluster phases.  The same structs run as CUDA launches or, in the
+// host build of the tests, as loops with one thread per block.
 
-#include "ntt_block.cuh"
+#include "ntt_cluster.cuh"
 
 #ifndef __CUDACC__
 #include <vector>
@@ -236,7 +259,10 @@ struct ForwardHalves {
 };
 
 // --- encrypt_fused, transform: scratch[j, h, mi] = INTT(NTT(u_j) . pk_h) +> e_jh
-// With ed null it is encrypt_front (kernel 18): the products alone.
+// With ed null it is encrypt_front (kernel 18): the products alone.  One
+// polynomial p = j r + mi of u per cluster of B = 2^CL blocks (the head of
+// the file); block b holds two buffers of n/B points, s0 and s1, at
+// s[0, n/B) and s[n/B, 2 n/B).
 
 struct EncryptTransform {
   const int* ub;  // (J, n) compact ternary u
@@ -260,66 +286,73 @@ struct EncryptTransform {
     return e ? add_mod_gt(x, small_res(e[i], q), q) : x;
   }
 
-  OP_HD void block(int b, int tid, int nt, u64* s) const {
-    const BlockAt at = block_at(b, logn);
-    const bool split = logn > LOG_BLOCK_MAX;
-    const int j = at.p / r, mi = at.p % r;
-    const ModConsts c = load_consts(tw.consts, mi);
-    const Twiddles t = twiddles_at(tw, mi, 1 << logn);
-    u64* c0 = slot(j, 0, mi) + at.hoff;
-    u64* c1 = slot(j, 1, mi) + at.hoff;
-    const u64* pk0 = pk + ((size_t)mi << logn) + at.hoff;
-    const u64* pk1 = pk + ((size_t)(r + mi) << logn) + at.hoff;
-    const int* e0 = e_row(2 * j);
-    const int* e1 = e_row(2 * j + 1);
-    const int* u = ub + ((size_t)j << logn);
-    for (int i = tid; i < at.nb; i += nt)  // 2^15: CT stage 0 in the c1 slot
-      s[i] = split ? c1[i] : small_res(u[i], c.q);
-    ntt_fwd_block(s, at.logb, t, c.q, tid, nt, at.tw_mul);
-    for (int i = tid; i < at.nb; i += nt) {
-      c1[i] = s[i];  // NTT(u), read back by this same thread below
-      s[i] = mont_mul(s[i], pk0[i], c.q, c.qinv);
-    }
-    ntt_inv_block(s, at.logb, t, c.q, tid, nt, at.tw_mul);
-    for (int i = tid; i < at.nb; i += nt) {
-      c0[i] = split ? s[i]
-                    : plus_e(mul_shoup(s[i], c.ninv, c.ninv_sh, c.q), e0, i,
-                             c.q);
-      s[i] = mont_mul(c1[i], pk1[i], c.q, c.qinv);
-    }
-    ntt_inv_block(s, at.logb, t, c.q, tid, nt, at.tw_mul);
-    for (int i = tid; i < at.nb; i += nt)
-      c1[i] = split ? s[i]
-                    : plus_e(mul_shoup(s[i], c.ninv, c.ninv_sh, c.q), e1, i,
-                             c.q);
-  }
-
-  // Pair k over the J r polynomials (j, mi): CT stage 0 of u into the c1 slot.
-  OP_HD void first(long long k) const {
-    const PairAt pa = pair_at(k, logn);
-    const int j = pa.p / r, mi = pa.p % r;
+  // Phase A on block b of polynomial p's cluster: the cluster's threads
+  // split the n/B columns; column i's B values of u (i + k n/B) through CT
+  // stages 0..CL-1 in registers, value k into block k's s0.
+  template <int CL>
+  OP_HD void phase_a(int p, int b, int tid, int nt, u64* const* peer) const {
+    const int nb = 1 << (logn - CL);
+    const int mi = p % r;
     const u64 q = load_consts(tw.consts, mi).q;
     const Twiddles t = twiddles_at(tw, mi, 1 << logn);
-    const int* u = ub + ((size_t)j << logn);
-    u64 a = small_res(u[pa.i], q), b = small_res(u[pa.i + pa.half], q);
-    ct_butterfly(a, b, t.psi[1], t.psi_sh[1], q);
-    u64* c1 = slot(j, 1, mi);
-    c1[pa.i] = a;
-    c1[pa.i + pa.half] = b;
+    const int* u = ub + ((size_t)(p / r) << logn);
+    for (int i = b * nt + tid; i < nb; i += nt << CL) {
+      u64 v[1 << CL];
+#pragma unroll
+      for (int k = 0; k < (1 << CL); ++k) v[k] = small_res(u[k * nb + i], q);
+      cross_fwd<CL>(v, t, q, 1);
+#pragma unroll
+      for (int k = 0; k < (1 << CL); ++k) peer[k][i] = v[k];
+    }
   }
 
-  // Pair k over the J 2 r slots ((j, h), mi): GS stage 0, n^-1, +> e_jh.
-  OP_HD void last(long long k) const {
-    const PairAt pa = pair_at(k, logn);
-    const int row = pa.p / r, mi = pa.p % r;  // row = 2 j + h
+  // Phase B on block b: its local forward stages leave its range of
+  // NTT(u) in s0; then s1 = NTT(u) pk1 and s0 = NTT(u) pk0 (Montgomery)
+  // and the local GS stages of both products.
+  template <int CL>
+  OP_HD void phase_b(int p, int b, int tid, int nt, u64* s) const {
+    const int logb = logn - CL, nb = 1 << logb;
+    const int mi = p % r, tw_mul = (1 << CL) + b;
     const ModConsts c = load_consts(tw.consts, mi);
     const Twiddles t = twiddles_at(tw, mi, 1 << logn);
-    const int* e = e_row(row);
-    u64 a = scratch[pa.lo], b = scratch[pa.lo + pa.half];
-    gs_butterfly(a, b, t.ipsi[1], t.ipsi_sh[1], c.q);
-    scratch[pa.lo] = plus_e(mul_shoup(a, c.ninv, c.ninv_sh, c.q), e, pa.i, c.q);
-    scratch[pa.lo + pa.half] =
-        plus_e(mul_shoup(b, c.ninv, c.ninv_sh, c.q), e, pa.i + pa.half, c.q);
+    u64* s1 = s + nb;
+    ntt_fwd_tiled<STAGE_TILE>(s, logb, t, c.q, tid, nt, tw_mul);
+    const size_t off = ((size_t)mi << logn) + (size_t)b * nb;
+    const u64* pk0 = pk + off;
+    const u64* pk1 = pk + ((size_t)r << logn) + off;
+    for (int i = tid; i < nb; i += nt) {
+      const u64 x = s[i];
+      s1[i] = mont_mul(x, pk1[i], c.q, c.qinv);
+      s[i] = mont_mul(x, pk0[i], c.q, c.qinv);
+    }
+    u64* const both[2] = {s, s1};
+    ntt_inv_tiled<STAGE_TILE, 2>(both, logb, t, c.q, tid, nt, tw_mul);
+  }
+
+  // Phase C on block b: for each product h, column i's B values gathered
+  // from the cluster's s_h, GS stages CL-1..0 in registers, the Shoup
+  // multiply by n^-1 2^64 (it cancels the product's 2^-64), +> e_{2j+h},
+  // into slot (j, h, mi).
+  template <int CL>
+  OP_HD void phase_c(int p, int b, int tid, int nt, u64* const* peer) const {
+    const int nb = 1 << (logn - CL);
+    const int j = p / r, mi = p % r;
+    const ModConsts c = load_consts(tw.consts, mi);
+    const Twiddles t = twiddles_at(tw, mi, 1 << logn);
+    for (int h = 0; h < 2; ++h) {
+      u64* out = slot(j, h, mi);
+      const int* e = e_row(2 * j + h);
+      for (int i = b * nt + tid; i < nb; i += nt << CL) {
+        u64 v[1 << CL];
+#pragma unroll
+        for (int k = 0; k < (1 << CL); ++k) v[k] = peer[k][h * nb + i];
+        cross_inv<CL>(v, t, c.q, 1);
+#pragma unroll
+        for (int k = 0; k < (1 << CL); ++k)
+          out[k * nb + i] = plus_e(mul_shoup(v[k], c.ninv, c.ninv_sh, c.q), e,
+                                   k * nb + i, c.q);
+      }
+    }
   }
 };
 
@@ -416,6 +449,33 @@ __global__ void k_each(F f, long long total) {
   if (k < total) f(k);
 }
 
+// The encrypt transform: one polynomial of u per cluster of 2^CL blocks,
+// two buffers of n/B u64 a block.
+template <int CL>
+__global__ void __launch_bounds__(1024)
+    k_encrypt_cluster(EncryptTransform f) {
+  extern __shared__ u64 smem[];
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int b = (int)cluster.block_rank(), p = (int)(blockIdx.x >> CL);
+  u64* peer[1 << CL];
+#pragma unroll
+  for (int k = 0; k < (1 << CL); ++k)
+    peer[k] = cluster.map_shared_rank(smem, k);
+  cluster.sync();  // every block of the cluster has started
+  f.phase_a<CL>(p, b, threadIdx.x, blockDim.x, peer);
+  cluster.sync();  // NTT(u)'s cross stages are in every block
+  f.phase_b<CL>(p, b, threadIdx.x, blockDim.x, smem);
+  cluster.sync();  // every block's local inverse stages are done
+  f.phase_c<CL>(p, b, threadIdx.x, blockDim.x, peer);
+  cluster.sync();  // no block exits while another reads its shared memory
+}
+
+template <int CL>
+static int run_encrypt(const EncryptTransform& f, int P, void* stream) {
+  return run_cluster<CL>(k_encrypt_cluster<CL>, P, f.logn, 2, stream, f);
+}
+
 // `blocks` blocks of f, each with 2^logb u64 of shared memory.
 template <typename F>
 static int run_blocks(const F& f, int blocks, int logb, void* stream) {
@@ -449,21 +509,32 @@ static int run_each(const F& f, long long total, void*) {
   return 0;
 }
 
+// The clusters in turn (walk_clusters): phase A of the B blocks, then B,
+// then C.
+template <int CL>
+static int run_encrypt(const EncryptTransform& f, int P, void*) {
+  walk_clusters<CL>(P, 3, (size_t)2 << (f.logn - CL),
+                    [&](int ph, int p, int b, u64* const* peer) {
+                      if (ph == 0) f.phase_a<CL>(p, b, 0, 1, peer);
+                      if (ph == 1) f.phase_b<CL>(p, b, 0, 1, peer[b]);
+                      if (ph == 2) f.phase_c<CL>(p, b, 0, 1, peer);
+                    });
+  return 0;
+}
+
 #endif
 
-// An op over `polys` polynomials of 2^logn points: one block each up to
-// 2^14; at 2^15 CT stage 0 over them, two half blocks each, then GS stage 0
-// over `last_polys` polynomials.
+// K3's or K4's op over `polys` polynomials of 2^logn points: one block each
+// up to 2^14; at 2^15 CT stage 0 over them, two half blocks each, then GS
+// stage 0.
 template <typename F>
-static int run_op(const F& f, int polys, int last_polys, int logn,
-                  void* stream) {
+static int run_op(const F& f, int polys, int logn, void* stream) {
   if (logn < 1 || logn > LOG_BLOCK_MAX + 1 || polys < 1) return NTT_EINVAL;
   const int split = logn > LOG_BLOCK_MAX;
   const long long half = 1ll << (logn - 1);
   int rc = split ? run_each(FirstPass<F>{f}, polys * half, stream) : 0;
   if (rc == 0) rc = run_blocks(f, polys << split, logn - split, stream);
-  if (rc == 0 && split)
-    rc = run_each(LastPass<F>{f}, last_polys * half, stream);
+  if (rc == 0 && split) rc = run_each(LastPass<F>{f}, polys * half, stream);
   return rc;
 }
 
@@ -475,7 +546,7 @@ extern "C" int ntt_half_polymul(const void* x, const void* y, void* out,
   if (r < 1 || blocks % r) return NTT_EINVAL;
   const HalfPolymul f = {(const u64*)x, (const u64*)y, (u64*)out,
                          make_tw(psi, psi_sh, ipsi, ipsi_sh, consts), r, logn};
-  return run_op(f, blocks, blocks, logn, stream);
+  return run_op(f, blocks, logn, stream);
 }
 
 extern "C" int ntt_keygen_fused(const void* sb, const void* a, const void* ed,
@@ -486,10 +557,38 @@ extern "C" int ntt_keygen_fused(const void* sb, const void* a, const void* ed,
   const Twiddles tw = make_tw(psi, psi_sh, ipsi, ipsi_sh, consts);
   const Keygen f = {(const int*)sb, (const u64*)a, (const int*)ed, (u64*)sk,
                     (u64*)pk0,      tw,            logn};
-  const int rc = run_op(f, r, r, logn, stream);
+  const int rc = run_op(f, r, logn, stream);
   if (rc != 0 || logn <= LOG_BLOCK_MAX) return rc;
   const ForwardHalves fh = {(u64*)pk0, tw, r, logn};
   return run_blocks(fh, 2 * r, logn - 1, stream);
+}
+
+// The encrypt transform over P = J r polynomials of u at cluster size B
+// (0: the rule, stage_cluster_log with two buffers a block), or
+// NTT_EINVAL where a cluster of B blocks cannot hold two n/B buffers.
+static int encrypt_transform(const EncryptTransform& f, int P, int B,
+                             void* stream) {
+  typedef int (*Run)(const EncryptTransform&, int, void*);
+  static const Run runs[4] = {run_encrypt<0>, run_encrypt<1>, run_encrypt<2>,
+                              run_encrypt<3>};
+  const int cl = cluster_log(B, f.logn, 2);
+  if (f.logn < 1 || f.logn > LOG_BLOCK_MAX + 1 || cl < 0) return NTT_EINVAL;
+  return runs[cl](f, P, stream);
+}
+
+// K5's transform: u_b (J, n), pk (2, r, n), ed (J, 2, n) -> scratch
+// (J, 2, r, n); cluster: B, or 0 for the rule.
+extern "C" int ntt_encrypt_transform_cluster(
+    const void* ub, const void* pk, const void* ed, void* scratch,
+    const void* psi, const void* psi_sh, const void* ipsi,
+    const void* ipsi_sh, const void* consts, int J, int r, int logn,
+    int cluster, void* stream) {
+  if (J < 1 || r < 1) return NTT_EINVAL;
+  const EncryptTransform f = {(const int*)ub, (const u64*)pk, (const int*)ed,
+                              (u64*)scratch,
+                              make_tw(psi, psi_sh, ipsi, ipsi_sh, consts), r,
+                              logn};
+  return encrypt_transform(f, J * r, cluster, stream);
 }
 
 extern "C" int ntt_encrypt_transform(const void* ub, const void* pk,
@@ -498,12 +597,8 @@ extern "C" int ntt_encrypt_transform(const void* ub, const void* pk,
                                      const void* ipsi, const void* ipsi_sh,
                                      const void* consts, int J, int r, int logn,
                                      void* stream) {
-  if (J < 1 || r < 1) return NTT_EINVAL;
-  const EncryptTransform f = {(const int*)ub, (const u64*)pk, (const int*)ed,
-                              (u64*)scratch,
-                              make_tw(psi, psi_sh, ipsi, ipsi_sh, consts), r,
-                              logn};
-  return run_op(f, J * r, J * 2 * r, logn, stream);
+  return ntt_encrypt_transform_cluster(ub, pk, ed, scratch, psi, psi_sh, ipsi,
+                                       ipsi_sh, consts, J, r, logn, 0, stream);
 }
 
 extern "C" int ntt_encrypt_tail(const void* scratch, const void* m, void* ct,
@@ -529,17 +624,28 @@ extern "C" int ntt_encrypt_tail_e(const void* c, const void* e, const void* m,
 }
 
 // Kernel 18: c (2, r, n) = INTT(NTT(u) . pk_h) for one message, NTT(u)
-// computed once per modulus (the transform above with no e).
+// computed once per modulus (the transform above with no e); cluster as
+// ntt_encrypt_transform_cluster's.
+extern "C" int ntt_encrypt_front_cluster(const void* ub, const void* pk,
+                                         void* c, const void* psi,
+                                         const void* psi_sh, const void* ipsi,
+                                         const void* ipsi_sh,
+                                         const void* consts, int r, int logn,
+                                         int cluster, void* stream) {
+  if (r < 1) return NTT_EINVAL;
+  const EncryptTransform f = {(const int*)ub, (const u64*)pk, nullptr, (u64*)c,
+                              make_tw(psi, psi_sh, ipsi, ipsi_sh, consts), r,
+                              logn};
+  return encrypt_transform(f, r, cluster, stream);
+}
+
 extern "C" int ntt_encrypt_front(const void* ub, const void* pk, void* c,
                                  const void* psi, const void* psi_sh,
                                  const void* ipsi, const void* ipsi_sh,
                                  const void* consts, int r, int logn,
                                  void* stream) {
-  if (r < 1) return NTT_EINVAL;
-  const EncryptTransform f = {(const int*)ub, (const u64*)pk, nullptr, (u64*)c,
-                              make_tw(psi, psi_sh, ipsi, ipsi_sh, consts), r,
-                              logn};
-  return run_op(f, r, 2 * r, logn, stream);
+  return ntt_encrypt_front_cluster(ub, pk, c, psi, psi_sh, ipsi, ipsi_sh,
+                                   consts, r, logn, 0, stream);
 }
 
 // Kernel 16: one rank's padded tail, c and e (2, rl, n), ra (2, n) ready,

@@ -14,9 +14,10 @@
 // block barrier.  Each thread takes butterflies g = tid, tid + nt, ...;
 // twiddles and their Shoup companions are read from global memory, where
 // one modulus's tables (4 x 8n bytes) stay in L2.  Simple first: no
-// register tiling of stages, no bank-conflict swizzle.  The stage
-// schedule's cluster kernels (ntt_stage.cu) run their local stages through
-// the register-tiled form below instead (ntt_fwd_tiled / ntt_inv_tiled).
+// register tiling of stages, no bank-conflict swizzle.  The cluster
+// kernels (ntt_stage.cu, fused_ops.cu's encrypt transform) run their local
+// stages through the register-tiled form below instead (ntt_fwd_tiled /
+// ntt_inv_tiled, the inverse also on two arrays at once).
 //
 // `tid`/`nt` are the thread's index and the block's thread count; the host
 // build of the tests passes 0/1, where BLOCK_SYNC is a no-op and one thread
@@ -211,16 +212,21 @@ NTT_HD void fwd_pass(W* s, int logn, int lg0, const TW& tw, W q, int tid,
 }
 
 // Inverse pass: stages lg0 down to lg0 - k + 1 (spans 2^lo up to
-// 2^(lo + k - 1), lo = logn - 1 - lg0).
-template <int k, typename W, typename TW>
-NTT_HD void inv_pass(W* s, int logn, int lg0, const TW& tw, W q, int tid,
-                     int nt, int tw_mul) {
+// 2^(lo + k - 1), lo = logn - 1 - lg0), on NA arrays s[0..NA) over the
+// same modulus at once: each twiddle and its Shoup companion, loaded once,
+// serve the butterfly of every array (the encrypt transform's two
+// products, fused_ops.cu).
+template <int k, int NA, typename W, typename TW>
+NTT_HD void inv_pass(W* const* s, int logn, int lg0, const TW& tw, W q,
+                     int tid, int nt, int tw_mul) {
   const int lo = logn - 1 - lg0;
   for (int g = tid; g < (1 << (logn - k)); g += nt) {
     const int b = ((g >> lo) << (lo + k)) | (g & ((1 << lo) - 1));
-    W v[1 << k];
+    W v[NA][1 << k];
 #pragma unroll
-    for (int e = 0; e < (1 << k); ++e) v[e] = s[b + (e << lo)];
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int e = 0; e < (1 << k); ++e) v[a][e] = s[a][b + (e << lo)];
 #pragma unroll
     for (int hs = 0; hs < k; ++hs) {
       const int len = 1 << (lg0 - hs);
@@ -228,11 +234,16 @@ NTT_HD void inv_pass(W* s, int logn, int lg0, const TW& tw, W q, int tid,
       for (int h = 0; h < (1 << (k - 1)); ++h) {
         const int e0 = ((h >> hs) << (hs + 1)) | (h & ((1 << hs) - 1));
         const int w = tw_mul * len + ((b + (e0 << lo)) >> (lo + hs + 1));
-        gs_butterfly(v[e0], v[e0 + (1 << hs)], tw.ipsi[w], tw.ipsi_sh[w], q);
+        const W wt = tw.ipsi[w], ws = tw.ipsi_sh[w];
+#pragma unroll
+        for (int a = 0; a < NA; ++a)
+          gs_butterfly(v[a][e0], v[a][e0 + (1 << hs)], wt, ws, q);
       }
     }
 #pragma unroll
-    for (int e = 0; e < (1 << k); ++e) s[b + (e << lo)] = v[e];
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int e = 0; e < (1 << k); ++e) s[a][b + (e << lo)] = v[a][e];
   }
 }
 
@@ -253,21 +264,30 @@ NTT_HD void ntt_fwd_tiled(W* s, int logn, const TW& tw, W q, int tid, int nt,
   }
 }
 
-// ntt_inv_block in passes of K stages; the last pass takes the stages left
-// over (stages logn % K - 1 .. 0).
-template <int K, typename W, typename TW>
-NTT_HD void ntt_inv_tiled(W* s, int logn, const TW& tw, W q, int tid, int nt,
-                          int tw_mul = 1) {
+// ntt_inv_block in passes of K stages, on NA arrays s[0..NA) at once (one
+// modulus); the last pass takes the stages left over (stages
+// logn % K - 1 .. 0).
+template <int K, int NA, typename W, typename TW>
+NTT_HD void ntt_inv_tiled(W* const* s, int logn, const TW& tw, W q, int tid,
+                          int nt, int tw_mul = 1) {
   static_assert(K == 2 || K == 3, "passes of 2 or 3 stages");
   int lg = logn - 1;
   BLOCK_SYNC();
   for (; lg + 1 >= K; lg -= K) {
-    inv_pass<K>(s, logn, lg, tw, q, tid, nt, tw_mul);
+    inv_pass<K, NA>(s, logn, lg, tw, q, tid, nt, tw_mul);
     BLOCK_SYNC();
   }
-  if (lg == 0) inv_pass<1>(s, logn, 0, tw, q, tid, nt, tw_mul);
-  if (lg == 1) inv_pass<2>(s, logn, 1, tw, q, tid, nt, tw_mul);
+  if (lg == 0) inv_pass<1, NA>(s, logn, 0, tw, q, tid, nt, tw_mul);
+  if (lg == 1) inv_pass<2, NA>(s, logn, 1, tw, q, tid, nt, tw_mul);
   if (lg >= 0) BLOCK_SYNC();
+}
+
+// The same on one array.
+template <int K, typename W, typename TW>
+NTT_HD void ntt_inv_tiled(W* s, int logn, const TW& tw, W q, int tid, int nt,
+                          int tw_mul = 1) {
+  W* const one[1] = {s};
+  ntt_inv_tiled<K, 1>(one, logn, tw, q, tid, nt, tw_mul);
 }
 
 // Threads per block for the tiled form of a 2^logn-point transform: one

@@ -105,28 +105,23 @@
 // of 2^STAGE_TILE coefficients each, n / (B 8), at most 1024 (512 at
 // n = 2^15, B = 8): every thread of a pass has work, and the cross phases
 // give each thread n / (B^2 T) columns.
-// B: stage_cluster_log below, the rule fixed from per-B timings on the
-// card (PERF.md): 8 wherever it fits.  The launcher raises the kernel's
-// shared memory limit and checks with cudaOccupancyMaxActiveClusters
-// that a cluster of the shape fits, once per kernel, device and shape;
-// where it does not, it returns the CUDA error: there is no one-block,
-// two-launch or plain schedule behind it.  Every intermediate stays in
-// [0, q), so each prologue, epilogue, mod_idx and shard base gives the
-// plain version's integers.
+// B: stage_cluster_log (ntt_cluster.cuh, shared with fused_ops.cu's
+// encrypt transform), the rule fixed from per-B timings on the card
+// (PERF.md): 8 wherever it fits.  The launcher (run_cluster) raises the
+// kernel's shared memory limit and checks with
+// cudaOccupancyMaxActiveClusters that a cluster of the shape fits, once
+// per kernel, device and shape; where it does not, it returns the CUDA
+// error: there is no one-block, two-launch or plain schedule behind it.
+// Every intermediate stays in [0, q), so each prologue, epilogue, mod_idx
+// and shard base gives the plain version's integers.
 //
-// Host build (g++, the CPU tests): the launcher walks the clusters; for
-// each it runs phase A of its B blocks (one thread each) into B host
-// buffers, then phase B of each block: the same index algebra at every B
+// Host build (g++, the CPU tests): walk_clusters runs, for each cluster,
+// phase A of its B blocks (one thread each) into B host buffers, then
+// phase B of each block: the same index algebra at every B
 // (ntt_stage_forward_cluster / ntt_stage_inverse_cluster take B).
 
 #include "behz_sums.cuh"
-#include "ntt_block.cuh"
-
-#ifdef __CUDACC__
-#include <cooperative_groups.h>
-#else
-#include <vector>
-#endif
+#include "ntt_cluster.cuh"
 
 enum {
   PRO_COPY = 0,
@@ -214,43 +209,6 @@ NTT_HD u64 inv_finish(const StageIO& io, int p, int i, u64 v,
   return v;
 }
 
-// The cross stages on one column's B = 2^CL values in registers: global
-// stage lg < CL pairs rows k and k + B / 2^(lg+1), twiddle index
-// base 2^lg + (k >> (CL - lg)) -- the whole-polynomial form's index on B
-// points.
-template <int CL>
-NTT_HD void cross_fwd(u64* v, const Twiddles& t, u64 q, int base) {
-#pragma unroll
-  for (int lg = 0; lg < CL; ++lg) {
-    const int sl = CL - 1 - lg;
-#pragma unroll
-    for (int g = 0; g < (1 << CL) / 2; ++g) {
-      const int ps = g >> sl;
-      const int a = (ps << (sl + 1)) | (g & ((1 << sl) - 1));
-      const int w = base * (1 << lg) + ps;
-      ct_butterfly(v[a], v[a + (1 << sl)], t.psi[w], t.psi_sh[w], q);
-    }
-  }
-}
-
-template <int CL>
-NTT_HD void cross_inv(u64* v, const Twiddles& t, u64 q, int base) {
-#pragma unroll
-  for (int lg = CL - 1; lg >= 0; --lg) {
-    const int sl = CL - 1 - lg;
-#pragma unroll
-    for (int g = 0; g < (1 << CL) / 2; ++g) {
-      const int ps = g >> sl;
-      const int a = (ps << (sl + 1)) | (g & ((1 << sl) - 1));
-      const int w = base * (1 << lg) + ps;
-      gs_butterfly(v[a], v[a + (1 << sl)], t.ipsi[w], t.ipsi_sh[w], q);
-    }
-  }
-}
-
-// Local stages of the stage kernels: passes of STAGE_TILE stages.
-#define STAGE_TILE 3
-
 // The phases of the cluster schedule (the note at the head of the file).
 // Each runs on block j of polynomial p's cluster of B = 2^CL blocks, as
 // thread tid of nt; peer[k] is block k's shared memory (distributed
@@ -317,23 +275,6 @@ NTT_HD void inv_phase_b(const StageIO& io, const Twiddles& tw, int p, int j,
     for (int k = 0; k < (1 << CL); ++k)
       ob[k * nb + i] = inv_finish(io, p, k * nb + i, v[k], c);
   }
-}
-
-// log2 B of the cluster sizes a launch of 2^logn points can take: a block
-// holds at most 2^LOG_BLOCK_MAX points and at least 2, and B <= 8.
-static bool cluster_ok(int logn, int cl) {
-  return cl >= 0 && cl <= 3 && logn - cl <= LOG_BLOCK_MAX && logn - cl >= 1;
-}
-
-// The launchers' rule: the largest B a launch of 2^logn points takes, 8
-// from n = 16 on.  On the H100 B = 8 was the fastest at n = 2^14 and 2^15
-// for P = 9, 18 and 36 polynomials (PERF.md): a launch is bound by the
-// latency of its blocks' local stages, which falls with n/B, and P B
-// blocks past 132 SMs still beat fewer, longer blocks.
-static int stage_cluster_log(int logn) {
-  int cl = 3;
-  while (!cluster_ok(logn, cl)) --cl;
-  return cl;
 }
 
 // Kernel 15's inverse body (k_decrypt_fused, below): block b is
@@ -535,52 +476,18 @@ __global__ void __launch_bounds__(1024, 1)
     dec_fused_tail(k, io, d);
 }
 
-// One launch of P clusters of 2^CL blocks: the kernel's shared memory
-// limit raised and the cluster's fit checked once per kernel, device and
-// transform size; a cluster that cannot run returns its CUDA error.
-template <int CL>
-static int run_cluster(void (*kernel)(StageIO, Twiddles), int P,
-                       const StageIO& io, const Twiddles& tw, void* stream) {
-  const int nb = 1 << (io.logn - CL);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1u << CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)P << CL);
-  cfg.blockDim = dim3(tiled_threads<STAGE_TILE>(nb));
-  cfg.dynamicSmemBytes = (size_t)nb * sizeof(u64);
-  cfg.stream = (cudaStream_t)stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t e = launch_setup().run((const void*)kernel, io.logn, [&] {
-    cudaError_t r = cudaFuncSetAttribute(
-        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(sizeof(u64) << LOG_BLOCK_MAX));
-    int clusters = 0;
-    if (r == cudaSuccess)
-      r = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel,
-                                         &cfg);
-    if (r == cudaSuccess && clusters < 1) r = cudaErrorLaunchOutOfResources;
-    return r;
-  });
-  if (e != cudaSuccess) return (int)e;
-  e = cudaLaunchKernelEx(&cfg, kernel, io, tw);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
 template <int CL>
 static int run_forward(const StageIO& io, const Twiddles& tw, int P,
                        void* stream) {
-  return run_cluster<CL>(k_stage_fwd_block<CL>, P, io, tw, stream);
+  return run_cluster<CL>(k_stage_fwd_block<CL>, P, io.logn, 1, stream, io,
+                         tw);
 }
 
 template <int CL>
 static int run_inverse(const StageIO& io, const Twiddles& tw, int P,
                        void* stream) {
-  return run_cluster<CL>(k_stage_inv_block<CL>, P, io, tw, stream);
+  return run_cluster<CL>(k_stage_inv_block<CL>, P, io.logn, 1, stream, io,
+                         tw);
 }
 
 template <typename K, typename IO>
@@ -595,48 +502,33 @@ static int launch_pairs(K kernel, long long total, void* stream, IO io,
 
 #else  // host build for the CPU tests: one thread per block, blocks in order
 
-// Each cluster in turn: phase A of its B blocks into B host buffers, then
-// phase B of each block.
+// Each cluster in turn (walk_clusters): phase A of its B blocks, then
+// phase B of each.
 template <int CL>
 static int run_forward(const StageIO& io, const Twiddles& tw, int P, void*) {
-  const size_t nb = (size_t)1 << (io.logn - CL);
-  std::vector<u64> buf(nb << CL);
-  u64* peer[1 << CL];
-  for (int k = 0; k < (1 << CL); ++k) peer[k] = buf.data() + k * nb;
-  for (int p = 0; p < P; ++p) {
-    for (int j = 0; j < (1 << CL); ++j)
-      fwd_phase_a<CL>(io, tw, p, j, 0, 1, peer);
-    for (int j = 0; j < (1 << CL); ++j)
-      fwd_phase_b<CL>(io, tw, p, j, 0, 1, peer[j]);
-  }
+  walk_clusters<CL>(P, 2, (size_t)1 << (io.logn - CL),
+                    [&](int ph, int p, int j, u64* const* peer) {
+                      if (ph == 0)
+                        fwd_phase_a<CL>(io, tw, p, j, 0, 1, peer);
+                      else
+                        fwd_phase_b<CL>(io, tw, p, j, 0, 1, peer[j]);
+                    });
   return 0;
 }
 
 template <int CL>
 static int run_inverse(const StageIO& io, const Twiddles& tw, int P, void*) {
-  const size_t nb = (size_t)1 << (io.logn - CL);
-  std::vector<u64> buf(nb << CL);
-  u64* peer[1 << CL];
-  for (int k = 0; k < (1 << CL); ++k) peer[k] = buf.data() + k * nb;
-  for (int p = 0; p < P; ++p) {
-    for (int j = 0; j < (1 << CL); ++j)
-      inv_phase_a<CL>(io, tw, p, j, 0, 1, peer[j]);
-    for (int j = 0; j < (1 << CL); ++j)
-      inv_phase_b<CL>(io, tw, p, j, 0, 1, peer);
-  }
+  walk_clusters<CL>(P, 2, (size_t)1 << (io.logn - CL),
+                    [&](int ph, int p, int j, u64* const* peer) {
+                      if (ph == 0)
+                        inv_phase_a<CL>(io, tw, p, j, 0, 1, peer[j]);
+                      else
+                        inv_phase_b<CL>(io, tw, p, j, 0, 1, peer);
+                    });
   return 0;
 }
 
 #endif
-
-// log2 of the cluster size for B (0: the rule), or -1 where a launch of
-// 2^logn points cannot take B.
-static int cluster_log(int B, int logn) {
-  if (B == 0) return stage_cluster_log(logn);
-  int cl = 0;
-  while (cl < 4 && (1 << cl) != B) ++cl;
-  return cluster_ok(logn, cl) ? cl : -1;
-}
 
 // One direction's launch at cluster size 2^cl.
 static int run_stage(bool inverse, const StageIO& io, const Twiddles& tw,

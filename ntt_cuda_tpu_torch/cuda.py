@@ -29,13 +29,14 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("salsa20.cu", "decrypt_tail.cu", "fused_ops.cu", "ntt_stage.cu",
            "behz.cu", "ntt30.cu")
-HEADERS = ("modarith.cuh", "ntt_block.cuh", "behz_sums.cuh")
+HEADERS = ("modarith.cuh", "ntt_block.cuh", "ntt_cluster.cuh",
+           "behz_sums.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 BLOCK_MAX_N = 16384     # one u64 polynomial per block in shared memory:
 #                         128 KB
-TRANSFORM_MAX_N = 32768  # the stage kernels: one cluster of 2-8 blocks,
-#                          2^14 u64 at most each, per polynomial
+TRANSFORM_MAX_N = 32768  # the stage kernels and the encrypt transform:
+#                          one cluster of 2-8 blocks per polynomial
 TRANSFORM30_MAX_N = 65536  # kernel 22 (u32): one block up to 2^15, two
 #                            2^15 halves beside stage-0 passes at 2^16
 
@@ -65,6 +66,12 @@ SIGNATURES = {
     "ntt_encrypt_tail": (_P, _P, _P, _P, _U64, _U64, _U64, _I, _I, _I, _P),
     # u_b, pk, c, 4 tables, consts, r, log n
     "ntt_encrypt_front": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # ntt_encrypt_transform and ntt_encrypt_front with the cluster size B
+    # last (0: the launchers' rule)
+    "ntt_encrypt_transform_cluster": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      _I, _I, _I, _P),
+    "ntt_encrypt_front_cluster": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _P),
     # c, e, ra, m, ct, per_mod, q_last, fix_th, rl, n
     "ntt_encrypt_tail_padded": (_P, _P, _P, _P, _P, _P, _U64, _U64, _I, _I,
                                 _P),

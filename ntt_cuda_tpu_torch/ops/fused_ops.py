@@ -4,13 +4,16 @@ keyswitch_fused, and for the RNS-sharded programs encrypt_front
 transforms alone, over a band of moduli).
 
 Counterpart of `ntt_cuda_tpu/ops/fused_ops.py` for the main path.  On a
-CUDA device each wrapper launches its kernel in csrc/fused_ops.cu: one
-block per polynomial (message x modulus), resident in shared memory for
-its whole forward -> dyadic -> inverse chain; at n = 32768 two blocks per
-polynomial, one per 2^14 half, beside elementwise stage-0 passes (one
-wrapper call, three or four launches).  The key switch is the exception:
-its k digit chains and two accumulators do not fit a block, so it runs as
-two launches of csrc/ntt_stage.cu (its front) and the encrypt tail.  On the
+CUDA device each wrapper launches its kernel in csrc/fused_ops.cu.
+half_polymul and keygen_fused: one block per polynomial (message x
+modulus), resident in shared memory for its whole forward -> dyadic ->
+inverse chain; at n = 32768 two blocks per polynomial, one per 2^14 half,
+beside elementwise stage-0 passes (three or four launches a call).
+encrypt_fused's transform and encrypt_front: one thread-block cluster of
+B blocks per polynomial of u, one launch at every n <= 32768 (`cluster=`
+picks B; 0 is the launchers' rule, ntt_stage.cluster_size), then
+encrypt_fused's tail launch.  The key switch runs as two launches of
+csrc/ntt_stage.cu (its front) and the encrypt tail.  On the
 CPU each wrapper runs the plain version beside it, composed from
 ops/ntt.py, ops/poly.py and the compact-draw maps of ops/sampling.py: the
 same computation the JAX package's xla pipelines run (models/bfv.py:933-937,
@@ -110,12 +113,28 @@ def encrypt_fused_plain(u_b, pk, e_d, m_poly, tables: NTTTables,
                                         consts)
 
 
+def encrypt_transform_plain(u_b, pk, e_d, tables: NTTTables) -> torch.Tensor:
+    """What encrypt_fused's transform leaves in its scratch, before the
+    tail: c_h = INTT(NTT(u) (.) pk_h) +> e_h over all r moduli.  (J, n),
+    (2, r, n), (J, 2, n) -> (J, 2, r, n).  The tail's modulus drop rounds
+    a small e away almost everywhere, so the ciphertext alone hardly shows
+    which e row was added: a check of the transform compares this."""
+    ms = tables.ms
+    u_ntt = ntt.ntt_forward(sampling.small_res(u_b, ms.q), tables)
+    c = ntt.ntt_inverse(ntt.dyadic_mul(u_ntt[..., None, :, :], pk, ms), tables)
+    return poly.poly_add(c, sampling.small_res(e_d, ms.q), ms)
+
+
 def encrypt_fused(u_b, pk, e_d, m_poly, tables: NTTTables,
-                  consts: TailConsts):
+                  consts: TailConsts, *, cluster: int = 0):
     """The whole encryption after the draws, J-batched.  u_b (J, n) compact
     ternary, pk (2, r, n) NTT domain, e_d (J, 2, n) compact Gaussian,
     m_poly (J, n) int64 messages -> (J, 2, r-1, n) ciphertexts; the J axis
-    may be left out for one message.  On the card: the transforms into a
+    may be left out for one message.  On the card: the transform, one
+    cluster of `cluster` blocks per polynomial of u (0, which every
+    caller in the package passes: the launchers' rule; other B exist for
+    the per-B tests and timings, and a B whose two n/B buffers do not fit
+    a block raises), into a
     (J, 2, r, n) scratch (J 2 r n 8 bytes: 75 MB at 32k_9q, J = 16), then
     the elementwise tail."""
     if pk.device.type == "cpu":
@@ -133,9 +152,9 @@ def encrypt_fused(u_b, pk, e_d, m_poly, tables: NTTTables,
     cuda.require("m_poly", m_poly, I64, (J, n), dev)
     scratch = torch.empty((J, 2, r, n), dtype=I64, device=dev)
     ct = torch.empty((J, 2, r - 1, n), dtype=I64, device=dev)
-    cuda.launch("ntt_encrypt_transform", dev, u_b.data_ptr(), pk.data_ptr(),
-                e_d.data_ptr(), scratch.data_ptr(), *tables.kernel_args(), J,
-                r, tables.logn)
+    cuda.launch("ntt_encrypt_transform_cluster", dev, u_b.data_ptr(),
+                pk.data_ptr(), e_d.data_ptr(), scratch.data_ptr(),
+                *tables.kernel_args(), J, r, tables.logn, cluster)
     cuda.launch("ntt_encrypt_tail", dev, scratch.data_ptr(),
                 m_poly.data_ptr(), ct.data_ptr(), consts.per_mod.data_ptr(),
                 consts.q_last,
@@ -156,13 +175,14 @@ def encrypt_front_plain(u_b, pk, tables: NTTTables) -> torch.Tensor:
     return ntt.ntt_inverse(ntt.dyadic_mul(u_ntt[None], pk, tables.ms), tables)
 
 
-def encrypt_front(u_b, pk, tables: NTTTables) -> torch.Tensor:
+def encrypt_front(u_b, pk, tables: NTTTables, *,
+                  cluster: int = 0) -> torch.Tensor:
     """Kernel 18, encryption's transform front (the JAX package's
     encrypt_front, used by the RNS-sharded program, whose tail needs an
     all-reduce first): compact (n,) int32 ternary u_b and (2, r, n)
     NTT-domain pk over the tables' moduli -> (2, r, n) c with c[h] =
     INTT(NTT(u) (.) pk[h]).  On the card: K5's transform with no e, one
-    launch (three at n = 32768: two 2^14 halves beside stage-0 passes)."""
+    launch at every n <= 32768; cluster as encrypt_fused's."""
     r, n = tables.r, tables.n
     for name, t, shape in (("u_b", u_b, (n,)), ("pk", pk, (2, r, n))):
         if tuple(t.shape) != shape:
@@ -175,8 +195,9 @@ def encrypt_front(u_b, pk, tables: NTTTables) -> torch.Tensor:
     cuda.require("u_b", u_b, torch.int32, (n,), dev)
     cuda.require("pk", pk, I64, (2, r, n), dev)
     c = torch.empty((2, r, n), dtype=I64, device=dev)
-    cuda.launch("ntt_encrypt_front", dev, u_b.data_ptr(), pk.data_ptr(),
-                c.data_ptr(), *tables.kernel_args(), r, tables.logn)
+    cuda.launch("ntt_encrypt_front_cluster", dev, u_b.data_ptr(),
+                pk.data_ptr(), c.data_ptr(), *tables.kernel_args(), r,
+                tables.logn, cluster)
     encrypt_front.launches += 1
     return c
 

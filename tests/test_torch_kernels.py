@@ -162,9 +162,11 @@ def _host_encrypt(host_lib, ctx, u_b, pk, e_d, m):
 
 @pytest.mark.parametrize("J", [1, 2])
 def test_host_op_kernels_32k(host_lib, op32_ctx, J):
-    """K3, K4 and K5 at n = 2^15 (32k_9q constants): the CT stage-0 pass,
-    two 2^14 half blocks per polynomial, the GS stage-0 pass (and K4's
-    second forward over the halves) against the plain versions."""
+    """K3, K4 and K5 at n = 2^15 (32k_9q constants) against the plain
+    versions: K3 and K4 as the CT stage-0 pass, two 2^14 half blocks per
+    polynomial, the GS stage-0 pass (and K4's second forward over the
+    halves); K5 as one cluster launch per polynomial of u at the
+    launchers' B, then its tail."""
     ctx = op32_ctx
     p, tf, td = ctx.params, ctx.tables_full, ctx.tables_drop
     rng = np.random.default_rng(100 + J)
@@ -260,6 +262,105 @@ def test_host_encrypt_fused(host_lib, ctx, J):
                                      p.n, None) == 0
     ref = fused_ops.encrypt_fused_plain(u_b, pk, e_d, m, ctx.tables_full, tc)
     torch.testing.assert_close(ct, ref, rtol=0, atol=0)
+
+
+# K5's transform and kernel 18 through the entry points that take the
+# cluster size B (0: the rule): every B at 32k_9q (J = 1 and 2) and at
+# 4k_3q (J = 3).  A block holds two n/B buffers, so B = 1 and 2 at 2^15
+# must be refused.
+ENC_SETS = [("32k_9q", 1), ("32k_9q", 2), ("4k_3q", 3)]
+ENC_BS = [0, 1, 2, 4, 8]
+
+
+def _enc_takes(B, n):
+    """Whether the encrypt launchers take cluster size B at n points: two
+    n/B u64 buffers in at most 2^14 u64 (128 KB) a block."""
+    return B == 0 or (2 <= n // B and 2 * n // B <= 16384)
+
+
+# set -> K5's inputs (a random pk) for the set's largest J and the three
+# plain results: the ciphertexts, the transform's scratch, kernel 18's c for
+# message 0.  Message j's inputs do not depend on J, so a case of J
+# messages takes the first J of each.
+_ENC = {}
+
+
+def _enc_case(ctx, J):
+    p = ctx.params
+    if p.name not in _ENC:
+        Jm = max(j for name, j in ENC_SETS if name == p.name)
+        rng = np.random.default_rng(60)
+        pk = _rand_res(rng, p.q, p.n, (2,))
+        u_b, e_d = sampling.encrypt_draws_compact_batch(p.n, range(1, Jm + 1),
+                                                        device="cpu")
+        m = torch.from_numpy(rng.integers(0, p.t, (Jm, p.n), dtype=np.int64))
+        m[:, :4] = torch.tensor([0, p.t - 1, p.t // 2, p.t // 2 - 1])
+        tf = ctx.tables_full
+        _ENC[p.name] = ((pk, u_b, e_d, m), (
+            fused_ops.encrypt_fused_plain(u_b, pk, e_d, m, tf,
+                                          ctx.tail_consts),
+            fused_ops.encrypt_transform_plain(u_b, pk, e_d, tf),
+            fused_ops.encrypt_front_plain(u_b[0], pk, tf)))
+    (pk, u_b, e_d, m), (ct, scratch, c) = _ENC[p.name]
+    return (pk, u_b[:J], e_d[:J], m[:J]), (ct[:J], scratch[:J], c)
+
+
+@pytest.mark.parametrize("B", ENC_BS, ids=lambda B: f"B{B}")
+@pytest.mark.parametrize("name,J", ENC_SETS, ids=lambda x: str(x))
+def test_host_encrypt_cluster(host_lib, op32_ctx, name, J, B):
+    """K5 (its transform's scratch, then the tail's ciphertexts) and
+    kernel 18 (message 0, all r moduli) at cluster size B against their
+    plain versions, exactly; a B whose two buffers do not fit a block is
+    refused."""
+    ctx = op32_ctx if name == op32_ctx.params.name else BFVContext.build(
+        get_bfv_params(name), device="cpu", fusion="op")
+    (pk, u_b, e_d, m), (ref_ct, ref_scratch, ref_c) = _enc_case(ctx, J)
+    p, tf, tc = ctx.params, ctx.tables_full, ctx.tail_consts
+    scratch = torch.empty((J, 2, p.r, p.n), dtype=torch.int64)
+    c = torch.empty((2, p.r, p.n), dtype=torch.int64)
+    rc = host_lib.ntt_encrypt_transform_cluster(
+        u_b.data_ptr(), pk.data_ptr(), e_d.data_ptr(), scratch.data_ptr(),
+        *tf.kernel_args(), J, p.r, p.logn, B, None)
+    rc_front = host_lib.ntt_encrypt_front_cluster(
+        u_b[0].data_ptr(), pk.data_ptr(), c.data_ptr(), *tf.kernel_args(),
+        p.r, p.logn, B, None)
+    if not _enc_takes(B, p.n):
+        assert rc != 0 and rc_front != 0
+        return
+    assert rc == 0 and rc_front == 0
+    torch.testing.assert_close(scratch, ref_scratch, rtol=0, atol=0)
+    ct = torch.empty((J, 2, p.r - 1, p.n), dtype=torch.int64)
+    assert host_lib.ntt_encrypt_tail(scratch.data_ptr(), m.data_ptr(),
+                                     ct.data_ptr(), tc.per_mod.data_ptr(),
+                                     tc.q_last, tc.half, tc.fix_th, J, p.r,
+                                     p.n, None) == 0
+    torch.testing.assert_close(ct, ref_ct, rtol=0, atol=0)
+    torch.testing.assert_close(c, ref_c, rtol=0, atol=0)
+
+
+def test_host_encrypt_cluster_refusals(host_lib):
+    """The encrypt launchers refuse, before touching memory, the shapes
+    whose two n/B buffers pass 128 KB a block (2^14 at B = 1, 2^15 at B =
+    1 and 2), a B that is no power of two up to 8, and n past 2^15; the
+    rule (B = 0) is taken from n = 2 to 2^15."""
+    front = host_lib.ntt_encrypt_front_cluster
+    tf = [None] * 5
+    for logn, B in ((14, 1), (15, 1), (15, 2), (15, 3), (15, 16), (16, 0),
+                    (16, 8), (0, 0)):
+        assert front(None, None, None, *tf, 1, logn, B, None) != 0, (logn, B)
+        assert host_lib.ntt_encrypt_transform_cluster(
+            None, None, None, None, *tf, 1, 1, logn, B, None) != 0, (logn, B)
+    q = SMALL.q[0]
+    for n in (2, 16, 1024):    # the rule's B: 1, 8, 8
+        psi = pow(SMALL.psi[0], SMALL.n // n, q)
+        tb = ntt.NTTTables.build([q], [psi], n, device="cpu")
+        u = torch.from_numpy(np.resize(np.array([1, -1, 0], np.int32), n))
+        pk = _rand_res(np.random.default_rng(n), SMALL.q[:1], n, (2,))
+        c = torch.empty_like(pk)
+        assert front(u.data_ptr(), pk.data_ptr(), c.data_ptr(),
+                     *tb.kernel_args(), 1, n.bit_length() - 1, 0, None) == 0
+        torch.testing.assert_close(c, fused_ops.encrypt_front_plain(u, pk, tb),
+                                   rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("params", [SMALL, SMALL_ODD_T], ids=["pow2_t",
@@ -838,6 +939,42 @@ def test_cuda_stage_cluster_sizes_match_plain(cuda_device, B):
                 sharded.local_forward_stages(xs, tb, C, c))
             run(lambda o: il(xs, ys, None, o, tb, logc=logc, shard=c),
                 coef_kernels.local_inverse_mul_plain(xs, ys, tb, C, c))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["16k_5q", "32k_9q"])
+def test_cuda_encrypt_cluster_sizes_match_plain(cuda_device, name):
+    """K5 (J = 1 and 3: its transform's scratch and the wrapper's
+    ciphertexts) and kernel 18 on the card at every cluster size B against
+    their plain versions; a B whose two n/B buffers do not fit a block
+    (B = 1 at 2^14, B = 1 and 2 at 2^15) raises."""
+    p, dev = get_bfv_params(name), cuda_device
+    ctx = BFVContext.build(p, device=dev, fusion="op")
+    tf, tc = ctx.tables_full, ctx.tail_consts
+    rng = np.random.default_rng(10)
+    for J in (1, 3):
+        pk, u_b, e_d, m = _enc_inputs(ctx, rng, J)
+        ref = fused_ops.encrypt_fused_plain(u_b, pk, e_d, m, tf, tc)
+        ref_c = fused_ops.encrypt_front_plain(u_b[0], pk, tf)
+        ref_s = fused_ops.encrypt_transform_plain(u_b, pk, e_d, tf)
+        scratch = torch.empty_like(ref_s)
+        for B in (1, 2, 4, 8):
+            if not _enc_takes(B, p.n):
+                with pytest.raises(RuntimeError):
+                    fused_ops.encrypt_fused(u_b, pk, e_d, m, tf, tc,
+                                            cluster=B)
+                with pytest.raises(RuntimeError):
+                    fused_ops.encrypt_front(u_b[0], pk, tf, cluster=B)
+                continue
+            cuda.launch("ntt_encrypt_transform_cluster", dev, u_b.data_ptr(),
+                        pk.data_ptr(), e_d.data_ptr(), scratch.data_ptr(),
+                        *tf.kernel_args(), J, p.r, p.logn, B)
+            assert torch.equal(scratch, ref_s), B
+            assert torch.equal(fused_ops.encrypt_fused(
+                u_b, pk, e_d, m, tf, tc, cluster=B), ref), B
+            assert torch.equal(fused_ops.encrypt_front(
+                u_b[0].contiguous(), pk, tf, cluster=B), ref_c), B
     torch.cuda.synchronize()
 
 

@@ -17,12 +17,14 @@ against the JAX package, exactly (tolerance 0).
 * A rank's keygen draws equal to the rows of the single-card draws.
 * The .cu sources built as host code with g++ (as in
   tests/test_torch_kernels.py): kernels 16, 17 and 18 against their plain
-  versions, kernel 18 also at 2^15 (the two-halves split).
+  versions, kernel 18 also at 2^15 and at every cluster size B (one
+  thread-block cluster per polynomial of u).
 * On the card (`-m gpu`): each kernel against its plain version at 32k_9q
-  rank shapes.  The JAX package is imported inside the tests that use it,
-  so that the card's machine, which has no jax, runs this file's `-m gpu`
-  test: `python -m pytest --noconftest -p no:cacheprovider -m gpu
-  tests/test_torch_spmd_kernels.py`.
+  rank shapes (kernel 18 at every cluster size B: tests/test_torch_kernels.py
+  test_cuda_encrypt_cluster_sizes_match_plain).  The JAX package is
+  imported inside the tests that use it, so that the card's machine, which
+  has no jax, runs this file's `-m gpu` test: `python -m pytest
+  --noconftest -p no:cacheprovider -m gpu tests/test_torch_spmd_kernels.py`.
 """
 
 import ctypes
@@ -320,8 +322,8 @@ def _host_front(lib, u_b, pk, tb):
 
 @pytest.mark.parametrize("where", ["n2048_rows2-4", "32k_9q_rows6-9"])
 def test_host_encrypt_front(host_lib, where, rng):
-    """Kernel 18 at n = 2048 and at 2^15 (a CT stage-0 pass, two 2^14 half
-    blocks per polynomial, a GS stage-0 pass with no e)."""
+    """Kernel 18 at n = 2048 and at 2^15 (one launch of a cluster per
+    polynomial of u at the launchers' B, with no e)."""
     if where.startswith("32k"):
         pp, (lo, hi) = get_bfv_params("32k_9q"), (6, 9)
     else:
@@ -331,6 +333,45 @@ def test_host_encrypt_front(host_lib, where, rng):
     pk = _t(_rand_rows(rng, pp.q[lo:hi], pp.n, (2,)))
     assert torch.equal(_host_front(host_lib, u_b, pk, tb),
                        fused_ops.encrypt_front_plain(u_b, pk, tb))
+
+
+# where -> (u_b, pk, tables, the plain front): every B of a case has the
+# same inputs, so the plain version runs once per case
+_FRONT = {}
+
+
+@pytest.mark.parametrize("B", [0, 1, 2, 4, 8], ids=lambda B: f"B{B}")
+@pytest.mark.parametrize("where", ["n2048_rows2-4", "32k_9q_rows6-9"])
+def test_host_encrypt_front_cluster(host_lib, where, B):
+    """Kernel 18 through the entry point that takes the cluster size B (0:
+    the rule) at a rank's rows, n = 2048 and 2^15; B = 1 and 2 at 2^15 (two
+    2^14 buffers a block) refused."""
+    if where not in _FRONT:
+        if where.startswith("32k"):
+            pp, (lo, hi) = get_bfv_params("32k_9q"), (6, 9)
+        else:
+            pp, (lo, hi) = convert.params_from(_jax_params()), (2, 4)
+        tb = ntt.NTTTables.build(pp.q[lo:hi], pp.psi[lo:hi], pp.n,
+                                 device="cpu")
+        u_b, _ = sampling.encrypt_draws_compact(pp.n, nonce=7, device="cpu")
+        pk = _t(_rand_rows(np.random.default_rng(hi), pp.q[lo:hi], pp.n,
+                           (2,)))
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)   # the suite's workers share the cores
+        try:
+            ref = fused_ops.encrypt_front_plain(u_b, pk, tb)
+        finally:
+            torch.set_num_threads(threads)
+        _FRONT[where] = (u_b, pk, tb, ref)
+    u_b, pk, tb, ref = _FRONT[where]
+    c = torch.empty_like(pk)
+    rc = host_lib.ntt_encrypt_front_cluster(
+        u_b.data_ptr(), pk.data_ptr(), c.data_ptr(), *tb.kernel_args(), tb.r,
+        tb.logn, B, None)
+    if B and 2 * tb.n // B > 16384:
+        assert rc != 0
+        return
+    assert rc == 0 and torch.equal(c, ref)
 
 
 @pytest.mark.parametrize("band", BANDS, ids=lambda b: f"rows{b[0]}-{b[1]}")
