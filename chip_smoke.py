@@ -12,10 +12,12 @@ interleaved against in turn).  Then:
 
 1. every kernel exactly (tolerance 0) against its plain PyTorch version on
    the card: the op kernels K1-K5 at 4k_3q and 16k_5q, K3-K5 also at
-   32k_9q and 32k_16q (K3 and K4 two 2^14 halves beside stage-0 passes,
-   K5 one cluster launch and its tail), K5 (J = 1 and 3) and kernel 18 at
-   every cluster size B at 32k_9q and 16k_5q (the B whose two n/B buffers
-   do not fit a block, 1 at 2^14 and 1, 2 at 2^15, refused), the stage
+   32k_9q and 32k_16q (each transform one cluster launch, K5 then its
+   tail), K3 (J = 1 and 3) and K4 at every cluster size B at 4k_3q, 16k_5q
+   and 32k_9q (B = 1 at 2^15, whose n/B buffer does not fit a block,
+   refused), K5 (J = 1 and 3) and kernel 18 at every B at 32k_9q and
+   16k_5q (the B whose two n/B buffers do not fit a block, 1 at 2^14 and
+   1, 2 at 2^15, refused), the stage
    kernels (7-10, 13) and the decrypt tail at 4k_3q, 16k_5q and 32k_9q
    (one cluster launch at 2^15), J = 1 and 3 where there is a batch axis,
    every stage row (7 both ways, 8-11, 12 both ways, 13's and 19/20's
@@ -49,9 +51,9 @@ interleaved against in turn).  Then:
    decrypt_batch, counts read as in 3 (kernel 6 and K5 once each), every
    row equal to encrypt of its message and nonce and every message
    round-tripped;
-7. the op schedule at 32k_9q (`fusion="op"`: K3 and K4 over two halves),
-   driven as in 3, its keys, ciphertexts and plaintexts equal to the stage
-   schedule's;
+7. the op schedule at 32k_9q (`fusion="op"`: K3-K5 one cluster launch
+   each), driven as in 3, its keys, ciphertexts and plaintexts equal to
+   the stage schedule's;
 8. the ciphertext ops at 32k_9q: add, sub, negate, add_plain, sub_plain
    and mul_plain by a seeded sparse plaintext decrypt to their mod-t
    results, mod_switch_to_next decrypts under next_context(), and
@@ -107,7 +109,9 @@ interleaved against in turn).  Then:
    back-to-back CUDA events, each output held against its plain version);
    K5 at 16k_5q J = 1 and 32k_9q J = 1 and 16, and kernel 18 at 32k_9q, at
    every cluster size B, and the transform's two local inverses at those
-   shapes interleaved (as the library runs them) and in turn, in turns.
+   shapes interleaved (as the library runs them) and in turn, in turns;
+   K3 (J = 1) and K4 at 16k_5q and 32k_9q at every B.  (The cluster
+   kernels' __launch_bounds__ A/B is tools/bounds_ab.py, run on its own.)
 
 13. kernels 12, 14 and 15 (the op-level entry points ntt_forward /
    ntt_inverse with mod_idx, encrypt_tail, decrypt_fused) against their
@@ -180,7 +184,7 @@ MULT_SETS = ("32k_9q", "16k_5q")  # the EvalMult main path, timed at both
 OP_CHECK_SETS = ("4k_3q", "16k_5q")
 STAGE_CHECK_SETS = ("4k_3q", "16k_5q", "32k_9q")
 MULT_CHECK_SETS = ("4k_3q", "16k_5q", "32k_9q", "32k_16q")
-OP32_CHECK_SETS = ("32k_9q", "32k_16q")   # K3-K5 over two 2^14 halves
+OP32_CHECK_SETS = ("32k_9q", "32k_16q")   # K3-K5 at n = 2^15
 OP32_KERNELS = ("half_polymul", "keygen_fused", "encrypt_fused")
 BATCH_J = 16
 NTT30_SIZES = (2048, 16384, 32768, 65536)   # one block up to 2^15; 2^16
@@ -225,6 +229,11 @@ ENC_CHECK_SETS = ("32k_9q", "16k_5q")
 ENC_TIME_CASES = (("K5", "16k_5q", 1), ("K5", "32k_9q", 1),
                   ("K5", "32k_9q", BATCH_J), ("18", "32k_9q", 0))
 ENC_ENTRIES = ("ntt_encrypt_transform_cluster", "ntt_encrypt_front_cluster")
+# K3 and K4 (csrc/fused_ops.cu, one n/B buffer a block): held against their
+# plain versions at every B at these sets (K3 at J = 1 and 3), and timed at
+# every B a launch takes at these (J = 1)
+OPC_CHECK_SETS = ("4k_3q", "16k_5q", "32k_9q")
+OPC_TIME_SETS = ("16k_5q", "32k_9q")
 # the rows that run the stage kernels, as timed (12 at (19, n), 13 with its
 # tail launch, 19 its three launches, 20 at rl = 9)
 STAGE_ROWS = ("ntt_forward", "ntt_inverse", "ntt_inverse_mul",
@@ -553,17 +562,20 @@ def ptxas_lines(out: str, kernels: str) -> dict[str, str]:
     return res
 
 
+CLUSTER_KERNELS = "k_stage_|k_op_cluster"   # the cluster kernels' names
+
+
 def ptxas_report(procs: list[subprocess.Popen]) -> dict[str, str]:
     res = {}
     for proc in procs:
-        res.update(ptxas_lines(built(proc, "ptxas report"),
-                               "k_stage_|k_encrypt_cluster"))
+        res.update(ptxas_lines(built(proc, "ptxas report"), CLUSTER_KERNELS))
     return res
 
 
-def device_us(fn, reps: int = 20) -> float:
+def device_us(fn, reps: int = 20, names: set | None = None) -> float:
     """Device time of one call in us: torch.profiler's intervals of the
-    port's kernels (k_*) over `reps` calls, summed, over reps."""
+    port's kernels (k_*) over `reps` calls, summed, over reps; their names
+    go into `names` where it is given."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -577,6 +589,10 @@ def device_us(fn, reps: int = 20) -> float:
     if not iv:
         raise RuntimeError("torch.profiler saw no kernel of the port on the "
                            "device")
+    if names is not None:
+        names.update(e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.name.removeprefix("void ").startswith("k_"))
     return sum(iv) / reps
 
 
@@ -1199,6 +1215,79 @@ def encrypt_cluster_times(dev, rng, errs: dict) -> dict:
             res[key] = {"rule": B == ntt_stage.cluster_size(p.n),
                         "us": device_us(kern), "ms": kernel_ms(kern),
                         "transform_us": device_us(transform)}
+    return res
+
+
+def op_fits(B: int, n: int) -> bool:
+    """Whether K3 and K4 take cluster size B at n points: one n/B u64
+    buffer in at most 2^14 u64 (128 KB) a block."""
+    return 2 <= n // B <= cuda.BLOCK_MAX_N
+
+
+def op_cluster_calls(name: str, rng, dev, Js) -> tuple[BFVParams, list]:
+    """K4 on seeded draws (nonce 1) and K3 over J seeded messages (each J
+    of Js) against a seeded y, at the set's first r-1 moduli as decrypt
+    runs it: (kernel, call at cluster size B, plain result) each."""
+    p = get_bfv_params(name)
+    tf = ntt.tables_for(p, device=dev)
+    td = ntt.tables_for(p, p.r - 1, device=dev)
+    s_b, a, e_d = sampling.keygen_draws_compact(p.n, p.r, tf.ms, nonce=1)
+    y = rand_res(rng, p.q[:-1], p.n, (), dev)
+    calls = [("keygen_fused",
+              lambda B: fused_ops.keygen_fused(s_b, a, e_d, tf, cluster=B),
+              fused_ops.keygen_fused_plain(s_b, a, e_d, tf))]
+    for J in Js:
+        x = rand_res(rng, p.q[:-1], p.n, (J,), dev)
+        calls.append(("half_polymul",
+                      lambda B, x=x: fused_ops.half_polymul(x, y, td,
+                                                            cluster=B),
+                      fused_ops.half_polymul_plain(x, y, td)))
+    return p, calls
+
+
+def op_cluster_checks(dev, rng, errs: dict) -> None:
+    """K3 (J = 1 and 3) and K4 at cluster sizes B = 1, 2, 4, 8 at the
+    OPC_CHECK_SETS against their plain versions; a B whose n/B buffer does
+    not fit a block must be refused (the wrapper raises)."""
+    for name in OPC_CHECK_SETS:
+        p, calls = op_cluster_calls(name, rng, dev, (1, 3))
+        took, refused = [], []
+        for B in CLUSTER_BS:
+            for kname, kern, ref in calls:
+                if op_fits(B, p.n):
+                    compare(kname, kern(B), ref, errs)
+                    continue
+                try:
+                    kern(B)
+                except RuntimeError:
+                    continue
+                raise AssertionError(f"{name} {kname} B={B}: launched where "
+                                     f"an n/B buffer does not fit")
+            (took if op_fits(B, p.n) else refused).append(B)
+        log(f"check {name} K3 (J = 1, 3) and K4 at cluster sizes B={took}: "
+            f"equal to their plain versions; B={refused}: refused (an n/B "
+            f"buffer past 128 KB a block)")
+
+
+def op_cluster_times(dev, rng, errs: dict) -> dict:
+    """K3 (J = 1) and K4 at the OPC_TIME_SETS at every cluster size B a
+    launch takes: device us per call (torch.profiler) and ms per call of
+    20 back to back (CUDA events), the output held against its plain
+    version."""
+    res = {}
+    for name in OPC_TIME_SETS:
+        p, calls = op_cluster_calls(name, rng, dev, (1,))
+        for kname, kern, ref in calls:
+            label = "K4" if kname == "keygen_fused" else "K3"
+            for B in CLUSTER_BS:
+                key = f"{label} {name} B={B}"
+                if not op_fits(B, p.n):
+                    res[key] = "refused"
+                    continue
+                compare(kname, kern(B), ref, errs)
+                res[key] = {"rule": B == ntt_stage.cluster_size(p.n),
+                            "us": device_us(lambda: kern(B)),
+                            "ms": kernel_ms(lambda: kern(B))}
     return res
 
 
@@ -2224,8 +2313,10 @@ def main() -> int:
     ab_lines = ptxas_lines(built(ab_build[0], "local-stage A/B"), "k_ab_")
     log(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     log(f"cluster kernels' registers and spills (ptxas -v, sm_90a; the "
-        f"stage kernels and the encrypt transform): "
+        f"stage kernels and fused_ops.cu's k_op_cluster<CL, OCC, op>, "
+        f"__launch_bounds__ ClusterBound<CL, OCC>): "
         f"{json.dumps(ptxas_report(ptxas))}")
+    log(f"build: all builds done in {time.perf_counter() - t0:.1f} s")
     log(f"local-stage A/B probe (LOCAL_AB_SRC; k_ab_pair<0> the encrypt "
         f"transform's two inverses interleaved, <1> in turn), registers and "
         f"spills: {json.dumps(ab_lines)}")
@@ -2277,6 +2368,7 @@ def main() -> int:
                 timing[kname] = (kern, plain, work)
     cluster_checks(dev, rng, errs)
     encrypt_cluster_checks(dev, rng, errs)
+    op_cluster_checks(dev, rng, errs)
     rule = {n: ntt_stage.cluster_size(n) for n in (2048, 4096, 16384, 32768)}
     log(f"stage kernels' cluster size B by the launchers' rule, by n (the "
         f"main paths' and the checks' transforms): {json.dumps(rule)}")
@@ -2481,7 +2573,7 @@ def main() -> int:
             counts["batch"] = cnt
         batch[name] = (ctx, res)
 
-    # Phase 7: the op schedule at 32k_9q (K3-K5 over two halves) == stage.
+    # Phase 7: the op schedule at 32k_9q (K3-K5 one launch each) == stage.
     ctx32, res32, msgs32 = paths["stage"]
     ctx_op32 = BFVContext.build(ctx32.params, fusion="op")
     if ctx_op32.fusion != "op" or ctx_op32.device != dev:
@@ -2491,7 +2583,8 @@ def main() -> int:
     res_op32 = drive(ctx_op32, msgs32, dev)
     counts["op32"] = read_counts()
     check_path(f"{STAGE_SET} op vs stage", res_op32, msgs32, res32)
-    log(f"main path {STAGE_SET} (op, two 2^14 halves): 3 messages "
+    log(f"main path {STAGE_SET} (op, one cluster launch a transform): 3 "
+        f"messages "
         f"round-trip; keys, ciphertexts and plaintexts equal the stage "
         f"schedule's on the card")
     log(f"launch counts in the {STAGE_SET} op run: "
@@ -2799,6 +2892,9 @@ def main() -> int:
         f"B (device us per launch, torch.profiler, in turns interleaved, in "
         f"turn, in turn, interleaved; both outputs == the one-array "
         f"inverse): {json.dumps(pair_ab(ab_build[1], dev, rng))}")
+    log(f"K3 (J = 1) and K4 at every cluster size B (device us per call, "
+        f"torch.profiler; ms per call of 20 back to back, CUDA events; "
+        f"outputs == plain): {json.dumps(op_cluster_times(dev, rng, errs))}")
     bounds, terms = {}, {}
     for kname, (kern, plain, work) in timing.items():
         terms[kname] = work.terms(mults, clock_hz)
@@ -2833,8 +2929,9 @@ def main() -> int:
             "launches": (counts["batch"]["encrypt_fused"]
                          if kname == "encrypt_fused_J16"
                          else counts["op32"][kname])}
-    log(f"op kernels at {STAGE_SET} (n = 2^15: K3 and K4 two 2^14 halves, "
-        f"K5 one cluster launch and its tail; J = 1, K5 also J = {BATCH_J}; "
+    log(f"op kernels at {STAGE_SET} (n = 2^15: K3, K4 and K5's transform "
+        f"one cluster launch each, K5 then its tail; J = 1, K5 also "
+        f"J = {BATCH_J}; "
         f"launches on the op32 path, K5 J = 16 on the batch path): "
         f"{json.dumps(op32)}")
     ntt30_times = {}

@@ -17,12 +17,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .cuda import default_device
 from .params import BFVParams
 
 
-def to_torch(x, device="cpu") -> torch.Tensor:
+def to_torch(x, device=None) -> torch.Tensor:
     """A uint64 array (numpy, jax or anything np.asarray takes) -> int64
-    tensor with the same bits on `device`."""
+    tensor with the same bits on `device`: None is the current CUDA device,
+    and raises where there is none; "cpu" for the plain versions."""
+    device = default_device(device, "convert.to_torch")
     a = np.array(x, dtype=np.uint64)     # a writable copy
     return torch.from_numpy(a.view(np.int64)).to(device)
 
@@ -49,7 +52,7 @@ def to_dtensor(x, mesh, dim: int | None, coef_dim: int | None = None):
     of axis `coef_dim` as Shard(coef_dim) (Replicate() for None).  Each
     rank slices its own block; nothing is sent."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
-    t = to_torch(x)
+    t = to_torch(x, device="cpu")
     placements = []
     for i, name in enumerate(mesh.mesh_dim_names or ("rns",)):
         d = coef_dim if name == "coef" else dim

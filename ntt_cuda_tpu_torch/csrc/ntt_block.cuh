@@ -15,7 +15,7 @@
 // twiddles and their Shoup companions are read from global memory, where
 // one modulus's tables (4 x 8n bytes) stay in L2.  Simple first: no
 // register tiling of stages, no bank-conflict swizzle.  The cluster
-// kernels (ntt_stage.cu, fused_ops.cu's encrypt transform) run their local
+// kernels (ntt_stage.cu, fused_ops.cu's whole-op transforms) run their local
 // stages through the register-tiled form below instead (ntt_fwd_tiled /
 // ntt_inv_tiled, the inverse also on two arrays at once).
 //
@@ -30,9 +30,9 @@
 // ps = h len' + ps'.  The caller passes tw_mul = 2 + h and the full
 // polynomial's tables (a coefficient shard c of C passes C + c, or
 // 2 (C + c) + h for its halves); stage 0 (the pairs i, i + n/2, twiddle
-// psi[1] or psi^-1[1]) runs in a separate elementwise pass (fused_ops.cu,
-// ntt30.cu, kernel 15) through the same two butterflies.  The stage
-// kernels' clusters (ntt_stage.cu) pass B base + j for block j of B.
+// psi[1] or psi^-1[1]) runs in a separate elementwise pass (ntt30.cu,
+// kernel 15) through the same two butterflies.  The cluster kernels
+// (ntt_stage.cu, fused_ops.cu) pass B base + j for block j of B.
 //
 // The stage loops are templated over the word: u64 for the RNS moduli,
 // u32 for the 30-bit family (ntt30.cu, kernel 22), each with its own
@@ -293,13 +293,14 @@ NTT_HD void ntt_inv_tiled(W* s, int logn, const TW& tw, W q, int tid, int nt,
 // Threads per block for the tiled form of a 2^logn-point transform: one
 // set of 2^K coefficients each (at least a warp, at most 1024).
 template <int K>
-static inline int tiled_threads(int n) {
+static constexpr int tiled_threads(int n) {
   const int t = n >> K;
   return t < 32 ? 32 : t > 1024 ? 1024 : t;
 }
 
 // The longest polynomial one block holds in shared memory: 2^14 u64, 128 KB
-// of the 227 KB a block can use (two 2^14 halves make the 2^15 transform).
+// of the 227 KB a block can use (kernel 15's 2^15 transform is two 2^14
+// halves; the cluster kernels hold n/B a block).
 #define LOG_BLOCK_MAX 14
 
 // A launcher's return code for arguments its kernels do not take.
@@ -316,21 +317,29 @@ static inline int tiled_threads(int n) {
 // Set-up that a launch needs once per kernel, device and shape (raising
 // the kernel's dynamic shared memory limit, an occupancy check): each is
 // a host call, and the ops are bound by host dispatch.  run() calls
-// `setup` the first time (kernel, current device, shape) comes and
-// remembers it if it succeeded; later calls return cudaSuccess at once.
+// `setup(&value)` the first time (kernel, current device, shape) comes
+// and remembers it and the value it gave (the cluster kernels': how many
+// clusters of the shape the card holds at once) if it succeeded; later
+// calls return cudaSuccess and that value at once.
 class LaunchSetup {
  public:
   template <typename F>
-  cudaError_t run(const void* kernel, long long shape, F setup) {
+  cudaError_t run(const void* kernel, long long shape, F setup,
+                  int* value = nullptr) {
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return e;
     std::lock_guard<std::mutex> lock(mu_);
     for (const Key& k : done_)
-      if (k.kernel == kernel && k.dev == dev && k.shape == shape)
+      if (k.kernel == kernel && k.dev == dev && k.shape == shape) {
+        if (value) *value = k.value;
         return cudaSuccess;
-    e = setup();
-    if (e == cudaSuccess) done_.push_back({kernel, dev, shape});
+      }
+    int v = 0;
+    e = setup(&v);
+    if (e != cudaSuccess) return e;
+    done_.push_back({kernel, dev, shape, v});
+    if (value) *value = v;
     return e;
   }
 
@@ -339,6 +348,7 @@ class LaunchSetup {
     const void* kernel;
     int dev;
     long long shape;
+    int value;
   };
   std::mutex mu_;
   std::vector<Key> done_;
@@ -352,7 +362,7 @@ static inline LaunchSetup& launch_setup() {
 // Raise `kernel`'s dynamic shared memory limit to the most a launch here
 // asks (128 KB: 2^14 u64 or 2^15 u32), once per kernel and device.
 static inline cudaError_t smem_limit_once(const void* kernel) {
-  return launch_setup().run(kernel, -1, [kernel] {
+  return launch_setup().run(kernel, -1, [kernel](int*) {
     return cudaFuncSetAttribute(kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)(sizeof(u64) << LOG_BLOCK_MAX));

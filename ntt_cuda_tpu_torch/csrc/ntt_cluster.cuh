@@ -1,6 +1,6 @@
 // The thread-block cluster schedule shared by the stage transforms
-// (ntt_stage.cu, kernels 7-13, 19, 20) and the encrypt transform
-// (fused_ops.cu, K5 and kernel 18): one polynomial per cluster of
+// (ntt_stage.cu, kernels 7-13, 19, 20) and the whole-op transforms
+// (fused_ops.cu: K3, K4, K5 and kernel 18): one polynomial per cluster of
 // B = 2^cl blocks (cl <= 3: B <= 8, the portable cluster size), block j
 // holding coefficients [j n/B, (j + 1) n/B) of it in its own shared
 // memory.  The cross stages (the first log2 B of a forward, the last of an
@@ -8,9 +8,10 @@
 // blocks through distributed shared memory; the local stages run in each
 // block (ntt_block.cuh's tiled passes, STAGE_TILE stages a pass).
 //
-// Here: the cross stages, the rule that picks B, the launcher (the
-// kernel's shared memory limit and the cluster's fit checked once per
-// kernel, device and shape) and the host build's walk of the clusters.
+// Here: the cross stages, the rule that picks B, the threads a block may
+// run, the launcher (the kernel's shared memory limit and the cluster's
+// fit checked once per kernel, device and shape) and the host build's
+// walk of the clusters.
 
 #pragma once
 
@@ -59,16 +60,44 @@ NTT_HD void cross_inv(u64* v, const Twiddles& t, u64 q, int base) {
   }
 }
 
+// The longest transform a cluster launch takes: 2^15 points
+// (cuda.TRANSFORM_MAX_N).
+#define LOG_TRANSFORM_MAX 15
+
 // Whether a launch of 2^logn points takes clusters of 2^cl blocks, each
-// block holding `bufs` buffers of its n/B points: at least 2 points a
-// block, B <= 8, and at most 2^LOG_BLOCK_MAX u64 (128 KB) of shared memory
-// a block (two buffers of 2^14 points, 256 KB, pass the 227 KB a block
-// can have).
+// block holding `bufs` buffers of its n/B points: n <= 2^LOG_TRANSFORM_MAX,
+// at least 2 points a block, B <= 8, and at most 2^LOG_BLOCK_MAX u64
+// (128 KB) of shared memory a block (two buffers of 2^14 points, 256 KB,
+// pass the 227 KB a block can have).
 static inline bool cluster_ok(int logn, int cl, int bufs = 1) {
-  return cl >= 0 && cl <= 3 && logn - cl >= 1 &&
+  return cl >= 0 && cl <= 3 && logn <= LOG_TRANSFORM_MAX && logn - cl >= 1 &&
          logn - cl <= LOG_BLOCK_MAX &&
          ((long long)bufs << (logn - cl)) <= (1ll << LOG_BLOCK_MAX);
 }
+
+// Every cluster kernel's __launch_bounds__ at cluster size 2^CL: at most
+// `threads` threads a block, one set of 2^STAGE_TILE points each
+// (tiled_threads) of the largest n/B that cluster_ok gives a block (512 at
+// CL = 3, 1024 below; run_cluster refuses more), and at least OCC blocks
+// an SM.  At CL = 3, OCC = 1 leaves a thread up to 128 registers, where
+// the kernels spill nothing, and OCC = 2 holds it to 64, where they spill
+// but two blocks share an SM.  On the H100 the first was the faster where
+// every cluster of the grid fits on the card at once, the second where
+// they do not (PERF.md, tools/bounds_ab.py): run_cluster takes the kernel
+// of OCC = wide_occ for a grid of more clusters than the card holds of
+// OCC = 1.
+template <int CL, int OCC>
+struct ClusterBound {
+  static constexpr int threads = tiled_threads<STAGE_TILE>(
+      1 << (LOG_TRANSFORM_MAX - CL < LOG_BLOCK_MAX ? LOG_TRANSFORM_MAX - CL
+                                                   : LOG_BLOCK_MAX));
+  static constexpr int blocks = OCC;
+};
+
+// The OCC of a cluster kernel at cluster size 2^cl for a grid wider than
+// the card: 2 at CL = 3 (1 below, where two blocks of 1024 threads would
+// hold a thread to 32 registers).
+constexpr int wide_occ(int cl) { return cl == 3 ? 2 : 1; }
 
 // The launchers' rule: the largest B a launch of 2^logn points takes, 8
 // from n = 16 on (-1 where none does).  On the H100 B = 8 was the fastest
@@ -92,18 +121,40 @@ static inline int cluster_log(int B, int logn, int bufs = 1) {
 
 #ifdef __CUDACC__
 
-// One launch of P clusters of 2^CL blocks of `kernel`, each block with
-// `bufs` buffers of 2^(logn - CL) u64 of dynamic shared memory and one
-// thread per STAGE_TILE-stage set of a buffer.  Once per kernel, device
-// and logn the kernel's shared memory limit is raised to what the shape
-// needs (never lowered: another shape may need more) and the cluster's fit
-// checked with cudaOccupancyMaxActiveClusters; a cluster that cannot run
-// returns its CUDA error.
+// Set-up of a cluster kernel for cfg's shape, once per kernel, device and
+// shape: its shared memory limit raised to what the shape needs (never
+// lowered: another shape may need more), and in *clusters how many of its
+// clusters the card holds at once (cudaOccupancyMaxActiveClusters; a
+// cluster that cannot run at all returns a CUDA error).
+static inline cudaError_t cluster_setup(const void* kernel, long long shape,
+                                        const cudaLaunchConfig_t& cfg,
+                                        int* clusters) {
+  return launch_setup().run(kernel, shape, [&](int* fit) {
+    cudaFuncAttributes fa;
+    cudaError_t r = cudaFuncGetAttributes(&fa, kernel);
+    if (r == cudaSuccess &&
+        (size_t)fa.maxDynamicSharedSizeBytes < cfg.dynamicSmemBytes)
+      r = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)cfg.dynamicSmemBytes);
+    if (r == cudaSuccess) r = cudaOccupancyMaxActiveClusters(fit, kernel, &cfg);
+    if (r == cudaSuccess && *fit < 1) r = cudaErrorLaunchOutOfResources;
+    return r;
+  }, clusters);
+}
+
+// One launch of P clusters of 2^CL blocks, each block with `bufs` buffers
+// of 2^(logn - CL) u64 of dynamic shared memory and one thread per
+// STAGE_TILE-stage set of a buffer (NTT_EINVAL past ClusterBound), of
+// `one` (the kernel of OCC = 1) or, where the card cannot hold all P of
+// its clusters at once, of `wide` (OCC = wide_occ(CL); the same kernel
+// where that is 1).  A cluster that cannot run returns its CUDA error.
 template <int CL, typename... K, typename... A>
-static int run_cluster(void (*kernel)(K...), int P, int logn, int bufs,
-                       void* stream, const A&... args) {
+static int run_cluster(void (*one)(K...), void (*wide)(K...), int P,
+                       int logn, int bufs, void* stream, const A&... args) {
   const int nb = 1 << (logn - CL);
-  const size_t smem = (size_t)bufs * nb * sizeof(u64);
+  const int threads = tiled_threads<STAGE_TILE>(nb);
+  if (threads > ClusterBound<CL, 1>::threads) return NTT_EINVAL;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1u << CL;
@@ -111,25 +162,18 @@ static int run_cluster(void (*kernel)(K...), int P, int logn, int bufs,
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)P << CL);
-  cfg.blockDim = dim3(tiled_threads<STAGE_TILE>(nb));
-  cfg.dynamicSmemBytes = smem;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = (size_t)bufs * nb * sizeof(u64);
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t e = launch_setup().run((const void*)kernel, logn, [&] {
-    cudaFuncAttributes fa;
-    cudaError_t r = cudaFuncGetAttributes(&fa, (const void*)kernel);
-    if (r == cudaSuccess && (size_t)fa.maxDynamicSharedSizeBytes < smem)
-      r = cudaFuncSetAttribute((const void*)kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    int clusters = 0;
-    if (r == cudaSuccess)
-      r = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel,
-                                         &cfg);
-    if (r == cudaSuccess && clusters < 1) r = cudaErrorLaunchOutOfResources;
-    return r;
-  });
+  void (*kernel)(K...) = one;
+  int fit = 0;
+  cudaError_t e = cluster_setup((const void*)one, logn, cfg, &fit);
+  if (e == cudaSuccess && wide != one && P > fit) {
+    kernel = wide;
+    e = cluster_setup((const void*)wide, logn, cfg, &fit);
+  }
   if (e != cudaSuccess) return (int)e;
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;

@@ -103,10 +103,11 @@
 // that beat the one-barrier-a-stage loop at every local size measured
 // (chip_smoke.py's local-stage A/B; PERF.md).  Threads per block: one set
 // of 2^STAGE_TILE coefficients each, n / (B 8), at most 1024 (512 at
-// n = 2^15, B = 8): every thread of a pass has work, and the cross phases
-// give each thread n / (B^2 T) columns.
+// n = 2^15, B = 8; the kernels' __launch_bounds__, ClusterBound, with one
+// or two blocks an SM by the grid's width): every thread of a pass has
+// work, and the cross phases give each thread n / (B^2 T) columns.
 // B: stage_cluster_log (ntt_cluster.cuh, shared with fused_ops.cu's
-// encrypt transform), the rule fixed from per-B timings on the card
+// whole-op transforms), the rule fixed from per-B timings on the card
 // (PERF.md): 8 wherever it fits.  The launcher (run_cluster) raises the
 // kernel's shared memory limit and checks with
 // cudaOccupancyMaxActiveClusters that a cluster of the shape fits, once
@@ -419,9 +420,11 @@ NTT_HD void dec_fused_tail(long long k, const StageIO& io,
 
 #ifdef __CUDACC__
 
-// One polynomial per cluster of 2^CL blocks (the head of the file).
-template <int CL>
-__global__ void __launch_bounds__(1024)
+// One polynomial per cluster of 2^CL blocks (the head of the file), at
+// least OCC blocks an SM (ClusterBound).
+template <int CL, int OCC>
+__global__ void __launch_bounds__(ClusterBound<CL, OCC>::threads,
+                                  ClusterBound<CL, OCC>::blocks)
     k_stage_fwd_block(StageIO io, Twiddles tw) {
   extern __shared__ u64 smem[];
   cooperative_groups::cluster_group cluster =
@@ -437,8 +440,9 @@ __global__ void __launch_bounds__(1024)
   fwd_phase_b<CL>(io, tw, p, j, threadIdx.x, blockDim.x, smem);
 }
 
-template <int CL>
-__global__ void __launch_bounds__(1024)
+template <int CL, int OCC>
+__global__ void __launch_bounds__(ClusterBound<CL, OCC>::threads,
+                                  ClusterBound<CL, OCC>::blocks)
     k_stage_inv_block(StageIO io, Twiddles tw) {
   extern __shared__ u64 smem[];
   cooperative_groups::cluster_group cluster =
@@ -479,15 +483,17 @@ __global__ void __launch_bounds__(1024, 1)
 template <int CL>
 static int run_forward(const StageIO& io, const Twiddles& tw, int P,
                        void* stream) {
-  return run_cluster<CL>(k_stage_fwd_block<CL>, P, io.logn, 1, stream, io,
-                         tw);
+  return run_cluster<CL>(k_stage_fwd_block<CL, 1>,
+                         k_stage_fwd_block<CL, wide_occ(CL)>, P, io.logn, 1,
+                         stream, io, tw);
 }
 
 template <int CL>
 static int run_inverse(const StageIO& io, const Twiddles& tw, int P,
                        void* stream) {
-  return run_cluster<CL>(k_stage_inv_block<CL>, P, io.logn, 1, stream, io,
-                         tw);
+  return run_cluster<CL>(k_stage_inv_block<CL, 1>,
+                         k_stage_inv_block<CL, wide_occ(CL)>, P, io.logn, 1,
+                         stream, io, tw);
 }
 
 template <typename K, typename IO>
@@ -543,7 +549,7 @@ static int run_stage(bool inverse, const StageIO& io, const Twiddles& tw,
 // The cluster size B (a power of two up to 8) the launchers take for
 // polynomials of 2^logn points, or 0 where no B fits.
 extern "C" int ntt_stage_cluster_size(int logn) {
-  if (logn < 1 || logn > LOG_BLOCK_MAX + 1) return 0;
+  if (logn < 1 || logn > LOG_TRANSFORM_MAX) return 0;
   return 1 << stage_cluster_log(logn);
 }
 

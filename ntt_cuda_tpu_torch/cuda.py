@@ -35,8 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 BLOCK_MAX_N = 16384     # one u64 polynomial per block in shared memory:
 #                         128 KB
-TRANSFORM_MAX_N = 32768  # the stage kernels and the encrypt transform:
-#                          one cluster of 2-8 blocks per polynomial
+TRANSFORM_MAX_N = 32768  # the cluster kernels (stage and whole-op
+#                          transforms): one cluster of 2-8 blocks per
+#                          polynomial
 TRANSFORM30_MAX_N = 65536  # kernel 22 (u32): one block up to 2^15, two
 #                            2^15 halves beside stage-0 passes at 2^16
 
@@ -55,21 +56,19 @@ SIGNATURES = {
     # x, c0, out, per_mod, glob, J, r-1, n, pow2, t, neg_t, nu_t, inv_gt
     "ntt_decrypt_tail": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _U64, _U64,
                          _U64, _U64, _P),
-    # x, y, out, 4 tables, consts, blocks, r, log n
-    "ntt_half_polymul": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # s_b, a, e_d, sk, pk0, 4 tables, consts, r, log n
-    "ntt_keygen_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    # u_b, pk, e_d, scratch, 4 tables, consts, J, r, log n
-    "ntt_encrypt_transform": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _P),
-    # scratch, m, ct, per_mod, q_last, half, fix_th, J, r, n
-    "ntt_encrypt_tail": (_P, _P, _P, _P, _U64, _U64, _U64, _I, _I, _I, _P),
-    # u_b, pk, c, 4 tables, consts, r, log n
-    "ntt_encrypt_front": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    # ntt_encrypt_transform and ntt_encrypt_front with the cluster size B
-    # last (0: the launchers' rule)
+    # x, y, out, 4 tables, consts, P, r, log n, cluster size B (0: the
+    # launchers' rule)
+    "ntt_half_polymul_cluster": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _P),
+    # s_b, a, e_d, sk, pk0, 4 tables, consts, r, log n, B
+    "ntt_keygen_fused_cluster": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                 _I, _I, _P),
+    # u_b, pk, e_d, scratch, 4 tables, consts, J, r, log n, B
     "ntt_encrypt_transform_cluster": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                       _I, _I, _I, _P),
+    # scratch, m, ct, per_mod, q_last, half, fix_th, J, r, n
+    "ntt_encrypt_tail": (_P, _P, _P, _P, _U64, _U64, _U64, _I, _I, _I, _P),
+    # u_b, pk, c, 4 tables, consts, r, log n, B
     "ntt_encrypt_front_cluster": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _P),
     # c, e, ra, m, ct, per_mod, q_last, fix_th, rl, n

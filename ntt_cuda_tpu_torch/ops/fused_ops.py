@@ -5,14 +5,12 @@ transforms alone, over a band of moduli).
 
 Counterpart of `ntt_cuda_tpu/ops/fused_ops.py` for the main path.  On a
 CUDA device each wrapper launches its kernel in csrc/fused_ops.cu.
-half_polymul and keygen_fused: one block per polynomial (message x
-modulus), resident in shared memory for its whole forward -> dyadic ->
-inverse chain; at n = 32768 two blocks per polynomial, one per 2^14 half,
-beside elementwise stage-0 passes (three or four launches a call).
-encrypt_fused's transform and encrypt_front: one thread-block cluster of
-B blocks per polynomial of u, one launch at every n <= 32768 (`cluster=`
-picks B; 0 is the launchers' rule, ntt_stage.cluster_size), then
-encrypt_fused's tail launch.  The key switch runs as two launches of
+half_polymul, keygen_fused, encrypt_fused's transform and encrypt_front:
+one thread-block cluster of B blocks per polynomial (message x modulus,
+or of u), resident in the cluster's shared memory for the op's whole
+forward -> dyadic -> inverse chain, one launch at every n <= 32768
+(`cluster=` picks B; 0 is the launchers' rule, ntt_stage.cluster_size),
+then encrypt_fused's tail launch.  The key switch runs as two launches of
 csrc/ntt_stage.cu (its front) and the encrypt tail.  On the
 CPU each wrapper runs the plain version beside it, composed from
 ops/ntt.py, ops/poly.py and the compact-draw maps of ops/sampling.py: the
@@ -42,11 +40,15 @@ def half_polymul_plain(x, y_ntt, tables: NTTTables) -> torch.Tensor:
     return ntt.ntt_inverse(ntt.dyadic_mul(fx, y_ntt, tables.ms), tables)
 
 
-def half_polymul(x, y_ntt, tables: NTTTables) -> torch.Tensor:
+def half_polymul(x, y_ntt, tables: NTTTables, *,
+                 cluster: int = 0) -> torch.Tensor:
     """INTT(NTT(x) (.) y_ntt) per modulus, the reference's
     half_poly_mul_device (poly_arithmetic.cuh:296-310) and decrypt's front.
     x (..., r, n) coefficient domain; y_ntt (r, n) NTT domain, shared by
-    every leading index of x."""
+    every leading index of x.  On the card: one launch, one cluster of
+    `cluster` blocks per polynomial of x (0, which every caller in the
+    package passes: the launchers' rule; other B exist for the per-B tests
+    and timings, and a B whose n/B buffer does not fit a block raises)."""
     if x.device.type == "cpu":
         return half_polymul_plain(x, y_ntt, tables)
     dev = cuda.kernel_device("half_polymul", x, tables, cuda.TRANSFORM_MAX_N)
@@ -57,10 +59,9 @@ def half_polymul(x, y_ntt, tables: NTTTables) -> torch.Tensor:
     cuda.require("x", x, I64, tuple(x.shape), dev)
     cuda.require("y_ntt", y_ntt, I64, (r, n), dev)
     out = torch.empty_like(x)
-    blocks = x.numel() // n
-    cuda.launch("ntt_half_polymul", dev, x.data_ptr(), y_ntt.data_ptr(),
-                out.data_ptr(), *tables.kernel_args(), blocks, r,
-                tables.logn)
+    cuda.launch("ntt_half_polymul_cluster", dev, x.data_ptr(),
+                y_ntt.data_ptr(), out.data_ptr(), *tables.kernel_args(),
+                x.numel() // n, r, tables.logn, cluster)
     half_polymul.launches += 1
     return out
 
@@ -79,9 +80,10 @@ def keygen_fused_plain(s_b, a, e_d, tables: NTTTables):
     return sk, ntt.ntt_forward(x, tables)
 
 
-def keygen_fused(s_b, a, e_d, tables: NTTTables):
+def keygen_fused(s_b, a, e_d, tables: NTTTables, *, cluster: int = 0):
     """Compact (n,) int32 ternary s_b, (r, n) NTT-domain uniform a, compact
-    (n,) int32 Gaussian e_d -> (sk, pk0), both (r, n) NTT domain."""
+    (n,) int32 Gaussian e_d -> (sk, pk0), both (r, n) NTT domain.  On the
+    card: one launch, one cluster per modulus; cluster as half_polymul's."""
     if a.device.type == "cpu":
         return keygen_fused_plain(s_b, a, e_d, tables)
     dev = cuda.kernel_device("keygen_fused", a, tables, cuda.TRANSFORM_MAX_N)
@@ -91,9 +93,9 @@ def keygen_fused(s_b, a, e_d, tables: NTTTables):
     cuda.require("e_d", e_d, torch.int32, (n,), dev)
     sk = torch.empty((r, n), dtype=I64, device=dev)
     pk0 = torch.empty((r, n), dtype=I64, device=dev)
-    cuda.launch("ntt_keygen_fused", dev, s_b.data_ptr(), a.data_ptr(),
-                e_d.data_ptr(), sk.data_ptr(), pk0.data_ptr(),
-                *tables.kernel_args(), r, tables.logn)
+    cuda.launch("ntt_keygen_fused_cluster", dev, s_b.data_ptr(),
+                a.data_ptr(), e_d.data_ptr(), sk.data_ptr(), pk0.data_ptr(),
+                *tables.kernel_args(), r, tables.logn, cluster)
     keygen_fused.launches += 1
     return sk, pk0
 

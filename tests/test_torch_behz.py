@@ -112,7 +112,7 @@ def test_plain_conversions_match_xla(name, n):
     xb[..., 0] = np.array(aux.bsk, dtype=np.uint64) - np.uint64(1)
     k = p.r - 1
     xb[0, 0, k, 1] = _xm_at_half(xb[0, 0, :k, 1], aux)   # the strict `>`
-    tq, tb = convert.to_torch(xq), convert.to_torch(xb)
+    tq, tb = (convert.to_torch(v, device="cpu") for v in (xq, xb))
     jq, jb = jnp.asarray(xq), jnp.asarray(xb)
     _eq(behz_kernels.rns_to_bsk_plain(tq, mb), jbehz.rns_to_bsk(jq, jmc))
     _eq(behz_kernels.fast_floor_plain(tq, tb, mb),
@@ -133,7 +133,7 @@ def test_plain_conversions_match_pallas_interpret():
     rng = np.random.default_rng(7)
     xq = _residues(rng, p.q[:-1], (2,), p.n)
     xb = _residues(rng, aux.bsk, (2,), p.n)
-    tq, tb = convert.to_torch(xq), convert.to_torch(xb)
+    tq, tb = (convert.to_torch(v, device="cpu") for v in (xq, xb))
     jq, jb = jnp.asarray(xq), jnp.asarray(xb)
     _eq(behz_kernels.rns_to_bsk_plain(tq, mb),
         behz_pallas.rns_to_bsk(jq, mpc, interpret=True))
@@ -145,7 +145,7 @@ def test_plain_conversions_match_pallas_interpret():
 
 def test_wrappers_check_shapes():
     mb = behz_kernels.MultBanks.build(get_bfv_params("4k_3q"))
-    x = convert.to_torch(np.zeros((3, 64), np.uint64))
+    x = convert.to_torch(np.zeros((3, 64), np.uint64), device="cpu")
     with pytest.raises(ValueError, match="expected shape"):
         behz_kernels.rns_to_bsk(x, mb)            # (k+1, n), not (k, n)
     with pytest.raises(ValueError, match="does not match"):

@@ -21,6 +21,7 @@ from ntt_cuda_tpu.models import bfv as jbfv
 from ntt_cuda_tpu.params import get_bfv_params as jget
 from ntt_cuda_tpu_torch import BFVContext, convert, get_bfv_params
 
+
 FIX = Path(__file__).parent / "fixtures"
 
 
@@ -72,19 +73,31 @@ def test_interop_through_convert(ctx, jctx):
     rng = np.random.default_rng(42)
     m = rng.integers(0, p.t, p.n, dtype=np.uint64)
     jsk, jpk = jctx.keygen(5)
-    ct = ctx.encrypt(convert.to_torch(jpk), convert.to_torch(m), nonce=9)
+    ct = ctx.encrypt(convert.to_torch(jpk, device="cpu"),
+                     convert.to_torch(m, device="cpu"), nonce=9)
     np.testing.assert_array_equal(
         np.asarray(jctx.decrypt(jsk, convert.to_numpy(ct))), m)
     sk, pk = ctx.keygen(6)
     jct = jctx.encrypt(convert.to_numpy(pk), m, nonce=10)
-    out = ctx.decrypt(sk, convert.to_torch(jct))
+    out = ctx.decrypt(sk, convert.to_torch(jct, device="cpu"))
     np.testing.assert_array_equal(convert.to_numpy(out), m)
     # the carriers themselves are exact both ways, full 64-bit range included
     bits = np.array([0, 1, 2**62, 2**63, 2**64 - 1], dtype=np.uint64)
-    np.testing.assert_array_equal(convert.to_numpy(convert.to_torch(bits)),
-                                  bits)
+    np.testing.assert_array_equal(
+        convert.to_numpy(convert.to_torch(bits, device="cpu")), bits)
     pp = convert.params_from(jget("16k_5q"))
     assert pp == get_bfv_params("16k_5q")
+
+
+def test_to_torch_default_device():
+    """convert.to_torch with no device is the card, as NTTTables.build: it
+    raises where there is none."""
+    bits = np.array([0, 2**64 - 1], dtype=np.uint64)
+    if torch.cuda.is_available():
+        assert convert.to_torch(bits).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            convert.to_torch(bits)
 
 
 def test_roundtrip_check(ctx):

@@ -75,7 +75,8 @@ def p4k():
                jntt.dyadic_mul_jit(jnp.asarray(x), jnp.asarray(y), jms), jt,
                jms)}
     return (ntt.tables_for(convert.params_from(jp), device="cpu"),
-            convert.to_torch(x), convert.to_torch(y),
+            convert.to_torch(x, device="cpu"),
+            convert.to_torch(y, device="cpu"),
             {k: np.asarray(v) for k, v in ref.items()})
 
 

@@ -73,13 +73,14 @@ def test_add_is_exact_at_q_and_poly_sub_is_corrected(setup):
     x = np.stack([rng.integers(0, v, 64, dtype=np.uint64) for v in qs])
     y = np.stack([rng.integers(0, v, 64, dtype=np.uint64) for v in qs])
     y[:, :2] = x[:, :2]                                 # a == b
-    got = poly.poly_sub(convert.to_torch(x), convert.to_torch(y), ms)
+    got = poly.poly_sub(convert.to_torch(x, device="cpu"),
+                        convert.to_torch(y, device="cpu"), ms)
     _eq(got, jpoly.poly_sub(jnp.asarray(x), jnp.asarray(y),
                             jmm.modulus_set(jget("4k_3q"), 2)))
     want = [[(int(u) - int(v)) % qi for u, v in zip(xr, yr)]
             for xr, yr, qi in zip(x, y, qs)]
     assert _np(got).tolist() == want
-    _eq(poly.poly_negate(convert.to_torch(x), ms),
+    _eq(poly.poly_negate(convert.to_torch(x, device="cpu"), ms),
         jmm.negate_mod(jnp.asarray(x), jnp.asarray(np.asarray(qs, np.uint64)
                                                    [:, None])))
     assert modmath.negate_mod(torch.zeros(2, 1, dtype=torch.int64),

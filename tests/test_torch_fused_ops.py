@@ -23,6 +23,7 @@ from ntt_cuda_tpu.utils import primegen
 from ntt_cuda_tpu_torch import BFVContext, convert
 from ntt_cuda_tpu_torch.ops import bfv_tail, fused_ops, sampling
 
+
 T_ODD = primegen.find_plain_modulus(1024, 14)
 SETS = {
     "gen_1024": lambda: primegen.make_bfv_params(1024, 40, 3),
@@ -63,7 +64,8 @@ def test_half_polymul_plain(pair, lead):
     ref = jax.jit(lambda x, y: jntt.ntt_inverse(jntt.dyadic_mul(
         jntt.ntt_forward(x, jctx.tables_drop, jctx.ms_drop), y,
         jctx.ms_drop), jctx.tables_drop, jctx.ms_drop))(x, y)
-    _eq(fused_ops.half_polymul_plain(convert.to_torch(x), convert.to_torch(y),
+    _eq(fused_ops.half_polymul_plain(convert.to_torch(x, device="cpu"),
+                                     convert.to_torch(y, device="cpu"),
                                      ctx.tables_drop), ref)
 
 
@@ -107,7 +109,9 @@ def test_encrypt_fused_plain(pair, J):
             c.tables_full, None, c.dr_consts, c.msg_consts, None, jp.n, jp.r,
             "xla")
 
-    got = fused_ops.encrypt_fused_plain(u_b, convert.to_torch(pk), e_d,
+    got = fused_ops.encrypt_fused_plain(u_b,
+                                        convert.to_torch(pk, device="cpu"),
+                                        e_d,
                                         torch.from_numpy(m), ctx.tables_full,
                                         ctx.tail_consts)
     for j in range(J):
@@ -132,8 +136,8 @@ def test_decrypt_tail_plain(pair, lead):
         y = jpoly.poly_mul_scalar_mont(y, dc.inv_punctured_mont, ms)
         return jpoly.fast_convert_and_round(y, dc)
 
-    got = bfv_tail.decrypt_tail_plain(convert.to_torch(x),
-                                      convert.to_torch(c0),
+    got = bfv_tail.decrypt_tail_plain(convert.to_torch(x, device="cpu"),
+                                      convert.to_torch(c0, device="cpu"),
                                       ctx.dec_tail_consts)
     _eq(got, ref(x, c0))
 

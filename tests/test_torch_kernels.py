@@ -149,10 +149,9 @@ def _host_encrypt(host_lib, ctx, u_b, pk, e_d, m):
     J = u_b.shape[0]
     scratch = torch.empty((J, 2, p.r, p.n), dtype=torch.int64)
     ct = torch.empty((J, 2, p.r - 1, p.n), dtype=torch.int64)
-    assert host_lib.ntt_encrypt_transform(u_b.data_ptr(), pk.data_ptr(),
-                                          e_d.data_ptr(), scratch.data_ptr(),
-                                          *ctx.tables_full.kernel_args(), J,
-                                          p.r, p.logn, None) == 0
+    assert host_lib.ntt_encrypt_transform_cluster(
+        u_b.data_ptr(), pk.data_ptr(), e_d.data_ptr(), scratch.data_ptr(),
+        *ctx.tables_full.kernel_args(), J, p.r, p.logn, 0, None) == 0
     assert host_lib.ntt_encrypt_tail(scratch.data_ptr(), m.data_ptr(),
                                      ct.data_ptr(), tc.per_mod.data_ptr(),
                                      tc.q_last, tc.half, tc.fix_th, J, p.r,
@@ -163,27 +162,26 @@ def _host_encrypt(host_lib, ctx, u_b, pk, e_d, m):
 @pytest.mark.parametrize("J", [1, 2])
 def test_host_op_kernels_32k(host_lib, op32_ctx, J):
     """K3, K4 and K5 at n = 2^15 (32k_9q constants) against the plain
-    versions: K3 and K4 as the CT stage-0 pass, two 2^14 half blocks per
-    polynomial, the GS stage-0 pass (and K4's second forward over the
-    halves); K5 as one cluster launch per polynomial of u at the
-    launchers' B, then its tail."""
+    versions, each one cluster launch per polynomial at the launchers' B
+    (K5 then its tail)."""
     ctx = op32_ctx
     p, tf, td = ctx.params, ctx.tables_full, ctx.tables_drop
     rng = np.random.default_rng(100 + J)
     x = _rand_res(rng, p.q[:-1], p.n, (J,))
     y = _rand_res(rng, p.q[:-1], p.n)
     out = torch.empty_like(x)
-    assert host_lib.ntt_half_polymul(x.data_ptr(), y.data_ptr(),
-                                     out.data_ptr(), *td.kernel_args(),
-                                     J * td.r, td.r, p.logn, None) == 0
+    assert host_lib.ntt_half_polymul_cluster(x.data_ptr(), y.data_ptr(),
+                                             out.data_ptr(), *td.kernel_args(),
+                                             J * td.r, td.r, p.logn, 0,
+                                             None) == 0
     torch.testing.assert_close(out, fused_ops.half_polymul_plain(x, y, td),
                                rtol=0, atol=0)
     s_b, a, e_d = sampling.keygen_draws_compact(p.n, p.r, tf.ms, nonce=J)
     sk, pk0 = torch.empty_like(a), torch.empty_like(a)
-    assert host_lib.ntt_keygen_fused(s_b.data_ptr(), a.data_ptr(),
-                                     e_d.data_ptr(), sk.data_ptr(),
-                                     pk0.data_ptr(), *tf.kernel_args(), p.r,
-                                     p.logn, None) == 0
+    assert host_lib.ntt_keygen_fused_cluster(s_b.data_ptr(), a.data_ptr(),
+                                             e_d.data_ptr(), sk.data_ptr(),
+                                             pk0.data_ptr(), *tf.kernel_args(),
+                                             p.r, p.logn, 0, None) == 0
     for got, ref in zip((sk, pk0), fused_ops.keygen_fused_plain(s_b, a, e_d,
                                                                  tf)):
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
@@ -198,12 +196,12 @@ def test_host_op_kernels_reject_bad_arguments(host_lib, op32_ctx):
     p, tf = op32_ctx.params, op32_ctx.tables_full
     x = torch.zeros((p.r, p.n), dtype=torch.int64)
     for blocks, logn in ((p.r + 1, p.logn), (p.r, 16), (p.r, 0)):
-        assert host_lib.ntt_half_polymul(x.data_ptr(), x.data_ptr(),
-                                         x.data_ptr(), *tf.kernel_args(),
-                                         blocks, p.r, logn, None) != 0
-    assert host_lib.ntt_encrypt_transform(None, None, None, None,
-                                          *tf.kernel_args(), 0, p.r, p.logn,
-                                          None) != 0
+        assert host_lib.ntt_half_polymul_cluster(
+            x.data_ptr(), x.data_ptr(), x.data_ptr(), *tf.kernel_args(),
+            blocks, p.r, logn, 0, None) != 0
+    assert host_lib.ntt_encrypt_transform_cluster(
+        None, None, None, None, *tf.kernel_args(), 0, p.r, p.logn, 0,
+        None) != 0
 
 
 @pytest.mark.parametrize("J", [1, 3])
@@ -214,9 +212,10 @@ def test_host_half_polymul(host_lib, ctx, J):
     x = _rand_res(rng, p.q[:-1], p.n, (J,))
     y = _rand_res(rng, p.q[:-1], p.n)
     out = torch.empty_like(x)
-    assert host_lib.ntt_half_polymul(x.data_ptr(), y.data_ptr(),
-                                     out.data_ptr(), *tb.kernel_args(), J * tb.r,
-                                     tb.r, p.logn, None) == 0
+    assert host_lib.ntt_half_polymul_cluster(x.data_ptr(), y.data_ptr(),
+                                             out.data_ptr(), *tb.kernel_args(),
+                                             J * tb.r, tb.r, p.logn, 0,
+                                             None) == 0
     ref = fused_ops.half_polymul_plain(x, y, tb)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
@@ -228,10 +227,10 @@ def test_host_keygen_fused(host_lib, ctx, nonce):
                                                 nonce=nonce)
     sk = torch.empty_like(a)
     pk0 = torch.empty_like(a)
-    assert host_lib.ntt_keygen_fused(s_b.data_ptr(), a.data_ptr(),
-                                     e_d.data_ptr(), sk.data_ptr(),
-                                     pk0.data_ptr(), *ctx.tables_full.kernel_args(),
-                                     p.r, p.logn, None) == 0
+    assert host_lib.ntt_keygen_fused_cluster(
+        s_b.data_ptr(), a.data_ptr(), e_d.data_ptr(), sk.data_ptr(),
+        pk0.data_ptr(), *ctx.tables_full.kernel_args(), p.r, p.logn, 0,
+        None) == 0
     sk_ref, pk0_ref = fused_ops.keygen_fused_plain(s_b, a, e_d,
                                                    ctx.tables_full)
     torch.testing.assert_close(sk, sk_ref, rtol=0, atol=0)
@@ -252,10 +251,9 @@ def test_host_encrypt_fused(host_lib, ctx, J):
     scratch = torch.empty((J, 2, p.r, p.n), dtype=torch.int64)
     ct = torch.empty((J, 2, p.r - 1, p.n), dtype=torch.int64)
     tc = ctx.tail_consts
-    assert host_lib.ntt_encrypt_transform(u_b.data_ptr(), pk.data_ptr(),
-                                          e_d.data_ptr(), scratch.data_ptr(),
-                                          *ctx.tables_full.kernel_args(), J, p.r,
-                                          p.logn, None) == 0
+    assert host_lib.ntt_encrypt_transform_cluster(
+        u_b.data_ptr(), pk.data_ptr(), e_d.data_ptr(), scratch.data_ptr(),
+        *ctx.tables_full.kernel_args(), J, p.r, p.logn, 0, None) == 0
     assert host_lib.ntt_encrypt_tail(scratch.data_ptr(), m.data_ptr(),
                                      ct.data_ptr(), tc.per_mod.data_ptr(),
                                      tc.q_last, tc.half, tc.fix_th, J, p.r,
@@ -361,6 +359,103 @@ def test_host_encrypt_cluster_refusals(host_lib):
                      *tb.kernel_args(), 1, n.bit_length() - 1, 0, None) == 0
         torch.testing.assert_close(c, fused_ops.encrypt_front_plain(u, pk, tb),
                                    rtol=0, atol=0)
+
+
+# K3 (J = 1 and 3 messages over the set's first r-1 moduli, decrypt's
+# shape) and K4 through the entry points that take the cluster size B, at
+# every B at three sets.  A block holds one n/B buffer (_takes), so only
+# B = 1 at 2^15 must be refused.
+OP_SETS = ["4k_3q", "16k_5q", "32k_9q"]
+OP_BS = [1, 2, 4, 8]
+OP_KERNELS = ["K3-J1", "K3-J3", "K4"]
+
+# set -> the tables of K3 (r-1 moduli) and K4 (r), K3's x (3, r-1, n) and
+# y with half_polymul_plain of x, and K4's draws (nonce 7) with
+# keygen_fused_plain; a case of J messages takes the first J rows of x.
+_OPS = {}
+
+
+def _op_case(name):
+    if name not in _OPS:
+        p = get_bfv_params(name)
+        rng = np.random.default_rng(70)
+        td = ntt.tables_for(p, p.r - 1, device="cpu")
+        tf = ntt.tables_for(p, device="cpu")
+        x = _rand_res(rng, p.q[:-1], p.n, (3,))
+        y = _rand_res(rng, p.q[:-1], p.n)
+        s_b, a, e_d = sampling.keygen_draws_compact(p.n, p.r, tf.ms, nonce=7)
+        _OPS[name] = (p, td, tf,
+                      (x, y, fused_ops.half_polymul_plain(x, y, td)),
+                      (s_b, a, e_d,
+                       fused_ops.keygen_fused_plain(s_b, a, e_d, tf)))
+    return _OPS[name]
+
+
+@pytest.mark.parametrize("B", OP_BS, ids=lambda B: f"B{B}")
+@pytest.mark.parametrize("name", OP_SETS)
+@pytest.mark.parametrize("kernel", OP_KERNELS)
+def test_host_op_cluster(host_lib, kernel, name, B):
+    """K3 or K4 at cluster size B against its plain version, exactly; a B
+    whose n/B buffer does not fit a block (1 at 2^15) is refused."""
+    p, td, tf, (x, y, ref_x), (s_b, a, e_d, ref_k) = _op_case(name)
+    if kernel == "K4":
+        sk, pk0 = torch.empty_like(a), torch.empty_like(a)
+        rc = host_lib.ntt_keygen_fused_cluster(
+            s_b.data_ptr(), a.data_ptr(), e_d.data_ptr(), sk.data_ptr(),
+            pk0.data_ptr(), *tf.kernel_args(), p.r, p.logn, B, None)
+        got, ref = (sk, pk0), ref_k
+    else:
+        J = int(kernel[-1])
+        out = torch.empty_like(x[:J])
+        rc = host_lib.ntt_half_polymul_cluster(
+            x.data_ptr(), y.data_ptr(), out.data_ptr(), *td.kernel_args(),
+            J * td.r, td.r, p.logn, B, None)
+        got, ref = (out,), (ref_x[:J],)
+    if not _takes(B, p.n):
+        assert rc != 0
+        return
+    assert rc == 0
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+def test_host_op_cluster_refusals(host_lib):
+    """K3 and K4 refuse, before touching memory, a B that is no power of
+    two up to 8 (3, 16), n outside [2, 2^15] (logn 0 and 16), B = 1 at
+    2^15, no polynomial or modulus, and (K3) a polynomial count that is no
+    multiple of r; the rule (B = 0) is taken from n = 2 to 2^15."""
+    k3 = host_lib.ntt_half_polymul_cluster
+    k4 = host_lib.ntt_keygen_fused_cluster
+    tf = [None] * 5
+    for logn, B in ((14, 3), (15, 16), (15, 1), (0, 0), (0, 1), (16, 0),
+                    (16, 8)):
+        assert k3(None, None, None, *tf, 2, 1, logn, B, None) != 0, (logn, B)
+        assert k4(None, None, None, None, None, *tf, 1, logn, B,
+                  None) != 0, (logn, B)
+    for P, r in ((4, 3), (0, 3), (3, 0)):
+        assert k3(None, None, None, *tf, P, r, 12, 0, None) != 0, (P, r)
+    assert k4(None, None, None, None, None, *tf, 0, 12, 0, None) != 0
+    q = SMALL.q[0]
+    rng = np.random.default_rng(71)
+    for n in (2, 16, 1024):    # the rule's B: 1, 8, 8
+        psi = pow(SMALL.psi[0], SMALL.n // n, q)
+        tb = ntt.NTTTables.build([q], [psi], n, device="cpu")
+        x, y, a = (_rand_res(rng, SMALL.q[:1], n, (2,)) for _ in range(3))
+        a = a[0].contiguous()
+        out = torch.empty_like(x)
+        assert k3(x.data_ptr(), y[0].data_ptr(), out.data_ptr(),
+                  *tb.kernel_args(), 2, 1, n.bit_length() - 1, 0, None) == 0
+        torch.testing.assert_close(
+            out, fused_ops.half_polymul_plain(x, y[0], tb), rtol=0, atol=0)
+        s_b = torch.from_numpy(np.resize(np.array([1, -1, 0], np.int32), n))
+        e_d = torch.from_numpy(rng.integers(-19, 17, n).astype(np.int32))
+        sk, pk0 = torch.empty_like(a), torch.empty_like(a)
+        assert k4(s_b.data_ptr(), a.data_ptr(), e_d.data_ptr(), sk.data_ptr(),
+                  pk0.data_ptr(), *tb.kernel_args(), 1, n.bit_length() - 1, 0,
+                  None) == 0
+        for g, r in zip((sk, pk0), fused_ops.keygen_fused_plain(s_b, a, e_d,
+                                                                tb)):
+            torch.testing.assert_close(g, r, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("params", [SMALL, SMALL_ODD_T], ids=["pow2_t",
@@ -975,6 +1070,35 @@ def test_cuda_encrypt_cluster_sizes_match_plain(cuda_device, name):
                 u_b, pk, e_d, m, tf, tc, cluster=B), ref), B
             assert torch.equal(fused_ops.encrypt_front(
                 u_b[0].contiguous(), pk, tf, cluster=B), ref_c), B
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", OP_SETS)
+def test_cuda_op_cluster_sizes_match_plain(cuda_device, name):
+    """K3 (J = 1 and 3) and K4 on the card at every cluster size B against
+    their plain versions; a B whose n/B buffer does not fit a block (B = 1
+    at 2^15) raises."""
+    p, dev = get_bfv_params(name), cuda_device
+    td = ntt.tables_for(p, p.r - 1, device=dev)
+    tf = ntt.tables_for(p, device=dev)
+    rng = np.random.default_rng(11)
+    s_b, a, e_d = sampling.keygen_draws_compact(p.n, p.r, tf.ms, nonce=3)
+    y = _rand_res(rng, p.q[:-1], p.n).to(dev)
+    cases = [(lambda B: fused_ops.keygen_fused(s_b, a, e_d, tf, cluster=B),
+              fused_ops.keygen_fused_plain(s_b, a, e_d, tf))]
+    for J in (1, 3):
+        x = _rand_res(rng, p.q[:-1], p.n, (J,)).to(dev)
+        cases.append((lambda B, x=x: (fused_ops.half_polymul(x, y, td,
+                                                             cluster=B),),
+                      (fused_ops.half_polymul_plain(x, y, td),)))
+    for B in OP_BS:
+        for call, ref in cases:
+            if not _takes(B, p.n):
+                with pytest.raises(RuntimeError):
+                    call(B)
+                continue
+            assert all(torch.equal(g, r) for g, r in zip(call(B), ref)), B
     torch.cuda.synchronize()
 
 

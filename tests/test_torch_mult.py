@@ -163,7 +163,7 @@ def test_rlk_interop_through_convert(ctx, jctx, keys):
     p, m = ctx.params, keys["m"]
     exp = _product(m[0], m[1], p)
     ct3 = ctx.mul(keys["cts"][0], keys["cts"][1])
-    out = ctx.relinearize(ct3, convert.to_torch(keys["jrlk"]))
+    out = ctx.relinearize(ct3, convert.to_torch(keys["jrlk"], device="cpu"))
     assert ctx.decrypt(keys["sk"], out).tolist() == exp
     jct3 = jctx.mul(keys["jcts"][0], keys["jcts"][1])
     rlk = ctx.relin_keygen(keys["sk"])
@@ -184,8 +184,9 @@ def test_forward_addneg_plain_matches_pallas_interpret():
     ref = ntt_pallas.ntt_forward_addneg(jnp.asarray(x), jnp.asarray(e),
                                         ntt_pallas.tables_for(jp),
                                         interpret=True)
-    _eq(ntt_stage.ntt_forward_addneg_plain(convert.to_torch(x),
-                                           convert.to_torch(e), tb), ref)
-    _eq(ntt_stage.ntt_forward_addneg(convert.to_torch(x[0]),
-                                     convert.to_torch(e[0]), tb),
+    _eq(ntt_stage.ntt_forward_addneg_plain(convert.to_torch(x, device="cpu"),
+                                           convert.to_torch(e, device="cpu"),
+                                           tb), ref)
+    _eq(ntt_stage.ntt_forward_addneg(convert.to_torch(x[0], device="cpu"),
+                                     convert.to_torch(e[0], device="cpu"), tb),
         np.asarray(ref)[0])

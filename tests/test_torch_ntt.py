@@ -19,6 +19,7 @@ from ntt_cuda_tpu_torch.ops import ntt, ntt30
 from ntt_cuda_tpu_torch.params import get_params
 from ntt_cuda_tpu_torch.utils import hostmath as thm
 
+
 SETS = {
     "gen_1024": lambda: primegen.make_bfv_params(1024, 40, 3),
     "4k_3q": lambda: jget("4k_3q"),
@@ -62,11 +63,11 @@ def test_forward_inverse_match_jax(pair, lead):
     rng = np.random.default_rng(len(lead) + jp.n)
     x = _rand(rng, jp.q, jp.n, lead)
     jt, jms = jntt.tables_for(jp), jmm.modulus_set(jp)
-    fwd = ntt.ntt_forward(convert.to_torch(x), tb)
+    fwd = ntt.ntt_forward(convert.to_torch(x, device="cpu"), tb)
     np.testing.assert_array_equal(
         convert.to_numpy(fwd),
         np.asarray(jntt.ntt_forward_jit(jnp.asarray(x), jt, jms)))
-    inv = ntt.ntt_inverse(convert.to_torch(x), tb)
+    inv = ntt.ntt_inverse(convert.to_torch(x, device="cpu"), tb)
     np.testing.assert_array_equal(
         convert.to_numpy(inv),
         np.asarray(jntt.ntt_inverse_jit(jnp.asarray(x), jt, jms)))
@@ -78,7 +79,8 @@ def test_dyadic_matches_jax(pair):
     jp, tb = pair
     rng = np.random.default_rng(5)
     a, b = _rand(rng, jp.q, jp.n), _rand(rng, jp.q, jp.n)
-    got = ntt.dyadic_mul(convert.to_torch(a), convert.to_torch(b), tb.ms)
+    got = ntt.dyadic_mul(convert.to_torch(a, device="cpu"),
+                         convert.to_torch(b, device="cpu"), tb.ms)
     ref = jntt.dyadic_mul_jit(jnp.asarray(a), jnp.asarray(b),
                               jmm.modulus_set(jp))
     np.testing.assert_array_equal(convert.to_numpy(got), np.asarray(ref))
@@ -89,8 +91,10 @@ def test_forward_matches_golden_and_schoolbook():
     tb = ntt.tables_for(convert.params_from(jp), device="cpu")
     rng = np.random.default_rng(9)
     a, b = _rand(rng, jp.q, jp.n), _rand(rng, jp.q, jp.n)
-    fwd = convert.to_numpy(ntt.ntt_forward(convert.to_torch(a), tb))
-    fa, fb = (ntt.ntt_forward(convert.to_torch(v), tb) for v in (a, b))
+    fwd = convert.to_numpy(ntt.ntt_forward(convert.to_torch(a, device="cpu"),
+                                           tb))
+    fa, fb = (ntt.ntt_forward(convert.to_torch(v, device="cpu"), tb)
+              for v in (a, b))
     prod = convert.to_numpy(ntt.ntt_inverse(ntt.dyadic_mul(fa, fb, tb.ms),
                                             tb))
     i = 1
@@ -105,7 +109,8 @@ def test_negacyclic_polymul_matches_jax(pair):
     jp, tb = pair
     rng = np.random.default_rng(11)
     a, b = _rand(rng, jp.q, jp.n), _rand(rng, jp.q, jp.n)
-    got = ntt.negacyclic_polymul(convert.to_torch(a), convert.to_torch(b), tb)
+    got = ntt.negacyclic_polymul(convert.to_torch(a, device="cpu"),
+                                 convert.to_torch(b, device="cpu"), tb)
     ref = jntt.negacyclic_polymul_jit(jnp.asarray(a), jnp.asarray(b),
                                       jntt.tables_for(jp),
                                       jmm.modulus_set(jp))
@@ -124,12 +129,13 @@ def test_poly_scalar_helpers_match_jax(pair):
     col = np.array([[q - 1] for q in jp.q], np.uint64)
     for c in (min(jp.q) - 1, col):
         got = poly.poly_add_scalar(
-            convert.to_torch(a), convert.to_torch(c) if np.ndim(c) else c,
+            convert.to_torch(a, device="cpu"),
+            convert.to_torch(c, device="cpu") if np.ndim(c) else c,
             tb.ms)
         ref = jpoly.poly_add_scalar(jnp.asarray(a), jnp.asarray(c), jms)
         np.testing.assert_array_equal(convert.to_numpy(got), np.asarray(ref))
     c, t = 0xDEADBEEF12345677, 1024
-    got = poly.poly_mul_scalar_mod_t(convert.to_torch(a), c, t)
+    got = poly.poly_mul_scalar_mod_t(convert.to_torch(a, device="cpu"), c, t)
     ref = jpoly.poly_mul_scalar_mod_t(jnp.asarray(a), c, t)
     np.testing.assert_array_equal(convert.to_numpy(got), np.asarray(ref))
 

@@ -63,7 +63,7 @@ def test_plain_matches_xla(n):
     jms = jmm.ModulusSet.from_moduli([q])
     x = _residues(n, (1,), n)
     ref_f = np.asarray(jntt.ntt_forward_jit(jnp.asarray(x), jt, jms))
-    got_f = ntt30.ntt_forward(convert.to_torch(x), t30)
+    got_f = ntt30.ntt_forward(convert.to_torch(x, device="cpu"), t30)
     np.testing.assert_array_equal(convert.to_numpy(got_f), ref_f)
     ref_i = np.asarray(jntt.ntt_inverse_jit(jnp.asarray(ref_f), jt, jms))
     got_i = ntt30.ntt_inverse(got_f, t30)
@@ -79,7 +79,7 @@ def test_plain_matches_pallas_interpret():
     x = _residues(n, (2, 1), 7)
     ref_f = np.asarray(ntt_pallas30.ntt_forward(jnp.asarray(x), jt30,
                                                 interpret=True))
-    got_f = ntt30.ntt_forward(convert.to_torch(x), t30)
+    got_f = ntt30.ntt_forward(convert.to_torch(x, device="cpu"), t30)
     np.testing.assert_array_equal(convert.to_numpy(got_f), ref_f)
     ref_i = np.asarray(ntt_pallas30.ntt_inverse(jnp.asarray(ref_f), jt30,
                                                 interpret=True))
@@ -97,7 +97,7 @@ def test_dtype_contract_on_a_batch():
     ref = np.asarray(jntt.ntt_forward_jit(
         jnp.asarray(x), jntt.NTTTables.build([q], [psi], n),
         jmm.ModulusSet.from_moduli([q])))
-    x64 = convert.to_torch(x)
+    x64 = convert.to_torch(x, device="cpu")
     got64 = ntt30.ntt_forward(x64, t30)
     got32 = ntt30.ntt_forward(x64.to(torch.int32), t30)
     assert got64.dtype == torch.int64 and got32.dtype == torch.int32

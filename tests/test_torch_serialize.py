@@ -12,6 +12,7 @@ from ntt_cuda_tpu.utils import serialize as jser
 from ntt_cuda_tpu_torch import convert, get_bfv_params
 from ntt_cuda_tpu_torch.utils import serialize
 
+
 P = get_bfv_params("4k_3q")
 
 
@@ -30,7 +31,8 @@ def test_keys_and_ciphertexts_interchange(tmp_path, writer):
     save, load = (serialize, jser) if writer == "port" else (jser, serialize)
     jp = jget("4k_3q")
     wp, lp = (P, jp) if writer == "port" else (jp, P)
-    t = convert.to_torch if writer == "port" else (lambda a: a)
+    t = ((lambda a: convert.to_torch(a, device="cpu")) if writer == "port"
+         else (lambda a: a))
     save.save_keypair(tmp_path / "k.npz", wp, t(sk), t(pk))
     save.save_ciphertext(tmp_path / "c.npz", wp, t(ct))
     save.save_relin_keys(tmp_path / "r.npz", wp, t(rlk))
@@ -55,7 +57,7 @@ def test_keys_and_ciphertexts_interchange(tmp_path, writer):
 def test_padded_layout_interchanges(tmp_path):
     rng = np.random.default_rng(2)
     ct = _rand(rng, (2, P.r - 1, P.n))
-    padded = serialize.pad_ciphertext(convert.to_torch(ct), P)
+    padded = serialize.pad_ciphertext(convert.to_torch(ct, device="cpu"), P)
     np.testing.assert_array_equal(padded, jser.pad_ciphertext(ct, jget("4k_3q")))
     np.testing.assert_array_equal(serialize.drop_padding(padded), ct)
     jser.save_ciphertext(tmp_path / "p.npz", jget("4k_3q"), padded)

@@ -83,7 +83,7 @@ def _rand_rows(rng, qs, n, lead=()):
 
 
 def _t(a) -> torch.Tensor:
-    return convert.to_torch(np.asarray(a))
+    return convert.to_torch(np.asarray(a), device="cpu")
 
 
 def _u64(a) -> np.ndarray:
@@ -315,8 +315,9 @@ def host_lib(tmp_path_factory):
 
 def _host_front(lib, u_b, pk, tb):
     c = torch.empty_like(pk)
-    assert lib.ntt_encrypt_front(u_b.data_ptr(), pk.data_ptr(), c.data_ptr(),
-                                 *tb.kernel_args(), tb.r, tb.logn, None) == 0
+    assert lib.ntt_encrypt_front_cluster(u_b.data_ptr(), pk.data_ptr(),
+                                         c.data_ptr(), *tb.kernel_args(), tb.r,
+                                         tb.logn, 0, None) == 0
     return c
 
 

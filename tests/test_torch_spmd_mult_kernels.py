@@ -86,7 +86,7 @@ def _rand_rows(rng, qs, n, lead=()):
 
 
 def _t(a) -> torch.Tensor:
-    return convert.to_torch(np.asarray(a))
+    return convert.to_torch(np.asarray(a), device="cpu")
 
 
 def _u64(a) -> np.ndarray:

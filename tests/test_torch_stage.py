@@ -33,6 +33,7 @@ from ntt_cuda_tpu.params import get_bfv_params as jget
 from ntt_cuda_tpu_torch import BFVContext, convert, get_bfv_params
 from ntt_cuda_tpu_torch.ops import bfv_tail, ntt, ntt_stage
 
+
 FIX = Path(__file__).parent / "fixtures"
 
 
@@ -117,7 +118,7 @@ def _xla_ref(jp, name, x, y, t, g):
 
 def _to_port(a):
     return (torch.from_numpy(a) if a.dtype == np.int32
-            else convert.to_torch(a))
+            else convert.to_torch(a, device="cpu"))
 
 
 @pytest.mark.parametrize("name", sorted(KERNELS))
@@ -149,12 +150,16 @@ def test_encrypt_fused_plain_matches_pallas(k4):
                               jnp.asarray(e_d), jnp.asarray(m), ftab,
                               jtail.TailConsts.build(jp), interpret=True)
     got = bfv_tail.encrypt_fused_plain(
-        convert.to_torch(u_ntt), convert.to_torch(pk), torch.from_numpy(e_d),
-        convert.to_torch(m), ctx.tables_full, ctx.tail_consts)
+        convert.to_torch(u_ntt, device="cpu"),
+        convert.to_torch(pk, device="cpu"), torch.from_numpy(e_d),
+        convert.to_torch(m, device="cpu"), ctx.tables_full,
+        ctx.tail_consts)
     _eq(got, ref)
     _eq(bfv_tail.encrypt_fused(
-        convert.to_torch(u_ntt), convert.to_torch(pk), torch.from_numpy(e_d),
-        convert.to_torch(m), ctx.tables_full, ctx.tail_consts), ref)
+        convert.to_torch(u_ntt, device="cpu"),
+        convert.to_torch(pk, device="cpu"), torch.from_numpy(e_d),
+        convert.to_torch(m, device="cpu"), ctx.tables_full,
+        ctx.tail_consts), ref)
 
 
 # --- 2. the plain transforms at n = 32768 ------------------------------------
@@ -168,10 +173,13 @@ def test_plain_transforms_at_32k(moduli):
     tb = ntt.NTTTables.build(qs, psis, jp.n, device="cpu")
     x = _rand(np.random.default_rng(7), qs, jp.n)
     fwd = np.asarray(jntt.ntt_forward_jit(jnp.asarray(x), jt, jms))
-    _eq(ntt_stage.ntt_forward_plain(convert.to_torch(x), tb), fwd)
+    _eq(ntt_stage.ntt_forward_plain(convert.to_torch(x, device="cpu"), tb),
+        fwd)
     inv = np.asarray(jntt.ntt_inverse_jit(jnp.asarray(x), jt, jms))
-    _eq(ntt_stage.ntt_inverse_plain(convert.to_torch(x), tb), inv)
-    _eq(ntt_stage.ntt_inverse_plain(convert.to_torch(fwd), tb), x)
+    _eq(ntt_stage.ntt_inverse_plain(convert.to_torch(x, device="cpu"), tb),
+        inv)
+    _eq(ntt_stage.ntt_inverse_plain(convert.to_torch(fwd, device="cpu"),
+                                    tb), x)
 
 
 # --- 3. the stage schedule end to end ---------------------------------------

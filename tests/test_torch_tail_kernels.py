@@ -42,6 +42,7 @@ from ntt_cuda_tpu_torch import convert, cuda, get_bfv_params
 from ntt_cuda_tpu_torch.ops import bfv_tail, ntt, ntt_stage
 from ntt_cuda_tpu_torch.utils import primegen
 
+
 FIX = Path(__file__).parent / "fixtures"
 SETS = {"4k_3q": lambda: jget("4k_3q"),
         "gen_2048": lambda: jprimegen.make_bfv_params(2048, 50, 4)}
@@ -98,7 +99,7 @@ def test_mod_idx_plain_matches_jax(name, inverse):
         jnp.asarray(x), jt, jms)
     tb = ntt.tables_for(convert.params_from(jp), device="cpu")
     fn = ntt_stage.ntt_inverse if inverse else ntt_stage.ntt_forward
-    got = fn(convert.to_torch(x).reshape(1, -1, jp.n), tb,
+    got = fn(convert.to_torch(x, device="cpu").reshape(1, -1, jp.n), tb,
              mod_idx=torch.from_numpy(idx))
     np.testing.assert_array_equal(convert.to_numpy(got)[0], np.asarray(ref))
 
@@ -114,7 +115,7 @@ def test_mod_idx_plain_matches_pallas_interpret():
     ref = jpallas.ntt_forward(jnp.asarray(x), jpallas.tables_for(jp),
                               mod_idx=idx, interpret=True)
     got = ntt_stage.ntt_forward(
-        convert.to_torch(x),
+        convert.to_torch(x, device="cpu"),
         ntt.tables_for(convert.params_from(jp), device="cpu"), mod_idx=idx)
     np.testing.assert_array_equal(convert.to_numpy(got), np.asarray(ref))
 
@@ -143,8 +144,9 @@ def test_encrypt_tail_plain_matches_jax_interpret():
     ref = jtail.encrypt_tail(jnp.asarray(c), jnp.asarray(e), jnp.asarray(m),
                              jtail.TailConsts.build(jp), interpret=True)
     p = convert.params_from(jp)
-    got = bfv_tail.encrypt_tail(convert.to_torch(c), convert.to_torch(e),
-                                convert.to_torch(m),
+    got = bfv_tail.encrypt_tail(convert.to_torch(c, device="cpu"),
+                                convert.to_torch(e, device="cpu"),
+                                convert.to_torch(m, device="cpu"),
                                 bfv_tail.TailConsts.build(p))
     np.testing.assert_array_equal(convert.to_numpy(got), np.asarray(ref))
 
@@ -170,7 +172,7 @@ def test_decrypt_fused_golden_matches_jax():
     ref = np.asarray(jpoly.fast_convert_and_round(y, dc))
     p = convert.params_from(jp)
     got = bfv_tail.decrypt_fused(
-        convert.to_torch(x), convert.to_torch(sk), convert.to_torch(c0),
+        *(convert.to_torch(v, device="cpu") for v in (x, sk, c0)),
         ntt.tables_for(p, p.r - 1, device="cpu"),
         bfv_tail.DecTailConsts.build(p))
     np.testing.assert_array_equal(convert.to_numpy(got), ref)
