@@ -26,11 +26,14 @@ interleaved against in turn).  Then:
    32k_16q; the J-nonce keystream (kernel 6) at 32k_9q's encrypt size,
    J = 1 and 16, also against K1 row by row; the EvalMult kernels (BEHZ
    21a-c, kernel 11, the key switch 19) at 4k_3q, 16k_5q and 32k_9q,
-   21a-c and 19 also at 32k_16q, J = 1 and 2; kernel 22 at n = 2^11,
-   2^14, 2^15 (one block) and 2^16 (stage-0 passes beside two halves),
-   (1, 1, n) and (16, 1, n), int32 and int64, forward and inverse, and
-   equal to the 64-bit plain transform on the same modulus;
-2. the reference's golden ciphertext, on both schedules;
+   21a-c and 19 also at 32k_16q, J = 1 and 2; kernel 22 (one cluster
+   launch at every n) at n = 2^11, 2^14, 2^15 and 2^16, (1, 1, n) and
+   (16, 1, n), int32 and int64, forward and inverse, by the rule and at
+   every cluster size B (B = 1 at 2^16, whose n/B buffer does not fit a
+   block, refused), and equal to the 64-bit plain transform on the same
+   modulus;
+2. the reference's golden ciphertext, on both schedules and through
+   kernel 15 at every cluster size B;
 3. the op schedule's main path at 16k_5q and the stage schedule's at
    32k_9q through the public API (keygen, encrypt of three seeded
    messages, decrypt, decrypt_batch; 32k_9q through
@@ -100,11 +103,12 @@ interleaved against in turn).  Then:
    (turns stage, op, spmd, spmd, op, stage), each around one call; every
    kernel and its plain version around a run of calls back to back,
    beside the kernel's bound (K3-K5 and K5 at J = 16 also at 32k_9q;
-   kernel 22 at (16, 1, n), n = 2^15 and 2^16, both directions; kernels
-   16-18, 20 and 21a-c's bands at 32k_9q's world-size-1 shapes, rl = 9;
-   16's drop launch logged beside); the stage rows' device time
-   (torch.profiler); the stage kernels' local stages, ntt_block.cuh's
-   loop against its register-tiled passes, and kernels 7 and 8 at every
+   kernel 22 at (16, 1, n), n = 2^15 and 2^16, both directions, also at
+   every cluster size B; kernels 16-18, 20 and 21a-c's bands at 32k_9q's
+   world-size-1 shapes, rl = 9; 16's drop launch logged beside); the
+   stage rows', 14's and 15's device time (torch.profiler); the stage
+   kernels' local stages, a one-stage loop against ntt_block.cuh's
+   register-tiled passes, and kernels 7 and 8 at every
    cluster size B at n = 2^14 and 2^15 for P = 9, 18, 36 (device time and
    back-to-back CUDA events, each output held against its plain version);
    K5 at 16k_5q J = 1 and 32k_9q J = 1 and 16, and kernel 18 at 32k_9q, at
@@ -117,7 +121,9 @@ interleaved against in turn).  Then:
    ntt_inverse with mod_idx, encrypt_tail, decrypt_fused) against their
    plain versions: 12 over the standard and a permuted index (B = 2r + 1)
    at 4k_3q, 16k_5q and 32k_9q, both directions; 14 at 16k_5q and
-   32k_9q; 15 at 32k_9q, 32k_16q and on the golden ciphertext; then the
+   32k_9q; 15 (one cooperative cluster launch) at 16k_5q, 32k_9q and
+   32k_16q by the rule and at every cluster size B (B = 1 at 2^15
+   refused), and on the golden ciphertext; then the
    ops path at 32k_9q on the stage path's keys (counts read as in 3):
    encrypt of its three messages through kernels 12, 8 and 14 equal to
    BFVContext.encrypt's ciphertexts, decrypt through 12 and 15
@@ -133,9 +139,10 @@ interleaved against in turn).  Then:
    (keygen 3 log2 C ppermutes, encrypt and decrypt 2 log2 C and one
    all-reduce), every gloo tensor equal to world size 1's;
 15. times: 12, 14, 15 and the cross-stage glue beside their bounds and
-   plain versions; 15 beside kernel 8 + K2 and, forward included, 7 + 15
-   beside K3 + K2; 2-D keygen / encrypt / decrypt at world size 1 in
-   turns beside SpmdBFVContext and BFVContext.
+   plain versions; 15 beside kernel 8 + K2 (CUDA events and device time,
+   in turns) and, forward included, 7 + 15 beside K3 + K2; 15 at every
+   cluster size B at 16k_5q, 32k_9q and 32k_16q; 2-D keygen / encrypt /
+   decrypt at world size 1 in turns beside SpmdBFVContext and BFVContext.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and last `{"ok": true, "device": {...}}`.  Any failure raises,
@@ -187,7 +194,7 @@ MULT_CHECK_SETS = ("4k_3q", "16k_5q", "32k_9q", "32k_16q")
 OP32_CHECK_SETS = ("32k_9q", "32k_16q")   # K3-K5 at n = 2^15
 OP32_KERNELS = ("half_polymul", "keygen_fused", "encrypt_fused")
 BATCH_J = 16
-NTT30_SIZES = (2048, 16384, 32768, 65536)   # one block up to 2^15; 2^16
+NTT30_SIZES = (2048, 16384, 32768, 65536)   # kernel 22: one launch each
 NTT30_BATCH = 16                            # bench.py's 16 polynomials
 DOT_N = 32768                               # the dot product at full width,
 DOT_R = 4        # over four 45-bit moduli: three fail EvalMult's aux-base
@@ -209,7 +216,7 @@ OPS_SET = "32k_9q"           # the op-level entry points' path (12, 14, 15)
 OPS_MSGS = 3
 IDX_CHECK_SETS = ("4k_3q", "16k_5q", "32k_9q")   # kernel 12
 TAIL_CHECK_SETS = ("16k_5q", "32k_9q")           # kernel 14
-DEC_FUSED_SETS = ("32k_9q", "32k_16q")           # kernel 15
+DEC_FUSED_SETS = ("16k_5q", "32k_9q", "32k_16q")  # kernel 15
 COEF_SET, COEF_CS = "32k_9q", (2, 4)   # the coefficient-sharded transform
 SPMD2D_MESHES = ((1, 2), (3, 2))       # (rns, coef) over gloo on one card
 # the stage kernels' cluster sizes (csrc/ntt_stage.cu): timed at n = 2^14
@@ -236,10 +243,12 @@ OPC_CHECK_SETS = ("4k_3q", "16k_5q", "32k_9q")
 OPC_TIME_SETS = ("16k_5q", "32k_9q")
 # the rows that run the stage kernels, as timed (12 at (19, n), 13 with its
 # tail launch, 19 its three launches, 20 at rl = 9)
-STAGE_ROWS = ("ntt_forward", "ntt_inverse", "ntt_inverse_mul",
-              "ntt_forward_ternary", "ntt_forward_addneg_gauss",
-              "ntt_forward_addneg", "ntt_transform_idx",
-              "encrypt_fused_stage", "keyswitch_fused", "keyswitch_front")
+# the rows whose device time (torch.profiler) is logged beside their times
+DEVICE_ROWS = ("ntt_forward", "ntt_inverse", "ntt_inverse_mul",
+               "ntt_forward_ternary", "ntt_forward_addneg_gauss",
+               "ntt_forward_addneg", "ntt_transform_idx",
+               "encrypt_fused_stage", "keyswitch_fused", "keyswitch_front",
+               "encrypt_tail", "decrypt_fused")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
 
@@ -398,14 +407,37 @@ extern "C" __global__ void probe_shoup32(const u32* a, u32* o) {
 # The local stages of the cluster kernels two ways, on P 2^c blocks of
 # 2^(logn - c) points each (block b: piece b % 2^c of polynomial b >> c,
 # the cluster schedule's tw_mul = 2^c + piece over the full tables).
-# k_ab_local: V = 0 ntt_block.cuh's loop (one block barrier and one
-# shared-memory round trip a stage), V = 2 or 3 its register-tiled passes
-# of V stages.  k_ab_pair: the encrypt transform's local inverse stages of
-# its two products (fused_ops.cu's phase B), two buffers a block, T = 0
+# k_ab_local: V = 0 the one-stage loop below (one block barrier and one
+# shared-memory round trip a stage), V = 2 or 3 ntt_block.cuh's
+# register-tiled passes of V stages.  k_ab_pair: the encrypt transform's local inverse stages of its
+# two products (fused_ops.cu's phase B), two buffers a block, T = 0
 # interleaved in one tiled pass (each twiddle load serving both, as the
 # library does), T = 1 one tiled inverse after the other.
 LOCAL_AB_SRC = r"""
 #include "ntt_cluster.cuh"
+// One stage a step: CT forward / GS inverse (no n^-1) of s[0, 2^logn),
+// twiddle tw_mul len + ps, butterflies g = tid, tid + nt, ...
+template <bool INV>
+__device__ void loop_stages(u64* s, int logn, const Twiddles& tw, u64 q,
+                            int tid, int nt, int tw_mul) {
+  __syncthreads();
+  for (int st = 0; st < logn; ++st) {
+    const int lg = INV ? logn - 1 - st : st;
+    const int sl = logn - 1 - lg, step = 1 << sl, len = 1 << lg;
+    for (int g = tid; g < (1 << (logn - 1)); g += nt) {
+      const int ps = g >> sl;
+      const int tgt = (ps << (sl + 1)) | (g & (step - 1));
+      const int w = tw_mul * len + ps;
+      if (INV) gs_butterfly(s[tgt], s[tgt + step], tw.ipsi[w], tw.ipsi_sh[w], q);
+      else ct_butterfly(s[tgt], s[tgt + step], tw.psi[w], tw.psi_sh[w], q);
+    }
+    __syncthreads();
+  }
+}
+static cudaError_t smem_limit(const void* kern) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)(sizeof(u64) << LOG_BLOCK_MAX));
+}
 template <int V>
 __global__ void __launch_bounds__(1024)
     k_ab_local(const u64* x, u64* out, Twiddles tw, int logn, int c, int r,
@@ -419,8 +451,8 @@ __global__ void __launch_bounds__(1024)
   const Twiddles t = twiddles_at(tw, mi, 1 << logn);
   for (int i = tid; i < nb; i += nt) s[i] = x[(size_t)b * nb + i];
   if constexpr (V == 0) {
-    if (inverse) ntt_inv_block(s, logb, t, k.q, tid, nt, m);
-    else ntt_fwd_block(s, logb, t, k.q, tid, nt, m);
+    if (inverse) loop_stages<true>(s, logb, t, k.q, tid, nt, m);
+    else loop_stages<false>(s, logb, t, k.q, tid, nt, m);
   } else {
     if (inverse) ntt_inv_tiled<V>(s, logb, t, k.q, tid, nt, m);
     else ntt_fwd_tiled<V>(s, logb, t, k.q, tid, nt, m);
@@ -434,9 +466,9 @@ extern "C" int ab_local(int v, int inverse, const void* x, void* out,
   const int nb = 1 << (logn - c);
   void (*kern)(const u64*, u64*, Twiddles, int, int, int, int) =
       v == 0 ? k_ab_local<0> : v == 2 ? k_ab_local<2> : k_ab_local<3>;
-  const int threads = v == 0 ? ntt_threads(nb)
+  const int threads = v == 0 ? (nb / 2 < 1024 ? nb / 2 : 1024)
                       : v == 2 ? tiled_threads<2>(nb) : tiled_threads<3>(nb);
-  const cudaError_t e = smem_limit_once((const void*)kern);
+  const cudaError_t e = smem_limit((const void*)kern);
   if (e != cudaSuccess) return (int)e;
   kern<<<P << c, threads, nb * sizeof(u64), (cudaStream_t)stream>>>(
       (const u64*)x, (u64*)out, make_tw(psi, psi_sh, ipsi, ipsi_sh, consts),
@@ -481,7 +513,7 @@ extern "C" int ab_pair(int turns, const void* x, const void* y, void* ox,
   void (*kern)(const u64*, const u64*, u64*, u64*, Twiddles, int, int, int) =
       turns ? k_ab_pair<1> : k_ab_pair<0>;
   if (2 * nb > (1 << LOG_BLOCK_MAX)) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = smem_limit_once((const void*)kern);
+  const cudaError_t e = smem_limit((const void*)kern);
   if (e != cudaSuccess) return (int)e;
   kern<<<P << c, tiled_threads<STAGE_TILE>(nb), 2 * nb * sizeof(u64),
          (cudaStream_t)stream>>>(
@@ -528,16 +560,16 @@ def start_local_ab() -> tuple[subprocess.Popen, Path]:
 
 
 def start_ptxas_report() -> list[subprocess.Popen]:
-    """ntt_stage.cu and fused_ops.cu compiled once more with `-Xptxas -v`
-    (registers, spills and stack of each kernel), beside the library's
-    build."""
+    """ntt_stage.cu, fused_ops.cu and ntt30.cu compiled once more with
+    `-Xptxas -v` (registers, spills and stack of each kernel), beside the
+    library's build."""
     out = ROOT / "build" / "ptxas"
     out.mkdir(parents=True, exist_ok=True)
     return [subprocess.Popen(
         [cuda.find_nvcc(), *cuda.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
          str(out / f"{src}.o"), str(cuda.CSRC / f"{src}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src in ("ntt_stage", "fused_ops")]
+        for src in ("ntt_stage", "fused_ops", "ntt30")]
 
 
 def built(proc: subprocess.Popen, what: str) -> str:
@@ -562,7 +594,8 @@ def ptxas_lines(out: str, kernels: str) -> dict[str, str]:
     return res
 
 
-CLUSTER_KERNELS = "k_stage_|k_op_cluster"   # the cluster kernels' names
+# the cluster kernels' names
+CLUSTER_KERNELS = "k_stage_|k_op_cluster|k_decrypt_cluster|k_ntt30_cluster"
 
 
 def ptxas_report(procs: list[subprocess.Popen]) -> dict[str, str]:
@@ -583,12 +616,14 @@ def device_us(fn, reps: int = 20, names: set | None = None) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    iv = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and e.name.removeprefix("void ").startswith("k_")]
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    iv = [e.time_range.end - e.time_range.start for e in dev_events
+          if e.name.removeprefix("void ").startswith("k_")]
     if not iv:
-        raise RuntimeError("torch.profiler saw no kernel of the port on the "
-                           "device")
+        raise RuntimeError(f"torch.profiler saw no kernel of the port on the "
+                           f"device (device events: "
+                           f"{sorted({e.name for e in dev_events})[:8]})")
     if names is not None:
         names.update(e.name for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1481,10 +1516,18 @@ def ntt30_work(x, tb, inverse: bool) -> Work:
                 shoup32=shoups + (x.numel() if inverse else 0))
 
 
+def ntt30_fits(B: int, n: int) -> bool:
+    """Whether kernel 22 takes cluster size B at n points: n/B u32 in
+    128 KB of a block."""
+    return 2 <= n // B <= 2 * cuda.BLOCK_MAX_N
+
+
 def ntt30_checks(dev, rng, errs: dict) -> dict:
     """Kernel 22 against its plain version and the 64-bit plain transform
-    at every size and shape; returns the (16, 1, n) int32 timing cases at
-    2^15 and 2^16 by (n, direction)."""
+    at every size and shape, by the rule and at every cluster size B (a B
+    that does not fit raises); returns the (16, 1, n) int32 timing cases at
+    2^15 and 2^16 by (n, direction) as (wrapper call of B, plain call,
+    Work)."""
     timing = {}
     for n in NTT30_SIZES:
         q, psi, *_ = get_params(n, "30bit")
@@ -1503,21 +1546,56 @@ def ntt30_checks(dev, rng, errs: dict) -> dict:
                 compare("ntt30_transform", i,
                         ntt30.ntt_inverse_plain(f, tb), errs)
                 compare("ntt30_transform", i, xd, errs)
+                for B in CLUSTER_BS:
+                    if not ntt30_fits(B, n):
+                        for fn in (ntt30.ntt_forward, ntt30.ntt_inverse):
+                            try:
+                                fn(xd, tb, cluster=B)
+                            except RuntimeError:
+                                continue
+                            raise AssertionError(f"kernel 22 took B={B} at "
+                                                 f"n={n}")
+                        continue
+                    compare("ntt30_transform",
+                            ntt30.ntt_forward(xd, tb, cluster=B), f, errs)
+                    compare("ntt30_transform",
+                            ntt30.ntt_inverse(f, tb, cluster=B), i, errs)
             log(f"check ntt30_transform n={n} {lead + (n,)} int32/int64 "
                 f"fwd/inv: equal to the plain versions and the 64-bit "
-                f"transform")
+                f"transform, by the rule and at B = "
+                f"{[B for B in CLUSTER_BS if ntt30_fits(B, n)]} (the rest "
+                f"refused)")
             if lead[0] == NTT30_BATCH and n >= 32768:
                 x32 = x.to(torch.int32)
                 f32 = ntt30.ntt_forward(x32, tb)
                 timing[(n, "fwd")] = (
-                    lambda x32=x32, tb=tb: ntt30.ntt_forward(x32, tb),
+                    lambda B=0, x32=x32, tb=tb: ntt30.ntt_forward(
+                        x32, tb, cluster=B),
                     lambda x32=x32, tb=tb: ntt30.ntt_forward_plain(x32, tb),
                     ntt30_work(x32, tb, False))
                 timing[(n, "inv")] = (
-                    lambda f32=f32, tb=tb: ntt30.ntt_inverse(f32, tb),
+                    lambda B=0, f32=f32, tb=tb: ntt30.ntt_inverse(
+                        f32, tb, cluster=B),
                     lambda f32=f32, tb=tb: ntt30.ntt_inverse_plain(f32, tb),
                     ntt30_work(f32, tb, True))
     return timing
+
+
+def ntt30_cluster_times(timing30: dict) -> dict:
+    """Kernel 22 at (16, 1, n), n = 2^15 and 2^16, both directions, at
+    every cluster size B a launch takes: device us per call
+    (torch.profiler) and ms per call of 20 back to back (CUDA events)."""
+    res = {}
+    for (n, direction), (kern, _, _) in timing30.items():
+        for B in CLUSTER_BS:
+            key = f"n={n} {direction} B={B}"
+            if not ntt30_fits(B, n):
+                res[key] = "refused"
+                continue
+            res[key] = {"rule": B == 8,   # 8 wherever it fits
+                        "us": device_us(lambda: kern(B)),
+                        "ms": kernel_ms(lambda: kern(B))}
+    return res
 
 
 def run_cli(argv: list[str], passes: int = 0) -> str:
@@ -1979,12 +2057,59 @@ def ops_cases(rng, dev):
         x, sk, c0 = (rand_res(rng, p.q[:-1], p.n, (), dev) for _ in range(3))
         cases.append((
             "decrypt_fused", name,
-            lambda x=x, sk=sk, c0=c0, td=td, dt=dt: bfv_tail.decrypt_fused(
-                x, sk, c0, td, dt),
+            lambda B=0, x=x, sk=sk, c0=c0, td=td, dt=dt:
+                bfv_tail.decrypt_fused(x, sk, c0, td, dt, cluster=B),
             lambda x=x, sk=sk, c0=c0, td=td, dt=dt:
                 bfv_tail.decrypt_fused_plain(x, sk, c0, td, dt),
             decrypt_fused_work(x, sk, c0, td, dt)))
     return cases
+
+
+def dec_fits(B: int, n: int) -> bool:
+    """Whether kernel 15 takes cluster size B at n points (n/B u64 in a
+    block)."""
+    return 2 <= n // B <= cuda.BLOCK_MAX_N
+
+
+def decrypt_cluster_checks(cases, errs: dict) -> None:
+    """Kernel 15 (the ops_cases rows) at every cluster size B against its
+    plain version; a B that does not fit raises."""
+    for kname, label, kern, plain, _ in cases:
+        if kname != "decrypt_fused":
+            continue
+        ref = plain()
+        n = ref.shape[-1]
+        for B in CLUSTER_BS:
+            if dec_fits(B, n):
+                compare(kname, kern(B), ref, errs)
+                continue
+            try:
+                kern(B)
+            except RuntimeError:
+                continue
+            raise AssertionError(f"kernel 15 took B={B} at n={n}")
+        log(f"check decrypt_fused {label} at B = "
+            f"{[B for B in CLUSTER_BS if dec_fits(B, n)]}: equal (the rest "
+            f"refused)")
+
+
+def decrypt_cluster_times(cases) -> dict:
+    """Kernel 15 at every cluster size B a launch takes: device us per call
+    (torch.profiler) and ms per call of 20 back to back (CUDA events)."""
+    res = {}
+    for kname, label, kern, plain, _ in cases:
+        if kname != "decrypt_fused":
+            continue
+        n = get_bfv_params(label).n
+        for B in CLUSTER_BS:
+            key = f"{label} B={B}"
+            if not dec_fits(B, n):
+                res[key] = "refused"
+                continue
+            res[key] = {"rule": B == ntt_stage.cluster_size(n),
+                        "us": device_us(lambda: kern(B)),
+                        "ms": kernel_ms(lambda: kern(B))}
+    return res
 
 
 def decrypt_fused_work(x, sk, c0, td, dt) -> Work:
@@ -2313,8 +2438,9 @@ def main() -> int:
     ab_lines = ptxas_lines(built(ab_build[0], "local-stage A/B"), "k_ab_")
     log(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     log(f"cluster kernels' registers and spills (ptxas -v, sm_90a; the "
-        f"stage kernels and fused_ops.cu's k_op_cluster<CL, OCC, op>, "
-        f"__launch_bounds__ ClusterBound<CL, OCC>): "
+        f"stage kernels, kernel 15's k_decrypt_cluster<CL, OCC>, "
+        f"fused_ops.cu's k_op_cluster<CL, OCC, op> and kernel 22's "
+        f"k_ntt30_cluster<CL, inverse>, __launch_bounds__ ClusterBound): "
         f"{json.dumps(ptxas_report(ptxas))}")
     log(f"build: all builds done in {time.perf_counter() - t0:.1f} s")
     log(f"local-stage A/B probe (LOCAL_AB_SRC; k_ab_pair<0> the encrypt "
@@ -2382,11 +2508,13 @@ def main() -> int:
                 timing[kname] = (kern, plain, work)
     timing30 = ntt30_checks(dev, rng, errs)
     r_ops = get_bfv_params(OPS_SET).r
-    for kname, label, kern, plain, work in ops_cases(rng, dev):
+    cases_ops = ops_cases(rng, dev)
+    for kname, label, kern, plain, work in cases_ops:
         compare(kname, kern(), plain(), errs)
         log(f"check {kname} {label}: equal")
         if label in (OPS_SET, f"{OPS_SET} permuted B={2 * r_ops + 1} fwd"):
             timing[kname] = (kern, plain, work)
+    decrypt_cluster_checks(cases_ops, errs)
     torch.cuda.synchronize()
     log(f"checks: {time.perf_counter() - t0:.1f} s")
 
@@ -2409,8 +2537,12 @@ def main() -> int:
         xg, skg, c0g, td4, dt4), errs)
     if not np.array_equal(mg.cpu().numpy(), np.arange(ctx4.params.n) % 10):
         raise AssertionError("golden dec4k through kernel 15 != i % 10")
-    log("golden: dec4k decrypts to i % 10 on the card, op and stage, and "
-        "through kernel 15 (equal to its plain version)")
+    for B in CLUSTER_BS:
+        compare("decrypt_fused", bfv_tail.decrypt_fused(
+            xg, skg, c0g, td4, dt4, cluster=B), mg, errs)
+    log(f"golden: dec4k decrypts to i % 10 on the card, op and stage, and "
+        f"through kernel 15 (equal to its plain version, and at every "
+        f"cluster size B = {list(CLUSTER_BS)})")
 
     # Phase 3: the main paths through the public API, counts read per path.
     counts, paths = {}, {}
@@ -2875,6 +3007,21 @@ def main() -> int:
         f"kernel 8 + K2 (the stage schedule's), and kernel 7 + 15 against "
         f"K3 + K2 (the op schedule's, forward included): "
         f"{json.dumps(back)}")
+    back_us = {}
+    for turn in range(2):
+        for label, fn in (
+                ("15", lambda: bfv_tail.decrypt_fused(x9, sk9, c09, td9,
+                                                      dt9)),
+                ("8 + K2", lambda: bfv_tail.decrypt_tail(
+                    ntt_stage.ntt_inverse_mul(x9, sk9, td9), c09, dt9))):
+            back_us.setdefault(label, []).append(device_us(fn))
+    log(f"decrypt back half at {SPMD_SET}, device us per call "
+        f"(torch.profiler, turns 15, 8 + K2, 15, 8 + K2): "
+        f"{json.dumps(back_us)}")
+    log(f"kernel 15 at every cluster size B (device us per call, "
+        f"torch.profiler; ms per call of 20 back to back, CUDA events; "
+        f"outputs == plain in phase 1): "
+        f"{json.dumps(decrypt_cluster_times(cases_ops))}")
     timing.update(timing_spmd)
     log(f"stage kernels' local stages, ntt_block.cuh's loop against the "
         f"register-tiled passes (device us per launch of P = 9 polynomials' "
@@ -2900,10 +3047,10 @@ def main() -> int:
         terms[kname] = work.terms(mults, clock_hz)
         bounds[kname] = (kernel_ms(kern), kernel_ms(plain),
                          *work.bound(mults, clock_hz))
-    stage_dev = {k: device_us(timing[k][0]) for k in STAGE_ROWS}
-    log(f"stage rows' device time at the timed shapes (us per call, "
-        f"torch.profiler; 19: its three launches; 12: (19, n)): "
-        f"{json.dumps(stage_dev)}")
+    row_dev = {k: device_us(timing[k][0]) for k in DEVICE_ROWS}
+    log(f"stage rows', 14's and 15's device time at the timed shapes (us "
+        f"per call, torch.profiler; 19: its three launches; 12: (19, n)): "
+        f"{json.dumps(row_dev)}")
     kern, plain, work = drop_case
     log(f"kernel 16 as the key switch's drop ({SPMD_SET}, (2, {p_s.r}, n)): "
         f"ms {kernel_ms(kern)}, plain ms {kernel_ms(plain)}, bound ms "
@@ -2944,6 +3091,10 @@ def main() -> int:
     log(f"kernel 22 at ({NTT30_BATCH}, 1, n) int32 (launches on the ntt-test "
         f"30bit path: {counts['cli30']['ntt30_transform']}): "
         f"{json.dumps(ntt30_times)}")
+    log(f"kernel 22 at ({NTT30_BATCH}, 1, n) int32 at every cluster size B "
+        f"(device us per call, torch.profiler; ms per call of 20 back to "
+        f"back, CUDA events; outputs == plain in phase 1): "
+        f"{json.dumps(ntt30_cluster_times(timing30))}")
     k22 = ntt30_times["n=65536 fwd"]
     bounds["ntt30_transform"] = (k22["ms"], k22["plain_ms"], k22["bound_ms"],
                                  k22["bound_by"])

@@ -26,7 +26,7 @@
 // local forward stages, the same range of the NTT in the stage kernels'
 // output order (the range of y, a, sk and pk it reads or writes).  A
 // kernel is a struct of phases, with a cluster barrier between two:
-//   A. the cluster's threads split the n/B columns: a thread reads column
+//   A. the cluster's threads share out the n/B columns: a thread reads column
 //      i's B values (coefficients i + k n/B), runs CT stages 0..cl-1 on
 //      them in registers and writes value k into block k's buffer through
 //      distributed shared memory (a cluster barrier before, so that every

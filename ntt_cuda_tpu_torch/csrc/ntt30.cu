@@ -11,30 +11,34 @@
 // t = v w - umulhi(v, wp) q (mod 2^32) in [0, 2q), then one conditional
 // subtract: values stay canonical in [0, q) throughout.
 //
-// Polynomial p of the (P, n) input has modulus p % r.  n <= 2^15: one
-// block per polynomial, resident in 4n bytes of dynamic shared memory
-// (128 KB at 2^15) for all log n stages.  n = 2^16 (256 KB, over a block's
-// 227 KB): the forward runs CT stage 0 (pairs i, i + n/2, twiddle psi[1])
-// as an elementwise launch, then one launch of two 2^15 half blocks per
-// polynomial (ntt_block.cuh's sub-range form, tw_mul = 2 + h); the inverse
-// runs the halves, then GS stage 0 (psi^-1[1]) with n^-1 elementwise.
+// Bound on the card: a launch reads and writes each polynomial once (4n
+// bytes each way) and does 3 integer multiplies a butterfly, about 2.7 us
+// of device memory at bench.py's 16 polynomials of 2^16; but each stage
+// waits for the one before, so the time is the latency of a block's
+// stages, and 16 polynomials are few blocks for 132 SMs.
 //
-// Bound on the card: at bench.py's 16 polynomials a launch has 16 (or 32)
-// blocks for 132 SMs, and each of the log n stages ends in a block
-// barrier, so the time is one block's latency, not device memory (4n
-// bytes read and written per polynomial) or the multiplier (3 integer
-// multiplies per butterfly).  The design keeps the whole transform in
-// shared memory at half the u64 footprint, which is what lets 2^15 fit one
-// block.  Simple first: no register tiling of stages, no lazy 4q bound.
+// Design: the u64 transforms' cluster schedule (ntt_cluster.cuh, the head
+// of ntt_stage.cu) on u32: polynomial p of the (P, n) input, modulus
+// p % r, runs on a thread-block cluster of B = 2^cl blocks (8 by the
+// launchers' rule, stage_cluster_log<u32>), block j holding coefficients
+// [j n/B, (j + 1) n/B) in n/B u32 of shared memory (32 KB at 2^16, B = 8),
+// so every 2^11 <= n <= 2^16 is one launch of P B blocks.
+//   Forward: A. the cluster's threads share out the n/B columns; a thread
+//   reads column i's B coefficients i + k n/B, runs CT stages 0..cl-1 on
+//   them in registers and writes value k into block k through distributed
+//   shared memory; B. block j runs the local stages (ntt_fwd_tiled, tw_mul
+//   = B + j) and stores its range.
+//   Inverse: A. block j loads its range and runs the local GS stages;
+//   B. a thread gathers column i's B values, runs GS stages cl-1..0 in
+//   registers and the n^-1 Shoup, and writes them.
+// Every read of polynomial p comes before the cluster barrier between A and
+// B and every write after it, so out may be x.  A B whose n/B buffer passes
+// 128 KB of a block (B = 1 at 2^16) or that is no power of two up to 8 is
+// refused, as is n > 2^16: there is no other schedule behind it.  Host
+// build (g++, the CPU tests): walk_clusters, the same index algebra at
+// every B.
 
-#include "ntt_block.cuh"
-
-#ifndef __CUDACC__
-#include <vector>
-#endif
-
-// The longest polynomial one block holds: 2^15 u32, 128 KB.
-#define LOG_BLOCK_MAX30 15
+#include "ntt_cluster.cuh"
 
 struct T30IO {
   const u32* x;  // (P, n) input
@@ -44,166 +48,137 @@ struct T30IO {
 
 NTT_HD u32 q_of(const Twiddles32& tw, int mi) { return tw.consts[4 * mi]; }
 
-// Block b is polynomial b >> split, half b & split (split = 1 at 2^16).
-NTT_HD void fwd30_block_body(int b, int tid, int nt, u32* s, T30IO io,
-                             Twiddles32 tw) {
-  const int split = io.logn > LOG_BLOCK_MAX30;
-  const int p = b >> split, h = b & split;
-  const int mi = p % io.r;
-  const int logb = io.logn - split;
-  const int nb = 1 << logb;
+// The phases of polynomial p's cluster of 2^CL blocks, run on block j as
+// thread tid of nt; peer[k] is block k's shared memory, s the block's own.
+template <int CL>
+NTT_HD void fwd30_phase_a(const T30IO& io, const Twiddles32& tw, int p, int j,
+                          int tid, int nt, u32* const* peer) {
+  const int nb = 1 << (io.logn - CL), mi = p % io.r;
   const u32 q = q_of(tw, mi);
-  const size_t off = ((size_t)p << io.logn) + (size_t)h * nb;
-  const u32* src = split ? io.out : io.x;  // after stage 0: in place on out
-  for (int i = tid; i < nb; i += nt) s[i] = src[off + i];
-  ntt_fwd_block(s, logb, twiddles_at(tw, mi, 1 << io.logn), q, tid, nt,
-                split ? 2 + h : 1);
-  for (int i = tid; i < nb; i += nt) io.out[off + i] = s[i];
+  const Twiddles32 t = twiddles_at(tw, mi, 1 << io.logn);
+  const u32* xp = io.x + ((size_t)p << io.logn);
+  for (int i = j * nt + tid; i < nb; i += nt << CL) {
+    u32 v[1 << CL];
+#pragma unroll
+    for (int k = 0; k < (1 << CL); ++k) v[k] = xp[k * nb + i];
+    cross_fwd<CL>(v, t, q, 1);
+#pragma unroll
+    for (int k = 0; k < (1 << CL); ++k) peer[k][i] = v[k];
+  }
 }
 
-NTT_HD void inv30_block_body(int b, int tid, int nt, u32* s, T30IO io,
-                             Twiddles32 tw) {
-  const int split = io.logn > LOG_BLOCK_MAX30;
-  const int p = b >> split, h = b & split;
-  const int mi = p % io.r;
-  const int logb = io.logn - split;
-  const int nb = 1 << logb;
+template <int CL>
+NTT_HD void fwd30_phase_b(const T30IO& io, const Twiddles32& tw, int p, int j,
+                          int tid, int nt, u32* s) {
+  const int logb = io.logn - CL, nb = 1 << logb, mi = p % io.r;
+  ntt_fwd_tiled<STAGE_TILE>(s, logb, twiddles_at(tw, mi, 1 << io.logn),
+                            q_of(tw, mi), tid, nt, (1 << CL) + j);
+  u32* ob = io.out + ((size_t)p << io.logn) + (size_t)j * nb;
+  for (int i = tid; i < nb; i += nt) ob[i] = s[i];
+}
+
+template <int CL>
+NTT_HD void inv30_phase_a(const T30IO& io, const Twiddles32& tw, int p, int j,
+                          int tid, int nt, u32* s) {
+  const int logb = io.logn - CL, nb = 1 << logb, mi = p % io.r;
+  const u32* xb = io.x + ((size_t)p << io.logn) + (size_t)j * nb;
+  for (int i = tid; i < nb; i += nt) s[i] = xb[i];
+  ntt_inv_tiled<STAGE_TILE>(s, logb, twiddles_at(tw, mi, 1 << io.logn),
+                            q_of(tw, mi), tid, nt, (1 << CL) + j);
+}
+
+template <int CL>
+NTT_HD void inv30_phase_b(const T30IO& io, const Twiddles32& tw, int p, int j,
+                          int tid, int nt, u32* const* peer) {
+  const int nb = 1 << (io.logn - CL), mi = p % io.r;
   const u32 q = q_of(tw, mi);
   const u32 ninv = tw.consts[4 * mi + 1], ninv_sh = tw.consts[4 * mi + 2];
-  const size_t off = ((size_t)p << io.logn) + (size_t)h * nb;
-  for (int i = tid; i < nb; i += nt) s[i] = io.x[off + i];
-  ntt_inv_block(s, logb, twiddles_at(tw, mi, 1 << io.logn), q, tid, nt,
-                split ? 2 + h : 1);
-  for (int i = tid; i < nb; i += nt)  // at 2^16 stage 0 and n^-1 follow
-    io.out[off + i] = split ? s[i] : mul_shoup32(s[i], ninv, ninv_sh, q);
-}
-
-// 2^16 only: CT stage 0 of pair k of P * n/2, x -> out.
-NTT_HD void fwd30_first_body(long long k, T30IO io, Twiddles32 tw) {
-  const long long half = 1ll << (io.logn - 1);
-  const long long p = k / half, i = k % half;
-  const int mi = (int)(p % io.r);
-  const size_t at = ((size_t)p << io.logn) + (size_t)i;
   const Twiddles32 t = twiddles_at(tw, mi, 1 << io.logn);
-  u32 u = io.x[at], v = io.x[at + half];
-  ct_butterfly(u, v, t.psi[1], t.psi_sh[1], q_of(tw, mi));
-  io.out[at] = u;
-  io.out[at + half] = v;
-}
-
-// 2^16 only: GS stage 0 and n^-1, in place on out.
-NTT_HD void inv30_last_body(long long k, T30IO io, Twiddles32 tw) {
-  const long long half = 1ll << (io.logn - 1);
-  const long long p = k / half, i = k % half;
-  const int mi = (int)(p % io.r);
-  const size_t at = ((size_t)p << io.logn) + (size_t)i;
-  const Twiddles32 t = twiddles_at(tw, mi, 1 << io.logn);
-  const u32 q = q_of(tw, mi);
-  const u32 ninv = tw.consts[4 * mi + 1], ninv_sh = tw.consts[4 * mi + 2];
-  u32 u = io.out[at], v = io.out[at + half];
-  gs_butterfly(u, v, t.ipsi[1], t.ipsi_sh[1], q);
-  io.out[at] = mul_shoup32(u, ninv, ninv_sh, q);
-  io.out[at + half] = mul_shoup32(v, ninv, ninv_sh, q);
-}
-
-static bool t30_args_ok(int P, int r, int logn) {
-  return logn >= 1 && logn <= LOG_BLOCK_MAX30 + 1 && P >= 1 && r >= 1 &&
-         P % r == 0;
-}
-
-static T30IO t30_io(const void* x, void* out, int r, int logn) {
-  T30IO io = {(const u32*)x, (u32*)out, r, logn};
-  return io;
-}
-
-static Twiddles32 t30_tw(const void* psi, const void* psi_sh, const void* ipsi,
-                         const void* ipsi_sh, const void* consts) {
-  Twiddles32 tw = {(const u32*)psi, (const u32*)psi_sh, (const u32*)ipsi,
-                   (const u32*)ipsi_sh, (const u32*)consts};
-  return tw;
+  u32* op = io.out + ((size_t)p << io.logn);
+  for (int i = j * nt + tid; i < nb; i += nt << CL) {
+    u32 v[1 << CL];
+#pragma unroll
+    for (int k = 0; k < (1 << CL); ++k) v[k] = peer[k][i];
+    cross_inv<CL>(v, t, q, 1);
+#pragma unroll
+    for (int k = 0; k < (1 << CL); ++k)
+      op[k * nb + i] = mul_shoup32(v[k], ninv, ninv_sh, q);
+  }
 }
 
 #ifdef __CUDACC__
 
-__global__ void k_ntt30_fwd_block(T30IO io, Twiddles32 tw) {
+// One polynomial per cluster of 2^CL blocks (the head of the file), at
+// least OCC blocks an SM (ClusterBound, as the u64 cluster kernels: 512
+// threads at CL = 3, which at 2^16 run two sets of 8 points a pass).
+template <int CL, int OCC, bool INV>
+__global__ void __launch_bounds__(ClusterBound<CL, OCC>::threads,
+                                  ClusterBound<CL, OCC>::blocks)
+    k_ntt30_cluster(T30IO io, Twiddles32 tw) {
   extern __shared__ u32 smem32[];
-  fwd30_block_body(blockIdx.x, threadIdx.x, blockDim.x, smem32, io, tw);
-}
-
-__global__ void k_ntt30_inv_block(T30IO io, Twiddles32 tw) {
-  extern __shared__ u32 smem32[];
-  inv30_block_body(blockIdx.x, threadIdx.x, blockDim.x, smem32, io, tw);
-}
-
-__global__ void k_ntt30_fwd_first(T30IO io, Twiddles32 tw, long long total) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < total) fwd30_first_body(k, io, tw);
-}
-
-__global__ void k_ntt30_inv_last(T30IO io, Twiddles32 tw, long long total) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < total) inv30_last_body(k, io, tw);
-}
-
-template <typename K>
-static int launch_pairs30(K kernel, long long total, void* stream, T30IO io,
-                          Twiddles32 tw) {
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(io, tw,
-                                                                  total);
-  return (int)cudaGetLastError();
-}
-
-// x, out (P, n) u32 (out may be x); tables from NTTTables30; inverse 0/1.
-extern "C" int ntt30_transform(const void* x, void* out, const void* psi,
-                               const void* psi_sh, const void* ipsi,
-                               const void* ipsi_sh, const void* consts,
-                               int inverse, int P, int r, int logn,
-                               void* stream) {
-  if (!t30_args_ok(P, r, logn)) return (int)cudaErrorInvalidValue;
-  const T30IO io = t30_io(x, out, r, logn);
-  const Twiddles32 tw = t30_tw(psi, psi_sh, ipsi, ipsi_sh, consts);
-  const int split = logn > LOG_BLOCK_MAX30;
-  const long long pairs = (long long)P << (logn - 1);
-  if (!inverse) {
-    if (split) {
-      const int rc = launch_pairs30(k_ntt30_fwd_first, pairs, stream, io, tw);
-      if (rc != 0) return rc;
-    }
-    return launch_poly<u32>(k_ntt30_fwd_block, P << split, logn - split,
-                            stream, io, tw);
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int j = (int)cluster.block_rank(), p = (int)(blockIdx.x >> CL);
+  u32* peer[1 << CL];
+#pragma unroll
+  for (int k = 0; k < (1 << CL); ++k)
+    peer[k] = cluster.map_shared_rank(smem32, k);
+  if constexpr (INV) {
+    inv30_phase_a<CL>(io, tw, p, j, threadIdx.x, blockDim.x, smem32);
+    cluster.sync();  // every block's local stages are done
+    inv30_phase_b<CL>(io, tw, p, j, threadIdx.x, blockDim.x, peer);
+  } else {
+    cluster.sync();  // every block of the cluster has started
+    fwd30_phase_a<CL>(io, tw, p, j, threadIdx.x, blockDim.x, peer);
+    cluster.sync();  // the cross stages' remote writes are visible
+    fwd30_phase_b<CL>(io, tw, p, j, threadIdx.x, blockDim.x, smem32);
   }
-  const int rc = launch_poly<u32>(k_ntt30_inv_block, P << split,
-                                  logn - split, stream, io, tw);
-  if (rc != 0 || !split) return rc;
-  return launch_pairs30(k_ntt30_inv_last, pairs, stream, io, tw);
+  cluster.sync();  // no block exits while another reads its shared memory
 }
 
-#else  // host build for the CPU tests: one thread per block, blocks in order
+template <int CL, bool INV>
+static int run30(const T30IO& io, const Twiddles32& tw, int P, void* stream) {
+  return run_cluster<CL, u32>(k_ntt30_cluster<CL, 1, INV>,
+                              k_ntt30_cluster<CL, wide_occ(CL), INV>, P,
+                              io.logn, 1, stream, io, tw);
+}
 
-extern "C" int ntt30_transform(const void* x, void* out, const void* psi,
-                               const void* psi_sh, const void* ipsi,
-                               const void* ipsi_sh, const void* consts,
-                               int inverse, int P, int r, int logn, void*) {
-  if (!t30_args_ok(P, r, logn)) return NTT_EINVAL;
-  const T30IO io = t30_io(x, out, r, logn);
-  const Twiddles32 tw = t30_tw(psi, psi_sh, ipsi, ipsi_sh, consts);
-  const int split = logn > LOG_BLOCK_MAX30;
-  const long long pairs = (long long)P << (logn - 1);
-  std::vector<u32> s((size_t)1 << (logn - split));
-  if (!inverse) {
-    if (split)
-      for (long long k = 0; k < pairs; ++k) fwd30_first_body(k, io, tw);
-    for (int b = 0; b < (P << split); ++b)
-      fwd30_block_body(b, 0, 1, s.data(), io, tw);
-    return 0;
-  }
-  for (int b = 0; b < (P << split); ++b)
-    inv30_block_body(b, 0, 1, s.data(), io, tw);
-  if (split)
-    for (long long k = 0; k < pairs; ++k) inv30_last_body(k, io, tw);
+#else  // host build for the CPU tests: each cluster in turn (walk_clusters)
+
+template <int CL, bool INV>
+static int run30(const T30IO& io, const Twiddles32& tw, int P, void*) {
+  walk_clusters<CL, u32>(P, 2, (size_t)1 << (io.logn - CL),
+                         [&](int ph, int p, int j, u32* const* peer) {
+                           if (INV && ph == 0)
+                             inv30_phase_a<CL>(io, tw, p, j, 0, 1, peer[j]);
+                           if (INV && ph == 1)
+                             inv30_phase_b<CL>(io, tw, p, j, 0, 1, peer);
+                           if (!INV && ph == 0)
+                             fwd30_phase_a<CL>(io, tw, p, j, 0, 1, peer);
+                           if (!INV && ph == 1)
+                             fwd30_phase_b<CL>(io, tw, p, j, 0, 1, peer[j]);
+                         });
   return 0;
 }
 
 #endif
+
+// x, out (P, n) u32 (out may be x); tables from NTTTables30; inverse 0/1;
+// cluster: B, or 0 for the launchers' rule (8 from n = 16 on).
+extern "C" int ntt30_transform(const void* x, void* out, const void* psi,
+                               const void* psi_sh, const void* ipsi,
+                               const void* ipsi_sh, const void* consts,
+                               int inverse, int P, int r, int logn,
+                               int cluster, void* stream) {
+  const int cl = cluster_log<u32>(cluster, logn);
+  if (P < 1 || r < 1 || P % r != 0 || cl < 0) return NTT_EINVAL;
+  const T30IO io = {(const u32*)x, (u32*)out, r, logn};
+  const Twiddles32 tw = {(const u32*)psi, (const u32*)psi_sh,
+                         (const u32*)ipsi, (const u32*)ipsi_sh,
+                         (const u32*)consts};
+  typedef int (*Run)(const T30IO&, const Twiddles32&, int, void*);
+  static const Run runs[2][4] = {
+      {run30<0, false>, run30<1, false>, run30<2, false>, run30<3, false>},
+      {run30<0, true>, run30<1, true>, run30<2, true>, run30<3, true>}};
+  return runs[inverse != 0][cl](io, tw, P, stream);
+}

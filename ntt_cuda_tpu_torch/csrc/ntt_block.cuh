@@ -1,42 +1,32 @@
-// Block-resident negacyclic NTT / inverse NTT on one polynomial held in
-// shared memory.
+// The negacyclic NTT's butterflies and a block's local stages on its
+// range of one polynomial in shared memory.
 //
-// Replaces the transform inside the TPU's whole-op kernels
-// (ntt_cuda_tpu/ops/fused_ops.py _fwd_chain / _inv_mul_chain, built from
-// ops/ntt_pallas.py's four-step stage A / stage B with roll+select and
-// u32-limb pairs).  Here the index algebra is the reference's own
-// (ntt_60bit.cuh:63-265, ntt_cuda_tpu/ops/ntt.py): forward CT, natural
-// order in, bit-reversed out, twiddle psi[len + psi_step]; inverse GS,
-// bit-reversed in, natural out.
+// Replaces the transform inside the TPU's kernels (ntt_cuda_tpu/ops/
+// fused_ops.py _fwd_chain / _inv_mul_chain, ops/ntt_pallas.py's four-step
+// stage A / stage B with roll+select and u32-limb pairs,
+// ops/ntt_pallas30.py's u32 form).  Here the index algebra is the
+// reference's own (ntt_60bit.cuh:63-265, ntt_cuda_tpu/ops/ntt.py): forward
+// CT, natural order in, bit-reversed out, twiddle psi[len + psi_step];
+// inverse GS, bit-reversed in, natural out.
 //
-// Bound on the card: the polynomial is n u64 in shared memory (128 KB at
-// n = 16384, so one block per SM) and each of the log n stages ends in a
-// block barrier.  Each thread takes butterflies g = tid, tid + nt, ...;
-// twiddles and their Shoup companions are read from global memory, where
-// one modulus's tables (4 x 8n bytes) stay in L2.  Simple first: no
-// register tiling of stages, no bank-conflict swizzle.  The cluster
-// kernels (ntt_stage.cu, fused_ops.cu's whole-op transforms) run their local
-// stages through the register-tiled form below instead (ntt_fwd_tiled /
-// ntt_inv_tiled, the inverse also on two arrays at once).
+// Every transform of the library is a thread-block cluster launch
+// (ntt_cluster.cuh): block j of B holds coefficients [j n/B, (j + 1) n/B)
+// and runs the stages after the cross ones (a forward's) or before them
+// (an inverse's) as an n/B-point transform whose twiddle for local
+// (len', ps') is psi[tw_mul len' + ps'] with tw_mul = B base + j (base 1,
+// or C + c for coefficient shard c of C): the full stage has len = B len'
+// and ps = j len' + ps'.  The local stages run register-tiled (fwd_pass /
+// inv_pass below): each thread carries 2^K coefficients through K stages
+// between block barriers.  Twiddles and their Shoup companions are read
+// from global memory, where one modulus's tables stay in L2.
 //
 // `tid`/`nt` are the thread's index and the block's thread count; the host
 // build of the tests passes 0/1, where BLOCK_SYNC is a no-op and one thread
 // runs every butterfly in order.
 //
-// Sub-range form (`tw_mul`, default 1 = the whole polynomial): half h of a
-// 2^(logn+1)-point transform runs that transform's stages 1..logn as a
-// 2^logn-point one whose twiddle for local (len', ps') is
-// psi[(2 + h) len' + ps'] -- the full stage has len = 2 len' and
-// ps = h len' + ps'.  The caller passes tw_mul = 2 + h and the full
-// polynomial's tables (a coefficient shard c of C passes C + c, or
-// 2 (C + c) + h for its halves); stage 0 (the pairs i, i + n/2, twiddle
-// psi[1] or psi^-1[1]) runs in a separate elementwise pass (ntt30.cu,
-// kernel 15) through the same two butterflies.  The cluster kernels
-// (ntt_stage.cu, fused_ops.cu) pass B base + j for block j of B.
-//
-// The stage loops are templated over the word: u64 for the RNS moduli,
-// u32 for the 30-bit family (ntt30.cu, kernel 22), each with its own
-// butterflies and tables.
+// The passes are templated over the word: u64 for the RNS moduli, u32 for
+// the 30-bit family (ntt30.cu, kernel 22), each with its own butterflies
+// and tables.
 
 #pragma once
 
@@ -129,60 +119,14 @@ NTT_HD void gs_butterfly(u32& a, u32& b, u32 w, u32 ws, u32 q) {
   b = mul_shoup32(sub_mod32(u, v, q), w, ws, q);
 }
 
-// Forward transform of s[0, 2^logn), values in [0, q) in and out; W is the
-// word (u64, or u32 for the 30-bit family) and TW its tables.
-template <typename W, typename TW>
-NTT_HD void ntt_fwd_block(W* s, int logn, const TW& tw, W q, int tid, int nt,
-                          int tw_mul = 1) {
-  const int half = 1 << (logn - 1);
-  BLOCK_SYNC();
-  for (int lg = 0; lg < logn; ++lg) {
-    const int sl = logn - 1 - lg;  // log2 of the butterfly span
-    const int step = 1 << sl;
-    const int len = 1 << lg;
-    for (int g = tid; g < half; g += nt) {
-      const int ps = g >> sl;
-      const int tgt = (ps << (sl + 1)) | (g & (step - 1));
-      const int w = tw_mul * len + ps;
-      ct_butterfly(s[tgt], s[tgt + step], tw.psi[w], tw.psi_sh[w], q);
-    }
-    BLOCK_SYNC();
-  }
-}
-
-// Inverse transform WITHOUT the n^-1 factor: the caller multiplies by
-// n^-1 (times 2^64 when a Montgomery product came before) at the end.
-template <typename W, typename TW>
-NTT_HD void ntt_inv_block(W* s, int logn, const TW& tw, W q, int tid, int nt,
-                          int tw_mul = 1) {
-  const int half = 1 << (logn - 1);
-  BLOCK_SYNC();
-  for (int lg = logn - 1; lg >= 0; --lg) {
-    const int sl = logn - 1 - lg;
-    const int step = 1 << sl;
-    const int len = 1 << lg;
-    for (int g = tid; g < half; g += nt) {
-      const int ps = g >> sl;
-      const int tgt = (ps << (sl + 1)) | (g & (step - 1));
-      const int w = tw_mul * len + ps;
-      gs_butterfly(s[tgt], s[tgt + step], tw.ipsi[w], tw.ipsi_sh[w], q);
-    }
-    BLOCK_SYNC();
-  }
-}
-
-// Threads per block for a transform of size n: every thread has at least
-// one butterfly, at most 1024 threads.
-static inline int ntt_threads(int n) { return n / 2 < 1024 ? n / 2 : 1024; }
-
-// Register-tiled form of the two loops above, the same integers: one pass
-// runs k consecutive stages, and each thread carries 2^k coefficients (a
-// set, spaced 2^lo apart) through them in registers, so a transform of
-// 2^logn points reads and writes shared memory and meets a block barrier
-// once per pass (about logn / K passes) instead of once per stage.  In a
-// set with base index b, element e is s[b + (e << lo)]; the stage of span
-// 2^(lo + hs) pairs e and e + 2^hs, and its twiddle is the loop form's
-// tw_mul len + ps, with ps = index >> (lo + hs + 1).
+// The local stages, register-tiled: one pass runs k consecutive stages,
+// and each thread carries 2^k coefficients (a set, spaced 2^lo apart)
+// through them in registers, so a transform of 2^logn points reads and
+// writes shared memory and meets a block barrier once per pass (about
+// logn / K passes), not once per stage.  In a set with base index b,
+// element e is s[b + (e << lo)]; the stage of span 2^(lo + hs) pairs e and
+// e + 2^hs, and its twiddle is tw_mul len + ps, with ps = index >>
+// (lo + hs + 1).
 //
 // Forward pass: stages lg0 .. lg0 + k - 1 (spans 2^(lo + k - 1) down to
 // 2^lo, lo = logn - lg0 - k).
@@ -247,8 +191,9 @@ NTT_HD void inv_pass(W* const* s, int logn, int lg0, const TW& tw, W q,
   }
 }
 
-// ntt_fwd_block in passes of K stages (K = 2 or 3); the first pass takes
-// the logn % K stages left over.
+// The forward transform of s[0, 2^logn) (values in [0, q) in and out) in
+// passes of K stages (K = 2 or 3); the first pass takes the logn % K
+// stages left over.
 template <int K, typename W, typename TW>
 NTT_HD void ntt_fwd_tiled(W* s, int logn, const TW& tw, W q, int tid, int nt,
                           int tw_mul = 1) {
@@ -264,9 +209,10 @@ NTT_HD void ntt_fwd_tiled(W* s, int logn, const TW& tw, W q, int tid, int nt,
   }
 }
 
-// ntt_inv_block in passes of K stages, on NA arrays s[0..NA) at once (one
-// modulus); the last pass takes the stages left over (stages
-// logn % K - 1 .. 0).
+// The inverse transform WITHOUT the n^-1 factor (the caller multiplies by
+// n^-1, times 2^64 when a Montgomery product came before, at the end) in
+// passes of K stages, on NA arrays s[0..NA) at once (one modulus); the
+// last pass takes the stages left over (stages logn % K - 1 .. 0).
 template <int K, int NA, typename W, typename TW>
 NTT_HD void ntt_inv_tiled(W* const* s, int logn, const TW& tw, W q, int tid,
                           int nt, int tw_mul = 1) {
@@ -298,9 +244,9 @@ static constexpr int tiled_threads(int n) {
   return t < 32 ? 32 : t > 1024 ? 1024 : t;
 }
 
-// The longest polynomial one block holds in shared memory: 2^14 u64, 128 KB
-// of the 227 KB a block can use (kernel 15's 2^15 transform is two 2^14
-// halves; the cluster kernels hold n/B a block).
+// The most of one polynomial a block holds in shared memory: 2^14 u64
+// (2^15 u32), 128 KB of the 227 KB a block can use; a cluster of B blocks
+// holds n/B a block.
 #define LOG_BLOCK_MAX 14
 
 // A launcher's return code for arguments its kernels do not take.
@@ -359,28 +305,4 @@ static inline LaunchSetup& launch_setup() {
   return s;
 }
 
-// Raise `kernel`'s dynamic shared memory limit to the most a launch here
-// asks (128 KB: 2^14 u64 or 2^15 u32), once per kernel and device.
-static inline cudaError_t smem_limit_once(const void* kernel) {
-  return launch_setup().run(kernel, -1, [kernel](int*) {
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)(sizeof(u64) << LOG_BLOCK_MAX));
-  });
-}
-
-// Launch a block-per-polynomial kernel with sizeof(W) * 2^logb bytes of
-// dynamic shared memory, at most 128 KB (above 48 KB only after raising
-// the kernel's limit, done once: smem_limit_once).
-template <typename W = u64, typename K, typename... A>
-static int launch_poly(K kernel, int blocks, int logb, void* stream, A... args) {
-  const int nb = 1 << logb;
-  const size_t smem = (size_t)nb * sizeof(W);
-  if (logb < 1 || smem > (sizeof(u64) << LOG_BLOCK_MAX) || blocks < 1)
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t e = smem_limit_once((const void*)kernel);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<blocks, ntt_threads(nb), smem, (cudaStream_t)stream>>>(args...);
-  return (int)cudaGetLastError();
-}
 #endif

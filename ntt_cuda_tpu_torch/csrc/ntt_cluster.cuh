@@ -1,17 +1,20 @@
-// The thread-block cluster schedule shared by the stage transforms
-// (ntt_stage.cu, kernels 7-13, 19, 20) and the whole-op transforms
-// (fused_ops.cu: K3, K4, K5 and kernel 18): one polynomial per cluster of
-// B = 2^cl blocks (cl <= 3: B <= 8, the portable cluster size), block j
-// holding coefficients [j n/B, (j + 1) n/B) of it in its own shared
-// memory.  The cross stages (the first log2 B of a forward, the last of an
-// inverse) run in registers on one column's B values, moved between the
-// blocks through distributed shared memory; the local stages run in each
-// block (ntt_block.cuh's tiled passes, STAGE_TILE stages a pass).
+// The thread-block cluster schedule shared by every transform of the
+// library: the stage transforms (ntt_stage.cu, kernels 7-13, 19, 20, and
+// kernel 15's inverse), the whole-op transforms (fused_ops.cu: K3, K4, K5
+// and kernel 18) and the 30-bit transform (ntt30.cu, kernel 22): one
+// polynomial per cluster of B = 2^cl blocks (cl <= 3: B <= 8, the portable
+// cluster size), block j holding coefficients [j n/B, (j + 1) n/B) of it in
+// its own shared memory.  The cross stages (the first log2 B of a forward,
+// the last of an inverse) run in registers on one column's B values, moved
+// between the blocks through distributed shared memory; the local stages
+// run in each block (ntt_block.cuh's tiled passes, STAGE_TILE stages a
+// pass).
 //
-// Here: the cross stages, the rule that picks B, the threads a block may
-// run, the launcher (the kernel's shared memory limit and the cluster's
-// fit checked once per kernel, device and shape) and the host build's
-// walk of the clusters.
+// Here, for either word (u64 with Twiddles, u32 with Twiddles32): the
+// cross stages, the rule that picks B, the threads a block may run, the
+// launcher (the kernel's shared memory limit and the cluster's fit checked
+// once per kernel, device and shape; a cooperative launch where a kernel
+// needs a grid barrier) and the host build's walk of the clusters.
 
 #pragma once
 
@@ -30,8 +33,8 @@
 // stage lg < CL pairs rows k and k + B / 2^(lg+1), twiddle index
 // base 2^lg + (k >> (CL - lg)) -- the whole-polynomial form's index on B
 // points.
-template <int CL>
-NTT_HD void cross_fwd(u64* v, const Twiddles& t, u64 q, int base) {
+template <int CL, typename W, typename TW>
+NTT_HD void cross_fwd(W* v, const TW& t, W q, int base) {
 #pragma unroll
   for (int lg = 0; lg < CL; ++lg) {
     const int sl = CL - 1 - lg;
@@ -45,8 +48,8 @@ NTT_HD void cross_fwd(u64* v, const Twiddles& t, u64 q, int base) {
   }
 }
 
-template <int CL>
-NTT_HD void cross_inv(u64* v, const Twiddles& t, u64 q, int base) {
+template <int CL, typename W, typename TW>
+NTT_HD void cross_inv(W* v, const TW& t, W q, int base) {
 #pragma unroll
   for (int lg = CL - 1; lg >= 0; --lg) {
     const int sl = CL - 1 - lg;
@@ -60,27 +63,31 @@ NTT_HD void cross_inv(u64* v, const Twiddles& t, u64 q, int base) {
   }
 }
 
-// The longest transform a cluster launch takes: 2^15 points
-// (cuda.TRANSFORM_MAX_N).
+// The longest transform a cluster launch takes: 2^15 u64 points
+// (cuda.TRANSFORM_MAX_N), 2^16 u32 (cuda.TRANSFORM30_MAX_N).
 #define LOG_TRANSFORM_MAX 15
 
-// Whether a launch of 2^logn points takes clusters of 2^cl blocks, each
-// block holding `bufs` buffers of its n/B points: n <= 2^LOG_TRANSFORM_MAX,
-// at least 2 points a block, B <= 8, and at most 2^LOG_BLOCK_MAX u64
-// (128 KB) of shared memory a block (two buffers of 2^14 points, 256 KB,
-// pass the 227 KB a block can have).
+// Whether a launch of 2^logn points of W takes clusters of 2^cl blocks,
+// each block holding `bufs` buffers of its n/B points: n <= 2^15 u64 or
+// 2^16 u32, at least 2 points a block, B <= 8, and at most 128 KB of
+// shared memory a block, 2^14 u64 or 2^15 u32 (two buffers of 2^14 u64, or
+// one of 2^16 u32, 256 KB, pass the 227 KB a block can have).
+template <typename W = u64>
 static inline bool cluster_ok(int logn, int cl, int bufs = 1) {
-  return cl >= 0 && cl <= 3 && logn <= LOG_TRANSFORM_MAX && logn - cl >= 1 &&
-         logn - cl <= LOG_BLOCK_MAX &&
-         ((long long)bufs << (logn - cl)) <= (1ll << LOG_BLOCK_MAX);
+  constexpr int lu32 = sizeof(W) == 4;  // u32: one more doubling of each
+  constexpr int lb = LOG_BLOCK_MAX + lu32;
+  return cl >= 0 && cl <= 3 && logn <= LOG_TRANSFORM_MAX + lu32 &&
+         logn - cl >= 1 && logn - cl <= lb &&
+         ((long long)bufs << (logn - cl)) <= (1ll << lb);
 }
 
 // Every cluster kernel's __launch_bounds__ at cluster size 2^CL: at most
 // `threads` threads a block, one set of 2^STAGE_TILE points each
-// (tiled_threads) of the largest n/B that cluster_ok gives a block (512 at
-// CL = 3, 1024 below; run_cluster refuses more), and at least OCC blocks
-// an SM.  At CL = 3, OCC = 1 leaves a thread up to 128 registers, where
-// the kernels spill nothing, and OCC = 2 holds it to 64, where they spill
+// (tiled_threads) of the largest n/B of u64 that cluster_ok gives a block
+// (512 at CL = 3, 1024 below; run_cluster launches no more, and a block of
+// more sets, u32 at 2^16, runs them in turn), and at least OCC blocks an
+// SM.  At CL = 3, OCC = 1 leaves a thread up to 128 registers, where the
+// u64 kernels spill nothing, and OCC = 2 holds it to 64, where they spill
 // but two blocks share an SM.  On the H100 the first was the faster where
 // every cluster of the grid fits on the card at once, the second where
 // they do not (PERF.md, tools/bounds_ab.py): run_cluster takes the kernel
@@ -104,19 +111,21 @@ constexpr int wide_occ(int cl) { return cl == 3 ? 2 : 1; }
 // at n = 2^14 and 2^15 for P = 9, 18 and 36 polynomials (PERF.md): a
 // launch is bound by the latency of its blocks' local stages, which falls
 // with n/B, and P B blocks past 132 SMs still beat fewer, longer blocks.
+template <typename W = u64>
 static inline int stage_cluster_log(int logn, int bufs = 1) {
   int cl = 3;
-  while (cl >= 0 && !cluster_ok(logn, cl, bufs)) --cl;
+  while (cl >= 0 && !cluster_ok<W>(logn, cl, bufs)) --cl;
   return cl;
 }
 
 // log2 of the cluster size for B (0: the rule), or -1 where a launch of
 // 2^logn points cannot take B.
+template <typename W = u64>
 static inline int cluster_log(int B, int logn, int bufs = 1) {
-  if (B == 0) return stage_cluster_log(logn, bufs);
+  if (B == 0) return stage_cluster_log<W>(logn, bufs);
   int cl = 0;
   while (cl < 4 && (1 << cl) != B) ++cl;
-  return cluster_ok(logn, cl, bufs) ? cl : -1;
+  return cluster_ok<W>(logn, cl, bufs) ? cl : -1;
 }
 
 #ifdef __CUDACC__
@@ -144,26 +153,33 @@ static inline cudaError_t cluster_setup(const void* kernel, long long shape,
 }
 
 // One launch of P clusters of 2^CL blocks, each block with `bufs` buffers
-// of 2^(logn - CL) u64 of dynamic shared memory and one thread per
-// STAGE_TILE-stage set of a buffer (NTT_EINVAL past ClusterBound), of
+// of 2^(logn - CL) W of dynamic shared memory and one thread per
+// STAGE_TILE-stage set of a buffer, at most ClusterBound's, of
 // `one` (the kernel of OCC = 1) or, where the card cannot hold all P of
 // its clusters at once, of `wide` (OCC = wide_occ(CL); the same kernel
-// where that is 1).  A cluster that cannot run returns its CUDA error.
-template <int CL, typename... K, typename... A>
+// where that is 1).  COOP: a cooperative launch (the kernel takes a grid
+// barrier, cooperative_groups::this_grid().sync()), refused with
+// cudaErrorCooperativeLaunchTooLarge unless the card holds all P clusters
+// at once.  A cluster that cannot run returns its CUDA error.
+template <int CL, typename W = u64, bool COOP = false, typename... K,
+          typename... A>
 static int run_cluster(void (*one)(K...), void (*wide)(K...), int P,
                        int logn, int bufs, void* stream, const A&... args) {
   const int nb = 1 << (logn - CL);
-  const int threads = tiled_threads<STAGE_TILE>(nb);
-  if (threads > ClusterBound<CL, 1>::threads) return NTT_EINVAL;
-  cudaLaunchAttribute attr[1];
+  const int sets = tiled_threads<STAGE_TILE>(nb);
+  const int threads = sets < ClusterBound<CL, 1>::threads
+                          ? sets : ClusterBound<CL, 1>::threads;
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1u << CL;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)P << CL);
   cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = (size_t)bufs * nb * sizeof(u64);
+  cfg.dynamicSmemBytes = (size_t)bufs * nb * sizeof(W);
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -175,6 +191,10 @@ static int run_cluster(void (*one)(K...), void (*wide)(K...), int P,
     e = cluster_setup((const void*)wide, logn, cfg, &fit);
   }
   if (e != cudaSuccess) return (int)e;
+  if (COOP) {
+    if (P > fit) return (int)cudaErrorCooperativeLaunchTooLarge;
+    cfg.numAttrs = 2;
+  }
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -185,12 +205,12 @@ static int run_cluster(void (*one)(K...), void (*wide)(K...), int P,
 // The clusters in turn, one thread a block: for each of the P clusters,
 // phase 0 of its 2^CL blocks in order, then phase 1 of each, and so on
 // (`phases` phases).  Block k's shared memory is host buffer peer[k] of
-// `words` u64; phase(ph, p, j, peer) runs phase ph on block j of cluster p.
+// `words` W; phase(ph, p, j, peer) runs phase ph on block j of cluster p.
 // The same index algebra as the card's at every B.
-template <int CL, typename F>
+template <int CL, typename W = u64, typename F>
 static void walk_clusters(int P, int phases, size_t words, const F& phase) {
-  std::vector<u64> buf(words << CL);
-  u64* peer[1 << CL];
+  std::vector<W> buf(words << CL);
+  W* peer[1 << CL];
   for (int k = 0; k < (1 << CL); ++k) peer[k] = buf.data() + k * words;
   for (int p = 0; p < P; ++p)
     for (int ph = 0; ph < phases; ++ph)

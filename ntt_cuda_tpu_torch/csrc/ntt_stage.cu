@@ -17,7 +17,7 @@
 // the same two launches over one rank's band of rl moduli, r := rl, the
 // digits read whole and the key rows (2, k, rl, n) the rank's own; the
 // forward and inverse with a per-polynomial modulus index (12, below) and
-// the decrypt back half in one cooperative launch (15, k_decrypt_fused).  The
+// the decrypt back half in one cooperative launch (15, k_decrypt_cluster).  The
 // TPU kernels share one four-step transform (_stage_a / _stage_b) and
 // differ in the prologue;
 // here they share the cluster transform below and differ in `pro`:
@@ -80,7 +80,7 @@
 //   Forward (CT, natural order in), two phases with a cluster barrier
 //   between them (and one before, so that every block of the cluster has
 //   started before a remote write):
-//     A. the cluster's threads split the n/B columns i; a thread reads the
+//     A. the cluster's threads share out the n/B columns i; a thread reads the
 //        B coefficients i + j n/B through the prologue, runs CT stages
 //        0..cl-1 on them in registers (a B-point transform with the
 //        twiddle base), and writes output j into block j's shared memory
@@ -278,45 +278,6 @@ NTT_HD void inv_phase_b(const StageIO& io, const Twiddles& tw, int p, int j,
   }
 }
 
-// Kernel 15's inverse body (k_decrypt_fused, below): block b is
-// polynomial b >> split, half b & split (split = 1 at 2^15), the 2^15
-// transform finished by inv_last_body's GS stage 0.
-NTT_HD void inv_block_body(int b, int tid, int nt, u64* s, StageIO io,
-                           Twiddles tw) {
-  const int split = io.logn > LOG_BLOCK_MAX;
-  const int p = b >> split, h = b & split;
-  const int mi = modulus_of(io, p);
-  const int logb = io.logn - split;
-  const int nb = 1 << logb;
-  const ModConsts c = load_consts(tw.consts, mi);
-  const Twiddles t = stage_twiddles(io, tw, mi);
-  u64* ob = io.out + ((size_t)p << io.logn) + (size_t)h * nb;
-  for (int i = tid; i < nb; i += nt) s[i] = prologue(io, p, h * nb + i, c);
-  const int base = tw_base(io);
-  ntt_inv_block(s, logb, t, c.q, tid, nt, split ? 2 * base + h : base);
-  if (split) {
-    for (int i = tid; i < nb; i += nt) ob[i] = s[i];  // stage 0 follows
-  } else {
-    for (int i = tid; i < nb; i += nt) ob[i] = inv_finish(io, p, i, s[i], c);
-  }
-}
-
-// 2^15 only: GS stage 0 and the epilogue, in place on out (twiddle
-// psi^-1[1], a shard's psi^-1[C + c]).
-NTT_HD void inv_last_body(long long k, StageIO io, Twiddles tw) {
-  const int half = 1 << (io.logn - 1);
-  const int p = (int)(k / half), i = (int)(k % half);
-  const int mi = modulus_of(io, p);
-  const ModConsts c = load_consts(tw.consts, mi);
-  const Twiddles t = stage_twiddles(io, tw, mi);
-  const int w = tw_base(io);
-  u64* ob = io.out + ((size_t)p << io.logn);
-  u64 u = ob[i], v = ob[i + half];
-  gs_butterfly(u, v, t.ipsi[w], t.ipsi_sh[w], c.q);
-  ob[i] = inv_finish(io, p, i, u, c);
-  ob[i + half] = inv_finish(io, p, i + half, v, c);
-}
-
 static StageIO stage_io(const void* x, const void* d, const void* y,
                         const void* e, const void* nu, void* out, int pro,
                         int ny, int r, int logn, const void* mod_idx = nullptr,
@@ -331,7 +292,7 @@ static StageIO stage_io(const void* x, const void* d, const void* y,
 
 static bool stage_args_ok(int pro, int P, int r, int ny, int logn,
                           const void* mod_idx, int logc, int shard) {
-  return logn >= 1 && logn <= LOG_BLOCK_MAX + 1 && P >= 1 && r >= 1 &&
+  return logn >= 1 && logn <= LOG_TRANSFORM_MAX && P >= 1 && r >= 1 &&
          (mod_idx ? pro == PRO_COPY : P % r == 0) && pro >= PRO_COPY &&
          pro <= PRO_KSACC && (!pro_mont(pro) || ny >= 1) &&
          (pro != PRO_KSACC || P % (2 * r) == 0) && logc >= 0 && logc <= 16 &&
@@ -385,21 +346,27 @@ static bool cross_args_ok(int w, int P, int r, int logn, int logc) {
 // Kernel 15 (bfv_tail.py:decrypt_fused, :507, pallas_call :544): the
 // decrypt back half, INTT(x (.) sk) then the decrypt tail, in one launch.
 // The TPU grid walks the r-1 residues in order and carries the two BEHZ
-// sums in VMEM scratch; a 2^15 polynomial does not fit one block here, and
-// blocks run in no order, so the launch is cooperative and runs three
-// phases with a grid barrier between them:
-//   1. one block per residue (two halves at 2^15): the PRO_MONT inverse
-//      of one block (inv_block_body) into the caller's (r-1, n) scratch;
-//   2. at 2^15 only: GS stage 0 and n^-1, grid-strided over the pairs;
-//   3. K2's residue loop (behz_sums) and the rounding, grid-strided over
-//      the n coefficients, into out (n,).
-// At 128 KB of shared memory a block is one per SM, so r - 1 <= 15 blocks
-// (30 at 2^15) are co-resident on 132 SMs; the launcher checks that with
-// the occupancy API and refuses (cudaErrorCooperativeLaunchTooLarge)
-// rather than fall back.  Bound: device memory, 3 (r-1) n u64 read and n
-// written, as kernel 8 plus K2 less the scratch's round trip; like kernel
-// 8 its time is one block's stage latency.  The host build runs the three
-// phases one after another over all blocks.
+// sums in VMEM scratch; here blocks run in no order, so the tail waits for
+// every residue's inverse behind a grid barrier, in one cooperative launch
+// of rk clusters of B blocks (one per kept residue, B = 8 by the launchers'
+// rule: 64 blocks at 32k_9q, 120 at 32k_16q):
+//   1. the stage inverse's own phases with PRO_MONT (x * sk * 2^-64):
+//      inv_phase_a (the local GS stages), a cluster barrier, inv_phase_b
+//      (the cross stages in registers, the n^-1 Shoup) into the caller's
+//      (rk, n) scratch (2 MB at 32k_9q: it stays in L2);
+//   2. a grid barrier (cooperative_groups::this_grid().sync(): the launch
+//      carries both the cluster dimension and the cooperative attribute);
+//   3. K2's residue loop (behz_sums) and the rounding over the n
+//      coefficients, grid-strided over all rk B blocks' threads, into out.
+// The launcher (run_cluster with COOP) checks with
+// cudaOccupancyMaxActiveClusters that all rk clusters are resident at once
+// (two blocks an SM where one is not enough, as every cluster kernel) and
+// refuses with cudaErrorCooperativeLaunchTooLarge rather than fall back; a
+// B whose n/B buffer passes 128 KB of a block (B = 1 at 2^15) is refused.
+// Bound: device memory, 3 rk n u64 read and n written, as kernel 8 plus K2
+// less the scratch's round trip; like kernel 8 its time is the latency of
+// one cluster's stages, then the tail's.  The host build walks the clusters
+// (walk_clusters), then runs the tail.
 struct DecFusedArgs {
   const u64* c0;  // (r-1, n)
   u64* out;       // (n,)
@@ -463,21 +430,38 @@ __global__ void k_cross_stage(CrossIO io, Twiddles tw, long long total) {
   if (k < total) cross_body(k, io, tw);
 }
 
-__global__ void __launch_bounds__(1024, 1)
-    k_decrypt_fused(StageIO io, Twiddles tw, DecFusedArgs d) {
+// Kernel 15: residue p's inverse on a cluster of 2^CL blocks, then, after
+// the grid barrier, the tail over every thread of the grid.
+template <int CL, int OCC>
+__global__ void __launch_bounds__(ClusterBound<CL, OCC>::threads,
+                                  ClusterBound<CL, OCC>::blocks)
+    k_decrypt_cluster(StageIO io, Twiddles tw, DecFusedArgs d) {
   extern __shared__ u64 smem[];
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  inv_block_body(blockIdx.x, threadIdx.x, blockDim.x, smem, io, tw);
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int j = (int)cluster.block_rank(), p = (int)(blockIdx.x >> CL);
+  u64* peer[1 << CL];
+#pragma unroll
+  for (int k = 0; k < (1 << CL); ++k)
+    peer[k] = cluster.map_shared_rank(smem, k);
+  inv_phase_a<CL>(io, tw, p, j, threadIdx.x, blockDim.x, smem);
+  cluster.sync();  // every block's local stages are done
+  inv_phase_b<CL>(io, tw, p, j, threadIdx.x, blockDim.x, peer);
+  // every residue is in the scratch, and no block exits while a peer
+  // reads its shared memory
+  cooperative_groups::this_grid().sync();
   const long long stride = (long long)gridDim.x * blockDim.x;
-  if (io.logn > LOG_BLOCK_MAX) {
-    grid.sync();
-    const long long pairs = (long long)io.r << (io.logn - 1);
-    for (long long k = first; k < pairs; k += stride) inv_last_body(k, io, tw);
-  }
-  grid.sync();
-  for (long long k = first; k < (1ll << io.logn); k += stride)
+  for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       k < (1ll << io.logn); k += stride)
     dec_fused_tail(k, io, d);
+}
+
+template <int CL>
+static int run_decrypt(const StageIO& io, const Twiddles& tw,
+                       const DecFusedArgs& d, void* stream) {
+  return run_cluster<CL, u64, true>(k_decrypt_cluster<CL, 1>,
+                                    k_decrypt_cluster<CL, wide_occ(CL)>,
+                                    io.r, io.logn, 1, stream, io, tw, d);
 }
 
 template <int CL>
@@ -531,6 +515,15 @@ static int run_inverse(const StageIO& io, const Twiddles& tw, int P, void*) {
                       else
                         inv_phase_b<CL>(io, tw, p, j, 0, 1, peer);
                     });
+  return 0;
+}
+
+// Kernel 15: every residue's cluster, then the tail.
+template <int CL>
+static int run_decrypt(const StageIO& io, const Twiddles& tw,
+                       const DecFusedArgs& d, void*) {
+  run_inverse<CL>(io, tw, io.r, nullptr);
+  for (long long k = 0; k < (1ll << io.logn); ++k) dec_fused_tail(k, io, d);
   return 0;
 }
 
@@ -632,47 +625,6 @@ extern "C" int ntt_cross_stage(const void* x, const void* partner, void* out,
                       make_tw(psi, psi_sh, ipsi, ipsi_sh, consts));
 }
 
-// Kernel 15: x, sk, c0 (rk, n), scratch (rk, n), out (n,), the rk kept
-// moduli's tables, DecTailConsts' pm and gl, its mod-t strategy.
-extern "C" int ntt_decrypt_fused(const void* x, const void* sk, const void* c0,
-                                 void* scratch, void* out, const void* psi,
-                                 const void* psi_sh, const void* ipsi,
-                                 const void* ipsi_sh, const void* consts,
-                                 const void* pm, const void* gl, int rk,
-                                 int logn, int pow2, u64 t, u64 neg_t,
-                                 u64 nu_t, u64 inv_gt, void* stream) {
-  if (rk < 1 || logn < 2 || logn > LOG_BLOCK_MAX + 1)
-    return (int)cudaErrorInvalidValue;
-  const StageIO io = stage_io(x, nullptr, sk, nullptr, nullptr, scratch,
-                              PRO_MONT, rk, rk, logn);
-  const Twiddles tw = make_tw(psi, psi_sh, ipsi, ipsi_sh, consts);
-  const DecFusedArgs d = {(const u64*)c0, (u64*)out, (const u64*)pm,
-                          (const u64*)gl, pow2,      t,
-                          neg_t,          nu_t,      inv_gt};
-  const int split = logn > LOG_BLOCK_MAX;
-  const int nb = 1 << (logn - split);
-  const int threads = ntt_threads(nb), blocks = rk << split;
-  const size_t smem = (size_t)nb * sizeof(u64);
-  cudaError_t e = smem_limit_once((const void*)k_decrypt_fused);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
-      (e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) !=
-          cudaSuccess ||
-      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess ||
-      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, k_decrypt_fused, threads, smem)) != cudaSuccess)
-    return (int)e;
-  if (!coop || per_sm * sms < blocks)
-    return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {(void*)&io, (void*)&tw, (void*)&d};
-  e = cudaLaunchCooperativeKernel((const void*)k_decrypt_fused, blocks,
-                                  threads, args, smem, (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
 #else  // host build
 
 extern "C" int ntt_cross_stage(const void* x, const void* partner, void* out,
@@ -690,31 +642,29 @@ extern "C" int ntt_cross_stage(const void* x, const void* partner, void* out,
   return 0;
 }
 
-// The three phases of kernel 15 in order, each over all its blocks or
-// elements.
+#endif
+
+// Kernel 15: x, sk, c0 (rk, n), scratch (rk, n), out (n,), the rk kept
+// moduli's tables, DecTailConsts' pm and gl, its mod-t strategy; cluster:
+// B, or 0 for ntt_stage_cluster_size's.
 extern "C" int ntt_decrypt_fused(const void* x, const void* sk, const void* c0,
                                  void* scratch, void* out, const void* psi,
                                  const void* psi_sh, const void* ipsi,
                                  const void* ipsi_sh, const void* consts,
                                  const void* pm, const void* gl, int rk,
                                  int logn, int pow2, u64 t, u64 neg_t,
-                                 u64 nu_t, u64 inv_gt, void*) {
-  if (rk < 1 || logn < 2 || logn > LOG_BLOCK_MAX + 1) return 1;
+                                 u64 nu_t, u64 inv_gt, int cluster,
+                                 void* stream) {
+  const int cl = cluster_log(cluster, logn);
+  if (rk < 1 || cl < 0) return NTT_EINVAL;
   const StageIO io = stage_io(x, nullptr, sk, nullptr, nullptr, scratch,
                               PRO_MONT, rk, rk, logn);
-  const Twiddles tw = make_tw(psi, psi_sh, ipsi, ipsi_sh, consts);
   const DecFusedArgs d = {(const u64*)c0, (u64*)out, (const u64*)pm,
                           (const u64*)gl, pow2,      t,
                           neg_t,          nu_t,      inv_gt};
-  const int split = logn > LOG_BLOCK_MAX;
-  std::vector<u64> s((size_t)1 << (logn - split));
-  for (int b = 0; b < (rk << split); ++b)
-    inv_block_body(b, 0, 1, s.data(), io, tw);
-  if (split)
-    for (long long k = 0; k < ((long long)rk << (logn - 1)); ++k)
-      inv_last_body(k, io, tw);
-  for (long long k = 0; k < (1ll << logn); ++k) dec_fused_tail(k, io, d);
-  return 0;
+  typedef int (*Run)(const StageIO&, const Twiddles&, const DecFusedArgs&,
+                     void*);
+  static const Run runs[4] = {run_decrypt<0>, run_decrypt<1>, run_decrypt<2>,
+                              run_decrypt<3>};
+  return runs[cl](io, make_tw(psi, psi_sh, ipsi, ipsi_sh, consts), d, stream);
 }
-
-#endif

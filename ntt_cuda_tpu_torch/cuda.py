@@ -38,8 +38,8 @@ BLOCK_MAX_N = 16384     # one u64 polynomial per block in shared memory:
 TRANSFORM_MAX_N = 32768  # the cluster kernels (stage and whole-op
 #                          transforms): one cluster of 2-8 blocks per
 #                          polynomial
-TRANSFORM30_MAX_N = 65536  # kernel 22 (u32): one block up to 2^15, two
-#                            2^15 halves beside stage-0 passes at 2^16
+TRANSFORM30_MAX_N = 65536  # kernel 22 (u32): one cluster of 1-8 blocks
+#                            per polynomial, 2-8 at 2^16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -99,14 +99,14 @@ SIGNATURES = {
     "ntt_cross_stage": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _P),
     # x, sk, c0, scratch, out, 4 tables, consts, per_mod, glob, r-1, log n,
-    # pow2, t, neg_t, nu_t, inv_gt
+    # pow2, t, neg_t, nu_t, inv_gt, B
     "ntt_decrypt_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                          _I, _I, _U64, _U64, _U64, _U64, _P),
+                          _I, _I, _U64, _U64, _U64, _U64, _I, _P),
     # which, x, xb, out, 7 banks, C, k, n, row0, rl
     "ntt_behz": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                  _I, _P),
-    # x, out, 4 tables, consts, inverse, P, r, log n
-    "ntt30_transform": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, out, 4 tables, consts, inverse, P, r, log n, B
+    "ntt30_transform": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 # The stage kernels' prologues (ntt_stage.cu PRO_*).

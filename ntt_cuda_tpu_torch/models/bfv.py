@@ -5,10 +5,8 @@ Counterpart of `ntt_cuda_tpu/models/bfv.py` (the reference's
 bfv_keygen.cuh:95, bfv_encryption.cuh:223, bfv_decryption.cuh:76) with the
 integer uniform spec, on the JAX package's two kernel schedules:
 
-* "op": one whole-op kernel per operation (ops/fused_ops.py; encrypt one
-  thread-block cluster per polynomial of u at every n, keygen and the
-  decrypt front at n = 32768 over two 2^14 halves beside elementwise
-  stage-0 passes);
+* "op": one whole-op kernel per operation (ops/fused_ops.py; one
+  thread-block cluster launch per polynomial at every n);
 * "stage": one kernel per transform with its elementwise neighbours fused
   in (ops/ntt_stage.py, bfv_tail.encrypt_fused).
 

@@ -312,12 +312,16 @@ def decrypt_fused_plain(x_ntt, sk, ct0, tables: NTTTables,
                               ct0, consts)
 
 
-def decrypt_fused(x_ntt, sk, ct0, tables: NTTTables,
-                  consts: DecTailConsts) -> torch.Tensor:
+def decrypt_fused(x_ntt, sk, ct0, tables: NTTTables, consts: DecTailConsts,
+                  *, cluster: int = 0) -> torch.Tensor:
     """Kernel 15 (the JAX package's bfv_tail.decrypt_fused): x_ntt (r-1, n)
     = NTT(c1), sk (r-1, n) NTT domain, ct0 (r-1, n) -> the (n,) plaintext,
-    over the r-1 kept moduli's tables.  One cooperative launch on the card
-    (the wrapper allocates its (r-1, n) scratch)."""
+    over the r-1 kept moduli's tables.  On the card: one cooperative launch,
+    one thread-block cluster of `cluster` blocks per residue (0: the
+    launchers' rule, ntt_stage.cluster_size; a B whose n/B buffer does not
+    fit a block, or whose r-1 clusters the card cannot hold at once,
+    raises), the tail after a grid barrier; the wrapper allocates its
+    (r-1, n) scratch."""
     rk, n = tables.r, tables.n
     for name, t in (("x_ntt", x_ntt), ("sk", sk), ("ct0", ct0)):
         if tuple(t.shape) != (rk, n):
@@ -339,7 +343,7 @@ def decrypt_fused(x_ntt, sk, ct0, tables: NTTTables,
                 ct0.data_ptr(), scratch.data_ptr(), out.data_ptr(),
                 *tables.kernel_args(), consts.per_mod.data_ptr(),
                 consts.glob.data_ptr(), rk, tables.logn, pow2, t, neg_t,
-                nu_t, inv_gt)
+                nu_t, inv_gt, cluster)
     decrypt_fused.launches += 1
     return out
 

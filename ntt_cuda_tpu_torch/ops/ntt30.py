@@ -19,7 +19,9 @@ x has shape (..., n) with a number of polynomials B that is a multiple of
 r; polynomial p (in row-major order) has modulus p % r, so (..., r, n) is
 the RNS layout.  int32 (30-bit residues fit it exactly) or int64 in, the
 same dtype out.  `ntt_forward` / `ntt_inverse` launch kernel 22
-(csrc/ntt30.cu) on a CUDA tensor and run the plain version on a CPU one.
+(csrc/ntt30.cu: one thread-block cluster of B blocks per polynomial, one
+launch at every n; `cluster=` picks B, 0 the launchers' rule) on a CUDA
+tensor and run the plain version on a CPU one.
 """
 
 from __future__ import annotations
@@ -174,7 +176,7 @@ def ntt_inverse_plain(x, tables: NTTTables30) -> torch.Tensor:
 
 
 def _launch(name: str, x: torch.Tensor, tables: NTTTables30,
-            inverse: bool) -> torch.Tensor:
+            inverse: bool, cluster: int) -> torch.Tensor:
     """Kernel 22 on x's card: int64 input goes to the card's u32 layout
     (int32) and back around the launch."""
     polys = _polys(name, x, tables)
@@ -184,16 +186,19 @@ def _launch(name: str, x: torch.Tensor, tables: NTTTables30,
     out = torch.empty_like(x32)
     cuda.launch("ntt30_transform", dev, x32.data_ptr(), out.data_ptr(),
                 *tables.kernel_args(), int(inverse), polys, tables.r,
-                tables.logn)
+                tables.logn, cluster)
     return out.to(x.dtype)
 
 
-def ntt_forward(x, tables: NTTTables30) -> torch.Tensor:
+def ntt_forward(x, tables: NTTTables30, *, cluster: int = 0) -> torch.Tensor:
     """Forward NTT (30-bit family) on the last axis: natural order in,
-    bit-reversed out, values in [0, q)."""
+    bit-reversed out, values in [0, q).  On the card: one launch, one
+    cluster of `cluster` blocks per polynomial (0, which every caller in the
+    package passes: the launchers' rule, 8; a B whose n/B buffer passes
+    128 KB of a block, such as 1 at n = 65536, raises)."""
     if x.device.type == "cpu":
         return ntt_forward_plain(x, tables)
-    out = _launch("ntt30.ntt_forward", x, tables, inverse=False)
+    out = _launch("ntt30.ntt_forward", x, tables, False, cluster)
     ntt_forward.launches += 1
     return out
 
@@ -201,11 +206,12 @@ def ntt_forward(x, tables: NTTTables30) -> torch.Tensor:
 ntt_forward.launches = 0
 
 
-def ntt_inverse(x, tables: NTTTables30) -> torch.Tensor:
-    """Inverse NTT (30-bit family): bit-reversed in, natural out."""
+def ntt_inverse(x, tables: NTTTables30, *, cluster: int = 0) -> torch.Tensor:
+    """Inverse NTT (30-bit family): bit-reversed in, natural out; `cluster`
+    as ntt_forward's."""
     if x.device.type == "cpu":
         return ntt_inverse_plain(x, tables)
-    out = _launch("ntt30.ntt_inverse", x, tables, inverse=True)
+    out = _launch("ntt30.ntt_inverse", x, tables, True, cluster)
     ntt_inverse.launches += 1
     return out
 

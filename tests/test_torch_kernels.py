@@ -858,37 +858,49 @@ def _rand30(rng, tb, polys):
         .astype(np.int32))
 
 
-@pytest.mark.parametrize("n,two", [(2048, True), (65536, False)])
-def test_host_ntt30(host_lib, n, two):
-    """Kernel 22 forward and inverse: one block per polynomial at 2^11, the
-    CT / GS stage-0 passes beside two 2^15 halves at 2^16; in place too."""
-    tb = _tables30(n, two)
+@pytest.mark.parametrize("B", [1, 2, 4, 8])
+@pytest.mark.parametrize("lead", [(2, 1), (4, 2)], ids=["2x1", "4x2"])
+@pytest.mark.parametrize("n", [2048, 65536])
+def test_host_ntt30(host_lib, n, lead, B):
+    """Kernel 22 forward and inverse at cluster size B over (J, r, n)
+    (polynomial p takes modulus p % r), out of place and in place; B = 1 at
+    2^16, whose 256 KB buffer does not fit a block, refused."""
+    tb = _tables30(n, two_moduli=lead[1] == 2)
     rng = np.random.default_rng(110)
-    P = 2 * tb.r
+    P = lead[0] * lead[1]
     x = _rand30(rng, tb, P)
     x[:, :2] = 0
     for inverse, plain in ((0, ntt30.ntt_forward_plain),
                            (1, ntt30.ntt_inverse_plain)):
+        out = torch.zeros_like(x)
+        rc = host_lib.ntt30_transform(x.data_ptr(), out.data_ptr(),
+                                      *tb.kernel_args(), inverse, P, tb.r,
+                                      tb.logn, B, None)
+        if n // B > 2 * cuda.BLOCK_MAX_N:
+            assert rc != 0 and not out.any()
+            continue
+        assert rc == 0
         ref = plain(x, tb)
-        out = torch.empty_like(x)
-        assert host_lib.ntt30_transform(x.data_ptr(), out.data_ptr(),
-                                        *tb.kernel_args(), inverse, P, tb.r,
-                                        tb.logn, None) == 0
         torch.testing.assert_close(out, ref, rtol=0, atol=0)
         y = x.clone()
         assert host_lib.ntt30_transform(y.data_ptr(), y.data_ptr(),
                                         *tb.kernel_args(), inverse, P, tb.r,
-                                        tb.logn, None) == 0
+                                        tb.logn, B, None) == 0
         torch.testing.assert_close(y, ref, rtol=0, atol=0)
 
 
 def test_host_ntt30_rejects_bad_arguments(host_lib):
+    """A batch that is not a multiple of r, n outside [2, 2^16] (2^17
+    included), no polynomial, and a cluster size the shape cannot take:
+    B = 1 at 2^16, B = 16, B = 3."""
     tb = _tables30(2048, two_moduli=True)
-    x = torch.zeros((2, 2048), dtype=torch.int32)
-    for P, logn in ((3, tb.logn), (2, 17), (2, 0), (0, tb.logn)):
+    x = torch.zeros((2, 65536), dtype=torch.int32)
+    for P, logn, B in ((3, tb.logn, 0), (2, 17, 0), (2, 0, 0),
+                       (0, tb.logn, 0), (2, 16, 1), (2, tb.logn, 16),
+                       (2, tb.logn, 3), (2, 17, 8)):
         assert host_lib.ntt30_transform(x.data_ptr(), x.data_ptr(),
                                         *tb.kernel_args(), 0, P, tb.r, logn,
-                                        None) != 0
+                                        B, None) != 0
 
 
 # --- on the card -----------------------------------------------------------
@@ -1172,7 +1184,8 @@ def test_cuda_op32_kernels_match_plain(cuda_device, name):
 @pytest.mark.parametrize("n", [2048, 16384, 32768, 65536])
 def test_cuda_ntt30_matches_plain(cuda_device, n):
     """Kernel 22 on the card, (1, 1, n) and bench.py's (16, 1, n), int32
-    and int64, forward and inverse, and equal to the 64-bit transform."""
+    and int64, forward and inverse, and equal to the 64-bit transform; at
+    every cluster size B, B = 1 at 2^16 (a 256 KB buffer) raising."""
     q, psi, *_ = get_params(n, "30bit")
     tb = ntt30.NTTTables30.build([q], [psi], n, cuda_device)
     tb64 = ntt.NTTTables.build([q], [psi], n, cuda_device)
@@ -1188,6 +1201,13 @@ def test_cuda_ntt30_matches_plain(cuda_device, n):
             i = ntt30.ntt_inverse(f, tb)
             assert torch.equal(i, ntt30.ntt_inverse_plain(f, tb))
             assert torch.equal(i, xd)
+            for B in OP_BS:
+                if n // B > 2 * cuda.BLOCK_MAX_N:
+                    with pytest.raises(RuntimeError):
+                        ntt30.ntt_forward(xd, tb, cluster=B)
+                    continue
+                assert torch.equal(ntt30.ntt_forward(xd, tb, cluster=B), f)
+                assert torch.equal(ntt30.ntt_inverse(f, tb, cluster=B), i)
     torch.cuda.synchronize()
 
 
@@ -1195,7 +1215,8 @@ def test_cuda_ntt30_matches_plain(cuda_device, n):
 @pytest.mark.parametrize("name", ["4k_3q", "32k_9q"])
 def test_cuda_entry_kernels_match_plain(cuda_device, name):
     """Kernels 12 (a permuted mod_idx, B = 2r + 1, both directions), 14
-    and 15 (one cooperative launch)."""
+    and 15 (one cooperative launch, at every cluster size B; B = 1 at 2^15
+    raises)."""
     p = get_bfv_params(name)
     rng = np.random.default_rng(12)
     tb = ntt.tables_for(p, device=cuda_device)
@@ -1216,8 +1237,15 @@ def test_cuda_entry_kernels_match_plain(cuda_device, name):
     dt = bfv_tail.DecTailConsts.build(p, cuda_device)
     xs, sk, c0 = (_rand_res(rng, p.q[:-1], p.n).to(cuda_device)
                   for _ in range(3))
-    assert torch.equal(bfv_tail.decrypt_fused(xs, sk, c0, td, dt),
-                       bfv_tail.decrypt_fused_plain(xs, sk, c0, td, dt))
+    ref = bfv_tail.decrypt_fused_plain(xs, sk, c0, td, dt)
+    assert torch.equal(bfv_tail.decrypt_fused(xs, sk, c0, td, dt), ref)
+    for B in OP_BS:
+        if not _takes(B, p.n):
+            with pytest.raises(RuntimeError):
+                bfv_tail.decrypt_fused(xs, sk, c0, td, dt, cluster=B)
+            continue
+        assert torch.equal(
+            bfv_tail.decrypt_fused(xs, sk, c0, td, dt, cluster=B), ref), B
     torch.cuda.synchronize()
 
 

@@ -16,9 +16,9 @@ their CUDA sources built as host code, exactly (tolerance 0).
   ciphertext (tests/fixtures/dec4k_*.npy) against JAX's xla INTT(x (.) sk)
   and decrypt-tail chain, and to i % 10.
 * The host build of csrc/ (tests/test_torch_kernels.py's pattern): the
-  three launchers against the plain versions, at 4k_3q and 32k_9q (the
-  2^15 split: kernel 15's three phases in order), kernel 15 also with an
-  odd prime t.
+  three launchers against the plain versions, at 4k_3q and 32k_9q, kernel
+  15 also with an odd prime t and at every cluster size B (B = 1 at 2^15
+  refused).
 """
 
 import ctypes
@@ -235,9 +235,12 @@ def _odd_t_params():
                                     t=primegen.find_plain_modulus(p.n, 17))
 
 
+@pytest.mark.parametrize("B", [1, 2, 4, 8])
 @pytest.mark.parametrize("name", HOST_SETS + ("odd_t",))
-def test_host_decrypt_fused(host_lib, name):
-    """Kernel 15's three phases in order (the 2^15 split at 32k_9q)."""
+def test_host_decrypt_fused(host_lib, name, B):
+    """Kernel 15 at cluster size B: every residue's cluster (the stage
+    inverse's two phases), then the tail; B = 1 at 2^15, whose n/B buffer
+    does not fit a block, refused."""
     p = _odd_t_params() if name == "odd_t" else get_bfv_params(name)
     rk = p.r - 1
     td = ntt.tables_for(p, rk, device="cpu")
@@ -245,13 +248,18 @@ def test_host_decrypt_fused(host_lib, name):
     rng = np.random.default_rng(16)
     x, sk, c0 = (torch.from_numpy(_rand(rng, p.q[:rk], p.n).view(np.int64))
                  for _ in range(3))
-    out = torch.empty((p.n,), dtype=torch.int64)
+    out = torch.zeros((p.n,), dtype=torch.int64)
     scratch = torch.empty_like(x)
     pow2, t, neg_t, nu_t, inv_gt = bfv_tail._t_strategy(dc.tmeta)
-    assert host_lib.ntt_decrypt_fused(
+    rc = host_lib.ntt_decrypt_fused(
         x.data_ptr(), sk.data_ptr(), c0.data_ptr(), scratch.data_ptr(),
         out.data_ptr(), *td.kernel_args(), dc.per_mod.data_ptr(),
-        dc.glob.data_ptr(), rk, td.logn, pow2, t, neg_t, nu_t, inv_gt,
-        None) == 0
+        dc.glob.data_ptr(), rk, td.logn, pow2, t, neg_t, nu_t, inv_gt, B,
+        None)
+    if p.n // B > cuda.BLOCK_MAX_N:
+        assert rc != 0
+        assert not out.any()
+        return
+    assert rc == 0
     torch.testing.assert_close(
         out, bfv_tail.decrypt_fused_plain(x, sk, c0, td, dc), rtol=0, atol=0)

@@ -2,6 +2,7 @@
 
     python3 tools/profile_ops.py [--set 32k_9q] [--fusion auto] [--reps 30]
                                  [--ops keygen,encrypt,...] [--spmd]
+                                 [--ntt30] [--root DIR]
 
 For keygen, encrypt, decrypt, decrypt_batch (J = 3), encrypt_batch
 (J = 16, nonces 1..16), the EvalMult ops (mul, mul with
@@ -13,7 +14,9 @@ with `--spmd` for keygen, encrypt, decrypt and mod_switch_to_next through
 the RNS-sharded `SpmdBFVContext` and mul, relinearize and apply_galois
 (g = 3) through its `SpmdMultContext`, and keygen, encrypt and decrypt
 through the 2-D `Spmd2DBFVContext` (`keygen_2d`, ...; mesh (1, 1)), at
-world size 1 over NCCL, prints one JSON line per op:
+world size 1 over NCCL, or with `--ntt30` for kernel 22 alone
+(`ntt30_fwd_32768`, ... : forward and inverse at (16, 1, n), n = 2^15 and
+2^16, int32, bench.py's shape), prints one JSON line per op:
 
 * `event_ms`: median CUDA-event time around one call;
 * `sync_wall_ms`: median host time of one call ending in
@@ -25,6 +28,10 @@ world size 1 over NCCL, prints one JSON line per op:
   `idle_share` = 1 - busy / sync wall, and `host_top_us`: the eight host
   events (PyTorch ops and CUDA runtime calls) with the most self time,
   per call.
+
+`--root DIR` imports the package from another checkout (e.g. the parent
+commit's, unpacked with `git archive` into a git-ignored directory), so
+that two trees are timed by the same script on the same card, in turns.
 
 Needs a CUDA card and raises without one.  Imports no jax.
 """
@@ -45,10 +52,13 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+ROOT = (Path(sys.argv[sys.argv.index("--root") + 1]).resolve()
+        if "--root" in sys.argv else Path(__file__).resolve().parents[1])
+sys.path.insert(0, str(ROOT))
 
 from ntt_cuda_tpu_torch import BFVContext, get_bfv_params  # noqa: E402
-from ntt_cuda_tpu_torch.ops import bfv_tail, ntt_stage  # noqa: E402
+from ntt_cuda_tpu_torch.ops import bfv_tail, ntt30, ntt_stage  # noqa: E402
+from ntt_cuda_tpu_torch.params import get_params  # noqa: E402
 from ntt_cuda_tpu_torch.parallel import (multihost, spmd,  # noqa: E402
                                          spmd2d, spmd_mult)
 
@@ -101,6 +111,10 @@ def main() -> int:
                     help="comma-separated op names (default: all)")
     ap.add_argument("--spmd", action="store_true",
                     help="the sharded programs at world size 1 (NCCL)")
+    ap.add_argument("--ntt30", action="store_true",
+                    help="kernel 22 at (16, 1, n), n = 2^15 and 2^16")
+    ap.add_argument("--root", default=str(ROOT),
+                    help="the checkout whose package is timed")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_ops.py needs a CUDA card")
@@ -109,15 +123,19 @@ def main() -> int:
                          text=True, check=True).stdout.strip(), flush=True)
     p = get_bfv_params(args.set)
     msgs = np.random.default_rng(1).integers(0, p.t, (16, p.n))
-    fusion, ops = (spmd_ops(p, msgs) if args.spmd
-                   else bfv_ops(p, args.fusion, msgs))
+    if args.ntt30:
+        fusion, ops = "ntt30", ntt30_ops()
+    else:
+        fusion, ops = (spmd_ops(p, msgs) if args.spmd
+                       else bfv_ops(p, args.fusion, msgs))
     if args.ops:
         ops = {k: ops[k] for k in args.ops.split(",")}
     for name, fn in ops.items():
         for _ in range(10):
             fn()
         torch.cuda.synchronize()
-        row = {"set": args.set, "fusion": fusion, "op": name,
+        row = {"root": args.root, "set": args.set, "fusion": fusion,
+               "op": name,
                "event_ms": event_ms(fn, args.reps),
                "sync_wall_ms": wall_ms(fn, args.reps)}
         with profile(activities=[ProfilerActivity.CPU,
@@ -183,6 +201,20 @@ def bfv_ops(p, fusion: str, msgs) -> tuple[str, dict]:
             ctx.dec_tail_consts),
     }
     return ctx.fusion, ops
+
+
+def ntt30_ops() -> dict:
+    """Kernel 22's forward and inverse at (16, 1, n), int32, by name."""
+    ops = {}
+    for n in (32768, 65536):
+        q, psi, *_ = get_params(n, "30bit")
+        tb = ntt30.NTTTables30.build([q], [psi], n)
+        x = torch.from_numpy(np.random.default_rng(1).integers(
+            0, q, (16, 1, n)).astype(np.int32)).to(tb.device)
+        f = ntt30.ntt_forward(x, tb)
+        ops[f"ntt30_fwd_{n}"] = lambda x=x, tb=tb: ntt30.ntt_forward(x, tb)
+        ops[f"ntt30_inv_{n}"] = lambda f=f, tb=tb: ntt30.ntt_inverse(f, tb)
+    return ops
 
 
 def spmd_ops(p, msgs) -> tuple[str, dict]:
