@@ -8,7 +8,8 @@ SASS gives the integer multiply instructions of one Shoup butterfly and
 one Montgomery product (for each kernel's bound), a probe library that
 runs the cluster kernels' local stages two ways (LOCAL_AB_SRC: the stage
 kernels' loop against tiled passes, the encrypt transform's two inverses
-interleaved against in turn).  Then:
+interleaved against in turn), and one with the timing variants of the
+BEHZ conversions and K2 (BEHZ_AB_SRC).  Then:
 
 1. every kernel exactly (tolerance 0) against its plain PyTorch version on
    the card: the op kernels K1-K5 at 4k_3q and 16k_5q, K3-K5 also at
@@ -26,7 +27,10 @@ interleaved against in turn).  Then:
    32k_16q; the J-nonce keystream (kernel 6) at 32k_9q's encrypt size,
    J = 1 and 16, also against K1 row by row; the EvalMult kernels (BEHZ
    21a-c, kernel 11, the key switch 19) at 4k_3q, 16k_5q and 32k_9q,
-   21a-c and 19 also at 32k_16q, J = 1 and 2; kernel 22 (one cluster
+   21a-c and 19 also at 32k_16q, J = 1 and 2; 21a-c, the one-launch
+   scale_and_round, their bands and K2 at every group size G (threads a
+   coefficient) at 4k_3q, 16k_5q, 32k_9q and 32k_16q, J = 1 and 2 (K2 1
+   and 3), with BEHZ_AB_SRC's variants; kernel 22 (one cluster
    launch at every n) at n = 2^11, 2^14, 2^15 and 2^16, (1, 1, n) and
    (16, 1, n), int32 and int64, forward and inverse, by the rule and at
    every cluster size B (B = 1 at 2^16, whose n/B buffer does not fit a
@@ -114,8 +118,13 @@ interleaved against in turn).  Then:
    K5 at 16k_5q J = 1 and 32k_9q J = 1 and 16, and kernel 18 at 32k_9q, at
    every cluster size B, and the transform's two local inverses at those
    shapes interleaved (as the library runs them) and in turn, in turns;
-   K3 (J = 1) and K4 at 16k_5q and 32k_9q at every B.  (The cluster
-   kernels' __launch_bounds__ A/B is tools/bounds_ab.py, run on its own.)
+   K3 (J = 1) and K4 at 16k_5q and 32k_9q at every B; the conversions,
+   their bands and K2 at every G at the four sets beside each bound, with
+   the variants (canonical sums with and without the shared exchange;
+   scale_and_round against 21b then 21c; K2 at V coefficients a thread
+   and in smaller blocks) and an empty launch; `ptxas -v` of every
+   instantiation.  (The cluster kernels' __launch_bounds__ A/B is
+   tools/bounds_ab.py, run on its own.)
 
 13. kernels 12, 14 and 15 (the op-level entry points ntt_forward /
    ntt_inverse with mod_idx, encrypt_tail, decrypt_fused) against their
@@ -318,12 +327,19 @@ KERNELS = {
     "behz_rns_to_bsk": ((behz_kernels.rns_to_bsk,),
                         "ntt_cuda_tpu_torch/csrc/behz.cu",
                         "ntt_cuda_tpu/ops/behz_pallas.py:183", ("mult",)),
-    "behz_fast_floor": ((behz_kernels.fast_floor,),
+    # 21b and 21c: their own launches and the one-launch scale_and_round,
+    # which runs both bodies (mul and square launch it, not the two)
+    "behz_fast_floor": ((behz_kernels.fast_floor,
+                         behz_kernels.scale_and_round),
                         "ntt_cuda_tpu_torch/csrc/behz.cu",
                         "ntt_cuda_tpu/ops/behz_pallas.py:227", ("mult",)),
-    "behz_bsk_to_q": ((behz_kernels.bsk_to_q,),
+    "behz_bsk_to_q": ((behz_kernels.bsk_to_q, behz_kernels.scale_and_round),
                       "ntt_cuda_tpu_torch/csrc/behz.cu",
                       "ntt_cuda_tpu/ops/behz_pallas.py:258", ("mult",)),
+    "behz_scale_and_round": ((behz_kernels.scale_and_round,),
+                             "ntt_cuda_tpu_torch/csrc/behz.cu",
+                             "ntt_cuda_tpu/ops/behz_pallas.py:406",
+                             ("mult",)),
     # kernel 22, both directions; its times below are the forward's at
     # (16, 1, 65536)
     "ntt30_transform": ((ntt30.ntt_forward, ntt30.ntt_inverse),
@@ -400,6 +416,11 @@ extern "C" __global__ void probe_mul32(const u64* a, u64* o) {
 }
 extern "C" __global__ void probe_shoup32(const u32* a, u32* o) {
   o[0] = mul_shoup32(a[0], a[1], a[2], a[3]);
+}
+extern "C" __global__ void probe_mul128(const u64* a, u64* o) {
+  const unsigned __int128 p = (unsigned __int128)a[0] * a[1];
+  o[0] = (u64)p;
+  o[1] = (u64)(p >> 64);
 }
 """
 
@@ -560,16 +581,17 @@ def start_local_ab() -> tuple[subprocess.Popen, Path]:
 
 
 def start_ptxas_report() -> list[subprocess.Popen]:
-    """ntt_stage.cu, fused_ops.cu and ntt30.cu compiled once more with
-    `-Xptxas -v` (registers, spills and stack of each kernel), beside the
-    library's build."""
+    """ntt_stage.cu, fused_ops.cu, ntt30.cu, behz.cu and decrypt_tail.cu
+    compiled once more with `-Xptxas -v` (registers, spills and stack of
+    each kernel), beside the library's build."""
     out = ROOT / "build" / "ptxas"
     out.mkdir(parents=True, exist_ok=True)
     return [subprocess.Popen(
         [cuda.find_nvcc(), *cuda.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
          str(out / f"{src}.o"), str(cuda.CSRC / f"{src}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src in ("ntt_stage", "fused_ops", "ntt30")]
+        for src in ("ntt_stage", "fused_ops", "ntt30", "behz",
+                    "decrypt_tail")]
 
 
 def built(proc: subprocess.Popen, what: str) -> str:
@@ -594,15 +616,19 @@ def ptxas_lines(out: str, kernels: str) -> dict[str, str]:
     return res
 
 
-# the cluster kernels' names
+# the cluster kernels' names, and the conversion kernels' and K2's
 CLUSTER_KERNELS = "k_stage_|k_op_cluster|k_decrypt_cluster|k_ntt30_cluster"
+GROUP_KERNELS = "k_behz|k_decrypt_tail"
 
 
-def ptxas_report(procs: list[subprocess.Popen]) -> dict[str, str]:
-    res = {}
-    for proc in procs:
-        res.update(ptxas_lines(built(proc, "ptxas report"), CLUSTER_KERNELS))
-    return res
+def ptxas_report(procs: list[subprocess.Popen]) -> str:
+    return "\n".join(built(proc, "ptxas report") for proc in procs)
+
+
+def spills(lines: dict[str, str]) -> dict[str, str]:
+    """The kernels whose ptxas lines report spill stores or loads."""
+    return {k: v for k, v in lines.items()
+            if re.search(r"[1-9]\d* bytes spill", v)}
 
 
 def device_us(fn, reps: int = 20, names: set | None = None) -> float:
@@ -611,15 +637,18 @@ def device_us(fn, reps: int = 20, names: set | None = None) -> float:
     go into `names` where it is given."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    iv = [e.time_range.end - e.time_range.start for e in dev_events
-          if e.name.removeprefix("void ").startswith("k_")]
+    for _ in range(3):       # a window now and then records no device event
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev_events = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        iv = [e.time_range.end - e.time_range.start for e in dev_events
+              if e.name.removeprefix("void ").startswith("k_")]
+        if dev_events:
+            break
     if not iv:
         raise RuntimeError(f"torch.profiler saw no kernel of the port on the "
                            f"device (device events: "
@@ -750,8 +779,8 @@ def probe_mults(proc: subprocess.Popen, cubin: Path) -> dict[str, int]:
             if op.startswith(("IMAD", "IMUL")) and not any(
                     k in op for k in (".MOV", ".SHL", ".IADD")):
                 counts[fn] += 1
-    if sorted(counts) != ["mod_nu", "mont", "mul32", "mullo", "shoup",
-                          "shoup32"]:
+    if sorted(counts) != ["mod_nu", "mont", "mul128", "mul32", "mullo",
+                          "shoup", "shoup32"]:
         raise RuntimeError(f"SASS probe: functions {sorted(counts)}")
     return counts
 
@@ -806,7 +835,7 @@ class Work:
     """Bytes a function must move (each input read once, each output
     written once) and integer multiply instructions it must issue, in
     units of the probed primitives: `shoup`, `mont`, `mod_nu`, `mullo`,
-    `mul32`, `shoup32`."""
+    `mul32`, `shoup32`, `mul128` (a 64 x 64 -> 128-bit product)."""
 
     def __init__(self, nbytes: int, **prims):
         self.nbytes, self.prims = nbytes, prims
@@ -926,12 +955,28 @@ def encrypt_work(ctx: BFVContext, u_b, pk, e2, m, J: int) -> Work:
 
 
 def decrypt_tail_work(x, c0, dt, coefs: int) -> Work:
-    """Per coefficient and kept residue: two Montgomery products mod q_i,
-    one mod gamma and one 64-bit multiply by bcm_t; per coefficient one
-    more of each (pow2 t)."""
+    """Per coefficient and kept residue: a Shoup product mod q_i, one mod
+    gamma and one 64-bit multiply by bcm_t; per coefficient a Montgomery
+    product and a 64-bit multiply (pow2 t)."""
     rk = x.shape[-2]
-    return Work(nbytes(x, c0, dt.per_mod, dt.glob) + 8 * coefs,
-                mont=coefs * (3 * rk + 1), mullo=coefs * (rk + 1))
+    return Work(nbytes(x, c0, dt.k2_rows, dt.glob) + 8 * coefs,
+                shoup=coefs * 2 * rk, mont=coefs, mullo=coefs * (rk + 1))
+
+
+def behz_work(which: str, coefs: int, k: int, rl: int, nbytes_: int,
+              live: int | None = None) -> Work:
+    """A conversion's work over `coefs` coefficients and rl targets (live
+    of them below the pad row, for 21c): k prescaling Shoup products; each
+    target one linear form of k+1 128-bit products reduced once (a Shoup
+    product and a mod_nu); 21a's u32 m_tilde channel; 21c's alpha a form of
+    k+1 terms; scale_and_round both conversions over all k+1 and k
+    targets."""
+    live = rl if live is None else live
+    forms = {"21a": rl, "21b": rl, "21c": 1 + live,
+             "fused": (k + 1) + 1 + k}[which]
+    return Work(nbytes_, shoup=coefs * (k + forms), mod_nu=coefs * forms,
+                mul128=coefs * forms * (k + 1),
+                mul32=coefs * (k + 1) if which == "21a" else 0)
 
 
 def stage_cases(ctx: BFVContext, rng, dev):
@@ -1349,19 +1394,22 @@ def mult_cases(ctx: BFVContext, rng, dev, addneg: bool = True):
             ("behz_rns_to_bsk", J,
              lambda x=xa: behz_kernels.rns_to_bsk(x, mb),
              lambda x=xa: behz_kernels.rns_to_bsk_plain(x, mb),
-             Work(nbytes(xa, *banks) + 8 * coefs_a * (k + 1),
-                  shoup=coefs_a * (k + (k + 1) * (k + 2)),
-                  mul32=coefs_a * (k + 1))),
+             behz_work("21a", coefs_a, k, k + 1,
+                       nbytes(xa, *banks) + 8 * coefs_a * (k + 1))),
             ("behz_fast_floor", J,
              lambda a=xq, b=xb: behz_kernels.fast_floor(a, b, mb),
              lambda a=xq, b=xb: behz_kernels.fast_floor_plain(a, b, mb),
-             Work(nbytes(xq, xb, *banks) + nbytes(xb),
-                  shoup=coefs_f * (k + (k + 1) * (k + 2)))),
+             behz_work("21b", coefs_f, k, k + 1,
+                       nbytes(xq, xb, *banks) + nbytes(xb))),
             ("behz_bsk_to_q", J,
              lambda b=xb: behz_kernels.bsk_to_q(b, mb),
              lambda b=xb: behz_kernels.bsk_to_q_plain(b, mb),
-             Work(nbytes(xb, *banks) + nbytes(xq),
-                  shoup=coefs_f * (2 * k + 1 + k * (k + 1)))),
+             behz_work("21c", coefs_f, k, k, nbytes(xb, *banks) + nbytes(xq))),
+            ("behz_scale_and_round", J,
+             lambda a=xq, b=xb: behz_kernels.scale_and_round(a, b, mb),
+             lambda a=xq, b=xb: behz_kernels.scale_and_round_plain(a, b, mb),
+             behz_work("fused", coefs_f, k, k,
+                       nbytes(xq, xb, *banks) + nbytes(xq))),
         ]
         c2 = rand_res(rng, p.q[:-1], n, lead, dev)
         ksk = rand_res(rng, p.q, n, (2, k), dev)
@@ -1384,6 +1432,336 @@ def mult_cases(ctx: BFVContext, rng, dev, addneg: bool = True):
             Work(nbytes(x, e, *tables(tf, "fwd"), x),
                  shoup=transform_butterflies(k * r, n))))
     return cases
+
+
+# The conversion kernels (csrc/behz.cu) and K2 (csrc/decrypt_tail.cu) at
+# every group size G (threads a coefficient): the sets they are held and
+# timed at, and the bands of the sharded EvalMult at each (R = 1's rows
+# and the last rank of R = 3's, with m_sk's row and bsk_to_q's pad row).
+GROUP_SETS = ("4k_3q", "16k_5q", "32k_9q", "32k_16q")
+GROUP_GS = (0,) + behz_kernels.GROUPS      # 0: the launchers' rule
+DEC_GS = (0,) + bfv_tail.DEC_GROUPS
+
+
+def group_bands(r: int) -> tuple:
+    return ((0, r), (r - max(r // 3, 1), max(r // 3, 1)))
+
+
+# Timing variants built beside the library (BEHZ_AB_SRC, the library's own
+# behz.cu built with BEHZ_INNER_CANONICAL, and behz_sums.cuh): ab_behz, the
+# conversions with every inner-product term a Shoup product added
+# canonically, share = 1 with the library's shared exchange of the
+# prescaled residues, share = 0 with every member prescaling all k sources
+# itself (SHARE = false); ab_dt_multi, K2 with V coefficients a thread and
+# every row's loads issued before its products; ab_dt_block, K2 by the
+# launchers' rule in blocks of 64 or 128 threads (the library's: 256);
+# ab_empty, an empty launch.
+BEHZ_AB_SRC = r"""
+#define BEHZ_INNER_CANONICAL 1
+#include "behz.cu"
+#include "decrypt_tail.cu"
+extern "C" int ab_behz(int which, const void* x, const void* xb, void* out,
+                       const void* qsrc, const void* tgt, const void* amat,
+                       const void* bsrc, const void* bmat, const void* bfin,
+                       const void* glob, int C, int k, int n, int row0,
+                       int rl, int group, int share, void* stream) {
+  const int lg = behz_lg(group == 0 ? behz_group_rule(C, n) : group);
+  if (!behz_args_ok(which, xb, C, k, n, row0, rl, lg)) return BEHZ_BAD_ARGS;
+  const BehzIO io = behz_io(x, xb, out, qsrc, tgt, amat, bsrc, bmat, bfin,
+                            glob, k, n, row0, rl, lg);
+  return share ? behz_launch<true>(which, io, C, (cudaStream_t)stream)
+               : behz_launch<false>(which, io, C, (cudaStream_t)stream);
+}
+template <int V>
+__global__ void __launch_bounds__(256) k_dt_multi(
+    const u64* x, const u64* c0, u64* out, const u64* pm, const u64* gl,
+    int rk, int n, int pow2, u64 t, u64 neg_t, u64 nu_t, u64 inv_gt) {
+  const int k0 = blockIdx.x * 256 * V + threadIdx.x;
+  const size_t j = blockIdx.y;
+  BehzSums acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = {0, 0};
+  for (int i = 0; i < rk; ++i) {
+    const u64* p = pm + 6 * i;
+    u64 xs[V], cs[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int k = k0 + 256 * v;
+      const size_t off = (j * rk + i) * n + k;
+      xs[v] = k < n ? x[off] : 0;
+      cs[v] = k < n ? c0[off] : 0;
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      behz_row_shoup(acc[v], xs[v], cs[v], p, gl[0], pow2, t, nu_t);
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int k = k0 + 256 * v;
+    if (k < n)
+      out[j * n + k] = dec_round(acc[v], gl, pow2, t, neg_t, nu_t, inv_gt);
+  }
+}
+extern "C" int ab_dt_multi(int V, const void* x, const void* c0, void* out,
+                           const void* pm, const void* gl, int J, int rk,
+                           int n, int pow2, u64 t, u64 neg_t, u64 nu_t,
+                           u64 inv_gt, void* stream) {
+  const dim3 grid((unsigned)((n + 256 * V - 1) / (256 * V)), (unsigned)J);
+  cudaStream_t s = (cudaStream_t)stream;
+  const u64 *a = (const u64*)x, *b = (const u64*)c0, *p = (const u64*)pm,
+            *g = (const u64*)gl;
+  u64* o = (u64*)out;
+  if (V == 2)
+    k_dt_multi<2><<<grid, 256, 0, s>>>(a, b, o, p, g, rk, n, pow2, t, neg_t,
+                                       nu_t, inv_gt);
+  else if (V == 4)
+    k_dt_multi<4><<<grid, 256, 0, s>>>(a, b, o, p, g, rk, n, pow2, t, neg_t,
+                                       nu_t, inv_gt);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+extern "C" int ab_dt_block(int threads, const void* x, const void* c0,
+                           void* out, const void* kr, const void* gl, int J,
+                           int rk, int n, int pow2, u64 t, u64 neg_t,
+                           u64 nu_t, u64 inv_gt, void* stream) {
+  DtArgs a;
+  if (!dt_args(x, c0, out, kr, gl, J, rk, n, pow2, t, neg_t, nu_t, inv_gt, 0,
+               a) || threads % 32 || threads < 32 || threads > DT_THREADS)
+    return (int)cudaErrorInvalidValue;
+  dt_dispatch(a, (cudaStream_t)stream, threads);
+  return (int)cudaGetLastError();
+}
+__global__ void k_empty() {}
+extern "C" int ab_empty(void* stream) {
+  k_empty<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+DT_MULTI_VS = (2, 4)
+DT_BLOCKS = (64, 128)
+AB_KERNELS = ("behz_rns_to_bsk", "behz_fast_floor", "behz_bsk_to_q")
+AB_SETS = ("32k_9q", "32k_16q")
+
+
+def start_behz_ab() -> tuple[subprocess.Popen, Path]:
+    out = ROOT / "build" / "behz_ab"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "behz_ab.cu").write_text(BEHZ_AB_SRC)
+    lib = out / "libbehz_ab.so"
+    cmd = [cuda.find_nvcc(), *cuda.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
+           "-I", str(cuda.CSRC), "-o", str(lib), str(out / "behz_ab.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), lib
+
+
+def load_behz_ab(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    lib.ab_behz.argtypes = list(cuda.SIGNATURES["ntt_behz"][:-1]) + [
+        ctypes.c_int, ctypes.c_void_p]
+    lib.ab_dt_multi.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                                + [ctypes.c_int] * 4 + [ctypes.c_uint64] * 4
+                                + [ctypes.c_void_p])
+    lib.ab_dt_block.argtypes = lib.ab_dt_multi.argtypes
+    lib.ab_empty.argtypes = [ctypes.c_void_p]
+    for fn in (lib.ab_behz, lib.ab_dt_multi, lib.ab_dt_block, lib.ab_empty):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def group_cases(p: BFVParams, dev, rng, J: int) -> list:
+    """(kernel, label, call(G), plain call, Work, launch args) for 21a-c,
+    scale_and_round and the bands at p at the EvalMult path's shapes with a
+    J lead (21a over (J, 2, 2, k, n), the rest over (J, 3, ., n)), and K2 at
+    (J + 1 if J > 1, r-1, n) (J = 1 and 3).  `launch args` (which, x, xb,
+    out shape, banks, row0, rl) let ab_behz run the same conversion."""
+    n, k = p.n, p.r - 1
+    aux = behz.AuxBase.build(p)
+    mc = behz_kernels.SpmdMultConsts.build(p, aux, dev)
+    mb = mc.banks
+    banks = [mb.qsrc, mb.tgt, mb.amat, mb.bsrc, mb.bmat, mb.bfin, mb.glob]
+    lead = () if J == 1 else (J,)
+    xa = rand_res(rng, p.q[:k], n, lead + (2, 2), dev)
+    xq = rand_res(rng, p.q[:k], n, lead + (3,), dev)
+    xb = rand_res(rng, aux.bsk, n, lead + (3,), dev)
+    ca, cf = xa.numel() // (k * n), xq.numel() // (k * n)
+    sa, sf = ca * n, cf * n
+    bk = behz_kernels
+    label = f"{p.name} J={J}"
+    cases = [
+        ("behz_rns_to_bsk", label,
+         lambda G: bk.rns_to_bsk(xa, mb, G), lambda: bk.rns_to_bsk_plain(xa, mb),
+         behz_work("21a", sa, k, k + 1, nbytes(xa, *banks) + 8 * sa * (k + 1)),
+         (bk.RNS_TO_BSK, xa, None, lead + (2, 2, k + 1, n), mb, 0, k + 1)),
+        ("behz_fast_floor", label,
+         lambda G: bk.fast_floor(xq, xb, mb, G),
+         lambda: bk.fast_floor_plain(xq, xb, mb),
+         behz_work("21b", sf, k, k + 1, nbytes(xq, xb, *banks) + nbytes(xb)),
+         (bk.FAST_FLOOR, xq, xb, tuple(xb.shape), mb, 0, k + 1)),
+        ("behz_bsk_to_q", label,
+         lambda G: bk.bsk_to_q(xb, mb, G), lambda: bk.bsk_to_q_plain(xb, mb),
+         behz_work("21c", sf, k, k, nbytes(xb, *banks) + nbytes(xq)),
+         (bk.BSK_TO_Q, xb, None, tuple(xq.shape), mb, 0, k)),
+        ("behz_scale_and_round", label,
+         lambda G: bk.scale_and_round(xq, xb, mb, G),
+         lambda: bk.scale_and_round_plain(xq, xb, mb),
+         behz_work("fused", sf, k, k, nbytes(xq, xb, *banks) + nbytes(xq)),
+         None),
+    ]
+    for lo, rl in group_bands(p.r):
+        live = min(lo + rl, k) - lo
+        xbr = xb[..., lo:lo + rl, :].contiguous()
+        bl = f"{label} rows {lo}-{lo + rl}"
+        cases += [
+            ("behz_rns_to_bsk_rows", bl,
+             lambda G, lo=lo, rl=rl: bk.rns_to_bsk_rows(xa, mc, lo, rl, G),
+             lambda lo=lo, rl=rl: bk.rns_to_bsk_rows_plain(xa, mc, lo, rl),
+             behz_work("21a", sa, k, rl, nbytes(xa, *banks) + 8 * sa * rl),
+             (bk.RNS_TO_BSK, xa, None, lead + (2, 2, rl, n), mb, lo, rl)),
+            ("behz_fast_floor_rows", bl,
+             lambda G, lo=lo, rl=rl, b=xbr: bk.fast_floor_rows(
+                 xq, b, mc, lo, rl, G),
+             lambda lo=lo, rl=rl, b=xbr: bk.fast_floor_rows_plain(
+                 xq, b, mc, lo, rl),
+             behz_work("21b", sf, k, rl, nbytes(xq, xbr, *banks)
+                       + nbytes(xbr)),
+             (bk.FAST_FLOOR, xq, xbr, tuple(xbr.shape), mb, lo, rl)),
+            ("behz_bsk_to_q_rows", bl,
+             lambda G, lo=lo, rl=rl: bk.bsk_to_q_rows(xb, mc, lo, rl, G),
+             lambda lo=lo, rl=rl: bk.bsk_to_q_rows_plain(xb, mc, lo, rl),
+             behz_work("21c", sf, k, rl, nbytes(xb, *banks) + 8 * sf * rl,
+                       live),
+             (bk.BSK_TO_Q, xb, None, lead + (3, rl, n), mb, lo, rl)),
+        ]
+    Jd = 1 if J == 1 else J + 1
+    dt = bfv_tail.DecTailConsts.build(p, dev)
+    dl = () if Jd == 1 else (Jd,)
+    x = rand_res(rng, p.q[:k], n, dl, dev)
+    c0 = rand_res(rng, p.q[:k], n, dl, dev)
+    cases.append(("decrypt_tail", f"{p.name} J={Jd}",
+                  lambda G: bfv_tail.decrypt_tail(x, c0, dt, G),
+                  lambda: bfv_tail.decrypt_tail_plain(x, c0, dt),
+                  decrypt_tail_work(x, c0, dt, Jd * n), (x, c0, dt)))
+    return cases
+
+
+def ab_behz_call(lib, args, G: int, share: int):
+    """One conversion through ab_behz (canonical inner products; the shared
+    exchange or SHARE = false) at G."""
+    which, x, xb, shape, mb, row0, rl = args
+    out = torch.empty(shape, dtype=torch.int64, device=x.device)
+    n = x.shape[-1]
+
+    def call():
+        rc = lib.ab_behz(which, x.data_ptr(),
+                         None if xb is None else xb.data_ptr(),
+                         out.data_ptr(), *mb.kernel_args(),
+                         out.numel() // (rl * n), mb.k, n, row0, rl, G,
+                         share, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ab_behz: CUDA error {rc}")
+        return out
+    return call
+
+
+def ab_dt_call(lib, args, V: int, fn: str = "ab_dt_multi"):
+    """K2 with V coefficients a thread (ab_dt_multi), or by the rule in
+    blocks of V threads (ab_dt_block)."""
+    x, c0, dt = args
+    J = 1 if x.dim() == 2 else x.shape[0]
+    rk, n = x.shape[-2:]
+    out = torch.empty((J, n), dtype=torch.int64, device=x.device)
+
+    def call():
+        rc = getattr(lib, fn)(V, x.data_ptr(), c0.data_ptr(), out.data_ptr(),
+                             dt.k2_rows.data_ptr(), dt.glob.data_ptr(), J, rk,
+                             n, *bfv_tail._t_strategy(dt.tmeta),
+                             torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{fn}: CUDA error {rc}")
+        return out[0] if x.dim() == 2 else out
+    return call
+
+
+def group_checks(dev, rng, ab, errs: dict) -> None:
+    """21a-c, scale_and_round, the bands and K2 at every G, and the timing
+    variants (ab_behz's two at every G, K2 at V coefficients a thread),
+    exactly against their plain versions at GROUP_SETS, J = 1 and 2 (K2
+    at J = 1 and 3)."""
+    for name in GROUP_SETS:
+        p = get_bfv_params(name)
+        for J in (1, 2):
+            for kname, label, call, plain, _, args in group_cases(
+                    p, dev, rng, J):
+                ref = plain()
+                for G in (DEC_GS if kname == "decrypt_tail" else GROUP_GS):
+                    compare(kname, call(G), ref, errs)
+                    if args is not None and kname != "decrypt_tail" and G:
+                        for share in (1, 0):
+                            compare(kname, ab_behz_call(ab, args, G, share)(),
+                                    ref, {})
+                if kname == "decrypt_tail":
+                    for V in DT_MULTI_VS:
+                        compare(kname, ab_dt_call(ab, args, V)(), ref, {})
+                    for T in DT_BLOCKS:
+                        compare(kname, ab_dt_call(ab, args, T,
+                                                  "ab_dt_block")(), ref, {})
+                log(f"check {kname} {label} at every G"
+                    + (" and the canonical-sum variants" if args is not None
+                       and kname != "decrypt_tail" else "")
+                    + (f" and V = {list(DT_MULTI_VS)} coefficients a thread, "
+                       f"and blocks of {list(DT_BLOCKS)} threads"
+                       if kname == "decrypt_tail" else "") + ": equal")
+
+
+def group_times(dev, rng, ab, mults: dict, clock_hz: float) -> dict:
+    """Device us per call (torch.profiler, 10 calls a window, two windows)
+    of each conversion, band and K2 at GROUP_SETS, J = 1 (K2 also J = 3),
+    at every G,
+    beside its bound at the same shape; at AB_SETS the three conversions
+    also through ab_behz (canonical sums, shared exchange or not) in turns
+    library, share=1, share=0, share=0, share=1, library; scale_and_round
+    beside 21b then 21c at the same G; K2 also at V = 2, 4 coefficients a
+    thread (ab_dt_multi); and an empty launch."""
+    res = {"empty launch": [device_us(lambda: ab.ab_empty(
+        torch.cuda.current_stream().cuda_stream), 10) for _ in range(3)]}
+    for name in GROUP_SETS:
+        p = get_bfv_params(name)
+        cases = group_cases(p, dev, rng, 1) + [
+            c for c in group_cases(p, dev, rng, 2) if c[0] == "decrypt_tail"]
+        by = {(c[0], c[1]): c for c in cases}
+        for kname, label, call, plain, work, args in cases:
+            bound_ms, bound_by = work.bound(mults, clock_hz)
+            row = {"bound_us": bound_ms * 1e3, "bound_by": bound_by}
+            dec = kname == "decrypt_tail"
+            for G in (DEC_GS if dec else GROUP_GS):
+                fn = lambda G=G: call(G)         # noqa: E731
+                if not (G and kname in AB_KERNELS and name in AB_SETS):
+                    row[f"G={G}"] = [device_us(fn, 10), device_us(fn, 10)]
+                    continue
+                v1, v0 = (ab_behz_call(ab, args, G, sh) for sh in (1, 0))
+                t = [device_us(f, 10) for f in (fn, v1, v0, v0, v1, fn)]
+                row[f"G={G}"] = [t[0], t[5]]
+                row[f"G={G} canonical share=1"] = [t[1], t[4]]
+                row[f"G={G} canonical share=0"] = [t[2], t[3]]
+            if kname == "behz_scale_and_round":
+                # 21b then 21c on 21b's output: the two launches it replaces
+                _, xq, xb, _, mb, _, _ = by[("behz_fast_floor", label)][5]
+                for G in GROUP_GS:
+                    row[f"21b+21c G={G}"] = [device_us(
+                        lambda G=G: behz_kernels.bsk_to_q(
+                            behz_kernels.fast_floor(xq, xb, mb, G), mb, G),
+                        10) for _ in range(2)]
+            if dec:
+                for V in DT_MULTI_VS:
+                    var = ab_dt_call(ab, args, V)
+                    row[f"V={V}"] = [device_us(var, 10), device_us(var, 10)]
+                for T in DT_BLOCKS:
+                    var = ab_dt_call(ab, args, T, "ab_dt_block")
+                    row[f"rule, {T} threads a block"] = [device_us(var, 10),
+                                                         device_us(var, 10)]
+            res[f"{kname} {label}"] = row
+    return res
 
 
 def negacyclic_mod_t(m1, m2, p, dev) -> torch.Tensor:
@@ -1736,23 +2114,22 @@ def spmd_mult_cases(p: BFVParams, dev, rng):
                  x, mc, lo, rl),
              lambda x=xa, lo=lo, rl=rl: behz_kernels.rns_to_bsk_rows_plain(
                  x, mc, lo, rl),
-             Work(nbytes(xa, *banks) + 8 * coefs_a * rl,
-                  shoup=coefs_a * (k + rl * (k + 2)),
-                  mul32=coefs_a * (k + 1))),
+             behz_work("21a", coefs_a, k, rl,
+                       nbytes(xa, *banks) + 8 * coefs_a * rl)),
             ("behz_fast_floor_rows", label,
              lambda a=xq, b=xb, lo=lo, rl=rl: behz_kernels.fast_floor_rows(
                  a, b, mc, lo, rl),
              lambda a=xq, b=xb, lo=lo, rl=rl:
                  behz_kernels.fast_floor_rows_plain(a, b, mc, lo, rl),
-             Work(nbytes(xq, xb, *banks) + nbytes(xb),
-                  shoup=coefs_f * (k + rl * (k + 2)))),
+             behz_work("21b", coefs_f, k, rl,
+                       nbytes(xq, xb, *banks) + nbytes(xb))),
             ("behz_bsk_to_q_rows", label,
              lambda x=fl, lo=lo, rl=rl: behz_kernels.bsk_to_q_rows(
                  x, mc, lo, rl),
              lambda x=fl, lo=lo, rl=rl: behz_kernels.bsk_to_q_rows_plain(
                  x, mc, lo, rl),
-             Work(nbytes(fl, *banks) + 8 * coefs_f * rl,
-                  shoup=coefs_f * (2 * k + 1 + live * (k + 1)))),
+             behz_work("21c", coefs_f, k, rl,
+                       nbytes(fl, *banks) + 8 * coefs_f * rl, live)),
             ("encrypt_tail_padded", f"{label} drop",
              lambda c=cc, ra=ra, tc=tc: bfv_tail.drop_last_padded(c, ra, tc),
              lambda c=cc, ra=ra, tc=tc: bfv_tail.drop_last_padded_plain(
@@ -2432,16 +2809,31 @@ def main() -> int:
     t0 = time.perf_counter()
     probe = start_probe()
     ab_build = start_local_ab()
+    behz_ab_build = start_behz_ab()
     ptxas = start_ptxas_report()
     cuda.library()
     mults = probe_mults(*probe)
     ab_lines = ptxas_lines(built(ab_build[0], "local-stage A/B"), "k_ab_")
+    behz_ab_out = built(behz_ab_build[0], "conversion timing variants")
+    behz_ab = load_behz_ab(behz_ab_build[1])
     log(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    ptxas_out = ptxas_report(ptxas)
     log(f"cluster kernels' registers and spills (ptxas -v, sm_90a; the "
         f"stage kernels, kernel 15's k_decrypt_cluster<CL, OCC>, "
         f"fused_ops.cu's k_op_cluster<CL, OCC, op> and kernel 22's "
         f"k_ntt30_cluster<CL, inverse>, __launch_bounds__ ClusterBound): "
-        f"{json.dumps(ptxas_report(ptxas))}")
+        f"{json.dumps(ptxas_lines(ptxas_out, CLUSTER_KERNELS))}")
+    group_lines = ptxas_lines(ptxas_out, GROUP_KERNELS)
+    variant_lines = ptxas_lines(behz_ab_out, "k_behz|k_dt_multi")
+    log(f"conversion kernels and K2, registers and spills (ptxas -v, "
+        f"sm_90a; k_behz<K, which, SHARE> for K = 1..16, which 0-3 = 21a, "
+        f"21b, 21c, scale_and_round; k_decrypt_tail): "
+        f"{json.dumps(group_lines)}")
+    log(f"their timing variants (BEHZ_AB_SRC: k_behz<K, which, false>, "
+        f"k_dt_multi<V>): {json.dumps(variant_lines)}")
+    log(f"instantiations with spills: library "
+        f"{json.dumps(spills(group_lines))}, variants "
+        f"{json.dumps(spills(variant_lines))}")
     log(f"build: all builds done in {time.perf_counter() - t0:.1f} s")
     log(f"local-stage A/B probe (LOCAL_AB_SRC; k_ab_pair<0> the encrypt "
         f"transform's two inverses interleaved, <1> in turn), registers and "
@@ -2490,7 +2882,7 @@ def main() -> int:
             compare("ntt_transform" if kname in ("ntt_forward", "ntt_inverse")
                     else kname, kern(), plain(), errs)
             log(f"check {name} stage {kname} J={J}: equal")
-            if name == STAGE_SET and J == 1 and kname != "decrypt_tail":
+            if name == STAGE_SET and J == 1:   # K2 too: 32k_9q, J = 1
                 timing[kname] = (kern, plain, work)
     cluster_checks(dev, rng, errs)
     encrypt_cluster_checks(dev, rng, errs)
@@ -2506,6 +2898,7 @@ def main() -> int:
             log(f"check {name} {kname} J={J}: equal")
             if name == STAGE_SET and J == 1:
                 timing[kname] = (kern, plain, work)
+    group_checks(dev, rng, behz_ab, errs)
     timing30 = ntt30_checks(dev, rng, errs)
     r_ops = get_bfv_params(OPS_SET).r
     cases_ops = ops_cases(rng, dev)
@@ -3042,6 +3435,13 @@ def main() -> int:
     log(f"K3 (J = 1) and K4 at every cluster size B (device us per call, "
         f"torch.profiler; ms per call of 20 back to back, CUDA events; "
         f"outputs == plain): {json.dumps(op_cluster_times(dev, rng, errs))}")
+    log(f"conversion kernels (21a-c, scale_and_round, the bands) and K2 at "
+        f"every group size G (G=0: the launchers' rule) at {GROUP_SETS}, "
+        f"J = 1, device us per call (torch.profiler, 20 calls a window; the "
+        f"library and its SHARE = false variant in turns library, variant, "
+        f"variant, library; K2 also at V coefficients a thread), beside "
+        f"the bound at the same shape: "
+        f"{json.dumps(group_times(dev, rng, behz_ab, mults, clock_hz))}")
     bounds, terms = {}, {}
     for kname, (kern, plain, work) in timing.items():
         terms[kname] = work.terms(mults, clock_hz)

@@ -4,14 +4,24 @@
 // Replaces the TPU kernel ntt_cuda_tpu/ops/bfv_tail.py decrypt_tail
 // (bfv_tail.py:388, pallas_call :416).  The TPU grid walks the r-1
 // residues in order and carries the two sums in VMEM scratch
-// (bfv_tail.py:365-383); blocks on the card run in no order, so here one
-// thread owns one coefficient of one message and loops over the residues
-// itself.  Every sum is exact modular arithmetic, so the result does not
-// depend on the order.
+// (bfv_tail.py:365-383).  Here one coefficient of one message belongs to
+// a group of G adjacent lanes (G a power of two up to 8; grid (n G / 256,
+// J)): member g sums residue rows g, g + G, ... (behz_sums_rows; rk need
+// not be a multiple of G), the group adds its partial sums with
+// __shfl_xor_sync butterflies (behz_sums_add: a wrapping u64 add of x_t
+// for pow2 t, an add mod t for odd t; x_g mod gamma), and member 0 runs
+// dec_round.  Every sum is exact modular arithmetic, so the result does
+// not depend on G or on the order.  G = 8 puts 8x the warps of one thread
+// a coefficient on the card: at 32k_9q, J = 1, 1024 blocks instead of 128,
+// enough loads in flight to cover the device memory's latency.  The host
+// build runs the same partition: each member's rows, then the group's sum.
 //
 // Bound on the card: device memory, 16 (r-1) bytes read and 8 written per
-// coefficient, about 6 Montgomery products per residue.  Coalesced:
-// neighbouring threads read neighbouring coefficients of one residue row.
+// coefficient.  Each row costs two Shoup products (DecTailConsts.k2_rows:
+// the reference's two Montgomery products by constants folded into one,
+// and bcm_gamma's) where kernels 15 and 17 run three Montgomery products.
+// Coalesced: a warp reads 32 / G consecutive coefficients of each of its
+// rows.
 //
 // Mod-t strategy (bfv_tail._t_strategy): pow2 t uses the reference's mask
 // forms (poly_arithmetic.cuh:217-268); odd t < 2^31 reduces by Barrett with
@@ -30,14 +40,54 @@
 
 #include "behz_sums.cuh"
 
-NTT_HD void decrypt_tail_body(long long idx, const u64* x, const u64* c0,
-                              u64* out, const u64* pm, const u64* gl, int rk,
+#define DT_THREADS 256
+#define DT_MAX_GROUP 8
+#define DT_MAX_ROWS 16  // rows a member: rk <= G * DT_MAX_ROWS
+
+// Coefficient k of message j from its G members' partial sums (member g:
+// rows g, g + G, ..., at most ROWS), added in member order (the host form
+// of the kernel's butterflies).
+template <int ROWS>
+NTT_HD void decrypt_tail_body(long long j, int k, const u64* x, const u64* c0,
+                              u64* out, const u64* kr, const u64* gl, int rk,
                               int n, int pow2, u64 t, u64 neg_t, u64 nu_t,
-                              u64 inv_gt) {
-  out[idx] = dec_round(
-      behz_sums(idx / n, (int)(idx % n), x, c0, pm, gl, rk, n, pow2, t, nu_t),
-      gl, pow2, t, neg_t, nu_t, inv_gt);
+                              u64 inv_gt, int G) {
+  BehzSums s = behz_sums_loaded<ROWS>(j, k, x, c0, kr, gl, rk, n, pow2, t,
+                                      nu_t, 0, G);
+  for (int g = 1; g < G; ++g)
+    s = behz_sums_add(s,
+                      behz_sums_loaded<ROWS>(j, k, x, c0, kr, gl, rk, n, pow2,
+                                             t, nu_t, g, G),
+                      gl, pow2, t);
+  out[(size_t)j * n + k] = dec_round(s, gl, pow2, t, neg_t, nu_t, inv_gt);
 }
+
+// K2's group size G by the launchers' rule (group = 0): the least G >= 2
+// that leaves a member at most four rows (PERF.md, PR 13).
+static int dt_group_rule(int rk) {
+  int G = 2;
+  while (G < DT_MAX_GROUP && 4 * G < rk) G *= 2;
+  return G;
+}
+
+static int dt_lg(int rk, int group) {
+  const int G = group == 0 ? dt_group_rule(rk) : group;
+  int lg = 0;
+  while ((1 << lg) < G) ++lg;
+  return G >= 1 && G <= DT_MAX_GROUP && (1 << lg) == G &&
+                 rk <= G * DT_MAX_ROWS
+             ? lg
+             : -1;
+}
+
+struct DtArgs {
+  const u64 *x, *c0;
+  u64* out;
+  const u64 *kr, *gl;
+  int J, rk, n, pow2;
+  u64 t, neg_t, nu_t, inv_gt;
+  int lg;
+};
 
 // Kernel 17: coefficient k's partial sums over the rank's rl rows, x_t to
 // out[k] (its low 32 bits) and x_g to out[n + k].
@@ -51,15 +101,69 @@ NTT_HD void decrypt_partial_body(long long k, const u64* x, const u64* c0,
 
 #ifdef __CUDACC__
 
-__global__ void k_decrypt_tail(const u64* x, const u64* c0, u64* out,
-                               const u64* pm, const u64* gl, int rk, int n,
-                               int pow2, u64 t, u64 neg_t, u64 nu_t, u64 inv_gt,
-                               long long total) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < total)
-    decrypt_tail_body(idx, x, c0, out, pm, gl, rk, n, pow2, t, neg_t, nu_t,
-                      inv_gt);
+template <int ROWS>
+__global__ void __launch_bounds__(DT_THREADS) k_decrypt_tail(DtArgs a) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  const int k = v >> a.lg, G = 1 << a.lg, g = v & (G - 1);
+  const long long j = blockIdx.y;
+  BehzSums s = {0, 0};
+  if (k < a.n)
+    s = behz_sums_loaded<ROWS>(j, k, a.x, a.c0, a.kr, a.gl, a.rk, a.n, a.pow2,
+                               a.t, a.nu_t, g, G);
+  for (int m = 1; m < G; m <<= 1) {
+    const BehzSums o = {__shfl_xor_sync(0xffffffffu, s.xt, m),
+                        __shfl_xor_sync(0xffffffffu, s.xg, m)};
+    s = behz_sums_add(s, o, a.gl, a.pow2, a.t);
+  }
+  if (g == 0 && k < a.n)
+    a.out[j * a.n + k] =
+        dec_round(s, a.gl, a.pow2, a.t, a.neg_t, a.nu_t, a.inv_gt);
 }
+
+template <int ROWS>
+static void dt_run(const DtArgs& a, cudaStream_t s, int threads) {
+  const dim3 grid(
+      (unsigned)((((long long)a.n << a.lg) + threads - 1) / threads),
+      (unsigned)a.J);
+  k_decrypt_tail<ROWS><<<grid, threads, 0, s>>>(a);
+}
+
+#else  // host build for the CPU tests: each coefficient's members in turn
+
+template <int ROWS>
+static void dt_run(const DtArgs& a, void*, int) {
+  for (long long j = 0; j < a.J; ++j)
+    for (int k = 0; k < a.n; ++k)
+      decrypt_tail_body<ROWS>(j, k, a.x, a.c0, a.out, a.kr, a.gl, a.rk, a.n,
+                              a.pow2, a.t, a.neg_t, a.nu_t, a.inv_gt,
+                              1 << a.lg);
+}
+
+#endif
+
+// ROWS = ceil(rk / G) (runtime) -> the instantiation, 1..DT_MAX_ROWS;
+// blocks of `threads` (a multiple of 32 up to DT_THREADS).
+template <int ROWS = 1, class S>
+static void dt_dispatch(const DtArgs& a, S stream,
+                        int threads = DT_THREADS) {
+  const int G = 1 << a.lg;
+  if ((a.rk + G - 1) / G <= ROWS || ROWS == DT_MAX_ROWS)
+    dt_run<ROWS>(a, stream, threads);
+  else if constexpr (ROWS < DT_MAX_ROWS)
+    dt_dispatch<ROWS + 1>(a, stream, threads);
+}
+
+static bool dt_args(const void* x, const void* c0, void* out, const void* kr,
+                    const void* gl, int J, int rk, int n, int pow2, u64 t,
+                    u64 neg_t, u64 nu_t, u64 inv_gt, int group, DtArgs& a) {
+  a = {(const u64*)x, (const u64*)c0, (u64*)out, (const u64*)kr,
+       (const u64*)gl, J,     rk,    n,     pow2,  t,
+       neg_t,           nu_t,  inv_gt, dt_lg(rk, group)};
+  return J >= 1 && J <= 65535 && n >= 1 && n <= (1 << 27) && rk >= 1 &&
+         a.lg >= 0;
+}
+
+#ifdef __CUDACC__
 
 __global__ void k_decrypt_partial(const u64* x, const u64* c0, u64* out,
                                   const u64* pm, const u64* gl, int rl, int n,
@@ -68,17 +172,17 @@ __global__ void k_decrypt_partial(const u64* x, const u64* c0, u64* out,
   if (k < n) decrypt_partial_body(k, x, c0, out, pm, gl, rl, n, pow2, t, nu_t);
 }
 
+// x, c0 (J, rk, n), out (J, n); group: G lanes a coefficient (0: the
+// launchers' rule).
 extern "C" int ntt_decrypt_tail(const void* x, const void* c0, void* out,
-                                const void* pm, const void* gl, int J, int rk,
+                                const void* kr, const void* gl, int J, int rk,
                                 int n, int pow2, u64 t, u64 neg_t, u64 nu_t,
-                                u64 inv_gt, void* stream) {
-  const long long total = (long long)J * n;
-  if (total < 1 || rk < 1) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  k_decrypt_tail<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const u64*)x, (const u64*)c0, (u64*)out, (const u64*)pm,
-      (const u64*)gl, rk, n, pow2, t, neg_t, nu_t, inv_gt, total);
+                                u64 inv_gt, int group, void* stream) {
+  DtArgs a;
+  if (!dt_args(x, c0, out, kr, gl, J, rk, n, pow2, t, neg_t, nu_t, inv_gt,
+               group, a))
+    return (int)cudaErrorInvalidValue;
+  dt_dispatch(a, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -98,14 +202,14 @@ extern "C" int ntt_decrypt_tail_partial(const void* x, const void* c0,
 #else  // host build for the CPU tests
 
 extern "C" int ntt_decrypt_tail(const void* x, const void* c0, void* out,
-                                const void* pm, const void* gl, int J, int rk,
+                                const void* kr, const void* gl, int J, int rk,
                                 int n, int pow2, u64 t, u64 neg_t, u64 nu_t,
-                                u64 inv_gt, void*) {
-  if ((long long)J * n < 1 || rk < 1) return 1;
-  for (long long idx = 0; idx < (long long)J * n; ++idx)
-    decrypt_tail_body(idx, (const u64*)x, (const u64*)c0, (u64*)out,
-                      (const u64*)pm, (const u64*)gl, rk, n, pow2, t, neg_t,
-                      nu_t, inv_gt);
+                                u64 inv_gt, int group, void* stream) {
+  DtArgs a;
+  if (!dt_args(x, c0, out, kr, gl, J, rk, n, pow2, t, neg_t, nu_t, inv_gt,
+               group, a))
+    return 1;
+  dt_dispatch(a, stream);
   return 0;
 }
 

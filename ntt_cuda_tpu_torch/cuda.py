@@ -53,9 +53,10 @@ SIGNATURES = {
     "ntt_salsa20": (_P, _P, _L, _U32, _U64, _U64, _P),
     # bw, nb, key word, nonces (J,) u64, J, counter0
     "ntt_salsa20_batch": (_P, _L, _U32, _P, _I, _U64, _P),
-    # x, c0, out, per_mod, glob, J, r-1, n, pow2, t, neg_t, nu_t, inv_gt
+    # x, c0, out, k2_rows, glob, J, r-1, n, pow2, t, neg_t, nu_t, inv_gt,
+    # group size G (0: the launchers' rule)
     "ntt_decrypt_tail": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _U64, _U64,
-                         _U64, _U64, _P),
+                         _U64, _U64, _I, _P),
     # x, y, out, 4 tables, consts, P, r, log n, cluster size B (0: the
     # launchers' rule)
     "ntt_half_polymul_cluster": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -102,9 +103,10 @@ SIGNATURES = {
     # pow2, t, neg_t, nu_t, inv_gt, B
     "ntt_decrypt_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _I, _I, _U64, _U64, _U64, _U64, _I, _P),
-    # which, x, xb, out, 7 banks, C, k, n, row0, rl
+    # which, x, xb, out, 7 banks, C, k, n, row0, rl, group size G (0: the
+    # launchers' rule)
     "ntt_behz": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                 _I, _P),
+                 _I, _I, _P),
     # x, out, 4 tables, consts, inverse, P, r, log n, B
     "ntt30_transform": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }

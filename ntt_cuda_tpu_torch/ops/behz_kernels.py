@@ -1,14 +1,17 @@
 """The BEHZ base-conversion kernels of EvalMult and their wrappers.
 
 Counterpart of `ntt_cuda_tpu/ops/behz_pallas.py` (TPU kernels 21a-c):
-`rns_to_bsk`, `fast_floor`, `bsk_to_q` and `scale_and_round` (21b then
-21c).  On a CUDA device each wrapper launches csrc/behz.cu; on the CPU it
-runs the plain version, the ops/behz.py chain, with the same integers out.
+`rns_to_bsk`, `fast_floor`, `bsk_to_q` and `scale_and_round` (21b and
+21c in one launch).  On a CUDA device each wrapper launches csrc/behz.cu
+(`group`: G threads a coefficient, 0 for the launchers' rule; a G the
+kernel does not take raises); on the CPU it runs the plain version, the
+ops/behz.py chain, with the same integers out.
 
 `MultBanks` holds both the plain version's `behz.MultConsts` and the
 kernels' constant banks: native u64 (value, Shoup quotient) pairs, the
 counterparts of `MultPallasConsts` (behz_pallas.py:104-166) without the
-TPU's u32 limb pairs.  Layouts are in csrc/behz.cu.
+TPU's u32 limb pairs, each target's per-target multiplies folded into its
+constants.  Layouts are in csrc/behz.cu.
 
 The band forms `rns_to_bsk_rows`, `fast_floor_rows` and `bsk_to_q_rows`
 (behz_pallas.py:431-489) compute target rows [row0, row0 + rl) alone from
@@ -34,8 +37,9 @@ from .behz import AuxBase, MultConsts
 from .modmath import I64
 
 # csrc/behz.cu BEHZ_*
-RNS_TO_BSK, FAST_FLOOR, BSK_TO_Q = range(3)
+RNS_TO_BSK, FAST_FLOOR, BSK_TO_Q, SCALE_AND_ROUND = range(4)
 MAX_K = 16
+GROUPS = (1, 2, 4, 8)   # the group sizes G the kernels take
 
 
 def _wws(w: int, m: int) -> tuple[int, int]:
@@ -44,16 +48,27 @@ def _wws(w: int, m: int) -> tuple[int, int]:
     return w, hm.shoup(w, m)
 
 
+def _red(m: int) -> tuple[int, int, int]:
+    """The once-per-target reduction of an exact 128-bit linear form
+    (csrc/behz.cu Lin): 2^64 mod m with its Shoup companion, and
+    floor(2^64 / m)."""
+    return _wws(1 << 64, m) + ((1 << 64) // m,)
+
+
 @dataclasses.dataclass(frozen=True)
 class MultBanks:
+    """The conversion kernels' constants: every target of 21a-c one linear
+    form sum_j x_j c_j + e c_e over the prescaled sources and one more
+    input, its constants folding the plain chain's per-target multiplies
+    (layouts in csrc/behz.cu)."""
     mc: MultConsts          # the plain version's constants
     qsrc: torch.Tensor      # (k, 6)
-    tgt: torch.Tensor       # (k+1, 9)
-    amat: torch.Tensor      # (k+1, k, 2)
+    tgt: torch.Tensor       # (k+1, 12)
+    amat: torch.Tensor      # (3, k+1, k, 2): 21a, 21b, scale_and_round
     bsrc: torch.Tensor      # (k, 5)
     bmat: torch.Tensor      # (k, k, 2)
-    bfin: torch.Tensor      # (k, 2)
-    glob: torch.Tensor      # (5,)
+    bfin: torch.Tensor      # (k, 8)
+    glob: torch.Tensor      # (8,)
 
     @property
     def k(self) -> int:
@@ -81,28 +96,40 @@ class MultBanks:
         q_prod, b_prod = behz.prod(qs), behz.prod(aux.b)
         punct_q = [q_prod // qj for qj in qs]
         punct_b = [b_prod // bj for bj in aux.b]
+        inv = hm.modinv
+        # per Bsk target m_i: 1 / m_tilde, 1 / prod(q), and below k
+        # 1 / (B/b_i) (scale_and_round's xp folded into its floor)
+        mtinv = [inv(mt % m, m) for m in bsk]
+        qinv = [inv(q_prod % m, m) for m in bsk]
+        binv = [inv(pb % bj, bj) for pb, bj in zip(punct_b, aux.b)] + [0]
+        pbinv = inv(b_prod % msk, msk)
 
         def bank(rows):
             return torch.tensor([[modmath.as_i64(v) for v in row]
                                  for row in rows], dtype=I64, device=device)
 
-        inv = hm.modinv
+        forms = [[[c for pj in punct_q for c in _wws(f(pj, i), m)]
+                  for i, m in enumerate(bsk)]
+                 for f in (lambda pj, i: pj * mtinv[i],
+                           lambda pj, i: -pj * qinv[i],
+                           lambda pj, i: -pj * qinv[i] * binv[i])]
         return MultBanks(
             mc=MultConsts.build(params, aux, device),
             qsrc=bank([(qj,) + _wws(mt * inv(pj % qj, qj), qj)
                        + _wws(t * inv(pj % qj, qj), qj) + (pj % mt,)
                        for pj, qj in zip(punct_q, qs)]),
-            tgt=bank([(m,) + _wws(q_prod, m) + _wws(inv(mt % m, m), m)
-                      + _wws(t, m) + _wws(inv(q_prod % m, m), m)
-                      for m in bsk]),
-            amat=bank([[c for pj in punct_q for c in _wws(pj, m)]
-                       for m in bsk]).reshape(k + 1, k, 2),
-            bsrc=bank([(bj,) + _wws(inv(pj % bj, bj), bj) + _wws(pj, msk)
-                       for pj, bj in zip(punct_b, aux.b)]),
+            tgt=bank([(m,) + _wws(q_prod * mtinv[i], m)
+                      + _wws(t * qinv[i], m) + _wws(t * qinv[i] * binv[i], m)
+                      + _red(m) + (0, 0) for i, m in enumerate(bsk)]),
+            amat=bank([row for form in forms for row in form]).reshape(
+                3, k + 1, k, 2),
+            bsrc=bank([(bj,) + _wws(binv[j], bj) + _wws(pj * pbinv, msk)
+                       for j, (pj, bj) in enumerate(zip(punct_b, aux.b))]),
             bmat=bank([[c for pj in punct_b for c in _wws(pj, qi)]
                        for qi in qs]).reshape(k, k, 2),
-            bfin=bank([_wws(b_prod, qi) for qi in qs]),
-            glob=bank([(msk, msk >> 1) + _wws(inv(b_prod % msk, msk), msk)
+            bfin=bank([_wws(b_prod, qi) + _wws(-b_prod, qi) + _red(qi) + (0,)
+                       for qi in qs]),
+            glob=bank([(msk, msk >> 1) + _wws(-pbinv, msk) + _red(msk)
                        + ((-pow(q_prod, -1, mt)) % mt,)])[0],
         )
 
@@ -114,13 +141,17 @@ def _lead(name: str, x: torch.Tensor, rows: int) -> tuple:
     return tuple(x.shape[:-2])
 
 
-def _launch(which: int, x, xb, out, mb: MultBanks, row0: int = 0) -> None:
+def _launch(which: int, x, xb, out, mb: MultBanks, row0: int = 0,
+            group: int = 0) -> None:
     """One conversion into out (..., rl, n), target rows [row0, row0 +
-    rl)."""
+    rl), G = group threads a coefficient (0: the launchers' rule)."""
+    if group and group not in GROUPS:
+        raise ValueError(f"group {group}: the kernels take G in {GROUPS}")
     n, rl = x.shape[-1], out.shape[-2]
     cuda.launch("ntt_behz", mb.device, which, x.data_ptr(),
                 None if xb is None else xb.data_ptr(), out.data_ptr(),
-                *mb.kernel_args(), out.numel() // (rl * n), mb.k, n, row0, rl)
+                *mb.kernel_args(), out.numel() // (rl * n), mb.k, n, row0, rl,
+                group)
 
 
 def _kernel_device(name: str, x: torch.Tensor, mb: MultBanks):
@@ -135,7 +166,7 @@ def rns_to_bsk_plain(x, mb: MultBanks) -> torch.Tensor:
     return behz.rns_to_bsk(x, mb.mc)
 
 
-def rns_to_bsk(x, mb: MultBanks) -> torch.Tensor:
+def rns_to_bsk(x, mb: MultBanks, group: int = 0) -> torch.Tensor:
     """(..., k, n) base-q residues -> (..., k+1, n) in Bsk."""
     lead = _lead("x", x, mb.k)
     if x.device.type == "cpu":
@@ -143,7 +174,7 @@ def rns_to_bsk(x, mb: MultBanks) -> torch.Tensor:
     dev = _kernel_device("rns_to_bsk", x, mb)
     cuda.require("x", x, I64, tuple(x.shape), dev)
     out = torch.empty(lead + (mb.k + 1, x.shape[-1]), dtype=I64, device=dev)
-    _launch(RNS_TO_BSK, x, None, out, mb)
+    _launch(RNS_TO_BSK, x, None, out, mb, group=group)
     rns_to_bsk.launches += 1
     return out
 
@@ -157,7 +188,7 @@ def fast_floor_plain(xq, xbsk, mb: MultBanks) -> torch.Tensor:
     return behz.fast_floor(xq, xbsk, mb.mc)
 
 
-def fast_floor(xq, xbsk, mb: MultBanks) -> torch.Tensor:
+def fast_floor(xq, xbsk, mb: MultBanks, group: int = 0) -> torch.Tensor:
     """(..., k, n) and (..., k+1, n), the same value in q and Bsk ->
     floor(t x / q) in Bsk, (..., k+1, n)."""
     lead = _lead("xq", xq, mb.k)
@@ -170,7 +201,7 @@ def fast_floor(xq, xbsk, mb: MultBanks) -> torch.Tensor:
     cuda.require("xq", xq, I64, tuple(xq.shape), dev)
     cuda.require("xbsk", xbsk, I64, tuple(xbsk.shape), dev)
     out = torch.empty_like(xbsk)
-    _launch(FAST_FLOOR, xq, xbsk, out, mb)
+    _launch(FAST_FLOOR, xq, xbsk, out, mb, group=group)
     fast_floor.launches += 1
     return out
 
@@ -184,7 +215,7 @@ def bsk_to_q_plain(x, mb: MultBanks) -> torch.Tensor:
     return behz.bsk_to_q(x, mb.mc)
 
 
-def bsk_to_q(x, mb: MultBanks) -> torch.Tensor:
+def bsk_to_q(x, mb: MultBanks, group: int = 0) -> torch.Tensor:
     """(..., k+1, n) in Bsk -> (..., k, n) in q."""
     lead = _lead("x", x, mb.k + 1)
     if x.device.type == "cpu":
@@ -192,7 +223,7 @@ def bsk_to_q(x, mb: MultBanks) -> torch.Tensor:
     dev = _kernel_device("bsk_to_q", x, mb)
     cuda.require("x", x, I64, tuple(x.shape), dev)
     out = torch.empty(lead + (mb.k, x.shape[-1]), dtype=I64, device=dev)
-    _launch(BSK_TO_Q, x, None, out, mb)
+    _launch(BSK_TO_Q, x, None, out, mb, group=group)
     bsk_to_q.launches += 1
     return out
 
@@ -204,9 +235,26 @@ def scale_and_round_plain(xq, xbsk, mb: MultBanks) -> torch.Tensor:
     return behz.scale_and_round(xq, xbsk, mb.mc)
 
 
-def scale_and_round(xq, xbsk, mb: MultBanks) -> torch.Tensor:
-    """round(t x / q) in base q: 21b then 21c (behz_pallas.py:406)."""
-    return bsk_to_q(fast_floor(xq, xbsk, mb), mb)
+def scale_and_round(xq, xbsk, mb: MultBanks, group: int = 0) -> torch.Tensor:
+    """round(t x / q) in base q (behz_pallas.py:406, 21b then 21c): one
+    launch, each coefficient's k+1 floors kept on chip and converted back
+    to q, (..., k, n) and (..., k+1, n) -> (..., k, n)."""
+    lead = _lead("xq", xq, mb.k)
+    if _lead("xbsk", xbsk, mb.k + 1) != lead or xbsk.shape[-1] != xq.shape[-1]:
+        raise ValueError(f"xbsk: shape {tuple(xbsk.shape)} does not match "
+                         f"xq {tuple(xq.shape)}")
+    if xq.device.type == "cpu":
+        return scale_and_round_plain(xq, xbsk, mb)
+    dev = _kernel_device("scale_and_round", xq, mb)
+    cuda.require("xq", xq, I64, tuple(xq.shape), dev)
+    cuda.require("xbsk", xbsk, I64, tuple(xbsk.shape), dev)
+    out = torch.empty_like(xq)
+    _launch(SCALE_AND_ROUND, xq, xbsk, out, mb, group=group)
+    scale_and_round.launches += 1
+    return out
+
+
+scale_and_round.launches = 0
 
 
 # --- the band forms, for one rank of the RNS-sharded EvalMult ---------------
@@ -375,8 +423,8 @@ def rns_to_bsk_rows_plain(x, mc: SpmdMultConsts, row0: int,
     return modmath.mont_mul(s, mc.inv_mt_mont_bsk[sl], bq, bqinv)
 
 
-def rns_to_bsk_rows(x, mc: SpmdMultConsts, row0: int,
-                    rl: int) -> torch.Tensor:
+def rns_to_bsk_rows(x, mc: SpmdMultConsts, row0: int, rl: int,
+                    group: int = 0) -> torch.Tensor:
     """(..., k, n) base-q residues -> rows [row0, row0 + rl) of
     rns_to_bsk's (..., k+1, n)."""
     lead = _band_lead("x", x, mc.k, row0, rl, mc.k)
@@ -386,7 +434,7 @@ def rns_to_bsk_rows(x, mc: SpmdMultConsts, row0: int,
     dev = _kernel_device("rns_to_bsk_rows", x, mb)
     cuda.require("x", x, I64, tuple(x.shape), dev)
     out = torch.empty(lead + (rl, x.shape[-1]), dtype=I64, device=dev)
-    _launch(RNS_TO_BSK, x, None, out, mb, row0)
+    _launch(RNS_TO_BSK, x, None, out, mb, row0, group)
     rns_to_bsk_rows.launches += 1
     return out
 
@@ -411,8 +459,8 @@ def fast_floor_rows_plain(xq, xb, mc: SpmdMultConsts, row0: int,
     return modmath.mont_mul(diff, mc.inv_prodq_mont_bsk[sl], bq, bqinv)
 
 
-def fast_floor_rows(xq, xb, mc: SpmdMultConsts, row0: int,
-                    rl: int) -> torch.Tensor:
+def fast_floor_rows(xq, xb, mc: SpmdMultConsts, row0: int, rl: int,
+                    group: int = 0) -> torch.Tensor:
     """(..., k, n) base-q and the band's own (..., rl, n) Bsk rows of the
     same value -> rows [row0, row0 + rl) of fast_floor."""
     lead = _band_lead("xq", xq, mc.k, row0, rl, mc.k)
@@ -426,7 +474,7 @@ def fast_floor_rows(xq, xb, mc: SpmdMultConsts, row0: int,
     cuda.require("xq", xq, I64, tuple(xq.shape), dev)
     cuda.require("xb", xb, I64, tuple(xb.shape), dev)
     out = torch.empty_like(xb)
-    _launch(FAST_FLOOR, xq, xb, out, mb, row0)
+    _launch(FAST_FLOOR, xq, xb, out, mb, row0, group)
     fast_floor_rows.launches += 1
     return out
 
@@ -460,7 +508,8 @@ def bsk_to_q_rows_plain(x, mc: SpmdMultConsts, row0: int,
                        modmath.sub_mod(cq, corr, q))
 
 
-def bsk_to_q_rows(x, mc: SpmdMultConsts, row0: int, rl: int) -> torch.Tensor:
+def bsk_to_q_rows(x, mc: SpmdMultConsts, row0: int, rl: int,
+                  group: int = 0) -> torch.Tensor:
     """(..., k+1, n) in Bsk -> rows [row0, row0 + rl) of bsk_to_q's output
     in the padded (..., k+1, n) layout, row k (the dropped modulus's
     slot) 0."""
@@ -471,7 +520,7 @@ def bsk_to_q_rows(x, mc: SpmdMultConsts, row0: int, rl: int) -> torch.Tensor:
     dev = _kernel_device("bsk_to_q_rows", x, mb)
     cuda.require("x", x, I64, tuple(x.shape), dev)
     out = torch.empty(lead + (rl, x.shape[-1]), dtype=I64, device=dev)
-    _launch(BSK_TO_Q, x, None, out, mb, row0)
+    _launch(BSK_TO_Q, x, None, out, mb, row0, group)
     bsk_to_q_rows.launches += 1
     return out
 

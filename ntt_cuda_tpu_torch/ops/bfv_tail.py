@@ -94,6 +94,8 @@ class TailConsts:
 class DecTailConsts:
     per_mod: torch.Tensor  # (r-1, 6): q, -q^-1, prod_t_gamma (Mont),
     #                        inv_punctured (Mont), bcm_t, bcm_g (Mont(gamma))
+    k2_rows: torch.Tensor  # (r-1, 6): K2's q, prod_t_gamma * inv_punctured
+    #                        (w, ws), bcm_t, bcm_g mod gamma (w, ws)
     glob: torch.Tensor     # (4,): gamma, -gamma^-1, gamma // 2, neg_g (Mont)
     dec: poly.DecryptConsts  # the same constants for the plain chain
     ms: ModulusSet           # the r-1 kept moduli
@@ -110,8 +112,16 @@ class DecTailConsts:
     def build(params, device=None) -> "DecTailConsts":
         qs = params.q[:-1]
         nu_t, inv_gt = _t_fields(params)
+        g = params.gamma
+        bcm_t, bcm_g = params.base_change_matrix
+        k2 = []
+        for i, q in enumerate(qs):
+            w = params.prod_t_gamma_mod_q[i] * params.inv_punctured_q[i] % q
+            k2.append((q, w, hm.shoup(w, q), bcm_t[i], bcm_g[i] % g,
+                       hm.shoup(bcm_g[i] % g, g)))
         return DecTailConsts(
             per_mod=_dec_rows(params, 0, len(qs), device),
+            k2_rows=_rows(k2, device),
             glob=_dec_glob(params, device),
             dec=poly.DecryptConsts.build(params, device),
             ms=modmath.ModulusSet.from_moduli(qs, device),
@@ -188,10 +198,14 @@ def decrypt_tail_plain(x, ct0, consts: DecTailConsts) -> torch.Tensor:
     return poly.fast_convert_and_round(y, dc)
 
 
-def decrypt_tail(x, ct0, consts: DecTailConsts) -> torch.Tensor:
+DEC_GROUPS = (1, 2, 4, 8)   # K2's group sizes G (csrc/decrypt_tail.cu)
+
+
+def decrypt_tail(x, ct0, consts: DecTailConsts, group: int = 0) -> torch.Tensor:
     """(r-1, n) x = INTT(NTT(c1) (.) sk), (r-1, n) c0 -> (n,) plaintext; a
     leading J batch dim on both decrypts J messages ((J, r-1, n) ->
-    (J, n)).  The kernel on a CUDA device, the plain chain on the CPU."""
+    (J, n)).  The kernel on a CUDA device (G = group lanes a coefficient,
+    0 for the launchers' rule), the plain chain on the CPU."""
     if x.device.type == "cpu":
         return decrypt_tail_plain(x, ct0, consts)
     if x.device.type != "cuda":
@@ -199,14 +213,16 @@ def decrypt_tail(x, ct0, consts: DecTailConsts) -> torch.Tensor:
     single = x.dim() == 2
     J = 1 if single else x.shape[0]
     rk, n = x.shape[-2:]
+    if group and group not in DEC_GROUPS:
+        raise ValueError(f"group {group}: the kernel takes G in {DEC_GROUPS}")
     for name, tns in (("x", x), ("ct0", ct0)):
         cuda.require(name, tns, I64, tuple(x.shape), consts.per_mod.device)
     out = torch.empty((J, n), dtype=I64, device=x.device)
     pow2, t, neg_t, nu_t, inv_gt = _t_strategy(consts.tmeta)
     cuda.launch("ntt_decrypt_tail", x.device, x.data_ptr(), ct0.data_ptr(),
-                out.data_ptr(), consts.per_mod.data_ptr(),
+                out.data_ptr(), consts.k2_rows.data_ptr(),
                 consts.glob.data_ptr(), J, rk, n, pow2, t, neg_t, nu_t,
-                inv_gt)
+                inv_gt, group)
     decrypt_tail.launches += 1
     return out[0] if single else out
 

@@ -9,10 +9,15 @@ Every comparison is exact (tolerance 0).
    4k_3q, and with the 32k_9q and 32k_16q constants over n = 1024 (the
    conversions are per coefficient).
 3. The same at 4k_3q against the JAX package's Pallas kernels
-   (`behz_pallas`) in interpret mode.
+   (`behz_pallas`) in interpret mode, and the one-launch scale_and_round
+   of csrc/behz.cu (built with g++ as host code) at every group size G
+   against `behz_pallas.scale_and_round` in interpret mode.
 """
 
+import ctypes
 import dataclasses
+import shutil
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +27,7 @@ import torch
 from ntt_cuda_tpu.ops import behz as jbehz
 from ntt_cuda_tpu.ops import behz_pallas
 from ntt_cuda_tpu.params import get_bfv_params as jget
-from ntt_cuda_tpu_torch import BFV_SETS, convert, get_bfv_params
+from ntt_cuda_tpu_torch import BFV_SETS, convert, cuda, get_bfv_params
 from ntt_cuda_tpu_torch.ops import behz, behz_kernels
 
 
@@ -141,6 +146,49 @@ def test_plain_conversions_match_pallas_interpret():
         behz_pallas.fast_floor(jq, jb, mpc, interpret=True))
     _eq(behz_kernels.bsk_to_q_plain(tb, mb),
         behz_pallas.bsk_to_q(jb, mpc, interpret=True))
+
+
+@pytest.fixture(scope="module")
+def behz_host_lib(tmp_path_factory):
+    """csrc/behz.cu alone built as host C++ with g++, bound like the CUDA
+    build's ntt_behz."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not available to build the kernels as host code")
+    out = tmp_path_factory.mktemp("behzhost") / "libbehz_host.so"
+    subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC",
+                    "-o", str(out), str(cuda.CSRC / "behz.cu")], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    lib.ntt_behz.argtypes = list(cuda.SIGNATURES["ntt_behz"])
+    lib.ntt_behz.restype = ctypes.c_int
+    return lib
+
+
+def test_host_scale_and_round_matches_pallas_interpret(behz_host_lib):
+    """The one-launch scale_and_round (21b's floors kept on chip and
+    converted back to q) at every G, against the JAX package's two Pallas
+    kernels in interpret mode at 4k_3q, alpha at m_sk / 2 included."""
+    p, jp = get_bfv_params("4k_3q"), jget("4k_3q")
+    mb = behz_kernels.MultBanks.build(p)
+    mpc = behz_pallas.MultPallasConsts.build(jp)
+    aux = behz.AuxBase.build(p)
+    k = p.r - 1
+    rng = np.random.default_rng(11)
+    xq = _residues(rng, p.q[:-1], (2,), p.n)
+    xb = _residues(rng, aux.bsk, (2,), p.n)
+    xb[0, k, 1] = _xm_at_half(xb[0, :k, 1], aux)
+    tq, tb = (convert.to_torch(v, device="cpu") for v in (xq, xb))
+    ref = behz_pallas.scale_and_round(jnp.asarray(xq), jnp.asarray(xb), mpc,
+                                      interpret=True)
+    _eq(behz_kernels.scale_and_round_plain(tq, tb, mb), ref)
+    for G in (0,) + behz_kernels.GROUPS:
+        out = torch.empty_like(tq)
+        assert behz_host_lib.ntt_behz(
+            behz_kernels.SCALE_AND_ROUND, tq.data_ptr(), tb.data_ptr(),
+            out.data_ptr(), *mb.kernel_args(), 2, k, p.n, 0, k, G,
+            None) == 0
+        _eq(out, ref)
 
 
 def test_wrappers_check_shapes():

@@ -15,6 +15,7 @@ Two ways:
 """
 
 import ctypes
+import functools
 import shutil
 import subprocess
 
@@ -458,10 +459,23 @@ def test_host_op_cluster_refusals(host_lib):
             torch.testing.assert_close(g, r, rtol=0, atol=0)
 
 
+def _host_decrypt_tail(host_lib, x, c0, dt, group):
+    J, rk, n = x.shape
+    out = torch.empty((J, n), dtype=torch.int64)
+    rc = host_lib.ntt_decrypt_tail(
+        x.data_ptr(), c0.data_ptr(), out.data_ptr(), dt.k2_rows.data_ptr(),
+        dt.glob.data_ptr(), J, rk, n, *bfv_tail._t_strategy(dt.tmeta), group,
+        None)
+    return rc, out
+
+
 @pytest.mark.parametrize("params", [SMALL, SMALL_ODD_T], ids=["pow2_t",
                                                               "odd_t"])
 @pytest.mark.parametrize("J", [1, 3])
 def test_host_decrypt_tail(host_lib, params, J):
+    """K2 at every group size G (0: the rule), the residue rows of a
+    coefficient summed by G members and added as the kernel's shuffles
+    add them."""
     p = params
     rng = np.random.default_rng(20 + J)
     dt = bfv_tail.DecTailConsts.build(p)
@@ -471,13 +485,35 @@ def test_host_decrypt_tail(host_lib, params, J):
     for i, q in enumerate(p.q[:-1]):
         x[:, i, :3] = torch.tensor([q - 1, 0, 5])
         c0[:, i, :3] = torch.tensor([1, 0, q - 5])
-    out = torch.empty((J, p.n), dtype=torch.int64)
-    assert host_lib.ntt_decrypt_tail(
-        x.data_ptr(), c0.data_ptr(), out.data_ptr(), dt.per_mod.data_ptr(),
-        dt.glob.data_ptr(), J, p.r - 1, p.n,
-        *bfv_tail._t_strategy(dt.tmeta), None) == 0
     ref = bfv_tail.decrypt_tail_plain(x, c0, dt)
-    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    for G in (0,) + bfv_tail.DEC_GROUPS:
+        rc, out = _host_decrypt_tail(host_lib, x, c0, dt, G)
+        assert rc == 0
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    for G in (-1, 3, 16):
+        assert _host_decrypt_tail(host_lib, x, c0, dt, G)[0] != 0
+
+
+@functools.cache
+def _rk_params(rk: int, t: int):
+    return primegen.make_bfv_params(256, 40, rk + 1, t=t)
+
+
+@pytest.mark.parametrize("t", [1024, 12289], ids=["pow2_t", "odd_t"])
+@pytest.mark.parametrize("rk", range(1, 17))
+def test_host_decrypt_tail_every_rk(host_lib, rk, t):
+    """K2 at rk = 1..16 residue rows, every G (rk not a multiple of G
+    included), against its plain version, J = 2, n = 256."""
+    p = _rk_params(rk, t)
+    rng = np.random.default_rng(rk + t)
+    dt = bfv_tail.DecTailConsts.build(p)
+    x = _rand_res(rng, p.q[:-1], p.n, (2,))
+    c0 = _rand_res(rng, p.q[:-1], p.n, (2,))
+    ref = bfv_tail.decrypt_tail_plain(x, c0, dt)
+    for G in (0,) + bfv_tail.DEC_GROUPS:
+        rc, out = _host_decrypt_tail(host_lib, x, c0, dt, G)
+        assert rc == 0
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 
 # The stage launchers' cases: (J, B), B the cluster size (blocks per
@@ -717,22 +753,40 @@ def _xm_at_half(xb_col, aux) -> int:
     return (cm - (msk >> 1) * b_prod) % msk
 
 
-def _host_behz(host_lib, which, x, xb, out, mb, row0=0):
+def _host_behz(host_lib, which, x, xb, out, mb, row0=0, group=0):
     """One conversion into out (..., rl, n): target rows [row0, row0 + rl),
-    the whole output at row0 = 0."""
+    the whole output at row0 = 0; G = group threads a coefficient (0: the
+    launchers' rule)."""
     k, n, rl = mb.k, x.shape[-1], out.shape[-2]
     C = out.numel() // (rl * n)
     return host_lib.ntt_behz(which, x.data_ptr(),
                              None if xb is None else xb.data_ptr(),
                              out.data_ptr(), *mb.kernel_args(), C, k, n, row0,
-                             rl, None)
+                             rl, group, None)
+
+
+def _check_host_behz(host_lib, mb, xq, xb):
+    """21a-c and the one-launch scale_and_round at every group size G
+    against their plain versions."""
+    for which, args, plain in (
+            (behz_kernels.RNS_TO_BSK, (xq, None), behz_kernels.rns_to_bsk_plain),
+            (behz_kernels.FAST_FLOOR, (xq, xb), behz_kernels.fast_floor_plain),
+            (behz_kernels.BSK_TO_Q, (xb, None), behz_kernels.bsk_to_q_plain),
+            (behz_kernels.SCALE_AND_ROUND, (xq, xb),
+             behz_kernels.scale_and_round_plain)):
+        ref = plain(*[a for a in args if a is not None], mb)
+        for G in (0,) + behz_kernels.GROUPS:
+            out = torch.empty_like(ref)
+            assert _host_behz(host_lib, which, *args, out, mb, group=G) == 0
+            torch.testing.assert_close(out, ref, rtol=0, atol=0,
+                                       msg=f"which {which} G {G}")
 
 
 def test_host_behz(host_lib, banks):
-    """Kernels 21a-c against ops/behz.py with a (J, C) = (2, 3) lead,
-    values at the range ends and alpha at m_sk / 2 included.  The
-    conversions are per coefficient, so the 32k sets' constants are
-    checked over n = 2048."""
+    """Kernels 21a-c and scale_and_round against ops/behz.py with a (J, C)
+    = (2, 3) lead, values at the range ends and alpha at m_sk / 2
+    included, at every group size G.  The conversions are per coefficient,
+    so the 32k sets' constants are checked over n = 2048."""
     params, mb = banks
     mc = mb.mc
     k, n = mb.k, 2048
@@ -745,24 +799,42 @@ def test_host_behz(host_lib, banks):
     xb[..., :2] = torch.tensor([[0, m - 1] for m in bsk])
     aux = behz.AuxBase.build(params)
     xb[0, 0, k, 2] = _xm_at_half(xb[0, 0, :k, 2].tolist(), aux)
-    for which, args, plain in (
-            (behz_kernels.RNS_TO_BSK, (xq, None), behz_kernels.rns_to_bsk_plain),
-            (behz_kernels.FAST_FLOOR, (xq, xb), behz_kernels.fast_floor_plain),
-            (behz_kernels.BSK_TO_Q, (xb, None), behz_kernels.bsk_to_q_plain)):
-        ref = plain(*[a for a in args if a is not None], mb)
-        out = torch.empty_like(ref)
-        assert _host_behz(host_lib, which, *args, out, mb) == 0
-        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    _check_host_behz(host_lib, mb, xq, xb)
+
+
+@pytest.mark.parametrize("k", range(1, behz_kernels.MAX_K + 1))
+def test_host_behz_every_k(host_lib, k):
+    """Every K instantiation of the conversion kernels, k = 1..16 (a
+    generated r = k + 1 set at n = 256, (2, 2) lead, n not a multiple of
+    the block's coefficients at G = 1), at every G."""
+    params = primegen.make_bfv_params(256, 36, k + 1)
+    mb = behz_kernels.MultBanks.build(params)
+    rng = np.random.default_rng(k)
+    n = 200
+    xq = _rand_res(rng, params.q[:-1], n, (2, 2))
+    xb = _rand_res(rng, [int(v) for v in mb.mc.ms_bsk.q.flatten()], n,
+                   (2, 2))
+    _check_host_behz(host_lib, mb, xq, xb)
 
 
 def test_host_behz_rejects_bad_arguments(host_lib, banks):
     _, mb = banks
-    x = torch.zeros((mb.k + 1, 64), dtype=torch.int64)
+    k = mb.k
+    x = torch.zeros((k + 1, 64), dtype=torch.int64)
     assert _host_behz(host_lib, behz_kernels.FAST_FLOOR, x, None, x,
                       mb) != 0                  # fast_floor needs xb
     assert host_lib.ntt_behz(7, x.data_ptr(), None, x.data_ptr(),
-                             *mb.kernel_args(), 1, mb.k, 64, 0, mb.k,
+                             *mb.kernel_args(), 1, k, 64, 0, k, 0,
                              None) != 0
+    for G in (-1, 3, 16):                       # G: a power of two <= 8
+        assert _host_behz(host_lib, behz_kernels.RNS_TO_BSK, x[:k], None, x,
+                          mb, group=G) != 0
+    # scale_and_round: the whole of q, and xb
+    for row0, rl, xb in ((0, k + 1, x), (1, k, x), (0, k, None)):
+        assert host_lib.ntt_behz(
+            behz_kernels.SCALE_AND_ROUND, x.data_ptr(), _ptr(xb),
+            x.data_ptr(), *mb.kernel_args(), 1, k, 64, row0, rl, 0,
+            None) != 0
 
 
 @pytest.mark.parametrize("J", [1, 2])
@@ -937,8 +1009,9 @@ def test_cuda_kernels_match_plain(cuda_device, name):
                            fused_ops.half_polymul_plain(x, got[0][:-1],
                                                         ctx.tables_drop))
         dt = ctx.dec_tail_consts
-        assert torch.equal(bfv_tail.decrypt_tail(x, c0, dt),
-                           bfv_tail.decrypt_tail_plain(x, c0, dt))
+        ref = bfv_tail.decrypt_tail_plain(x, c0, dt)
+        for G in (0,) + bfv_tail.DEC_GROUPS:
+            assert torch.equal(bfv_tail.decrypt_tail(x, c0, dt, G), ref), G
         draws = [sampling.encrypt_draws_compact(p.n, nonce=k + 1,
                                                 device=cuda_device)
                  for k in range(J)]
@@ -1117,7 +1190,8 @@ def test_cuda_op_cluster_sizes_match_plain(cuda_device, name):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["4k_3q", "32k_9q", "32k_16q"])
 def test_cuda_mult_kernels_match_plain(cuda_device, name):
-    """Kernels 21a-c, 11 and 19 and the transforms over Bsk on the card."""
+    """Kernels 21a-c and scale_and_round at every group size G, 11 and 19
+    and the transforms over Bsk on the card."""
     p = get_bfv_params(name)
     ctx = BFVContext.build(p, device=cuda_device)
     st = ctx._mult_setup()
@@ -1131,8 +1205,13 @@ def test_cuda_mult_kernels_match_plain(cuda_device, name):
                 (behz_kernels.rns_to_bsk, behz_kernels.rns_to_bsk_plain, (xq,)),
                 (behz_kernels.fast_floor, behz_kernels.fast_floor_plain,
                  (xq, xb)),
-                (behz_kernels.bsk_to_q, behz_kernels.bsk_to_q_plain, (xb,))):
-            assert torch.equal(kern(*args, mb), plain(*args, mb)), kern.__name__
+                (behz_kernels.bsk_to_q, behz_kernels.bsk_to_q_plain, (xb,)),
+                (behz_kernels.scale_and_round,
+                 behz_kernels.scale_and_round_plain, (xq, xb))):
+            ref = plain(*args, mb)
+            for G in (0,) + behz_kernels.GROUPS:
+                assert torch.equal(kern(*args, mb, G), ref), (kern.__name__,
+                                                              G)
         c2 = _rand_res(rng, p.q[:-1], p.n, (J,)).to(cuda_device)
         ksk = _rand_res(rng, p.q, p.n, (2, k)).to(cuda_device)
         assert torch.equal(

@@ -317,19 +317,20 @@ def host_lib(tmp_path_factory):
     return cuda.bind(ctypes.CDLL(str(out)))
 
 
-def _host_band(lib, which, x, xb, out, mc, row0):
+def _host_band(lib, which, x, xb, out, mc, row0, group=0):
     n, rl = x.shape[-1], out.shape[-2]
     return lib.ntt_behz(which, x.data_ptr(),
                         None if xb is None else xb.data_ptr(), out.data_ptr(),
                         *mc.banks.kernel_args(), out.numel() // (rl * n),
-                        mc.k, n, row0, rl, None)
+                        mc.k, n, row0, rl, group, None)
 
 
 @pytest.mark.parametrize("name", ["r4", "4k_3q", "32k_9q", "32k_16q"])
 def test_host_band_conversions(host_lib, name):
     """Every band of R = 1, 2, ... ranks that divides r, and one odd band;
-    (2, 3) leads.  The conversions are per coefficient, so the 32k sets'
-    constants are checked over n = 2048."""
+    (2, 3) leads; every group size G of the kernels (0: the rule).  The
+    conversions are per coefficient, so the 32k sets' constants are
+    checked over n = 2048."""
     pp, aux, mc = _consts(name)
     k, n = mc.k, 2048
     rng = np.random.default_rng(k)
@@ -347,9 +348,11 @@ def test_host_band_conversions(host_lib, name):
                 (behz_kernels.BSK_TO_Q, (xb, None),
                  behz_kernels.bsk_to_q_rows_plain)):
             ref = plain(*[a for a in args if a is not None], mc, row0, rl)
-            out = torch.empty_like(ref)
-            assert _host_band(host_lib, which, *args, out, mc, row0) == 0
-            assert torch.equal(out, ref), (which, row0, rl)
+            for G in (0,) + behz_kernels.GROUPS:
+                out = torch.empty_like(ref)
+                assert _host_band(host_lib, which, *args, out, mc, row0,
+                                  G) == 0
+                assert torch.equal(out, ref), (which, row0, rl, G)
     out = torch.empty((2, 3, 2, n), dtype=torch.int64)
     assert _host_band(host_lib, behz_kernels.BSK_TO_Q, xb, None, out, mc,
                       k) != 0                  # rows k, k + 1: past the pad

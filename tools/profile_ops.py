@@ -2,11 +2,11 @@
 
     python3 tools/profile_ops.py [--set 32k_9q] [--fusion auto] [--reps 30]
                                  [--ops keygen,encrypt,...] [--spmd]
-                                 [--ntt30] [--root DIR]
+                                 [--ntt30] [--kernels] [--root DIR]
 
 For keygen, encrypt, decrypt, decrypt_batch (J = 3), encrypt_batch
 (J = 16, nonces 1..16), the EvalMult ops (mul, mul with
-relinearization, relin_keygen, relinearize), apply_galois (g = 3) and
+relinearization, square, relin_keygen, relinearize), apply_galois (g = 3) and
 decrypt's back half on x = NTT(c1) (`decrypt_back_15`: kernel 15;
 `decrypt_back_8_K2`: kernel 8 + K2, as `BFVContext.decrypt` runs it) of
 one parameter set, through `BFVContext` (`--ops` picks some of them), or
@@ -16,7 +16,11 @@ the RNS-sharded `SpmdBFVContext` and mul, relinearize and apply_galois
 through the 2-D `Spmd2DBFVContext` (`keygen_2d`, ...; mesh (1, 1)), at
 world size 1 over NCCL, or with `--ntt30` for kernel 22 alone
 (`ntt30_fwd_32768`, ... : forward and inverse at (16, 1, n), n = 2^15 and
-2^16, int32, bench.py's shape), prints one JSON line per op:
+2^16, int32, bench.py's shape), or with `--kernels` for the BEHZ
+conversions and K2 alone through their wrappers at the set's EvalMult
+shapes, J = 1 (`rns_to_bsk` over (2, 2, k, n), `fast_floor`, `bsk_to_q`
+and `scale_and_round` over (3, ., n), the band forms at rows [0, r),
+`decrypt_tail` at (r-1, n) and (3, r-1, n)), prints one JSON line per op:
 
 * `event_ms`: median CUDA-event time around one call;
 * `sync_wall_ms`: median host time of one call ending in
@@ -57,7 +61,8 @@ ROOT = (Path(sys.argv[sys.argv.index("--root") + 1]).resolve()
 sys.path.insert(0, str(ROOT))
 
 from ntt_cuda_tpu_torch import BFVContext, get_bfv_params  # noqa: E402
-from ntt_cuda_tpu_torch.ops import bfv_tail, ntt30, ntt_stage  # noqa: E402
+from ntt_cuda_tpu_torch.ops import (behz, behz_kernels,  # noqa: E402
+                                    bfv_tail, ntt30, ntt_stage)
 from ntt_cuda_tpu_torch.params import get_params  # noqa: E402
 from ntt_cuda_tpu_torch.parallel import (multihost, spmd,  # noqa: E402
                                          spmd2d, spmd_mult)
@@ -113,6 +118,8 @@ def main() -> int:
                     help="the sharded programs at world size 1 (NCCL)")
     ap.add_argument("--ntt30", action="store_true",
                     help="kernel 22 at (16, 1, n), n = 2^15 and 2^16")
+    ap.add_argument("--kernels", action="store_true",
+                    help="the BEHZ conversions and K2 alone at --set")
     ap.add_argument("--root", default=str(ROOT),
                     help="the checkout whose package is timed")
     args = ap.parse_args()
@@ -125,6 +132,8 @@ def main() -> int:
     msgs = np.random.default_rng(1).integers(0, p.t, (16, p.n))
     if args.ntt30:
         fusion, ops = "ntt30", ntt30_ops()
+    elif args.kernels:
+        fusion, ops = "kernels", kernel_ops(p)
     else:
         fusion, ops = (spmd_ops(p, msgs) if args.spmd
                        else bfv_ops(p, args.fusion, msgs))
@@ -189,6 +198,7 @@ def bfv_ops(p, fusion: str, msgs) -> tuple[str, dict]:
                                                        list(range(1, 17))),
         "mul": lambda: ctx.mul(cts[0], cts[1]),
         "mul_relin": lambda: ctx.mul(cts[0], cts[1], rlk=rlk),
+        "square": lambda: ctx.square(cts[0]),
         "relin_keygen": lambda: ctx.relin_keygen(sk, nonce=1),
         "relinearize": lambda: ctx.relinearize(ct3, rlk),
         "apply_galois": lambda: ctx.apply_galois(cts[0], 3, gk),
@@ -215,6 +225,37 @@ def ntt30_ops() -> dict:
         ops[f"ntt30_fwd_{n}"] = lambda x=x, tb=tb: ntt30.ntt_forward(x, tb)
         ops[f"ntt30_inv_{n}"] = lambda f=f, tb=tb: ntt30.ntt_inverse(f, tb)
     return ops
+
+
+def kernel_ops(p) -> dict:
+    """The BEHZ conversions (21a-c, scale_and_round, the bands at rows
+    [0, r)) and K2 by name, through their wrappers, on seeded residues at
+    the EvalMult path's shapes (J = 1)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n, k = p.n, p.r - 1
+    rng = np.random.default_rng(2)
+
+    def res(qs, lead):
+        return torch.from_numpy(np.stack(
+            [rng.integers(0, q, lead + (n,)) for q in qs], axis=-2)).to(dev)
+    aux = behz.AuxBase.build(p)
+    mc = behz_kernels.SpmdMultConsts.build(p, aux, dev)
+    mb, dt = mc.banks, bfv_tail.DecTailConsts.build(p, dev)
+    xa, xq, xb = res(p.q[:k], (2, 2)), res(p.q[:k], (3,)), res(aux.bsk, (3,))
+    x1, c1 = res(p.q[:k], ()), res(p.q[:k], ())
+    x3, c3 = res(p.q[:k], (3,)), res(p.q[:k], (3,))
+    bk, r = behz_kernels, p.r
+    return {
+        "rns_to_bsk": lambda: bk.rns_to_bsk(xa, mb),
+        "fast_floor": lambda: bk.fast_floor(xq, xb, mb),
+        "bsk_to_q": lambda: bk.bsk_to_q(xb, mb),
+        "scale_and_round": lambda: bk.scale_and_round(xq, xb, mb),
+        "rns_to_bsk_rows": lambda: bk.rns_to_bsk_rows(xa, mc, 0, r),
+        "fast_floor_rows": lambda: bk.fast_floor_rows(xq, xb, mc, 0, r),
+        "bsk_to_q_rows": lambda: bk.bsk_to_q_rows(xb, mc, 0, r),
+        "decrypt_tail": lambda: bfv_tail.decrypt_tail(x1, c1, dt),
+        "decrypt_tail_J3": lambda: bfv_tail.decrypt_tail(x3, c3, dt),
+    }
 
 
 def spmd_ops(p, msgs) -> tuple[str, dict]:
