@@ -8,8 +8,7 @@ SASS gives the integer multiply instructions of one Shoup butterfly and
 one Montgomery product (for each kernel's bound), a probe library that
 runs the cluster kernels' local stages two ways (LOCAL_AB_SRC: the stage
 kernels' loop against tiled passes, the encrypt transform's two inverses
-interleaved against in turn), and one with the timing variants of the
-BEHZ conversions and K2 (BEHZ_AB_SRC).  Then:
+interleaved against in turn).  Then:
 
 1. every kernel exactly (tolerance 0) against its plain PyTorch version on
    the card: the op kernels K1-K5 at 4k_3q and 16k_5q, K3-K5 also at
@@ -28,9 +27,9 @@ BEHZ conversions and K2 (BEHZ_AB_SRC).  Then:
    J = 1 and 16, also against K1 row by row; the EvalMult kernels (BEHZ
    21a-c, kernel 11, the key switch 19) at 4k_3q, 16k_5q and 32k_9q,
    21a-c and 19 also at 32k_16q, J = 1 and 2; 21a-c, the one-launch
-   scale_and_round, their bands and K2 at every group size G (threads a
-   coefficient) at 4k_3q, 16k_5q, 32k_9q and 32k_16q, J = 1 and 2 (K2 1
-   and 3), with BEHZ_AB_SRC's variants; kernel 22 (one cluster
+   scale_and_round, their bands and K2 at 4k_3q, 16k_5q, 32k_9q and
+   32k_16q, J = 1 and 2 (K2 1 and 3), each at the group size G (threads
+   a coefficient) the launchers' rule takes there; kernel 22 (one cluster
    launch at every n) at n = 2^11, 2^14, 2^15 and 2^16, (1, 1, n) and
    (16, 1, n), int32 and int64, forward and inverse, by the rule and at
    every cluster size B (B = 1 at 2^16, whose n/B buffer does not fit a
@@ -263,7 +262,7 @@ SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
 
 # name -> (wrappers, CUDA source, the TPU kernel it replaces, the main
 # paths that run it; its `launches` are the first path's: the EvalMult
-# path's wherever it runs the kernel)
+# path's wherever it runs the kernel, 0 where no path does)
 KERNELS = {
     "salsa20_keystream": ((salsa20.keystream_block_words,),
                           "ntt_cuda_tpu_torch/csrc/salsa20.cu",
@@ -327,15 +326,16 @@ KERNELS = {
     "behz_rns_to_bsk": ((behz_kernels.rns_to_bsk,),
                         "ntt_cuda_tpu_torch/csrc/behz.cu",
                         "ntt_cuda_tpu/ops/behz_pallas.py:183", ("mult",)),
-    # 21b and 21c: their own launches and the one-launch scale_and_round,
-    # which runs both bodies (mul and square launch it, not the two)
-    "behz_fast_floor": ((behz_kernels.fast_floor,
-                         behz_kernels.scale_and_round),
+    # 21b and 21c alone: no main path launches them (mul and square run
+    # both bodies in one launch, scale_and_round, the next row; the
+    # sharded EvalMult their band form, the rows below), so their
+    # launches are 0
+    "behz_fast_floor": ((behz_kernels.fast_floor,),
                         "ntt_cuda_tpu_torch/csrc/behz.cu",
-                        "ntt_cuda_tpu/ops/behz_pallas.py:227", ("mult",)),
-    "behz_bsk_to_q": ((behz_kernels.bsk_to_q, behz_kernels.scale_and_round),
+                        "ntt_cuda_tpu/ops/behz_pallas.py:227", ()),
+    "behz_bsk_to_q": ((behz_kernels.bsk_to_q,),
                       "ntt_cuda_tpu_torch/csrc/behz.cu",
-                      "ntt_cuda_tpu/ops/behz_pallas.py:258", ("mult",)),
+                      "ntt_cuda_tpu/ops/behz_pallas.py:258", ()),
     "behz_scale_and_round": ((behz_kernels.scale_and_round,),
                              "ntt_cuda_tpu_torch/csrc/behz.cu",
                              "ntt_cuda_tpu/ops/behz_pallas.py:406",
@@ -1435,146 +1435,23 @@ def mult_cases(ctx: BFVContext, rng, dev, addneg: bool = True):
 
 
 # The conversion kernels (csrc/behz.cu) and K2 (csrc/decrypt_tail.cu) at
-# every group size G (threads a coefficient): the sets they are held and
-# timed at, and the bands of the sharded EvalMult at each (R = 1's rows
-# and the last rank of R = 3's, with m_sk's row and bsk_to_q's pad row).
+# the group size G (threads a coefficient) the launchers' rule takes: the
+# sets they are held and timed at (G = 2 below 2^16 coefficients a launch,
+# 1 from there; K2 2 up to 8 residue rows, then 4), and the bands of the
+# sharded EvalMult at each (R = 1's rows and the last rank of R = 3's,
+# with m_sk's row and bsk_to_q's pad row).
 GROUP_SETS = ("4k_3q", "16k_5q", "32k_9q", "32k_16q")
-GROUP_GS = (0,) + behz_kernels.GROUPS      # 0: the launchers' rule
-DEC_GS = (0,) + bfv_tail.DEC_GROUPS
 
 
 def group_bands(r: int) -> tuple:
     return ((0, r), (r - max(r // 3, 1), max(r // 3, 1)))
 
 
-# Timing variants built beside the library (BEHZ_AB_SRC, the library's own
-# behz.cu built with BEHZ_INNER_CANONICAL, and behz_sums.cuh): ab_behz, the
-# conversions with every inner-product term a Shoup product added
-# canonically, share = 1 with the library's shared exchange of the
-# prescaled residues, share = 0 with every member prescaling all k sources
-# itself (SHARE = false); ab_dt_multi, K2 with V coefficients a thread and
-# every row's loads issued before its products; ab_dt_block, K2 by the
-# launchers' rule in blocks of 64 or 128 threads (the library's: 256);
-# ab_empty, an empty launch.
-BEHZ_AB_SRC = r"""
-#define BEHZ_INNER_CANONICAL 1
-#include "behz.cu"
-#include "decrypt_tail.cu"
-extern "C" int ab_behz(int which, const void* x, const void* xb, void* out,
-                       const void* qsrc, const void* tgt, const void* amat,
-                       const void* bsrc, const void* bmat, const void* bfin,
-                       const void* glob, int C, int k, int n, int row0,
-                       int rl, int group, int share, void* stream) {
-  const int lg = behz_lg(group == 0 ? behz_group_rule(C, n) : group);
-  if (!behz_args_ok(which, xb, C, k, n, row0, rl, lg)) return BEHZ_BAD_ARGS;
-  const BehzIO io = behz_io(x, xb, out, qsrc, tgt, amat, bsrc, bmat, bfin,
-                            glob, k, n, row0, rl, lg);
-  return share ? behz_launch<true>(which, io, C, (cudaStream_t)stream)
-               : behz_launch<false>(which, io, C, (cudaStream_t)stream);
-}
-template <int V>
-__global__ void __launch_bounds__(256) k_dt_multi(
-    const u64* x, const u64* c0, u64* out, const u64* pm, const u64* gl,
-    int rk, int n, int pow2, u64 t, u64 neg_t, u64 nu_t, u64 inv_gt) {
-  const int k0 = blockIdx.x * 256 * V + threadIdx.x;
-  const size_t j = blockIdx.y;
-  BehzSums acc[V];
-#pragma unroll
-  for (int v = 0; v < V; ++v) acc[v] = {0, 0};
-  for (int i = 0; i < rk; ++i) {
-    const u64* p = pm + 6 * i;
-    u64 xs[V], cs[V];
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const int k = k0 + 256 * v;
-      const size_t off = (j * rk + i) * n + k;
-      xs[v] = k < n ? x[off] : 0;
-      cs[v] = k < n ? c0[off] : 0;
-    }
-#pragma unroll
-    for (int v = 0; v < V; ++v)
-      behz_row_shoup(acc[v], xs[v], cs[v], p, gl[0], pow2, t, nu_t);
-  }
-#pragma unroll
-  for (int v = 0; v < V; ++v) {
-    const int k = k0 + 256 * v;
-    if (k < n)
-      out[j * n + k] = dec_round(acc[v], gl, pow2, t, neg_t, nu_t, inv_gt);
-  }
-}
-extern "C" int ab_dt_multi(int V, const void* x, const void* c0, void* out,
-                           const void* pm, const void* gl, int J, int rk,
-                           int n, int pow2, u64 t, u64 neg_t, u64 nu_t,
-                           u64 inv_gt, void* stream) {
-  const dim3 grid((unsigned)((n + 256 * V - 1) / (256 * V)), (unsigned)J);
-  cudaStream_t s = (cudaStream_t)stream;
-  const u64 *a = (const u64*)x, *b = (const u64*)c0, *p = (const u64*)pm,
-            *g = (const u64*)gl;
-  u64* o = (u64*)out;
-  if (V == 2)
-    k_dt_multi<2><<<grid, 256, 0, s>>>(a, b, o, p, g, rk, n, pow2, t, neg_t,
-                                       nu_t, inv_gt);
-  else if (V == 4)
-    k_dt_multi<4><<<grid, 256, 0, s>>>(a, b, o, p, g, rk, n, pow2, t, neg_t,
-                                       nu_t, inv_gt);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
-}
-extern "C" int ab_dt_block(int threads, const void* x, const void* c0,
-                           void* out, const void* kr, const void* gl, int J,
-                           int rk, int n, int pow2, u64 t, u64 neg_t,
-                           u64 nu_t, u64 inv_gt, void* stream) {
-  DtArgs a;
-  if (!dt_args(x, c0, out, kr, gl, J, rk, n, pow2, t, neg_t, nu_t, inv_gt, 0,
-               a) || threads % 32 || threads < 32 || threads > DT_THREADS)
-    return (int)cudaErrorInvalidValue;
-  dt_dispatch(a, (cudaStream_t)stream, threads);
-  return (int)cudaGetLastError();
-}
-__global__ void k_empty() {}
-extern "C" int ab_empty(void* stream) {
-  k_empty<<<1, 32, 0, (cudaStream_t)stream>>>();
-  return (int)cudaGetLastError();
-}
-"""
-DT_MULTI_VS = (2, 4)
-DT_BLOCKS = (64, 128)
-AB_KERNELS = ("behz_rns_to_bsk", "behz_fast_floor", "behz_bsk_to_q")
-AB_SETS = ("32k_9q", "32k_16q")
-
-
-def start_behz_ab() -> tuple[subprocess.Popen, Path]:
-    out = ROOT / "build" / "behz_ab"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "behz_ab.cu").write_text(BEHZ_AB_SRC)
-    lib = out / "libbehz_ab.so"
-    cmd = [cuda.find_nvcc(), *cuda.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
-           "-I", str(cuda.CSRC), "-o", str(lib), str(out / "behz_ab.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True), lib
-
-
-def load_behz_ab(path: Path) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(path))
-    lib.ab_behz.argtypes = list(cuda.SIGNATURES["ntt_behz"][:-1]) + [
-        ctypes.c_int, ctypes.c_void_p]
-    lib.ab_dt_multi.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                                + [ctypes.c_int] * 4 + [ctypes.c_uint64] * 4
-                                + [ctypes.c_void_p])
-    lib.ab_dt_block.argtypes = lib.ab_dt_multi.argtypes
-    lib.ab_empty.argtypes = [ctypes.c_void_p]
-    for fn in (lib.ab_behz, lib.ab_dt_multi, lib.ab_dt_block, lib.ab_empty):
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def group_cases(p: BFVParams, dev, rng, J: int) -> list:
-    """(kernel, label, call(G), plain call, Work, launch args) for 21a-c,
-    scale_and_round and the bands at p at the EvalMult path's shapes with a
-    J lead (21a over (J, 2, 2, k, n), the rest over (J, 3, ., n)), and K2 at
-    (J + 1 if J > 1, r-1, n) (J = 1 and 3).  `launch args` (which, x, xb,
-    out shape, banks, row0, rl) let ab_behz run the same conversion."""
+    """(kernel, label, call, plain call, Work) for 21a-c, scale_and_round
+    and the bands at p at the EvalMult path's shapes with a J lead (21a
+    over (J, 2, 2, k, n), the rest over (J, 3, ., n)), and K2 at (J + 1 if
+    J > 1, r-1, n) (J = 1 and 3)."""
     n, k = p.n, p.r - 1
     aux = behz.AuxBase.build(p)
     mc = behz_kernels.SpmdMultConsts.build(p, aux, dev)
@@ -1590,23 +1467,19 @@ def group_cases(p: BFVParams, dev, rng, J: int) -> list:
     label = f"{p.name} J={J}"
     cases = [
         ("behz_rns_to_bsk", label,
-         lambda G: bk.rns_to_bsk(xa, mb, G), lambda: bk.rns_to_bsk_plain(xa, mb),
-         behz_work("21a", sa, k, k + 1, nbytes(xa, *banks) + 8 * sa * (k + 1)),
-         (bk.RNS_TO_BSK, xa, None, lead + (2, 2, k + 1, n), mb, 0, k + 1)),
+         lambda: bk.rns_to_bsk(xa, mb), lambda: bk.rns_to_bsk_plain(xa, mb),
+         behz_work("21a", sa, k, k + 1, nbytes(xa, *banks) + 8 * sa * (k + 1))),
         ("behz_fast_floor", label,
-         lambda G: bk.fast_floor(xq, xb, mb, G),
+         lambda: bk.fast_floor(xq, xb, mb),
          lambda: bk.fast_floor_plain(xq, xb, mb),
-         behz_work("21b", sf, k, k + 1, nbytes(xq, xb, *banks) + nbytes(xb)),
-         (bk.FAST_FLOOR, xq, xb, tuple(xb.shape), mb, 0, k + 1)),
+         behz_work("21b", sf, k, k + 1, nbytes(xq, xb, *banks) + nbytes(xb))),
         ("behz_bsk_to_q", label,
-         lambda G: bk.bsk_to_q(xb, mb, G), lambda: bk.bsk_to_q_plain(xb, mb),
-         behz_work("21c", sf, k, k, nbytes(xb, *banks) + nbytes(xq)),
-         (bk.BSK_TO_Q, xb, None, tuple(xq.shape), mb, 0, k)),
+         lambda: bk.bsk_to_q(xb, mb), lambda: bk.bsk_to_q_plain(xb, mb),
+         behz_work("21c", sf, k, k, nbytes(xb, *banks) + nbytes(xq))),
         ("behz_scale_and_round", label,
-         lambda G: bk.scale_and_round(xq, xb, mb, G),
+         lambda: bk.scale_and_round(xq, xb, mb),
          lambda: bk.scale_and_round_plain(xq, xb, mb),
-         behz_work("fused", sf, k, k, nbytes(xq, xb, *banks) + nbytes(xq)),
-         None),
+         behz_work("fused", sf, k, k, nbytes(xq, xb, *banks) + nbytes(xq))),
     ]
     for lo, rl in group_bands(p.r):
         live = min(lo + rl, k) - lo
@@ -1614,24 +1487,21 @@ def group_cases(p: BFVParams, dev, rng, J: int) -> list:
         bl = f"{label} rows {lo}-{lo + rl}"
         cases += [
             ("behz_rns_to_bsk_rows", bl,
-             lambda G, lo=lo, rl=rl: bk.rns_to_bsk_rows(xa, mc, lo, rl, G),
+             lambda lo=lo, rl=rl: bk.rns_to_bsk_rows(xa, mc, lo, rl),
              lambda lo=lo, rl=rl: bk.rns_to_bsk_rows_plain(xa, mc, lo, rl),
-             behz_work("21a", sa, k, rl, nbytes(xa, *banks) + 8 * sa * rl),
-             (bk.RNS_TO_BSK, xa, None, lead + (2, 2, rl, n), mb, lo, rl)),
+             behz_work("21a", sa, k, rl, nbytes(xa, *banks) + 8 * sa * rl)),
             ("behz_fast_floor_rows", bl,
-             lambda G, lo=lo, rl=rl, b=xbr: bk.fast_floor_rows(
-                 xq, b, mc, lo, rl, G),
+             lambda lo=lo, rl=rl, b=xbr: bk.fast_floor_rows(xq, b, mc, lo,
+                                                            rl),
              lambda lo=lo, rl=rl, b=xbr: bk.fast_floor_rows_plain(
                  xq, b, mc, lo, rl),
              behz_work("21b", sf, k, rl, nbytes(xq, xbr, *banks)
-                       + nbytes(xbr)),
-             (bk.FAST_FLOOR, xq, xbr, tuple(xbr.shape), mb, lo, rl)),
+                       + nbytes(xbr))),
             ("behz_bsk_to_q_rows", bl,
-             lambda G, lo=lo, rl=rl: bk.bsk_to_q_rows(xb, mc, lo, rl, G),
+             lambda lo=lo, rl=rl: bk.bsk_to_q_rows(xb, mc, lo, rl),
              lambda lo=lo, rl=rl: bk.bsk_to_q_rows_plain(xb, mc, lo, rl),
              behz_work("21c", sf, k, rl, nbytes(xb, *banks) + 8 * sf * rl,
-                       live),
-             (bk.BSK_TO_Q, xb, None, lead + (3, rl, n), mb, lo, rl)),
+                       live)),
         ]
     Jd = 1 if J == 1 else J + 1
     dt = bfv_tail.DecTailConsts.build(p, dev)
@@ -1639,127 +1509,45 @@ def group_cases(p: BFVParams, dev, rng, J: int) -> list:
     x = rand_res(rng, p.q[:k], n, dl, dev)
     c0 = rand_res(rng, p.q[:k], n, dl, dev)
     cases.append(("decrypt_tail", f"{p.name} J={Jd}",
-                  lambda G: bfv_tail.decrypt_tail(x, c0, dt, G),
+                  lambda: bfv_tail.decrypt_tail(x, c0, dt),
                   lambda: bfv_tail.decrypt_tail_plain(x, c0, dt),
-                  decrypt_tail_work(x, c0, dt, Jd * n), (x, c0, dt)))
+                  decrypt_tail_work(x, c0, dt, Jd * n)))
     return cases
 
 
-def ab_behz_call(lib, args, G: int, share: int):
-    """One conversion through ab_behz (canonical inner products; the shared
-    exchange or SHARE = false) at G."""
-    which, x, xb, shape, mb, row0, rl = args
-    out = torch.empty(shape, dtype=torch.int64, device=x.device)
-    n = x.shape[-1]
-
-    def call():
-        rc = lib.ab_behz(which, x.data_ptr(),
-                         None if xb is None else xb.data_ptr(),
-                         out.data_ptr(), *mb.kernel_args(),
-                         out.numel() // (rl * n), mb.k, n, row0, rl, G,
-                         share, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"ab_behz: CUDA error {rc}")
-        return out
-    return call
-
-
-def ab_dt_call(lib, args, V: int, fn: str = "ab_dt_multi"):
-    """K2 with V coefficients a thread (ab_dt_multi), or by the rule in
-    blocks of V threads (ab_dt_block)."""
-    x, c0, dt = args
-    J = 1 if x.dim() == 2 else x.shape[0]
-    rk, n = x.shape[-2:]
-    out = torch.empty((J, n), dtype=torch.int64, device=x.device)
-
-    def call():
-        rc = getattr(lib, fn)(V, x.data_ptr(), c0.data_ptr(), out.data_ptr(),
-                             dt.k2_rows.data_ptr(), dt.glob.data_ptr(), J, rk,
-                             n, *bfv_tail._t_strategy(dt.tmeta),
-                             torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{fn}: CUDA error {rc}")
-        return out[0] if x.dim() == 2 else out
-    return call
-
-
-def group_checks(dev, rng, ab, errs: dict) -> None:
-    """21a-c, scale_and_round, the bands and K2 at every G, and the timing
-    variants (ab_behz's two at every G, K2 at V coefficients a thread),
-    exactly against their plain versions at GROUP_SETS, J = 1 and 2 (K2
-    at J = 1 and 3)."""
+def group_checks(dev, rng, errs: dict) -> None:
+    """21a-c, scale_and_round, the bands and K2 exactly against their
+    plain versions at GROUP_SETS, J = 1 and 2 (K2 at J = 1 and 3)."""
     for name in GROUP_SETS:
         p = get_bfv_params(name)
         for J in (1, 2):
-            for kname, label, call, plain, _, args in group_cases(
-                    p, dev, rng, J):
-                ref = plain()
-                for G in (DEC_GS if kname == "decrypt_tail" else GROUP_GS):
-                    compare(kname, call(G), ref, errs)
-                    if args is not None and kname != "decrypt_tail" and G:
-                        for share in (1, 0):
-                            compare(kname, ab_behz_call(ab, args, G, share)(),
-                                    ref, {})
-                if kname == "decrypt_tail":
-                    for V in DT_MULTI_VS:
-                        compare(kname, ab_dt_call(ab, args, V)(), ref, {})
-                    for T in DT_BLOCKS:
-                        compare(kname, ab_dt_call(ab, args, T,
-                                                  "ab_dt_block")(), ref, {})
-                log(f"check {kname} {label} at every G"
-                    + (" and the canonical-sum variants" if args is not None
-                       and kname != "decrypt_tail" else "")
-                    + (f" and V = {list(DT_MULTI_VS)} coefficients a thread, "
-                       f"and blocks of {list(DT_BLOCKS)} threads"
-                       if kname == "decrypt_tail" else "") + ": equal")
+            for kname, label, call, plain, _ in group_cases(p, dev, rng, J):
+                compare(kname, call(), plain(), errs)
+                log(f"check {kname} {label}: equal")
 
 
-def group_times(dev, rng, ab, mults: dict, clock_hz: float) -> dict:
+def group_times(dev, rng, mults: dict, clock_hz: float) -> dict:
     """Device us per call (torch.profiler, 10 calls a window, two windows)
     of each conversion, band and K2 at GROUP_SETS, J = 1 (K2 also J = 3),
-    at every G,
-    beside its bound at the same shape; at AB_SETS the three conversions
-    also through ab_behz (canonical sums, shared exchange or not) in turns
-    library, share=1, share=0, share=0, share=1, library; scale_and_round
-    beside 21b then 21c at the same G; K2 also at V = 2, 4 coefficients a
-    thread (ab_dt_multi); and an empty launch."""
-    res = {"empty launch": [device_us(lambda: ab.ab_empty(
-        torch.cuda.current_stream().cuda_stream), 10) for _ in range(3)]}
+    beside its bound at the same shape; scale_and_round also beside 21b
+    then 21c, the two launches it replaces."""
+    res = {}
     for name in GROUP_SETS:
         p = get_bfv_params(name)
         cases = group_cases(p, dev, rng, 1) + [
             c for c in group_cases(p, dev, rng, 2) if c[0] == "decrypt_tail"]
         by = {(c[0], c[1]): c for c in cases}
-        for kname, label, call, plain, work, args in cases:
+        mb = behz_kernels.SpmdMultConsts.build(p, behz.AuxBase.build(p),
+                                               dev).banks
+        for kname, label, call, _, work in cases:
             bound_ms, bound_by = work.bound(mults, clock_hz)
-            row = {"bound_us": bound_ms * 1e3, "bound_by": bound_by}
-            dec = kname == "decrypt_tail"
-            for G in (DEC_GS if dec else GROUP_GS):
-                fn = lambda G=G: call(G)         # noqa: E731
-                if not (G and kname in AB_KERNELS and name in AB_SETS):
-                    row[f"G={G}"] = [device_us(fn, 10), device_us(fn, 10)]
-                    continue
-                v1, v0 = (ab_behz_call(ab, args, G, sh) for sh in (1, 0))
-                t = [device_us(f, 10) for f in (fn, v1, v0, v0, v1, fn)]
-                row[f"G={G}"] = [t[0], t[5]]
-                row[f"G={G} canonical share=1"] = [t[1], t[4]]
-                row[f"G={G} canonical share=0"] = [t[2], t[3]]
+            row = {"bound_us": bound_ms * 1e3, "bound_by": bound_by,
+                   "us": [device_us(call, 10), device_us(call, 10)]}
             if kname == "behz_scale_and_round":
-                # 21b then 21c on 21b's output: the two launches it replaces
-                _, xq, xb, _, mb, _, _ = by[("behz_fast_floor", label)][5]
-                for G in GROUP_GS:
-                    row[f"21b+21c G={G}"] = [device_us(
-                        lambda G=G: behz_kernels.bsk_to_q(
-                            behz_kernels.fast_floor(xq, xb, mb, G), mb, G),
-                        10) for _ in range(2)]
-            if dec:
-                for V in DT_MULTI_VS:
-                    var = ab_dt_call(ab, args, V)
-                    row[f"V={V}"] = [device_us(var, 10), device_us(var, 10)]
-                for T in DT_BLOCKS:
-                    var = ab_dt_call(ab, args, T, "ab_dt_block")
-                    row[f"rule, {T} threads a block"] = [device_us(var, 10),
-                                                         device_us(var, 10)]
+                floor = by[("behz_fast_floor", label)][2]
+                row["21b+21c us"] = [device_us(
+                    lambda: behz_kernels.bsk_to_q(floor(), mb), 10)
+                    for _ in range(2)]
             res[f"{kname} {label}"] = row
     return res
 
@@ -2809,13 +2597,10 @@ def main() -> int:
     t0 = time.perf_counter()
     probe = start_probe()
     ab_build = start_local_ab()
-    behz_ab_build = start_behz_ab()
     ptxas = start_ptxas_report()
     cuda.library()
     mults = probe_mults(*probe)
     ab_lines = ptxas_lines(built(ab_build[0], "local-stage A/B"), "k_ab_")
-    behz_ab_out = built(behz_ab_build[0], "conversion timing variants")
-    behz_ab = load_behz_ab(behz_ab_build[1])
     log(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     ptxas_out = ptxas_report(ptxas)
     log(f"cluster kernels' registers and spills (ptxas -v, sm_90a; the "
@@ -2824,16 +2609,11 @@ def main() -> int:
         f"k_ntt30_cluster<CL, inverse>, __launch_bounds__ ClusterBound): "
         f"{json.dumps(ptxas_lines(ptxas_out, CLUSTER_KERNELS))}")
     group_lines = ptxas_lines(ptxas_out, GROUP_KERNELS)
-    variant_lines = ptxas_lines(behz_ab_out, "k_behz|k_dt_multi")
     log(f"conversion kernels and K2, registers and spills (ptxas -v, "
         f"sm_90a; k_behz<K, which, SHARE> for K = 1..16, which 0-3 = 21a, "
         f"21b, 21c, scale_and_round; k_decrypt_tail): "
-        f"{json.dumps(group_lines)}")
-    log(f"their timing variants (BEHZ_AB_SRC: k_behz<K, which, false>, "
-        f"k_dt_multi<V>): {json.dumps(variant_lines)}")
-    log(f"instantiations with spills: library "
-        f"{json.dumps(spills(group_lines))}, variants "
-        f"{json.dumps(spills(variant_lines))}")
+        f"{json.dumps(group_lines)}; with spills: "
+        f"{json.dumps(spills(group_lines))}")
     log(f"build: all builds done in {time.perf_counter() - t0:.1f} s")
     log(f"local-stage A/B probe (LOCAL_AB_SRC; k_ab_pair<0> the encrypt "
         f"transform's two inverses interleaved, <1> in turn), registers and "
@@ -2898,7 +2678,7 @@ def main() -> int:
             log(f"check {name} {kname} J={J}: equal")
             if name == STAGE_SET and J == 1:
                 timing[kname] = (kern, plain, work)
-    group_checks(dev, rng, behz_ab, errs)
+    group_checks(dev, rng, errs)
     timing30 = ntt30_checks(dev, rng, errs)
     r_ops = get_bfv_params(OPS_SET).r
     cases_ops = ops_cases(rng, dev)
@@ -3436,12 +3216,11 @@ def main() -> int:
         f"torch.profiler; ms per call of 20 back to back, CUDA events; "
         f"outputs == plain): {json.dumps(op_cluster_times(dev, rng, errs))}")
     log(f"conversion kernels (21a-c, scale_and_round, the bands) and K2 at "
-        f"every group size G (G=0: the launchers' rule) at {GROUP_SETS}, "
-        f"J = 1, device us per call (torch.profiler, 20 calls a window; the "
-        f"library and its SHARE = false variant in turns library, variant, "
-        f"variant, library; K2 also at V coefficients a thread), beside "
-        f"the bound at the same shape: "
-        f"{json.dumps(group_times(dev, rng, behz_ab, mults, clock_hz))}")
+        f"{GROUP_SETS}, J = 1 (K2 also 3), the launchers' group size, "
+        f"device us per call (torch.profiler, two windows of 10 calls; "
+        f"scale_and_round also beside 21b then 21c), beside the bound at "
+        f"the same shape: "
+        f"{json.dumps(group_times(dev, rng, mults, clock_hz))}")
     bounds, terms = {}, {}
     for kname, (kern, plain, work) in timing.items():
         terms[kname] = work.terms(mults, clock_hz)
@@ -3524,7 +3303,8 @@ def main() -> int:
         ms, plain_ms, bound_ms, bound_by = bounds[kname]
         rows.append({"name": kname, "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": counts[scheds[0]][kname],
+                     "launches": (counts[scheds[0]][kname] if scheds
+                                  else 0),
                      "max_abs_err": errs[kname], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})

@@ -1,6 +1,6 @@
 // BEHZ fast base conversions of EvalMult: k at compile time, each target
 // one exact 128-bit sum reduced once, the targets of one coefficient
-// spread over a group of G threads.
+// spread over a group of G = 1 or 2 threads.
 //
 // Replace the three TPU kernels of ntt_cuda_tpu/ops/behz_pallas.py, all
 // launched through one pallas_call (_run, behz_pallas.py:315, call :339):
@@ -41,8 +41,9 @@
 // 21c's prescaled residue (the (B/b_t)^-1 folded in; in registers at G =
 // 1, else through a second exchange), and then 21c's step 2: the Bsk
 // intermediate never reaches device memory.
-// The launchers' G: 1 from 2^16 coefficients a launch, else 2 (measured,
-// PERF.md).
+// The launchers' G: 1 from 2^16 coefficients a launch (the grid then
+// fills the card), else 2; canonical Shoup sums, larger G and the exchange
+// at G = 1 all measured slower (tools/behz_ab.py; PERF.md §6).
 //
 // Band form: the same kernels for target rows [row0, row0 + rl) alone
 // replace behz_pallas.py's rns_to_bsk_rows (:431), fast_floor_rows (:447)
@@ -55,8 +56,7 @@
 // bsk_to_q and scale_and_round).
 //
 // Outputs are canonical, so they equal ops/behz.py's Montgomery chains
-// exactly, whatever G.  Built with BEHZ_INNER_CANONICAL (a timing variant
-// of chip_smoke.py) every term is a Shoup product added canonically.
+// exactly, whatever G.
 //
 // Banks (u64; "w, ws" = a constant and its Shoup companion floor(w 2^64 /
 // m); "red m" = 2^64 mod m as w, ws, then floor(2^64 / m); "/x" = times
@@ -89,7 +89,7 @@
 #define BEHZ_MAX_K 16
 #define BEHZ_THREADS 256
 #define BEHZ_LOG_THREADS 8
-#define BEHZ_MAX_GROUP 8
+#define BEHZ_MAX_GROUP 2
 
 enum {
   BEHZ_RNS_TO_BSK = 0,
@@ -119,20 +119,12 @@ typedef unsigned __int128 u128;
 // (w, ws) < m < 2^61, at most 17 terms: the exact 128-bit sum, reduced
 // once as hi (2^64 mod m) + lo mod m (red m).
 struct Lin {
-#ifdef BEHZ_INNER_CANONICAL
-  u64 s = 0;
-  BEHZ_HD void add(u64 x, const u64* c, u64 m) {
-    s = add_mod(s, mul_shoup(x, c[0], c[1], m), m);
-  }
-  BEHZ_HD u64 mod(u64, const u64*) const { return s; }
-#else
   u128 s = 0;
-  BEHZ_HD void add(u64 x, const u64* c, u64) { s += (u128)x * c[0]; }
+  BEHZ_HD void add(u64 x, const u64* c) { s += (u128)x * c[0]; }
   BEHZ_HD u64 mod(u64 m, const u64* red) const {
     return add_mod(mul_shoup((u64)(s >> 64), red[0], red[1], m),
                    mod_nu((u64)s, m, red[2]), m);
   }
-#endif
 };
 
 // sum_j x_j row[j] + e ce mod m: row holds K (w, ws) pairs.
@@ -141,8 +133,8 @@ NTT_HD u64 lin(const u64 (&x)[K], const u64* row, u64 e, const u64* ce,
                u64 m, const u64* red) {
   Lin acc;
 #pragma unroll
-  for (int j = 0; j < K; ++j) acc.add(x[j], row + 2 * j, m);
-  acc.add(e, ce, m);
+  for (int j = 0; j < K; ++j) acc.add(x[j], row + 2 * j);
+  acc.add(e, ce);
   return acc.mod(m, red);
 }
 
@@ -260,13 +252,13 @@ NTT_HD void behz_sources(const BehzIO& io, u64* sm, const BehzSm& L,
     for (int j = th.g; j <= K; j += th.G) {
       const u64 v = th.live ? x[j * n] : 0;
       if (j == K) {
-        part.add(v, gl + 2, msk);
+        part.add(v, gl + 2);
         break;
       }
       const u64* s = sm + L.bsrc + 6 * j;
       const u64 xp = mul_shoup(v, s[1], s[2], s[0]);
       sm[L.z + j * th.cb + th.cl] = xp;
-      part.add(xp, s + 3, msk);
+      part.add(xp, s + 3);
     }
     sm[L.part + th.g * th.cb + th.cl] = part.mod(msk, gl + 4);
   } else {
@@ -344,8 +336,8 @@ NTT_HD void behz_round(const BehzIO& io, const u64* sm, const BehzSm& L,
         th.live ? io.x[((size_t)th.c * (K + 1) + K) * io.n + th.i] : 0;
     Lin a;
 #pragma unroll
-    for (int j = 0; j < K; ++j) a.add(xp[j], sm + L.bsrc + 6 * j + 3, msk);
-    a.add(xm, gl + 2, msk);
+    for (int j = 0; j < K; ++j) a.add(xp[j], sm + L.bsrc + 6 * j + 3);
+    a.add(xm, gl + 2);
     alpha = a.mod(msk, gl + 4);
   }
   behz_round_out<K>(io, sm, L, th, xp, alpha, row0, nq);
@@ -409,11 +401,11 @@ NTT_HD void behz_floors(const BehzIO& io, u64* sm, const BehzSm& L,
     const u64 v = lin<K>(z, sm + L.amat + 2 * K * t, th.live ? xb[t * n] : 0,
                          g + 3, g[0], g + 7);
     if (t == K) {
-      part.add(v, gl + 2, msk);
+      part.add(v, gl + 2);
       break;
     }
     sm[L.xp + t * th.cb + th.cl] = v;
-    part.add(v, sm + L.bsrc + 6 * t + 3, msk);
+    part.add(v, sm + L.bsrc + 6 * t + 3);
   }
   sm[L.part + th.g * th.cb + th.cl] = part.mod(msk, gl + 4);
 }
@@ -437,7 +429,7 @@ NTT_HD void behz_scale_round(const BehzIO& io, const u64* sm, const BehzSm& L,
     const u64 v = lin<K>(z, sm + L.amat + 2 * K * t, th.live ? xb[t * n] : 0,
                          g + 3, g[0], g + 7);
     if (t < K) xp[t] = v;
-    a.add(v, t < K ? sm + L.bsrc + 6 * t + 3 : gl + 2, msk);
+    a.add(v, t < K ? sm + L.bsrc + 6 * t + 3 : gl + 2);
   }
   behz_round_out<K>(io, sm, L, th, xp, a.mod(msk, gl + 4), 0, K);
 }
@@ -458,7 +450,7 @@ static bool behz_args_ok(int which, const void* xb, int C, int k, int n,
 
 // The group size G by the launchers' rule (group = 0): one thread a
 // coefficient from 2^16 coefficients a launch (the grid then fills the
-// card), else two (PERF.md, PR 13).
+// card), else two (tools/behz_ab.py; PERF.md §6).
 static int behz_group_rule(int C, int n) {
   return (long long)C * n >= (1 << 16) ? 1 : 2;
 }
@@ -594,7 +586,9 @@ typedef void* BehzStream;
 // which: BEHZ_*; x (C, k or k+1, n), xb (C, rl, n) for fast_floor and
 // (C, k+1, n) for scale_and_round, out (C, rl, n) for target rows [row0,
 // row0 + rl); every bank pointer is passed (a kernel reads its own);
-// group: G threads a coefficient (0: the launchers' rule).
+// group: 0 for the launchers' rule, as the library always passes; 1 or 2
+// forces G, so that the host tests reach both sides of the rule at small
+// shapes.
 extern "C" int ntt_behz(int which, const void* x, const void* xb, void* out,
                         const void* qsrc, const void* tgt, const void* amat,
                         const void* bsrc, const void* bmat, const void* bfin,

@@ -5,16 +5,21 @@
 // (bfv_tail.py:388, pallas_call :416).  The TPU grid walks the r-1
 // residues in order and carries the two sums in VMEM scratch
 // (bfv_tail.py:365-383).  Here one coefficient of one message belongs to
-// a group of G adjacent lanes (G a power of two up to 8; grid (n G / 256,
-// J)): member g sums residue rows g, g + G, ... (behz_sums_rows; rk need
-// not be a multiple of G), the group adds its partial sums with
+// a group of G adjacent lanes (grid (n G / 256, J)).  Member g loads its
+// residue rows g, g + G, ... (at most ROWS, a template constant; rk need
+// not be a multiple of G) all at once, then sums them
+// (behz_sums_loaded); the group adds its partial sums with
 // __shfl_xor_sync butterflies (behz_sums_add: a wrapping u64 add of x_t
 // for pow2 t, an add mod t for odd t; x_g mod gamma), and member 0 runs
 // dec_round.  Every sum is exact modular arithmetic, so the result does
-// not depend on G or on the order.  G = 8 puts 8x the warps of one thread
-// a coefficient on the card: at 32k_9q, J = 1, 1024 blocks instead of 128,
-// enough loads in flight to cover the device memory's latency.  The host
-// build runs the same partition: each member's rows, then the group's sum.
+// not depend on G or on the order.  The rule (dt_lg): G = 2 up to
+// 8 rows (2x the warps of one thread a coefficient, each member's loads in
+// flight together), then 4 up to 16 and 8 beyond, a member at most four
+// rows.  One-row members (G = 8 at 32k_9q) lost to the parent's loop at
+// J = 3, and G = 1, larger G, several coefficients a thread and smaller
+// blocks were no faster than this rule (tools/behz_ab.py; PERF.md §6).
+// The host build runs the same partition: each member's rows, then the
+// group's sum.
 //
 // Bound on the card: device memory, 16 (r-1) bytes read and 8 written per
 // coefficient.  Each row costs two Shoup products (DecTailConsts.k2_rows:
@@ -62,22 +67,13 @@ NTT_HD void decrypt_tail_body(long long j, int k, const u64* x, const u64* c0,
   out[(size_t)j * n + k] = dec_round(s, gl, pow2, t, neg_t, nu_t, inv_gt);
 }
 
-// K2's group size G by the launchers' rule (group = 0): the least G >= 2
-// that leaves a member at most four rows (PERF.md, PR 13).
-static int dt_group_rule(int rk) {
-  int G = 2;
-  while (G < DT_MAX_GROUP && 4 * G < rk) G *= 2;
-  return G;
-}
-
-static int dt_lg(int rk, int group) {
-  const int G = group == 0 ? dt_group_rule(rk) : group;
-  int lg = 0;
-  while ((1 << lg) < G) ++lg;
-  return G >= 1 && G <= DT_MAX_GROUP && (1 << lg) == G &&
-                 rk <= G * DT_MAX_ROWS
-             ? lg
-             : -1;
+// K2's group size G, as log2: the least G >= 2 that leaves a member at
+// most four rows, up to DT_MAX_GROUP (PERF.md §6); -1 where a member
+// would hold more than DT_MAX_ROWS.
+static int dt_lg(int rk) {
+  int lg = 1;
+  while ((1 << lg) < DT_MAX_GROUP && 4 << lg < rk) ++lg;
+  return rk <= DT_MAX_ROWS << lg ? lg : -1;
 }
 
 struct DtArgs {
@@ -121,17 +117,17 @@ __global__ void __launch_bounds__(DT_THREADS) k_decrypt_tail(DtArgs a) {
 }
 
 template <int ROWS>
-static void dt_run(const DtArgs& a, cudaStream_t s, int threads) {
+static void dt_run(const DtArgs& a, cudaStream_t s) {
   const dim3 grid(
-      (unsigned)((((long long)a.n << a.lg) + threads - 1) / threads),
+      (unsigned)((((long long)a.n << a.lg) + DT_THREADS - 1) / DT_THREADS),
       (unsigned)a.J);
-  k_decrypt_tail<ROWS><<<grid, threads, 0, s>>>(a);
+  k_decrypt_tail<ROWS><<<grid, DT_THREADS, 0, s>>>(a);
 }
 
 #else  // host build for the CPU tests: each coefficient's members in turn
 
 template <int ROWS>
-static void dt_run(const DtArgs& a, void*, int) {
+static void dt_run(const DtArgs& a, void*) {
   for (long long j = 0; j < a.J; ++j)
     for (int k = 0; k < a.n; ++k)
       decrypt_tail_body<ROWS>(j, k, a.x, a.c0, a.out, a.kr, a.gl, a.rk, a.n,
@@ -141,24 +137,22 @@ static void dt_run(const DtArgs& a, void*, int) {
 
 #endif
 
-// ROWS = ceil(rk / G) (runtime) -> the instantiation, 1..DT_MAX_ROWS;
-// blocks of `threads` (a multiple of 32 up to DT_THREADS).
+// ROWS = ceil(rk / G) (runtime) -> the instantiation, 1..DT_MAX_ROWS.
 template <int ROWS = 1, class S>
-static void dt_dispatch(const DtArgs& a, S stream,
-                        int threads = DT_THREADS) {
+static void dt_dispatch(const DtArgs& a, S stream) {
   const int G = 1 << a.lg;
   if ((a.rk + G - 1) / G <= ROWS || ROWS == DT_MAX_ROWS)
-    dt_run<ROWS>(a, stream, threads);
+    dt_run<ROWS>(a, stream);
   else if constexpr (ROWS < DT_MAX_ROWS)
-    dt_dispatch<ROWS + 1>(a, stream, threads);
+    dt_dispatch<ROWS + 1>(a, stream);
 }
 
 static bool dt_args(const void* x, const void* c0, void* out, const void* kr,
                     const void* gl, int J, int rk, int n, int pow2, u64 t,
-                    u64 neg_t, u64 nu_t, u64 inv_gt, int group, DtArgs& a) {
+                    u64 neg_t, u64 nu_t, u64 inv_gt, DtArgs& a) {
   a = {(const u64*)x, (const u64*)c0, (u64*)out, (const u64*)kr,
        (const u64*)gl, J,     rk,    n,     pow2,  t,
-       neg_t,           nu_t,  inv_gt, dt_lg(rk, group)};
+       neg_t,           nu_t,  inv_gt, dt_lg(rk)};
   return J >= 1 && J <= 65535 && n >= 1 && n <= (1 << 27) && rk >= 1 &&
          a.lg >= 0;
 }
@@ -172,15 +166,14 @@ __global__ void k_decrypt_partial(const u64* x, const u64* c0, u64* out,
   if (k < n) decrypt_partial_body(k, x, c0, out, pm, gl, rl, n, pow2, t, nu_t);
 }
 
-// x, c0 (J, rk, n), out (J, n); group: G lanes a coefficient (0: the
-// launchers' rule).
+// x, c0 (J, rk, n), out (J, n).
 extern "C" int ntt_decrypt_tail(const void* x, const void* c0, void* out,
                                 const void* kr, const void* gl, int J, int rk,
                                 int n, int pow2, u64 t, u64 neg_t, u64 nu_t,
-                                u64 inv_gt, int group, void* stream) {
+                                u64 inv_gt, void* stream) {
   DtArgs a;
   if (!dt_args(x, c0, out, kr, gl, J, rk, n, pow2, t, neg_t, nu_t, inv_gt,
-               group, a))
+               a))
     return (int)cudaErrorInvalidValue;
   dt_dispatch(a, (cudaStream_t)stream);
   return (int)cudaGetLastError();
@@ -204,10 +197,10 @@ extern "C" int ntt_decrypt_tail_partial(const void* x, const void* c0,
 extern "C" int ntt_decrypt_tail(const void* x, const void* c0, void* out,
                                 const void* kr, const void* gl, int J, int rk,
                                 int n, int pow2, u64 t, u64 neg_t, u64 nu_t,
-                                u64 inv_gt, int group, void* stream) {
+                                u64 inv_gt, void* stream) {
   DtArgs a;
   if (!dt_args(x, c0, out, kr, gl, J, rk, n, pow2, t, neg_t, nu_t, inv_gt,
-               group, a))
+               a))
     return 1;
   dt_dispatch(a, stream);
   return 0;

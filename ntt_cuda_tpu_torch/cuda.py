@@ -53,10 +53,9 @@ SIGNATURES = {
     "ntt_salsa20": (_P, _P, _L, _U32, _U64, _U64, _P),
     # bw, nb, key word, nonces (J,) u64, J, counter0
     "ntt_salsa20_batch": (_P, _L, _U32, _P, _I, _U64, _P),
-    # x, c0, out, k2_rows, glob, J, r-1, n, pow2, t, neg_t, nu_t, inv_gt,
-    # group size G (0: the launchers' rule)
+    # x, c0, out, k2_rows, glob, J, r-1, n, pow2, t, neg_t, nu_t, inv_gt
     "ntt_decrypt_tail": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _U64, _U64,
-                         _U64, _U64, _I, _P),
+                         _U64, _U64, _P),
     # x, y, out, 4 tables, consts, P, r, log n, cluster size B (0: the
     # launchers' rule)
     "ntt_half_polymul_cluster": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -104,7 +103,7 @@ SIGNATURES = {
     "ntt_decrypt_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _I, _I, _U64, _U64, _U64, _U64, _I, _P),
     # which, x, xb, out, 7 banks, C, k, n, row0, rl, group size G (0: the
-    # launchers' rule)
+    # launchers' rule, as the wrappers pass; 1 or 2 forces G, for tests)
     "ntt_behz": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                  _I, _I, _P),
     # x, out, 4 tables, consts, inverse, P, r, log n, B

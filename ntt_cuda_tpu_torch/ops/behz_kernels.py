@@ -3,9 +3,9 @@
 Counterpart of `ntt_cuda_tpu/ops/behz_pallas.py` (TPU kernels 21a-c):
 `rns_to_bsk`, `fast_floor`, `bsk_to_q` and `scale_and_round` (21b and
 21c in one launch).  On a CUDA device each wrapper launches csrc/behz.cu
-(`group`: G threads a coefficient, 0 for the launchers' rule; a G the
-kernel does not take raises); on the CPU it runs the plain version, the
-ops/behz.py chain, with the same integers out.
+(G = 1 or 2 threads a coefficient, by the launchers' rule); on the CPU it
+runs the plain version, the ops/behz.py chain, with the same integers
+out.
 
 `MultBanks` holds both the plain version's `behz.MultConsts` and the
 kernels' constant banks: native u64 (value, Shoup quotient) pairs, the
@@ -39,7 +39,7 @@ from .modmath import I64
 # csrc/behz.cu BEHZ_*
 RNS_TO_BSK, FAST_FLOOR, BSK_TO_Q, SCALE_AND_ROUND = range(4)
 MAX_K = 16
-GROUPS = (1, 2, 4, 8)   # the group sizes G the kernels take
+GROUPS = (1, 2)   # the group sizes G of the kernels (the rule picks one)
 
 
 def _wws(w: int, m: int) -> tuple[int, int]:
@@ -141,17 +141,14 @@ def _lead(name: str, x: torch.Tensor, rows: int) -> tuple:
     return tuple(x.shape[:-2])
 
 
-def _launch(which: int, x, xb, out, mb: MultBanks, row0: int = 0,
-            group: int = 0) -> None:
+def _launch(which: int, x, xb, out, mb: MultBanks, row0: int = 0) -> None:
     """One conversion into out (..., rl, n), target rows [row0, row0 +
-    rl), G = group threads a coefficient (0: the launchers' rule)."""
-    if group and group not in GROUPS:
-        raise ValueError(f"group {group}: the kernels take G in {GROUPS}")
+    rl), G by the launchers' rule."""
     n, rl = x.shape[-1], out.shape[-2]
     cuda.launch("ntt_behz", mb.device, which, x.data_ptr(),
                 None if xb is None else xb.data_ptr(), out.data_ptr(),
                 *mb.kernel_args(), out.numel() // (rl * n), mb.k, n, row0, rl,
-                group)
+                0)
 
 
 def _kernel_device(name: str, x: torch.Tensor, mb: MultBanks):
@@ -166,7 +163,7 @@ def rns_to_bsk_plain(x, mb: MultBanks) -> torch.Tensor:
     return behz.rns_to_bsk(x, mb.mc)
 
 
-def rns_to_bsk(x, mb: MultBanks, group: int = 0) -> torch.Tensor:
+def rns_to_bsk(x, mb: MultBanks) -> torch.Tensor:
     """(..., k, n) base-q residues -> (..., k+1, n) in Bsk."""
     lead = _lead("x", x, mb.k)
     if x.device.type == "cpu":
@@ -174,7 +171,7 @@ def rns_to_bsk(x, mb: MultBanks, group: int = 0) -> torch.Tensor:
     dev = _kernel_device("rns_to_bsk", x, mb)
     cuda.require("x", x, I64, tuple(x.shape), dev)
     out = torch.empty(lead + (mb.k + 1, x.shape[-1]), dtype=I64, device=dev)
-    _launch(RNS_TO_BSK, x, None, out, mb, group=group)
+    _launch(RNS_TO_BSK, x, None, out, mb)
     rns_to_bsk.launches += 1
     return out
 
@@ -188,7 +185,7 @@ def fast_floor_plain(xq, xbsk, mb: MultBanks) -> torch.Tensor:
     return behz.fast_floor(xq, xbsk, mb.mc)
 
 
-def fast_floor(xq, xbsk, mb: MultBanks, group: int = 0) -> torch.Tensor:
+def fast_floor(xq, xbsk, mb: MultBanks) -> torch.Tensor:
     """(..., k, n) and (..., k+1, n), the same value in q and Bsk ->
     floor(t x / q) in Bsk, (..., k+1, n)."""
     lead = _lead("xq", xq, mb.k)
@@ -201,7 +198,7 @@ def fast_floor(xq, xbsk, mb: MultBanks, group: int = 0) -> torch.Tensor:
     cuda.require("xq", xq, I64, tuple(xq.shape), dev)
     cuda.require("xbsk", xbsk, I64, tuple(xbsk.shape), dev)
     out = torch.empty_like(xbsk)
-    _launch(FAST_FLOOR, xq, xbsk, out, mb, group=group)
+    _launch(FAST_FLOOR, xq, xbsk, out, mb)
     fast_floor.launches += 1
     return out
 
@@ -215,7 +212,7 @@ def bsk_to_q_plain(x, mb: MultBanks) -> torch.Tensor:
     return behz.bsk_to_q(x, mb.mc)
 
 
-def bsk_to_q(x, mb: MultBanks, group: int = 0) -> torch.Tensor:
+def bsk_to_q(x, mb: MultBanks) -> torch.Tensor:
     """(..., k+1, n) in Bsk -> (..., k, n) in q."""
     lead = _lead("x", x, mb.k + 1)
     if x.device.type == "cpu":
@@ -223,7 +220,7 @@ def bsk_to_q(x, mb: MultBanks, group: int = 0) -> torch.Tensor:
     dev = _kernel_device("bsk_to_q", x, mb)
     cuda.require("x", x, I64, tuple(x.shape), dev)
     out = torch.empty(lead + (mb.k, x.shape[-1]), dtype=I64, device=dev)
-    _launch(BSK_TO_Q, x, None, out, mb, group=group)
+    _launch(BSK_TO_Q, x, None, out, mb)
     bsk_to_q.launches += 1
     return out
 
@@ -235,7 +232,7 @@ def scale_and_round_plain(xq, xbsk, mb: MultBanks) -> torch.Tensor:
     return behz.scale_and_round(xq, xbsk, mb.mc)
 
 
-def scale_and_round(xq, xbsk, mb: MultBanks, group: int = 0) -> torch.Tensor:
+def scale_and_round(xq, xbsk, mb: MultBanks) -> torch.Tensor:
     """round(t x / q) in base q (behz_pallas.py:406, 21b then 21c): one
     launch, each coefficient's k+1 floors kept on chip and converted back
     to q, (..., k, n) and (..., k+1, n) -> (..., k, n)."""
@@ -249,7 +246,7 @@ def scale_and_round(xq, xbsk, mb: MultBanks, group: int = 0) -> torch.Tensor:
     cuda.require("xq", xq, I64, tuple(xq.shape), dev)
     cuda.require("xbsk", xbsk, I64, tuple(xbsk.shape), dev)
     out = torch.empty_like(xq)
-    _launch(SCALE_AND_ROUND, xq, xbsk, out, mb, group=group)
+    _launch(SCALE_AND_ROUND, xq, xbsk, out, mb)
     scale_and_round.launches += 1
     return out
 
@@ -423,8 +420,8 @@ def rns_to_bsk_rows_plain(x, mc: SpmdMultConsts, row0: int,
     return modmath.mont_mul(s, mc.inv_mt_mont_bsk[sl], bq, bqinv)
 
 
-def rns_to_bsk_rows(x, mc: SpmdMultConsts, row0: int, rl: int,
-                    group: int = 0) -> torch.Tensor:
+def rns_to_bsk_rows(x, mc: SpmdMultConsts, row0: int,
+                    rl: int) -> torch.Tensor:
     """(..., k, n) base-q residues -> rows [row0, row0 + rl) of
     rns_to_bsk's (..., k+1, n)."""
     lead = _band_lead("x", x, mc.k, row0, rl, mc.k)
@@ -434,7 +431,7 @@ def rns_to_bsk_rows(x, mc: SpmdMultConsts, row0: int, rl: int,
     dev = _kernel_device("rns_to_bsk_rows", x, mb)
     cuda.require("x", x, I64, tuple(x.shape), dev)
     out = torch.empty(lead + (rl, x.shape[-1]), dtype=I64, device=dev)
-    _launch(RNS_TO_BSK, x, None, out, mb, row0, group)
+    _launch(RNS_TO_BSK, x, None, out, mb, row0)
     rns_to_bsk_rows.launches += 1
     return out
 
@@ -459,8 +456,8 @@ def fast_floor_rows_plain(xq, xb, mc: SpmdMultConsts, row0: int,
     return modmath.mont_mul(diff, mc.inv_prodq_mont_bsk[sl], bq, bqinv)
 
 
-def fast_floor_rows(xq, xb, mc: SpmdMultConsts, row0: int, rl: int,
-                    group: int = 0) -> torch.Tensor:
+def fast_floor_rows(xq, xb, mc: SpmdMultConsts, row0: int,
+                    rl: int) -> torch.Tensor:
     """(..., k, n) base-q and the band's own (..., rl, n) Bsk rows of the
     same value -> rows [row0, row0 + rl) of fast_floor."""
     lead = _band_lead("xq", xq, mc.k, row0, rl, mc.k)
@@ -474,7 +471,7 @@ def fast_floor_rows(xq, xb, mc: SpmdMultConsts, row0: int, rl: int,
     cuda.require("xq", xq, I64, tuple(xq.shape), dev)
     cuda.require("xb", xb, I64, tuple(xb.shape), dev)
     out = torch.empty_like(xb)
-    _launch(FAST_FLOOR, xq, xb, out, mb, row0, group)
+    _launch(FAST_FLOOR, xq, xb, out, mb, row0)
     fast_floor_rows.launches += 1
     return out
 
@@ -508,8 +505,8 @@ def bsk_to_q_rows_plain(x, mc: SpmdMultConsts, row0: int,
                        modmath.sub_mod(cq, corr, q))
 
 
-def bsk_to_q_rows(x, mc: SpmdMultConsts, row0: int, rl: int,
-                  group: int = 0) -> torch.Tensor:
+def bsk_to_q_rows(x, mc: SpmdMultConsts, row0: int,
+                  rl: int) -> torch.Tensor:
     """(..., k+1, n) in Bsk -> rows [row0, row0 + rl) of bsk_to_q's output
     in the padded (..., k+1, n) layout, row k (the dropped modulus's
     slot) 0."""
@@ -520,7 +517,7 @@ def bsk_to_q_rows(x, mc: SpmdMultConsts, row0: int, rl: int,
     dev = _kernel_device("bsk_to_q_rows", x, mb)
     cuda.require("x", x, I64, tuple(x.shape), dev)
     out = torch.empty(lead + (rl, x.shape[-1]), dtype=I64, device=dev)
-    _launch(BSK_TO_Q, x, None, out, mb, row0, group)
+    _launch(BSK_TO_Q, x, None, out, mb, row0)
     bsk_to_q_rows.launches += 1
     return out
 

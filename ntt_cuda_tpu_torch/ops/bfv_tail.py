@@ -198,14 +198,10 @@ def decrypt_tail_plain(x, ct0, consts: DecTailConsts) -> torch.Tensor:
     return poly.fast_convert_and_round(y, dc)
 
 
-DEC_GROUPS = (1, 2, 4, 8)   # K2's group sizes G (csrc/decrypt_tail.cu)
-
-
-def decrypt_tail(x, ct0, consts: DecTailConsts, group: int = 0) -> torch.Tensor:
+def decrypt_tail(x, ct0, consts: DecTailConsts) -> torch.Tensor:
     """(r-1, n) x = INTT(NTT(c1) (.) sk), (r-1, n) c0 -> (n,) plaintext; a
     leading J batch dim on both decrypts J messages ((J, r-1, n) ->
-    (J, n)).  The kernel on a CUDA device (G = group lanes a coefficient,
-    0 for the launchers' rule), the plain chain on the CPU."""
+    (J, n)).  The kernel on a CUDA device, the plain chain on the CPU."""
     if x.device.type == "cpu":
         return decrypt_tail_plain(x, ct0, consts)
     if x.device.type != "cuda":
@@ -213,8 +209,6 @@ def decrypt_tail(x, ct0, consts: DecTailConsts, group: int = 0) -> torch.Tensor:
     single = x.dim() == 2
     J = 1 if single else x.shape[0]
     rk, n = x.shape[-2:]
-    if group and group not in DEC_GROUPS:
-        raise ValueError(f"group {group}: the kernel takes G in {DEC_GROUPS}")
     for name, tns in (("x", x), ("ct0", ct0)):
         cuda.require(name, tns, I64, tuple(x.shape), consts.per_mod.device)
     out = torch.empty((J, n), dtype=I64, device=x.device)
@@ -222,7 +216,7 @@ def decrypt_tail(x, ct0, consts: DecTailConsts, group: int = 0) -> torch.Tensor:
     cuda.launch("ntt_decrypt_tail", x.device, x.data_ptr(), ct0.data_ptr(),
                 out.data_ptr(), consts.k2_rows.data_ptr(),
                 consts.glob.data_ptr(), J, rk, n, pow2, t, neg_t, nu_t,
-                inv_gt, group)
+                inv_gt)
     decrypt_tail.launches += 1
     return out[0] if single else out
 

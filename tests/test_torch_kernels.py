@@ -459,13 +459,12 @@ def test_host_op_cluster_refusals(host_lib):
             torch.testing.assert_close(g, r, rtol=0, atol=0)
 
 
-def _host_decrypt_tail(host_lib, x, c0, dt, group):
+def _host_decrypt_tail(host_lib, x, c0, dt):
     J, rk, n = x.shape
     out = torch.empty((J, n), dtype=torch.int64)
     rc = host_lib.ntt_decrypt_tail(
         x.data_ptr(), c0.data_ptr(), out.data_ptr(), dt.k2_rows.data_ptr(),
-        dt.glob.data_ptr(), J, rk, n, *bfv_tail._t_strategy(dt.tmeta), group,
-        None)
+        dt.glob.data_ptr(), J, rk, n, *bfv_tail._t_strategy(dt.tmeta), None)
     return rc, out
 
 
@@ -473,9 +472,8 @@ def _host_decrypt_tail(host_lib, x, c0, dt, group):
                                                               "odd_t"])
 @pytest.mark.parametrize("J", [1, 3])
 def test_host_decrypt_tail(host_lib, params, J):
-    """K2 at every group size G (0: the rule), the residue rows of a
-    coefficient summed by G members and added as the kernel's shuffles
-    add them."""
+    """K2, the residue rows of a coefficient summed by the G members of
+    the launchers' rule and added as the kernel's shuffles add them."""
     p = params
     rng = np.random.default_rng(20 + J)
     dt = bfv_tail.DecTailConsts.build(p)
@@ -485,13 +483,15 @@ def test_host_decrypt_tail(host_lib, params, J):
     for i, q in enumerate(p.q[:-1]):
         x[:, i, :3] = torch.tensor([q - 1, 0, 5])
         c0[:, i, :3] = torch.tensor([1, 0, q - 5])
-    ref = bfv_tail.decrypt_tail_plain(x, c0, dt)
-    for G in (0,) + bfv_tail.DEC_GROUPS:
-        rc, out = _host_decrypt_tail(host_lib, x, c0, dt, G)
-        assert rc == 0
-        torch.testing.assert_close(out, ref, rtol=0, atol=0)
-    for G in (-1, 3, 16):
-        assert _host_decrypt_tail(host_lib, x, c0, dt, G)[0] != 0
+    rc, out = _host_decrypt_tail(host_lib, x, c0, dt)
+    assert rc == 0
+    torch.testing.assert_close(out, bfv_tail.decrypt_tail_plain(x, c0, dt),
+                               rtol=0, atol=0)
+    # more residue rows than 8 members of 16 rows each: refused unread
+    assert host_lib.ntt_decrypt_tail(
+        x.data_ptr(), c0.data_ptr(), out.data_ptr(), dt.k2_rows.data_ptr(),
+        dt.glob.data_ptr(), J, 129, p.n, *bfv_tail._t_strategy(dt.tmeta),
+        None) != 0
 
 
 @functools.cache
@@ -500,20 +500,20 @@ def _rk_params(rk: int, t: int):
 
 
 @pytest.mark.parametrize("t", [1024, 12289], ids=["pow2_t", "odd_t"])
-@pytest.mark.parametrize("rk", range(1, 17))
+@pytest.mark.parametrize("rk", [*range(1, 17), 17, 23, 32])
 def test_host_decrypt_tail_every_rk(host_lib, rk, t):
-    """K2 at rk = 1..16 residue rows, every G (rk not a multiple of G
-    included), against its plain version, J = 2, n = 256."""
+    """K2 at rk = 1..16 residue rows and a few beyond, against its plain
+    version, J = 2, n = 256: every G of the launchers' rule (2 up to 8
+    rows, 4 up to 16, 8 beyond), rk not a multiple of G included."""
     p = _rk_params(rk, t)
     rng = np.random.default_rng(rk + t)
     dt = bfv_tail.DecTailConsts.build(p)
     x = _rand_res(rng, p.q[:-1], p.n, (2,))
     c0 = _rand_res(rng, p.q[:-1], p.n, (2,))
-    ref = bfv_tail.decrypt_tail_plain(x, c0, dt)
-    for G in (0,) + bfv_tail.DEC_GROUPS:
-        rc, out = _host_decrypt_tail(host_lib, x, c0, dt, G)
-        assert rc == 0
-        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    rc, out = _host_decrypt_tail(host_lib, x, c0, dt)
+    assert rc == 0
+    torch.testing.assert_close(out, bfv_tail.decrypt_tail_plain(x, c0, dt),
+                               rtol=0, atol=0)
 
 
 # The stage launchers' cases: (J, B), B the cluster size (blocks per
@@ -826,7 +826,7 @@ def test_host_behz_rejects_bad_arguments(host_lib, banks):
     assert host_lib.ntt_behz(7, x.data_ptr(), None, x.data_ptr(),
                              *mb.kernel_args(), 1, k, 64, 0, k, 0,
                              None) != 0
-    for G in (-1, 3, 16):                       # G: a power of two <= 8
+    for G in (-1, 3, 4):                        # G: 1 or 2 (0: the rule)
         assert _host_behz(host_lib, behz_kernels.RNS_TO_BSK, x[:k], None, x,
                           mb, group=G) != 0
     # scale_and_round: the whole of q, and xb
@@ -1009,9 +1009,8 @@ def test_cuda_kernels_match_plain(cuda_device, name):
                            fused_ops.half_polymul_plain(x, got[0][:-1],
                                                         ctx.tables_drop))
         dt = ctx.dec_tail_consts
-        ref = bfv_tail.decrypt_tail_plain(x, c0, dt)
-        for G in (0,) + bfv_tail.DEC_GROUPS:
-            assert torch.equal(bfv_tail.decrypt_tail(x, c0, dt, G), ref), G
+        assert torch.equal(bfv_tail.decrypt_tail(x, c0, dt),
+                           bfv_tail.decrypt_tail_plain(x, c0, dt))
         draws = [sampling.encrypt_draws_compact(p.n, nonce=k + 1,
                                                 device=cuda_device)
                  for k in range(J)]
@@ -1190,8 +1189,9 @@ def test_cuda_op_cluster_sizes_match_plain(cuda_device, name):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["4k_3q", "32k_9q", "32k_16q"])
 def test_cuda_mult_kernels_match_plain(cuda_device, name):
-    """Kernels 21a-c and scale_and_round at every group size G, 11 and 19
-    and the transforms over Bsk on the card."""
+    """Kernels 21a-c and scale_and_round (G = 2 at 4k_3q and 1 at the 32k
+    sets, by the launchers' rule), 11 and 19 and the transforms over Bsk
+    on the card."""
     p = get_bfv_params(name)
     ctx = BFVContext.build(p, device=cuda_device)
     st = ctx._mult_setup()
@@ -1208,10 +1208,8 @@ def test_cuda_mult_kernels_match_plain(cuda_device, name):
                 (behz_kernels.bsk_to_q, behz_kernels.bsk_to_q_plain, (xb,)),
                 (behz_kernels.scale_and_round,
                  behz_kernels.scale_and_round_plain, (xq, xb))):
-            ref = plain(*args, mb)
-            for G in (0,) + behz_kernels.GROUPS:
-                assert torch.equal(kern(*args, mb, G), ref), (kern.__name__,
-                                                              G)
+            assert torch.equal(kern(*args, mb), plain(*args, mb)), \
+                kern.__name__
         c2 = _rand_res(rng, p.q[:-1], p.n, (J,)).to(cuda_device)
         ksk = _rand_res(rng, p.q, p.n, (2, k)).to(cuda_device)
         assert torch.equal(
