@@ -77,7 +77,8 @@ interleaved against in turn).  Then:
    n = 2048 its keys and ciphertexts equal to the same run on the CPU;
 11. the RNS-sharded programs (ntt_cuda_tpu_torch/parallel/spmd.py and
    spmd_mult.py) at 32k_9q: kernels 16, 17 and 18, and the sharded
-   EvalMult's kernel 20, 21a-c in band form and kernel 16's drop launch,
+   EvalMult's kernel 20, 21a-c in band form and kernel 16's drop launch
+   (K5 at J = 16 also whole against its plain version in 12),
    against their plain versions at rank shapes (rows 0-3 and 6-9 of
    R = 3, rows 0-9 of R = 1; rows 6-9 hold q_last and m_sk, and
    bsk_to_q's zero pad row; power-of-two and odd prime t; 17 also at
@@ -118,11 +119,13 @@ interleaved against in turn).  Then:
    every cluster size B, and the transform's two local inverses at those
    shapes interleaved (as the library runs them) and in turn, in turns;
    K3 (J = 1) and K4 at 16k_5q and 32k_9q at every B; the conversions,
-   their bands and K2 at every G at the four sets beside each bound, with
-   the variants (canonical sums with and without the shared exchange;
-   scale_and_round against 21b then 21c; K2 at V coefficients a thread
-   and in smaller blocks) and an empty launch; `ptxas -v` of every
-   instantiation.  (The cluster kernels' __launch_bounds__ A/B is
+   their bands and K2 at the group size G of the rule at the four sets
+   beside each bound (scale_and_round also against 21b then 21c); every
+   launch form of the encrypt tail (K5's and 13's at J = 1 and 16, 19's
+   drop, 14, 16 and its drop at rows 0-9 and 6-9) and kernel 17 (rows 0-9
+   and 6-9, levels 0 and 1) at 32k_9q through the library's C entry, each
+   == plain, beside its bound; `ptxas -v` of every instantiation of the
+   conversions, K2 / 17 and the encrypt tail.  (The cluster kernels' __launch_bounds__ A/B is
    tools/bounds_ab.py, run on its own.)
 
 13. kernels 12, 14 and 15 (the op-level entry points ntt_forward /
@@ -256,7 +259,7 @@ DEVICE_ROWS = ("ntt_forward", "ntt_inverse", "ntt_inverse_mul",
                "ntt_forward_ternary", "ntt_forward_addneg_gauss",
                "ntt_forward_addneg", "ntt_transform_idx",
                "encrypt_fused_stage", "keyswitch_fused", "keyswitch_front",
-               "encrypt_tail", "decrypt_fused")
+               "encrypt_tail", "decrypt_fused", "coef_cross_stage")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
 
@@ -618,7 +621,7 @@ def ptxas_lines(out: str, kernels: str) -> dict[str, str]:
 
 # the cluster kernels' names, and the conversion kernels' and K2's
 CLUSTER_KERNELS = "k_stage_|k_op_cluster|k_decrypt_cluster|k_ntt30_cluster"
-GROUP_KERNELS = "k_behz|k_decrypt_tail"
+GROUP_KERNELS = "k_behz|k_decrypt_tail|k_encrypt_tail"
 
 
 def ptxas_report(procs: list[subprocess.Popen]) -> str:
@@ -633,14 +636,18 @@ def spills(lines: dict[str, str]) -> dict[str, str]:
 
 def device_us(fn, reps: int = 20, names: set | None = None) -> float:
     """Device time of one call in us: torch.profiler's intervals of the
-    port's kernels (k_*) over `reps` calls, summed, over reps; their names
-    go into `names` where it is given."""
+    port's kernels (k_*) over a window of calls, summed, over the calls;
+    their names go into `names` where it is given.  A window now and then
+    records no device event at all, and has done so three times in a row:
+    up to eight windows are tried, each after an empty one twice as long
+    (up to 16 `reps`), and the empty ones are logged."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):       # a window now and then records no device event
+    for attempt in range(8):
+        calls = reps << min(attempt, 4)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         dev_events = [e for e in prof.events()
@@ -649,6 +656,8 @@ def device_us(fn, reps: int = 20, names: set | None = None) -> float:
               if e.name.removeprefix("void ").startswith("k_")]
         if dev_events:
             break
+        log(f"device_us: a profiler window of {calls} calls recorded no "
+            f"device event; trying again")
     if not iv:
         raise RuntimeError(f"torch.profiler saw no kernel of the port on the "
                            f"device (device events: "
@@ -657,7 +666,7 @@ def device_us(fn, reps: int = 20, names: set | None = None) -> float:
         names.update(e.name for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA
                      and e.name.removeprefix("void ").startswith("k_"))
-    return sum(iv) / reps
+    return sum(iv) / calls
 
 
 def local_ab(path: Path, dev, rng) -> dict:
@@ -941,6 +950,14 @@ def op_cases(ctx: BFVContext, rng, dev):
     return cases
 
 
+def tail_prims(out: int, msg: int = 0) -> dict:
+    """The encrypt tail's multiplies (csrc/fused_ops.cu EncryptTail) over
+    `out` output residues, `msg` of them with the message: ra mod q_i
+    (mod_nu) and the Shoup product by q_last^-1 each, and the Shoup product
+    by q_i // t where there is a message."""
+    return {"mod_nu": out, "shoup": out + msg}
+
+
 def encrypt_work(ctx: BFVContext, u_b, pk, e2, m, J: int) -> Work:
     """K5 over J messages: r forward and 2r inverse transforms per message,
     two Montgomery products and two Shoup n^-1 per (h, modulus,
@@ -948,10 +965,11 @@ def encrypt_work(ctx: BFVContext, u_b, pk, e2, m, J: int) -> Work:
     n, r = ctx.params.n, ctx.params.r
     tf, tc = ctx.tables_full, ctx.tail_consts
     out_coefs = J * 2 * (r - 1) * n
-    return Work(nbytes(u_b, pk, e2, m, *tables(tf), tc.per_mod) + 8 * out_coefs,
-                shoup=3 * transform_butterflies(J * r, n) + 2 * J * r * n,
-                mont=2 * J * r * n + out_coefs,
-                mod_nu=out_coefs + out_coefs // 2, mullo=out_coefs // 2)
+    tail = tail_prims(out_coefs, out_coefs // 2)
+    return Work(nbytes(u_b, pk, e2, m, *tables(tf), tc.tail_rows)
+                + 8 * out_coefs,
+                shoup=3 * transform_butterflies(J * r, n) + 2 * J * r * n
+                + tail["shoup"], mont=2 * J * r * n, mod_nu=tail["mod_nu"])
 
 
 def decrypt_tail_work(x, c0, dt, coefs: int) -> Work:
@@ -1036,11 +1054,11 @@ def stage_cases(ctx: BFVContext, rng, dev):
         "encrypt_fused_stage", 1,
         lambda: bfv_tail.encrypt_fused(u_ntt, pk, e2, m, tf, tc),
         lambda: bfv_tail.encrypt_fused_plain(u_ntt, pk, e2, m, tf, tc),
-        Work(nbytes(u_ntt, pk, e2, m, *tables(tf, "inv"), tc.per_mod)
+        Work(nbytes(u_ntt, pk, e2, m, *tables(tf, "inv"), tc.tail_rows)
              + 8 * out_coefs,
-             shoup=transform_butterflies(2 * r, n) + 2 * r * n,
-             mont=2 * r * n + out_coefs, mod_nu=out_coefs + out_coefs // 2,
-             mullo=out_coefs // 2)))
+             shoup=transform_butterflies(2 * r, n) + 2 * r * n
+             + out_coefs + out_coefs // 2,
+             mont=2 * r * n, mod_nu=out_coefs)))
     return cases
 
 
@@ -1418,10 +1436,11 @@ def mult_cases(ctx: BFVContext, rng, dev, addneg: bool = True):
             "keyswitch_fused", J,
             lambda c=c2, s=ksk: fused_ops.keyswitch_fused(c, s, tf, tc),
             lambda c=c2, s=ksk: fused_ops.keyswitch_fused_plain(c, s, tf, tc),
-            Work(nbytes(c2, ksk, *tables(tf), tc.per_mod) + 8 * out_coefs,
-                 shoup=transform_butterflies(J * (k + 2) * r, n) + J * 2 * r * n,
+            Work(nbytes(c2, ksk, *tables(tf), tc.tail_rows) + 8 * out_coefs,
+                 shoup=transform_butterflies(J * (k + 2) * r, n)
+                 + J * 2 * r * n + out_coefs,
                  mod_nu=J * k * r * n + out_coefs,
-                 mont=J * 2 * r * n * k + out_coefs)))
+                 mont=J * 2 * r * n * k)))
     if addneg:
         x = rand_res(rng, p.q, n, (k,), dev)
         e = rand_res(rng, p.q, n, (k,), dev)
@@ -1549,6 +1568,117 @@ def group_times(dev, rng, mults: dict, clock_hz: float) -> dict:
                     lambda: behz_kernels.bsk_to_q(floor(), mb), 10)
                     for _ in range(2)]
             res[f"{kname} {label}"] = row
+    return res
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def tail_cases(p: BFVParams, dev, rng, Js=(1, BATCH_J)) -> list:
+    """(label, C entry, raw args, out, plain result, the tensors behind the
+    args, Work) of every launch form of the encrypt tail (csrc/fused_ops.cu
+    EncryptTail) at p's main-path shapes: K5's and 13's at each J of Js,
+    19's drop, 14's, 16's and its drop's at rows 0-r and 6-r."""
+    n, r, rk = p.n, p.r, p.r - 1
+    tc = bfv_tail.TailConsts.build(p, dev)
+    glob = (tc.q_last, tc.half, tc.fix_th)
+    cases = []
+    for J, msg in [(J, True) for J in Js] + [(1, False)]:
+        sc = rand_res(rng, p.q, n, (J, 2), dev)
+        m = torch.from_numpy(rng.integers(0, p.t, (J, n))).to(dev)
+        ct = torch.empty((J, 2, rk, n), dtype=torch.int64, device=dev)
+        want = poly.divide_and_round_q_last(sc, tc.dr, tc.ms_drop, tc.ms_last)
+        if msg:
+            want[:, 0] = poly.add_message(want[:, 0], m, tc.msg)
+        out = J * 2 * rk * n
+        cases.append((
+            f"K5 J={J}" if msg else "19 drop J=1", "ntt_encrypt_tail",
+            (ptr(sc), ptr(m) if msg else None, ptr(ct), ptr(tc.tail_rows),
+             *glob, J, r, n), ct, want, (sc, m, tc),
+            Work(nbytes(sc, tc.tail_rows, ct) + (nbytes(m) if msg else 0),
+                 **tail_prims(out, out // 2 if msg else 0))))
+    c, e = (rand_res(rng, p.q, n, (2,), dev) for _ in range(2))
+    m = torch.from_numpy(rng.integers(0, p.t, n)).to(dev)
+    ct = torch.empty((2, rk, n), dtype=torch.int64, device=dev)
+    cases.append((
+        "14", "ntt_encrypt_tail_e",
+        (ptr(c), ptr(e), ptr(m), ptr(ct), ptr(tc.tail_rows), *glob, r, n),
+        ct, bfv_tail.encrypt_tail_plain(c, e, m, tc), (c, e, m, tc),
+        Work(nbytes(c, e, m, tc.tail_rows, ct),
+             **tail_prims(ct.numel(), ct.numel() // 2))))
+    mc = behz_kernels.SpmdMultConsts.build(p, behz.AuxBase.build(p), dev)
+    for lo, hi in ((0, r), (6, r)):
+        rl = hi - lo
+        pt = bfv_tail.build_tail_consts_padded(p, lo, hi, dev)
+        c, e = (rand_res(rng, p.q[lo:hi], n, (2,), dev) for _ in range(2))
+        ra = torch.from_numpy(rng.integers(0, p.q[-1], (2, n))).to(dev)
+        ct = torch.empty((2, rl, n), dtype=torch.int64, device=dev)
+        cases.append((
+            f"16 rows {lo}-{hi}", "ntt_encrypt_tail_padded",
+            (ptr(c), ptr(e), ptr(ra), ptr(m), ptr(ct), ptr(pt.tail_rows),
+             pt.q_last, pt.fix_th, rl, n), ct,
+            bfv_tail.encrypt_tail_padded_plain(c, e, ra, m, pt),
+            (c, e, ra, m, pt),
+            Work(nbytes(c, e, ra, m, pt.tail_rows, ct),
+                 **tail_prims(ct.numel(), ct.numel() // 2))))
+        dc = spmd_mult.drop_consts(mc, p.q[-1], lo, hi)
+        ct2 = torch.empty_like(ct)
+        cases.append((
+            f"16 drop rows {lo}-{hi}", "ntt_drop_last_padded",
+            (ptr(c), ptr(ra), ptr(ct2), ptr(dc.tail_rows), dc.q_last, rl, n),
+            ct2, bfv_tail.drop_last_padded_plain(c, ra, dc), (c, ra, dc),
+            Work(nbytes(c, ra, dc.tail_rows, ct2), **tail_prims(ct2.numel()))))
+    return cases
+
+
+def partial_cases(p: BFVParams, dev, rng) -> list:
+    """tail_cases' tuples for kernel 17 at p's rank rows 0-r and 6-r,
+    levels 0 and 1."""
+    n, r = p.n, p.r
+    cases = []
+    for lo, hi in ((0, r), (6, r)):
+        x, c0 = (rand_res(rng, p.q[lo:hi], n, (), dev) for _ in range(2))
+        for level in (0, 1):
+            cp = spmd._chain_params(p, level)
+            dc = bfv_tail.build_dec_tail_consts_padded(
+                cp, lo, min(hi, cp.r), pad_to=hi, device=dev)
+            out = torch.empty((2, n), dtype=torch.int64, device=dev)
+            t, rl = dc.t, hi - lo
+            cases.append((
+                f"17 rows {lo}-{hi} level {level}", "ntt_decrypt_tail_partial",
+                (ptr(x), ptr(c0), ptr(out), ptr(dc.k2_rows), ptr(dc.glob), rl,
+                 n, int(t & (t - 1) == 0), t, dc.nu_t), out,
+                torch.stack(bfv_tail.decrypt_tail_partial_plain(x, c0, dc)),
+                (x, c0, dc),
+                Work(nbytes(x, c0, dc.k2_rows, dc.glob, out),
+                     shoup=2 * rl * n, mullo=rl * n)))
+    return cases
+
+
+# the kernels line's row of each tail case's label prefix
+TAIL_ROWS = {"K5": "encrypt_fused", "19": "keyswitch_fused",
+             "14": "encrypt_tail", "16": "encrypt_tail_padded",
+             "17": "decrypt_tail_partial"}
+
+
+def tail_times(dev, rng, mults: dict, clock_hz: float, errs: dict) -> dict:
+    """Every encrypt tail form and kernel 17 at STAGE_SET (tail_cases,
+    partial_cases) through the library's C entry, each output (cleared
+    first) held against its plain version, then device us per call
+    (torch.profiler, two windows of 10 calls) beside its bound."""
+    lib, res = cuda.library(), {}
+    p = get_bfv_params(STAGE_SET)
+    cases = tail_cases(p, dev, rng) + partial_cases(p, dev, rng)
+    for label, entry, args, out, want, _, work in cases:
+        def call(entry=entry, args=args, out=out):
+            raw_launch(lib, entry, *args)
+            return out
+        out.fill_(-1)
+        compare(TAIL_ROWS[label.split()[0]], call(), want, errs)
+        bound_ms, bound_by = work.bound(mults, clock_hz)
+        res[label] = {"us": [device_us(call, 10) for _ in range(2)],
+                      "bound_us": bound_ms * 1e3, "bound_by": bound_by}
     return res
 
 
@@ -1841,8 +1971,8 @@ def spmd_cases(p: BFVParams, dev, rng):
                     bfv_tail.encrypt_tail_padded(c, e, ra, m, tc),
                 lambda c=c, e=e, ra=ra, m=m, tc=tc:
                     bfv_tail.encrypt_tail_padded_plain(c, e, ra, m, tc),
-                Work(nbytes(c, e, ra, m, tc.per_mod) + 8 * out, mont=out,
-                     mod_nu=out + out // 2, mullo=out // 2)))
+                Work(nbytes(c, e, ra, m, tc.tail_rows) + 8 * out,
+                     **tail_prims(out, out // 2))))
             levels = ((0, hi), (1, min(hi, pt.r - 1))) if hi == pt.r else (
                 (0, hi),)
             for level, top in levels:
@@ -1858,8 +1988,8 @@ def spmd_cases(p: BFVParams, dev, rng):
                         bfv_tail.decrypt_tail_partial(x, c0, dc),
                     lambda x=x, c0=c0, dc=dc:
                         bfv_tail.decrypt_tail_partial_plain(x, c0, dc),
-                    Work(nbytes(x, c0, dc.per_mod, dc.glob) + 16 * n,
-                         mont=3 * rl * n, mullo=rl * n)))
+                    Work(nbytes(x, c0, dc.k2_rows, dc.glob) + 16 * n,
+                         shoup=2 * rl * n, mullo=rl * n)))
     return cases
 
 
@@ -1922,8 +2052,8 @@ def spmd_mult_cases(p: BFVParams, dev, rng):
              lambda c=cc, ra=ra, tc=tc: bfv_tail.drop_last_padded(c, ra, tc),
              lambda c=cc, ra=ra, tc=tc: bfv_tail.drop_last_padded_plain(
                  c, ra, tc),
-             Work(nbytes(cc, ra, tc.per_mod) + 8 * out, mont=out,
-                  mod_nu=out)),
+             Work(nbytes(cc, ra, tc.tail_rows) + 8 * out,
+                  **tail_prims(out))),
         ]
     return cases
 
@@ -2213,8 +2343,8 @@ def ops_cases(rng, dev):
             lambda c=c, e=e, m=m, tc=tc: bfv_tail.encrypt_tail(c, e, m, tc),
             lambda c=c, e=e, m=m, tc=tc: bfv_tail.encrypt_tail_plain(
                 c, e, m, tc),
-            Work(nbytes(c, e, m, tc.per_mod) + 8 * out, mont=out,
-                 mod_nu=out + out // 2, mullo=out // 2)))
+            Work(nbytes(c, e, m, tc.tail_rows) + 8 * out,
+                 **tail_prims(out, out // 2))))
     for name in DEC_FUSED_SETS:
         p = get_bfv_params(name)
         td = ntt.tables_for(p, p.r - 1, device=dev)
@@ -2279,12 +2409,12 @@ def decrypt_cluster_times(cases) -> dict:
 
 def decrypt_fused_work(x, sk, c0, td, dt) -> Work:
     """Kernel 15: kernel 8's inverse (the Montgomery product, the
-    butterflies, the n^-1 Shoup) and K2's residue loop, x, sk and c0 read
-    once and the (n,) plaintext written once."""
+    butterflies, the n^-1 Shoup) and K2's residue loop (two Shoup products
+    a row), x, sk and c0 read once and the (n,) plaintext written once."""
     rk, n = x.shape
-    return Work(nbytes(x, sk, c0, *tables(td, "inv"), dt.per_mod, dt.glob)
-                + 8 * n, shoup=transform_butterflies(rk, n) + rk * n,
-                mont=rk * n + n * (3 * rk + 1), mullo=n * (rk + 1))
+    return Work(nbytes(x, sk, c0, *tables(td, "inv"), dt.k2_rows, dt.glob)
+                + 8 * n, shoup=transform_butterflies(rk, n) + 3 * rk * n,
+                mont=rk * n + n, mullo=n * (rk + 1))
 
 
 def drive_ops(ctx: BFVContext, pk, sk, msgs: np.ndarray, dev) -> dict:
@@ -2609,9 +2739,11 @@ def main() -> int:
         f"k_ntt30_cluster<CL, inverse>, __launch_bounds__ ClusterBound): "
         f"{json.dumps(ptxas_lines(ptxas_out, CLUSTER_KERNELS))}")
     group_lines = ptxas_lines(ptxas_out, GROUP_KERNELS)
-    log(f"conversion kernels and K2, registers and spills (ptxas -v, "
-        f"sm_90a; k_behz<K, which, SHARE> for K = 1..16, which 0-3 = 21a, "
-        f"21b, 21c, scale_and_round; k_decrypt_tail): "
+    log(f"conversion kernels, K2, 17 and the encrypt tail, registers and "
+        f"spills (ptxas -v, sm_90a; k_behz<K, which, SHARE> for K = 1..16, "
+        f"which 0-3 = 21a, 21b, 21c, scale_and_round; "
+        f"k_decrypt_tail<ROWS, PARTIAL>: K2, and 17 with PARTIAL; "
+        f"k_encrypt_tail<ROWS, V>): "
         f"{json.dumps(group_lines)}; with spills: "
         f"{json.dumps(spills(group_lines))}")
     log(f"build: all builds done in {time.perf_counter() - t0:.1f} s")
@@ -3221,14 +3353,21 @@ def main() -> int:
         f"scale_and_round also beside 21b then 21c), beside the bound at "
         f"the same shape: "
         f"{json.dumps(group_times(dev, rng, mults, clock_hz))}")
+    log(f"the encrypt tail's launch forms (K5's and 13's at J = 1 and "
+        f"{BATCH_J}, 19's drop, 14, 16 and its drop at rows 0-{p_s.r} and "
+        f"6-{p_s.r}) and kernel 17 (rows 0-{p_s.r} and 6-{p_s.r}, levels 0 "
+        f"and 1) at {STAGE_SET}, each == plain, device us per call "
+        f"(torch.profiler, two windows of 10 calls) beside the bound: "
+        f"{json.dumps(tail_times(dev, rng, mults, clock_hz, errs))}")
     bounds, terms = {}, {}
     for kname, (kern, plain, work) in timing.items():
         terms[kname] = work.terms(mults, clock_hz)
         bounds[kname] = (kernel_ms(kern), kernel_ms(plain),
                          *work.bound(mults, clock_hz))
     row_dev = {k: device_us(timing[k][0]) for k in DEVICE_ROWS}
-    log(f"stage rows', 14's and 15's device time at the timed shapes (us "
-        f"per call, torch.profiler; 19: its three launches; 12: (19, n)): "
+    log(f"stage rows', 14's, 15's and the cross-stage glue's device time "
+        f"at the timed shapes (us per call, torch.profiler; 19: its three "
+        f"launches; 12: (19, n); the glue: (9, 16384), C = 2): "
         f"{json.dumps(row_dev)}")
     kern, plain, work = drop_case
     log(f"kernel 16 as the key switch's drop ({SPMD_SET}, (2, {p_s.r}, n)): "
@@ -3245,6 +3384,8 @@ def main() -> int:
         lambda: fused_ops.encrypt_fused(*args),
         lambda: fused_ops.encrypt_fused_plain(*args),
         encrypt_work(ctx, u_b, res["pk"], e_d, res["m"], BATCH_J))
+    compare("encrypt_fused", fused_ops.encrypt_fused(*args),
+            fused_ops.encrypt_fused_plain(*args), errs)
     op32 = {}
     for kname, (kern, plain, work) in timing32.items():
         bound_ms, bound_by = work.bound(mults, clock_hz)

@@ -1,10 +1,11 @@
 // The decrypt tail's BEHZ residue loop and its rounding, shared by K2 and
 // kernel 17 (decrypt_tail.cu) and kernel 15 (ntt_stage.cu's
-// k_decrypt_fused).
+// k_decrypt_cluster).
 //
-// pm: DecTailConsts.per_mod rows (q, -q^-1, t*gamma * 2^64, inv_punctured
-// * 2^64, bcm_t, bcm_gamma * 2^64 mod gamma); gl: gamma, -gamma^-1 mod
-// 2^64, gamma / 2, neg_inv_q mod gamma * 2^64.
+// kr: DecTailConsts.k2_rows (or DecPartialConsts.k2_rows, one rank's band)
+// rows (q; t*gamma * inv_punctured mod q as w, ws; bcm_t; bcm_gamma mod
+// gamma as w, ws); gl: gamma, -gamma^-1 mod 2^64, gamma / 2, neg_inv_q mod
+// gamma * 2^64.
 
 #pragma once
 
@@ -20,26 +21,13 @@ struct BehzSums {
   u64 xt, xg;
 };
 
-// Row i's terms of the sums, from its residues xv of x and cv of c0.
-NTT_HD void behz_row(BehzSums& acc, u64 xv, u64 cv, const u64* p,
-                     const u64* gl, int pow2, u64 t, u64 nu_t) {
-  const u64 gamma = gl[0], ginv = gl[1];
-  const u64 q = p[0], qinv = p[1];
-  const u64 s = add_mod_gt(xv, cv, q);  // poly_add_xq_d quirk
-  const u64 y = mont_mul(mont_mul(s, p[2], q, qinv), p[3], q, qinv);
-  if (pow2) {
-    acc.xt += (y * p[4]) & (t - 1);
-  } else {
-    acc.xt += mod_nu(mod_nu(y, t, nu_t) * p[4], t, nu_t);
-    if (acc.xt >= t) acc.xt -= t;
-  }
-  acc.xg = add_mod(acc.xg, mont_mul(y, p[5], gamma, ginv), gamma);
-}
-
-// Row i's terms from K2's own constants (DecTailConsts.k2_rows, r: q;
-// t*gamma * inv_punctured mod q as w, ws; bcm_t; bcm_gamma mod gamma as w,
-// ws): the same y and terms as behz_row, each constant product one Shoup
-// multiply instead of a Montgomery product (the two of y folded into one).
+// Row i's terms, from its residues xv of x and cv of c0 and its row r of
+// kr: y = (xv +> cv) * t*gamma * inv_punctured mod q, each constant
+// product one Shoup multiply (the reference's two Montgomery products by
+// constants folded into one).  A row of zero constants adds nothing,
+// whatever its q and residues: mul_shoup(x, 0, 0, q) = x*0 - mulhi(x, 0)*q
+// = 0 for every u64 x (the dropped modulus's row and the q = 1 pad rows of
+// a rank's band).
 NTT_HD void behz_row_shoup(BehzSums& acc, u64 xv, u64 cv, const u64* r,
                            u64 gamma, int pow2, u64 t, u64 nu_t) {
   const u64 q = r[0];
@@ -79,14 +67,14 @@ NTT_HD BehzSums behz_sums_loaded(long long j, int k, const u64* x,
   return acc;
 }
 
-// Every row, in order (kernels 15 and 17).
+// Every row, in order (kernel 15's tail).
 NTT_HD BehzSums behz_sums(long long j, int k, const u64* x, const u64* c0,
-                          const u64* pm, const u64* gl, int rk, int n, int pow2,
+                          const u64* kr, u64 gamma, int rk, int n, int pow2,
                           u64 t, u64 nu_t) {
   BehzSums acc = {0, 0};
   for (int i = 0; i < rk; ++i) {
     const size_t off = ((size_t)j * rk + i) * n + k;
-    behz_row(acc, x[off], c0[off], pm + 6 * i, gl, pow2, t, nu_t);
+    behz_row_shoup(acc, x[off], c0[off], kr + 6 * i, gamma, pow2, t, nu_t);
   }
   return acc;
 }

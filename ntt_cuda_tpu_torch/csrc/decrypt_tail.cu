@@ -13,18 +13,20 @@
 // for pow2 t, an add mod t for odd t; x_g mod gamma), and member 0 runs
 // dec_round.  Every sum is exact modular arithmetic, so the result does
 // not depend on G or on the order.  The rule (dt_lg): G = 2 up to
-// 8 rows (2x the warps of one thread a coefficient, each member's loads in
-// flight together), then 4 up to 16 and 8 beyond, a member at most four
+// 10 rows (2x the warps of one thread a coefficient, each member's loads
+// in flight together), then 4 up to 20 and 8 beyond, a member at most five
 // rows.  One-row members (G = 8 at 32k_9q) lost to the parent's loop at
 // J = 3, and G = 1, larger G, several coefficients a thread and smaller
-// blocks were no faster than this rule (tools/behz_ab.py; PERF.md §6).
+// blocks were no faster than this rule (tools/behz_ab.py; PERF.md §6);
+// at 9 rows two members of five beat four of three (kernel 17,
+// tools/tail_ab.py).
 // The host build runs the same partition: each member's rows, then the
 // group's sum.
 //
 // Bound on the card: device memory, 16 (r-1) bytes read and 8 written per
 // coefficient.  Each row costs two Shoup products (DecTailConsts.k2_rows:
 // the reference's two Montgomery products by constants folded into one,
-// and bcm_gamma's) where kernels 15 and 17 run three Montgomery products.
+// and bcm_gamma's) where the reference runs three Montgomery products.
 // Coalesced: a warp reads 32 / G consecutive coefficients of each of its
 // rows.
 //
@@ -34,14 +36,18 @@
 //
 // Kernel 17, decrypt_tail_partial, replaces ntt_cuda_tpu/ops/bfv_tail.py
 // decrypt_tail_partial (bfv_tail.py:886, pallas_call :908): one rank of the
-// RNS-sharded decrypt runs the same residue loop over its own rows (the
-// dropped modulus's and any pad rows give 0: their padded constants are 0)
-// and stops before the scaling and rounding.  It writes the rank's two
-// partial sums, which the caller all-reduces and rounds
-// (bfv_tail.dec_round_from_sums): x_t as the low 32 bits of the sum for pow2
-// t (the TPU kernel's wrapping u32 sum, bfv_tail.py:275-279), below t for
-// odd t; x_g below gamma, before the neg_inv_q multiply.  Bound as above:
-// 16 rl bytes read and 16 written per coefficient.
+// RNS-sharded decrypt runs the same residue loop over its own rl rows and
+// stops before the scaling and rounding.  It is K2's kernel with the partial
+// epilogue (PARTIAL): the same members, rows, constants (the rank's band of
+// K2's rows, DecPartialConsts.k2_rows: the dropped modulus's row and any
+// q = 1 pad rows are zero constants and add nothing) and sums, and member 0
+// writes the rank's two partial sums where K2 rounds: x_t as the low 32
+// bits of the sum for pow2 t (the TPU kernel's wrapping u32 sum,
+// bfv_tail.py:275-279), below t for odd t, and x_g below gamma, before the
+// neg_inv_q multiply.  The caller all-reduces and rounds them
+// (bfv_tail.dec_round_from_sums).  Its G is K2's rule on the band's rows
+// (the launches of the sharded decrypt: rl = 3 and 9 at 32k_9q, G = 2).
+// Bound as K2's: 16 rl bytes read and 16 written per coefficient.
 
 #include "behz_sums.cuh"
 
@@ -49,10 +55,24 @@
 #define DT_MAX_GROUP 8
 #define DT_MAX_ROWS 16  // rows a member: rk <= G * DT_MAX_ROWS
 
+// Member 0's epilogue: the plaintext coefficient (K2, out (J, n)), or
+// the partial sums (kernel 17, out (J, 2, n): x_t, x_g).
+template <bool PARTIAL>
+NTT_HD void dt_finish(BehzSums s, long long j, int k, u64* out, const u64* gl,
+                      int n, int pow2, u64 t, u64 neg_t, u64 nu_t,
+                      u64 inv_gt) {
+  if (PARTIAL) {
+    out[(2 * j) * n + k] = pow2 ? s.xt & 0xFFFFFFFFull : s.xt;
+    out[(2 * j + 1) * n + k] = s.xg;
+  } else {
+    out[j * n + k] = dec_round(s, gl, pow2, t, neg_t, nu_t, inv_gt);
+  }
+}
+
 // Coefficient k of message j from its G members' partial sums (member g:
 // rows g, g + G, ..., at most ROWS), added in member order (the host form
 // of the kernel's butterflies).
-template <int ROWS>
+template <int ROWS, bool PARTIAL>
 NTT_HD void decrypt_tail_body(long long j, int k, const u64* x, const u64* c0,
                               u64* out, const u64* kr, const u64* gl, int rk,
                               int n, int pow2, u64 t, u64 neg_t, u64 nu_t,
@@ -64,15 +84,15 @@ NTT_HD void decrypt_tail_body(long long j, int k, const u64* x, const u64* c0,
                       behz_sums_loaded<ROWS>(j, k, x, c0, kr, gl, rk, n, pow2,
                                              t, nu_t, g, G),
                       gl, pow2, t);
-  out[(size_t)j * n + k] = dec_round(s, gl, pow2, t, neg_t, nu_t, inv_gt);
+  dt_finish<PARTIAL>(s, j, k, out, gl, n, pow2, t, neg_t, nu_t, inv_gt);
 }
 
 // K2's group size G, as log2: the least G >= 2 that leaves a member at
-// most four rows, up to DT_MAX_GROUP (PERF.md §6); -1 where a member
+// most five rows, up to DT_MAX_GROUP (PERF.md §6); -1 where a member
 // would hold more than DT_MAX_ROWS.
 static int dt_lg(int rk) {
   int lg = 1;
-  while ((1 << lg) < DT_MAX_GROUP && 4 << lg < rk) ++lg;
+  while ((1 << lg) < DT_MAX_GROUP && 5 << lg < rk) ++lg;
   return rk <= DT_MAX_ROWS << lg ? lg : -1;
 }
 
@@ -85,19 +105,9 @@ struct DtArgs {
   int lg;
 };
 
-// Kernel 17: coefficient k's partial sums over the rank's rl rows, x_t to
-// out[k] (its low 32 bits) and x_g to out[n + k].
-NTT_HD void decrypt_partial_body(long long k, const u64* x, const u64* c0,
-                                 u64* out, const u64* pm, const u64* gl, int rl,
-                                 int n, int pow2, u64 t, u64 nu_t) {
-  const BehzSums acc = behz_sums(0, (int)k, x, c0, pm, gl, rl, n, pow2, t, nu_t);
-  out[k] = acc.xt & 0xFFFFFFFFull;
-  out[n + k] = acc.xg;
-}
-
 #ifdef __CUDACC__
 
-template <int ROWS>
+template <int ROWS, bool PARTIAL>
 __global__ void __launch_bounds__(DT_THREADS) k_decrypt_tail(DtArgs a) {
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   const int k = v >> a.lg, G = 1 << a.lg, g = v & (G - 1);
@@ -112,39 +122,40 @@ __global__ void __launch_bounds__(DT_THREADS) k_decrypt_tail(DtArgs a) {
     s = behz_sums_add(s, o, a.gl, a.pow2, a.t);
   }
   if (g == 0 && k < a.n)
-    a.out[j * a.n + k] =
-        dec_round(s, a.gl, a.pow2, a.t, a.neg_t, a.nu_t, a.inv_gt);
+    dt_finish<PARTIAL>(s, j, k, a.out, a.gl, a.n, a.pow2, a.t, a.neg_t,
+                       a.nu_t, a.inv_gt);
 }
 
-template <int ROWS>
-static void dt_run(const DtArgs& a, cudaStream_t s) {
+template <int ROWS, bool PARTIAL>
+static void dt_run(const DtArgs& a, void* stream) {
   const dim3 grid(
       (unsigned)((((long long)a.n << a.lg) + DT_THREADS - 1) / DT_THREADS),
       (unsigned)a.J);
-  k_decrypt_tail<ROWS><<<grid, DT_THREADS, 0, s>>>(a);
+  k_decrypt_tail<ROWS, PARTIAL><<<grid, DT_THREADS, 0, (cudaStream_t)stream>>>(
+      a);
 }
 
 #else  // host build for the CPU tests: each coefficient's members in turn
 
-template <int ROWS>
+template <int ROWS, bool PARTIAL>
 static void dt_run(const DtArgs& a, void*) {
   for (long long j = 0; j < a.J; ++j)
     for (int k = 0; k < a.n; ++k)
-      decrypt_tail_body<ROWS>(j, k, a.x, a.c0, a.out, a.kr, a.gl, a.rk, a.n,
-                              a.pow2, a.t, a.neg_t, a.nu_t, a.inv_gt,
-                              1 << a.lg);
+      decrypt_tail_body<ROWS, PARTIAL>(j, k, a.x, a.c0, a.out, a.kr, a.gl,
+                                       a.rk, a.n, a.pow2, a.t, a.neg_t,
+                                       a.nu_t, a.inv_gt, 1 << a.lg);
 }
 
 #endif
 
 // ROWS = ceil(rk / G) (runtime) -> the instantiation, 1..DT_MAX_ROWS.
-template <int ROWS = 1, class S>
-static void dt_dispatch(const DtArgs& a, S stream) {
+template <bool PARTIAL, int ROWS = 1>
+static void dt_dispatch(const DtArgs& a, void* stream) {
   const int G = 1 << a.lg;
   if ((a.rk + G - 1) / G <= ROWS || ROWS == DT_MAX_ROWS)
-    dt_run<ROWS>(a, stream);
+    dt_run<ROWS, PARTIAL>(a, stream);
   else if constexpr (ROWS < DT_MAX_ROWS)
-    dt_dispatch<ROWS + 1>(a, stream);
+    dt_dispatch<PARTIAL, ROWS + 1>(a, stream);
 }
 
 static bool dt_args(const void* x, const void* c0, void* out, const void* kr,
@@ -157,63 +168,63 @@ static bool dt_args(const void* x, const void* c0, void* out, const void* kr,
          a.lg >= 0;
 }
 
+// The launchers' status: NTT_EINVAL-like for arguments the kernel does not
+// take, else the launch's error (0 in the host build).
 #ifdef __CUDACC__
+#define DT_STATUS(ok) \
+  ((ok) ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue)
+#else
+#define DT_STATUS(ok) ((ok) ? 0 : 1)
+#endif
 
-__global__ void k_decrypt_partial(const u64* x, const u64* c0, u64* out,
-                                  const u64* pm, const u64* gl, int rl, int n,
-                                  int pow2, u64 t, u64 nu_t) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < n) decrypt_partial_body(k, x, c0, out, pm, gl, rl, n, pow2, t, nu_t);
-}
-
-// x, c0 (J, rk, n), out (J, n).
+// K2: x, c0 (J, rk, n), out (J, n).
 extern "C" int ntt_decrypt_tail(const void* x, const void* c0, void* out,
                                 const void* kr, const void* gl, int J, int rk,
                                 int n, int pow2, u64 t, u64 neg_t, u64 nu_t,
                                 u64 inv_gt, void* stream) {
   DtArgs a;
-  if (!dt_args(x, c0, out, kr, gl, J, rk, n, pow2, t, neg_t, nu_t, inv_gt,
-               a))
-    return (int)cudaErrorInvalidValue;
-  dt_dispatch(a, (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+  const bool ok = dt_args(x, c0, out, kr, gl, J, rk, n, pow2, t, neg_t, nu_t,
+                          inv_gt, a);
+  if (ok) dt_dispatch<false>(a, stream);
+  return DT_STATUS(ok);
 }
 
+// Kernel 17: one rank's x, c0 (rl, n) and its band of K2's rows, out (2, n).
 extern "C" int ntt_decrypt_tail_partial(const void* x, const void* c0,
-                                        void* out, const void* pm,
+                                        void* out, const void* kr,
                                         const void* gl, int rl, int n, int pow2,
                                         u64 t, u64 nu_t, void* stream) {
-  if (n < 1 || rl < 1) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  k_decrypt_partial<<<(n + threads - 1) / threads, threads, 0,
-                      (cudaStream_t)stream>>>(
-      (const u64*)x, (const u64*)c0, (u64*)out, (const u64*)pm,
-      (const u64*)gl, rl, n, pow2, t, nu_t);
-  return (int)cudaGetLastError();
+  DtArgs a;
+  const bool ok = dt_args(x, c0, out, kr, gl, 1, rl, n, pow2, t, 0, nu_t, 0,
+                          a);
+  if (ok) dt_dispatch<true>(a, stream);
+  return DT_STATUS(ok);
 }
 
-#else  // host build for the CPU tests
+#ifndef __CUDACC__
 
-extern "C" int ntt_decrypt_tail(const void* x, const void* c0, void* out,
-                                const void* kr, const void* gl, int J, int rk,
-                                int n, int pow2, u64 t, u64 neg_t, u64 nu_t,
-                                u64 inv_gt, void* stream) {
+// The host build's seam for the tests (the card's library has none): K2
+// (partial 0, out (J, n)) or kernel 17 (partial 1, J = 1, out (2, n)) at a
+// group size G the caller picks, a power of two up to 32 that leaves a
+// member at most DT_MAX_ROWS rows: the partition the card would run at
+// that G.
+extern "C" int ntt_decrypt_tail_group(int partial, int group, const void* x,
+                                      const void* c0, void* out,
+                                      const void* kr, const void* gl, int J,
+                                      int rk, int n, int pow2, u64 t,
+                                      u64 neg_t, u64 nu_t, u64 inv_gt) {
   DtArgs a;
   if (!dt_args(x, c0, out, kr, gl, J, rk, n, pow2, t, neg_t, nu_t, inv_gt,
-               a))
+               a) ||
+      (partial && J != 1))
     return 1;
-  dt_dispatch(a, stream);
-  return 0;
-}
-
-extern "C" int ntt_decrypt_tail_partial(const void* x, const void* c0,
-                                        void* out, const void* pm,
-                                        const void* gl, int rl, int n, int pow2,
-                                        u64 t, u64 nu_t, void*) {
-  if (n < 1 || rl < 1) return 1;
-  for (long long k = 0; k < n; ++k)
-    decrypt_partial_body(k, (const u64*)x, (const u64*)c0, (u64*)out,
-                         (const u64*)pm, (const u64*)gl, rl, n, pow2, t, nu_t);
+  for (a.lg = 0; (1 << a.lg) < group && a.lg < 5; ++a.lg) {
+  }
+  if ((1 << a.lg) != group || rk > DT_MAX_ROWS * group) return 1;
+  if (partial)
+    dt_dispatch<true>(a, nullptr);
+  else
+    dt_dispatch<false>(a, nullptr);
   return 0;
 }
 

@@ -68,15 +68,14 @@
 // encrypt_fused cannot carry the last residue across grid steps as the TPU
 // grid does (fused_ops.py:397-407): blocks run in no order.  Its transform
 // writes c_h +> e_h for all r moduli to a (J, 2, r, n) scratch, and an
-// elementwise tail launch does the modulus drop and Delta*m + fix.  The
-// encrypt tails are elementwise, one thread per output coefficient, bound
-// by device memory (the padded tail reads c, e, ra and m once and writes
-// ct once: 8 (6 rl + 3) bytes per coefficient of m).  Every op reads
+// elementwise tail launch does the modulus drop and Delta*m + fix (the
+// encrypt tail, EncryptTail below: G lanes a coefficient and up to five
+// output residues a thread, bound by device memory).  Every op reads
 // compact i32 draws (the ternary u and s, the Gaussian e) instead of
 // (r, n) u64 residues.
 //
-// The same structs run as CUDA cluster launches or, in the host build of
-// the tests, through walk_clusters with one thread per block.
+// The transform structs run as CUDA cluster launches or, in the host build
+// of the tests, through walk_clusters with one thread per block.
 
 #include "ntt_cluster.cuh"
 
@@ -326,79 +325,155 @@ struct EncryptTransform {
 };
 
 // --- encrypt_fused, tail: the modulus drop and Delta*m + fix --------------
-// tc: TailConsts.per_mod rows (q, -q^-1, nu, half_mod, inv_q_last * 2^64,
-// q_i / t); one thread per output coefficient of ct (J, 2, rk, n).  With
+// ct[j, h, i] = ((c_i - (ra - half mod q_i)) * q_last^-1 mod q_i), plus
+// Delta*m + fix for h = 0 where there is a message, over ct (J, 2, rk, n);
+// ra = (c_last + half) mod q_last of the same (j, h) and coefficient.  With
 // m null it is the modulus drop alone: the key switch's last launch
-// (divide_and_round_q_last of the accumulated (J, 2, r, n) pair).
+// (divide_and_round_q_last of the accumulated (J, 2, r, n) pair).  tc:
+// the kernel's rows (TailConsts.tail_rows, PaddedTailConsts.tail_rows), q,
+// floor(2^64 / q), half_mod, q_last^-1 mod q and q_i // t as Shoup pairs
+// (w, floor(w 2^64 / q)), 0.
 //
-// Two forms.  encrypt_fused's: scratch holds c +> e over all r = rk + 1
-// moduli and ra is its last row, + half mod q_last.  encrypt_tail_padded's
-// (kernel 16, one rank of the RNS-sharded program): scratch is the rank's
-// c (J, 2, rk, n) with r = rk, e (the same shape) is added here, and ra
-// (J, 2, n) arrives ready, all-reduced from the dropped modulus's owner
-// ((c_last +> e_last) + half mod q_last; the caller passes half = 0).  The
-// rank's padded constants give the dropped modulus's own row, if it holds
-// it, half_mod 0, inv_q_last 1 and q_i / t 0: that slot is well defined
-// and the caller ignores it.  encrypt_tail's (kernel 14): scratch is c
-// (2, r, n) after the inverse with r = rk + 1, e (2, r, n) is added here,
-// and ra is the last row of c +> e (strict `>`), + half mod q_last.  The
-// TPU kernel's (r-1, 2) grid reads the last residue at every step; here
-// each thread reads it for its own coefficient.
+// Five forms, one struct:
+//   K5 and 13 (ntt_encrypt_tail): scratch holds c +> e over all r = rk + 1
+//     moduli (J, 2, r, n); ra is its last row, + half mod q_last;
+//   19's drop (ntt_encrypt_tail with m null): the same over the key
+//     switch's accumulators;
+//   14 (ntt_encrypt_tail_e): scratch is c (2, r, n) after the inverse, e
+//     (2, r, n) is added here (strict `>`), and ra is the last row of
+//     c +> e, + half mod q_last;
+//   16 (ntt_encrypt_tail_padded, one rank of the RNS-sharded program): c
+//     (2, rl, n) with rk = rl, e of the same shape added here, and ra (2, n)
+//     arriving ready, all-reduced from the dropped modulus's owner
+//     ((c_last +> e_last) + half mod q_last: the launcher passes half 0).
+//     The rank's padded rows give the dropped modulus's own row, if it
+//     holds it, half_mod 0, q_last^-1 1 and q_i // t 0: that slot is well
+//     defined and the caller ignores it;
+//   16's drop (ntt_drop_last_padded, the sharded key switch): 16 with no e
+//     and no message (the dropped row's inverse 0).
+// The TPU kernels carry the last residue across their grid steps or read it
+// at every step; here the grid's y is the (j, h) row and x the coefficient:
+// thread v takes coefficients k0 .. k0 + V - 1, k0 = V (v / G), and output
+// residues g, g + G, ... (at most ROWS, a template constant), g = v mod G,
+// with no division of the index.  A thread loads everything first: ra's
+// row (and e's last row), each of its rows of c (and e) and m, V adjacent
+// words at a time (one 16-byte load at V = 2), then forms ra once for its
+// coefficients and reduces it against each of its moduli.  The G lanes of
+// a coefficient are adjacent in a warp, so their loads of ra and m are one
+// memory access.  The multiply by q_last^-1 and by q_i // t are Shoup
+// products by constants (the plain chain's Montgomery product and its
+// final Barrett reduction of out + m (q_i // t) + fix give the same
+// canonical residues: the message term is below q for m < t).  Bound on
+// the card: device memory, each input read once and ct written once (K5 at
+// 32k_9q, J = 16: 147 MB).  The rule (et_plan) picks G and V from rk and
+// the grid's size; tools/tail_ab.py times the other choices.  The host
+// build runs the same partition: each (row, coefficient group, lane) in
+// turn.
+
+#define ET_THREADS 128
+#define ET_MAX_ROWS 5        // output residues a thread at most
+#define ET_WIDE_COEFS (1 << 18)  // coefficients a launch from which V = 2
 
 struct EncryptTail {
-  const u64* scratch;
-  const u64* e;   // null, or (J, 2, re, n): the padded form's (re = rk) or
-                  // encrypt_tail's (re = r)
-  const u64* ra;  // null, or the (J, 2, n) ready ra of the padded form
-  const long long* m;
-  u64* ct;
-  const u64* tc;
+  const u64* scratch;  // (J, 2, r, n)
+  const u64* e;        // null, or (J, 2, re, n)
+  const u64* ra;       // null (the last row of scratch), or (J, 2, n) ready
+  const long long* m;  // null, or (J, n)
+  u64* ct;             // (J, 2, rk, n)
+  const u64* tc;       // (rk, 8) tail rows
   u64 q_last, half, fix_th;
-  int r, rk, n, re;
-
-  OP_HD void operator()(long long idx) const {
-    const int k = (int)(idx % n);
-    long long rest = idx / n;
-    const int ki = (int)(rest % rk);
-    rest /= rk;
-    const int h = (int)(rest % 2);
-    const long long j = rest / 2;
-    const u64* p = tc + 6 * ki;
-    const u64 q = p[0], qinv = p[1], nu = p[2], half_mod = p[3], invq = p[4],
-              qi_div_t = p[5];
-    const size_t row = (size_t)(2 * j + h);
-    u64 sv = scratch[(row * r + ki) * n + k];
-    if (e) sv = add_mod_gt(sv, e[(row * re + ki) * n + k], q);
-    u64 ra_v;
-    if (ra) {
-      ra_v = ra[row * n + k];
-    } else {
-      ra_v = scratch[(row * r + rk) * n + k];
-      if (e) ra_v = add_mod_gt(ra_v, e[(row * re + rk) * n + k], q_last);
-    }
-    ra_v += half;
-    if (ra_v >= q_last) ra_v -= q_last;
-    u64 tmp = mod_nu(ra_v, q, nu);
-    tmp = tmp < half_mod ? tmp + q - half_mod : tmp - half_mod;
-    const u64 v = sv < tmp ? sv + q - tmp : sv - tmp;
-    u64 out = mont_mul(v, invq, q, qinv);
-    if (h == 0 && m) {
-      const u64 mm = (u64)m[j * n + k];
-      out = mod_nu(out + mm * qi_div_t + (mm >= fix_th ? 1ull : 0ull), q, nu);
-    }
-    ct[idx] = out;
-  }
+  int r, re, rk, n;
+  int lg;              // log2 of G, the lanes a coefficient
 };
 
+// V adjacent words at p (16-byte aligned where V = 2 on the card).
+template <int V>
+OP_HD void load_v(u64 (&v)[V], const u64* p) {
+#ifdef __CUDA_ARCH__
+  if constexpr (V == 2) {
+    const ulonglong2 w = *reinterpret_cast<const ulonglong2*>(p);
+    v[0] = w.x;
+    v[1] = w.y;
+    return;
+  }
+#endif
+  for (int i = 0; i < V; ++i) v[i] = p[i];
+}
+
+template <int V>
+OP_HD void store_v(u64* p, const u64 (&v)[V]) {
+#ifdef __CUDA_ARCH__
+  if constexpr (V == 2) {
+    *reinterpret_cast<ulonglong2*>(p) = make_ulonglong2(v[0], v[1]);
+    return;
+  }
+#endif
+  for (int i = 0; i < V; ++i) p[i] = v[i];
+}
+
+// Output residues g, g + G, ... < rk (at most ROWS) of row `row` = 2 j + h
+// at coefficients k0 .. k0 + V - 1.
+template <int ROWS, int V>
+OP_HD void encrypt_tail_coefs(const EncryptTail& f, int row, int k0, int g) {
+  const int G = 1 << f.lg;
+  const size_t n = f.n, c_row = (size_t)row * f.r * n + k0,
+               e_row = (size_t)row * f.re * n + k0;
+  const bool e_last = !f.ra && f.e, msg = f.m && !(row & 1);
+  u64 ra[V], el[V] = {}, mm[V] = {}, sv[ROWS][V] = {}, ev[ROWS][V] = {};
+  load_v<V>(ra, f.ra ? f.ra + (size_t)row * n + k0
+                     : f.scratch + c_row + (size_t)f.rk * n);
+  if (e_last) load_v<V>(el, f.e + e_row + (size_t)f.rk * n);
+#pragma unroll
+  for (int u = 0; u < ROWS; ++u) {
+    const int i = g + u * G;
+    if (i < f.rk) {
+      load_v<V>(sv[u], f.scratch + c_row + (size_t)i * n);
+      if (f.e) load_v<V>(ev[u], f.e + e_row + (size_t)i * n);
+    }
+  }
+  if (msg) load_v<V>(mm, (const u64*)f.m + (size_t)(row >> 1) * n + k0);
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    u64 x = e_last ? add_mod_gt(ra[v], el[v], f.q_last) : ra[v];
+    x += f.half;
+    ra[v] = x >= f.q_last ? x - f.q_last : x;
+  }
+#pragma unroll
+  for (int u = 0; u < ROWS; ++u) {
+    const int i = g + u * G;
+    if (i >= f.rk) break;
+    const u64* p = f.tc + 8 * i;
+    const u64 q = p[0], nu = p[1], half_mod = p[2];
+    u64 out[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const u64 s = f.e ? add_mod_gt(sv[u][v], ev[u][v], q) : sv[u][v];
+      u64 tmp = mod_nu(ra[v], q, nu);
+      tmp = tmp < half_mod ? tmp + q - half_mod : tmp - half_mod;
+      u64 o = mul_shoup(s < tmp ? s + q - tmp : s - tmp, p[3], p[4], q);
+      if (msg) {
+        o = add_mod(o, mul_shoup(mm[v], p[5], p[6], q), q) +
+            (mm[v] >= f.fix_th ? 1ull : 0ull);
+        if (o >= q) o -= q;
+      }
+      out[v] = o;
+    }
+    store_v<V>(f.ct + ((size_t)row * f.rk + i) * n + k0, out);
+  }
+}
 
 // --- launches ---------------------------------------------------------------
 
 #ifdef __CUDACC__
 
-template <typename F>
-__global__ void k_each(F f, long long total) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < total) f(k);
+// The encrypt tail: row blockIdx.y, V coefficients and ROWS residues a
+// thread (the struct's head).
+template <int ROWS, int V>
+__global__ void __launch_bounds__(ET_THREADS) k_encrypt_tail(EncryptTail f) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  const int k0 = (v >> f.lg) * V;
+  if (k0 < f.n)
+    encrypt_tail_coefs<ROWS, V>(f, blockIdx.y, k0, v & ((1 << f.lg) - 1));
 }
 
 // One transform's phases (the head of the file): polynomial blockIdx.x >> CL
@@ -435,13 +510,12 @@ static int run_cluster_op(const F& f, int P, void* stream) {
                          F::BUFS, stream, f);
 }
 
-// f(k) for k < total, one thread each.
-template <typename F>
-static int run_each(const F& f, long long total, void* stream) {
-  if (total < 1) return NTT_EINVAL;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  k_each<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(f, total);
+template <int ROWS, int V>
+static int et_run(const EncryptTail& f, int rows, void* stream) {
+  const long long threads = (long long)(f.n / V) << f.lg;
+  const dim3 grid((unsigned)((threads + ET_THREADS - 1) / ET_THREADS),
+                  (unsigned)rows);
+  k_encrypt_tail<ROWS, V><<<grid, ET_THREADS, 0, (cudaStream_t)stream>>>(f);
   return (int)cudaGetLastError();
 }
 
@@ -463,14 +537,52 @@ static int run_cluster_op(const F& f, int P, void*) {
   return 0;
 }
 
-template <typename F>
-static int run_each(const F& f, long long total, void*) {
-  if (total < 1) return NTT_EINVAL;
-  for (long long k = 0; k < total; ++k) f(k);
+template <int ROWS, int V>
+static int et_run(const EncryptTail& f, int rows, void*) {
+  for (int row = 0; row < rows; ++row)
+    for (int k0 = 0; k0 < f.n; k0 += V)
+      for (int g = 0; g < (1 << f.lg); ++g)
+        encrypt_tail_coefs<ROWS, V>(f, row, k0, g);
   return 0;
 }
 
 #endif
+
+// The encrypt tail's plan (G as log2, and V) for rk output residues of
+// `rows` rows of n coefficients: the least G that leaves a thread at most
+// ET_MAX_ROWS residues, and V = 2 from ET_WIDE_COEFS coefficients a launch
+// where every pointer takes 16-byte accesses.  At 32k_9q (tools/tail_ab.py,
+// PERF.md §6) five residues a thread beat three and eight, V = 1 won every
+// J = 1 launch (twice the threads of a small grid) and V = 2 the J = 16
+// one, and blocks of 128 threads beat 256 or tied.
+static void et_plan(EncryptTail& f, int rows, int& V) {
+  f.lg = 0;
+  while (f.rk > (ET_MAX_ROWS << f.lg)) ++f.lg;
+  const uintptr_t bits = (uintptr_t)f.scratch | (uintptr_t)f.e |
+                         (uintptr_t)f.ra | (uintptr_t)f.m | (uintptr_t)f.ct;
+  const bool wide = (long long)rows * f.n >= ET_WIDE_COEFS;
+  V = wide && f.n % 2 == 0 && bits % 16 == 0 ? 2 : 1;
+}
+
+// ROWS = ceil(rk / G) (runtime) -> the instantiation, 1..ET_MAX_ROWS.
+template <int V, int ROWS = 1>
+static int et_dispatch(const EncryptTail& f, int rows, void* stream) {
+  if ((f.rk + (1 << f.lg) - 1) >> f.lg <= ROWS)
+    return et_run<ROWS, V>(f, rows, stream);
+  if constexpr (ROWS < ET_MAX_ROWS)
+    return et_dispatch<V, ROWS + 1>(f, rows, stream);
+  return NTT_EINVAL;
+}
+
+// One launch of the encrypt tail over `rows` = 2 J rows, by the rule.
+static int et_launch(EncryptTail f, int rows, void* stream) {
+  if (rows < 1 || rows > 65535 || f.rk < 1 || f.n < 1 || f.r < f.rk)
+    return NTT_EINVAL;
+  int V;
+  et_plan(f, rows, V);
+  return V == 2 ? et_dispatch<2>(f, rows, stream)
+                : et_dispatch<1>(f, rows, stream);
+}
 
 // One transform over P polynomials at cluster size B (0: the rule,
 // stage_cluster_log with F::BUFS buffers a block), or NTT_EINVAL where a
@@ -527,14 +639,16 @@ extern "C" int ntt_encrypt_transform_cluster(
   return op_launch(f, J * r, cluster, stream);
 }
 
+// K5's and 13's tail, and 19's drop with m null: scratch (J, 2, r, n),
+// m (J, n) -> ct (J, 2, r-1, n).
 extern "C" int ntt_encrypt_tail(const void* scratch, const void* m, void* ct,
                                 const void* tc, u64 q_last, u64 half,
                                 u64 fix_th, int J, int r, int n, void* stream) {
-  if (r < 2) return NTT_EINVAL;
+  if (r < 2 || J < 1) return NTT_EINVAL;
   const EncryptTail f = {(const u64*)scratch, nullptr, nullptr,
                          (const long long*)m, (u64*)ct, (const u64*)tc,
-                         q_last, half, fix_th, r, r - 1, n, 0};
-  return run_each(f, (long long)J * 2 * (r - 1) * n, stream);
+                         q_last, half, fix_th, r, 0, r - 1, n, 0};
+  return et_launch(f, 2 * J, stream);
 }
 
 // Kernel 14: c and e (2, r, n), m (n,) -> ct (2, r-1, n).
@@ -545,8 +659,8 @@ extern "C" int ntt_encrypt_tail_e(const void* c, const void* e, const void* m,
   if (r < 2 || !e) return NTT_EINVAL;
   const EncryptTail f = {(const u64*)c, (const u64*)e, nullptr,
                          (const long long*)m, (u64*)ct, (const u64*)tc,
-                         q_last, half, fix_th, r, r - 1, n, r};
-  return run_each(f, 2LL * (r - 1) * n, stream);
+                         q_last, half, fix_th, r, r, r - 1, n, 0};
+  return et_launch(f, 2, stream);
 }
 
 // Kernel 18: c (2, r, n) = INTT(NTT(u) . pk_h) for one message, NTT(u)
@@ -571,11 +685,11 @@ extern "C" int ntt_encrypt_tail_padded(const void* c, const void* e,
                                        const void* ra, const void* m, void* ct,
                                        const void* tc, u64 q_last, u64 fix_th,
                                        int rl, int n, void* stream) {
-  if (rl < 1 || !e || !ra) return NTT_EINVAL;
+  if (!e || !ra) return NTT_EINVAL;
   const EncryptTail f = {(const u64*)c, (const u64*)e, (const u64*)ra,
                          (const long long*)m, (u64*)ct, (const u64*)tc,
-                         q_last, 0, fix_th, rl, rl, n, rl};
-  return run_each(f, 2LL * rl * n, stream);
+                         q_last, 0, fix_th, rl, rl, rl, n, 0};
+  return et_launch(f, 2, stream);
 }
 
 // Kernel 16's tail with no e and no message: the sharded key switch's
@@ -584,11 +698,9 @@ extern "C" int ntt_encrypt_tail_padded(const void* c, const void* e,
 extern "C" int ntt_drop_last_padded(const void* c, const void* ra, void* ct,
                                     const void* tc, u64 q_last, int rl, int n,
                                     void* stream) {
-  if (rl < 1 || !ra) return NTT_EINVAL;
-  const EncryptTail f = {(const u64*)c, nullptr,  (const u64*)ra,
-                         nullptr,       (u64*)ct, (const u64*)tc,
-                         q_last,        0,        0,
-                         rl,            rl,       n,
-                         0};
-  return run_each(f, 2LL * rl * n, stream);
+  if (!ra) return NTT_EINVAL;
+  const EncryptTail f = {(const u64*)c, nullptr, (const u64*)ra, nullptr,
+                         (u64*)ct, (const u64*)tc, q_last, 0, 0, rl, 0, rl,
+                         n, 0};
+  return et_launch(f, 2, stream);
 }

@@ -356,8 +356,9 @@ static bool cross_args_ok(int w, int P, int r, int logn, int logc) {
 //      (rk, n) scratch (2 MB at 32k_9q: it stays in L2);
 //   2. a grid barrier (cooperative_groups::this_grid().sync(): the launch
 //      carries both the cluster dimension and the cooperative attribute);
-//   3. K2's residue loop (behz_sums) and the rounding over the n
-//      coefficients, grid-strided over all rk B blocks' threads, into out.
+//   3. K2's residue loop (behz_sums: K2's Shoup rows, DecTailConsts.k2_rows,
+//      every row in turn) and the rounding over the n coefficients,
+//      grid-strided over all rk B blocks' threads, into out.
 // The launcher (run_cluster with COOP) checks with
 // cudaOccupancyMaxActiveClusters that all rk clusters are resident at once
 // (two blocks an SM where one is not enough, as every cluster kernel) and
@@ -370,7 +371,7 @@ static bool cross_args_ok(int w, int P, int r, int logn, int logc) {
 struct DecFusedArgs {
   const u64* c0;  // (r-1, n)
   u64* out;       // (n,)
-  const u64* pm;  // DecTailConsts.per_mod (r-1, 6)
+  const u64* kr;  // DecTailConsts.k2_rows (r-1, 6)
   const u64* gl;  // DecTailConsts.glob (4,)
   int pow2;
   u64 t, neg_t, nu_t, inv_gt;
@@ -380,7 +381,7 @@ NTT_HD void dec_fused_tail(long long k, const StageIO& io,
                            const DecFusedArgs& d) {
   const int n = 1 << io.logn;
   d.out[k] = dec_round(
-      behz_sums(0, (int)k, io.out, d.c0, d.pm, d.gl, io.r, n, d.pow2, d.t,
+      behz_sums(0, (int)k, io.out, d.c0, d.kr, d.gl[0], io.r, n, d.pow2, d.t,
                 d.nu_t),
       d.gl, d.pow2, d.t, d.neg_t, d.nu_t, d.inv_gt);
 }
@@ -645,13 +646,13 @@ extern "C" int ntt_cross_stage(const void* x, const void* partner, void* out,
 #endif
 
 // Kernel 15: x, sk, c0 (rk, n), scratch (rk, n), out (n,), the rk kept
-// moduli's tables, DecTailConsts' pm and gl, its mod-t strategy; cluster:
-// B, or 0 for ntt_stage_cluster_size's.
+// moduli's tables, DecTailConsts' k2_rows and glob, its mod-t strategy;
+// cluster: B, or 0 for ntt_stage_cluster_size's.
 extern "C" int ntt_decrypt_fused(const void* x, const void* sk, const void* c0,
                                  void* scratch, void* out, const void* psi,
                                  const void* psi_sh, const void* ipsi,
                                  const void* ipsi_sh, const void* consts,
-                                 const void* pm, const void* gl, int rk,
+                                 const void* kr, const void* gl, int rk,
                                  int logn, int pow2, u64 t, u64 neg_t,
                                  u64 nu_t, u64 inv_gt, int cluster,
                                  void* stream) {
@@ -659,7 +660,7 @@ extern "C" int ntt_decrypt_fused(const void* x, const void* sk, const void* c0,
   if (rk < 1 || cl < 0) return NTT_EINVAL;
   const StageIO io = stage_io(x, nullptr, sk, nullptr, nullptr, scratch,
                               PRO_MONT, rk, rk, logn);
-  const DecFusedArgs d = {(const u64*)c0, (u64*)out, (const u64*)pm,
+  const DecFusedArgs d = {(const u64*)c0, (u64*)out, (const u64*)kr,
                           (const u64*)gl, pow2,      t,
                           neg_t,          nu_t,      inv_gt};
   typedef int (*Run)(const StageIO&, const Twiddles&, const DecFusedArgs&,

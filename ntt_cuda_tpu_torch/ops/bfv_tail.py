@@ -21,7 +21,8 @@ Counterpart of `ntt_cuda_tpu/ops/bfv_tail.py` for the main path:
   k_decrypt_fused); `decrypt_fused_plain` on the CPU.  BFVContext.decrypt
   keeps its two launches (as the JAX context does).
 * `TailConsts`: the per-modulus constants of encryption's tail (modulus
-  drop and Delta*m + fix), read by the encrypt kernels.
+  drop and Delta*m + fix); the encrypt tail kernel reads their
+  `tail_rows` (Shoup pairs, `tail_rows`).
 * `DecTailConsts` and `_t_strategy`: the decrypt kernel's constants and
   its static mod-t strategy (pow2 masks, or Barrett-by-t for odd t < 2^31).
 * The RNS-sharded program's tails (parallel/spmd.py), one rank's rows of
@@ -29,7 +30,7 @@ Counterpart of `ntt_cuda_tpu/ops/bfv_tail.py` for the main path:
   launch with e added and ra from its own all-reduced input),
   `drop_last_padded` (kernel 16's launch with no e and no message: the
   sharded key switch's modulus drop, parallel/spmd_mult.py) and
-  `decrypt_tail_partial` (kernel 17, K2's residue loop stopped at the BEHZ
+  `decrypt_tail_partial` (kernel 17, K2's kernel stopped at the BEHZ
   sums), each with its `_plain` version and padded constants, and the
   plain tensor steps around the all-reduce: `psum_behz_partials`,
   `combine_gamma_halves`, `dec_round_from_sums`.
@@ -64,10 +65,25 @@ def _rows(rows, device) -> torch.Tensor:
                         dtype=I64, device=device)
 
 
+def tail_rows(per_mod: torch.Tensor) -> torch.Tensor:
+    """The encrypt tail kernel's rows from a per_mod table (q, -q^-1, nu,
+    half_mod, inv_q_last (Montgomery form), q_i // t), on its device: q,
+    nu, half_mod, inv_q_last and q_i // t each as a Shoup pair (w,
+    floor(w 2^64 / q)), 0 (csrc/fused_ops.cu EncryptTail)."""
+    rows = []
+    for q, _, nu, half_mod, invq, qdt in (
+            [v & hm.MASK64 for v in row] for row in per_mod.tolist()):
+        w = invq * pow(1 << 64, -1, q) % q
+        rows.append((q, nu, half_mod, w, hm.shoup(w, q), qdt,
+                     hm.shoup(qdt, q), 0))
+    return _rows(rows, per_mod.device)
+
+
 @dataclasses.dataclass(frozen=True)
 class TailConsts:
     per_mod: torch.Tensor  # (r-1, 6): q, -q^-1, nu, half_mod,
     #                        inv_q_last (Montgomery form), q_i // t
+    tail_rows: torch.Tensor  # (r-1, 8): the kernel's rows (tail_rows)
     q_last: int
     half: int              # floor(q_last / 2)
     fix_th: int            # message-fix compare threshold (_fix_threshold)
@@ -81,8 +97,9 @@ class TailConsts:
         rows = [(q, hm.mont_qinv_neg(q), (1 << 64) // q, params.half_mod_q[i],
                  hm.to_mont(params.inv_q_last_mod_q[i], q), params.qi_div_t[i])
                 for i, q in enumerate(params.q[:-1])]
+        per_mod = _rows(rows, device)
         return TailConsts(
-            per_mod=_rows(rows, device), q_last=params.q[-1],
+            per_mod=per_mod, tail_rows=tail_rows(per_mod), q_last=params.q[-1],
             half=params.half_last_modulus, fix_th=_fix_threshold(params.t),
             dr=poly.DivideRoundConsts.build(params, device),
             msg=poly.MessageConsts.build(params, device),
@@ -112,16 +129,9 @@ class DecTailConsts:
     def build(params, device=None) -> "DecTailConsts":
         qs = params.q[:-1]
         nu_t, inv_gt = _t_fields(params)
-        g = params.gamma
-        bcm_t, bcm_g = params.base_change_matrix
-        k2 = []
-        for i, q in enumerate(qs):
-            w = params.prod_t_gamma_mod_q[i] * params.inv_punctured_q[i] % q
-            k2.append((q, w, hm.shoup(w, q), bcm_t[i], bcm_g[i] % g,
-                       hm.shoup(bcm_g[i] % g, g)))
         return DecTailConsts(
             per_mod=_dec_rows(params, 0, len(qs), device),
-            k2_rows=_rows(k2, device),
+            k2_rows=_k2_rows(params, 0, len(qs), device),
             glob=_dec_glob(params, device),
             dec=poly.DecryptConsts.build(params, device),
             ms=modmath.ModulusSet.from_moduli(qs, device),
@@ -161,6 +171,30 @@ def _dec_rows(params, lo: int, hi: int, device,
                        else (0, 0, 0, 0)))
     for _ in range(len(rows), (pad_to or 0) - lo):
         rows.append((1, hm.mont_qinv_neg(1), 0, 0, 0, 0))
+    return _rows(rows, device)
+
+
+def _k2_rows(params, lo: int, hi: int, device,
+             pad_to: int | None = None) -> torch.Tensor:
+    """K2's rows (DecTailConsts.k2_rows) of moduli [lo, hi): q, t*gamma *
+    inv_punctured mod q and bcm_gamma mod gamma as Shoup pairs, bcm_t.  As
+    in _dec_rows, the dropped modulus's row keeps q with every constant 0
+    and rows up to pad_to - lo are pad rows, q = 1 and all else 0: a Shoup
+    product by 0 is 0 whatever its operand and modulus, so neither adds
+    to the sums."""
+    g = params.gamma
+    bcm_t, bcm_g = params.base_change_matrix
+    rows = []
+    for i in range(lo, hi):
+        q = params.q[i]
+        if i < params.r - 1:
+            w = params.prod_t_gamma_mod_q[i] * params.inv_punctured_q[i] % q
+            rows.append((q, w, hm.shoup(w, q), bcm_t[i], bcm_g[i] % g,
+                         hm.shoup(bcm_g[i] % g, g)))
+        else:
+            rows.append((q, 0, 0, 0, 0, 0))
+    for _ in range(len(rows), (pad_to or 0) - lo):
+        rows.append((1, 0, 0, 0, 0, 0))
     return _rows(rows, device)
 
 
@@ -261,7 +295,7 @@ def encrypt_fused(u_ntt, pk, e_d, m_poly, tables: NTTTables,
     ct = torch.empty((2, r - 1, n), dtype=I64, device=dev)
     ntt_stage.inverse_launch(dev, pk, u_ntt, e_d, scratch, tables)
     cuda.launch("ntt_encrypt_tail", dev, scratch.data_ptr(),
-                m_poly.data_ptr(), ct.data_ptr(), consts.per_mod.data_ptr(),
+                m_poly.data_ptr(), ct.data_ptr(), consts.tail_rows.data_ptr(),
                 consts.q_last, consts.half, consts.fix_th, 1, r, n)
     encrypt_fused.launches += 1
     return ct
@@ -303,7 +337,7 @@ def encrypt_tail(c, e, m_poly, consts: TailConsts) -> torch.Tensor:
         cuda.require(name, t, I64, tuple(t.shape), dev)
     ct = torch.empty((2, r - 1, n), dtype=I64, device=dev)
     cuda.launch("ntt_encrypt_tail_e", dev, c.data_ptr(), e.data_ptr(),
-                m_poly.data_ptr(), ct.data_ptr(), consts.per_mod.data_ptr(),
+                m_poly.data_ptr(), ct.data_ptr(), consts.tail_rows.data_ptr(),
                 consts.q_last, consts.half, consts.fix_th, r, n)
     encrypt_tail.launches += 1
     return ct
@@ -351,7 +385,7 @@ def decrypt_fused(x_ntt, sk, ct0, tables: NTTTables, consts: DecTailConsts,
     pow2, t, neg_t, nu_t, inv_gt = _t_strategy(consts.tmeta)
     cuda.launch("ntt_decrypt_fused", dev, x_ntt.data_ptr(), sk.data_ptr(),
                 ct0.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-                *tables.kernel_args(), consts.per_mod.data_ptr(),
+                *tables.kernel_args(), consts.k2_rows.data_ptr(),
                 consts.glob.data_ptr(), rk, tables.logn, pow2, t, neg_t,
                 nu_t, inv_gt, cluster)
     decrypt_fused.launches += 1
@@ -375,10 +409,12 @@ class PaddedTailConsts:
     """encrypt_tail_padded's constants for one rank's rows: per_mod as
     TailConsts.per_mod (q, -q^-1, nu, half_mod, inv_q_last (Montgomery
     form), q_i // t), the dropped modulus's own row, where the rank holds
-    it, with half_mod 0, inv_q_last 1 and q_i // t 0.  There is no half:
-    the caller folds it into ra."""
+    it, with half_mod 0, inv_q_last 1 and q_i // t 0, and the kernel's
+    rows from it (tail_rows).  There is no half: the caller folds it into
+    ra."""
 
-    per_mod: torch.Tensor  # (hi - lo, 6)
+    per_mod: torch.Tensor    # (hi - lo, 6)
+    tail_rows: torch.Tensor  # (hi - lo, 8)
     q_last: int
     fix_th: int
 
@@ -394,7 +430,9 @@ def build_tail_consts_padded(params, lo: int, hi: int,
                      params.half_mod_q[i] if kept else 0,
                      hm.to_mont(params.inv_q_last_mod_q[i] if kept else 1, q),
                      params.qi_div_t[i] if kept else 0))
-    return PaddedTailConsts(per_mod=_rows(rows, device), q_last=params.q[-1],
+    per_mod = _rows(rows, device)
+    return PaddedTailConsts(per_mod=per_mod, tail_rows=tail_rows(per_mod),
+                            q_last=params.q[-1],
                             fix_th=_fix_threshold(params.t))
 
 
@@ -450,7 +488,8 @@ def encrypt_tail_padded(c, e, ra_ready, m_poly,
     ct = torch.empty((2, rl, n), dtype=I64, device=dev)
     cuda.launch("ntt_encrypt_tail_padded", dev, c.data_ptr(), e.data_ptr(),
                 ra_ready.data_ptr(), m_poly.data_ptr(), ct.data_ptr(),
-                consts.per_mod.data_ptr(), consts.q_last, consts.fix_th, rl, n)
+                consts.tail_rows.data_ptr(), consts.q_last, consts.fix_th, rl,
+                n)
     encrypt_tail_padded.launches += 1
     return ct
 
@@ -479,7 +518,7 @@ def drop_last_padded(c, ra_ready, consts: PaddedTailConsts) -> torch.Tensor:
         cuda.require(name, t, I64, tuple(t.shape), dev)
     ct = torch.empty((2, rl, n), dtype=I64, device=dev)
     cuda.launch("ntt_drop_last_padded", dev, c.data_ptr(), ra_ready.data_ptr(),
-                ct.data_ptr(), consts.per_mod.data_ptr(), consts.q_last, rl,
+                ct.data_ptr(), consts.tail_rows.data_ptr(), consts.q_last, rl,
                 n)
     drop_last_padded.launches += 1
     return ct
@@ -490,11 +529,13 @@ drop_last_padded.launches = 0
 
 @dataclasses.dataclass(frozen=True)
 class DecPartialConsts:
-    """decrypt_tail_partial's constants for one rank's rows: per_mod and
-    glob as DecTailConsts's (the dropped modulus's BEHZ row zeroed, pad
-    rows q = 1), and the mod-t strategy's t and nu_t (0 for pow2 t)."""
+    """decrypt_tail_partial's constants for one rank's rows: per_mod,
+    k2_rows and glob as DecTailConsts's (the dropped modulus's BEHZ row
+    zeroed, pad rows q = 1), and the mod-t strategy's t and nu_t (0 for
+    pow2 t).  The plain version reads per_mod, the kernel k2_rows."""
 
     per_mod: torch.Tensor  # (rows, 6)
+    k2_rows: torch.Tensor  # (rows, 6)
     glob: torch.Tensor     # (4,)
     t: int
     nu_t: int
@@ -508,6 +549,7 @@ def build_dec_tail_consts_padded(params, lo: int, hi: int,
     level l (params the level's chain, r - l moduli) takes
     (lo, min(hi, r - l), pad_to=hi)."""
     return DecPartialConsts(per_mod=_dec_rows(params, lo, hi, device, pad_to),
+                            k2_rows=_k2_rows(params, lo, hi, device, pad_to),
                             glob=_dec_glob(params, device), t=params.t,
                             nu_t=_t_fields(params)[0])
 
@@ -539,7 +581,9 @@ def decrypt_tail_partial(x, ct0, consts: DecPartialConsts):
     """Kernel 17, one rank's decrypt tail up to the BEHZ sums (the JAX
     package's decrypt_tail_partial): (rl, n) x = INTT(NTT(c1) (.) sk) and
     c0 over the rank's rows -> (x_t, x_g), each (n,) int64, to be
-    all-reduced (psum_behz_partials) and rounded (dec_round_from_sums)."""
+    all-reduced (psum_behz_partials) and rounded (dec_round_from_sums).
+    On the card K2's kernel with its partial epilogue, over consts.k2_rows
+    (csrc/decrypt_tail.cu)."""
     rl = consts.per_mod.shape[0]
     n = x.shape[-1]
     for name, t in (("x", x), ("ct0", ct0)):
@@ -556,7 +600,7 @@ def decrypt_tail_partial(x, ct0, consts: DecPartialConsts):
     out = torch.empty((2, n), dtype=I64, device=dev)
     t = consts.t
     cuda.launch("ntt_decrypt_tail_partial", dev, x.data_ptr(), ct0.data_ptr(),
-                out.data_ptr(), consts.per_mod.data_ptr(),
+                out.data_ptr(), consts.k2_rows.data_ptr(),
                 consts.glob.data_ptr(), rl, n, int(t & (t - 1) == 0), t,
                 consts.nu_t)
     decrypt_tail_partial.launches += 1

@@ -158,9 +158,8 @@ def encrypt_fused(u_b, pk, e_d, m_poly, tables: NTTTables,
                 pk.data_ptr(), e_d.data_ptr(), scratch.data_ptr(),
                 *tables.kernel_args(), J, r, tables.logn, cluster)
     cuda.launch("ntt_encrypt_tail", dev, scratch.data_ptr(),
-                m_poly.data_ptr(), ct.data_ptr(), consts.per_mod.data_ptr(),
-                consts.q_last,
-                consts.half, consts.fix_th, J, r, n)
+                m_poly.data_ptr(), ct.data_ptr(), consts.tail_rows.data_ptr(),
+                consts.q_last, consts.half, consts.fix_th, J, r, n)
     encrypt_fused.launches += 1
     return ct[0] if single else ct
 
@@ -311,7 +310,7 @@ def keyswitch_fused(c2, ksk, tables: NTTTables,
     acc = _front_launch(dev, c2, ksk, tables, J, k)
     out = torch.empty((J, 2, k, n), dtype=I64, device=dev)
     cuda.launch("ntt_encrypt_tail", dev, acc.data_ptr(), None,
-                out.data_ptr(), consts.per_mod.data_ptr(), consts.q_last,
+                out.data_ptr(), consts.tail_rows.data_ptr(), consts.q_last,
                 consts.half, consts.fix_th, J, r, n)
     keyswitch_fused.launches += 1
     return out[0] if c2.dim() == 2 else out

@@ -57,12 +57,13 @@ def drop_consts(mc: SpmdMultConsts, q_last: int, lo: int,
     [lo, hi): per_mod rows (q, -q^-1, nu, half_mod, inv_q_last, q_i // t)
     from the padded banks, so the dropped row's inverse is 0 and the drop
     writes 0 there, as the JAX package's _keyswitch_shard does; there is
-    no message (q_i // t 0)."""
+    no message (q_i // t 0); and the kernel's rows from them."""
     per_mod = torch.cat([mc.q_all, mc.qinv_all, mc.nu_all, mc.half_mod,
                          mc.inv_qlast_mont, torch.zeros_like(mc.q_all)],
                         dim=1)[lo:hi].contiguous()
-    return bfv_tail.PaddedTailConsts(per_mod=per_mod, q_last=q_last,
-                                     fix_th=0)
+    return bfv_tail.PaddedTailConsts(per_mod=per_mod,
+                                     tail_rows=bfv_tail.tail_rows(per_mod),
+                                     q_last=q_last, fix_th=0)
 
 
 @dataclasses.dataclass(frozen=True)

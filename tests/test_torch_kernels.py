@@ -154,7 +154,7 @@ def _host_encrypt(host_lib, ctx, u_b, pk, e_d, m):
         u_b.data_ptr(), pk.data_ptr(), e_d.data_ptr(), scratch.data_ptr(),
         *ctx.tables_full.kernel_args(), J, p.r, p.logn, 0, None) == 0
     assert host_lib.ntt_encrypt_tail(scratch.data_ptr(), m.data_ptr(),
-                                     ct.data_ptr(), tc.per_mod.data_ptr(),
+                                     ct.data_ptr(), tc.tail_rows.data_ptr(),
                                      tc.q_last, tc.half, tc.fix_th, J, p.r,
                                      p.n, None) == 0
     return ct
@@ -256,7 +256,7 @@ def test_host_encrypt_fused(host_lib, ctx, J):
         u_b.data_ptr(), pk.data_ptr(), e_d.data_ptr(), scratch.data_ptr(),
         *ctx.tables_full.kernel_args(), J, p.r, p.logn, 0, None) == 0
     assert host_lib.ntt_encrypt_tail(scratch.data_ptr(), m.data_ptr(),
-                                     ct.data_ptr(), tc.per_mod.data_ptr(),
+                                     ct.data_ptr(), tc.tail_rows.data_ptr(),
                                      tc.q_last, tc.half, tc.fix_th, J, p.r,
                                      p.n, None) == 0
     ref = fused_ops.encrypt_fused_plain(u_b, pk, e_d, m, ctx.tables_full, tc)
@@ -330,7 +330,7 @@ def test_host_encrypt_cluster(host_lib, op32_ctx, name, J, B):
     torch.testing.assert_close(scratch, ref_scratch, rtol=0, atol=0)
     ct = torch.empty((J, 2, p.r - 1, p.n), dtype=torch.int64)
     assert host_lib.ntt_encrypt_tail(scratch.data_ptr(), m.data_ptr(),
-                                     ct.data_ptr(), tc.per_mod.data_ptr(),
+                                     ct.data_ptr(), tc.tail_rows.data_ptr(),
                                      tc.q_last, tc.half, tc.fix_th, J, p.r,
                                      p.n, None) == 0
     torch.testing.assert_close(ct, ref_ct, rtol=0, atol=0)
@@ -503,8 +503,8 @@ def _rk_params(rk: int, t: int):
 @pytest.mark.parametrize("rk", [*range(1, 17), 17, 23, 32])
 def test_host_decrypt_tail_every_rk(host_lib, rk, t):
     """K2 at rk = 1..16 residue rows and a few beyond, against its plain
-    version, J = 2, n = 256: every G of the launchers' rule (2 up to 8
-    rows, 4 up to 16, 8 beyond), rk not a multiple of G included."""
+    version, J = 2, n = 256: every G of the launchers' rule (2 up to 10
+    rows, 4 up to 20, 8 beyond), rk not a multiple of G included."""
     p = _rk_params(rk, t)
     rng = np.random.default_rng(rk + t)
     dt = bfv_tail.DecTailConsts.build(p)
@@ -707,7 +707,7 @@ def test_host_stage_encrypt(host_lib, stage_ctx):
         pk.data_ptr(), u_ntt.data_ptr(), e_d.data_ptr(), scratch.data_ptr(),
         *tb.kernel_args(), cuda.PRO_MONT, p.r, 2 * p.r, p.r, p.logn, None, 0, 0, None) == 0
     assert host_lib.ntt_encrypt_tail(scratch.data_ptr(), m.data_ptr(),
-                                     ct.data_ptr(), tc.per_mod.data_ptr(),
+                                     ct.data_ptr(), tc.tail_rows.data_ptr(),
                                      tc.q_last, tc.half, tc.fix_th, 1, p.r,
                                      p.n, None) == 0
     ref = bfv_tail.encrypt_fused_plain(u_ntt, pk, e_d, m, tb, tc)
@@ -876,7 +876,7 @@ def test_host_keyswitch(host_lib, stage_ctx):
                                       cuda.PRO_KSACC, k, J * 2 * r, r, p.logn,
                                       None, 0, 0, None) == 0
     assert host_lib.ntt_encrypt_tail(acc.data_ptr(), None, out.data_ptr(),
-                                     tc.per_mod.data_ptr(), tc.q_last,
+                                     tc.tail_rows.data_ptr(), tc.q_last,
                                      tc.half, tc.fix_th, J, r, n, None) == 0
     ref = fused_ops.keyswitch_fused_plain(c2, ksk, tb, tc)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
@@ -1292,7 +1292,8 @@ def test_cuda_ntt30_matches_plain(cuda_device, n):
 @pytest.mark.parametrize("name", ["4k_3q", "32k_9q"])
 def test_cuda_entry_kernels_match_plain(cuda_device, name):
     """Kernels 12 (a permuted mod_idx, B = 2r + 1, both directions), 14
-    and 15 (one cooperative launch, at every cluster size B; B = 1 at 2^15
+    (16-byte aligned and not), K5's tail at J = 16, 13 and 15 (one
+    cooperative launch, at every cluster size B; B = 1 at 2^15
     raises)."""
     p = get_bfv_params(name)
     rng = np.random.default_rng(12)
@@ -1308,8 +1309,23 @@ def test_cuda_entry_kernels_match_plain(cuda_device, name):
     tc = bfv_tail.TailConsts.build(p, cuda_device)
     c, e = (_rand_res(rng, p.q, p.n, (2,)).to(cuda_device) for _ in range(2))
     m = torch.from_numpy(rng.integers(0, p.t, p.n)).to(cuda_device)
-    assert torch.equal(bfv_tail.encrypt_tail(c, e, m, tc),
-                       bfv_tail.encrypt_tail_plain(c, e, m, tc))
+    want = bfv_tail.encrypt_tail_plain(c, e, m, tc)
+    assert torch.equal(bfv_tail.encrypt_tail(c, e, m, tc), want)
+    # 8 bytes past a 16-byte boundary: one coefficient a thread (V = 1)
+    buf = torch.empty(c.numel() + 1, dtype=c.dtype, device=cuda_device)
+    c1 = buf[1:].view(c.shape).copy_(c)
+    assert torch.equal(bfv_tail.encrypt_tail(c1, e, m, tc), want)
+    # K5's tail at J = 16 (encrypt_batch's shape) and 13's (the stage
+    # schedule's encrypt: kernel 8's inverse, then the tail)
+    ctx = BFVContext.build(p, device=cuda_device, fusion="op")
+    pk, u_b, e2, m2 = _enc_inputs(ctx, rng, 16)
+    tf = ctx.tables_full
+    assert torch.equal(fused_ops.encrypt_fused(u_b, pk, e2, m2, tf, tc),
+                       fused_ops.encrypt_fused_plain(u_b, pk, e2, m2, tf, tc))
+    u_ntt = ntt.ntt_forward(sampling.small_res(u_b[0], tf.ms.q), tf)
+    assert torch.equal(
+        bfv_tail.encrypt_fused(u_ntt, pk, e2[0], m2[0], tf, tc),
+        bfv_tail.encrypt_fused_plain(u_ntt, pk, e2[0], m2[0], tf, tc))
     td = ntt.tables_for(p, p.r - 1, device=cuda_device)
     dt = bfv_tail.DecTailConsts.build(p, cuda_device)
     xs, sk, c0 = (_rand_res(rng, p.q[:-1], p.n).to(cuda_device)

@@ -375,45 +375,141 @@ def test_host_encrypt_front_cluster(host_lib, where, B):
     assert rc == 0 and torch.equal(c, ref)
 
 
-@pytest.mark.parametrize("band", BANDS, ids=lambda b: f"rows{b[0]}-{b[1]}")
-def test_host_encrypt_tail_padded(host_lib, sets, band, rng):
+def _offset(t: torch.Tensor, align: str) -> torch.Tensor:
+    """t itself ("aligned"), or a copy of it 8 bytes past a 16-byte
+    boundary ("offset"): the encrypt tail then takes one coefficient a
+    thread (V = 1) instead of two."""
+    if align == "aligned":
+        return t
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    i = 1 if buf.data_ptr() % 16 == 0 else 0
+    return buf[i:i + t.numel()].view(t.shape).copy_(t)
+
+
+def _odd_t(p):
+    """p with an odd batching prime t (about 17 bits)."""
+    return dataclasses.replace(p, name=f"{p.name}_oddt",
+                               t=primegen.find_plain_modulus(p.n, 17))
+
+
+def _rank_params(sets, where):
+    """(params, lo, hi) of a rank's rows: n = 2048, r = 4 bands, or 32k_9q
+    rows of R = 3 and R = 1, with the fixture's kind of t."""
     _, pp = sets
-    lo, hi = band
+    if not where.startswith("32k"):
+        lo, hi = (0, 2) if where == "rows0-2" else (2, 4)
+        return pp, lo, hi
+    p = get_bfv_params("32k_9q")
+    p = p if pp.t & (pp.t - 1) == 0 else _odd_t(p)
+    lo, hi = (int(v) for v in where.split("rows")[1].split("-"))
+    return p, lo, hi
+
+
+@pytest.mark.parametrize("align", ["aligned", "offset"])
+@pytest.mark.parametrize("where", ["rows0-2", "rows2-4", "32k_rows0-9"])
+@pytest.mark.parametrize("form", ["16", "drop"])
+def test_host_encrypt_tail_padded(host_lib, sets, form, where, align, rng):
+    """Kernel 16 (c +> e, ra ready, the message) and its drop launch (no e,
+    no message) on a rank's rows against their plain versions; rows 0-9 of
+    32k_9q leave the lanes unequal rows, "offset" takes the V = 1 path."""
+    pp, lo, hi = _rank_params(sets, where)
+    n, rl = pp.n, hi - lo
     tc = bfv_tail.build_tail_consts_padded(pp, lo, hi)
-    c = _t(_rand_rows(rng, pp.q[lo:hi], N, (2,)))
-    e = _t(_rand_rows(rng, pp.q[lo:hi], N, (2,)))
-    ra = torch.from_numpy(rng.integers(0, pp.q[-1], (2, N)))
-    m = torch.from_numpy(rng.integers(0, pp.t, N))
-    ct = torch.empty_like(c)
-    assert host_lib.ntt_encrypt_tail_padded(
-        c.data_ptr(), e.data_ptr(), ra.data_ptr(), m.data_ptr(),
-        ct.data_ptr(), tc.per_mod.data_ptr(), tc.q_last, tc.fix_th, hi - lo,
-        N, None) == 0
-    assert torch.equal(ct, bfv_tail.encrypt_tail_padded_plain(c, e, ra, m,
-                                                              tc))
-    assert host_lib.ntt_encrypt_tail_padded(
-        c.data_ptr(), None, ra.data_ptr(), m.data_ptr(), ct.data_ptr(),
-        tc.per_mod.data_ptr(), tc.q_last, tc.fix_th, hi - lo, N, None) != 0
+    c = _t(_rand_rows(rng, pp.q[lo:hi], n, (2,)))
+    e = _t(_rand_rows(rng, pp.q[lo:hi], n, (2,)))
+    ra = torch.from_numpy(rng.integers(0, pp.q[-1], (2, n)))
+    m = torch.from_numpy(rng.integers(0, pp.t, n))
+    ct = _offset(torch.empty_like(c), align)
+    cv, ev, rv, mv = (_offset(v, align) for v in (c, e, ra, m))
+    if form == "16":
+        assert host_lib.ntt_encrypt_tail_padded(
+            cv.data_ptr(), ev.data_ptr(), rv.data_ptr(), mv.data_ptr(),
+            ct.data_ptr(), tc.tail_rows.data_ptr(), tc.q_last, tc.fix_th, rl,
+            n, None) == 0
+        want = bfv_tail.encrypt_tail_padded_plain(c, e, ra, m, tc)
+        assert host_lib.ntt_encrypt_tail_padded(
+            cv.data_ptr(), None, rv.data_ptr(), mv.data_ptr(), ct.data_ptr(),
+            tc.tail_rows.data_ptr(), tc.q_last, tc.fix_th, rl, n, None) != 0
+    else:
+        assert host_lib.ntt_drop_last_padded(
+            cv.data_ptr(), rv.data_ptr(), ct.data_ptr(),
+            tc.tail_rows.data_ptr(), tc.q_last, rl, n, None) == 0
+        want = bfv_tail.drop_last_padded_plain(c, ra, tc)
+    assert torch.equal(ct, want)
 
 
-@pytest.mark.parametrize("case", ["rows0-2", "rows2-4", "level1_rows2-4"])
-def test_host_decrypt_tail_partial(host_lib, sets, case, rng):
-    _, pp = sets
-    level = 1 if case.startswith("level1") else 0
-    lo, hi = (0, 2) if case == "rows0-2" else (2, 4)
+_DT_GROUP = (ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 5 + (
+    ctypes.c_int,) * 4 + (ctypes.c_uint64,) * 4
+
+
+@pytest.mark.parametrize("G", [0, 1, 4, 8], ids=["rule", "G1", "G4", "G8"])
+@pytest.mark.parametrize("case", ["rows0-2", "rows2-4", "level1_rows2-4",
+                                  "32k_rows0-3", "32k_rows6-9",
+                                  "32k_level1_rows6-9", "32k_rows0-9",
+                                  "32k_level1_rows0-9"])
+def test_host_decrypt_tail_partial(host_lib, sets, case, G, rng):
+    """Kernel 17 (K2's members with the partial epilogue, over the band's
+    K2 rows) against its plain version: rl = 2 (n = 2048), 3 and 9
+    (32k_9q), level 1 (the level's dropped row and a q = 1 pad row), pow2
+    and odd t; by the launchers' rule (G = 2 at rl = 2, 3 and 9) and
+    through the host build's group seam at G = 1, 4 and 8, which the rule
+    does not take there."""
+    level = 1 if "level1" in case else 0
+    pp, lo, hi = _rank_params(sets, case.replace("level1_", ""))
+    n, rl = pp.n, hi - lo
     cp = spmd._chain_params(pp, level)
     dc = bfv_tail.build_dec_tail_consts_padded(cp, lo, min(hi, cp.r),
                                                pad_to=hi)
-    x = _t(_rand_rows(rng, pp.q[lo:hi], N))
-    c0 = _t(_rand_rows(rng, pp.q[lo:hi], N))
-    out = torch.empty((2, N), dtype=torch.int64)
+    x = _t(_rand_rows(rng, pp.q[lo:hi], n))
+    c0 = _t(_rand_rows(rng, pp.q[lo:hi], n))
+    if level:
+        x[-1] = torch.from_numpy(rng.integers(0, 1 << 62, n))  # a pad row
+    out = torch.empty((2, n), dtype=torch.int64)
     t = pp.t
-    assert host_lib.ntt_decrypt_tail_partial(
-        x.data_ptr(), c0.data_ptr(), out.data_ptr(), dc.per_mod.data_ptr(),
-        dc.glob.data_ptr(), hi - lo, N, int(t & (t - 1) == 0), t, dc.nu_t,
-        None) == 0
+    pow2 = int(t & (t - 1) == 0)
+    if G == 0:
+        rc = host_lib.ntt_decrypt_tail_partial(
+            x.data_ptr(), c0.data_ptr(), out.data_ptr(), dc.k2_rows.data_ptr(),
+            dc.glob.data_ptr(), rl, n, pow2, t, dc.nu_t, None)
+    else:
+        fn = host_lib.ntt_decrypt_tail_group
+        fn.argtypes, fn.restype = _DT_GROUP, ctypes.c_int
+        rc = fn(1, G, x.data_ptr(), c0.data_ptr(), out.data_ptr(),
+                dc.k2_rows.data_ptr(), dc.glob.data_ptr(), 1, rl, n, pow2, t,
+                0, dc.nu_t, 0)
+    assert rc == 0
     want = bfv_tail.decrypt_tail_partial_plain(x, c0, dc)
     assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_padded_shoup_rows_match_jax_32k(host_lib, level, rng):
+    """Kernel 17's own rows (DecPartialConsts.k2_rows, built from the
+    padded form of K2's loop) give the sums of the JAX package's
+    decrypt_tail_partial (interpret mode) at 32k_9q rows 6-9, the rank
+    that holds the dropped modulus, at level 0 and at level 1 (its last
+    row a q = 1 pad row)."""
+    J = _jax()
+    jp, pp = J.params.get_bfv_params("32k_9q"), get_bfv_params("32k_9q")
+    lo, hi = 6, 9
+    x = _rand_rows(rng, jp.q[lo:hi], jp.n)
+    c0 = _rand_rows(rng, jp.q[lo:hi], jp.n)
+    jcp = J.spmd._chain_params(jp, level)
+    dc = J.tail.build_dec_tail_consts_padded(jcp, 0, jcp.r, pad_to=jp.r)
+    dc = dataclasses.replace(dc, per_mod=dc.per_mod[lo:hi])
+    xt, xg = J.tail.decrypt_tail_partial(J.jnp.asarray(x), J.jnp.asarray(c0),
+                                         dc, interpret=True)
+    cp = spmd._chain_params(pp, level)
+    pc = bfv_tail.build_dec_tail_consts_padded(cp, lo, min(hi, cp.r),
+                                               pad_to=hi)
+    xs, cs = _t(x), _t(c0)
+    out = torch.empty((2, pp.n), dtype=torch.int64)
+    assert host_lib.ntt_decrypt_tail_partial(
+        xs.data_ptr(), cs.data_ptr(), out.data_ptr(),
+        pc.k2_rows.data_ptr(), pc.glob.data_ptr(), hi - lo, pp.n, 1, pp.t,
+        pc.nu_t, None) == 0
+    np.testing.assert_array_equal(convert.to_numpy(out[0]), _u64(xt))
+    np.testing.assert_array_equal(convert.to_numpy(out[1]), _u64(xg))
 
 
 # --- on the card -------------------------------------------------------------
@@ -429,25 +525,44 @@ def cuda_device():
 @pytest.mark.parametrize("band", [(0, 3), (6, 9), (0, 9)],
                          ids=lambda b: f"rows{b[0]}-{b[1]}")
 def test_cuda_spmd_kernels_match_plain(cuda_device, band):
-    pp = get_bfv_params("32k_9q")
+    """Kernels 18, 16 (and its drop launch, with the sharded key switch's
+    constants) and 17 at 32k_9q rank shapes, pow2 and odd t, 17 also at
+    level 1 where the band holds the level's dropped row."""
+    from ntt_cuda_tpu_torch.ops import behz, behz_kernels
+    from ntt_cuda_tpu_torch.parallel import spmd_mult
+    p32 = get_bfv_params("32k_9q")
     lo, hi = band
     rng = np.random.default_rng(lo + hi)
     dev = cuda_device
-    tb = ntt.NTTTables.build(pp.q[lo:hi], pp.psi[lo:hi], pp.n, dev)
-    u_b, _ = sampling.encrypt_draws_compact(pp.n, nonce=5, device=dev)
-    pk = _t(_rand_rows(rng, pp.q[lo:hi], pp.n, (2,))).to(dev)
+    tb = ntt.NTTTables.build(p32.q[lo:hi], p32.psi[lo:hi], p32.n, dev)
+    u_b, _ = sampling.encrypt_draws_compact(p32.n, nonce=5, device=dev)
+    pk = _t(_rand_rows(rng, p32.q[lo:hi], p32.n, (2,))).to(dev)
     assert torch.equal(fused_ops.encrypt_front(u_b, pk, tb),
                        fused_ops.encrypt_front_plain(u_b, pk, tb))
-    tc = bfv_tail.build_tail_consts_padded(pp, lo, hi, dev)
-    c, e = (_t(_rand_rows(rng, pp.q[lo:hi], pp.n, (2,))).to(dev)
-            for _ in range(2))
-    ra = torch.from_numpy(rng.integers(0, pp.q[-1], (2, pp.n))).to(dev)
-    m = torch.from_numpy(rng.integers(0, pp.t, pp.n)).to(dev)
-    assert torch.equal(bfv_tail.encrypt_tail_padded(c, e, ra, m, tc),
-                       bfv_tail.encrypt_tail_padded_plain(c, e, ra, m, tc))
-    dc = bfv_tail.build_dec_tail_consts_padded(pp, lo, hi, device=dev)
-    x, c0 = (_t(_rand_rows(rng, pp.q[lo:hi], pp.n)).to(dev) for _ in range(2))
-    got = bfv_tail.decrypt_tail_partial(x, c0, dc)
-    want = bfv_tail.decrypt_tail_partial_plain(x, c0, dc)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    mc = behz_kernels.SpmdMultConsts.build(p32, behz.AuxBase.build(p32), dev)
+    cc = _t(_rand_rows(rng, p32.q[lo:hi], p32.n, (2,))).to(dev)
+    ra = torch.from_numpy(rng.integers(0, p32.q[-1], (2, p32.n))).to(dev)
+    dtc = spmd_mult.drop_consts(mc, p32.q[-1], lo, hi)
+    assert torch.equal(bfv_tail.drop_last_padded(cc, ra, dtc),
+                       bfv_tail.drop_last_padded_plain(cc, ra, dtc))
+    for pp in (p32, _odd_t(p32)):
+        tc = bfv_tail.build_tail_consts_padded(pp, lo, hi, dev)
+        c, e = (_t(_rand_rows(rng, pp.q[lo:hi], pp.n, (2,))).to(dev)
+                for _ in range(2))
+        m = torch.from_numpy(rng.integers(0, pp.t, pp.n)).to(dev)
+        assert torch.equal(bfv_tail.encrypt_tail_padded(c, e, ra, m, tc),
+                           bfv_tail.encrypt_tail_padded_plain(c, e, ra, m,
+                                                              tc))
+        assert torch.equal(bfv_tail.drop_last_padded(c, ra, tc),
+                           bfv_tail.drop_last_padded_plain(c, ra, tc))
+        for level in ((0, 1) if hi == pp.r else (0,)):
+            cp = spmd._chain_params(pp, level)
+            dc = bfv_tail.build_dec_tail_consts_padded(
+                cp, lo, min(hi, cp.r), pad_to=hi, device=dev)
+            x, c0 = (_t(_rand_rows(rng, pp.q[lo:hi], pp.n)).to(dev)
+                     for _ in range(2))
+            got = bfv_tail.decrypt_tail_partial(x, c0, dc)
+            want = bfv_tail.decrypt_tail_partial_plain(x, c0, dc)
+            assert torch.equal(got[0], want[0]), (pp.name, level)
+            assert torch.equal(got[1], want[1]), (pp.name, level)
     torch.cuda.synchronize()

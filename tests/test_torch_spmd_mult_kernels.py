@@ -397,13 +397,13 @@ def test_host_drop_last_padded(host_lib, band, rng):
     ra = torch.from_numpy(rng.integers(0, pp.q[-1], (2, N)))
     ct = torch.empty_like(c)
     assert host_lib.ntt_drop_last_padded(c.data_ptr(), ra.data_ptr(),
-                                         ct.data_ptr(), tc.per_mod.data_ptr(),
+                                         ct.data_ptr(), tc.tail_rows.data_ptr(),
                                          tc.q_last, hi - lo, N, None) == 0
     assert torch.equal(ct, bfv_tail.drop_last_padded_plain(c, ra, tc))
     if hi == pp.r:
         assert (ct[:, -1] == 0).all()
     assert host_lib.ntt_drop_last_padded(c.data_ptr(), None, ct.data_ptr(),
-                                         tc.per_mod.data_ptr(), tc.q_last,
+                                         tc.tail_rows.data_ptr(), tc.q_last,
                                          hi - lo, N, None) != 0
 
 

@@ -18,7 +18,8 @@ their CUDA sources built as host code, exactly (tolerance 0).
 * The host build of csrc/ (tests/test_torch_kernels.py's pattern): the
   three launchers against the plain versions, at 4k_3q and 32k_9q, kernel
   15 also with an odd prime t and at every cluster size B (B = 1 at 2^15
-  refused).
+  refused); the encrypt tail in each of its TailConsts forms (K5 at J = 1
+  and 3, 14, 19's drop) also at 32k_16q, aligned and offset by 8 bytes.
 """
 
 import ctypes
@@ -39,7 +40,7 @@ from ntt_cuda_tpu.ops import poly as jpoly
 from ntt_cuda_tpu.params import get_bfv_params as jget
 from ntt_cuda_tpu.utils import primegen as jprimegen
 from ntt_cuda_tpu_torch import convert, cuda, get_bfv_params
-from ntt_cuda_tpu_torch.ops import bfv_tail, ntt, ntt_stage
+from ntt_cuda_tpu_torch.ops import bfv_tail, ntt, ntt_stage, poly
 from ntt_cuda_tpu_torch.utils import primegen
 
 
@@ -212,21 +213,58 @@ def test_host_mod_idx(host_lib, name):
         torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("name", HOST_SETS)
-def test_host_encrypt_tail(host_lib, name):
+def _offset(t: torch.Tensor, align: str) -> torch.Tensor:
+    """t itself ("aligned"), or a copy of it 8 bytes past a 16-byte
+    boundary ("offset"): the encrypt tail then takes one coefficient a
+    thread (V = 1) instead of two."""
+    if align == "aligned":
+        return t
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    i = 1 if buf.data_ptr() % 16 == 0 else 0
+    return buf[i:i + t.numel()].view(t.shape).copy_(t)
+
+
+# the encrypt tail's launch forms (csrc/fused_ops.cu EncryptTail) that take
+# TailConsts: K5's and 13's (J = 1, 3), 14's (e added) and 19's drop (no
+# message)
+TAIL_FORMS = ("K5_J1", "K5_J3", "14", "19_drop")
+
+
+@pytest.mark.parametrize("align", ["aligned", "offset"])
+@pytest.mark.parametrize("form", TAIL_FORMS)
+@pytest.mark.parametrize("name", HOST_SETS + ("32k_16q",))
+def test_host_encrypt_tail(host_lib, name, form, align):
+    """Each form against its plain version, bit for bit: K5 and 19's drop
+    on a (J, 2, r, n) scratch (divide_and_round_q_last, then add_message
+    for K5), 14 (encrypt_tail_plain).  32k_16q's rk = 15 leaves its lanes
+    unequal rows; "offset" takes the V = 1 path."""
     p = get_bfv_params(name)
     rng = np.random.default_rng(15)
     tc = bfv_tail.TailConsts.build(p)
-    c = torch.from_numpy(_rand(rng, p.q, p.n, (2,)).view(np.int64))
-    e = torch.from_numpy(_rand(rng, p.q, p.n, (2,)).view(np.int64))
-    m = torch.from_numpy(rng.integers(0, p.t, p.n, dtype=np.int64))
-    out = torch.empty((2, p.r - 1, p.n), dtype=torch.int64)
-    assert host_lib.ntt_encrypt_tail_e(
-        c.data_ptr(), e.data_ptr(), m.data_ptr(), out.data_ptr(),
-        tc.per_mod.data_ptr(), tc.q_last, tc.half, tc.fix_th, p.r, p.n,
-        None) == 0
-    torch.testing.assert_close(out, bfv_tail.encrypt_tail_plain(c, e, m, tc),
-                               rtol=0, atol=0)
+    rk, n = p.r - 1, p.n
+    J = 3 if form == "K5_J3" else 1
+    c = torch.from_numpy(_rand(rng, p.q, n, (J, 2)).view(np.int64))
+    m = torch.from_numpy(rng.integers(0, p.t, (J, n), dtype=np.int64))
+    m[0, :4] = torch.tensor([0, p.t - 1, p.t // 2, p.t // 2 - 1])
+    out = _offset(torch.empty((J, 2, rk, n), dtype=torch.int64), align)
+    cv, mv = _offset(c, align), _offset(m, align)
+    if form == "14":
+        e = torch.from_numpy(_rand(rng, p.q, n, (2,)).view(np.int64))
+        assert host_lib.ntt_encrypt_tail_e(
+            cv.data_ptr(), _offset(e, align).data_ptr(), mv.data_ptr(),
+            out.data_ptr(), tc.tail_rows.data_ptr(), tc.q_last, tc.half,
+            tc.fix_th, p.r, n, None) == 0
+        want = bfv_tail.encrypt_tail_plain(c[0], e, m[0], tc)[None]
+    else:
+        msg = form != "19_drop"
+        assert host_lib.ntt_encrypt_tail(
+            cv.data_ptr(), mv.data_ptr() if msg else None, out.data_ptr(),
+            tc.tail_rows.data_ptr(), tc.q_last, tc.half, tc.fix_th, J, p.r,
+            n, None) == 0
+        want = poly.divide_and_round_q_last(c, tc.dr, tc.ms_drop, tc.ms_last)
+        if msg:
+            want[:, 0] = poly.add_message(want[:, 0], m, tc.msg)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
 
 
 def _odd_t_params():
@@ -253,7 +291,7 @@ def test_host_decrypt_fused(host_lib, name, B):
     pow2, t, neg_t, nu_t, inv_gt = bfv_tail._t_strategy(dc.tmeta)
     rc = host_lib.ntt_decrypt_fused(
         x.data_ptr(), sk.data_ptr(), c0.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), *td.kernel_args(), dc.per_mod.data_ptr(),
+        out.data_ptr(), *td.kernel_args(), dc.k2_rows.data_ptr(),
         dc.glob.data_ptr(), rk, td.logn, pow2, t, neg_t, nu_t, inv_gt, B,
         None)
     if p.n // B > cuda.BLOCK_MAX_N:

@@ -83,7 +83,7 @@ static void ab_dt_run(const DtArgs& a, cudaStream_t s, int threads) {
   const dim3 grid(
       (unsigned)((((long long)a.n << a.lg) + threads - 1) / threads),
       (unsigned)a.J);
-  k_decrypt_tail<ROWS><<<grid, threads, 0, s>>>(a);
+  k_decrypt_tail<ROWS, false><<<grid, threads, 0, s>>>(a);
 }
 template <int ROWS = 1>
 static void ab_dt_dispatch(const DtArgs& a, cudaStream_t s, int threads) {

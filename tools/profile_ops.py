@@ -10,9 +10,10 @@ relinearization, square, relin_keygen, relinearize), apply_galois (g = 3) and
 decrypt's back half on x = NTT(c1) (`decrypt_back_15`: kernel 15;
 `decrypt_back_8_K2`: kernel 8 + K2, as `BFVContext.decrypt` runs it) of
 one parameter set, through `BFVContext` (`--ops` picks some of them), or
-with `--spmd` for keygen, encrypt, decrypt and mod_switch_to_next through
-the RNS-sharded `SpmdBFVContext` and mul, relinearize and apply_galois
-(g = 3) through its `SpmdMultContext`, and keygen, encrypt and decrypt
+with `--spmd` for keygen, encrypt, decrypt, mod_switch_to_next and the
+level-1 decrypt through the RNS-sharded `SpmdBFVContext` and mul,
+relinearize, apply_galois (g = 3) and decrypt3 through its
+`SpmdMultContext`, and keygen, encrypt and decrypt
 through the 2-D `Spmd2DBFVContext` (`keygen_2d`, ...; mesh (1, 1)), at
 world size 1 over NCCL, or with `--ntt30` for kernel 22 alone
 (`ntt30_fwd_32768`, ... : forward and inverse at (16, 1, n), n = 2^15 and
@@ -20,7 +21,10 @@ world size 1 over NCCL, or with `--ntt30` for kernel 22 alone
 conversions and K2 alone through their wrappers at the set's EvalMult
 shapes, J = 1 (`rns_to_bsk` over (2, 2, k, n), `fast_floor`, `bsk_to_q`
 and `scale_and_round` over (3, ., n), the band forms at rows [0, r),
-`decrypt_tail` at (r-1, n) and (3, r-1, n)), prints one JSON line per op:
+`decrypt_tail` at (r-1, n) and (3, r-1, n)), and every launch of the
+encrypt tail and kernels 15 and 17 at the main paths' shapes (tail_ops:
+K5 at J = 1 and 16, 13, 19, 14, 16 and its drop at rows [0, r) and
+[6, r), 17 there at levels 0 and 1), prints one JSON line per op:
 
 * `event_ms`: median CUDA-event time around one call;
 * `sync_wall_ms`: median host time of one call ending in
@@ -62,7 +66,8 @@ sys.path.insert(0, str(ROOT))
 
 from ntt_cuda_tpu_torch import BFVContext, get_bfv_params  # noqa: E402
 from ntt_cuda_tpu_torch.ops import (behz, behz_kernels,  # noqa: E402
-                                    bfv_tail, ntt30, ntt_stage)
+                                    bfv_tail, fused_ops, ntt, ntt30,
+                                    ntt_stage, sampling)
 from ntt_cuda_tpu_torch.params import get_params  # noqa: E402
 from ntt_cuda_tpu_torch.parallel import (multihost, spmd,  # noqa: E402
                                          spmd2d, spmd_mult)
@@ -119,7 +124,8 @@ def main() -> int:
     ap.add_argument("--ntt30", action="store_true",
                     help="kernel 22 at (16, 1, n), n = 2^15 and 2^16")
     ap.add_argument("--kernels", action="store_true",
-                    help="the BEHZ conversions and K2 alone at --set")
+                    help="the BEHZ conversions, K2, the encrypt tail's "
+                         "launches and kernels 15 and 17 at --set")
     ap.add_argument("--root", default=str(ROOT),
                     help="the checkout whose package is timed")
     args = ap.parse_args()
@@ -230,7 +236,8 @@ def ntt30_ops() -> dict:
 def kernel_ops(p) -> dict:
     """The BEHZ conversions (21a-c, scale_and_round, the bands at rows
     [0, r)) and K2 by name, through their wrappers, on seeded residues at
-    the EvalMult path's shapes (J = 1)."""
+    the EvalMult path's shapes (J = 1); then the launches of the encrypt
+    tail and kernels 15 and 17 (tail_ops)."""
     dev = torch.device("cuda", torch.cuda.current_device())
     n, k = p.n, p.r - 1
     rng = np.random.default_rng(2)
@@ -241,10 +248,10 @@ def kernel_ops(p) -> dict:
     aux = behz.AuxBase.build(p)
     mc = behz_kernels.SpmdMultConsts.build(p, aux, dev)
     mb, dt = mc.banks, bfv_tail.DecTailConsts.build(p, dev)
+    bk, r = behz_kernels, p.r
     xa, xq, xb = res(p.q[:k], (2, 2)), res(p.q[:k], (3,)), res(aux.bsk, (3,))
     x1, c1 = res(p.q[:k], ()), res(p.q[:k], ())
     x3, c3 = res(p.q[:k], (3,)), res(p.q[:k], (3,))
-    bk, r = behz_kernels, p.r
     return {
         "rns_to_bsk": lambda: bk.rns_to_bsk(xa, mb),
         "fast_floor": lambda: bk.fast_floor(xq, xb, mb),
@@ -255,7 +262,65 @@ def kernel_ops(p) -> dict:
         "bsk_to_q_rows": lambda: bk.bsk_to_q_rows(xb, mc, 0, r),
         "decrypt_tail": lambda: bfv_tail.decrypt_tail(x1, c1, dt),
         "decrypt_tail_J3": lambda: bfv_tail.decrypt_tail(x3, c3, dt),
+        **tail_ops(p, dev, res, mc),
     }
+
+
+def tail_ops(p, dev, res, mc) -> dict:
+    """Every launch of the encrypt tail and kernels 15 and 17 by name,
+    through their wrappers at the main paths' shapes: K5 (encrypt_fused,
+    the op transform then the tail) at J = 1 and 16, 13 (the stage
+    encrypt's inverse then the tail), 19 (keyswitch_fused: two transform
+    launches then the tail as the modulus drop), 14, 16 and its drop at
+    rows [0, r) and [6, r) (the world-size-1 and the R = 3 last rank's
+    rows), 17 there at levels 0 and 1, and 15; port_kernels_us splits the
+    tail's time from the transforms' by kernel name."""
+    n, r, k = p.n, p.r, p.r - 1
+    rng = np.random.default_rng(3)
+    ctx = BFVContext.build(p, device=dev, fusion="op")
+    tf, tc = ctx.tables_full, ctx.tail_consts
+    _, pk = ctx.keygen(nonce=1)
+    u16, e16 = sampling.encrypt_draws_compact_batch(n, range(1, 17),
+                                                    device=dev)
+    m16 = torch.from_numpy(rng.integers(0, p.t, (16, n))).to(dev)
+    u_ntt = ntt.ntt_forward(sampling.small_res(u16[0], tf.ms.q), tf)
+    c2, ksk = res(p.q[:k], ()), res(p.q, (2, k))
+    c, e = res(p.q, (2,)), res(p.q, (2,))
+    td = ctx.tables_drop
+    xs, sk, c0 = res(p.q[:k], ()), res(p.q[:k], ()), res(p.q[:k], ())
+    ops = {
+        "encrypt_fused_K5_J1": lambda: fused_ops.encrypt_fused(
+            u16[0], pk, e16[0], m16[0], tf, tc),
+        "encrypt_fused_K5_J16": lambda: fused_ops.encrypt_fused(
+            u16, pk, e16, m16, tf, tc),
+        "encrypt_fused_13": lambda: bfv_tail.encrypt_fused(
+            u_ntt, pk, e16[0], m16[0], tf, tc),
+        "keyswitch_fused_19": lambda: fused_ops.keyswitch_fused(c2, ksk, tf,
+                                                                tc),
+        "encrypt_tail_14": lambda: bfv_tail.encrypt_tail(c, e, m16[0], tc),
+        "decrypt_fused_15": lambda: bfv_tail.decrypt_fused(
+            xs, sk, c0, td, ctx.dec_tail_consts),
+    }
+    for lo in (0, 6):
+        rows = f"rows{lo}-{r}"
+        pt = bfv_tail.build_tail_consts_padded(p, lo, r, dev)
+        dc = spmd_mult.drop_consts(mc, p.q[-1], lo, r)
+        cl, el = res(p.q[lo:], (2,)), res(p.q[lo:], (2,))
+        ra = res(p.q[-1:] * 2, ())
+        ops[f"encrypt_tail_padded_16_{rows}"] = (
+            lambda cl=cl, el=el, ra=ra, pt=pt: bfv_tail.encrypt_tail_padded(
+                cl, el, ra, m16[0], pt))
+        ops[f"drop_last_padded_{rows}"] = (
+            lambda cl=cl, ra=ra, dc=dc: bfv_tail.drop_last_padded(cl, ra, dc))
+        x, x0 = res(p.q[lo:], ()), res(p.q[lo:], ())
+        for level in (0, 1):
+            cp = spmd._chain_params(p, level)
+            pc = bfv_tail.build_dec_tail_consts_padded(
+                cp, lo, min(r, cp.r), pad_to=r, device=dev)
+            ops[f"decrypt_tail_partial_17_{rows}_L{level}"] = (
+                lambda x=x, x0=x0, pc=pc: bfv_tail.decrypt_tail_partial(
+                    x, x0, pc))
+    return ops
 
 
 def spmd_ops(p, msgs) -> tuple[str, dict]:
@@ -275,6 +340,7 @@ def spmd_ops(p, msgs) -> tuple[str, dict]:
     rlk = mctx.relin_keygen(sk, nonce=1)
     gk = mctx.galois_keygen(sk, [3], nonce=1)[3]
     ct3 = mctx.mul(ct, ct2)
+    ct_sw = ctx.mod_switch_to_next(ct)
     ctx2 = spmd2d.Spmd2DBFVContext.build(p)
     sk2, pk2 = ctx2.keygen(nonce=1)
     ct_2 = ctx2.encrypt(pk2, m0, nonce=1)
@@ -283,6 +349,8 @@ def spmd_ops(p, msgs) -> tuple[str, dict]:
         "encrypt": lambda: ctx.encrypt(pk, m0, nonce=1),
         "decrypt": lambda: ctx.decrypt(sk, ct),
         "mod_switch": lambda: ctx.mod_switch_to_next(ct),
+        "decrypt_L1": lambda: ctx.decrypt(sk, ct_sw, level=1),
+        "decrypt3": lambda: mctx.decrypt3(sk, ct3),
         "mul": lambda: mctx.mul(ct, ct2),
         "relinearize": lambda: mctx.relinearize(ct3, rlk),
         "apply_galois": lambda: mctx.apply_galois(ct, 3, gk),
