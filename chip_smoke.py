@@ -5,13 +5,18 @@
 Builds the CUDA kernels from ntt_cuda_tpu_torch/csrc with nvcc (sm_90a, one
 nvcc per source, all started together) and, beside them, a probe whose
 SASS gives the integer multiply instructions of one Shoup butterfly and
-one Montgomery product (for each kernel's bound), a probe library that
+one Montgomery product (for each kernel's bound; K1's and 6's come from
+the SASS of their own kernel, counted by pipe), a probe library that
 runs the cluster kernels' local stages two ways (LOCAL_AB_SRC: the stage
 kernels' loop against tiled passes, the encrypt transform's two inverses
 interleaved against in turn).  Then:
 
 1. every kernel exactly (tolerance 0) against its plain PyTorch version on
-   the card: the op kernels K1-K5 at 4k_3q and 16k_5q, K3-K5 also at
+   the card: the keystream K1 at keygen's and encrypt's streams at 16k_5q
+   and 32k_9q, at 32k_9q's relin_keygen stream, a Galois region (counter0
+   past 2^32) and across the word-9 carry, kernel 6 at 32k_9q's encrypt
+   stream, J = 1 and 16, each row also against K1; the op kernels K2-K5
+   at 4k_3q and 16k_5q, K3-K5 also at
    32k_9q and 32k_16q (each transform one cluster launch, K5 then its
    tail), K3 (J = 1 and 3) and K4 at every cluster size B at 4k_3q, 16k_5q
    and 32k_9q (B = 1 at 2^15, whose n/B buffer does not fit a block,
@@ -23,8 +28,7 @@ interleaved against in turn).  Then:
    every stage row (7 both ways, 8-11, 12 both ways, 13's and 19/20's
    transforms, the coefficient shards' offset launches) also at cluster
    sizes B = 2, 4 and 8 at 32k_9q, K2 also at
-   32k_16q; the J-nonce keystream (kernel 6) at 32k_9q's encrypt size,
-   J = 1 and 16, also against K1 row by row; the EvalMult kernels (BEHZ
+   32k_16q; the EvalMult kernels (BEHZ
    21a-c, kernel 11, the key switch 19) at 4k_3q, 16k_5q and 32k_9q,
    21a-c and 19 also at 32k_16q, J = 1 and 2; 21a-c, the one-launch
    scale_and_round, their bands and K2 at 4k_3q, 16k_5q, 32k_9q and
@@ -125,8 +129,10 @@ interleaved against in turn).  Then:
    drop, 14, 16 and its drop at rows 0-9 and 6-9) and kernel 17 (rows 0-9
    and 6-9, levels 0 and 1) at 32k_9q through the library's C entry, each
    == plain, beside its bound; `ptxas -v` of every instantiation of the
-   conversions, K2 / 17 and the encrypt tail.  (The cluster kernels' __launch_bounds__ A/B is
-   tools/bounds_ab.py, run on its own.)
+   conversions, K2 / 17 and the encrypt tail; K1 and 6 at every shape of
+   1 beside their bound, with `ptxas -v` of k_salsa20.  (The cluster
+   kernels' __launch_bounds__ A/B is tools/bounds_ab.py, the keystream's
+   design A/B tools/salsa_ab.py, each run on its own.)
 
 13. kernels 12, 14 and 15 (the op-level entry points ntt_forward /
    ntt_inverse with mod_idx, encrypt_tail, decrypt_fused) against their
@@ -261,18 +267,28 @@ DEVICE_ROWS = ("ntt_forward", "ntt_inverse", "ntt_inverse_mul",
                "encrypt_fused_stage", "keyswitch_fused", "keyswitch_front",
                "encrypt_tail", "decrypt_fused", "coef_cross_stage")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
+# per SM per clock, compute capability 9.0 (the CUDA C++ Programming
+# Guide's arithmetic instruction throughput table): 64 results of 32-bit
+# integer multiply-add on the FMA pipe, and 64 of 32-bit integer add,
+# bitwise operation and shift on the integer ALU pipe
+SMS, IMAD_PER_CLOCK, ALU_PER_CLOCK = 132, 64, 64
+# K1 and 6 (csrc/salsa20.cu): their bound counts the SASS of k_salsa20,
+# one thread a 64-byte block, by pipe (sass_pipes); the four-lane form
+# that small launches take (k_salsa20_lanes) issues more for the same work
+SALSA_KERNEL, SALSA_LANES_KERNEL = "k_salsa20", "k_salsa20_lanes"
+SALSA_SETS = ("16k_5q", "32k_9q")
+SALSA_CARRY = 2**32 - 5       # counter0 whose blocks cross into word 9
 
 # name -> (wrappers, CUDA source, the TPU kernel it replaces, the main
 # paths that run it; its `launches` are the first path's: the EvalMult
 # path's wherever it runs the kernel, 0 where no path does)
 KERNELS = {
-    "salsa20_keystream": ((salsa20.keystream_block_words,),
+    "salsa20_keystream": ((salsa20.keystream_words,),
                           "ntt_cuda_tpu_torch/csrc/salsa20.cu",
                           "ntt_cuda_tpu/ops/salsa20.py:174",
                           ("mult", "op", "stage", "op32", "spmd",
                            "spmd_mult", "spmd2d")),
-    "salsa20_keystream_batch": ((salsa20.keystream_block_words_batch,),
+    "salsa20_keystream_batch": ((salsa20.keystream_words_batch,),
                                 "ntt_cuda_tpu_torch/csrc/salsa20.cu",
                                 "ntt_cuda_tpu/ops/salsa20.py:249",
                                 ("batch",)),
@@ -584,9 +600,10 @@ def start_local_ab() -> tuple[subprocess.Popen, Path]:
 
 
 def start_ptxas_report() -> list[subprocess.Popen]:
-    """ntt_stage.cu, fused_ops.cu, ntt30.cu, behz.cu and decrypt_tail.cu
-    compiled once more with `-Xptxas -v` (registers, spills and stack of
-    each kernel), beside the library's build."""
+    """ntt_stage.cu, fused_ops.cu, ntt30.cu, behz.cu, decrypt_tail.cu and
+    salsa20.cu compiled once more with `-Xptxas -v` (registers, spills and
+    stack of each kernel), beside the library's build; salsa20.o's SASS
+    gives K1's and 6's instructions (sass_pipes)."""
     out = ROOT / "build" / "ptxas"
     out.mkdir(parents=True, exist_ok=True)
     return [subprocess.Popen(
@@ -594,7 +611,7 @@ def start_ptxas_report() -> list[subprocess.Popen]:
          str(out / f"{src}.o"), str(cuda.CSRC / f"{src}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src in ("ntt_stage", "fused_ops", "ntt30", "behz",
-                    "decrypt_tail")]
+                    "decrypt_tail", "salsa20")]
 
 
 def built(proc: subprocess.Popen, what: str) -> str:
@@ -622,6 +639,55 @@ def ptxas_lines(out: str, kernels: str) -> dict[str, str]:
 # the cluster kernels' names, and the conversion kernels' and K2's
 CLUSTER_KERNELS = "k_stage_|k_op_cluster|k_decrypt_cluster|k_ntt30_cluster"
 GROUP_KERNELS = "k_behz|k_decrypt_tail|k_encrypt_tail"
+
+
+# SASS opcodes by the pipe that issues them: the FMA pipe's integer
+# multiply-adds (every IMAD form, also the .MOV / .SHL / .IADD ones nvcc
+# emits for moves, shifts and adds) and the integer ALU pipe's forms; the
+# rest (memory, control, the uniform datapath's U* forms) is neither
+FMA_OPS = ("IMAD", "IMUL")
+ALU_OPS = ("LOP3", "SHF", "IADD3", "LEA", "ISETP", "SEL", "PRMT", "MOV",
+           "SHL", "SHR", "IABS", "IMNMX", "PLOP3")
+
+
+def mangled_is(fn: str, kernel: str) -> bool:
+    """Whether the mangled function name `fn` is the kernel `kernel`: its
+    name, with a template's mangled arguments where it has them (e.g.
+    k_ab_salsaILi0ELi0ELi10E)."""
+    m = re.match(r"_Z(\d+)", fn)
+    if not m:
+        return False
+    name = fn[m.end():m.end() + int(m.group(1))]
+    return (name == kernel or kernel.startswith(name + "I")
+            and fn[m.end():].startswith(kernel))
+
+
+def sass_pipes(obj: Path, kernel: str) -> dict:
+    """The instructions of `kernel` in the SASS of a built object
+    (cuobjdump -sass), by pipe: `fma`, `alu`, `other`, and `ops` the
+    opcode histogram.  Straight-line code (K1's rounds are fully unrolled),
+    so these are the instructions a thread issues."""
+    cuobjdump = Path(cuda.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(obj)],
+                          capture_output=True, text=True, check=True).stdout
+    ops, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and fn and mangled_is(fn, kernel):
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    if not ops:
+        raise RuntimeError(f"SASS of {obj.name}: no function {kernel}")
+    res = {"fma": 0, "alu": 0, "other": 0}
+    for op, cnt in ops.items():
+        base = op.split(".")[0]
+        pipe = ("fma" if base in FMA_OPS else "alu" if base in ALU_OPS
+                else "other")
+        res[pipe] += cnt
+    return {**res, "ops": ops}
 
 
 def ptxas_report(procs: list[subprocess.Popen]) -> str:
@@ -842,19 +908,31 @@ def nbytes(*ts) -> int:
 
 class Work:
     """Bytes a function must move (each input read once, each output
-    written once) and integer multiply instructions it must issue, in
-    units of the probed primitives: `shoup`, `mont`, `mod_nu`, `mullo`,
-    `mul32`, `shoup32`, `mul128` (a 64 x 64 -> 128-bit product)."""
+    written once) and the instructions it must issue, in units of the
+    probed primitives: `shoup`, `mont`, `mod_nu`, `mullo`, `mul32`,
+    `shoup32`, `mul128` (a 64 x 64 -> 128-bit product), whose integer
+    multiplies run on the FMA pipe, and `salsa20_block` (a 64-byte block of
+    K1 and 6, whose SASS is counted by pipe)."""
 
     def __init__(self, nbytes: int, **prims):
         self.nbytes, self.prims = nbytes, prims
 
     def terms(self, mults: dict, clock_hz: float) -> dict:
-        """The two times, in ms, whose larger is the bound."""
-        imads = sum(mults[k] * v for k, v in self.prims.items())
-        return {"bytes": self.nbytes, "imads": imads,
+        """The two times, in ms, whose larger is the bound: the bytes, and
+        the instructions of the busier pipe (FMA or ALU) at its rate."""
+        pipes = {"fma": 0, "alu": 0}
+        for k, v in self.prims.items():
+            m = mults[k]
+            for pipe, cnt in (m.items() if isinstance(m, dict)
+                              else [("fma", m)]):
+                if pipe in pipes:
+                    pipes[pipe] += cnt * v
+        clocks = max(pipes["fma"] / IMAD_PER_CLOCK,
+                     pipes["alu"] / ALU_PER_CLOCK)
+        return {"bytes": self.nbytes, "imads": pipes["fma"],
+                "alu": pipes["alu"],
                 "bytes_ms": self.nbytes / HBM_BYTES_PER_S * 1e3,
-                "ops_ms": imads / (SMS * IMAD_PER_CLOCK * clock_hz) * 1e3}
+                "ops_ms": clocks / (SMS * clock_hz) * 1e3}
 
     def bound(self, mults: dict, clock_hz: float) -> tuple[float, str]:
         """The bound in ms, and which term sets it."""
@@ -875,38 +953,111 @@ def transform_butterflies(polys: int, n: int) -> int:
     return polys * (n // 2) * (n.bit_length() - 1)
 
 
-def keystream_batch_cases(p, dev):
-    """(kernel, J, wrapper call, plain call, Work) for kernel 6 at the
-    shapes encrypt_batch gives it at p: the encrypt stream's blocks for
-    the mapped nonces of 1..J, J = 1 and BATCH_J."""
-    nb = (sampling.encrypt_entropy_bytes(p.n) + 63) // 64
-    cases = []
+def blocks(nbytes: int) -> int:
+    return -(-nbytes // 64)
+
+
+def keystream_shapes() -> list:
+    """(kernel, label, blocks, keyword arguments) of K1 and 6 at the shapes
+    the main paths give them: K1 at keygen's and encrypt's streams at
+    SALSA_SETS, at 32k_9q's relin_keygen stream (k = r - 1 keys) and a
+    Galois region (element 2n - 1, counter0 = (2n - 1) region, past 2^32),
+    and at encrypt's and keygen's sizes across the word-9 carry (the
+    launcher's two forms); kernel 6 at encrypt's stream for the mapped
+    nonces of 1..J, J = 1 and BATCH_J."""
+    shapes = []
+    for name in SALSA_SETS:
+        p = get_bfv_params(name)
+        shapes += [
+            ("salsa20_keystream", f"keygen {name}",
+             blocks(sampling.keygen_entropy_bytes(p.n, p.r)),
+             dict(nonce=sampling.keygen_nonce(1))),
+            ("salsa20_keystream", f"encrypt {name}",
+             blocks(sampling.encrypt_entropy_bytes(p.n)),
+             dict(nonce=sampling.encrypt_nonce(1)))]
+    p = get_bfv_params(STAGE_SET)
+    region = blocks(sampling.relin_entropy_bytes(p.n, p.r, p.r - 1))
+    g = 2 * p.n - 1
+    enc = blocks(sampling.encrypt_entropy_bytes(p.n))
+    kg = blocks(sampling.keygen_entropy_bytes(p.n, p.r))
+    shapes += [
+        ("salsa20_keystream", f"relin_keygen {STAGE_SET}", region,
+         dict(key_byte=sampling.RELIN_KEY_BYTE, nonce=1)),
+        ("salsa20_keystream", f"galois {STAGE_SET} element {g}", region,
+         dict(key_byte=sampling.GALOIS_KEY_BYTE, nonce=1,
+              counter0=g * region)),
+        ("salsa20_keystream", f"encrypt {STAGE_SET} counter0 2^32-5", enc,
+         dict(nonce=3, counter0=SALSA_CARRY)),
+        ("salsa20_keystream", f"keygen {STAGE_SET} counter0 2^32-5", kg,
+         dict(nonce=3, counter0=SALSA_CARRY))]
     for J in (1, BATCH_J):
-        ns = sampling.encrypt_nonces(range(1, J + 1))
-        cases.append((
-            "salsa20_keystream_batch", J,
-            lambda ns=ns: salsa20.keystream_block_words_batch(nb, ns,
-                                                              device=dev),
-            lambda ns=ns: salsa20.keystream_batch_plain(nb, ns, device=dev),
-            Work(8 * J * 16 * nb)))
+        shapes.append(("salsa20_keystream_batch", f"J={J} {STAGE_SET}", enc,
+                       dict(nonces=sampling.encrypt_nonces(range(1, J + 1)))))
+    return shapes
+
+
+def keystream_cases(dev) -> list:
+    """(kernel, label, wrapper call, plain call, Work) at keystream_shapes:
+    64 bytes written a block (and 6's nonces read), one salsa20_block of
+    instructions."""
+    cases = []
+    for kname, label, nb, kw in keystream_shapes():
+        batch = "nonces" in kw
+        J = len(kw["nonces"]) if batch else 1
+        kern, plain = ((salsa20.keystream_words_batch,
+                        salsa20.keystream_words_batch_plain) if batch else
+                       (salsa20.keystream_words, salsa20.keystream_words_plain))
+        cases.append((kname, label,
+                      lambda f=kern, nb=nb, kw=kw: f(nb, device=dev, **kw),
+                      lambda f=plain, nb=nb, kw=kw: f(nb, device=dev, **kw),
+                      Work(64 * J * nb + 8 * J * batch,
+                           salsa20_block=J * nb)))
     return cases
 
 
+def keystream_checks(dev, errs: dict) -> dict:
+    """K1 and 6 exactly against their plain versions at keystream_cases'
+    shapes, each row of 6 also against K1's stream of its nonce; returns
+    the cases by label."""
+    cases = keystream_cases(dev)
+    for kname, label, kern, plain, _ in cases:
+        got = kern()
+        compare(kname, got, plain(), errs)
+        if kname == "salsa20_keystream_batch":
+            J = got.shape[0]
+            for j, nonce in enumerate(sampling.encrypt_nonces(
+                    range(1, J + 1))):
+                compare(kname, got[j], salsa20.keystream_words(
+                    got.shape[1] // 16, nonce=int(nonce), device=dev), errs)
+        log(f"check {kname} {label}: equal"
+            + (", each row equal to K1's stream of its nonce"
+               if kname == "salsa20_keystream_batch" else ""))
+    return {c[1]: c for c in cases}
+
+
+def keystream_times(cases: dict, mults: dict, clock_hz: float) -> dict:
+    """Device us per call of K1 and 6 (torch.profiler, two windows of 10
+    calls) at keystream_cases' shapes, beside the bound: the bytes written
+    over 3.35 TB/s, or the busier pipe's SASS instructions over its rate."""
+    res = {}
+    for label, (kname, _, kern, _, work) in cases.items():
+        bound_ms, bound_by = work.bound(mults, clock_hz)
+        t = work.terms(mults, clock_hz)
+        res[f"{kname} {label}"] = {
+            "us": [device_us(kern, 10) for _ in range(2)],
+            "bound_us": bound_ms * 1e3, "bound_by": bound_by,
+            "bytes_us": t["bytes_ms"] * 1e3, "ops_us": t["ops_ms"] * 1e3,
+            "alu": t["alu"], "fma": t["imads"]}
+    return res
+
+
 def op_cases(ctx: BFVContext, rng, dev):
-    """(kernel, J, wrapper call, plain call, Work) for K1-K5 at the shapes
+    """(kernel, J, wrapper call, plain call, Work) for K2-K5 at the shapes
     the op schedule's main path gives each, J = 1 and 3 where a batch dim
-    exists."""
+    exists (K1: keystream_cases)."""
     p = ctx.params
     n, r = p.n, p.r
     cases = []
-    kg_blocks = (sampling.keygen_entropy_bytes(n, r) + 63) // 64
-    enc_blocks = (sampling.encrypt_entropy_bytes(n) + 63) // 64
-    for nb, with_u64 in ((kg_blocks, True), (enc_blocks, False)):
-        kw = dict(nonce=3, with_u64=with_u64, device=dev)
-        cases.append(("salsa20_keystream", nb,
-                      lambda nb=nb, kw=kw: salsa20.keystream_block_words(nb, **kw),
-                      lambda nb=nb, kw=kw: salsa20.keystream_plain(nb, **kw),
-                      Work(8 * nb * (24 if with_u64 else 16))))
     s_b, a, e_d = sampling.keygen_draws_compact(n, r, ctx.tables_full.ms,
                                                 nonce=1)
     tf, td = ctx.tables_full, ctx.tables_drop
@@ -2746,6 +2897,16 @@ def main() -> int:
         f"k_encrypt_tail<ROWS, V>): "
         f"{json.dumps(group_lines)}; with spills: "
         f"{json.dumps(spills(group_lines))}")
+    salsa_lines = ptxas_lines(ptxas_out, SALSA_KERNEL)
+    salsa_o = ROOT / "build" / "ptxas" / "salsa20.o"
+    mults["salsa20_block"] = sass_pipes(salsa_o, SALSA_KERNEL)
+    log(f"K1 and 6 (k_salsa20, k_salsa20_lanes), registers and spills "
+        f"(ptxas -v, sm_90a): {json.dumps(salsa_lines)}; with spills: "
+        f"{json.dumps(spills(salsa_lines))}; SASS instructions by pipe "
+        f"(cuobjdump -sass), k_salsa20 a 64-byte block (the bound's): "
+        f"{json.dumps(mults['salsa20_block'])}; k_salsa20_lanes a lane, "
+        f"four lanes a block: "
+        f"{json.dumps(sass_pipes(salsa_o, SALSA_LANES_KERNEL))}")
     log(f"build: all builds done in {time.perf_counter() - t0:.1f} s")
     log(f"local-stage A/B probe (LOCAL_AB_SRC; k_ab_pair<0> the encrypt "
         f"transform's two inverses interleaved, <1> in turn), registers and "
@@ -2774,17 +2935,11 @@ def main() -> int:
             log(f"check {name} op (n = 2^15) {kname} J={J}: equal")
             if name == STAGE_SET and J == 1:
                 timing32[kname] = (kern, plain, work)
-    for kname, J, kern, plain, work in keystream_batch_cases(
-            get_bfv_params(STAGE_SET), dev):
-        bw = kern()
-        compare(kname, bw, plain(), errs)
-        for j, nonce in enumerate(sampling.encrypt_nonces(range(1, J + 1))):
-            compare(kname, bw[j], salsa20.keystream_block_words(
-                bw.shape[-1], nonce=int(nonce), device=dev), errs)
-        log(f"check {STAGE_SET} {kname} J={J}: equal, each row equal to "
-            f"K1's stream of its nonce")
-        if J == BATCH_J:
-            timing[kname] = (kern, plain, work)
+    ks_cases = keystream_checks(dev, errs)
+    for label, kname in ((f"keygen {OP_SET}", "salsa20_keystream"),
+                         (f"J={BATCH_J} {STAGE_SET}",
+                          "salsa20_keystream_batch")):
+        timing[kname] = ks_cases[label][2:]
     for name in STAGE_CHECK_SETS + ("32k_16q",):
         ctx = BFVContext.build(get_bfv_params(name), device=dev,
                                fusion="stage")
@@ -3353,6 +3508,14 @@ def main() -> int:
         f"scale_and_round also beside 21b then 21c), beside the bound at "
         f"the same shape: "
         f"{json.dumps(group_times(dev, rng, mults, clock_hz))}")
+    log(f"K1 and kernel 6 at the main paths' shapes (keygen, encrypt at "
+        f"{SALSA_SETS}; relin_keygen, a Galois region, the word-9 carry, "
+        f"6 at J = 1 and {BATCH_J} at {STAGE_SET}), each == plain in phase "
+        f"1, device us per call (torch.profiler, two windows of 10 calls) "
+        f"beside the bound (bytes over {HBM_BYTES_PER_S:.3g} B/s, or the "
+        f"busier pipe's SASS instructions over {SMS} SMs x "
+        f"{ALU_PER_CLOCK}/clock): "
+        f"{json.dumps(keystream_times(ks_cases, mults, clock_hz))}")
     log(f"the encrypt tail's launch forms (K5's and 13's at J = 1 and "
         f"{BATCH_J}, 19's drop, 14, 16 and its drop at rows 0-{p_s.r} and "
         f"6-{p_s.r}) and kernel 17 (rows 0-{p_s.r} and 6-{p_s.r}, levels 0 "

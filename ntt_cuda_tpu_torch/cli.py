@@ -172,8 +172,8 @@ def cmd_keygen_test(args) -> int:
 
     dev = _device(args, "keygen-test")
     nbytes = args.samples
-    bw = salsa20.keystream_block_words((nbytes + 63) // 64, device=dev)
-    ks = salsa20.block_words_u8(bw, 0, nbytes)
+    ks = salsa20.bytes_u8(salsa20.keystream_for_bytes(nbytes, device=dev), 0,
+                          nbytes)
     # convert_ternary as the sampler ships it (bfv_keygen.cuh:29-30):
     # byte // 85 - 1 in {-1, 0, 1, 2}; byte 255 gives 2, the reference's
     # quirk, not a clamped 1

@@ -1,110 +1,184 @@
-// Salsa20/20 keystream in the block-position layout.
+// Salsa20/20 keystream, written in its byte order.
 //
-// Replaces the TPU kernel ntt_cuda_tpu/ops/salsa20.py _keystream_pallas
-// (salsa20.py:174, pallas_call :200).  Fixed key byte, nonce in state words
-// 6/7, 64-bit block counter counter0 + b in words 8/9 (the reference's
-// VecCrypt, distributions.cuh:48-155).  Output: word p of block b at
-// bw[p * nb + b] (the (16, nb) layout), each u32 word zero-extended into a
-// u64 lane of an int64 tensor.  With `lanes` it also writes the pre-paired
-// u64 lanes: lane j of block b = word 2j | word 2j+1 << 32 at
-// lanes[j * nb + b] (the (8, nb) counterpart of the TPU's lo8/hi8 planes).
+// K1, ntt_salsa20, replaces the TPU kernel ntt_cuda_tpu/ops/salsa20.py
+// _keystream_pallas (salsa20.py:174, pallas_call :200); kernel 6,
+// ntt_salsa20_batch, replaces _keystream_pallas_batch (:249, pallas_call
+// :283), the J streams of a batched encryption in one launch.  Fixed key
+// byte, nonce in state words 6/7, 64-bit block counter counter0 + b in
+// words 8/9, carried into word 9 as _salsa_chunk's is (salsa20.py:130-132;
+// the reference's VecCrypt, distributions.cuh:48-155).
 //
-// Bound on the card: 20 rounds of 32-bit add/xor/rotate on 16 registers per
-// block, then 16 (or 24) coalesced stores; about a megabyte of output at
-// keygen sizes.  One thread per 64-byte block, nothing shared.
+// Output: the stream itself, as the reference's byte buffer holds it
+// (generate_random_default): u32 word w = stream bytes 4w..4w+3,
+// little-endian, so block b is words 16b..16b+15.  Kernel 6 writes J such
+// streams one after the other, row j the stream of nonces[j] (a (J,) array
+// of u64 bit patterns on the device).  The TPU kernel wrote one plane a
+// word position for its (8, 128) vregs, and its callers transposed them
+// back; here the stream is written once, in order, and every draw is a
+// view of it.
 //
-// Kernel 6, ntt_salsa20_batch, replaces _keystream_pallas_batch
-// (salsa20.py:249, pallas_call :283): the J streams of a batched
-// encryption in one launch, message j's nonce read from a (J,) device array
-// of u64 bit patterns (the TPU's scalar-prefetch row).  Grid: 64-byte
-// blocks in x, messages in y; one thread per (message, block) runs the
-// same salsa20_body as K1 and writes word p of block b at
-// bw[(j * 16 + p) * nb + b], the (J, 16, nb) layout.  The block counter
-// counter0 + b carries into word 9 as _salsa_chunk's does (salsa20.py:
-// 130-132).  Bound: the J * 16 * nb * 8 bytes it writes.
+// Bound on the card: the rounds' integer instructions.  A block is 64
+// bytes out and 10 double rounds of 8 quarter-rounds of 4 (add, rotate,
+// xor) steps: about 960 32-bit instructions (nvcc puts a third of them,
+// the adds, on the FMA pipe), 10 clocks of an SM's 64 integer ALU lanes,
+// against 5 clocks for its 64 bytes at the SM's share of 3.35 TB/s.  Two
+// forms, by the launch's size (tools/salsa_ab.py, run on the card):
+//   * k_salsa20, from SALSA_LANES_BELOW blocks a launch: one thread a
+//     block, the state in 16 registers, the rounds fully unrolled (four
+//     independent quarter-rounds for the scheduler).  The CTA's 64 blocks
+//     go through a swizzled shared-memory tile and out as whole lines:
+//     four 16-byte stores a thread, 64 bytes apart, cost 15-20% at
+//     keygen's and a batch's grids, where every warp stores at once at
+//     the end;
+//   * k_salsa20_lanes, below it: four lanes a block, one quarter-round a
+//     lane, the row round's words exchanged with __shfl_sync.  A small
+//     grid is one warp a scheduler or less, latency-bound, and four times
+//     the threads take 10-20% off (encrypt's 4608 blocks).
 
 #include "modarith.cuh"
 
+#define SALSA_TILE 64            // k_salsa20: blocks (threads) a CTA
+#define SALSA_LANES_CTA 128      // k_salsa20_lanes: threads a CTA
+#define SALSA_LANES_BELOW 8192   // blocks a launch below which it runs
+
 NTT_HD u32 rotl32(u32 x, int c) { return (x << c) | (x >> (32 - c)); }
 
-#define SALSA_QR(a, b, c, d)            \
-  x[b] ^= rotl32(x[a] + x[d], 7);       \
-  x[c] ^= rotl32(x[b] + x[a], 9);       \
-  x[d] ^= rotl32(x[c] + x[b], 13);      \
-  x[a] ^= rotl32(x[d] + x[c], 18);
+// One quarter-round on the words (a, b, c, d).
+#define SALSA_QR(a, b, c, d)  \
+  b ^= rotl32(a + d, 7);      \
+  c ^= rotl32(b + a, 9);      \
+  d ^= rotl32(c + b, 13);     \
+  a ^= rotl32(d + c, 18);
 
-NTT_HD void salsa20_body(long long b, u64* bw, u64* lanes, long long nb,
-                         u32 kw, u64 nonce, u64 ctr0) {
-  const u64 ctr = ctr0 + (u64)b;
+// The 16 output words of block counter `ctr` of the (kw, nonce) stream.
+NTT_HD void salsa20_block(u32 x[16], u32 kw, u64 nonce, u64 ctr) {
   const u32 j[16] = {0x61707865u, kw, kw, kw, kw, 0x3320646Eu,
                      (u32)nonce, (u32)(nonce >> 32), (u32)ctr,
                      (u32)(ctr >> 32), 0x79622D32u, kw, kw, kw, kw,
                      0x6B206574u};
-  u32 x[16];
 #ifdef __CUDA_ARCH__
 #pragma unroll
 #endif
   for (int p = 0; p < 16; ++p) x[p] = j[p];
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
   for (int i = 0; i < 10; ++i) {  // 20 rounds: 10 double rounds
-    SALSA_QR(0, 4, 8, 12)
-    SALSA_QR(5, 9, 13, 1)
-    SALSA_QR(10, 14, 2, 6)
-    SALSA_QR(15, 3, 7, 11)
-    SALSA_QR(0, 1, 2, 3)
-    SALSA_QR(5, 6, 7, 4)
-    SALSA_QR(10, 11, 8, 9)
-    SALSA_QR(15, 12, 13, 14)
+    SALSA_QR(x[0], x[4], x[8], x[12])
+    SALSA_QR(x[5], x[9], x[13], x[1])
+    SALSA_QR(x[10], x[14], x[2], x[6])
+    SALSA_QR(x[15], x[3], x[7], x[11])
+    SALSA_QR(x[0], x[1], x[2], x[3])
+    SALSA_QR(x[5], x[6], x[7], x[4])
+    SALSA_QR(x[10], x[11], x[8], x[9])
+    SALSA_QR(x[15], x[12], x[13], x[14])
   }
 #ifdef __CUDA_ARCH__
 #pragma unroll
 #endif
-  for (int p = 0; p < 16; ++p) {
-    x[p] += j[p];
-    bw[p * nb + b] = x[p];
-  }
-  if (lanes) {
-#ifdef __CUDA_ARCH__
-#pragma unroll
-#endif
-    for (int q = 0; q < 8; ++q)
-      lanes[q * nb + b] = (u64)x[2 * q] | ((u64)x[2 * q + 1] << 32);
-  }
+  for (int p = 0; p < 16; ++p) x[p] += j[p];
+}
+
+// The four-lane form: lane l holds column l turned to its diagonal, (a, b,
+// c, d) = words 5l, 5l + 4, 5l + 8, 5l + 12 (mod 16), so the column round
+// is one quarter-round a lane, and the row round's (b, c, d) of lane l are
+// lane l + 1's d, lane l + 2's c and lane l + 3's b (mod 4).  Lane l's
+// input words:
+NTT_HD void salsa20_lane_input(int l, u32 kw, u64 nonce, u64 ctr, u32 w[4]) {
+  w[0] = l == 0 ? 0x61707865u : l == 1 ? 0x3320646Eu
+       : l == 2 ? 0x79622D32u : 0x6B206574u;
+  w[1] = l == 1 ? (u32)(ctr >> 32) : kw;
+  w[2] = l == 0 ? (u32)ctr : l == 3 ? (u32)(nonce >> 32) : kw;
+  w[3] = l == 2 ? (u32)nonce : kw;
+}
+
+// The staged tile of k_salsa20: 16-byte chunk k of the tile's block t sits
+// at slot salsa20_tile_slot(t, k) (no bank conflict among the 8 threads of
+// a 16-byte store's phase), and the tile's chunk t + k SALSA_TILE, which
+// thread t stores, at salsa20_tile_read(t) + k SALSA_TILE.
+NTT_HD int salsa20_tile_slot(int t, int k) {
+  return 4 * t + (k ^ ((t >> 1) & 3));
+}
+
+NTT_HD int salsa20_tile_read(int t) {
+  return 4 * (t >> 2) + ((t & 3) ^ ((t >> 3) & 3));
 }
 
 #ifdef __CUDACC__
 
-__global__ void k_salsa20(u64* bw, u64* lanes, long long nb, u32 kw, u64 nonce,
-                          u64 ctr0) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < nb) salsa20_body(b, bw, lanes, nb, kw, nonce, ctr0);
+// Grid: blocks of the stream in x, streams in y.  nonces null: one stream
+// of `nonce` (K1); else stream j is nonces[j]'s (kernel 6).
+__global__ void __launch_bounds__(SALSA_TILE)
+    k_salsa20(uint4* __restrict__ ks, long long nb, u32 kw,
+              const u64* __restrict__ nonces, u64 nonce, u64 ctr0) {
+  __shared__ uint4 tile[4 * SALSA_TILE];
+  const int t = threadIdx.x;
+  const long long b0 = (long long)blockIdx.x * SALSA_TILE, j = blockIdx.y;
+  u32 x[16];
+  // past nb (the last CTA only): computed, not stored
+  salsa20_block(x, kw, nonces ? nonces[j] : nonce, ctr0 + (u64)(b0 + t));
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    tile[salsa20_tile_slot(t, k)] =
+        make_uint4(x[4 * k], x[4 * k + 1], x[4 * k + 2], x[4 * k + 3]);
+  __syncthreads();
+  const int r = salsa20_tile_read(t);
+  uint4* o = ks + (j * nb + b0) * 4 + t;
+  if (nb - b0 >= SALSA_TILE) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) o[k * SALSA_TILE] = tile[r + k * SALSA_TILE];
+  } else {
+    for (int k = 0; k < 4; ++k)
+      if (t + k * SALSA_TILE < 4 * (nb - b0))
+        o[k * SALSA_TILE] = tile[r + k * SALSA_TILE];
+  }
 }
 
-extern "C" int ntt_salsa20(void* bw, void* lanes, long long nb, u32 kw,
-                           u64 nonce, u64 ctr0, void* stream) {
-  if (nb < 1) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const long long blocks = (nb + threads - 1) / threads;
-  k_salsa20<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (u64*)bw, (u64*)lanes, nb, kw, nonce, ctr0);
-  return (int)cudaGetLastError();
-}
-
-__global__ void k_salsa20_batch(u64* bw, long long nb, u32 kw,
-                                const u64* nonces, u64 ctr0) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(SALSA_LANES_CTA)
+    k_salsa20_lanes(u32* __restrict__ ks, long long nb, u32 kw,
+                    const u64* __restrict__ nonces, u64 nonce, u64 ctr0) {
+  const long long b =
+      ((long long)blockIdx.x * SALSA_LANES_CTA + threadIdx.x) >> 2;
   const long long j = blockIdx.y;
-  if (b < nb)
-    salsa20_body(b, bw + j * 16 * nb, nullptr, nb, kw, nonces[j], ctr0);
+  const int l = threadIdx.x & 3;
+  u32 w0[4];
+  salsa20_lane_input(l, kw, nonces ? nonces[j] : nonce, ctr0 + (u64)b, w0);
+  u32 a = w0[0], bb = w0[1], c = w0[2], d = w0[3];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    SALSA_QR(a, bb, c, d)
+    u32 rb = __shfl_sync(0xffffffffu, d, (l + 1) & 3, 4);
+    u32 rc = __shfl_sync(0xffffffffu, c, (l + 2) & 3, 4);
+    u32 rd = __shfl_sync(0xffffffffu, bb, (l + 3) & 3, 4);
+    SALSA_QR(a, rb, rc, rd)
+    d = __shfl_sync(0xffffffffu, rb, (l + 3) & 3, 4);
+    c = __shfl_sync(0xffffffffu, rc, (l + 2) & 3, 4);
+    bb = __shfl_sync(0xffffffffu, rd, (l + 1) & 3, 4);
+  }
+  if (b >= nb) return;
+  u32* o = ks + (j * nb + b) * 16;
+  o[(5 * l) & 15] = a + w0[0];
+  o[(5 * l + 4) & 15] = bb + w0[1];
+  o[(5 * l + 8) & 15] = c + w0[2];
+  o[(5 * l + 12) & 15] = d + w0[3];
 }
 
-extern "C" int ntt_salsa20_batch(void* bw, long long nb, u32 kw,
-                                 const void* nonces, int J, u64 ctr0,
-                                 void* stream) {
+static int salsa20_launch(void* ks, long long nb, u32 kw, const void* nonces,
+                          int J, u64 nonce, u64 ctr0, void* stream) {
   if (nb < 1 || J < 1 || J > 65535) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const dim3 grid((unsigned)((nb + threads - 1) / threads), (unsigned)J);
-  k_salsa20_batch<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (u64*)bw, nb, kw, (const u64*)nonces, ctr0);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const u64* ns = (const u64*)nonces;
+  if (nb * J < SALSA_LANES_BELOW) {
+    const dim3 grid((unsigned)((4 * nb + SALSA_LANES_CTA - 1) /
+                               SALSA_LANES_CTA), (unsigned)J);
+    k_salsa20_lanes<<<grid, SALSA_LANES_CTA, 0, st>>>((u32*)ks, nb, kw, ns,
+                                                      nonce, ctr0);
+  } else {
+    const dim3 grid((unsigned)((nb + SALSA_TILE - 1) / SALSA_TILE),
+                    (unsigned)J);
+    k_salsa20<<<grid, SALSA_TILE, 0, st>>>((uint4*)ks, nb, kw, ns, nonce,
+                                           ctr0);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -112,25 +186,80 @@ extern "C" const char* ntt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-#else  // host build for the CPU tests
+#else  // host build for the CPU tests: each form's index algebra in turn
 
-extern "C" int ntt_salsa20(void* bw, void* lanes, long long nb, u32 kw,
-                           u64 nonce, u64 ctr0, void*) {
-  for (long long b = 0; b < nb; ++b)
-    salsa20_body(b, (u64*)bw, (u64*)lanes, nb, kw, nonce, ctr0);
-  return 0;
+// k_salsa20_lanes' block: its four lanes in step, the shuffles as reads of
+// the other lanes' words.
+static void salsa20_lanes_block(u32* o, u32 kw, u64 nonce, u64 ctr) {
+  u32 w0[4][4], s[4][4], r[4][3];
+  for (int l = 0; l < 4; ++l) {
+    salsa20_lane_input(l, kw, nonce, ctr, w0[l]);
+    for (int k = 0; k < 4; ++k) s[l][k] = w0[l][k];
+  }
+  for (int i = 0; i < 10; ++i) {
+    for (int l = 0; l < 4; ++l) { SALSA_QR(s[l][0], s[l][1], s[l][2], s[l][3]) }
+    for (int l = 0; l < 4; ++l) {
+      r[l][0] = s[(l + 1) & 3][3];
+      r[l][1] = s[(l + 2) & 3][2];
+      r[l][2] = s[(l + 3) & 3][1];
+    }
+    for (int l = 0; l < 4; ++l) { SALSA_QR(s[l][0], r[l][0], r[l][1], r[l][2]) }
+    for (int l = 0; l < 4; ++l) {
+      s[l][3] = r[(l + 3) & 3][0];
+      s[l][2] = r[(l + 2) & 3][1];
+      s[l][1] = r[(l + 1) & 3][2];
+    }
+  }
+  for (int l = 0; l < 4; ++l)
+    for (int k = 0; k < 4; ++k) o[(5 * l + 4 * k) & 15] = s[l][k] + w0[l][k];
 }
 
-extern "C" int ntt_salsa20_batch(void* bw, long long nb, u32 kw,
-                                 const void* nonces, int J, u64 ctr0, void*) {
+static int salsa20_launch(void* ks, long long nb, u32 kw, const void* nonces,
+                          int J, u64 nonce, u64 ctr0, void*) {
   if (nb < 1 || J < 1 || J > 65535) return 1;
-  for (long long j = 0; j < J; ++j)
-    for (long long b = 0; b < nb; ++b)
-      salsa20_body(b, (u64*)bw + j * 16 * nb, nullptr, nb, kw,
-                   ((const u64*)nonces)[j], ctr0);
+  for (long long j = 0; j < J; ++j) {
+    const u64 nn = nonces ? ((const u64*)nonces)[j] : nonce;
+    u32* row = (u32*)ks + j * nb * 16;
+    if (nb * J < SALSA_LANES_BELOW) {
+      for (long long b = 0; b < nb; ++b)
+        salsa20_lanes_block(row + b * 16, kw, nn, ctr0 + (u64)b);
+      continue;
+    }
+    u32 tile[4 * SALSA_TILE][4];   // k_salsa20's tile, CTA by CTA
+    for (long long b0 = 0; b0 < nb; b0 += SALSA_TILE) {
+      for (int t = 0; t < SALSA_TILE; ++t) {
+        u32 x[16];
+        salsa20_block(x, kw, nn, ctr0 + (u64)(b0 + t));
+        for (int k = 0; k < 4; ++k)
+          for (int w = 0; w < 4; ++w)
+            tile[salsa20_tile_slot(t, k)][w] = x[4 * k + w];
+      }
+      for (int t = 0; t < SALSA_TILE; ++t)
+        for (int k = 0; k < 4; ++k) {
+          const long long s = t + k * SALSA_TILE;
+          if (s < 4 * (nb - b0))
+            for (int w = 0; w < 4; ++w)
+              row[(b0 * 4 + s) * 4 + w] =
+                  tile[salsa20_tile_read(t) + k * SALSA_TILE][w];
+        }
+    }
+  }
   return 0;
 }
 
 extern "C" const char* ntt_error_string(int) { return "host build"; }
 
 #endif
+
+// ks: nb * 16 u32 words.
+extern "C" int ntt_salsa20(void* ks, long long nb, u32 kw, u64 nonce,
+                           u64 ctr0, void* stream) {
+  return salsa20_launch(ks, nb, kw, nullptr, 1, nonce, ctr0, stream);
+}
+
+// ks: J * nb * 16 u32 words; nonces: (J,) u64.
+extern "C" int ntt_salsa20_batch(void* ks, long long nb, u32 kw,
+                                 const void* nonces, int J, u64 ctr0,
+                                 void* stream) {
+  return salsa20_launch(ks, nb, kw, nonces, J, 0, ctr0, stream);
+}

@@ -49,9 +49,9 @@ _U64 = ctypes.c_uint64
 
 # argtypes of every launcher; the last argument is always the stream.
 SIGNATURES = {
-    # bw, lanes, nb, key word, nonce, counter0
-    "ntt_salsa20": (_P, _P, _L, _U32, _U64, _U64, _P),
-    # bw, nb, key word, nonces (J,) u64, J, counter0
+    # ks (nb * 16 u32 words), nb, key word, nonce, counter0
+    "ntt_salsa20": (_P, _L, _U32, _U64, _U64, _P),
+    # ks (J * nb * 16 words), nb, key word, nonces (J,) u64, J, counter0
     "ntt_salsa20_batch": (_P, _L, _U32, _P, _I, _U64, _P),
     # x, c0, out, k2_rows, glob, J, r-1, n, pow2, t, neg_t, nu_t, inv_gt
     "ntt_decrypt_tail": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _U64, _U64,

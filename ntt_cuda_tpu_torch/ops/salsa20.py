@@ -1,24 +1,23 @@
-"""Salsa20/20 keystream in the block-position layout, and its slicers.
+"""Salsa20/20 keystream in its byte order, and the draws' views of it.
 
 Counterpart of `ntt_cuda_tpu/ops/salsa20.py` (the reference's CSPRNG,
 VecCrypt, distributions.cuh:48-155): fixed key byte (0x01 for
 `generate_random_default`), the nonce in state words 6/7, a 64-bit block
-counter in words 8/9.  The keystream is (16, nblocks): row p is word p of
-every 64-byte block, so stream word w lives at [w % 16, w // 16].  Each
-u32 word is held in an int64 tensor (values in [0, 2^32)).
+counter in words 8/9.  The keystream is the reference's byte buffer as
+u32 words: one flat tensor of `nblocks * 16` words carried as int32 bit
+patterns, word w holding stream bytes 4w..4w+3 little-endian (the JAX
+package's flat `keystream_words`).
 
-With `with_u64` the keystream also comes with the pre-paired u64 lanes,
-(8, nblocks) int64 bit patterns: lane j of block b = word 2j | word 2j+1
-<< 32.  This is the one tensor that stands for the TPU kernel's lo8/hi8
-planes; `block_words_u64_planes` slices it.
+`keystream_words` launches K1 (csrc/salsa20.cu) for a CUDA device and runs
+`keystream_words_plain` for the CPU; `keystream_words_batch` is its J-nonce
+counterpart (kernel 6): (J,) nonces -> (J, nblocks * 16), one launch, row j
+equal to the single stream of nonce j.  `device` None is the current CUDA
+device (raising where there is none); the CPU only when asked for.
 
-`keystream_block_words` launches the CUDA kernel (csrc/salsa20.cu) for a
-CUDA device and runs `keystream_plain` for the CPU.
-`keystream_block_words_batch` is its J-nonce counterpart (kernel 6): (J,)
-nonces -> (J, 16, nblocks), one launch, row j equal to the single stream of
-nonce j; the `_batch` slicers cut all J rows at once.  `device` None is the
-current CUDA device (raising where there is none); the CPU only when asked
-for.
+`bytes_u8` / `bytes_u32` / `bytes_u64` read the stream as the reference
+does (bfv_keygen.cuh:120-122, bfv_encryption.cuh:247): each is a view of
+the stream's last axis, never a copy, so one call serves a single stream
+and a (J, words) batch of them alike.
 """
 
 from __future__ import annotations
@@ -53,10 +52,10 @@ def _double_round(x):
         x[a] = x[a] ^ _rotl((x[d] + x[c]) & MASK32, 18)
 
 
-def _block_words(nblocks: int, key_byte: int, nonce_lo, nonce_hi,
-                 counter0: int, device) -> torch.Tensor:
+def _stream_words(nblocks: int, key_byte: int, nonce_lo, nonce_hi,
+                  counter0: int, device) -> torch.Tensor:
     """The 20-round keystream for nonce words of shape (..., 1) (or ()):
-    (..., 16, nblocks) int64 words."""
+    (..., nblocks * 16) int32 words in stream order."""
     ctr = torch.arange(nblocks, dtype=I64, device=device) + (counter0 & MASK32)
     ctr_hi = ((ctr >> 32) + (counter0 >> 32)) & MASK32
     ctr = ctr & MASK32
@@ -73,21 +72,20 @@ def _block_words(nblocks: int, key_byte: int, nonce_lo, nonce_hi,
     x = list(j)
     for _ in range(ROUNDS // 2):
         _double_round(x)
-    return torch.stack([(x[i] + j[i]) & MASK32 for i in range(16)], dim=-2)
+    words = torch.stack([(x[i] + j[i]) & MASK32 for i in range(16)], dim=-1)
+    # u32 values to their int32 bit patterns (the cast wraps modulo 2^32)
+    return words.reshape(shape[:-1] + (nblocks * 16,)).to(torch.int32)
 
 
-def keystream_plain(nblocks: int, key_byte: int = DEFAULT_KEY_BYTE, nonce=0,
-                    counter0=0, with_u64: bool = False, device=None):
-    """Plain tensor keystream (the counterpart of `_keystream_xla`):
-    (16, nblocks) int64 words, plus the (8, nblocks) u64 lanes when
-    `with_u64`.  `nonce` and `counter0` are Python ints in [0, 2^64)."""
+def keystream_words_plain(nblocks: int, key_byte: int = DEFAULT_KEY_BYTE,
+                          nonce=0, counter0=0, device=None) -> torch.Tensor:
+    """Plain tensor keystream (the counterpart of `_keystream_xla` in
+    stream order): (nblocks * 16,) int32 words.  `nonce` and `counter0`
+    are Python ints in [0, 2^64)."""
     nonce = int(nonce)
     word = lambda v: torch.tensor(v, dtype=I64, device=device)
-    bw = _block_words(nblocks, key_byte, word(nonce & MASK32),
-                      word(nonce >> 32), int(counter0), device)
-    if not with_u64:
-        return bw
-    return bw, bw[0::2] | (bw[1::2] << 32)
+    return _stream_words(nblocks, key_byte, word(nonce & MASK32),
+                         word(nonce >> 32), int(counter0), device)
 
 
 def nonce_array(nonces) -> np.ndarray:
@@ -105,114 +103,86 @@ def nonce_tensor(nonces, device) -> torch.Tensor:
         device)
 
 
-def keystream_batch_plain(nblocks: int, nonces,
+def keystream_words_batch_plain(nblocks: int, nonces,
+                                key_byte: int = DEFAULT_KEY_BYTE, counter0=0,
+                                device=None) -> torch.Tensor:
+    """Plain J-nonce keystream (the counterpart of the xla path's vmap):
+    (J, nblocks * 16) int32 words, row j equal to
+    keystream_words_plain(nblocks, nonce=nonces[j])."""
+    v = nonce_tensor(nonces, device)[:, None]
+    return _stream_words(nblocks, key_byte, v & MASK32, (v >> 32) & MASK32,
+                         int(counter0), device)
+
+
+def keystream_words_batch(nblocks: int, nonces,
                           key_byte: int = DEFAULT_KEY_BYTE, counter0=0,
                           device=None) -> torch.Tensor:
-    """Plain J-nonce keystream (the counterpart of the xla path's vmap):
-    (J, 16, nblocks) int64 words, row j equal to
-    keystream_plain(nblocks, nonce=nonces[j])."""
-    v = nonce_tensor(nonces, device)[:, None]
-    return _block_words(nblocks, key_byte, v & MASK32, (v >> 32) & MASK32,
-                        int(counter0), device)
-
-
-def keystream_block_words_batch(nblocks: int, nonces,
-                                key_byte: int = DEFAULT_KEY_BYTE,
-                                counter0=0, device=None) -> torch.Tensor:
-    """(J,) nonces -> (J, 16, nblocks) keystream words on `device`: kernel 6
-    on a CUDA device (the nonces go to the card as one (J,) int64 tensor of
-    u64 bit patterns), the plain version on the CPU."""
-    device = cuda.default_device(device, "keystream_block_words_batch")
+    """(J,) nonces -> (J, nblocks * 16) int32 keystream words on `device`:
+    kernel 6 on a CUDA device (the nonces go to the card as one (J,) int64
+    tensor of u64 bit patterns), the plain version on the CPU."""
+    device = cuda.default_device(device, "keystream_words_batch")
     if device.type == "cpu":
-        return keystream_batch_plain(nblocks, nonces, key_byte=key_byte,
-                                     counter0=counter0, device=device)
+        return keystream_words_batch_plain(nblocks, nonces, key_byte=key_byte,
+                                           counter0=counter0, device=device)
     if device.type != "cuda":
-        raise ValueError(f"keystream_block_words_batch: no kernel for "
-                         f"{device}")
+        raise ValueError(f"keystream_words_batch: no kernel for {device}")
     v = nonce_tensor(nonces, device)
     if v.dim() != 1:
         raise ValueError(f"nonces: expected shape (J,), got {tuple(v.shape)}")
-    bw = torch.empty((v.shape[0], 16, nblocks), dtype=I64, device=device)
-    cuda.launch("ntt_salsa20_batch", device, bw.data_ptr(), nblocks,
-                _key_word(key_byte), v.data_ptr(), v.shape[0],
-                int(counter0))
-    keystream_block_words_batch.launches += 1
-    return bw
+    ks = torch.empty((v.shape[0], nblocks * 16), dtype=torch.int32,
+                     device=device)
+    cuda.launch("ntt_salsa20_batch", device, ks.data_ptr(), nblocks,
+                _key_word(key_byte), v.data_ptr(), v.shape[0], int(counter0))
+    keystream_words_batch.launches += 1
+    return ks
 
 
-keystream_block_words_batch.launches = 0
+keystream_words_batch.launches = 0
 
 
-def keystream_block_words(nblocks: int, key_byte: int = DEFAULT_KEY_BYTE,
-                          nonce=0, counter0=0, with_u64: bool = False,
-                          device=None):
-    """(16, nblocks) keystream words [and (8, nblocks) u64 lanes] on
-    `device`: the Salsa20 kernel on a CUDA device, the plain version on
-    the CPU."""
-    device = cuda.default_device(device, "keystream_block_words")
+def keystream_words(nblocks: int, key_byte: int = DEFAULT_KEY_BYTE, nonce=0,
+                    counter0=0, device=None) -> torch.Tensor:
+    """(nblocks * 16,) int32 keystream words on `device`: K1 on a CUDA
+    device, the plain version on the CPU."""
+    device = cuda.default_device(device, "keystream_words")
     if device.type == "cpu":
-        return keystream_plain(nblocks, key_byte=key_byte, nonce=nonce,
-                               counter0=counter0, with_u64=with_u64,
-                               device=device)
+        return keystream_words_plain(nblocks, key_byte=key_byte, nonce=nonce,
+                                     counter0=counter0, device=device)
     if device.type != "cuda":
-        raise ValueError(f"keystream_block_words: no kernel for {device}")
-    bw = torch.empty((16, nblocks), dtype=I64, device=device)
-    lanes = (torch.empty((8, nblocks), dtype=I64, device=device)
-             if with_u64 else None)
-    cuda.launch("ntt_salsa20", device, bw.data_ptr(),
-                lanes.data_ptr() if with_u64 else None, nblocks,
+        raise ValueError(f"keystream_words: no kernel for {device}")
+    ks = torch.empty(nblocks * 16, dtype=torch.int32, device=device)
+    cuda.launch("ntt_salsa20", device, ks.data_ptr(), nblocks,
                 _key_word(key_byte), int(nonce), int(counter0))
-    keystream_block_words.launches += 1
-    return (bw, lanes) if with_u64 else bw
+    keystream_words.launches += 1
+    return ks
 
 
-keystream_block_words.launches = 0
+keystream_words.launches = 0
 
 
-def block_words_u32(bw: torch.Tensor, start: int, count: int) -> torch.Tensor:
-    """`count` canonical-order stream words from byte offset `start`
-    (start must be 64-byte block aligned)."""
-    if start % 64:
-        raise ValueError(f"start={start} is not 64-byte block aligned")
-    blk0 = start // 64
-    nb = -(-count // 16)
-    return bw[:, blk0:blk0 + nb].T.reshape(nb * 16)[:count]
+def keystream_for_bytes(nbytes: int, **kw) -> torch.Tensor:
+    """Keystream covering ceil(nbytes / 64) blocks, as flat int32 words."""
+    return keystream_words(-(-nbytes // 64), **kw)
 
 
-def block_words_u8(bw: torch.Tensor, start: int, count: int) -> torch.Tensor:
-    """`count` keystream bytes from block-aligned byte offset `start`."""
-    w = block_words_u32(bw, start, -(-count // 4))
-    b = torch.stack([(w >> (8 * k)) & 0xFF for k in range(4)], dim=1)
-    return b.reshape(-1)[:count]
+def bytes_u8(ks: torch.Tensor, start: int, count: int) -> torch.Tensor:
+    """`count` stream bytes from byte offset `start`: a uint8 view of the
+    stream's (..., words) last axis."""
+    return ks.view(torch.uint8)[..., start:start + count]
 
 
-def block_words_u64_planes(lanes: torch.Tensor, start: int,
-                           count: int) -> torch.Tensor:
-    """`count` little-endian u64 lanes (int64 bit patterns) from
-    block-aligned byte offset `start`: lane k comes from row k % 8 of
-    block k // 8 of the pre-paired lanes."""
-    if start % 64 or count % 8:
-        raise ValueError(f"start={start} / count={count}: need whole blocks")
-    blk0 = start // 64
-    nb = count // 8
-    return lanes[:, blk0:blk0 + nb].T.reshape(-1)
+def bytes_u32(ks: torch.Tensor, start: int, count: int) -> torch.Tensor:
+    """`count` little-endian u32 words (int32 bit patterns) from byte
+    offset `start`, a multiple of 4: a view of the stream."""
+    if start % 4:
+        raise ValueError(f"bytes_u32: start={start} is not 4-byte aligned")
+    return ks[..., start // 4:start // 4 + count]
 
 
-def block_words_u32_batch(bw: torch.Tensor, start: int,
-                          count: int) -> torch.Tensor:
-    """Batched block_words_u32: (J, 16, nb_total) -> (J, count) stream
-    words from block-aligned byte offset `start`, every row at once."""
-    if start % 64:
-        raise ValueError(f"start={start} is not 64-byte block aligned")
-    blk0 = start // 64
-    nb = -(-count // 16)
-    w = bw[:, :, blk0:blk0 + nb].transpose(1, 2)
-    return w.reshape(bw.shape[0], nb * 16)[:, :count]
-
-
-def block_words_u8_batch(bw: torch.Tensor, start: int,
-                         count: int) -> torch.Tensor:
-    """Batched block_words_u8: (J, 16, nb_total) -> (J, count) bytes."""
-    w = block_words_u32_batch(bw, start, -(-count // 4))
-    b = torch.stack([(w >> (8 * k)) & 0xFF for k in range(4)], dim=2)
-    return b.reshape(w.shape[0], -1)[:, :count]
+def bytes_u64(ks: torch.Tensor, start: int, count: int) -> torch.Tensor:
+    """`count` little-endian u64 lanes (int64 bit patterns, as `uniform`
+    takes them) from byte offset `start`, a multiple of 8: an int64 view of
+    the stream.  A range that cannot be viewed raises; it is not copied."""
+    if start % 8:
+        raise ValueError(f"bytes_u64: start={start} is not 8-byte aligned")
+    return ks[..., start // 4:start // 4 + 2 * count].view(torch.int64)

@@ -12,7 +12,9 @@ are XLA outside any kernel in the JAX package.  Only the `uniform_spec=
 Draws come in COMPACT form: the ternary and Gaussian values are one int32
 plane shared by every modulus, and the kernels map a negative value d to
 q + d themselves (`small_res` is that map, the JAX package's
-`ternary_res` / `gauss_res`, for the plain versions).
+`ternary_res` / `gauss_res`, for the plain versions).  Every draw reads its
+bytes, words or lanes as a view of the keystream (`salsa20.bytes_u8` /
+`bytes_u32` / `bytes_u64`); only the converters write new tensors.
 """
 
 from __future__ import annotations
@@ -58,9 +60,11 @@ def encrypt_nonces(nonces) -> np.ndarray:
 
 
 def ternary_int(bytes_u8: torch.Tensor) -> torch.Tensor:
-    """(..., n) bytes -> (..., n) int32 ternary values in {-1, 0, 1, 2}
-    (b = int(byte / 85.0f) - 1, byte 255 -> 2 included)."""
-    return (torch.div(bytes_u8, 85, rounding_mode="floor") - 1).to(torch.int32)
+    """(..., n) bytes (uint8, or any integer type) -> (..., n) int32
+    ternary values in {-1, 0, 1, 2} (b = int(byte / 85.0f) - 1, byte 255
+    -> 2 included).  Widened first: in uint8, byte // 85 - 1 would wrap
+    to 255 for the bytes 0-84."""
+    return torch.div(bytes_u8.to(torch.int32), 85, rounding_mode="floor") - 1
 
 
 # The pinned Gaussian spec (ntt_cuda_tpu/ops/sampling.py GAUSS_ICDF_BOUNDS):
@@ -81,8 +85,11 @@ GAUSS_ICDF_BOUNDS = (
 
 
 def gaussian_int(u32s: torch.Tensor) -> torch.Tensor:
-    """(..., n) u32 words (int64 values) -> (..., n) int32 discrete-Gaussian
-    values in [-19, 16] under the pinned threshold spec: 38 compares."""
+    """(..., n) u32 words (int32 bit patterns, or int64 values) -> (..., n)
+    int32 discrete-Gaussian values in [-19, 16] under the pinned threshold
+    spec: 38 compares, on the words widened to int64 (a word >= 2^31 is
+    negative as int32)."""
+    u32s = u32s.to(I64) & salsa20.MASK32
     b = torch.tensor(GAUSS_ICDF_BOUNDS, dtype=I64, device=u32s.device)
     d = (u32s[..., None] >= b).sum(dim=-1) - 19
     d = torch.where(u32s == 0, -16, d)
@@ -120,14 +127,12 @@ def keygen_draws_compact(n: int, r: int, ms: modmath.ModulusSet,
     """Keygen draws on ms's device: (s_b (n,) int32, a (r, n) uniform
     residues, e_d (n,) int32).  Byte layout (bfv_keygen.cuh:120-122):
     ternary bytes at 0, uniform u64 lanes at n, Gaussian u32 at n + 8rn."""
-    nbytes = keygen_entropy_bytes(n, r)
-    bw, lanes = salsa20.keystream_block_words(
-        (nbytes + 63) // 64, key_byte=key_byte, nonce=keygen_nonce(nonce),
-        with_u64=True, device=ms.q.device)
-    s_b = ternary_int(salsa20.block_words_u8(bw, 0, n))
-    a = uniform(salsa20.block_words_u64_planes(lanes, n, r * n)
-                .reshape(r, n), ms)
-    e_d = gaussian_int(salsa20.block_words_u32(bw, n + 8 * r * n, n))
+    ks = salsa20.keystream_for_bytes(
+        keygen_entropy_bytes(n, r), key_byte=key_byte,
+        nonce=keygen_nonce(nonce), device=ms.q.device)
+    s_b = ternary_int(salsa20.bytes_u8(ks, 0, n))
+    a = uniform(salsa20.bytes_u64(ks, n, r * n).reshape(r, n), ms)
+    e_d = gaussian_int(salsa20.bytes_u32(ks, n + 8 * r * n, n))
     return s_b, a, e_d
 
 
@@ -143,24 +148,21 @@ def keygen_draws_rank(n: int, r: int, lo: int, hi: int,
     ternary bytes at block block S/64, row i's lanes at n/64 + i n/8 +
     block S/8, the Gaussian words at (n + 8rn)/64 + block S/16.  K1
     launches: one each, and one per row of a when S < n (the rows' slices
-    are then apart in the stream)."""
+    are then apart in the stream, and are joined)."""
     S = n if S is None else S
     stream = dict(key_byte=key_byte, nonce=keygen_nonce(nonce),
                   device=ms.q.device)
-    s_b = ternary_int(salsa20.block_words_u8(salsa20.keystream_block_words(
+    s_b = ternary_int(salsa20.bytes_u8(salsa20.keystream_words(
         S // 64, counter0=block * S // 64, **stream), 0, S))
     runs = [(lo, hi)] if S == n else [(i, i + 1) for i in range(lo, hi)]
-    rows = []
-    for a, b in runs:
-        _, lanes = salsa20.keystream_block_words(
-            (b - a) * S // 8, counter0=n // 64 + a * n // 8 + block * S // 8,
-            with_u64=True, **stream)
-        rows.append(salsa20.block_words_u64_planes(lanes, 0, (b - a) * S)
-                    .reshape(b - a, S))
-    e_d = gaussian_int(salsa20.block_words_u32(salsa20.keystream_block_words(
+    rows = [salsa20.bytes_u64(salsa20.keystream_words(
+        (b - a) * S // 8, counter0=n // 64 + a * n // 8 + block * S // 8,
+        **stream), 0, (b - a) * S).reshape(b - a, S) for a, b in runs]
+    e_d = gaussian_int(salsa20.bytes_u32(salsa20.keystream_words(
         S // 16, counter0=(n + 8 * r * n) // 64 + block * S // 16, **stream),
         0, S))
-    return s_b, uniform(torch.cat(rows), ms), e_d
+    return s_b, uniform(rows[0] if len(rows) == 1 else torch.cat(rows),
+                        ms), e_d
 
 
 def encrypt_draws_slice(n: int, block: int, S: int,
@@ -173,28 +175,27 @@ def encrypt_draws_slice(n: int, block: int, S: int,
     K1 launches."""
     stream = dict(key_byte=key_byte, nonce=encrypt_nonce(nonce),
                   device=device)
-    u_b = ternary_int(salsa20.block_words_u8(salsa20.keystream_block_words(
+    u_b = ternary_int(salsa20.bytes_u8(salsa20.keystream_words(
         S // 64, counter0=block * S // 64, **stream), 0, S))
-    e_d = torch.stack([gaussian_int(salsa20.block_words_u32(
-        salsa20.keystream_block_words(S // 16,
-                                      counter0=base // 64 + block * S // 16,
-                                      **stream), 0, S))
-        for base in (n, 5 * n)])
+    e_d = gaussian_int(torch.stack([salsa20.bytes_u32(
+        salsa20.keystream_words(S // 16,
+                                counter0=base // 64 + block * S // 16,
+                                **stream), 0, S)
+        for base in (n, 5 * n)]))
     return u_b, e_d
 
 
 def encrypt_draws_compact(n: int, key_byte: int = salsa20.DEFAULT_KEY_BYTE,
                           nonce=0, device=None):
     """Encryption draws: (u_b (n,) int32, e_d (2, n) int32).  Layout
-    (bfv_encryption.cuh:247): ternary bytes at 0, e0 at n, e1 at 5n.
-    `device` None is the current CUDA device."""
-    nbytes = encrypt_entropy_bytes(n)
-    bw = salsa20.keystream_block_words((nbytes + 63) // 64, key_byte=key_byte,
-                                       nonce=encrypt_nonce(nonce),
-                                       device=device)
-    u_b = ternary_int(salsa20.block_words_u8(bw, 0, n))
-    e_d = torch.stack([gaussian_int(salsa20.block_words_u32(bw, n, n)),
-                       gaussian_int(salsa20.block_words_u32(bw, 5 * n, n))])
+    (bfv_encryption.cuh:247): ternary bytes at 0, e0 at n, e1 at 5n (the
+    n words of e0 end where e1's begin: one view holds both).  `device`
+    None is the current CUDA device."""
+    ks = salsa20.keystream_for_bytes(encrypt_entropy_bytes(n),
+                                     key_byte=key_byte,
+                                     nonce=encrypt_nonce(nonce), device=device)
+    u_b = ternary_int(salsa20.bytes_u8(ks, 0, n))
+    e_d = gaussian_int(salsa20.bytes_u32(ks, n, 2 * n).reshape(2, n))
     return u_b, e_d
 
 
@@ -204,16 +205,13 @@ def encrypt_draws_compact_batch(n: int, nonces,
     """Batched compact encryption draws: (J,) nonces -> (u_b (J, n) int32,
     e_d (J, 2, n) int32), row j equal to encrypt_draws_compact(n,
     nonce=nonces[j]).  One keystream launch (kernel 6) for the J mapped
-    nonces, and every slice taken for all J rows at once.  `device` None
+    nonces, and every view taken for all J rows at once.  `device` None
     is the current CUDA device."""
-    nbytes = encrypt_entropy_bytes(n)
-    bw = salsa20.keystream_block_words_batch(
-        (nbytes + 63) // 64, encrypt_nonces(nonces), key_byte=key_byte,
-        device=device)
-    u_b = ternary_int(salsa20.block_words_u8_batch(bw, 0, n))
-    e_d = gaussian_int(torch.stack(
-        [salsa20.block_words_u32_batch(bw, n, n),
-         salsa20.block_words_u32_batch(bw, 5 * n, n)], dim=1))
+    ks = salsa20.keystream_words_batch(
+        -(-encrypt_entropy_bytes(n) // 64), encrypt_nonces(nonces),
+        key_byte=key_byte, device=device)
+    u_b = ternary_int(salsa20.bytes_u8(ks, 0, n))
+    e_d = gaussian_int(salsa20.bytes_u32(ks, n, 2 * n).reshape(-1, 2, n))
     return u_b, e_d
 
 
@@ -244,13 +242,12 @@ def relin_draws(n: int, r: int, k: int, ms: modmath.ModulusSet, nonce=0):
     """Draws of the k relinearization keys on ms's device: (a (k, r, n)
     uniform NTT-domain residues, e (k, r, n) Gaussian residues).  Key j
     owns the stream's bytes from j*(8rn + 4n): its r*n u64 lanes, then its
-    n Gaussian words.  One keystream launch, and the k keys sliced out
-    together (block-aligned: n >= 16)."""
-    nbytes = relin_entropy_bytes(n, r, k)
-    bw, lanes = salsa20.keystream_block_words(
-        (nbytes + 63) // 64, key_byte=RELIN_KEY_BYTE,
-        nonce=keygen_nonce(nonce), with_u64=True, device=ms.q.device)
-    return _key_draws(bw, lanes, n, r, k, ms)
+    n Gaussian words.  One keystream launch, and the k keys viewed
+    together."""
+    ks = salsa20.keystream_for_bytes(
+        relin_entropy_bytes(n, r, k), key_byte=RELIN_KEY_BYTE,
+        nonce=keygen_nonce(nonce), device=ms.q.device)
+    return _key_draws(ks, n, r, k, ms)
 
 
 def relin_draws_rank(n: int, r: int, k: int, lo: int, hi: int,
@@ -268,33 +265,31 @@ def _key_draws_rank(n: int, r: int, k: int, lo: int, hi: int,
     starts at block `block0` (laid out as _key_draws'): key j's uniform
     rows from block block0 + j (8rn + 4n)/64 + lo n/8, its Gaussian words,
     drawn whole on every rank, from block block0 + (j (8rn + 4n) + 8rn)/64.
-    Two K1 launches a key."""
+    Two K1 launches a key; the keys' views, apart in the stream, are
+    joined."""
     kb = (8 * r * n + 4 * n) // 64       # blocks per key
     rl = hi - lo
     stream = dict(key_byte=key_byte, nonce=keygen_nonce(nonce),
                   device=ms.q.device)
     u, w = [], []
     for j in range(k):
-        _, lanes = salsa20.keystream_block_words(
-            rl * n // 8, counter0=block0 + j * kb + lo * n // 8,
-            with_u64=True, **stream)
-        u.append(salsa20.block_words_u64_planes(lanes, 0, rl * n)
-                 .reshape(rl, n))
-        w.append(salsa20.block_words_u32(salsa20.keystream_block_words(
+        u.append(salsa20.bytes_u64(salsa20.keystream_words(
+            rl * n // 8, counter0=block0 + j * kb + lo * n // 8, **stream),
+            0, rl * n).reshape(rl, n))
+        w.append(salsa20.bytes_u32(salsa20.keystream_words(
             n // 16, counter0=block0 + j * kb + r * n // 8, **stream), 0, n))
     return uniform(torch.stack(u), ms), small_res(gaussian_int(
         torch.stack(w)), ms.q)
 
 
-def _key_draws(bw, lanes, n: int, r: int, k: int, ms: modmath.ModulusSet):
+def _key_draws(ks, n: int, r: int, k: int, ms: modmath.ModulusSet):
     """The k switching keys' (a, e) from one stream whose key j owns the
-    bytes from j*(8rn + 4n)."""
-    kb = (8 * r * n + 4 * n) // 64       # blocks per key
-    ub = 8 * r * n // 64                 # of them, the uniform lanes'
-    u = (lanes[:, :k * kb].reshape(8, k, kb)[:, :, :ub]
-         .permute(1, 2, 0).reshape(k, r, n))
-    w = (bw[:, :k * kb].reshape(16, k, kb)[:, :, ub:ub + n // 16]
-         .permute(1, 2, 0).reshape(k, n))
+    bytes from j*(8rn + 4n): strided views over the k keys, (k, r, n)
+    lanes and (k, n) Gaussian words."""
+    kw = (8 * r * n + 4 * n) // 4        # words per key
+    keys = ks[:k * kw].reshape(k, kw)
+    u = salsa20.bytes_u64(keys, 0, r * n).reshape(k, r, n)
+    w = salsa20.bytes_u32(keys, 8 * r * n, n)
     return uniform(u, ms), small_res(gaussian_int(w), ms.q)
 
 
@@ -317,10 +312,10 @@ def galois_draws(n: int, r: int, k: int, elts, ms: modmath.ModulusSet,
     region = (relin_entropy_bytes(n, r, k) + 63) // 64   # blocks per element
     a_rows, e_rows = [], []
     for g in elts:
-        bw, lanes = salsa20.keystream_block_words(
+        ks = salsa20.keystream_words(
             region, key_byte=GALOIS_KEY_BYTE, nonce=keygen_nonce(nonce),
-            counter0=int(g) * region, with_u64=True, device=ms.q.device)
-        a, e = _key_draws(bw, lanes, n, r, k, ms)
+            counter0=int(g) * region, device=ms.q.device)
+        a, e = _key_draws(ks, n, r, k, ms)
         a_rows.append(a)
         e_rows.append(e)
     return torch.stack(a_rows), torch.stack(e_rows)

@@ -1,9 +1,10 @@
 """Batched encryption of the port against the JAX package, and the op
 schedule at n = 32768 against the stage schedule, on the CPU.
 
-1. Kernel 6's plain version (salsa20.keystream_batch_plain) and the batched
-   slicers against the JAX xla path (a vmap of the single stream), nonces
-   >= 2^63 and counter0's carry into word 9 included.
+1. Kernel 6's plain version (salsa20.keystream_words_batch_plain) and the
+   stream's views over a (J, words) batch against the JAX xla path (a vmap
+   of the single stream) and its batched slicers, nonces >= 2^63 and
+   counter0's carry into word 9 included.
 2. The batched draws against the JAX package's at 4k_3q, J = 3.
 3. BFVContext.encrypt_batch against JAX `backend="xla"` encrypt_batch and
    against the port's own per-message encrypt.
@@ -40,18 +41,24 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
+def _u32(words: torch.Tensor) -> np.ndarray:
+    return words.numpy().view(np.uint32)
+
+
 @pytest.mark.parametrize("mapped", [False, True], ids=["raw", "encrypt"])
 def test_keystream_batch_matches_jax(mapped):
+    """Row j is nonce j's stream in byte order: the JAX (J, 16, nb) planes
+    read block by block."""
     nb = 70
     nonces = sampling.encrypt_nonces(NONCES) if mapped else NONCES
     ref = jsalsa.keystream_block_words_batch(
         nb, jnp.asarray(np.asarray(nonces, np.uint64)), impl="xla")
-    ref = np.asarray(ref).astype(np.int64)
+    ref = np.asarray(ref).transpose(0, 2, 1).reshape(len(NONCES), 16 * nb)
+    got = salsa20.keystream_words_batch(nb, nonces, device="cpu")
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_u32(got), ref)
     np.testing.assert_array_equal(
-        salsa20.keystream_batch_plain(nb, nonces).numpy(), ref)
-    np.testing.assert_array_equal(
-        salsa20.keystream_block_words_batch(nb, nonces, device="cpu").numpy(),
-        ref)
+        _u32(salsa20.keystream_words_batch_plain(nb, nonces)), ref)
 
 
 @pytest.mark.parametrize("counter0", [0, 2**32 - 3])
@@ -61,27 +68,39 @@ def test_keystream_batch_rows_equal_single_streams(counter0):
     nb = 40
     nonces = [0, 5, 1 << 63, (1 << 64) - 1]
     bits = torch.from_numpy(np.asarray(nonces, np.uint64).view(np.int64))
-    got = salsa20.keystream_batch_plain(nb, bits, counter0=counter0)
-    assert got.shape == (4, 16, nb)
+    got = salsa20.keystream_words_batch_plain(nb, bits, counter0=counter0)
+    assert got.shape == (4, 16 * nb)
     for j, nonce in enumerate(nonces):
-        assert torch.equal(got[j], salsa20.keystream_plain(
+        assert torch.equal(got[j], salsa20.keystream_words_plain(
             nb, nonce=nonce, counter0=counter0))
 
 
 def test_batch_slicers_match_jax():
+    """bytes_u32 / bytes_u8 over the (J, words) batch against the JAX
+    package's block_words_u32_batch / block_words_u8_batch, every row at
+    once; bytes_u64 row by row against JAX bytes_u64 of each row's flat
+    stream; views, not copies."""
     nb = 70                 # the shapes of the keystream test: one compile
-    bw = salsa20.keystream_batch_plain(nb, NONCES)
+    ks = salsa20.keystream_words_batch_plain(nb, NONCES)
     jbw = jsalsa.keystream_block_words_batch(
         nb, jnp.asarray(NONCES, jnp.uint64), impl="xla")
     for start, count in ((0, 1001), (64 * 7, 555), (128, 640)):
+        u32 = salsa20.bytes_u32(ks, start, count)
         np.testing.assert_array_equal(
-            salsa20.block_words_u32_batch(bw, start, count).numpy(),
-            np.asarray(jsalsa.block_words_u32_batch(jbw, start, count)))
+            _u32(u32), np.asarray(jsalsa.block_words_u32_batch(jbw, start,
+                                                               count)))
         np.testing.assert_array_equal(
-            salsa20.block_words_u8_batch(bw, start, count).numpy(),
+            salsa20.bytes_u8(ks, start, count).numpy(),
             np.asarray(jsalsa.block_words_u8_batch(jbw, start, count)))
+        assert u32.untyped_storage().data_ptr() == \
+            ks.untyped_storage().data_ptr()
+    u64 = salsa20.bytes_u64(ks, 72, 333)
+    for j in range(len(NONCES)):
+        np.testing.assert_array_equal(
+            u64[j].numpy().view(np.uint64), np.asarray(jsalsa.bytes_u64(
+                jnp.asarray(_u32(ks[j])), 72, 333)))
     with pytest.raises(ValueError, match="aligned"):
-        salsa20.block_words_u32_batch(bw, 4, 8)
+        salsa20.bytes_u32(ks, 2, 8)
 
 
 def test_encrypt_draws_batch_match_jax():

@@ -89,41 +89,53 @@ def stage_ctx(request):
     return BFVContext.build(request.param, device="cpu", fusion="stage")
 
 
-@pytest.mark.parametrize("with_u64", [False, True])
-def test_host_salsa20(host_lib, with_u64):
-    nb = 300
-    for nonce, ctr0 in [(0, 0), (7 | (1 << 63), 0), (3, 2**32 - 5)]:
-        bw = torch.empty((16, nb), dtype=torch.int64)
-        lanes = torch.empty((8, nb), dtype=torch.int64)
-        rc = host_lib.ntt_salsa20(bw.data_ptr(),
-                                  lanes.data_ptr() if with_u64 else None, nb,
-                                  0x01010101, nonce, ctr0, 20, None)
-        assert rc == 0
-        ref = salsa20.keystream_plain(nb, nonce=nonce, counter0=ctr0,
-                                      with_u64=True)
-        torch.testing.assert_close(bw, ref[0], rtol=0, atol=0)
-        if with_u64:
-            torch.testing.assert_close(lanes, ref[1], rtol=0, atol=0)
+# blocks of a launch on either side of the launcher's rule (SALSA_LANES_BELOW
+# = 8192 in csrc/salsa20.cu): four lanes a block below it, the staged
+# 64-block tile from it (8269 leaves a partial last tile)
+SALSA_NBS = {"lanes": 300, "tile": 8269}
 
 
-def test_host_salsa20_batch(host_lib):
-    """Kernel 6: J nonces' streams in one launch, nonces >= 2^63 read as
-    u64 bit patterns, counter0's carry into word 9."""
-    nb = 300
+@pytest.mark.parametrize("form", SALSA_NBS)
+@pytest.mark.parametrize("nonce,ctr0", [(0, 0), (7 | (1 << 63), 0),
+                                       (3, 2**32 - 5)],
+                         ids=["zero", "nonce_bit63", "word9_carry"])
+def test_host_salsa20(host_lib, nonce, ctr0, form):
+    """K1: the stream in byte order as u32 words, equal to the plain
+    version, in both of the launcher's forms, at the (nonce, counter0)
+    edges: 0, the nonce's bit 63 and a counter0 whose blocks cross into
+    word 9."""
+    nb = SALSA_NBS[form]
+    ks = torch.full((16 * nb + 16,), 7, dtype=torch.int32)
+    assert host_lib.ntt_salsa20(ks.data_ptr(), nb, 0x01010101, nonce, ctr0,
+                                None) == 0
+    ref = salsa20.keystream_words_plain(nb, nonce=nonce, counter0=ctr0)
+    torch.testing.assert_close(ks[:16 * nb], ref, rtol=0, atol=0)
+    assert torch.all(ks[16 * nb:] == 7)          # nothing past the stream
+    assert host_lib.ntt_salsa20(ks.data_ptr(), 0, 0x01010101, nonce, ctr0,
+                                None) != 0
+
+
+@pytest.mark.parametrize("nb", [300, 2069], ids=["lanes", "tile"])
+def test_host_salsa20_batch(host_lib, nb):
+    """Kernel 6: J nonces' streams in one launch, row j nonce j's stream,
+    nonces >= 2^63 read as u64 bit patterns, counter0's carry into word 9;
+    4 x 2069 blocks take the staged tile, each row ending in a partial
+    one."""
     nonces = [0, 1, 2**62 + 5, 7 | (1 << 63)]
     v = salsa20.nonce_tensor(nonces, "cpu")
     for ctr0 in (0, 2**32 - 5):
-        bw = torch.empty((len(nonces), 16, nb), dtype=torch.int64)
-        assert host_lib.ntt_salsa20_batch(bw.data_ptr(), nb, 0x01010101,
+        ks = torch.empty((len(nonces), 16 * nb), dtype=torch.int32)
+        assert host_lib.ntt_salsa20_batch(ks.data_ptr(), nb, 0x01010101,
                                           v.data_ptr(), len(nonces), ctr0,
                                           None) == 0
-        ref = salsa20.keystream_batch_plain(nb, nonces, counter0=ctr0)
-        torch.testing.assert_close(bw, ref, rtol=0, atol=0)
+        ref = salsa20.keystream_words_batch_plain(nb, nonces, counter0=ctr0)
+        torch.testing.assert_close(ks, ref, rtol=0, atol=0)
         for j, nonce in enumerate(nonces):
             torch.testing.assert_close(
-                bw[j], salsa20.keystream_plain(nb, nonce=nonce, counter0=ctr0),
+                ks[j], salsa20.keystream_words_plain(nb, nonce=nonce,
+                                                     counter0=ctr0),
                 rtol=0, atol=0)
-    assert host_lib.ntt_salsa20_batch(bw.data_ptr(), nb, 0, v.data_ptr(), 0,
+    assert host_lib.ntt_salsa20_batch(ks.data_ptr(), nb, 0, v.data_ptr(), 0,
                                       0, None) != 0
 
 
@@ -990,11 +1002,12 @@ def test_cuda_kernels_match_plain(cuda_device, name):
     p = get_bfv_params(name)
     ctx = BFVContext.build(p, device=cuda_device)
     rng = np.random.default_rng(1)
-    bw, lanes = salsa20.keystream_block_words(777, nonce=9, with_u64=True,
-                                              device=cuda_device)
-    ref = salsa20.keystream_plain(777, nonce=9, with_u64=True,
-                                  device=cuda_device)
-    assert torch.equal(bw, ref[0]) and torch.equal(lanes, ref[1])
+    for ctr0 in (0, 2**32 - 5):
+        assert torch.equal(
+            salsa20.keystream_words(777, nonce=9 | (1 << 63), counter0=ctr0,
+                                    device=cuda_device),
+            salsa20.keystream_words_plain(777, nonce=9 | (1 << 63),
+                                          counter0=ctr0, device=cuda_device))
     s_b, a, e_d = sampling.keygen_draws_compact(p.n, p.r, ctx.tables_full.ms,
                                                 nonce=1)
     got = fused_ops.keygen_fused(s_b, a, e_d, ctx.tables_full)
@@ -1239,8 +1252,8 @@ def test_cuda_op32_kernels_match_plain(cuda_device, name):
     nb = (sampling.encrypt_entropy_bytes(p.n) + 63) // 64
     nonces = [0, 1, 2**62 + 5, 7 | (1 << 63)]
     assert torch.equal(
-        salsa20.keystream_block_words_batch(nb, nonces, device=cuda_device),
-        salsa20.keystream_batch_plain(nb, nonces, device=cuda_device))
+        salsa20.keystream_words_batch(nb, nonces, device=cuda_device),
+        salsa20.keystream_words_batch_plain(nb, nonces, device=cuda_device))
     s_b, a, e_d = sampling.keygen_draws_compact(p.n, p.r, tf.ms, nonce=1)
     got = fused_ops.keygen_fused(s_b, a, e_d, tf)
     ref = fused_ops.keygen_fused_plain(s_b, a, e_d, tf)

@@ -1,6 +1,7 @@
 """The port's Salsa20 keystream and samplers (ntt_cuda_tpu_torch.ops.salsa20,
 ops.sampling) against the JAX package's xla keystream, the integer golden
-Salsa20, the ECRYPT vector and the JAX compact draws.  Exact everywhere.
+Salsa20, the ECRYPT vector and the JAX compact draws; the draws' views of
+the stream.  Exact everywhere.
 """
 
 import numpy as np
@@ -23,37 +24,47 @@ def _bytes(words: torch.Tensor) -> np.ndarray:
     return words.reshape(-1).numpy().astype(np.uint32).view(np.uint8)
 
 
+def _u32(words: torch.Tensor) -> np.ndarray:
+    """int32 bit patterns as the u32 words they carry."""
+    return words.numpy().view(np.uint32)
+
+
 @pytest.mark.parametrize("nonce,counter0", [(0, 0), (5, 0),
                                             (2**63 + 3, 2**32 - 7)])
 def test_keystream_matches_jax_xla(nonce, counter0):
+    """The stream in byte order equals the JAX xla keystream's words in
+    stream order (its (16, nb) planes read block by block), the nonce's
+    bit 63 and counter0's carry into word 9 included."""
     nb = 333
-    bw, lanes = salsa20.keystream_block_words(nb, nonce=nonce,
-                                              counter0=counter0, with_u64=True,
-                                              device="cpu")
+    ks = salsa20.keystream_words(nb, nonce=nonce, counter0=counter0,
+                                 device="cpu")
+    assert ks.dtype == torch.int32 and tuple(ks.shape) == (16 * nb,)
     ref = np.asarray(jsalsa._keystream_xla(nb, nonce=jnp.uint64(nonce),
                                            counter0=jnp.uint64(counter0)))
-    np.testing.assert_array_equal(bw.numpy(), ref.astype(np.int64))
-    pairs = ref[0::2].astype(np.uint64) | (ref[1::2].astype(np.uint64) << 32)
-    np.testing.assert_array_equal(convert.to_numpy(lanes), pairs)
-    # without the lanes: the same words
+    np.testing.assert_array_equal(_u32(ks), ref.T.reshape(-1))
     np.testing.assert_array_equal(
-        salsa20.keystream_block_words(nb, nonce=nonce, counter0=counter0,
-                                      device="cpu").numpy(),
-        bw.numpy())
+        salsa20.keystream_words_plain(nb, nonce=nonce,
+                                      counter0=counter0).numpy(),
+        ks.numpy())
+    if counter0 == 0:     # the JAX package's flat API starts at block 0
+        np.testing.assert_array_equal(_u32(ks), np.asarray(
+            jsalsa.keystream_words(nb, nonce=jnp.uint64(nonce))))
 
 
 def test_keystream_and_lanes_match_golden():
-    """Words and pre-paired u64 lanes against the golden byte stream (the
-    lanes held against golden, not only against the JAX planes)."""
+    """Words and the u64 lanes' view against the golden byte stream (the
+    lanes held against golden, not only against the JAX stream)."""
     nb = 37
-    bw, lanes = salsa20.keystream_block_words(nb, with_u64=True, device="cpu")
+    ks = salsa20.keystream_words(nb, device="cpu")
     exp = golden.salsa20_keystream(64 * nb)
-    np.testing.assert_array_equal(_bytes(bw.T), exp)
+    np.testing.assert_array_equal(_bytes(ks), exp)
+    np.testing.assert_array_equal(salsa20.bytes_u8(ks, 0, 64 * nb).numpy(),
+                                  exp)
     np.testing.assert_array_equal(
-        convert.to_numpy(salsa20.block_words_u64_planes(lanes, 0, 8 * nb)),
+        convert.to_numpy(salsa20.bytes_u64(ks, 0, 8 * nb)),
         exp.view(np.uint64))
-    got = _bytes(salsa20.keystream_block_words(2, key_byte=0x4D,
-                                               device="cpu").T)
+    got = _bytes(salsa20.keystream_for_bytes(100, key_byte=0x4D,
+                                             device="cpu"))
     np.testing.assert_array_equal(got, golden.salsa20_keystream(
         128, key=b"\x4d" * 32))
 
@@ -75,19 +86,79 @@ def test_salsa20_core_ecrypt_vector():
 
 
 def test_slicers_match_jax():
+    """bytes_u8 / u32 / u64 against the JAX package's bytes_u8 / u32 / u64
+    over its flat stream, at odd counts and at offsets inside a block
+    (bytes_u8 also at odd offsets, against the bytes of the JAX stream)."""
     nb = 300
-    bw, lanes = salsa20.keystream_block_words(nb, nonce=11, with_u64=True,
-                                              device="cpu")
-    jbw, jlo, jhi = jsalsa.keystream_block_words64(nb, nonce=11, impl="xla")
-    np.testing.assert_array_equal(
-        salsa20.block_words_u8(bw, 128, 1001).numpy(),
-        np.asarray(jsalsa.block_words_u8(jbw, 128, 1001)))
-    np.testing.assert_array_equal(
-        salsa20.block_words_u32(bw, 64 * 7, 555).numpy(),
-        np.asarray(jsalsa.block_words_u32(jbw, 64 * 7, 555)))
-    np.testing.assert_array_equal(
-        convert.to_numpy(salsa20.block_words_u64_planes(lanes, 64 * 3, 800)),
-        np.asarray(jsalsa.block_words_u64_planes(jlo, jhi, 64 * 3, 800)))
+    ks = salsa20.keystream_words(nb, nonce=11, device="cpu")
+    jks = jsalsa.keystream_words(nb, nonce=jnp.uint64(11))
+    for start, count in ((0, 1000), (132, 1004)):
+        np.testing.assert_array_equal(
+            salsa20.bytes_u8(ks, start, count).numpy(),
+            np.asarray(jsalsa.bytes_u8(jks, start, count)))
+    jbytes = np.asarray(jks).view(np.uint8)
+    for start, count in ((1, 1001), (77, 333), (64 * nb - 3, 3)):
+        np.testing.assert_array_equal(
+            salsa20.bytes_u8(ks, start, count).numpy(),
+            jbytes[start:start + count])
+    for start, count in ((0, 555), (64 * 7 + 4, 555), (12, 1)):
+        np.testing.assert_array_equal(
+            _u32(salsa20.bytes_u32(ks, start, count)),
+            np.asarray(jsalsa.bytes_u32(jks, start, count)))
+    for start, count in ((0, 801), (64 * 3 + 8, 799), (40, 1)):
+        np.testing.assert_array_equal(
+            convert.to_numpy(salsa20.bytes_u64(ks, start, count)),
+            np.asarray(jsalsa.bytes_u64(jks, start, count)))
+
+
+def test_draws_are_views_of_the_stream():
+    """Every draw of the stream is a view: its storage is the stream's,
+    a single stream's and a (J, words) batch's alike; ranges that cannot be
+    viewed raise."""
+    ks = salsa20.keystream_words(20, nonce=3, device="cpu")
+    batch = salsa20.keystream_words_batch(20, [1, 2, 3], device="cpu")
+    for s in (ks, batch):
+        base = s.untyped_storage().data_ptr()
+        for v in (salsa20.bytes_u8(s, 5, 77), salsa20.bytes_u32(s, 4, 33),
+                  salsa20.bytes_u64(s, 8, 40),
+                  salsa20.bytes_u64(s, 0, 80).reshape(-1, 2, 40)):
+            assert v.untyped_storage().data_ptr() == base
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        salsa20.bytes_u64(ks, 4, 8)
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        salsa20.bytes_u32(ks, 2, 8)
+    with pytest.raises(RuntimeError):    # an odd word offset: no int64 view
+        salsa20.bytes_u64(ks[1:], 0, 8)
+
+
+def test_draw_functions_view_the_stream(monkeypatch):
+    """The draw functions read their bytes, words and lanes through the
+    views: each converter's input shares the storage of a keystream the
+    draw launched (keygen's, encrypt's, a batch's, the relin keys')."""
+    streams, seen = [], []
+    for name in ("keystream_words", "keystream_words_batch"):
+        fn = getattr(salsa20, name)
+
+        def spy(*a, fn=fn, **k):
+            streams.append(fn(*a, **k))
+            return streams[-1]
+        monkeypatch.setattr(salsa20, name, spy)
+    for conv in ("ternary_int", "gaussian_int", "uniform"):
+        fn = getattr(sampling, conv)
+
+        def spy(x, *a, fn=fn):
+            seen.append(x)
+            return fn(x, *a)
+        monkeypatch.setattr(sampling, conv, spy)
+    p = jget("4k_3q")
+    ms = modmath.modulus_set(p)
+    sampling.keygen_draws_compact(p.n, p.r, ms, nonce=1)
+    sampling.encrypt_draws_compact(p.n, nonce=1, device="cpu")
+    sampling.encrypt_draws_compact_batch(p.n, [1, 2], device="cpu")
+    sampling.relin_draws(p.n, p.r, p.r - 1, ms, nonce=1)
+    ptrs = {s.untyped_storage().data_ptr() for s in streams}
+    assert len(streams) == 4 and len(seen) == 9
+    assert all(x.untyped_storage().data_ptr() in ptrs for x in seen)
 
 
 def test_converters_match_jax():
@@ -102,6 +173,24 @@ def test_converters_match_jax():
                                   np.asarray(jsamp.ternary_int(jnp.asarray(b))))
     assert int(got[255]) == 2                       # the byte-255 quirk
     assert sampling.GAUSS_ICDF_BOUNDS == jsamp.GAUSS_ICDF_BOUNDS
+    # u32 words as the stream's int32 bit patterns (>= 2^31 negative)
+    np.testing.assert_array_equal(
+        sampling.gaussian_int(torch.from_numpy(u.view(np.int32))).numpy(),
+        np.asarray(jsamp.gaussian_int(jnp.asarray(u))))
+
+
+def test_ternary_int_on_a_uint8_view():
+    """ternary_int on a uint8 view of int32 words: the bytes 0 and 84 give
+    -1 (not 254, as byte // 85 - 1 in uint8 would), 85 0, 170 1, 254 1 and
+    255 the quirk's 2; equal to the JAX package's."""
+    b = np.array([0, 84, 85, 170, 254, 255, 1, 169], dtype=np.uint8)
+    view = torch.from_numpy(b.copy().view(np.int32)).view(torch.uint8)
+    assert view.dtype == torch.uint8
+    got = sampling.ternary_int(view)
+    assert got.dtype == torch.int32
+    assert got.tolist() == [-1, -1, 0, 1, 1, 2, -1, 0]
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jsamp.ternary_int(jnp.asarray(b))))
 
 
 @pytest.mark.parametrize("nonce", NONCES)
@@ -174,10 +263,10 @@ def test_draws_without_device_need_a_card(monkeypatch):
     encryption draws raise and say how to ask for the CPU; they never
     fall back to it."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for call in (lambda: salsa20.keystream_block_words(4),
-                 lambda: salsa20.keystream_block_words_batch(4, [1, 2]),
+    for call in (lambda: salsa20.keystream_words(4),
+                 lambda: salsa20.keystream_words_batch(4, [1, 2]),
                  lambda: sampling.encrypt_draws_compact(64, nonce=1),
                  lambda: sampling.encrypt_draws_compact_batch(64, [1, 2])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
-    assert salsa20.keystream_block_words(4, device="cpu").shape == (16, 4)
+    assert salsa20.keystream_words(4, device="cpu").shape == (64,)

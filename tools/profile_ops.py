@@ -24,7 +24,9 @@ and `scale_and_round` over (3, ., n), the band forms at rows [0, r),
 `decrypt_tail` at (r-1, n) and (3, r-1, n)), and every launch of the
 encrypt tail and kernels 15 and 17 at the main paths' shapes (tail_ops:
 K5 at J = 1 and 16, 13, 19, 14, 16 and its drop at rows [0, r) and
-[6, r), 17 there at levels 0 and 1), prints one JSON line per op:
+[6, r), 17 there at levels 0 and 1), and K1 and kernel 6 at the streams
+the draws launch them for (keystream_ops: keygen, encrypt and
+relin_keygen's, J = 16), prints one JSON line per op:
 
 * `event_ms`: median CUDA-event time around one call;
 * `sync_wall_ms`: median host time of one call ending in
@@ -67,7 +69,7 @@ sys.path.insert(0, str(ROOT))
 from ntt_cuda_tpu_torch import BFVContext, get_bfv_params  # noqa: E402
 from ntt_cuda_tpu_torch.ops import (behz, behz_kernels,  # noqa: E402
                                     bfv_tail, fused_ops, ntt, ntt30,
-                                    ntt_stage, sampling)
+                                    ntt_stage, salsa20, sampling)
 from ntt_cuda_tpu_torch.params import get_params  # noqa: E402
 from ntt_cuda_tpu_torch.parallel import (multihost, spmd,  # noqa: E402
                                          spmd2d, spmd_mult)
@@ -263,7 +265,37 @@ def kernel_ops(p) -> dict:
         "decrypt_tail": lambda: bfv_tail.decrypt_tail(x1, c1, dt),
         "decrypt_tail_J3": lambda: bfv_tail.decrypt_tail(x3, c3, dt),
         **tail_ops(p, dev, res, mc),
+        **keystream_ops(p, dev),
     }
+
+
+def keystream_ops(p, dev) -> dict:
+    """K1 at keygen's, encrypt's and relin_keygen's streams (k = r - 1
+    keys) and kernel 6 at encrypt's for J = 16 nonces, as the draws launch
+    them: through keystream_words(_batch), or, in a checkout from before
+    those (`--root`), through keystream_block_words(_batch) with the u64
+    lanes where its draws took them."""
+    n, r = p.n, p.r
+    streams = {"keygen": (sampling.keygen_entropy_bytes(n, r), 0x01, True),
+               "encrypt": (sampling.encrypt_entropy_bytes(n), 0x01, False),
+               "relin_keygen": (sampling.relin_entropy_bytes(n, r, r - 1),
+                                0x02, True)}
+    flat = hasattr(salsa20, "keystream_words")
+    ops = {}
+    for name, (nbytes, key, lanes) in streams.items():
+        kw = dict(key_byte=key, nonce=1, device=dev)
+        if not flat:
+            kw["with_u64"] = lanes
+        ops[f"salsa20_K1_{name}"] = (
+            lambda nb=-(-nbytes // 64), kw=kw: (
+                salsa20.keystream_words if flat
+                else salsa20.keystream_block_words)(nb, **kw))
+    nb = -(-sampling.encrypt_entropy_bytes(n) // 64)
+    ns = sampling.encrypt_nonces(range(1, 17))
+    batch = (salsa20.keystream_words_batch if flat
+             else salsa20.keystream_block_words_batch)
+    ops["salsa20_6_J16"] = lambda: batch(nb, ns, device=dev)
+    return ops
 
 
 def tail_ops(p, dev, res, mc) -> dict:
@@ -301,7 +333,7 @@ def tail_ops(p, dev, res, mc) -> dict:
         "decrypt_fused_15": lambda: bfv_tail.decrypt_fused(
             xs, sk, c0, td, ctx.dec_tail_consts),
     }
-    for lo in (0, 6):
+    for lo in [lo for lo in (0, 6) if lo < r]:
         rows = f"rows{lo}-{r}"
         pt = bfv_tail.build_tail_consts_padded(p, lo, r, dev)
         dc = spmd_mult.drop_consts(mc, p.q[-1], lo, r)
