@@ -154,12 +154,27 @@ interleaved against in turn).  Then:
    `--spmd2d-worker`), keys and live rows equal to BFVContext.build(
    params)'s, every message round-tripped, the collectives JAX's budget
    (keygen 3 log2 C ppermutes, encrypt and decrypt 2 log2 C and one
-   all-reduce), every gloo tensor equal to world size 1's;
+   all-reduce), every gloo tensor equal to world size 1's; the 2-D
+   EvalMult (parallel/spmd2d_mult.py: relin_keygen, mul, relinearize, mul
+   with rlk, galois_keygen([3]), apply_galois, decrypt3) on those keys and
+   ciphertexts at the same meshes, counts read as in 3, keys and live
+   rows equal to BFVContext.build(params)'s, the products decrypting to
+   m1 m2 mod t and the rotation to tau_3(m1), the collectives JAX's budget;
+   kernel 20's launch on a coefficient shard (coef_kernels.
+   local_keyswitch_acc) against its plain version at C = 1 (the (1, 1)
+   mesh's shape), 2 and 4, every shard; and ShardedBFVContext (parallel/rns.py) at world size 1 over
+   NCCL and over gloo on the one card at R = 3 (the SPMD programs) and
+   R = 2 (`inner`; this script re-run as `--rns-worker`), the 16 methods
+   of the JAX wrapper, every output equal to the same calls on
+   BFVContext.build(params);
 15. times: 12, 14, 15 and the cross-stage glue beside their bounds and
    plain versions; 15 beside kernel 8 + K2 (CUDA events and device time,
    in turns) and, forward included, 7 + 15 beside K3 + K2; 15 at every
    cluster size B at 16k_5q, 32k_9q and 32k_16q; 2-D keygen / encrypt /
-   decrypt at world size 1 in turns beside SpmdBFVContext and BFVContext.
+   decrypt at world size 1 in turns beside SpmdBFVContext and BFVContext,
+   and the 2-D mul, mul with rlk, relinearize and apply_galois beside
+   BFVContext's; kernel 20's shard launch at (3, 2)'s rank shape (rows
+   0-3, C = 2) beside its bound.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and last `{"ok": true, "device": {...}}`.  Any failure raises,
@@ -196,8 +211,9 @@ from ntt_cuda_tpu_torch.ops import (behz, behz_kernels,  # noqa: E402
                                     ntt_stage, poly, salsa20, sampling)
 from ntt_cuda_tpu_torch.params import BFVParams, get_params  # noqa: E402
 from ntt_cuda_tpu_torch.parallel import (mesh as pmesh,  # noqa: E402
-                                         coef_kernels, multihost, sharded,
-                                         spmd, spmd2d, spmd_mult)
+                                         coef_kernels, multihost, rns,
+                                         sharded, spmd, spmd2d, spmd2d_mult,
+                                         spmd_mult)
 from ntt_cuda_tpu_torch.utils import primegen  # noqa: E402
 from ntt_cuda_tpu_torch.utils.profiling import median_ms  # noqa: E402
 
@@ -236,6 +252,15 @@ TAIL_CHECK_SETS = ("16k_5q", "32k_9q")           # kernel 14
 DEC_FUSED_SETS = ("16k_5q", "32k_9q", "32k_16q")  # kernel 15
 COEF_SET, COEF_CS = "32k_9q", (2, 4)   # the coefficient-sharded transform
 SPMD2D_MESHES = ((1, 2), (3, 2))       # (rns, coef) over gloo on one card
+# kernel 20's shard launch (coef_kernels.local_keyswitch_acc) is held
+# against its plain version at these (C, rows) rank shapes, every shard:
+# the (1, 1), (1, 2) and (3, 2) meshes' and C = 4; timed at (3, 2)'s:
+# rows 0-3, C = 2, shard 0
+KSACC_CASES = ((1, (0, 9)), (2, (0, 9)), (2, (0, 3)), (2, (6, 9)),
+               (4, (0, 9)), (4, (6, 9)))
+# ShardedBFVContext (parallel/rns.py) over gloo on one card: R = 3 divides
+# r = 9 (the SPMD programs), R = 2 does not (`inner`)
+RNS_RS = (3, 2)
 # the stage kernels' cluster sizes (csrc/ntt_stage.cu): timed at n = 2^14
 # and 2^15 (tables of 16k_9q and 32k_9q) for P = 9 (32k_9q, J = 1), 18
 # (encrypt's and keygen's 2r launches) and 36 (J = 4) polynomials at every
@@ -265,7 +290,8 @@ DEVICE_ROWS = ("ntt_forward", "ntt_inverse", "ntt_inverse_mul",
                "ntt_forward_ternary", "ntt_forward_addneg_gauss",
                "ntt_forward_addneg", "ntt_transform_idx",
                "encrypt_fused_stage", "keyswitch_fused", "keyswitch_front",
-               "encrypt_tail", "decrypt_fused", "coef_cross_stage")
+               "encrypt_tail", "decrypt_fused", "coef_cross_stage",
+               "keyswitch_acc_shard")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 # per SM per clock, compute capability 9.0 (the CUDA C++ Programming
 # Guide's arithmetic instruction throughput table): 64 results of 32-bit
@@ -287,19 +313,20 @@ KERNELS = {
                           "ntt_cuda_tpu_torch/csrc/salsa20.cu",
                           "ntt_cuda_tpu/ops/salsa20.py:174",
                           ("mult", "op", "stage", "op32", "spmd",
-                           "spmd_mult", "spmd2d")),
+                           "spmd_mult", "spmd2d", "spmd2d_mult", "rns",
+                           "rns_inner")),
     "salsa20_keystream_batch": ((salsa20.keystream_words_batch,),
                                 "ntt_cuda_tpu_torch/csrc/salsa20.cu",
                                 "ntt_cuda_tpu/ops/salsa20.py:249",
-                                ("batch",)),
+                                ("batch", "rns", "rns_inner")),
     "decrypt_tail": ((bfv_tail.decrypt_tail,),
                      "ntt_cuda_tpu_torch/csrc/decrypt_tail.cu",
                      "ntt_cuda_tpu/ops/bfv_tail.py:388",
-                     ("mult", "op", "stage", "batch", "op32")),
+                     ("mult", "op", "stage", "batch", "op32", "rns_inner")),
     "half_polymul": ((fused_ops.half_polymul,),
                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                      "ntt_cuda_tpu/ops/fused_ops.py:213",
-                     ("op", "op32", "spmd", "spmd_mult")),
+                     ("op", "op32", "spmd", "spmd_mult", "rns")),
     "keygen_fused": ((fused_ops.keygen_fused,),
                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                      "ntt_cuda_tpu/ops/fused_ops.py:137",
@@ -307,7 +334,7 @@ KERNELS = {
     "encrypt_fused": ((fused_ops.encrypt_fused,),
                       "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                       "ntt_cuda_tpu/ops/fused_ops.py:466",
-                      ("op", "batch", "op32")),
+                      ("op", "batch", "op32", "rns", "rns_inner")),
     # kernel 7, both directions (one TPU kernel with an `inverse` flag);
     # its times below are the forward's, the direction the main path runs
     # (also its shard-offset launch, coef_kernels.local_forward, on the
@@ -316,35 +343,39 @@ KERNELS = {
                        coef_kernels.local_forward),
                       "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                       "ntt_cuda_tpu/ops/ntt_pallas.py:558",
-                      ("mult", "stage", "spmd_mult", "spmd2d", "coef")),
+                      ("mult", "stage", "spmd_mult", "spmd2d", "coef",
+                       "spmd2d_mult", "rns", "rns_inner")),
     "ntt_inverse_mul": ((ntt_stage.ntt_inverse_mul,
                          coef_kernels.local_inverse_mul),
                         "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                         "ntt_cuda_tpu/ops/ntt_pallas.py:685",
-                        ("mult", "stage", "spmd_mult", "spmd2d", "coef")),
+                        ("mult", "stage", "spmd_mult", "spmd2d", "coef",
+                         "spmd2d_mult", "rns", "rns_inner")),
     "ntt_forward_ternary": ((ntt_stage.ntt_forward_ternary,),
                             "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                             "ntt_cuda_tpu/ops/ntt_pallas.py:782",
-                            ("mult", "stage")),
+                            ("mult", "stage", "rns", "rns_inner")),
     "ntt_forward_addneg_gauss": ((ntt_stage.ntt_forward_addneg_gauss,),
                                  "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                                  "ntt_cuda_tpu/ops/ntt_pallas.py:959",
-                                 ("mult", "stage")),
+                                 ("mult", "stage", "rns", "rns_inner")),
     "encrypt_fused_stage": ((bfv_tail.encrypt_fused,),
                             "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                             "ntt_cuda_tpu/ops/bfv_tail.py:661",
-                            ("mult", "stage")),
+                            ("mult", "stage", "rns", "rns_inner")),
     "ntt_forward_addneg": ((ntt_stage.ntt_forward_addneg,),
                            "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                            "ntt_cuda_tpu/ops/ntt_pallas.py:868",
-                           ("mult", "spmd_mult")),
+                           ("mult", "spmd_mult", "rns", "rns_inner")),
     # three launches: two of ntt_stage.cu and fused_ops.cu's tail
     "keyswitch_fused": ((fused_ops.keyswitch_fused,),
                         "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
-                        "ntt_cuda_tpu/ops/fused_ops.py:651", ("mult",)),
+                        "ntt_cuda_tpu/ops/fused_ops.py:651",
+                        ("mult", "rns_inner")),
     "behz_rns_to_bsk": ((behz_kernels.rns_to_bsk,),
                         "ntt_cuda_tpu_torch/csrc/behz.cu",
-                        "ntt_cuda_tpu/ops/behz_pallas.py:183", ("mult",)),
+                        "ntt_cuda_tpu/ops/behz_pallas.py:183",
+                        ("mult", "rns_inner")),
     # 21b and 21c alone: no main path launches them (mul and square run
     # both bodies in one launch, scale_and_round, the next row; the
     # sharded EvalMult their band form, the rows below), so their
@@ -358,7 +389,7 @@ KERNELS = {
     "behz_scale_and_round": ((behz_kernels.scale_and_round,),
                              "ntt_cuda_tpu_torch/csrc/behz.cu",
                              "ntt_cuda_tpu/ops/behz_pallas.py:406",
-                             ("mult",)),
+                             ("mult", "rns_inner")),
     # kernel 22, both directions; its times below are the forward's at
     # (16, 1, 65536)
     "ntt30_transform": ((ntt30.ntt_forward, ntt30.ntt_inverse),
@@ -373,28 +404,38 @@ KERNELS = {
                              bfv_tail.drop_last_padded),
                             "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                             "ntt_cuda_tpu/ops/bfv_tail.py:760",
-                            ("spmd", "spmd_mult", "spmd2d")),
+                            ("spmd", "spmd_mult", "spmd2d", "spmd2d_mult",
+                             "rns")),
     "decrypt_tail_partial": ((bfv_tail.decrypt_tail_partial,),
                              "ntt_cuda_tpu_torch/csrc/decrypt_tail.cu",
                              "ntt_cuda_tpu/ops/bfv_tail.py:886",
-                             ("spmd", "spmd_mult", "spmd2d")),
+                             ("spmd", "spmd_mult", "spmd2d", "spmd2d_mult",
+                              "rns")),
     # the sharded EvalMult's kernels (parallel/spmd_mult.py): 20 (kernel
     # 19's two transform launches over a rank's rows) and 21a-c in band form
     "keyswitch_front": ((fused_ops.keyswitch_front,),
                         "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
-                        "ntt_cuda_tpu/ops/fused_ops.py:766", ("spmd_mult",)),
+                        "ntt_cuda_tpu/ops/fused_ops.py:766",
+                        ("spmd_mult", "rns")),
+    # kernel 20's accumulate-and-inverse launch on a coefficient shard
+    # (coef_kernels.local_keyswitch_acc: PRO_KSACC with the shard offset),
+    # the 2-D key switch's (parallel/spmd2d_mult.py)
+    "keyswitch_acc_shard": ((coef_kernels.local_keyswitch_acc,),
+                            "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
+                            "ntt_cuda_tpu/ops/fused_ops.py:766",
+                            ("spmd2d_mult",)),
     "behz_rns_to_bsk_rows": ((behz_kernels.rns_to_bsk_rows,),
                              "ntt_cuda_tpu_torch/csrc/behz.cu",
                              "ntt_cuda_tpu/ops/behz_pallas.py:431",
-                             ("spmd_mult",)),
+                             ("spmd_mult", "spmd2d_mult", "rns")),
     "behz_fast_floor_rows": ((behz_kernels.fast_floor_rows,),
                              "ntt_cuda_tpu_torch/csrc/behz.cu",
                              "ntt_cuda_tpu/ops/behz_pallas.py:447",
-                             ("spmd_mult",)),
+                             ("spmd_mult", "spmd2d_mult", "rns")),
     "behz_bsk_to_q_rows": ((behz_kernels.bsk_to_q_rows,),
                            "ntt_cuda_tpu_torch/csrc/behz.cu",
                            "ntt_cuda_tpu/ops/behz_pallas.py:464",
-                           ("spmd_mult",)),
+                           ("spmd_mult", "spmd2d_mult", "rns")),
     # the op-level entry points (the ops path): 12 (ntt_forward /
     # ntt_inverse with mod_idx), 14 (encrypt_tail), 15 (decrypt_fused)
     "ntt_transform_idx": ((ntt_stage.ntt_transform_idx,),
@@ -2730,7 +2771,8 @@ def spmd2d_worker(rank: int, R: int, C: int, address: str,
                   out: Path) -> None:
     """One rank of a one-card gloo run of the 2-D program (chip_smoke.py
     re-run as `--spmd2d-worker rank R C address out`) on an (R, C) pod
-    mesh at SPMD_SET: drive_spmd2d, counts read around it; the rank's
+    mesh at SPMD_SET: drive_spmd2d, then the 2-D EvalMult on its keys and
+    ciphertexts (drive_spmd2d_mult), counts read around each; the rank's
     local tensors, collectives and counts go to rank<rank>.npz / .json."""
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -2741,10 +2783,16 @@ def spmd2d_worker(rank: int, R: int, C: int, address: str,
             p, mesh=multihost.pod_mesh(R, C))
         reset_counts()
         res = drive_spmd2d(ctx2, spmd_messages(p))
+        counts = read_counts()
+        mctx2 = spmd2d_mult.Spmd2DMultContext.build(ctx2)
+        reset_counts()
+        resm = drive_spmd2d_mult(mctx2, res)
+        local = {**res["local"], **resm["local"]}
         np.savez(out / f"rank{rank}.npz",
-                 **{k: v.cpu().numpy() for k, v in res["local"].items()})
+                 **{k: v.cpu().numpy() for k, v in local.items()})
         (out / f"rank{rank}.json").write_text(json.dumps(
-            {"collectives": res["collectives"], "counts": read_counts(),
+            {"collectives": {**res["collectives"], **resm["collectives"]},
+             "counts": counts, "counts_mult": read_counts(),
              "block": [ctx2.rns_index, ctx2.coef_index]}))
     finally:
         torch.distributed.destroy_process_group()
@@ -2809,7 +2857,212 @@ def finish_spmd2d_ranks(R: int, C: int, procs: list, out: Path) -> dict:
     if any(m["collectives"] != meta[0]["collectives"] for m in meta[1:]):
         raise AssertionError(f"2-D {R}x{C}: collectives differ across ranks")
     return {"local": whole, "collectives": meta[0]["collectives"],
-            "counts": [m["counts"] for m in meta]}
+            "counts": [m["counts"] for m in meta],
+            "counts_mult": [m["counts_mult"] for m in meta]}
+
+
+def spmd2d_mult_cases(p: BFVParams, dev, rng):
+    """(kernel, label, wrapper call, plain call, Work) for kernel 20's
+    launch on a coefficient shard (coef_kernels.local_keyswitch_acc) at
+    p's 2-D rank shapes KSACC_CASES, every shard: d^ (k, rl, S) and the
+    key block (2, k, rl, S) -> (2, rl, S)."""
+    n, k = p.n, p.r - 1
+    cases = []
+    for C, (lo, hi) in KSACC_CASES:
+        rl, S, logc = hi - lo, n // C, C.bit_length() - 1
+        tb = ntt.NTTTables.build(p.q[lo:hi], p.psi[lo:hi], n, dev)
+        for c in range(C):
+            dhat = rand_res(rng, p.q[lo:hi], S, (k,), dev)
+            ksk = rand_res(rng, p.q[lo:hi], S, (2, k), dev)
+            out = 2 * rl * S
+            inv = tables(tb, "inv")
+            cases.append((
+                "keyswitch_acc_shard",
+                f"{p.name} rows {lo}-{hi} C={C} shard {c}",
+                lambda d=dhat, s=ksk, tb=tb, logc=logc, c=c:
+                    coef_kernels.local_keyswitch_acc(d, s, tb, logc, c),
+                lambda d=dhat, s=ksk, tb=tb, C=C, c=c:
+                    coef_kernels.local_keyswitch_acc_plain(d, s, tb, C, c),
+                # the shard reads 1/C of the inverse twiddles
+                Work(nbytes(dhat, ksk, inv[-1]) + nbytes(*inv[:-1]) // C
+                     + 8 * out,
+                     shoup=transform_butterflies(2 * rl, S) + out,
+                     mont=k * out)))
+    return cases
+
+
+def drive_spmd2d_mult(mctx2: spmd2d_mult.Spmd2DMultContext,
+                      res: dict) -> dict:
+    """On drive_spmd2d's keys and first two ciphertexts: relin_keygen, mul,
+    relinearize, mul with rlk, decrypt3, galois_keygen([SPMD_GALOIS]) and
+    apply_galois of the first, then the decrypts of the relinearized and
+    rotated ciphertexts; each op's collectives.  Returns the rank's local
+    tensors."""
+    ops: dict[str, list] = {}
+
+    def counted(name, fn):
+        pmesh.collectives.clear()
+        y = fn()
+        ops.setdefault(name, []).append(list(pmesh.collectives))
+        return y
+
+    base, ds = mctx2.base, res["dtensor"]
+    sk, c0, c1 = ds["sk"], ds["ct0"], ds["ct1"]
+    rlk = counted("relin_keygen", lambda: mctx2.relin_keygen(sk, nonce=1))
+    mul3 = counted("mul", lambda: mctx2.mul(c0, c1))
+    rel = counted("relinearize", lambda: mctx2.relinearize(mul3, rlk))
+    mul_rlk = counted("mul_rlk", lambda: mctx2.mul(c0, c1, rlk=rlk))
+    gk = counted("galois_keygen", lambda: mctx2.galois_keygen(
+        sk, [SPMD_GALOIS], nonce=1))[SPMD_GALOIS]
+    gal = counted("apply_galois", lambda: mctx2.apply_galois(
+        c0, SPMD_GALOIS, gk))
+    out = dict(rlk=rlk, mul3=mul3, rel=rel, gk=gk, gal=gal, mul_rlk=mul_rlk,
+               dec3=counted("decrypt3", lambda: mctx2.decrypt3(sk, mul3)),
+               dec_rel=base.decrypt(sk, rel), dec_gal=base.decrypt(sk, gal))
+    torch.cuda.synchronize()
+    return {"local": {k: v.to_local() for k, v in out.items()},
+            "dtensor": out, "collectives": ops}
+
+
+def check_spmd2d_mult(p: BFVParams, whole: dict, collectives: dict, R: int,
+                      C: int, msgs: np.ndarray, ref: dict) -> None:
+    """The product's decrypts equal the negacyclic m1 m2 mod t and the
+    rotation's tau_g(m1); keys whole and live rows equal the single card's
+    `ref` (spmd_mult_reference), mul's pad row 0; the collectives the JAX
+    package's budget: a mul four all-gathers over 'rns' (with rlk the key
+    switch's one more and one all-reduce), apply_galois one more over
+    'coef', every transform log2 C ppermutes."""
+    r, n, k = p.r, p.n, p.r - 1
+    rl, S, logc = r // R, n // C, sharded.log2_shards(C)
+    dev = whole["dec3"].device
+    prod = negacyclic_mod_t(msgs[0], msgs[1], p, dev)
+    want = {"dec3": prod, "dec_rel": prod,
+            "dec_gal": tau_mod_t(msgs[0], SPMD_GALOIS, p, dev)}
+    for key, w in want.items():
+        if not torch.equal(whole[key].to(dev), w):
+            raise AssertionError(f"2-D EvalMult {R}x{C}: {key} does not "
+                                 f"decrypt to its mod-t result")
+    same = all(torch.equal(whole[key], ref[key]) for key in ("rlk", "gk"))
+    same = same and all(torch.equal(whole[key][:, :k], ref[w]) for key, w in
+                        (("mul3", "mul3"), ("rel", "rel"),
+                         ("mul_rlk", "rel"), ("gal", "gal")))
+    if not same or whole["mul3"][:, k].any():
+        raise AssertionError(f"2-D EvalMult {R}x{C}: keys / live rows != "
+                             f"the single-card BFVContext, or mul's pad row "
+                             f"not 0")
+
+    def pp(*shape):
+        return [("ppermute", shape)] * logc
+
+    tensor = pp(4, rl, S) + pp(3, rl, S)
+    mul = ([("all_gather", (2, r, S))] * 2 + tensor + tensor
+           + [("all_gather", (3, r, S))] * 2)
+    switch = ([("all_gather", (r, S))] + pp(k, rl, S) + pp(2, rl, S)
+              + [("all_reduce", (2, S))])
+    budget = {"relin_keygen": [pp(k, rl, S) * 2], "mul": [mul],
+              "relinearize": [switch], "mul_rlk": [mul + switch],
+              "galois_keygen": [pp(rl, S) + [("all_gather", (rl, n))]
+                                + pp(1, rl, S) + pp(k, rl, S) * 2],
+              "apply_galois": [[("all_gather", (2, rl, n))] + switch],
+              "decrypt3": [pp(2, rl, S) + pp(rl, S)
+                           + [("all_reduce", (3, S))]]}
+    got = {key: [[(op, tuple(sh)) for op, sh in call] for call in v]
+           for key, v in collectives.items()}
+    if got != budget:
+        raise AssertionError(f"2-D EvalMult {R}x{C}: collectives {got}, "
+                             f"expected {budget}")
+
+
+def drive_rns(ctx, msgs: np.ndarray) -> dict:
+    """The 16 methods of the JAX package's ShardedBFVContext on `ctx` (a
+    ShardedBFVContext, or a BFVContext for the same calls on one card):
+    keygen, encrypt of the first two messages, add, sub, relin_keygen,
+    galois_keygen([SPMD_GALOIS]), mul with and without rlk, square with
+    rlk, apply_galois, add_plain, mul_plain, decrypt of a fresh, an L = 3
+    and a relinearized ciphertext, encrypt_batch (nonces 1, 2) and
+    decrypt_batch, mod_switch_to_next and the next_context() decrypt.
+    Returns every output whole (DTensors gathered)."""
+    from torch.distributed.tensor import DTensor
+    m1, m2 = (torch.from_numpy(m) for m in msgs[:2])
+    sk, pk = ctx.keygen()
+    c1, c2 = ctx.encrypt(pk, m1), ctx.encrypt(pk, m2)
+    rlk = ctx.relin_keygen(sk, nonce=1)
+    gk = ctx.galois_keygen(sk, [SPMD_GALOIS], nonce=1)[SPMD_GALOIS]
+    out = dict(sk=sk, pk=pk, c1=c1, c2=c2, rlk=rlk, gk=gk,
+               add=ctx.add(c1, c2), sub=ctx.sub(c1, c2), ct3=ctx.mul(c1, c2),
+               mul_rlk=ctx.mul(c1, c2, rlk=rlk),
+               square=ctx.square(c1, rlk=rlk),
+               gal=ctx.apply_galois(c1, SPMD_GALOIS, gk),
+               add_plain=ctx.add_plain(c1, m2), mul_plain=ctx.mul_plain(c1, m2))
+    out.update(dec=ctx.decrypt(sk, c1), dec3=ctx.decrypt(sk, out["ct3"]),
+               dec_rlk=ctx.decrypt(sk, out["mul_rlk"]),
+               batch=ctx.encrypt_batch(pk, torch.stack([m1, m2]), [1, 2]))
+    out["dec_batch"] = ctx.decrypt_batch(sk, out["batch"])
+    out["sw"] = ctx.mod_switch_to_next(c1)
+    r = (ctx.inner if isinstance(ctx, rns.ShardedBFVContext) else ctx).params.r
+    out["dec_sw"] = ctx.next_context().decrypt(sk[:r - 1], out["sw"])
+    torch.cuda.synchronize()
+    return {k: pmesh.gather_whole(v) if isinstance(v, DTensor) else v
+            for k, v in out.items()}
+
+
+def check_rns(p: BFVParams, got: dict, ref: dict, msgs: np.ndarray,
+              label: str) -> None:
+    """Every output of drive_rns equal to the single card's `ref`, and the
+    decrypts to their messages and the negacyclic m1 m2 mod t."""
+    diff = [k for k, v in ref.items()
+            if not torch.equal(got[k].to(v.device), v)]
+    if diff or sorted(got) != sorted(ref):
+        raise AssertionError(f"ShardedBFVContext {label}: {diff} != the "
+                             f"single-card BFVContext")
+    dev = ref["dec"].device
+    m1, m2 = (torch.from_numpy(m).to(dev) for m in msgs[:2])
+    prod = negacyclic_mod_t(msgs[0], msgs[1], p, dev)
+    want = {"dec": m1, "dec3": prod, "dec_rlk": prod,
+            "dec_batch": torch.stack([m1, m2]), "dec_sw": m1}
+    for k, w in want.items():
+        if not torch.equal(got[k].to(dev), w):
+            raise AssertionError(f"ShardedBFVContext {label}: {k} does not "
+                                 f"decrypt to its message")
+
+
+def rns_worker(rank: int, R: int, address: str, out: Path) -> None:
+    """One rank of a one-card gloo run of ShardedBFVContext (chip_smoke.py
+    re-run as `--rns-worker rank R address out`) on the default (R, 1)
+    mesh at SPMD_SET: drive_rns, counts read around it; rank 0's outputs
+    to rns.npz, every rank's counts and branch to rank<rank>.json."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    multihost.initialize(address, R, rank, backend="gloo")
+    try:
+        ctx = rns.ShardedBFVContext.build(get_bfv_params(SPMD_SET))
+        reset_counts()
+        got = drive_rns(ctx, spmd_messages(ctx.inner.params))
+        (out / f"rank{rank}.json").write_text(json.dumps(
+            {"counts": read_counts(), "sharded": ctx.spmd is not None}))
+        if rank == 0:
+            np.savez(out / "rns.npz",
+                     **{k: v.cpu().numpy() for k, v in got.items()})
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def start_rns_ranks(R: int, out: Path) -> list:
+    address = free_address()
+    return start_workers(["--rns-worker"], [[str(rank), str(R), address,
+                                             str(out)] for rank in range(R)])
+
+
+def finish_rns_ranks(R: int, procs: list, out: Path) -> dict:
+    """Wait for start_rns_ranks' workers: rank 0's outputs, every rank's
+    counts and branch."""
+    wait_workers(procs, f"ShardedBFVContext R={R}")
+    meta = [json.loads((out / f"rank{k}.json").read_text())
+            for k in range(R)]
+    return {"got": {k: torch.from_numpy(v) for k, v in
+                    np.load(out / "rns.npz").items()},
+            "counts": [m["counts"] for m in meta],
+            "sharded": [m["sharded"] for m in meta]}
 
 
 def reset_counts() -> None:
@@ -3268,12 +3521,14 @@ def main() -> int:
     timing_spmd = {}
     # (a) kernels 16-18, and the sharded EvalMult's 20, 21a-c in band form
     # and 16's drop launch, == plain at the rank shapes
-    for kname, label, kern, plain, work in (spmd_cases(p_s, dev, rng)
-                                            + spmd_mult_cases(p_s, dev, rng)):
+    for kname, label, kern, plain, work in (
+            spmd_cases(p_s, dev, rng) + spmd_mult_cases(p_s, dev, rng)
+            + spmd2d_mult_cases(p_s, dev, rng)):
         compare(kname, kern(), plain(), errs)
         log(f"check SPMD {kname} {label}: equal")
-        if label == f"{SPMD_SET} rows 0-{p_s.r}" + (
-                " level 0" if kname == "decrypt_tail_partial" else ""):
+        if label in (f"{SPMD_SET} rows 0-{p_s.r}" + (
+                " level 0" if kname == "decrypt_tail_partial" else ""),
+                     f"{SPMD_SET} rows 0-3 C=2 shard 0"):
             timing_spmd[kname] = (kern, plain, work)
         elif label == f"{SPMD_SET} rows 0-{p_s.r} drop":
             drop_case = (kern, plain, work)
@@ -3350,6 +3605,28 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the 2-D path: "
                              f"{missing}")
+    # (b''') the 2-D EvalMult (parallel/spmd2d_mult.py) at world size 1
+    # over NCCL on (b'')'s keys and ciphertexts, counts read as in 3
+    mctx2 = spmd2d_mult.Spmd2DMultContext.build(ctx2)
+    torch.cuda.synchronize()
+    reset_counts()
+    res2m = drive_spmd2d_mult(mctx2, res2)
+    counts["spmd2d_mult"] = read_counts()
+    check_spmd2d_mult(p_s, res2m["local"], res2m["collectives"], 1, 1, msgs_s,
+                      ref_m)
+    log(f"2-D EvalMult {SPMD_SET} world size 1 (NCCL, mesh (1, 1)): decrypt3 "
+        f"and the relinearized decrypt equal the negacyclic m1 m2 mod t, "
+        f"apply_galois({SPMD_GALOIS}) tau_g(m1); relin and Galois keys and "
+        f"the live rows of mul, relinearize, mul with rlk and apply_galois "
+        f"equal BFVContext.build(params)'s, mul's pad row 0; collectives "
+        f"per op {json.dumps(res2m['collectives'])}")
+    log(f"launch counts in the 2-D EvalMult run: "
+        f"{json.dumps(counts['spmd2d_mult'])}")
+    missing = [k for k, (*_, s) in KERNELS.items()
+               if "spmd2d_mult" in s and counts["spmd2d_mult"][k] < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched on the 2-D EvalMult "
+                             f"path: {missing}")
     # (c) SPMD_R processes on the one card over gloo == (b) and (b'), every
     # row
     r3 = run_spmd_ranks(SPMD_R)
@@ -3372,22 +3649,75 @@ def main() -> int:
         got = finish_spmd2d_ranks(R2, C2, procs, Path(dirs2d[R2, C2].name))
         dirs2d[R2, C2].cleanup()
         local2 = {k: v.to(dev) for k, v in got["local"].items()}
-        check_spmd2d(p_s, local2, got["collectives"], R2, C2, msgs_s, ref_s)
-        diff = [k for k, v in res2["local"].items()
-                if not torch.equal(local2[k], v)]
-        if diff:
+        colls = got["collectives"]
+        check_spmd2d(p_s, local2, {k: colls[k] for k in res2["collectives"]},
+                     R2, C2, msgs_s, ref_s)
+        check_spmd2d_mult(p_s, local2,
+                          {k: colls[k] for k in res2m["collectives"]}, R2, C2,
+                          msgs_s, ref_m)
+        ws1 = {**res2["local"], **res2m["local"]}
+        diff = [k for k, v in ws1.items() if not torch.equal(local2[k], v)]
+        if diff or sorted(local2) != sorted(ws1):
             raise AssertionError(f"2-D {R2}x{C2} != world size 1: {diff}")
-        lacking = [k for k, (*_, s) in KERNELS.items()
-                   if ("spmd2d" in s or k == "coef_cross_stage")
-                   and min(c[k] for c in got["counts"]) < 1]
-        if lacking:
-            raise AssertionError(f"2-D {R2}x{C2}: kernels not launched on "
-                                 f"every rank: {lacking}")
+        for tag, cs in (("spmd2d", got["counts"]),
+                        ("spmd2d_mult", got["counts_mult"])):
+            lacking = [k for k, (*_, s) in KERNELS.items()
+                       if (tag in s or k == "coef_cross_stage")
+                       and min(c[k] for c in cs) < 1]
+            if lacking:
+                raise AssertionError(f"2-D {R2}x{C2} {tag}: kernels not "
+                                     f"launched on every rank: {lacking}")
         log(f"2-D {SPMD_SET} {R2}x{C2} (gloo, {R2 * C2} processes on one "
             f"card, blocks ({p_s.r // R2}, {p_s.n // C2})): every tensor "
-            f"equals the world-size-1 run, padding rows included; "
-            f"collectives per op {json.dumps(got['collectives'])}; rank "
-            f"0's launch counts {json.dumps(got['counts'][0])}")
+            f"of the 2-D program and the 2-D EvalMult equals the "
+            f"world-size-1 run, padding rows included; collectives per op "
+            f"{json.dumps(colls)}; rank 0's launch counts "
+            f"{json.dumps(got['counts'][0])}, in the EvalMult "
+            f"{json.dumps(got['counts_mult'][0])}")
+    # (d) ShardedBFVContext (parallel/rns.py) at world size 1 over NCCL,
+    # its gloo runs (R = 3: the SPMD programs; R = 2: `inner`) started
+    # first, every output equal to the same calls on BFVContext
+    dirs_rns = {R: tempfile.TemporaryDirectory() for R in RNS_RS}
+    procs_rns = {R: start_rns_ranks(R, Path(dirs_rns[R].name))
+                 for R in RNS_RS}
+    ref_rns = drive_rns(ctx32, msgs_s)
+    rctx = rns.ShardedBFVContext.build(p_s)   # the default mesh and device
+    if rctx.spmd is None or rctx.inner.device != dev or rctx.R != 1:
+        raise AssertionError(f"ShardedBFVContext: built on "
+                             f"{rctx.inner.device} over {rctx.R} ranks")
+    torch.cuda.synchronize()
+    reset_counts()
+    got_rns = drive_rns(rctx, msgs_s)
+    counts["rns"] = read_counts()
+    check_rns(p_s, got_rns, ref_rns, msgs_s, "world size 1 (NCCL)")
+    log(f"ShardedBFVContext {SPMD_SET} world size 1 (NCCL, the SPMD "
+        f"programs): the 16 methods' outputs equal BFVContext.build("
+        f"params)'s; the decrypts round-trip and give m1 m2 mod t")
+    log(f"launch counts in the ShardedBFVContext run: "
+        f"{json.dumps(counts['rns'])}")
+    missing = [k for k, (*_, s) in KERNELS.items()
+               if "rns" in s and counts["rns"][k] < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched on the ShardedBFVContext "
+                             f"path: {missing}")
+    for R, procs in procs_rns.items():
+        got = finish_rns_ranks(R, procs, Path(dirs_rns[R].name))
+        dirs_rns[R].cleanup()
+        sharded_ = p_s.r % R == 0
+        if got["sharded"] != [sharded_] * R:
+            raise AssertionError(f"ShardedBFVContext R={R}: branch "
+                                 f"{got['sharded']}")
+        check_rns(p_s, got["got"], ref_rns, msgs_s, f"R={R} (gloo)")
+        tag = "rns" if sharded_ else "rns_inner"
+        lacking = [k for k, (*_, s) in KERNELS.items()
+                   if tag in s and min(c[k] for c in got["counts"]) < 1]
+        if lacking:
+            raise AssertionError(f"ShardedBFVContext R={R}: kernels not "
+                                 f"launched on every rank: {lacking}")
+        log(f"ShardedBFVContext {SPMD_SET} R={R} (gloo, {R} processes on "
+            f"one card, {'the SPMD programs' if sharded_ else 'inner'}): "
+            f"the 16 methods' outputs equal BFVContext.build(params)'s; "
+            f"rank 0's launch counts {json.dumps(got['counts'][0])}")
     log(f"SPMD phase: {time.perf_counter() - t0:.1f} s")
 
     # Phase 12: times on the card.
@@ -3445,6 +3775,20 @@ def main() -> int:
         f"{SPMD_SET} (ms, median of CUDA-event timings around one call; "
         f"turns stage, spmd, spmd2d, spmd2d, spmd, stage): "
         f"{json.dumps(turns2)}")
+    d2m = res2m["dtensor"]
+    turns3 = {"stage": [], "spmd2d": []}
+    for which, c, (a_, b_, keys) in (
+            ("stage", ctx32, (single[2], single[3], ref_m)),
+            ("spmd2d", mctx2, (d2["ct0"], d2["ct1"], d2m)),
+            ("spmd2d", mctx2, (d2["ct0"], d2["ct1"], d2m)),
+            ("stage", ctx32, (single[2], single[3], ref_m))):
+        t = mult_turn_times(c, a_, b_, keys, 10)
+        t["mul_rlk"] = median_ms(lambda: c.mul(a_, b_, rlk=keys["rlk"]), 10)
+        turns3[which].append(t)
+    log(f"2-D EvalMult world size 1 against BFVContext at {SPMD_SET} (ms, "
+        f"median of CUDA-event timings around one call; turns stage, "
+        f"spmd2d, spmd2d, stage; apply_galois of g = {SPMD_GALOIS}): "
+        f"{json.dumps(turns3)}")
     td9, dt9 = ctx32.tables_drop, ctx32.dec_tail_consts
     r9 = ctx32.params.r
     x9, c09, c19 = (rand_res(rng, ctx32.params.q[:-1], ctx32.params.n, (),
@@ -3630,5 +3974,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--spmd2d-worker"]:
         spmd2d_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
                       sys.argv[5], Path(sys.argv[6]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--rns-worker"]:
+        rns_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                   Path(sys.argv[5]))
         sys.exit(0)
     sys.exit(main())

@@ -632,7 +632,8 @@ def combine_gamma_halves(lo_sum, hi_sum, params) -> torch.Tensor:
 
 def psum_behz_partials(x_t, x_g, group, params):
     """All-reduce the ranks' BEHZ partials over `group` in one stacked
-    (3, n) int64 sum, [x_t, x_g's low 32 bits, x_g's high bits]: x_t
+    (3, n) int64 sum, [x_t, x_g's low 32 bits, x_g's high bits] ((3, J,
+    n) for J ciphertexts' (J, n) partials): x_t
     partials are below 2^32 and so are the halves, so for R < 2^31 no sum
     wraps.  Returns (x_t sum, x_g total mod gamma, below 2 gamma)."""
     from ..parallel import mesh

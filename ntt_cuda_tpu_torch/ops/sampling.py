@@ -251,33 +251,43 @@ def relin_draws(n: int, r: int, k: int, ms: modmath.ModulusSet, nonce=0):
 
 
 def relin_draws_rank(n: int, r: int, k: int, lo: int, hi: int,
-                     ms: modmath.ModulusSet, nonce=0):
-    """One rank's relin_draws in the RNS-sharded program (the JAX package's
-    parallel/spmd_mult.py:700-714), ms the moduli [lo, hi): (a (k, hi - lo,
-    n), e (k, hi - lo, n)), equal to relin_draws' rows [lo, hi)."""
-    return _key_draws_rank(n, r, k, lo, hi, ms, RELIN_KEY_BYTE, nonce, 0)
+                     ms: modmath.ModulusSet, nonce=0, block: int = 0,
+                     S: int | None = None):
+    """One rank's relin_draws in the sharded programs (the JAX package's
+    parallel/spmd_mult.py:700-714 and spmd2d_mult.py:446-455), ms the
+    moduli [lo, hi): (a (k, hi - lo, S), e (k, hi - lo, S)), equal to
+    relin_draws' rows [lo, hi) and coefficients [block S, (block + 1) S)
+    (S None: all n)."""
+    return _key_draws_rank(n, r, k, lo, hi, ms, RELIN_KEY_BYTE, nonce, 0,
+                           block, S)
 
 
 def _key_draws_rank(n: int, r: int, k: int, lo: int, hi: int,
                     ms: modmath.ModulusSet, key_byte: int, nonce,
-                    block0: int):
-    """Rows [lo, hi) of the k switching keys of the stream region that
-    starts at block `block0` (laid out as _key_draws'): key j's uniform
-    rows from block block0 + j (8rn + 4n)/64 + lo n/8, its Gaussian words,
-    drawn whole on every rank, from block block0 + (j (8rn + 4n) + 8rn)/64.
-    Two K1 launches a key; the keys' views, apart in the stream, are
-    joined."""
+                    block0: int, block: int = 0, S: int | None = None):
+    """Rows [lo, hi) and coefficients [block S, (block + 1) S) (S None: all
+    n) of the k switching keys of the stream region that starts at block
+    `block0` (laid out as _key_draws'): key j's uniform row g from block
+    block0 + j (8rn + 4n)/64 + g n/8 + block S/8, its Gaussian words from
+    block0 + (j (8rn + 4n) + 8rn)/64 + block S/16, the coefficients' slice
+    drawn on every rank of a row band.  Two K1 launches a key (the rows
+    together) where S is n, else one a row and one for the words; the
+    views, apart in the stream, are joined."""
+    S = n if S is None else S
     kb = (8 * r * n + 4 * n) // 64       # blocks per key
-    rl = hi - lo
+    runs = [(lo, hi)] if S == n else [(i, i + 1) for i in range(lo, hi)]
     stream = dict(key_byte=key_byte, nonce=keygen_nonce(nonce),
                   device=ms.q.device)
     u, w = [], []
     for j in range(k):
-        u.append(salsa20.bytes_u64(salsa20.keystream_words(
-            rl * n // 8, counter0=block0 + j * kb + lo * n // 8, **stream),
-            0, rl * n).reshape(rl, n))
+        rows = [salsa20.bytes_u64(salsa20.keystream_words(
+            (b - a) * S // 8,
+            counter0=block0 + j * kb + a * n // 8 + block * S // 8,
+            **stream), 0, (b - a) * S).reshape(b - a, S) for a, b in runs]
+        u.append(rows[0] if len(rows) == 1 else torch.cat(rows))
         w.append(salsa20.bytes_u32(salsa20.keystream_words(
-            n // 16, counter0=block0 + j * kb + r * n // 8, **stream), 0, n))
+            S // 16, counter0=block0 + j * kb + r * n // 8 + block * S // 16,
+            **stream), 0, S))
     return uniform(torch.stack(u), ms), small_res(gaussian_int(
         torch.stack(w)), ms.q)
 
@@ -322,13 +332,15 @@ def galois_draws(n: int, r: int, k: int, elts, ms: modmath.ModulusSet,
 
 
 def galois_draws_rank(n: int, r: int, k: int, elts, lo: int, hi: int,
-                      ms: modmath.ModulusSet, nonce=0):
-    """One rank's galois_draws in the RNS-sharded program (the JAX
-    package's parallel/spmd_mult.py:539-558), ms the moduli [lo, hi): (a
-    (E, k, hi - lo, n), e (E, k, hi - lo, n)), equal to galois_draws' rows
-    [lo, hi)."""
+                      ms: modmath.ModulusSet, nonce=0, block: int = 0,
+                      S: int | None = None):
+    """One rank's galois_draws in the sharded programs (the JAX package's
+    parallel/spmd_mult.py:539-558 and spmd2d_mult.py:265-275), ms the
+    moduli [lo, hi): (a (E, k, hi - lo, S), e (E, k, hi - lo, S)), equal
+    to galois_draws' rows [lo, hi) and coefficients [block S, (block + 1)
+    S) (S None: all n)."""
     region = (relin_entropy_bytes(n, r, k) + 63) // 64
     draws = [_key_draws_rank(n, r, k, lo, hi, ms, GALOIS_KEY_BYTE, nonce,
-                             int(g) * region) for g in elts]
+                             int(g) * region, block, S) for g in elts]
     return (torch.stack([a for a, _ in draws]),
             torch.stack([e for _, e in draws]))

@@ -109,6 +109,52 @@ def local_inverse_mul(x, y, tables: NTTTables, logc: int, shard: int):
 local_inverse_mul.launches = 0
 
 
+def local_keyswitch_acc_plain(dhat, ksk, tables: NTTTables, C: int,
+                              shard: int):
+    """The plain version of local_keyswitch_acc (C shards, not log2 C):
+    keyswitch_front_plain's accumulate, then local_inverse_mul_plain's
+    stages and halvings."""
+    ms = tables.ms
+    acc = [None, None]
+    for j in range(dhat.shape[0]):
+        for h in (0, 1):
+            t = ntt.dyadic_mul(dhat[j], ksk[h, j], ms)
+            acc[h] = t if acc[h] is None else modmath.add_mod(acc[h], t, ms.q)
+    return local_inverse_mul_plain(torch.stack(acc), None, tables, C, shard)
+
+
+def local_keyswitch_acc(dhat, ksk, tables: NTTTables, logc: int, shard: int):
+    """The key switch's accumulate on a coefficient shard: the INTT stages
+    below the shard boundary of sum_j dhat_j (.) ksk[h, j] for h = 0, 1,
+    times the global n^-1.  dhat (k, r, S) the digits' forwards, ksk (2, k,
+    r, S) the shard's key block -> (2, r, S); the cross GS stages follow
+    without halving.  Kernel 20's second launch (csrc/ntt_stage.cu
+    PRO_KSACC) with the shard offset."""
+    k = dhat.shape[0] if dhat.dim() == 3 else 0
+    if k < 1:
+        raise ValueError(f"dhat: expected shape (k, {tables.r}, "
+                         f"{tables.n >> logc}), got {tuple(dhat.shape)}")
+    _check_local("local_keyswitch_acc", dhat[0], tables, logc)
+    S = tables.n >> logc
+    if tuple(ksk.shape) != (2, k, tables.r, S):
+        raise ValueError(f"ksk: expected shape {(2, k, tables.r, S)}, got "
+                         f"{tuple(ksk.shape)}")
+    if dhat.device.type == "cpu":
+        return local_keyswitch_acc_plain(dhat, ksk, tables, 1 << logc, shard)
+    dev = _local_device("local_keyswitch_acc", dhat, tables, logc)
+    cuda.require("ksk", ksk, I64, tuple(ksk.shape), dev)
+    out = torch.empty((2, tables.r, S), dtype=I64, device=dev)
+    cuda.launch("ntt_stage_inverse_cluster", dev, dhat.data_ptr(),
+                ksk.data_ptr(), None, out.data_ptr(), *tables.kernel_args(),
+                cuda.PRO_KSACC, k, 2 * tables.r, tables.r,
+                S.bit_length() - 1, None, logc, shard, 0)
+    local_keyswitch_acc.launches += 1
+    return out
+
+
+local_keyswitch_acc.launches = 0
+
+
 def cross_stage(x, partner, tables: NTTTables, C: int, s: int, block: int,
                 inverse: bool):
     """Cross stage s of shard `block` with the partner shard's tensor: CT

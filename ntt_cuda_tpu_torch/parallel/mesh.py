@@ -104,6 +104,16 @@ def all_gather(x: torch.Tensor, group=None, dim: int = -2) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def gather_whole(x) -> torch.Tensor:
+    """A DTensor's whole value: its local block gathered (all_gather) over
+    each mesh axis it is sharded on, none where the axis has one rank."""
+    local, m = x.to_local(), x.device_mesh
+    for i, pl in enumerate(x.placements):
+        if pl.is_shard() and m.size(i) > 1:
+            local = all_gather(local, m.get_group(i), dim=pl.dim)
+    return local
+
+
 _pair_groups: dict = {}
 
 

@@ -229,18 +229,25 @@ class SpmdBFVContext:
         level > 0 decrypts a ciphertext mod-switched `level` times: the
         padded width stays r, the BEHZ conversion runs over the level's
         live chain q[:r - level] with every other row's part zeroed."""
+        lp = _chain_params(self.params, level)
+        x_t, x_g = self.decrypt_partials(sk, ct, level)
+        x_t, x_g = bfv_tail.psum_behz_partials(x_t, x_g, self.group, lp)
+        return self._dtensor(bfv_tail.dec_round_from_sums(x_t, x_g, lp), None)
+
+    def decrypt_partials(self, sk, ct, level: int = 0):
+        """decrypt up to the all-reduce: the rank's BEHZ partials (x_t,
+        x_g), each (n,), from K3 and kernel 17 on its rows.  Summed over
+        the group by bfv_tail.psum_behz_partials (any leading shape, so
+        several ciphertexts' partials stacked take one all-reduce) and
+        rounded by bfv_tail.dec_round_from_sums."""
         p = self.params
         sk = self._local("sk", sk, (p.r, p.n), 0,
                          "keygen returns the NTT-domain (r, n) sk")
         ct = self._local("ct", ct, (2, p.r, p.n), 1,
                          "SPMD ciphertexts use the padded (2, r, n) "
                          "reference layout")
-        lp = _chain_params(p, level)
         x = fused_ops.half_polymul(ct[1], sk, self.tables)
-        x_t, x_g = bfv_tail.decrypt_tail_partial(x, ct[0],
-                                                 self._dec_consts(level))
-        x_t, x_g = bfv_tail.psum_behz_partials(x_t, x_g, self.group, lp)
-        return self._dtensor(bfv_tail.dec_round_from_sums(x_t, x_g, lp), None)
+        return bfv_tail.decrypt_tail_partial(x, ct[0], self._dec_consts(level))
 
     def _dec_consts(self, level: int) -> bfv_tail.DecPartialConsts:
         """The rank's decrypt constants at `level` (cached): the level's

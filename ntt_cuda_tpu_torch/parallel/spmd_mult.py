@@ -12,6 +12,7 @@ form).  The traffic per op:
   * mul: four all-gathers, a and b (2, r, n) before 21a, the q-side tensor
     product (3, r, n) before 21b, the floored Bsk product (3, r, n) before
     21c;
+  * square: three, mul's with one operand;
   * relinearize and apply_galois: one all-gather of the (r, n) component
     being switched (its digits), then the key-switch front on the rank's
     rows (kernel 20) and one all-reduce of the (2, n) adjusted last
@@ -66,6 +67,56 @@ def drop_consts(mc: SpmdMultConsts, q_last: int, lo: int,
                                      q_last=q_last, fix_th=0)
 
 
+def scale_band(pq, pb, mc: SpmdMultConsts, lo: int, rl: int,
+               group) -> torch.Tensor:
+    """A band's (3, rl, n') rows of t/q round(pq) in base q, from the
+    tensor products over q and Bsk (3, rl, n') of rows [lo, lo + rl): the
+    q side gathered over `group` for 21b, its Bsk result gathered for
+    21c."""
+    pq_all = mesh.all_gather(pq, group)[:, :mc.k].contiguous()
+    fl = behz_kernels.fast_floor_rows(pq_all, pb, mc, lo, rl)
+    return behz_kernels.bsk_to_q_rows(mesh.all_gather(fl, group), mc, lo, rl)
+
+
+def drop_last(cc, params, hi: int, group,
+              consts: bfv_tail.PaddedTailConsts) -> torch.Tensor:
+    """The key switch's modulus drop of a band's accumulators cc (2, rl,
+    n'), rows up to `hi`: the owner of row r-1 sends (cc_last + half) mod
+    q_last in one all-reduce over `group`, kernel 16's tail drops
+    q_last."""
+    ra = torch.zeros((2, cc.shape[-1]), dtype=I64, device=cc.device)
+    if hi == params.r:                           # the dropped modulus's owner
+        ql = params.q[-1]
+        ra = cc[:, -1] + params.half_last_modulus
+        ra = ra - ql * (ra >= ql).to(I64)
+    mesh.all_reduce(ra, group)
+    return bfv_tail.drop_last_padded(cc, ra, consts)
+
+
+def galois_map(cache: dict, n: int, g: int, device):
+    """tau_g's (perm, neg) over n points as tensors on `device`, cached in
+    `cache` by g."""
+    m = cache.get(g)
+    if m is None:
+        perm, neg = poly.galois_maps(n, g)
+        m = cache[g] = (torch.from_numpy(perm.astype(np.int64)).to(device),
+                        torch.from_numpy(neg).to(device))
+    return m
+
+
+def add_target_rows(x, term, lo: int, hi: int, q) -> torch.Tensor:
+    """x (..., k, rl, n') switching keys' first halves over rows [lo, hi),
+    term (..., rl, n') the P * target term: key j's term added on global
+    row j where the rank holds it (in place; x returned).  q (rl, 1)."""
+    k = x.shape[-3]
+    rows = torch.arange(lo, min(hi, k), device=x.device)
+    if len(rows):
+        loc = rows - lo
+        x[..., rows, loc, :] = modmath.add_mod(x[..., rows, loc, :],
+                                               term[..., loc, :], q[loc])
+    return x
+
+
 @dataclasses.dataclass(frozen=True)
 class SpmdMultContext:
     """One rank's EvalMult state over an SpmdBFVContext's mesh.  Every rank
@@ -110,10 +161,24 @@ class SpmdMultContext:
             torch.stack([a_loc, b_loc]), b.tables), b.tables)  # (3, rl, n)
         pb = BFVContext._tensor(BFVContext._fwd_rows(xb, self.tables_bsk),
                                 self.tables_bsk)
-        pq_all = mesh.all_gather(pq, g)[:, :k].contiguous()
-        fl = behz_kernels.fast_floor_rows(pq_all, pb, self.mc, lo, rl)
-        ct3 = b._dtensor(behz_kernels.bsk_to_q_rows(mesh.all_gather(fl, g),
-                                                    self.mc, lo, rl), 1)
+        ct3 = b._dtensor(scale_band(pq, pb, self.mc, lo, rl, g), 1)
+        return ct3 if rlk is None else self.relinearize(ct3, rlk)
+
+    def square(self, ct, rlk=None):
+        """mul(ct, ct) with one operand's transforms and conversion: one
+        all-gather of ct before 21a, then mul's two (3 of the four); the
+        tensor product's square form (BFVContext._tensor(..., square=True)).
+        Live rows equal BFVContext.square's."""
+        b = self.base
+        k, rl, lo, g = b.params.r - 1, b.rl, b.lo, b.group
+        a_loc, _ = b._ct_pair("square", ct, ct)               # (2, rl, n)
+        x = mesh.all_gather(a_loc, g)[None, :, :k].contiguous()
+        xb = behz_kernels.rns_to_bsk_rows(x, self.mc, lo, rl)  # (1, 2, rl, n)
+        pq = BFVContext._tensor(BFVContext._fwd_rows(a_loc[None], b.tables),
+                                b.tables, square=True)
+        pb = BFVContext._tensor(BFVContext._fwd_rows(xb, self.tables_bsk),
+                                self.tables_bsk, square=True)
+        ct3 = b._dtensor(scale_band(pq, pb, self.mc, lo, rl, g), 1)
         return ct3 if rlk is None else self.relinearize(ct3, rlk)
 
     def relin_keygen(self, sk, nonce=0):
@@ -154,7 +219,8 @@ class SpmdMultContext:
         p, tb = b.params, b.tables
         sk = b._local("sk", sk, (p.r, p.n), 0, _SK_HINT)
         elts = sorted({int(g) for g in elts})
-        maps = [self._galois_map(g) for g in elts]     # validates each g
+        maps = [galois_map(self._cache, p.n, g, b.device)
+                for g in elts]                     # validates each g
         a, e = sampling.galois_draws_rank(p.n, p.r, p.r - 1, elts, b.lo, b.hi,
                                           tb.ms, nonce=int(nonce))
         s_coef = ntt_stage.ntt_inverse(sk, tb)
@@ -174,7 +240,7 @@ class SpmdMultContext:
                       "SPMD ciphertexts use the padded (2, r, n) layout")
         gk = b._local("gk", gk, (2, p.r - 1, p.r, p.n), 2,
                       "pass one key from galois_keygen()")
-        perm, neg = self._galois_map(int(g))
+        perm, neg = galois_map(self._cache, p.n, int(g), b.device)
         tc = poly.galois_apply(ct, perm, neg, ms)
         cc = self._keyswitch(tc[1], gk)
         return b._dtensor(torch.stack([modmath.add_mod(tc[0], cc[0], ms.q),
@@ -210,13 +276,7 @@ class SpmdMultContext:
         c2_all = mesh.all_gather(c2, b.group)                  # (r, n)
         cc = fused_ops.keyswitch_front(c2_all[:p.r - 1].contiguous(), ksk,
                                        b.tables)
-        ra = torch.zeros((2, p.n), dtype=I64, device=b.device)
-        if b.hi == p.r:                          # the dropped modulus's owner
-            ql = p.q[-1]
-            ra = cc[:, -1] + p.half_last_modulus
-            ra = ra - ql * (ra >= ql).to(I64)
-        mesh.all_reduce(ra, b.group)
-        return bfv_tail.drop_last_padded(cc, ra, self.drop_consts)
+        return drop_last(cc, p, b.hi, b.group, self.drop_consts)
 
     def _kskeygen(self, a, e, sk, target_hat) -> torch.Tensor:
         """The rank's rows of BFVContext._kskeygen: a, e (..., k, rl, n),
@@ -230,19 +290,5 @@ class SpmdMultContext:
                                          tb).reshape(a.shape)
         term = modmath.mont_mul(target_hat, self.mc.p_mont_q[b.lo:b.hi], ms.q,
                                 ms.qinv_neg)
-        rows = torch.arange(b.lo, min(b.hi, k), device=b.device)
-        if len(rows):
-            loc = rows - b.lo
-            x[..., rows, loc, :] = modmath.add_mod(
-                x[..., rows, loc, :], term[..., loc, :], ms.q[loc])
-        return torch.stack([x, a], dim=-4)
-
-    def _galois_map(self, g: int):
-        """tau_g's (perm, neg) as tensors on the device; cached."""
-        m = self._cache.get(g)
-        if m is None:
-            perm, neg = poly.galois_maps(self.base.params.n, g)
-            m = (torch.from_numpy(perm.astype(np.int64)).to(self.base.device),
-                 torch.from_numpy(neg).to(self.base.device))
-            self._cache[g] = m
-        return m
+        return torch.stack([add_target_rows(x, term, b.lo, b.hi, ms.q), a],
+                           dim=-4)

@@ -647,7 +647,8 @@ def test_host_stage_forward(host_lib, stage_ctx, J, B):
 def test_host_stage_inverse(host_lib, stage_ctx, J, B):
     """Kernels 7 (inverse) and 8, y shared by the J messages or not; at
     J = 1 also 13's +e epilogue, 19's PRO_KSACC, kernel 12's mod_idx and
-    the shard offset."""
+    the shard offset, and PRO_KSACC with the shard offset (kernel 20's
+    launch in the 2-D key switch) at C = 2 and 4."""
     p, tb = stage_ctx.params, stage_ctx.tables_full
     n, r, ms = p.n, p.r, tb.ms
     rng = np.random.default_rng(40 + J)
@@ -691,6 +692,16 @@ def test_host_stage_inverse(host_lib, stage_ctx, J, B):
             lambda: coef_kernels.local_inverse_mul_plain(xs, ys, tb, 2, c),
             xs.shape, tb=tb, pro=cuda.PRO_MONT, x=xs, y=ys, ny=r, logc=1,
             shard=c)
+    for C in (2, 4):       # the 2-D key switch's accumulate on a shard
+        logc, S = C.bit_length() - 1, n // C
+        dk, kk = _rand_res(rng, p.q, S, (k,)), _rand_res(rng, p.q, S, (2, k))
+        for c in range(C):
+            _check_host_stage(
+                host_lib, key(f"ksacc_shard{C}_{c}"), True, B, S,
+                lambda: coef_kernels.local_keyswitch_acc_plain(dk, kk, tb, C,
+                                                               c),
+                (2, r, S), tb=tb, pro=cuda.PRO_KSACC, x=dk, y=kk, ny=k,
+                logc=logc, shard=c)
 
 
 def test_host_stage_cluster_rule(host_lib):
@@ -1077,7 +1088,8 @@ def test_cuda_stage_kernels_match_plain(cuda_device, name):
 def test_cuda_stage_cluster_sizes_match_plain(cuda_device, B):
     """At 32k_9q, every stage row through the launchers at cluster size B:
     7 both ways, 8, 9, 10, 11, 12 both ways, 13's transform (+e), 19/20's
-    PRO_DIGIT and PRO_KSACC launches and the shard offsets (C = 2, 4)."""
+    PRO_DIGIT and PRO_KSACC launches and the shard offsets (C = 2, 4),
+    PRO_KSACC's (the 2-D key switch's accumulate) among them."""
     p, dev = get_bfv_params("32k_9q"), cuda_device
     tb = ntt.tables_for(p, device=dev)
     ms, n, r, k = tb.ms, p.n, p.r, p.r - 1
@@ -1131,6 +1143,14 @@ def test_cuda_stage_cluster_sizes_match_plain(cuda_device, B):
                 sharded.local_forward_stages(xs, tb, C, c))
             run(lambda o: il(xs, ys, None, o, tb, logc=logc, shard=c),
                 coef_kernels.local_inverse_mul_plain(xs, ys, tb, C, c))
+            ds = dhat[..., c * S:(c + 1) * S].contiguous()
+            ks = ksk[..., c * S:(c + 1) * S].contiguous()
+            run(lambda o: cuda.launch(
+                "ntt_stage_inverse_cluster", dev, ds.data_ptr(),
+                ks.data_ptr(), None, o.data_ptr(), *tb.kernel_args(),
+                cuda.PRO_KSACC, k, 2 * r, r, S.bit_length() - 1, None, logc,
+                c, B), coef_kernels.local_keyswitch_acc_plain(ds, ks, tb, C,
+                                                              c))
     torch.cuda.synchronize()
 
 

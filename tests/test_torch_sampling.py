@@ -230,6 +230,36 @@ def test_relin_draws_match_jax(name, nonce):
     np.testing.assert_array_equal(convert.to_numpy(e), np.asarray(je))
 
 
+@pytest.mark.parametrize("C,nonce", [(2, 0), (4, 2**62)])
+def test_key_draws_rank_slices_match_single_card(C, nonce):
+    """A 2-D rank's relin and Galois key draws (rows [lo, hi), the
+    coefficient slice `block` of C) equal that block of the single card's
+    relin_draws / galois_draws, the Galois regions of g = 3 and 2n - 1
+    included; and the default slice is the whole row."""
+    p = jget("4k_3q")
+    n, r, k = p.n, p.r, p.r - 1
+    S = n // C
+    full = modmath.modulus_set(p)
+    a, e = sampling.relin_draws(n, r, k, full, nonce=nonce)
+    ga, ge = sampling.galois_draws(n, r, k, [3, 2 * n - 1], full, nonce=nonce)
+    for lo, hi in ((0, 1), (1, 3), (0, 3)):
+        ms = modmath.ModulusSet.from_moduli(p.q[lo:hi])
+        for c in range(C):
+            cs = slice(c * S, (c + 1) * S)
+            ra, re = sampling.relin_draws_rank(n, r, k, lo, hi, ms,
+                                               nonce=nonce, block=c, S=S)
+            assert tuple(ra.shape) == (k, hi - lo, S)
+            assert torch.equal(ra, a[:, lo:hi, cs])
+            assert torch.equal(re, e[:, lo:hi, cs])
+            gra, gre = sampling.galois_draws_rank(
+                n, r, k, [3, 2 * n - 1], lo, hi, ms, nonce=nonce, block=c,
+                S=S)
+            assert torch.equal(gra, ga[:, :, lo:hi, cs])
+            assert torch.equal(gre, ge[:, :, lo:hi, cs])
+        whole = sampling.relin_draws_rank(n, r, k, lo, hi, ms, nonce=nonce)
+        assert torch.equal(whole[0], a[:, lo:hi])
+
+
 def test_residue_maps_match_jax():
     p = jget("4k_3q")
     rng = np.random.default_rng(3)

@@ -12,9 +12,11 @@ decrypt's back half on x = NTT(c1) (`decrypt_back_15`: kernel 15;
 one parameter set, through `BFVContext` (`--ops` picks some of them), or
 with `--spmd` for keygen, encrypt, decrypt, mod_switch_to_next and the
 level-1 decrypt through the RNS-sharded `SpmdBFVContext` and mul,
-relinearize, apply_galois (g = 3) and decrypt3 through its
-`SpmdMultContext`, and keygen, encrypt and decrypt
-through the 2-D `Spmd2DBFVContext` (`keygen_2d`, ...; mesh (1, 1)), at
+relinearize, mul with relinearization (`mul_rlk`), apply_galois (g = 3)
+and decrypt3 through its `SpmdMultContext`, and keygen, encrypt and
+decrypt through the 2-D `Spmd2DBFVContext` and mul with
+relinearization and apply_galois (g = 3) through its `Spmd2DMultContext`
+(`keygen_2d`, ..., `mul_rlk_2d`, `apply_galois_2d`; mesh (1, 1)), at
 world size 1 over NCCL, or with `--ntt30` for kernel 22 alone
 (`ntt30_fwd_32768`, ... : forward and inverse at (16, 1, n), n = 2^15 and
 2^16, int32, bench.py's shape), or with `--kernels` for the BEHZ
@@ -35,9 +37,16 @@ relin_keygen's, J = 16), prints one JSON line per op:
   kernels and copies), `busy_us` (the union of their device intervals, per
   call), `port_kernels_us` (the csrc kernels, `k_*`, by name, per call;
   fused_ops.cu's kernels carry the op's struct as a template argument),
-  `idle_share` = 1 - busy / sync wall, and `host_top_us`: the eight host
+  `idle_share` = 1 - busy / sync wall, `host_top_us`: the eight host
   events (PyTorch ops and CUDA runtime calls) with the most self time,
-  per call.
+  per call, and `glue_top_us`: the ten host events with the most self
+  device time (the kernels each launched itself: an aten op's are the
+  plain glue, a `cuLaunchKernel`'s the csrc kernels), keyed by name and
+  input shapes, per call.
+
+`--spmd` also times `mod_u64_digits_2d`: the 2-D key switch's digit
+reduction alone (`modmath.mod_u64` of the (r-1, 1, n) gathered rows into
+the r moduli, as `Spmd2DMultContext._keyswitch` runs it at mesh (1, 1)).
 
 `--root DIR` imports the package from another checkout (e.g. the parent
 commit's, unpacked with `git archive` into a git-ignored directory), so
@@ -68,11 +77,11 @@ sys.path.insert(0, str(ROOT))
 
 from ntt_cuda_tpu_torch import BFVContext, get_bfv_params  # noqa: E402
 from ntt_cuda_tpu_torch.ops import (behz, behz_kernels,  # noqa: E402
-                                    bfv_tail, fused_ops, ntt, ntt30,
-                                    ntt_stage, salsa20, sampling)
+                                    bfv_tail, fused_ops, modmath, ntt,
+                                    ntt30, ntt_stage, salsa20, sampling)
 from ntt_cuda_tpu_torch.params import get_params  # noqa: E402
 from ntt_cuda_tpu_torch.parallel import (multihost, spmd,  # noqa: E402
-                                         spmd2d, spmd_mult)
+                                         spmd2d, spmd2d_mult, spmd_mult)
 
 
 def device_intervals(prof) -> list[tuple[float, float, str]]:
@@ -156,7 +165,8 @@ def main() -> int:
                "event_ms": event_ms(fn, args.reps),
                "sync_wall_ms": wall_ms(fn, args.reps)}
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             for _ in range(args.reps):
                 fn()
             torch.cuda.synchronize()
@@ -177,10 +187,24 @@ def main() -> int:
                      key=lambda a: -a.self_cpu_time_total)
         row["host_top_us"] = {a.key: a.self_cpu_time_total / args.reps
                               for a in top[:8]}
+        row["glue_top_us"] = glue_top_us(prof, args.reps)
         print(json.dumps(row), flush=True)
     if args.spmd:
         torch.distributed.destroy_process_group()
     return 0
+
+
+def glue_top_us(prof, reps: int, top: int = 10) -> dict:
+    """{"name shapes": self device µs a call} of the `top` host events
+    whose own launches take the most device time."""
+    def dev_us(a):
+        return getattr(a, "self_device_time_total",
+                       getattr(a, "self_cuda_time_total", 0.0))
+    host = [a for a in prof.key_averages(group_by_input_shape=True)
+            if a.device_type == torch.autograd.DeviceType.CPU
+            and dev_us(a) > 0]
+    host.sort(key=lambda a: -dev_us(a))
+    return {f"{a.key} {a.input_shapes}": dev_us(a) / reps for a in host[:top]}
 
 
 def bfv_ops(p, fusion: str, msgs) -> tuple[str, dict]:
@@ -356,9 +380,9 @@ def tail_ops(p, dev, res, mc) -> dict:
 
 
 def spmd_ops(p, msgs) -> tuple[str, dict]:
-    """("spmd", the ops of SpmdBFVContext, SpmdMultContext and
-    Spmd2DBFVContext by name) at world size 1 over NCCL (the default meshes
-    and device)."""
+    """("spmd", the ops of SpmdBFVContext, SpmdMultContext,
+    Spmd2DBFVContext and Spmd2DMultContext by name) at world size 1 over
+    NCCL (the default meshes and device)."""
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -376,6 +400,12 @@ def spmd_ops(p, msgs) -> tuple[str, dict]:
     ctx2 = spmd2d.Spmd2DBFVContext.build(p)
     sk2, pk2 = ctx2.keygen(nonce=1)
     ct_2 = ctx2.encrypt(pk2, m0, nonce=1)
+    ct2_2 = ctx2.encrypt(pk2, torch.from_numpy(msgs[1]).to(ctx.device),
+                         nonce=2)
+    mctx2 = spmd2d_mult.Spmd2DMultContext.build(ctx2)
+    rlk2 = mctx2.relin_keygen(sk2, nonce=1)
+    gk2 = mctx2.galois_keygen(sk2, [3], nonce=1)[3]
+    digits = ct_2.to_local()[1, :p.r - 1, None, :].contiguous()
     return "spmd", {
         "keygen": lambda: ctx.keygen(nonce=1),
         "encrypt": lambda: ctx.encrypt(pk, m0, nonce=1),
@@ -385,10 +415,15 @@ def spmd_ops(p, msgs) -> tuple[str, dict]:
         "decrypt3": lambda: mctx.decrypt3(sk, ct3),
         "mul": lambda: mctx.mul(ct, ct2),
         "relinearize": lambda: mctx.relinearize(ct3, rlk),
+        "mul_rlk": lambda: mctx.mul(ct, ct2, rlk=rlk),
         "apply_galois": lambda: mctx.apply_galois(ct, 3, gk),
         "keygen_2d": lambda: ctx2.keygen(nonce=1),
         "encrypt_2d": lambda: ctx2.encrypt(pk2, m0, nonce=1),
         "decrypt_2d": lambda: ctx2.decrypt(sk2, ct_2),
+        "mul_rlk_2d": lambda: mctx2.mul(ct_2, ct2_2, rlk=rlk2),
+        "apply_galois_2d": lambda: mctx2.apply_galois(ct_2, 3, gk2),
+        "mod_u64_digits_2d": lambda: modmath.mod_u64(digits, ctx2.ms.q,
+                                                     ctx2.ms.nu),
     }
 
 
