@@ -174,7 +174,21 @@ interleaved against in turn).  Then:
    decrypt at world size 1 in turns beside SpmdBFVContext and BFVContext,
    and the 2-D mul, mul with rlk, relinearize and apply_galois beside
    BFVContext's; kernel 20's shard launch at (3, 2)'s rank shape (rows
-   0-3, C = 2) beside its bound.
+   0-3, C = 2) beside its bound;
+16. the op programs (BFVContext.op_programs / mult_program: keygen,
+   encrypt, decrypt with the full and the dropped sk, encrypt_batch at J
+   = 16, decrypt_batch at J = 3, mul + relin, square + relin) at 16k_5q
+   (op) and 32k_9q (stage), each captured once as a CUDA graph
+   (utils/profiling.graphed), counts read as in 3 over the captures: each
+   replay equal to the eager public method bit for bit, and the replay of
+   keygen, encrypt and encrypt_batch after a second nonce is copied into
+   the static input equal to eager at that nonce; the draws'
+   device-nonce keystream (kernel 6 at J = 1) equal to K1 at nonces 0, 1,
+   2^62 + 9 and one with bit 63 set, through keygen's and encrypt's
+   maps; eager and replay event ms, kernels a call, busy us and idle
+   share; the chained slopes of keygen, encrypt and decrypt at 32k_9q
+   (profiling.time_chained) and `python -m ntt_cuda_tpu_torch --params
+   32k_9q demo --time`.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and last `{"ok": true, "device": {...}}`.  Any failure raises,
@@ -215,6 +229,7 @@ from ntt_cuda_tpu_torch.parallel import (mesh as pmesh,  # noqa: E402
                                          sharded, spmd, spmd2d, spmd2d_mult,
                                          spmd_mult)
 from ntt_cuda_tpu_torch.utils import primegen  # noqa: E402
+from ntt_cuda_tpu_torch.utils import profiling  # noqa: E402
 from ntt_cuda_tpu_torch.utils.profiling import median_ms  # noqa: E402
 
 SEED = 20261016
@@ -261,6 +276,13 @@ KSACC_CASES = ((1, (0, 9)), (2, (0, 9)), (2, (0, 3)), (2, (6, 9)),
 # ShardedBFVContext (parallel/rns.py) over gloo on one card: R = 3 divides
 # r = 9 (the SPMD programs), R = 2 does not (`inner`)
 RNS_RS = (3, 2)
+# the op programs (BFVContext.op_programs / mult_program) as CUDA graphs:
+# the op schedule's set and the stage schedule's, full width
+PROGRAM_SETS = ((OP_SET, "op"), (STAGE_SET, "stage"))
+PROGRAM_DEC_J = 3
+PROGRAM_NONCES = (5, 2**62 + 9)   # captured at the first, replayed at both
+# the device-nonce keystream's nonce edges (bit 63 set in the last)
+NONCE_EDGES = (0, 1, 2**62 + 9, 2**63 + 7)
 # the stage kernels' cluster sizes (csrc/ntt_stage.cu): timed at n = 2^14
 # and 2^15 (tables of 16k_9q and 32k_9q) for P = 9 (32k_9q, J = 1), 18
 # (encrypt's and keygen's 2r launches) and 36 (J = 4) polynomials at every
@@ -318,23 +340,25 @@ KERNELS = {
     "salsa20_keystream_batch": ((salsa20.keystream_words_batch,),
                                 "ntt_cuda_tpu_torch/csrc/salsa20.cu",
                                 "ntt_cuda_tpu/ops/salsa20.py:249",
-                                ("batch", "rns", "rns_inner")),
+                                ("batch", "rns", "rns_inner", "programs")),
     "decrypt_tail": ((bfv_tail.decrypt_tail,),
                      "ntt_cuda_tpu_torch/csrc/decrypt_tail.cu",
                      "ntt_cuda_tpu/ops/bfv_tail.py:388",
-                     ("mult", "op", "stage", "batch", "op32", "rns_inner")),
+                     ("mult", "op", "stage", "batch", "op32", "rns_inner",
+                      "programs")),
     "half_polymul": ((fused_ops.half_polymul,),
                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                      "ntt_cuda_tpu/ops/fused_ops.py:213",
-                     ("op", "op32", "spmd", "spmd_mult", "rns")),
+                     ("op", "op32", "spmd", "spmd_mult", "rns", "programs")),
     "keygen_fused": ((fused_ops.keygen_fused,),
                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                      "ntt_cuda_tpu/ops/fused_ops.py:137",
-                     ("op", "op32", "spmd")),
+                     ("op", "op32", "spmd", "programs")),
     "encrypt_fused": ((fused_ops.encrypt_fused,),
                       "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                       "ntt_cuda_tpu/ops/fused_ops.py:466",
-                      ("op", "batch", "op32", "rns", "rns_inner")),
+                      ("op", "batch", "op32", "rns", "rns_inner",
+                       "programs")),
     # kernel 7, both directions (one TPU kernel with an `inverse` flag);
     # its times below are the forward's, the direction the main path runs
     # (also its shard-offset launch, coef_kernels.local_forward, on the
@@ -344,25 +368,28 @@ KERNELS = {
                       "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                       "ntt_cuda_tpu/ops/ntt_pallas.py:558",
                       ("mult", "stage", "spmd_mult", "spmd2d", "coef",
-                       "spmd2d_mult", "rns", "rns_inner")),
+                       "spmd2d_mult", "rns", "rns_inner", "programs")),
     "ntt_inverse_mul": ((ntt_stage.ntt_inverse_mul,
                          coef_kernels.local_inverse_mul),
                         "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                         "ntt_cuda_tpu/ops/ntt_pallas.py:685",
                         ("mult", "stage", "spmd_mult", "spmd2d", "coef",
-                         "spmd2d_mult", "rns", "rns_inner")),
+                         "spmd2d_mult", "rns", "rns_inner", "programs")),
     "ntt_forward_ternary": ((ntt_stage.ntt_forward_ternary,),
                             "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                             "ntt_cuda_tpu/ops/ntt_pallas.py:782",
-                            ("mult", "stage", "rns", "rns_inner")),
+                            ("mult", "stage", "rns", "rns_inner",
+                             "programs")),
     "ntt_forward_addneg_gauss": ((ntt_stage.ntt_forward_addneg_gauss,),
                                  "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                                  "ntt_cuda_tpu/ops/ntt_pallas.py:959",
-                                 ("mult", "stage", "rns", "rns_inner")),
+                                 ("mult", "stage", "rns", "rns_inner",
+                                  "programs")),
     "encrypt_fused_stage": ((bfv_tail.encrypt_fused,),
                             "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                             "ntt_cuda_tpu/ops/bfv_tail.py:661",
-                            ("mult", "stage", "rns", "rns_inner")),
+                            ("mult", "stage", "rns", "rns_inner",
+                             "programs")),
     "ntt_forward_addneg": ((ntt_stage.ntt_forward_addneg,),
                            "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                            "ntt_cuda_tpu/ops/ntt_pallas.py:868",
@@ -371,11 +398,11 @@ KERNELS = {
     "keyswitch_fused": ((fused_ops.keyswitch_fused,),
                         "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                         "ntt_cuda_tpu/ops/fused_ops.py:651",
-                        ("mult", "rns_inner")),
+                        ("mult", "rns_inner", "programs")),
     "behz_rns_to_bsk": ((behz_kernels.rns_to_bsk,),
                         "ntt_cuda_tpu_torch/csrc/behz.cu",
                         "ntt_cuda_tpu/ops/behz_pallas.py:183",
-                        ("mult", "rns_inner")),
+                        ("mult", "rns_inner", "programs")),
     # 21b and 21c alone: no main path launches them (mul and square run
     # both bodies in one launch, scale_and_round, the next row; the
     # sharded EvalMult their band form, the rows below), so their
@@ -389,7 +416,7 @@ KERNELS = {
     "behz_scale_and_round": ((behz_kernels.scale_and_round,),
                              "ntt_cuda_tpu_torch/csrc/behz.cu",
                              "ntt_cuda_tpu/ops/behz_pallas.py:406",
-                             ("mult", "rns_inner")),
+                             ("mult", "rns_inner", "programs")),
     # kernel 22, both directions; its times below are the forward's at
     # (16, 1, 65536)
     "ntt30_transform": ((ntt30.ntt_forward, ntt30.ntt_inverse),
@@ -3115,6 +3142,177 @@ def op_times(ctx: BFVContext, res: dict, msgs: np.ndarray, reps: int) -> dict:
     }
 
 
+def program_cases(ctx: BFVContext, msgs: np.ndarray) -> list:
+    """The op programs of ctx (op_programs, mult_program) on the phase's
+    inputs, as (name, fn, args, eager, nonce): keys at nonce 1, the first
+    two messages encrypted at 1 and 2, PROGRAM_DEC_J of them batched;
+    eager(v) is the public method with the program's nonce at v, and
+    nonce(v) the static nonce input's value at v (None: no nonce)."""
+    p, dev = ctx.params, ctx.device
+    kg_fn, enc_fn, dec_fn, encb_fn, decb_fn, bz = ctx.op_programs()
+    mul_fn, sq_fn, mbz = ctx.mult_program()
+    m = torch.from_numpy(msgs).to(dev)
+    sk, pk = ctx.keygen(nonce=1)
+    rlk = ctx.relin_keygen(sk, nonce=1)
+    ct, ct2 = (ctx.encrypt(pk, m[j], nonce=j + 1) for j in range(2))
+    J, Jd = m.shape[0], PROGRAM_DEC_J
+    cts = ctx.encrypt_batch(pk, m[:Jd], list(range(1, Jd + 1)))
+    sk_drop = sk[:p.r - 1]
+
+    def one(v):
+        return torch.tensor(v, dtype=torch.int64, device=dev)
+
+    def batch(v):
+        return torch.arange(v, v + J, dtype=torch.int64, device=dev)
+    v0 = PROGRAM_NONCES[0]
+    return [
+        ("keygen", kg_fn, (one(v0), bz), lambda v: ctx.keygen(nonce=v), one),
+        ("encrypt", enc_fn, (one(v0), pk, m[0], bz),
+         lambda v: ctx.encrypt(pk, m[0], nonce=v), one),
+        ("decrypt", dec_fn, (sk, ct, bz), lambda v: ctx.decrypt(sk, ct), None),
+        ("decrypt_sk_drop", dec_fn, (sk_drop, ct, bz),
+         lambda v: ctx.decrypt(sk_drop, ct), None),
+        (f"encrypt_batch_J{J}", encb_fn, (batch(v0), pk, m, bz),
+         lambda v: ctx.encrypt_batch(pk, m, list(range(v, v + J))), batch),
+        (f"decrypt_batch_J{Jd}", decb_fn, (sk, cts, bz),
+         lambda v: ctx.decrypt_batch(sk, cts), None),
+        ("mul_relin", mul_fn, (ct, ct2, rlk, mbz),
+         lambda v: ctx.mul(ct, ct2, rlk=rlk), None),
+        ("square_relin", sq_fn, (ct, rlk, mbz),
+         lambda v: ctx.square(ct, rlk=rlk), None),
+    ]
+
+
+def same(got, ref) -> bool:
+    return all(g.shape == r.shape and torch.equal(g, r)
+               for g, r in zip(as_list(got), as_list(ref)))
+
+
+def busy_idle(fn, reps: int) -> dict:
+    """profiling.busy_idle's row of fn, warmed by one call."""
+    fn()
+    torch.cuda.synchronize()
+    return profiling.busy_idle(fn, reps)[0]
+
+
+def keystream_at_checks(p: BFVParams, dev) -> None:
+    """The draws' device-nonce keystream (kernel 6 at J = 1 on an int64
+    nonce on the card, salsa20.keystream_words_batch) against K1 at the
+    int nonce, through both maps, at NONCE_EDGES and p's keygen and
+    encrypt streams; the draws themselves at a tensor nonce against the
+    int nonce."""
+    ms = ntt.tables_for(p, device=dev).ms
+    for v in NONCE_EDGES:
+        t = torch.tensor(np.uint64(v).view(np.int64), device=dev)
+        for nbytes, mapped_t, mapped in (
+                (sampling.keygen_entropy_bytes(p.n, p.r),
+                 sampling.keygen_nonce_t, sampling.keygen_nonce),
+                (sampling.encrypt_entropy_bytes(p.n),
+                 sampling.encrypt_nonce_t, sampling.encrypt_nonce)):
+            nb = -(-nbytes // 64)
+            got = salsa20.keystream_words_batch(nb, mapped_t(t).reshape(1),
+                                                device=dev)[0]
+            if not torch.equal(got, salsa20.keystream_words(
+                    nb, nonce=mapped(v), device=dev)):
+                raise AssertionError(f"keystream_words_batch at a device "
+                                     f"nonce != keystream_words"
+                                     f" at nonce {v:#x} ({mapped.__name__})")
+        if not (same(sampling.keygen_draws_compact(p.n, p.r, ms, nonce=t),
+                     sampling.keygen_draws_compact(p.n, p.r, ms, nonce=v))
+                and same(sampling.encrypt_draws_compact(p.n, nonce=t),
+                         sampling.encrypt_draws_compact(p.n, nonce=v,
+                                                        device=dev))):
+            raise AssertionError(f"draws at a tensor nonce != the int nonce "
+                                 f"{v:#x}")
+
+
+def programs_phase(dev, counts: dict) -> None:
+    """Phase 16: the op programs captured as CUDA graphs at PROGRAM_SETS
+    (full width): each replay equal to the eager public method bit for
+    bit, and at a second nonce copied into the static input equal to
+    eager there; counts set to 0 before the captures of a set and read
+    after them (a replay runs no wrapper, so the captures and their
+    warm-up calls are what the counts see); eager and replay event ms,
+    kernels a call, busy µs and idle share; then the chained slopes of
+    keygen, encrypt and decrypt at STAGE_SET (cli._phase_times) and
+    `python -m ntt_cuda_tpu_torch --params STAGE_SET demo --time`."""
+    t0 = time.perf_counter()
+    card = smi("name,power.limit")
+    counts["programs"] = dict.fromkeys(KERNELS, 0)
+    v0, v1 = PROGRAM_NONCES
+    times = {}
+    for name, fusion in PROGRAM_SETS:
+        p = get_bfv_params(name)
+        keystream_at_checks(p, dev)
+        ctx = BFVContext.build(p, fusion=fusion)
+        msgs = np.random.default_rng(SEED + 5).integers(0, p.t,
+                                                        (BATCH_J, p.n))
+        cases = program_cases(ctx, msgs)
+        torch.cuda.synchronize()
+        reset_counts()
+        graphs = [profiling.graphed(fn, *args) for _, fn, args, *_ in cases]
+        first = [[t.clone() for t in as_list(g())] for g in graphs]
+        torch.cuda.synchronize()
+        for k, c in read_counts().items():
+            counts["programs"][k] += c
+        for (pname, _, args, eager, nonce), g, out in zip(cases, graphs,
+                                                          first):
+            label = f"{name} {fusion} {pname}"
+            if not same(out, eager(v0)):
+                raise AssertionError(f"programs {label}: replay != eager")
+            if nonce is not None:
+                args[0].copy_(nonce(v1))
+                if not same(g(), eager(v1)) or same(g.outputs, out):
+                    raise AssertionError(f"programs {label}: the replay at "
+                                         f"nonce {v1} != eager there, or "
+                                         f"== the replay at {v0}")
+                args[0].copy_(nonce(v0))
+            times[label] = {
+                "eager_event_ms": median_ms(lambda: eager(v0), 10),
+                "replay_event_ms": median_ms(g, 10),
+                "eager": busy_idle(lambda: eager(v0), 30),
+                "replay": busy_idle(g, 30)}
+        log(f"programs {name} ({fusion}): {len(cases)} programs captured "
+            f"once each (profiling.graphed); every replay equals the eager "
+            f"public method bit for bit, and keygen, encrypt and "
+            f"encrypt_batch replayed at nonce {v1} (copied into the static "
+            f"input) equal eager at {v1}; the device-nonce keystream equals "
+            f"K1 at nonces {[hex(v) for v in NONCE_EDGES]} through both "
+            f"maps")
+        del graphs, first
+    log(f"launch counts in the programs run (the captures and their "
+        f"warm-up calls, both sets): {json.dumps(counts['programs'])}")
+    missing = [k for k, (*_, s) in KERNELS.items()
+               if "programs" in s and counts["programs"][k] < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched on the programs path: "
+                             f"{missing}")
+    log(f"programs, eager against CUDA-graph replay ({card}; event ms: "
+        f"median of 10 CUDA-event timings around one call; kernels a call, "
+        f"busy us and idle share: torch.profiler over 30 calls, idle = 1 - "
+        f"busy / the median synchronised wall time): {json.dumps(times)}")
+    ctx_t = BFVContext.build(get_bfv_params(STAGE_SET))
+    slopes = dict(zip(("keygen", "encrypt", "decrypt"),
+                      (t * 1e6 for t in cli._phase_times(ctx_t,
+                                                         ctx_t.params))))
+    log(f"chained slopes {STAGE_SET} ({card}; us a step, "
+        f"profiling.time_chained: chains of 8 and 64 steps, each a CUDA "
+        f"graph): {json.dumps(slopes)}")
+    cmd = [sys.executable, "-m", "ntt_cuda_tpu_torch", "--params", STAGE_SET,
+           "demo", "--time"]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    for line in proc.stdout.splitlines():
+        log(f"  {line}")
+    phases = [ln for ln in proc.stdout.splitlines()
+              if re.match(r"\[demo\] (keygen |encrypt|decrypt) +[0-9.]+ us$",
+                          ln)]
+    if proc.returncode != 0 or "PASS" not in proc.stdout or len(phases) != 3:
+        raise AssertionError(f"{' '.join(cmd[1:])}: rc {proc.returncode}, "
+                             f"stderr {proc.stderr[-2000:]!r}")
+    log(f"programs phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; "
@@ -3946,6 +4144,7 @@ def main() -> int:
     log(f"kernel 7 inverse ({STAGE_SET}, x (r-1, n)): ms {inv[0]}, plain "
         f"ms {inv[1]}, bound ms {inv[2]} ({inv[3]})")
     bounds["ntt_transform"] = bounds.pop("ntt_forward")
+    programs_phase(dev, counts)
     rows = []
     for kname, (_, source, replaces, scheds) in KERNELS.items():
         ms, plain_ms, bound_ms, bound_by = bounds[kname]

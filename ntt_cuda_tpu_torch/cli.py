@@ -9,9 +9,12 @@
 The port's counterpart of `ntt_cuda_tpu/cli.py`: the same subcommands,
 flags and PASS/FAIL lines.  The JAX `--backend` flag becomes `--device`
 (the CUDA card by default, raising where there is none; `cpu` runs every
-kernel's plain version) and `--fusion auto|op|stage`.  Timings are the
-median CUDA-event time of one call (utils/profiling.py).  The .npz files
-interchange with the JAX CLI's.
+kernel's plain version) and `--fusion auto|op|stage`.  `demo --time`
+prints the JAX CLI's per-phase lines: the slope between two lengths of a
+chain of data-dependent ops (`BFVContext.op_programs`), each chain a CUDA
+graph timed by CUDA events (utils/profiling.py time_chained; eager under
+the host clock with `--device cpu`), and beside them the median time of
+one eager call.  The .npz files interchange with the JAX CLI's.
 """
 
 from __future__ import annotations
@@ -44,6 +47,70 @@ def _ctx(args):
                                     fusion=args.fusion)
 
 
+def phase_chains(ctx, sk, pk, m):
+    """(kg_make, enc_make, dec_make): make(k) returns the function of a
+    carry that chains k data-dependent steps of an op program
+    (BFVContext.op_programs), the JAX CLI's chains (its cli.py:56-82), so
+    that no step is the same call twice: keygen carries sk[0, 0] +
+    pk[0, 0, 0] + pk[1, 0, 0] (both outputs used; int64 sums wrap as the
+    u64 ones do) into the next nonce, encrypt of m under pk takes its
+    nonce from ct[0, 0, 0], decrypt under sk adds out[0] to ct[0, 0, 0]
+    mod q0."""
+    kg_fn, enc_fn, dec_fn, _, _, bz = ctx.op_programs()
+    q0 = ctx.params.q[0]
+
+    def kg_make(k):
+        def step(seed):
+            for _ in range(k):
+                skk, pkk = kg_fn(seed, bz)
+                seed = skk[0, 0] + pkk[0, 0, 0] + pkk[1, 0, 0]
+            return seed
+        return step
+
+    def enc_make(k):
+        def step(c):
+            for _ in range(k):
+                c = enc_fn(c[0, 0, 0], pk, m, bz)
+            return c
+        return step
+
+    def dec_make(k):
+        def step(c):
+            for _ in range(k):
+                out = dec_fn(sk, c, bz)
+                c = c.clone()
+                c[0, 0, 0] = (c[0, 0, 0] + out[0]) % q0
+            return c
+        return step
+
+    return kg_make, enc_make, dec_make
+
+
+def _phase_times(ctx, params, inner=None):
+    """Per-phase latency in seconds: keygen, encrypt, decrypt (the JAX
+    CLI's _phase_times): the slope between two lengths of each phase's
+    chain (phase_chains) from keygen(), m = arange(n) mod t and its
+    ciphertext.  The chain lengths are JAX's, hi = max(64, 2^24 // (n r))
+    and lo = hi // 8, or `inner` = (lo, hi)."""
+    from .utils import profiling
+
+    dev = ctx.device
+    m = torch.arange(params.n, dtype=torch.int64, device=dev) % params.t
+    sk, pk = ctx.keygen()
+    ct = ctx.encrypt(pk, m)
+    if inner is None:
+        hi = max(64, (1 << 24) // (params.n * params.r))
+        lo = hi // 8
+    else:
+        lo, hi = inner
+    kg_make, enc_make, dec_make = phase_chains(ctx, sk, pk, m)
+    seed = torch.ones((), dtype=torch.int64, device=dev)
+    t_kg = profiling.time_chained(kg_make, seed, lo, hi)
+    t_enc = profiling.time_chained(enc_make, ct, lo, hi)
+    t_dec = profiling.time_chained(dec_make, ct, lo, hi)
+    return t_kg, t_enc, t_dec
+
+
 def cmd_demo(args) -> int:
     """demo.cu: keygen -> encrypt -> decrypt, verify, time."""
     from .utils import golden, profiling
@@ -69,11 +136,15 @@ def cmd_demo(args) -> int:
     if not ok:
         return 1
     if args.time:
-        for name, fn in (("keygen ", lambda: ctx.keygen()),
-                         ("encrypt", lambda: ctx.encrypt(pk, m)),
-                         ("decrypt", lambda: ctx.decrypt(sk, ct))):
-            us = profiling.median_ms(fn, device=dev) * 1e3
-            print(f"[demo] {name} {us:9.1f} us")
+        t_kg, t_enc, t_dec = _phase_times(ctx, params)
+        print(f"[demo] keygen  {t_kg*1e6:9.1f} us")
+        print(f"[demo] encrypt {t_enc*1e6:9.1f} us")
+        print(f"[demo] decrypt {t_dec*1e6:9.1f} us")
+        eager = [profiling.median_ms(fn, device=dev) * 1e3
+                 for fn in (lambda: ctx.keygen(), lambda: ctx.encrypt(pk, m),
+                            lambda: ctx.decrypt(sk, ct))]
+        print(f"[demo] one eager call (median): keygen {eager[0]:.1f} us, "
+              f"encrypt {eager[1]:.1f} us, decrypt {eager[2]:.1f} us")
     if args.mul:
         m2 = torch.from_numpy(rng.integers(0, params.t, params.n,
                                            dtype=np.uint64).astype(np.int64))
@@ -244,7 +315,8 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("demo", help="keygen->encrypt->decrypt + timings")
-    p.add_argument("--time", action="store_true", help="per-phase timings")
+    p.add_argument("--time", action="store_true",
+                   help="per-phase timings (chained slope)")
     p.add_argument("--mul", action="store_true",
                    help="also drive EvalMult + relinearization")
     p.set_defaults(fn=cmd_demo)

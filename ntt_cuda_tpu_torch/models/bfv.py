@@ -24,6 +24,14 @@ device, as the JAX package leaves them to XLA; mul_plain runs the stage
 transforms.  Eager PyTorch: each operation is a few kernel launches on
 the context's device (the CPU runs the kernels' plain versions instead).
 
+`op_programs()` and `mult_program()` give the ops as functions of their
+tensors and a bundle of the context's constants, as the JAX package gives
+them for an outer jit: with a nonce that lives on the card (an int64
+tensor), no validation, no host read and nothing built at first use, so a
+CUDA graph can capture them (`utils/profiling.graphed`) and replay them
+with no host between the kernels.  The public methods run the same bodies
+after validating their arguments.
+
 Conventions are the JAX package's: sk (r, n) and pk (2, r, n) live in the
 NTT domain; ciphertexts are (2, r-1, n) coefficient-domain residues with
 the last modulus dropped; batches put J first.  Every u64 is carried in an
@@ -85,6 +93,80 @@ def check_residues(name: str, x, shape: tuple, hint: str = "",
             msg += f" — {hint}"
         raise ValueError(msg)
     return x.to(device=device, dtype=I64).contiguous()
+
+
+# -- the ops' bodies: shared by the public methods (after validation) and the
+# programs (none); a nonce is an int or an int64 tensor on the device ------
+
+def _keygen(nonce, tf: ntt.NTTTables, fusion: str):
+    """-> (sk (r, n), pk (2, r, n)), both NTT domain."""
+    s_b, a, e_d = sampling.keygen_draws_compact(tf.n, tf.r, tf.ms,
+                                                nonce=nonce)
+    if fusion == "op":
+        sk, pk0 = fused_ops.keygen_fused(s_b, a, e_d, tf)
+    else:
+        sk = ntt_stage.ntt_forward_ternary(s_b, tf)
+        pk0 = ntt_stage.ntt_inverse_mul(a, sk, tf)
+        pk0 = ntt_stage.ntt_forward_addneg_gauss(pk0, e_d, tf)
+    return sk, torch.stack([pk0, a])
+
+
+def _encrypt(nonce, pk, m_poly, tf: ntt.NTTTables,
+             tc: bfv_tail.TailConsts, fusion: str):
+    """pk (2, r, n), m_poly (n,) -> the (2, r-1, n) ciphertext."""
+    u_b, e_d = sampling.encrypt_draws_compact(tf.n, nonce=nonce,
+                                              device=tf.device)
+    if fusion == "op":
+        return fused_ops.encrypt_fused(u_b, pk, e_d, m_poly, tf, tc)
+    u_ntt = ntt_stage.ntt_forward_ternary(u_b, tf)
+    return bfv_tail.encrypt_fused(u_ntt, pk, e_d, m_poly, tf, tc)
+
+
+def _encrypt_batch(nonces, pk, m_batch, tf: ntt.NTTTables,
+                   tc: bfv_tail.TailConsts):
+    """(J,) nonces, m_batch (J, n) -> (J, 2, r-1, n): kernel 6, then the
+    whole-op encrypt over the batch whatever the fusion."""
+    u_b, e_d = sampling.encrypt_draws_compact_batch(tf.n, nonces,
+                                                    device=tf.device)
+    return fused_ops.encrypt_fused(u_b, pk, e_d, m_batch, tf, tc)
+
+
+def _front(c1, sk_drop, td: ntt.NTTTables, fusion: str):
+    """Decryption's front half, INTT(NTT(c1) (.) sk): (..., r-1, n)."""
+    if fusion == "op":
+        return fused_ops.half_polymul(c1, sk_drop, td)
+    return ntt_stage.ntt_inverse_mul(ntt_stage.ntt_forward(c1, td), sk_drop,
+                                     td)
+
+
+def _decrypt(sk_drop, ct, td: ntt.NTTTables, dtc: bfv_tail.DecTailConsts,
+             fusion: str):
+    """L = 2: ct (2, r-1, n) -> (n,), or cts (J, 2, r-1, n) -> (J, n)."""
+    c0 = ct[..., 0, :, :].contiguous()
+    c1 = ct[..., 1, :, :].contiguous()
+    return bfv_tail.decrypt_tail(_front(c1, sk_drop, td, fusion), c0, dtc)
+
+
+def _mul(x, banks: behz_kernels.MultBanks, tq: ntt.NTTTables,
+         tb: ntt.NTTTables, square: bool = False):
+    """The BEHZ product of x (..., 2, 2, k, n) (operand, component; one
+    operand, (..., 1, 2, k, n), for `square`) -> (..., 3, k, n): both
+    operands to Bsk together (21a), the transforms over q and Bsk, the
+    tensor product, t/q back into q (21b, 21c)."""
+    fq = BFVContext._fwd_rows(x, tq)
+    fb = BFVContext._fwd_rows(behz_kernels.rns_to_bsk(x, banks), tb)
+    return behz_kernels.scale_and_round(BFVContext._tensor(fq, tq, square),
+                                        BFVContext._tensor(fb, tb, square),
+                                        banks)
+
+
+def _relinearize(ct3, rlk, tf: ntt.NTTTables, tc: bfv_tail.TailConsts,
+                 q_drop: torch.Tensor):
+    """Key-switch c2 of ct3 (..., 3, r-1, n) through rlk and add it to
+    (c0, c1) exactly (not the strict-`>` quirk: outputs stay canonical)."""
+    cc = fused_ops.keyswitch_fused(ct3[..., 2, :, :].contiguous(), rlk, tf,
+                                   tc)
+    return modmath.add_mod(ct3[..., :2, :, :], cc, q_drop)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,17 +250,7 @@ class BFVContext:
         bfv_keygen.cuh:95-151).  Keygen nonces live in the bit-63-clear
         half of the nonce space; nonces must be < 2**63."""
         sampling.check_user_nonce(nonce)
-        p = self.params
-        tf = self.tables_full
-        s_b, a, e_d = sampling.keygen_draws_compact(p.n, p.r, tf.ms,
-                                                    nonce=int(nonce))
-        if self.fusion == "op":
-            sk, pk0 = fused_ops.keygen_fused(s_b, a, e_d, tf)
-        else:
-            sk = ntt_stage.ntt_forward_ternary(s_b, tf)
-            pk0 = ntt_stage.ntt_inverse_mul(a, sk, tf)
-            pk0 = ntt_stage.ntt_forward_addneg_gauss(pk0, e_d, tf)
-        return sk, torch.stack([pk0, a])
+        return _keygen(int(nonce), self.tables_full, self.fusion)
 
     def encrypt(self, pk, m_poly, nonce=0):
         """pk (2, r, n) NTT domain, m_poly (n,) in [0, t) -> ciphertext
@@ -195,15 +267,8 @@ class BFVContext:
         m_poly = check_residues("m_poly", m_poly, (p.n,),
                                 f"one plaintext value in [0, t) per "
                                 f"coefficient, n={p.n}", self.device)
-        u_b, e_d = sampling.encrypt_draws_compact(p.n, nonce=int(nonce),
-                                                  device=self.device)
-        tf = self.tables_full
-        if self.fusion == "op":
-            return fused_ops.encrypt_fused(u_b, pk, e_d, m_poly, tf,
-                                           self.tail_consts)
-        u_ntt = ntt_stage.ntt_forward_ternary(u_b, tf)
-        return bfv_tail.encrypt_fused(u_ntt, pk, e_d, m_poly, tf,
-                                      self.tail_consts)
+        return _encrypt(int(nonce), pk, m_poly, self.tables_full,
+                        self.tail_consts, self.fusion)
 
     def encrypt_batch(self, pk, m_batch, nonces):
         """Throughput-mode encryption: pk (2, r, n) NTT domain, m_batch
@@ -231,10 +296,8 @@ class BFVContext:
         if nonces.shape != (J,):
             raise ValueError(f"nonces: expected shape ({J},), got "
                              f"{nonces.shape}")
-        u_b, e_d = sampling.encrypt_draws_compact_batch(p.n, nonces,
-                                                        device=self.device)
-        return fused_ops.encrypt_fused(u_b, pk, e_d, m_batch,
-                                       self.tables_full, self.tail_consts)
+        return _encrypt_batch(nonces, pk, m_batch, self.tables_full,
+                              self.tail_consts)
 
     def decrypt(self, sk, ct):
         """sk (r, n) NTT domain (first r-1 residues used; (r-1, n) also
@@ -245,9 +308,11 @@ class BFVContext:
         sk = self._sk_drop(sk)
         ct = self._ct_any("ct", ct, "encrypt returns (2, r-1, n), mul() "
                           "(3, r-1, n) — the last RNS modulus is dropped")
-        x = (self._front(ct[1], sk) if ct.shape[0] == 2 else
-             self._spower_front(ct[1:], sk))
-        return bfv_tail.decrypt_tail(x, ct[0], self.dec_tail_consts)
+        if ct.shape[0] == 2:
+            return _decrypt(sk, ct, self.tables_drop, self.dec_tail_consts,
+                            self.fusion)
+        return bfv_tail.decrypt_tail(self._spower_front(ct[1:], sk), ct[0],
+                                     self.dec_tail_consts)
 
     def decrypt_batch(self, sk, cts):
         """Throughput-mode decryption: cts (J, 2, r-1, n) -> (J, n), one
@@ -262,9 +327,8 @@ class BFVContext:
         J = cts.shape[0]
         cts = check_residues("cts", cts, (J, 2, p.r - 1, p.n),
                              device=self.device)
-        x = self._front(cts[:, 1].contiguous(), sk)
-        return bfv_tail.decrypt_tail(x, cts[:, 0].contiguous(),
-                                     self.dec_tail_consts)
+        return _decrypt(sk, cts, self.tables_drop, self.dec_tail_consts,
+                        self.fusion)
 
     def add(self, ct_a, ct_b):
         """Homomorphic addition: decrypts to (m1 + m2) mod t.  (2, r-1, n)
@@ -397,13 +461,8 @@ class BFVContext:
         t/q back into q (21b, 21c)."""
         a, b = self._ct_pair("mul", ct_a, ct_b)
         st = self._mult_setup()
-        x = torch.stack([a, b], dim=-4)            # (..., 2, 2, k, n)
-        fq = self._fwd_rows(x, self.tables_drop)
-        fb = self._fwd_rows(behz_kernels.rns_to_bsk(x, st.banks),
-                            st.tables_bsk)
-        ct3 = behz_kernels.scale_and_round(
-            self._tensor(fq, self.tables_drop),
-            self._tensor(fb, st.tables_bsk), st.banks)
+        ct3 = _mul(torch.stack([a, b], dim=-4), st.banks, self.tables_drop,
+                   st.tables_bsk)
         return ct3 if rlk is None else self.relinearize(ct3, rlk)
 
     def square(self, ct, rlk=None):
@@ -411,14 +470,82 @@ class BFVContext:
         operand's transforms and conversion."""
         a, _ = self._ct_pair("square", ct, ct)
         st = self._mult_setup()
-        x = a[..., None, :, :, :]                  # (..., 1, 2, k, n)
-        fq = self._fwd_rows(x, self.tables_drop)
-        fb = self._fwd_rows(behz_kernels.rns_to_bsk(x, st.banks),
-                            st.tables_bsk)
-        ct3 = behz_kernels.scale_and_round(
-            self._tensor(fq, self.tables_drop, square=True),
-            self._tensor(fb, st.tables_bsk, square=True), st.banks)
+        ct3 = _mul(a[..., None, :, :, :], st.banks, self.tables_drop,
+                   st.tables_bsk, square=True)
         return ct3 if rlk is None else self.relinearize(ct3, rlk)
+
+    def op_programs(self):
+        """(kg_fn, enc_fn, dec_fn, enc_batch_fn, dec_batch_fn, bundles):
+        the scheme ops as functions of their tensors and `bundles`, the
+        context's constants (the JAX package's op_programs, same tuple and
+        argument order):
+
+            kg_fn(nonce, bz) == keygen(nonce)
+            enc_fn(nonce, pk, m, bz) == encrypt(pk, m, nonce)
+            dec_fn(sk, ct, bz) == decrypt(sk, ct)   (L = 2; sk (r, n) or
+                                                     (r-1, n))
+            enc_batch_fn(nonces, pk, m_batch, bz) == encrypt_batch(...)
+            dec_batch_fn(sk, cts, bz) == decrypt_batch(sk, cts)
+
+        bit for bit.  A nonce is an int64 tensor of u64 bit patterns on the
+        context's device, () or (J,): the draws read it there (kernel 6)
+        and map it there, so nothing of its value reaches the host, and a
+        CUDA graph of a function replays it at whatever value the tensor
+        holds.  No argument validation, as in the JAX package: callers hold
+        validated tensors (int64, contiguous, on the device); a nonce is
+        not checked against bit 63 (keygen clears it, encrypt sets it).
+        Each function reads its constants from `bz` and allocates only its
+        outputs and intermediates, so it can be captured
+        (utils/profiling.graphed) after one warm-up call."""
+        r, fusion = self.params.r, self.fusion
+        bundles = dict(tf=self.tables_full, td=self.tables_drop,
+                       tc=self.tail_consts, dtc=self.dec_tail_consts)
+
+        def kg_fn(nonce, bz):
+            return _keygen(nonce, bz["tf"], fusion)
+
+        def enc_fn(nonce, pk, m_poly, bz):
+            return _encrypt(nonce, pk, m_poly, bz["tf"], bz["tc"], fusion)
+
+        def dec_fn(sk, ct, bz):
+            return _decrypt(sk[: r - 1], ct, bz["td"], bz["dtc"], fusion)
+
+        def enc_batch_fn(nonces, pk, m_batch, bz):
+            return _encrypt_batch(nonces, pk, m_batch, bz["tf"], bz["tc"])
+
+        def dec_batch_fn(sk, cts, bz):
+            return _decrypt(sk[: r - 1], cts, bz["td"], bz["dtc"], fusion)
+
+        return kg_fn, enc_fn, dec_fn, enc_batch_fn, dec_batch_fn, bundles
+
+    def mult_program(self):
+        """(mul_fn, square_fn, bundles): EvalMult as functions of its
+        tensors and `bundles` (the JAX package's mult_program):
+        mul_fn(a, b, rlk, bz) == mul(a, b, rlk=rlk) and square_fn(a, rlk,
+        bz) == square(a, rlk=rlk) bit for bit, rlk None for the
+        (..., 3, r-1, n) product.  `bundles` holds the BEHZ banks, the
+        tables over q and Bsk and the key switch's constants; the EvalMult
+        state is built here, before any capture.  No validation, as
+        op_programs'."""
+        st = self._mult_setup()
+        bundles = dict(mb=st.banks, tq=self.tables_drop, tb=st.tables_bsk,
+                       tf=self.tables_full, tc=self.tail_consts)
+
+        def finish(ct3, rlk, bz):
+            if rlk is None:
+                return ct3
+            return _relinearize(ct3, rlk, bz["tf"], bz["tc"],
+                                bz["tq"].ms.q)
+
+        def mul_fn(a, b, rlk, bz):
+            return finish(_mul(torch.stack([a, b], dim=-4), bz["mb"],
+                               bz["tq"], bz["tb"]), rlk, bz)
+
+        def square_fn(a, rlk, bz):
+            return finish(_mul(a[..., None, :, :, :], bz["mb"], bz["tq"],
+                               bz["tb"], square=True), rlk, bz)
+
+        return mul_fn, square_fn, bundles
 
     def relin_keygen(self, sk, nonce=0):
         """Relinearization keys for mul(): (2, r-1, r, n), NTT domain.
@@ -520,25 +647,14 @@ class BFVContext:
         rlk = check_residues("rlk", rlk, (2, p.r - 1, p.r, p.n),
                              "relin_keygen returns (2, r-1, r, n)",
                              self.device)
-        cc = fused_ops.keyswitch_fused(ct3[..., 2, :, :].contiguous(), rlk,
-                                       self.tables_full, self.tail_consts)
-        # exact mod-q add (not the strict-`>` quirk): outputs stay canonical
-        return modmath.add_mod(ct3[..., :2, :, :], cc,
-                               self.tables_drop.ms.q)
+        return _relinearize(ct3, rlk, self.tables_full, self.tail_consts,
+                            self.tables_drop.ms.q)
 
     def roundtrip_check(self, m_poly):
         """demo.cu-style end-to-end: decrypt(encrypt(m)) (demo.cu:274-311)."""
         sk, pk = self.keygen()
         ct = self.encrypt(pk, m_poly)
         return self.decrypt(sk, ct)
-
-    def _front(self, c1, sk_drop):
-        """Decryption's front half, INTT(NTT(c1) (.) sk): (..., r-1, n)."""
-        td = self.tables_drop
-        if self.fusion == "op":
-            return fused_ops.half_polymul(c1, sk_drop, td)
-        return ntt_stage.ntt_inverse_mul(ntt_stage.ntt_forward(c1, td),
-                                         sk_drop, td)
 
     def _spower_front(self, cts, sk_drop):
         """Extended decryption's front, INTT(sum_{i>=1} NTT(c_i) (.) s^i)

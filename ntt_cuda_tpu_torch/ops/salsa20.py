@@ -13,6 +13,10 @@ package's flat `keystream_words`).
 counterpart (kernel 6): (J,) nonces -> (J, nblocks * 16), one launch, row j
 equal to the single stream of nonce j.  `device` None is the current CUDA
 device (raising where there is none); the CPU only when asked for.
+`keystream_words_batch` also takes its nonces as a (J,) int64 tensor on the
+device and reads them there, with no host read: the entry of the draws
+whose nonce lives on the card (a CUDA graph replays it at whatever value
+the tensor then holds).
 
 `bytes_u8` / `bytes_u32` / `bytes_u64` read the stream as the reference
 does (bfv_keygen.cuh:120-122, bfv_encryption.cuh:247): each is a view of
@@ -98,7 +102,11 @@ def nonce_array(nonces) -> np.ndarray:
 
 def nonce_tensor(nonces, device) -> torch.Tensor:
     """(J,) nonces as one int64 tensor of their u64 bit patterns on
-    `device`."""
+    `device`.  A tensor is taken as such (its values as int64 bit
+    patterns), moved to `device` with no host read and no copy where it is
+    there already."""
+    if isinstance(nonces, torch.Tensor):
+        return nonces.to(device=device, dtype=I64).contiguous()
     return torch.from_numpy(nonce_array(nonces).view(np.int64).copy()).to(
         device)
 
@@ -119,16 +127,17 @@ def keystream_words_batch(nblocks: int, nonces,
                           device=None) -> torch.Tensor:
     """(J,) nonces -> (J, nblocks * 16) int32 keystream words on `device`:
     kernel 6 on a CUDA device (the nonces go to the card as one (J,) int64
-    tensor of u64 bit patterns), the plain version on the CPU."""
+    tensor of u64 bit patterns; a tensor already there is read in place),
+    the plain version on the CPU."""
     device = cuda.default_device(device, "keystream_words_batch")
-    if device.type == "cpu":
-        return keystream_words_batch_plain(nblocks, nonces, key_byte=key_byte,
-                                           counter0=counter0, device=device)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"keystream_words_batch: no kernel for {device}")
     v = nonce_tensor(nonces, device)
     if v.dim() != 1:
         raise ValueError(f"nonces: expected shape (J,), got {tuple(v.shape)}")
+    if device.type == "cpu":
+        return keystream_words_batch_plain(nblocks, v, key_byte=key_byte,
+                                           counter0=counter0, device=device)
     ks = torch.empty((v.shape[0], nblocks * 16), dtype=torch.int32,
                      device=device)
     cuda.launch("ntt_salsa20_batch", device, ks.data_ptr(), nblocks,

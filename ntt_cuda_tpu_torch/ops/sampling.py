@@ -9,6 +9,14 @@ The converters are plain tensor code on the keystream's device, as they
 are XLA outside any kernel in the JAX package.  Only the `uniform_spec=
 "int"` spec is here; the fp64 emulation is not ported yet.
 
+A draw's nonce is a Python int, or an int64 tensor of u64 bit patterns on
+the draws' device (`keygen_nonce_t` / `encrypt_nonce_t` map it there, and
+`salsa20.keystream_words_batch` reads it there, with no host read), so that
+`BFVContext.op_programs` can take a nonce that lives on the card and a CUDA
+graph replays the draws at whatever value it holds.  A tensor nonce is not
+checked (`check_user_nonce` reads the host), as the JAX package's programs
+check none.
+
 Draws come in COMPACT form: the ternary and Gaussian values are one int32
 plane shared by every modulus, and the kernels map a negative value d to
 q + d themselves (`small_res` is that map, the JAX package's
@@ -26,6 +34,7 @@ from . import modmath, salsa20
 from .modmath import I64
 
 _NONCE_HIGH_BIT = 1 << 63
+_INT64_MIN = -_NONCE_HIGH_BIT       # bit 63 alone, as an int64
 
 
 def check_user_nonce(nonce) -> None:
@@ -51,6 +60,18 @@ def encrypt_nonce(nonce: int) -> int:
     which shares the keygen stream by design)."""
     nonce = int(nonce)
     return nonce if nonce == 0 else nonce | _NONCE_HIGH_BIT
+
+
+def keygen_nonce_t(nonce: torch.Tensor) -> torch.Tensor:
+    """keygen_nonce of a () or (J,) int64 tensor of u64 bit patterns, on
+    its device (the JAX package's keygen_nonce, a device op there too)."""
+    return nonce & (_NONCE_HIGH_BIT - 1)
+
+
+def encrypt_nonce_t(nonce: torch.Tensor) -> torch.Tensor:
+    """encrypt_nonce of a () or (J,) int64 tensor of u64 bit patterns, on
+    its device: bit 63 set where the nonce is not 0."""
+    return torch.where(nonce == 0, nonce, nonce | _INT64_MIN)
 
 
 def encrypt_nonces(nonces) -> np.ndarray:
@@ -84,13 +105,27 @@ GAUSS_ICDF_BOUNDS = (
 )
 
 
+_GAUSS_BOUNDS: dict[torch.device, torch.Tensor] = {}
+
+
+def _gauss_bounds(device: torch.device) -> torch.Tensor:
+    """GAUSS_ICDF_BOUNDS as an int64 tensor on `device`, made at its first
+    use there and kept: a copy from the host on every call would stop a
+    CUDA graph from capturing the draws."""
+    b = _GAUSS_BOUNDS.get(device)
+    if b is None:
+        b = _GAUSS_BOUNDS[device] = torch.tensor(GAUSS_ICDF_BOUNDS, dtype=I64,
+                                                 device=device)
+    return b
+
+
 def gaussian_int(u32s: torch.Tensor) -> torch.Tensor:
     """(..., n) u32 words (int32 bit patterns, or int64 values) -> (..., n)
     int32 discrete-Gaussian values in [-19, 16] under the pinned threshold
     spec: 38 compares, on the words widened to int64 (a word >= 2^31 is
     negative as int32)."""
     u32s = u32s.to(I64) & salsa20.MASK32
-    b = torch.tensor(GAUSS_ICDF_BOUNDS, dtype=I64, device=u32s.device)
+    b = _gauss_bounds(u32s.device)
     d = (u32s[..., None] >= b).sum(dim=-1) - 19
     d = torch.where(u32s == 0, -16, d)
     d = torch.where(u32s >= 2 ** 32 - 128, 16, d)
@@ -122,14 +157,29 @@ def encrypt_entropy_bytes(n: int) -> int:
     return 9 * n
 
 
+def _stream(nbytes: int, nonce, encrypt: bool, key_byte: int, device):
+    """The keystream covering `nbytes` at `nonce`'s effective nonce
+    (encryption's map or keygen's): K1 for an int nonce, kernel 6 for a ()
+    int64 tensor (on `device`, or the tensor's own where it is None)."""
+    nb = -(-nbytes // 64)
+    if isinstance(nonce, torch.Tensor):
+        v = encrypt_nonce_t(nonce) if encrypt else keygen_nonce_t(nonce)
+        return salsa20.keystream_words_batch(
+            nb, v.reshape(1), key_byte=key_byte,
+            device=v.device if device is None else device)[0]
+    v = encrypt_nonce(nonce) if encrypt else keygen_nonce(nonce)
+    return salsa20.keystream_words(nb, key_byte=key_byte, nonce=v,
+                                   device=device)
+
+
 def keygen_draws_compact(n: int, r: int, ms: modmath.ModulusSet,
                          key_byte: int = salsa20.DEFAULT_KEY_BYTE, nonce=0):
     """Keygen draws on ms's device: (s_b (n,) int32, a (r, n) uniform
     residues, e_d (n,) int32).  Byte layout (bfv_keygen.cuh:120-122):
-    ternary bytes at 0, uniform u64 lanes at n, Gaussian u32 at n + 8rn."""
-    ks = salsa20.keystream_for_bytes(
-        keygen_entropy_bytes(n, r), key_byte=key_byte,
-        nonce=keygen_nonce(nonce), device=ms.q.device)
+    ternary bytes at 0, uniform u64 lanes at n, Gaussian u32 at n + 8rn.
+    `nonce`: an int, or a () int64 tensor (module docstring)."""
+    ks = _stream(keygen_entropy_bytes(n, r), nonce, False, key_byte,
+                 ms.q.device)
     s_b = ternary_int(salsa20.bytes_u8(ks, 0, n))
     a = uniform(salsa20.bytes_u64(ks, n, r * n).reshape(r, n), ms)
     e_d = gaussian_int(salsa20.bytes_u32(ks, n + 8 * r * n, n))
@@ -189,11 +239,10 @@ def encrypt_draws_compact(n: int, key_byte: int = salsa20.DEFAULT_KEY_BYTE,
                           nonce=0, device=None):
     """Encryption draws: (u_b (n,) int32, e_d (2, n) int32).  Layout
     (bfv_encryption.cuh:247): ternary bytes at 0, e0 at n, e1 at 5n (the
-    n words of e0 end where e1's begin: one view holds both).  `device`
-    None is the current CUDA device."""
-    ks = salsa20.keystream_for_bytes(encrypt_entropy_bytes(n),
-                                     key_byte=key_byte,
-                                     nonce=encrypt_nonce(nonce), device=device)
+    n words of e0 end where e1's begin: one view holds both).  `nonce`: an
+    int, or a () int64 tensor (module docstring).  `device` None is the
+    current CUDA device, or a tensor nonce's."""
+    ks = _stream(encrypt_entropy_bytes(n), nonce, True, key_byte, device)
     u_b = ternary_int(salsa20.bytes_u8(ks, 0, n))
     e_d = gaussian_int(salsa20.bytes_u32(ks, n, 2 * n).reshape(2, n))
     return u_b, e_d
@@ -205,11 +254,17 @@ def encrypt_draws_compact_batch(n: int, nonces,
     """Batched compact encryption draws: (J,) nonces -> (u_b (J, n) int32,
     e_d (J, 2, n) int32), row j equal to encrypt_draws_compact(n,
     nonce=nonces[j]).  One keystream launch (kernel 6) for the J mapped
-    nonces, and every view taken for all J rows at once.  `device` None
-    is the current CUDA device."""
-    ks = salsa20.keystream_words_batch(
-        -(-encrypt_entropy_bytes(n) // 64), encrypt_nonces(nonces),
-        key_byte=key_byte, device=device)
+    nonces, and every view taken for all J rows at once.  `nonces`: ints,
+    a uint64 array, or a (J,) int64 tensor (module docstring).  `device`
+    None is the current CUDA device, or a tensor's."""
+    if isinstance(nonces, torch.Tensor):
+        mapped = encrypt_nonce_t(nonces)
+        device = nonces.device if device is None else device
+    else:
+        mapped = encrypt_nonces(nonces)
+    ks = salsa20.keystream_words_batch(-(-encrypt_entropy_bytes(n) // 64),
+                                       mapped, key_byte=key_byte,
+                                       device=device)
     u_b = ternary_int(salsa20.bytes_u8(ks, 0, n))
     e_d = gaussian_int(salsa20.bytes_u32(ks, n, 2 * n).reshape(-1, 2, n))
     return u_b, e_d

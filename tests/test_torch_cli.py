@@ -56,6 +56,22 @@ def test_demo(capsys):
     assert "device=cpu fusion=op n=4096" in out
 
 
+def test_demo_time(capsys, monkeypatch):
+    """demo --time with short chains (2 and 8 steps, patched in here): three
+    positive per-phase lines in the JAX CLI's format, then the eager
+    medians on a line of their own."""
+    phase_times = cli._phase_times
+    monkeypatch.setattr(cli, "_phase_times", lambda ctx, params:
+                        phase_times(ctx, params, inner=(2, 8)))
+    assert cli.main(["--device", "cpu", "demo", "--time"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    for phase in ("keygen ", "encrypt", "decrypt"):
+        line = next(ln for ln in lines if ln.startswith(f"[demo] {phase} "))
+        assert line.endswith(" us") and float(line.split()[-2]) > 0
+    assert any(ln.startswith("[demo] one eager call (median): ")
+               for ln in lines)
+
+
 def test_keys_encrypt_decrypt(tmp_path, capsys):
     keys, ct = str(tmp_path / "keys.npz"), str(tmp_path / "ct.npz")
     assert cli.main(CPU + ["keys", "--out", keys]) == 0

@@ -1,15 +1,21 @@
 """Where the time of each BFV op of the PyTorch/CUDA port goes, on one card.
 
     python3 tools/profile_ops.py [--set 32k_9q] [--fusion auto] [--reps 30]
-                                 [--ops keygen,encrypt,...] [--spmd]
-                                 [--ntt30] [--kernels] [--root DIR]
+                                 [--ops keygen,encrypt,...] [--graphs]
+                                 [--spmd] [--ntt30] [--kernels]
+                                 [--root DIR]
 
 For keygen, encrypt, decrypt, decrypt_batch (J = 3), encrypt_batch
 (J = 16, nonces 1..16), the EvalMult ops (mul, mul with
 relinearization, square, relin_keygen, relinearize), apply_galois (g = 3) and
 decrypt's back half on x = NTT(c1) (`decrypt_back_15`: kernel 15;
 `decrypt_back_8_K2`: kernel 8 + K2, as `BFVContext.decrypt` runs it) of
-one parameter set, through `BFVContext` (`--ops` picks some of them), or
+one parameter set, through `BFVContext` (`--ops` picks some of them;
+`--graphs` adds beside keygen, encrypt, decrypt, decrypt_batch_J3,
+encrypt_batch_J16, mul, mul_relin and square the same op's program,
+`BFVContext.op_programs` / `mult_program`, captured once as a CUDA graph
+by `utils/profiling.graphed`, as `<op>_graph`, every row timed on its
+replays), or
 with `--spmd` for keygen, encrypt, decrypt, mod_switch_to_next and the
 level-1 decrypt through the RNS-sharded `SpmdBFVContext` and mul,
 relinearize, mul with relinearization (`mul_rlk`), apply_galois (g = 3)
@@ -59,21 +65,28 @@ from __future__ import annotations
 
 import argparse
 import collections
+import importlib.util
 import json
 import socket
 import statistics
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
+HERE = Path(__file__).resolve().parents[1]
 ROOT = (Path(sys.argv[sys.argv.index("--root") + 1]).resolve()
-        if "--root" in sys.argv else Path(__file__).resolve().parents[1])
+        if "--root" in sys.argv else HERE)
 sys.path.insert(0, str(ROOT))
+
+# The measuring code is this checkout's (it imports only torch), whatever
+# tree --root names, so that two trees are read by the same code.
+_spec = importlib.util.spec_from_file_location(
+    "_profiling", HERE / "ntt_cuda_tpu_torch" / "utils" / "profiling.py")
+profiling = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(profiling)
 
 from ntt_cuda_tpu_torch import BFVContext, get_bfv_params  # noqa: E402
 from ntt_cuda_tpu_torch.ops import (behz, behz_kernels,  # noqa: E402
@@ -82,22 +95,6 @@ from ntt_cuda_tpu_torch.ops import (behz, behz_kernels,  # noqa: E402
 from ntt_cuda_tpu_torch.params import get_params  # noqa: E402
 from ntt_cuda_tpu_torch.parallel import (multihost, spmd,  # noqa: E402
                                          spmd2d, spmd2d_mult, spmd_mult)
-
-
-def device_intervals(prof) -> list[tuple[float, float, str]]:
-    """(start us, end us, name) of every device event of a profile."""
-    return [(e.time_range.start, e.time_range.end, e.name)
-            for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-
-
-def union_us(iv) -> float:
-    total, end = 0.0, float("-inf")
-    for s, e, _ in sorted(iv):
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total
 
 
 def event_ms(fn, reps: int) -> float:
@@ -113,16 +110,6 @@ def event_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def wall_ms(fn, reps: int) -> float:
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--set", default="32k_9q")
@@ -130,6 +117,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--ops", default="",
                     help="comma-separated op names (default: all)")
+    ap.add_argument("--graphs", action="store_true",
+                    help="also each op's program replayed as a CUDA graph")
     ap.add_argument("--spmd", action="store_true",
                     help="the sharded programs at world size 1 (NCCL)")
     ap.add_argument("--ntt30", action="store_true",
@@ -153,7 +142,7 @@ def main() -> int:
         fusion, ops = "kernels", kernel_ops(p)
     else:
         fusion, ops = (spmd_ops(p, msgs) if args.spmd
-                       else bfv_ops(p, args.fusion, msgs))
+                       else bfv_ops(p, args.fusion, msgs, args.graphs))
     if args.ops:
         ops = {k: ops[k] for k in args.ops.split(",")}
     for name, fn in ops.items():
@@ -162,27 +151,17 @@ def main() -> int:
         torch.cuda.synchronize()
         row = {"root": args.root, "set": args.set, "fusion": fusion,
                "op": name,
-               "event_ms": event_ms(fn, args.reps),
-               "sync_wall_ms": wall_ms(fn, args.reps)}
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     record_shapes=True) as prof:
-            for _ in range(args.reps):
-                fn()
-            torch.cuda.synchronize()
-        iv = device_intervals(prof)
-        if not iv:
-            row["profiler"] = "no device events: not measured"
-        else:
-            busy = union_us(iv) / args.reps
+               "event_ms": event_ms(fn, args.reps)}
+        busy, prof = profiling.busy_idle(fn, args.reps, record_shapes=True)
+        row.update(busy)
+        iv = profiling.device_intervals(prof)
+        if iv:
             port = collections.Counter()
             for s, e, n in iv:
                 n = n.split("(")[0].removeprefix("void ")
                 if n.startswith("k_"):
                     port[n] += (e - s) / args.reps
-            row.update(kernels_per_call=len(iv) / args.reps, busy_us=busy,
-                       port_kernels_us=dict(port),
-                       idle_share=1 - busy / (row["sync_wall_ms"] * 1e3))
+            row["port_kernels_us"] = dict(port)
         top = sorted(prof.key_averages(),
                      key=lambda a: -a.self_cpu_time_total)
         row["host_top_us"] = {a.key: a.self_cpu_time_total / args.reps
@@ -207,8 +186,9 @@ def glue_top_us(prof, reps: int, top: int = 10) -> dict:
     return {f"{a.key} {a.input_shapes}": dev_us(a) / reps for a in host[:top]}
 
 
-def bfv_ops(p, fusion: str, msgs) -> tuple[str, dict]:
-    """(the schedule, BFVContext's ops by name)."""
+def bfv_ops(p, fusion: str, msgs, graphs: bool = False) -> tuple[str, dict]:
+    """(the schedule, BFVContext's ops by name; with `graphs`, each program
+    replay after its op, graph_ops)."""
     ctx = BFVContext.build(p, fusion=fusion)
     sk, pk = ctx.keygen(nonce=1)
     cts = torch.stack([ctx.encrypt(pk, msgs[j], nonce=j + 1)
@@ -242,7 +222,33 @@ def bfv_ops(p, fusion: str, msgs) -> tuple[str, dict]:
             ntt_stage.ntt_inverse_mul(x, sk_drop, td), c0,
             ctx.dec_tail_consts),
     }
+    if graphs:
+        replays = graph_ops(ctx, sk, pk, cts, m16, rlk)
+        ops = {k: v for name, fn in ops.items()
+               for k, v in ((name, fn), (f"{name}_graph", replays.get(name)))
+               if v is not None}
     return ctx.fusion, ops
+
+
+def graph_ops(ctx, sk, pk, cts, m16, rlk) -> dict:
+    """The op programs of ctx on bfv_ops' inputs (nonce 1, nonces 1..16),
+    each captured once by profiling.graphed: {op name: its replay}."""
+    kg_fn, enc_fn, dec_fn, encb_fn, decb_fn, bz = ctx.op_programs()
+    mul_fn, sq_fn, mbz = ctx.mult_program()
+    one = torch.ones((), dtype=torch.int64, device=ctx.device)
+    n16 = torch.arange(1, 17, dtype=torch.int64, device=ctx.device)
+    specs = {
+        "keygen": (kg_fn, one, bz),
+        "encrypt": (enc_fn, one, pk, m16[0], bz),
+        "decrypt": (dec_fn, sk, cts[0], bz),
+        "decrypt_batch_J3": (decb_fn, sk, cts, bz),
+        "encrypt_batch_J16": (encb_fn, n16, pk, m16, bz),
+        "mul": (mul_fn, cts[0], cts[1], None, mbz),
+        "mul_relin": (mul_fn, cts[0], cts[1], rlk, mbz),
+        "square": (sq_fn, cts[0], None, mbz),
+    }
+    return {name: profiling.graphed(fn, *args)
+            for name, (fn, *args) in specs.items()}
 
 
 def ntt30_ops() -> dict:
