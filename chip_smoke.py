@@ -190,6 +190,28 @@ interleaved against in turn).  Then:
    (profiling.time_chained) and `python -m ntt_cuda_tpu_torch --params
    32k_9q demo --time`.
 
+17. what the port refused until it took them (slice_phase): keygen with
+   uniform_spec="fp64" at 16k_5q (op) and 32k_9q (stage), keys equal to
+   the CPU plain path, the draw at the edge words equal to the host
+   IEEE-double model, the keygen program replayed as a CUDA graph equal
+   to eager; odd t >= 2^31 at 32k_9q's widths (nine 57-bit moduli, t =
+   find_plain_modulus(32768, 33), and the largest batching t below
+   2^62): K2, 15 (every B) and 17 against their plain versions (beside
+   them at t = 65537, the Barrett strategy, for the times), the round
+   trip, decrypt_batch, encrypt_batch of 16 and the batching encoder
+   equal to the CPU plain path, EvalMult refused as the JAX package's
+   aux base refuses it, and the RNS-sharded program at world size 1 over
+   NCCL; n = 2^16 (r = 16) and 2^17 (r = 4): every stage row, K2-K5, 15,
+   18 (K5 and 18 at B = 16 at 2^17, where B = 8 is refused), the
+   EvalMult kernels and the bands at 2^16 (J = 1, 2) against their plain
+   versions; keygen, encrypt, decrypt, encrypt_batch of 16 and mul +
+   relin at 2^16 (keys and a ciphertext equal to the CPU plain path, the
+   products to the exact negacyclic products), fusion="op" equal to
+   stage there, a round trip and an encrypt_batch of 16 at 2^17, the
+   coefficient-sharded transform with a 2^16 shard; counts read per
+   path as in 3; the times of K2, 15, 17, kernels 7 and 8, K5 and 18 at
+   these shapes beside their bounds, and fp64 keygen beside int.
+
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and last `{"ok": true, "device": {...}}`.  Any failure raises,
 so the exit code is not 0 and no result line is printed.  Imports no jax.
@@ -228,7 +250,8 @@ from ntt_cuda_tpu_torch.parallel import (mesh as pmesh,  # noqa: E402
                                          coef_kernels, multihost, rns,
                                          sharded, spmd, spmd2d, spmd2d_mult,
                                          spmd_mult)
-from ntt_cuda_tpu_torch.utils import primegen  # noqa: E402
+from ntt_cuda_tpu_torch.models import encoder  # noqa: E402
+from ntt_cuda_tpu_torch.utils import golden, primegen  # noqa: E402
 from ntt_cuda_tpu_torch.utils import profiling  # noqa: E402
 from ntt_cuda_tpu_torch.utils.profiling import median_ms  # noqa: E402
 
@@ -334,18 +357,19 @@ KERNELS = {
     "salsa20_keystream": ((salsa20.keystream_words,),
                           "ntt_cuda_tpu_torch/csrc/salsa20.cu",
                           "ntt_cuda_tpu/ops/salsa20.py:174",
-                          ("mult", "op", "stage", "op32", "spmd",
-                           "spmd_mult", "spmd2d", "spmd2d_mult", "rns",
-                           "rns_inner")),
+                          ("mult", "op", "stage", "op32", "spmd", "spmd_mult",
+                           "spmd2d", "spmd2d_mult", "rns", "rns_inner", "fp64",
+                           "wide_t", "large_n", "large_n17")),
     "salsa20_keystream_batch": ((salsa20.keystream_words_batch,),
                                 "ntt_cuda_tpu_torch/csrc/salsa20.cu",
                                 "ntt_cuda_tpu/ops/salsa20.py:249",
-                                ("batch", "rns", "rns_inner", "programs")),
+                                ("batch", "rns", "rns_inner", "programs",
+                                 "wide_t", "large_n", "large_n17")),
     "decrypt_tail": ((bfv_tail.decrypt_tail,),
                      "ntt_cuda_tpu_torch/csrc/decrypt_tail.cu",
                      "ntt_cuda_tpu/ops/bfv_tail.py:388",
                      ("mult", "op", "stage", "batch", "op32", "rns_inner",
-                      "programs")),
+                      "programs", "wide_t", "large_n", "large_n17")),
     "half_polymul": ((fused_ops.half_polymul,),
                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                      "ntt_cuda_tpu/ops/fused_ops.py:213",
@@ -353,12 +377,12 @@ KERNELS = {
     "keygen_fused": ((fused_ops.keygen_fused,),
                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                      "ntt_cuda_tpu/ops/fused_ops.py:137",
-                     ("op", "op32", "spmd", "programs")),
+                     ("op", "op32", "spmd", "programs", "fp64")),
     "encrypt_fused": ((fused_ops.encrypt_fused,),
                       "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                       "ntt_cuda_tpu/ops/fused_ops.py:466",
-                      ("op", "batch", "op32", "rns", "rns_inner",
-                       "programs")),
+                      ("op", "batch", "op32", "rns", "rns_inner", "programs",
+                       "wide_t", "large_n", "large_n17")),
     # kernel 7, both directions (one TPU kernel with an `inverse` flag);
     # its times below are the forward's, the direction the main path runs
     # (also its shard-offset launch, coef_kernels.local_forward, on the
@@ -368,41 +392,45 @@ KERNELS = {
                       "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                       "ntt_cuda_tpu/ops/ntt_pallas.py:558",
                       ("mult", "stage", "spmd_mult", "spmd2d", "coef",
-                       "spmd2d_mult", "rns", "rns_inner", "programs")),
+                       "spmd2d_mult", "rns", "rns_inner", "programs", "wide_t",
+                       "large_n", "large_n17")),
     "ntt_inverse_mul": ((ntt_stage.ntt_inverse_mul,
                          coef_kernels.local_inverse_mul),
                         "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                         "ntt_cuda_tpu/ops/ntt_pallas.py:685",
                         ("mult", "stage", "spmd_mult", "spmd2d", "coef",
-                         "spmd2d_mult", "rns", "rns_inner", "programs")),
+                         "spmd2d_mult", "rns", "rns_inner", "programs", "fp64",
+                         "wide_t", "large_n", "large_n17")),
     "ntt_forward_ternary": ((ntt_stage.ntt_forward_ternary,),
                             "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                             "ntt_cuda_tpu/ops/ntt_pallas.py:782",
-                            ("mult", "stage", "rns", "rns_inner",
-                             "programs")),
+                            ("mult", "stage", "rns", "rns_inner", "programs",
+                             "fp64", "wide_t", "large_n", "large_n17")),
     "ntt_forward_addneg_gauss": ((ntt_stage.ntt_forward_addneg_gauss,),
                                  "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                                  "ntt_cuda_tpu/ops/ntt_pallas.py:959",
                                  ("mult", "stage", "rns", "rns_inner",
-                                  "programs")),
+                                  "programs", "fp64", "wide_t", "large_n",
+                                  "large_n17")),
     "encrypt_fused_stage": ((bfv_tail.encrypt_fused,),
                             "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                             "ntt_cuda_tpu/ops/bfv_tail.py:661",
-                            ("mult", "stage", "rns", "rns_inner",
-                             "programs")),
+                            ("mult", "stage", "rns", "rns_inner", "programs",
+                             "wide_t", "large_n", "large_n17")),
     "ntt_forward_addneg": ((ntt_stage.ntt_forward_addneg,),
                            "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                            "ntt_cuda_tpu/ops/ntt_pallas.py:868",
-                           ("mult", "spmd_mult", "rns", "rns_inner")),
+                           ("mult", "spmd_mult", "rns", "rns_inner",
+                            "large_n")),
     # three launches: two of ntt_stage.cu and fused_ops.cu's tail
     "keyswitch_fused": ((fused_ops.keyswitch_fused,),
                         "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                         "ntt_cuda_tpu/ops/fused_ops.py:651",
-                        ("mult", "rns_inner", "programs")),
+                        ("mult", "rns_inner", "programs", "large_n")),
     "behz_rns_to_bsk": ((behz_kernels.rns_to_bsk,),
                         "ntt_cuda_tpu_torch/csrc/behz.cu",
                         "ntt_cuda_tpu/ops/behz_pallas.py:183",
-                        ("mult", "rns_inner", "programs")),
+                        ("mult", "rns_inner", "programs", "large_n")),
     # 21b and 21c alone: no main path launches them (mul and square run
     # both bodies in one launch, scale_and_round, the next row; the
     # sharded EvalMult their band form, the rows below), so their
@@ -416,7 +444,7 @@ KERNELS = {
     "behz_scale_and_round": ((behz_kernels.scale_and_round,),
                              "ntt_cuda_tpu_torch/csrc/behz.cu",
                              "ntt_cuda_tpu/ops/behz_pallas.py:406",
-                             ("mult", "rns_inner", "programs")),
+                             ("mult", "rns_inner", "programs", "large_n")),
     # kernel 22, both directions; its times below are the forward's at
     # (16, 1, 65536)
     "ntt30_transform": ((ntt30.ntt_forward, ntt30.ntt_inverse),
@@ -425,19 +453,20 @@ KERNELS = {
     # the RNS-sharded program's kernels (parallel/spmd.py): 18, 16, 17
     "encrypt_front": ((fused_ops.encrypt_front,),
                       "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
-                      "ntt_cuda_tpu/ops/fused_ops.py:301", ("spmd",)),
+                      "ntt_cuda_tpu/ops/fused_ops.py:301",
+                      ("spmd", "wide_t_spmd")),
     # 16 also as the sharded key switch's modulus drop (no e, no message)
     "encrypt_tail_padded": ((bfv_tail.encrypt_tail_padded,
                              bfv_tail.drop_last_padded),
                             "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                             "ntt_cuda_tpu/ops/bfv_tail.py:760",
                             ("spmd", "spmd_mult", "spmd2d", "spmd2d_mult",
-                             "rns")),
+                             "rns", "wide_t_spmd")),
     "decrypt_tail_partial": ((bfv_tail.decrypt_tail_partial,),
                              "ntt_cuda_tpu_torch/csrc/decrypt_tail.cu",
                              "ntt_cuda_tpu/ops/bfv_tail.py:886",
                              ("spmd", "spmd_mult", "spmd2d", "spmd2d_mult",
-                              "rns")),
+                              "rns", "wide_t_spmd")),
     # the sharded EvalMult's kernels (parallel/spmd_mult.py): 20 (kernel
     # 19's two transform launches over a rank's rows) and 21a-c in band form
     "keyswitch_front": ((fused_ops.keyswitch_front,),
@@ -3313,6 +3342,443 @@ def programs_phase(dev, counts: dict) -> None:
     log(f"programs phase: {time.perf_counter() - t0:.1f} s")
 
 
+# --- phase 17: keygen's fp64 uniform spec, odd t >= 2^31, n = 2^16 and
+# 2^17 (the port's last refusals, lifted) ---------------------------------
+
+FP64_SETS = ((OP_SET, "op"), (STAGE_SET, "stage"))
+FP64_EDGES = (0, 1, 2**53 - 1, 2**53, 2**53 + 1, 2**63, 2**64 - 1)
+WIDE_N, WIDE_R = 32768, 9   # 32k_9q's widths
+WIDE_BITS = 57         # the narrowest modulus width at which
+#                        make_bfv_params(32768, bits, 9, t) finds nine primes
+#                        === 1 mod 2nt for t = find_plain_modulus(32768, 33)
+LARGE_SETS = ((16, 16), (17, 4))   # (log2 n, r): make_bfv_params(n, 55, r)
+
+
+def wide_t_params(top: bool = False) -> BFVParams:
+    """32k_9q's widths at an odd t >= 2^31: nine WIDE_BITS-bit moduli ===
+    1 mod 2nt for t = find_plain_modulus(32768, 33); with `top`, the same
+    moduli with the largest batching prime below 2^62, the port's bound
+    (t > q there: every integer is defined, the message does not survive)."""
+    t = primegen.find_plain_modulus(WIDE_N, 33)
+    p = primegen.make_bfv_params(WIDE_N, WIDE_BITS, WIDE_R, t=t)
+    if not top:
+        return p
+    step = 2 * p.n
+    t = (bfv_tail.T_MAX - 1) // step * step + 1
+    while not primegen.is_prime(t):
+        t -= step
+    return BFVParams(name=f"{p.name}_t62", n=p.n, q=p.q, psi=p.psi, t=t)
+
+
+def narrow_t_params() -> BFVParams:
+    """The same widths at the odd t = 65537 (< 2^31): the decrypt kernels'
+    Barrett strategy, timed beside the wide one."""
+    return primegen.make_bfv_params(WIDE_N, WIDE_BITS, WIDE_R, t=65537)
+
+
+def path_counts(counts: dict, name: str, run) -> dict:
+    """Counts set to 0, `run()` synchronised, its counts added to
+    counts[name]; returns run's result."""
+    torch.cuda.synchronize()
+    reset_counts()
+    res = run()
+    torch.cuda.synchronize()
+    acc = counts.setdefault(name, dict.fromkeys(KERNELS, 0))
+    for k, c in read_counts().items():
+        acc[k] += c
+    return res
+
+
+def require_launched(counts: dict, name: str) -> None:
+    missing = [k for k, (*_, s) in KERNELS.items()
+               if name in s and counts[name][k] < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {name} path: "
+                             f"{missing}")
+    log(f"launch counts in the {name} run: {json.dumps(counts[name])}")
+
+
+def fp64_phase(dev, counts: dict) -> dict:
+    """keygen with uniform_spec="fp64" at 16k_5q (op) and 32k_9q (stage),
+    counted on the "fp64" path: keys equal to the CPU plain path's; the
+    fp64 draw (sampling.uniform_ref) on the card at FP64_EDGES equal to the
+    host IEEE-double model (golden.uniform_ref_double) at every modulus;
+    the keygen program captured as a CUDA graph, its replay equal to
+    eager.  Returns eager and replay ms, fp64 beside int."""
+    times = {}
+    for name, fusion in FP64_SETS:
+        p = get_bfv_params(name)
+        ctx = BFVContext.build(p, device=dev, uniform_spec="fp64",
+                               fusion=fusion)
+        sk, pk = path_counts(counts, "fp64", lambda: ctx.keygen(3))
+        ref = BFVContext.build(p, device="cpu", uniform_spec="fp64",
+                               fusion=fusion).keygen(3)
+        if not same((sk.cpu(), pk.cpu()), ref):
+            raise AssertionError(f"fp64 keygen {name}: != the CPU plain path")
+        u = torch.tensor(np.array(FP64_EDGES, np.uint64).view(np.int64),
+                         device=dev).expand(p.r, -1).contiguous()
+        got = sampling.uniform_ref(u, ctx.tables_full.ms).cpu().numpy()
+        for i, q in enumerate(p.q):
+            if got[i].tolist() != golden.uniform_ref_double(FP64_EDGES, q):
+                raise AssertionError(f"fp64 draw {name} q_{i}: != the IEEE "
+                                     f"double model at {FP64_EDGES}")
+        kg_fn, *_, bz = ctx.op_programs()
+        nonce = torch.tensor(3, dtype=torch.int64, device=dev)
+        g = profiling.graphed(kg_fn, nonce, bz)
+        if not same(g(), (sk, pk)):
+            raise AssertionError(f"fp64 keygen {name}: replay != eager")
+        ctx_int = BFVContext.build(p, device=dev, fusion=fusion)
+        times[f"{name} {fusion}"] = {
+            "fp64_eager_ms": median_ms(lambda: ctx.keygen(3), 10),
+            "fp64_replay_ms": median_ms(g, 10),
+            "int_eager_ms": median_ms(lambda: ctx_int.keygen(3), 10),
+            "fp64_draw_ms": kernel_ms(lambda: sampling.uniform_ref(
+                pk[1], ctx.tables_full.ms)),
+            "int_draw_ms": kernel_ms(lambda: sampling.uniform(
+                pk[1], ctx.tables_full.ms))}
+        log(f"fp64 keygen {name} ({fusion}): keys equal the CPU plain path; "
+            f"the draw at {list(FP64_EDGES)} equals the IEEE-double model at "
+            f"every modulus; the keygen program's CUDA-graph replay equals "
+            f"eager")
+    require_launched(counts, "fp64")
+    return times
+
+
+def dec_kernel_cases(p: BFVParams, dev, rng) -> list:
+    """(kernel, label, call, plain call, Work) of K2 (J = 1, 3), kernel 15
+    (the rule) and kernel 17 (rows 0-3, 6-9 and 0-9, those p has) at p."""
+    n, rk = p.n, p.r - 1
+    dt = bfv_tail.DecTailConsts.build(p, dev)
+    td = ntt.tables_for(p, rk, device=dev)
+    cases = []
+    for J in (1, 3):
+        lead = () if J == 1 else (J,)
+        x, c0 = (rand_res(rng, p.q[:rk], n, lead, dev) for _ in range(2))
+        cases.append(("decrypt_tail", f"J={J}",
+                      lambda x=x, c0=c0: bfv_tail.decrypt_tail(x, c0, dt),
+                      lambda x=x, c0=c0: bfv_tail.decrypt_tail_plain(x, c0,
+                                                                     dt),
+                      decrypt_tail_work(x, c0, dt, J * n)))
+    x, sk, c0 = (rand_res(rng, p.q[:rk], n, (), dev) for _ in range(3))
+    cases.append(("decrypt_fused", "rule",
+                  lambda B=0: bfv_tail.decrypt_fused(x, sk, c0, td, dt,
+                                                     cluster=B),
+                  lambda: bfv_tail.decrypt_fused_plain(x, sk, c0, td, dt),
+                  decrypt_fused_work(x, sk, c0, td, dt)))
+    xf, cf = (rand_res(rng, p.q, n, (), dev) for _ in range(2))
+    for lo, hi in (b for b in SPMD_BANDS if b[1] <= p.r):
+        dc = bfv_tail.build_dec_tail_consts_padded(p, lo, hi, device=dev)
+        xs, cs = xf[lo:hi].contiguous(), cf[lo:hi].contiguous()
+        cases.append(("decrypt_tail_partial", f"rows {lo}-{hi}",
+                      lambda xs=xs, cs=cs, dc=dc:
+                          bfv_tail.decrypt_tail_partial(xs, cs, dc),
+                      lambda xs=xs, cs=cs, dc=dc:
+                          bfv_tail.decrypt_tail_partial_plain(xs, cs, dc),
+                      Work(nbytes(xs, cs, dc.k2_rows, dc.glob) + 16 * n,
+                           shoup=2 * (hi - lo) * n, mullo=(hi - lo) * n)))
+    return cases
+
+
+def kernel_row(kern, plain, work, mults, clock_hz) -> dict:
+    bound_ms, bound_by = work.bound(mults, clock_hz)
+    return {"ms": kernel_ms(kern), "us": device_us(kern),
+            "plain_ms": kernel_ms(plain, reps=3), "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def wide_t_phase(dev, counts: dict, errs: dict, mults: dict,
+                 clock_hz: float, rng) -> dict:
+    """Odd t >= 2^31 at 32k_9q's widths (wide_t_params): K2, 15 (every B)
+    and 17 against their plain versions at t = find_plain_modulus(32768,
+    33), at the largest batching t below 2^62 and, for the times, at t =
+    65537; the "wide_t" path through BFVContext.build(params) (the default
+    device, stage): keygen, three messages round-tripped, decrypt_batch,
+    encrypt_batch of BATCH_J (rows equal to encrypt), the batching encoder
+    (encode, encrypt, decrypt, decode == the slots), keys and ciphertexts
+    equal to the CPU plain path; EvalMult refused as the JAX package
+    refuses it there (its aux base is too small for such a t); at the
+    2^62 t a round trip equal to the CPU plain path; the RNS-sharded
+    program at world size 1 over NCCL ("wide_t_spmd": kernels 16-18, x_t's
+    all-reduce in 32-bit halves) round-tripping and equal to
+    BFVContext's.  Returns per-kernel times."""
+    p33, p62, pnarrow = wide_t_params(), wide_t_params(top=True), \
+        narrow_t_params()
+    times = {}
+    for p in (p33, p62, pnarrow):
+        for kname, label, kern, plain, work in dec_kernel_cases(p, dev, rng):
+            ref = plain()
+            compare(kname, kern(), ref, errs)
+            if kname == "decrypt_fused":
+                for B in (2, 4, 8):
+                    compare(kname, kern(B), ref, errs)
+            if p is not p62:
+                times[f"{kname} {label} t={p.t}"] = kernel_row(
+                    kern, plain, work, mults, clock_hz)
+        log(f"check K2 (J = 1, 3), 15 (B = rule, 2, 4, 8) and 17 (rows "
+            f"{list(SPMD_BANDS)}) at {p.name} t={p.t} (mod-t strategy "
+            f"{bfv_tail._t_mode(p.t)}): equal to their plain versions")
+    p = p33
+    ctx = BFVContext.build(p)
+    msgs = np.random.default_rng(SEED + 18).integers(0, p.t, (BATCH_J, p.n),
+                                                     dtype=np.uint64)
+    msgs[:, :3] = [0, 1, p.t - 1]
+    enc = encoder.BatchEncoder(p, dev)
+    slots = msgs[0].copy()
+
+    def run():
+        res = drive(ctx, msgs[:3])
+        sk, pk = res["sk"], res["pk"]
+        cts = ctx.encrypt_batch(pk, msgs, list(range(1, BATCH_J + 1)))
+        res.update(batch=cts, outb16=ctx.decrypt_batch(sk, cts),
+                   plain=enc.encode(slots))
+        res["slots"] = enc.decode(ctx.decrypt(sk, ctx.encrypt(
+            pk, res["plain"], nonce=99)))
+        return res
+    res = path_counts(counts, "wide_t", run)
+    cpu = BFVContext.build(p, device="cpu")
+    check_path(f"{p.name} t={p.t}", res, msgs[:3], drive(cpu, msgs[:3]))
+    for j in range(BATCH_J):
+        if not torch.equal(res["batch"][j], ctx.encrypt(
+                res["pk"], msgs[j], nonce=j + 1)):
+            raise AssertionError(f"wide t: encrypt_batch row {j} != encrypt")
+    if not np.array_equal(res["outb16"].cpu().numpy().astype(np.uint64),
+                          msgs):
+        raise AssertionError("wide t: the batch does not round-trip")
+    if not (torch.equal(res["plain"].cpu(),
+                        encoder.BatchEncoder(p, "cpu").encode(slots))
+            and np.array_equal(res["slots"].cpu().numpy().astype(np.uint64),
+                               slots)):
+        raise AssertionError("wide t: encoder != CPU, or slots lost")
+    try:
+        behz.AuxBase.build(p)
+    except ValueError as e:
+        log(f"wide t {p.name}: EvalMult refused, as the JAX package's "
+            f"AuxBase refuses it: {e}")
+    else:
+        raise AssertionError("wide t: the aux base was expected to refuse")
+    log(f"wide t path {p.name} t={p.t}: 3 messages round-trip; "
+        f"decrypt_batch agrees; keys and ciphertexts equal the CPU plain "
+        f"path; encrypt_batch of {BATCH_J} equals encrypt row by row and "
+        f"round-trips; the batching encoder equals the CPU's and its slots "
+        f"survive encrypt and decrypt")
+    require_launched(counts, "wide_t")
+    ctx62 = BFVContext.build(p62, device=dev)
+    m62 = msgs[:1] % np.uint64(p62.t)
+    check_path_unrounded(p62, drive(ctx62, m62),
+                         drive(BFVContext.build(p62, device="cpu"), m62))
+    log(f"wide t {p62.name} t={p62.t}: keys, ciphertexts and plaintexts "
+        f"equal the CPU plain path (t > q: the message does not survive)")
+    sctx = spmd.SpmdBFVContext.build(p)
+
+    def run_spmd():
+        sk, pk = sctx.keygen(nonce=1)
+        cts = [sctx.encrypt(pk, msgs[j], nonce=j + 1) for j in range(2)]
+        return sk, pk, cts, [sctx.decrypt(sk, c) for c in cts]
+    sk_s, pk_s, cts_s, outs_s = path_counts(counts, "wide_t_spmd", run_spmd)
+    for j in range(2):
+        if not np.array_equal(outs_s[j].to_local().cpu().numpy().astype(
+                np.uint64), msgs[j]):
+            raise AssertionError(f"wide t SPMD: message {j} lost")
+        if not torch.equal(cts_s[j].to_local()[:, :p.r - 1],
+                           res["cts"][j]):
+            raise AssertionError(f"wide t SPMD: ciphertext {j} != "
+                                 f"BFVContext's")
+    log(f"wide t SPMD {p.name} at world size 1 over NCCL: 2 messages "
+        f"round-trip, ciphertexts equal BFVContext's")
+    require_launched(counts, "wide_t_spmd")
+    return times
+
+
+def check_path_unrounded(p: BFVParams, res: dict, ref: dict) -> None:
+    """Keys, ciphertexts and plaintexts equal to `ref` (the CPU's), where
+    the message need not survive."""
+    for key in ("sk", "pk"):
+        if not torch.equal(res[key].cpu(), ref[key].cpu()):
+            raise AssertionError(f"{p.name}: {key} != the CPU run")
+    for a, b in zip(res["cts"] + res["outs"], ref["cts"] + ref["outs"]):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"{p.name}: a ciphertext or plaintext != "
+                                 f"the CPU run")
+
+
+def large_n_phase(dev, counts: dict, errs: dict, mults: dict,
+                  clock_hz: float, rng) -> dict:
+    """n = 2^16 (r = 16) and 2^17 (r = 4), make_bfv_params(n, 55, r): every
+    stage row, K2-K5, 15 (every B that fits), 18, the EvalMult kernels and
+    the conversions with their bands against their plain versions, K5 and
+    18 also at B = 8 (2^16) and B = 16 (2^17, where B = 8 is refused);
+    the "large_n" path at 2^16 (stage: keygen, two messages round-tripped,
+    decrypt_batch, encrypt_batch of BATCH_J, relin_keygen, mul + relin and
+    square + relin), keys and the first ciphertext equal to the CPU plain
+    path, the products equal to the exact negacyclic products mod t;
+    fusion="op" at 2^16 equal to stage; the "large_n17" path at 2^17
+    (keygen equal to the CPU's, a round trip, encrypt_batch of BATCH_J:
+    K5 at B = 16); the coefficient-sharded transform at 2^17 over C = 2
+    (2^16 a shard).  Returns per-kernel times."""
+    times = {}
+    for logn, r in LARGE_SETS:
+        p = primegen.make_bfv_params(1 << logn, 55, r)
+        first = (logn, r) == LARGE_SETS[0]
+        try:
+            behz.AuxBase.build(p)
+            mult = True
+        except ValueError:      # 2^17 at r = 4: the aux base refuses, as
+            mult = False        # the JAX package's does
+        ctx_s = BFVContext.build(p, device=dev, fusion="stage")
+        ctx_o = BFVContext.build(p, device=dev, fusion="op")
+        timed = {}
+        for kname, J, kern, plain, work in (stage_cases(ctx_s, rng, dev)
+                                            + op_cases(ctx_o, rng, dev)):
+            compare("ntt_transform" if kname in ("ntt_forward",
+                                                 "ntt_inverse") else kname,
+                    kern(), plain(), errs)
+            if J == 1:
+                timed.setdefault(kname, (kern, plain, work))
+        if mult:
+            for kname, J, kern, plain, _ in mult_cases(ctx_s, rng, dev):
+                compare(kname, kern(), plain(), errs)
+            for J in (1, 2):     # J = 2: 2^17 coefficients a launch and more
+                for kname, label, kern, plain, _ in group_cases(p, dev, rng,
+                                                                J):
+                    compare(kname, kern(), plain(), errs)
+        for kname, label, kern, plain, work in dec_kernel_cases(p, dev,
+                                                                rng)[2:3]:
+            ref = plain()
+            for B in CLUSTER_BS:
+                if dec_fits(B, p.n):
+                    compare(kname, kern(B), ref, errs)
+            timed[kname] = (kern, plain, work)
+        Bbig = 8 if enc_fits(8, p.n) else 16
+        inputs = enc_inputs(ctx_o, rng, 1, dev)
+        for B in (0, Bbig):
+            for kname, kern, plain in enc_calls(ctx_o, inputs, B):
+                compare(kname, kern(), plain(), errs)
+        if Bbig == 16:
+            for kname, kern, _ in enc_calls(ctx_o, inputs, 8):
+                try:
+                    kern()
+                except RuntimeError:
+                    continue
+                raise AssertionError(f"{kname} took B = 8 at 2^17")
+        pk, u_b, e_d, m = inputs
+        timed["encrypt_front"] = (
+            lambda: fused_ops.encrypt_front(u_b[0], pk, ctx_o.tables_full),
+            lambda: fused_ops.encrypt_front_plain(u_b[0], pk,
+                                                  ctx_o.tables_full),
+            Work(nbytes(u_b[0], pk, *tables(ctx_o.tables_full), pk),
+                 shoup=transform_butterflies(3 * r, p.n) + 2 * r * p.n,
+                 mont=2 * r * p.n))
+        log(f"check n = 2^{logn} r = {r}: every stage row, K2-K5, 15 "
+            f"(B = {[B for B in CLUSTER_BS if dec_fits(B, p.n)]}), 18, "
+            f"K5 and 18 at B = {Bbig}"
+            + (" (B = 8 refused)" if Bbig == 16 else "")
+            + (", the EvalMult kernels, 21a-c, scale_and_round and the "
+               "bands (J = 1, 2)" if mult else "")
+            + ": equal to their plain versions; the rule's B = "
+            f"{ntt_stage.cluster_size(p.n)}")
+        for kname in ("ntt_forward", "ntt_inverse_mul", "decrypt_tail",
+                      "decrypt_fused", "encrypt_fused", "encrypt_front"):
+            kern, plain, work = timed[kname]
+            times[f"{kname} n=2^{logn}"] = kernel_row(kern, plain, work,
+                                                      mults, clock_hz)
+        msgs = np.random.default_rng(SEED + logn).integers(0, p.t,
+                                                           (BATCH_J, p.n))
+        if first:
+            ctx = BFVContext.build(p)
+            if ctx.fusion != "stage":
+                raise AssertionError("2^16: the rule took op")
+
+            def run():
+                res = drive(ctx, msgs[:2])
+                res["batch"] = ctx.encrypt_batch(res["pk"], msgs,
+                                                 list(range(1, BATCH_J + 1)))
+                res["outb16"] = ctx.decrypt_batch(res["sk"], res["batch"])
+                res["mult"] = drive_mult(ctx, msgs[:2], dev)
+                return res
+            res = path_counts(counts, "large_n", run)
+            cpu = BFVContext.build(p, device="cpu")
+            sk_c, pk_c = cpu.keygen(nonce=1)
+            ct_c = cpu.encrypt(pk_c, msgs[0], nonce=1)
+            if not same((res["sk"].cpu(), res["pk"].cpu(),
+                         res["cts"][0].cpu()), (sk_c, pk_c, ct_c)):
+                raise AssertionError("2^16: keys or ciphertext != CPU")
+            for j in range(2):
+                if not np.array_equal(res["outs"][j].cpu().numpy(), msgs[j]):
+                    raise AssertionError(f"2^16: message {j} lost")
+            each = torch.stack([ctx.encrypt(res["pk"], msgs[j], nonce=j + 1)
+                                for j in range(BATCH_J)])
+            if not (torch.equal(res["batch"], each) and np.array_equal(
+                    res["outb16"].cpu().numpy(), msgs)):
+                raise AssertionError("2^16: encrypt_batch != encrypt, or "
+                                     "lost")
+            check_mult(p, res["mult"], msgs[:2], dev)
+            op = drive(ctx_o, msgs[:2])
+            if not same((op["sk"], op["pk"], *op["cts"], *op["outs"]),
+                        (res["sk"], res["pk"], *res["cts"], *res["outs"])):
+                raise AssertionError("2^16: fusion='op' != stage")
+            log(f"large n path 2^16 ({p.name}, stage): keygen, 2 messages "
+                f"round-trip, keys and the first ciphertext equal the CPU "
+                f"plain path; encrypt_batch of {BATCH_J} equals encrypt and "
+                f"round-trips; mul at L = 3, mul + relin and square + relin "
+                f"decrypt to the negacyclic products mod t; fusion='op' "
+                f"equals stage")
+            require_launched(counts, "large_n")
+        else:
+            ctx = BFVContext.build(p)
+
+            def run17():
+                res = drive(ctx, msgs[:2])
+                sk, pk = res["sk"], res["pk"]
+                cts = ctx.encrypt_batch(pk, msgs, list(range(1, BATCH_J + 1)))
+                res["outb16"] = ctx.decrypt_batch(sk, cts)
+                return res
+            res = path_counts(counts, "large_n17", run17)
+            sk_c, pk_c = BFVContext.build(p, device="cpu").keygen(nonce=1)
+            if not same((res["sk"].cpu(), res["pk"].cpu()), (sk_c, pk_c)):
+                raise AssertionError("2^17: keys != CPU")
+            if not (all(np.array_equal(res["outs"][j].cpu().numpy(),
+                                       msgs[j]) for j in range(2))
+                    and np.array_equal(res["outb16"].cpu().numpy(), msgs)):
+                raise AssertionError("2^17: a message was lost")
+            log(f"large n path 2^17 ({p.name}, stage): keys equal the CPU "
+                f"plain path; 2 messages and an encrypt_batch of {BATCH_J} "
+                f"(K5 at B = 16) round-trip")
+            require_launched(counts, "large_n17")
+            run = coef_path(p, 2, rng, dev, errs)
+            if run["counts"]["ntt_transform"] < 1:
+                raise AssertionError("coef path 2^17 C = 2: no launch")
+            log(f"coef path 2^17 C = 2 (2^16 a shard): every shard's "
+                f"launch equals its plain version and the whole transforms; "
+                f"launch counts {json.dumps(run['counts'])}")
+    return times
+
+
+def slice_phase(dev, counts: dict, errs: dict, mults: dict,
+                clock_hz: float) -> None:
+    """Phase 17 (fp64_phase, wide_t_phase, large_n_phase), its times beside
+    the card's name and power limit."""
+    t0 = time.perf_counter()
+    card = smi("name,power.limit")
+    rng = np.random.default_rng(SEED + 17)
+    fp64 = fp64_phase(dev, counts)
+    log(f"fp64 keygen times ({card}; ms: median of 10 CUDA-event timings "
+        f"around one call; the draw alone (plain tensor ops): ms per call "
+        f"of 20 back to back, CUDA events): "
+        f"{json.dumps(fp64)}")
+    wide = wide_t_phase(dev, counts, errs, mults, clock_hz, rng)
+    log(f"decrypt kernels at odd t ({card}; ms per call of 20 back to "
+        f"back, CUDA events, median of 3; us: device time, torch.profiler; "
+        f"bound: bytes over {HBM_BYTES_PER_S:.3g} B/s or the multiplies; "
+        f"t={narrow_t_params().t} the Barrett strategy, the other t the "
+        f"wide one): {json.dumps(wide)}")
+    large = large_n_phase(dev, counts, errs, mults, clock_hz, rng)
+    log(f"kernels at n = 2^16 (r = 16) and 2^17 (r = 4) ({card}; as "
+        f"above; J = 1; K5 and 18 at the rule's B: 8 at 2^16, 16 at "
+        f"2^17): {json.dumps(large)}")
+    log(f"slice phase (fp64, wide t, large n): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; "
@@ -4145,6 +4611,7 @@ def main() -> int:
         f"ms {inv[1]}, bound ms {inv[2]} ({inv[3]})")
     bounds["ntt_transform"] = bounds.pop("ntt_forward")
     programs_phase(dev, counts)
+    slice_phase(dev, counts, errs, mults, clock_hz)
     rows = []
     for kname, (_, source, replaces, scheds) in KERNELS.items():
         ms, plain_ms, bound_ms, bound_by = bounds[kname]

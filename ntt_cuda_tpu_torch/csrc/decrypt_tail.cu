@@ -30,9 +30,13 @@
 // Coalesced: a warp reads 32 / G consecutive coefficients of each of its
 // rows.
 //
-// Mod-t strategy (bfv_tail._t_strategy): pow2 t uses the reference's mask
-// forms (poly_arithmetic.cuh:217-268); odd t < 2^31 reduces by Barrett with
-// nu_t = floor(2^64 / t) and ends with the gamma^-1 mod t undo.
+// Mod-t strategy (bfv_tail._t_strategy, the launch's `pow2` argument): 1,
+// pow2 t, uses the reference's mask forms (poly_arithmetic.cuh:217-268); 0,
+// odd t < 2^31, reduces by Barrett with nu_t = floor(2^64 / t) and ends
+// with the gamma^-1 mod t undo; 2, odd t >= 2^31, runs the WIDE
+// instantiations (behz_sums.cuh: Montgomery products mod t on 128-bit
+// products, every sum an add mod t).  The first two share one set of
+// instantiations, as before the third was added.
 //
 // Kernel 17, decrypt_tail_partial, replaces ntt_cuda_tpu/ops/bfv_tail.py
 // decrypt_tail_partial (bfv_tail.py:886, pallas_call :908): one rank of the
@@ -57,34 +61,36 @@
 
 // Member 0's epilogue: the plaintext coefficient (K2, out (J, n)), or
 // the partial sums (kernel 17, out (J, 2, n): x_t, x_g).
-template <bool PARTIAL>
+template <bool PARTIAL, bool WIDE>
 NTT_HD void dt_finish(BehzSums s, long long j, int k, u64* out, const u64* gl,
                       int n, int pow2, u64 t, u64 neg_t, u64 nu_t,
                       u64 inv_gt) {
   if (PARTIAL) {
-    out[(2 * j) * n + k] = pow2 ? s.xt & 0xFFFFFFFFull : s.xt;
+    out[(2 * j) * n + k] = pow2 && !WIDE ? s.xt & 0xFFFFFFFFull : s.xt;
     out[(2 * j + 1) * n + k] = s.xg;
   } else {
-    out[j * n + k] = dec_round(s, gl, pow2, t, neg_t, nu_t, inv_gt);
+    out[j * n + k] = dec_round<WIDE>(s, gl, pow2, t, neg_t, nu_t, inv_gt);
   }
 }
 
 // Coefficient k of message j from its G members' partial sums (member g:
 // rows g, g + G, ..., at most ROWS), added in member order (the host form
 // of the kernel's butterflies).
-template <int ROWS, bool PARTIAL>
+template <int ROWS, bool PARTIAL, bool WIDE>
 NTT_HD void decrypt_tail_body(long long j, int k, const u64* x, const u64* c0,
                               u64* out, const u64* kr, const u64* gl, int rk,
                               int n, int pow2, u64 t, u64 neg_t, u64 nu_t,
                               u64 inv_gt, int G) {
-  BehzSums s = behz_sums_loaded<ROWS>(j, k, x, c0, kr, gl, rk, n, pow2, t,
-                                      nu_t, 0, G);
+  BehzSums s = behz_sums_loaded<ROWS, WIDE>(j, k, x, c0, kr, gl, rk, n, pow2,
+                                            t, nu_t, 0, G);
   for (int g = 1; g < G; ++g)
-    s = behz_sums_add(s,
-                      behz_sums_loaded<ROWS>(j, k, x, c0, kr, gl, rk, n, pow2,
-                                             t, nu_t, g, G),
-                      gl, pow2, t);
-  dt_finish<PARTIAL>(s, j, k, out, gl, n, pow2, t, neg_t, nu_t, inv_gt);
+    s = behz_sums_add<WIDE>(
+        s,
+        behz_sums_loaded<ROWS, WIDE>(j, k, x, c0, kr, gl, rk, n, pow2, t,
+                                     nu_t, g, G),
+        gl, pow2, t);
+  dt_finish<PARTIAL, WIDE>(s, j, k, out, gl, n, pow2, t, neg_t, nu_t,
+                           inv_gt);
 }
 
 // K2's group size G, as log2: the least G >= 2 that leaves a member at
@@ -107,55 +113,65 @@ struct DtArgs {
 
 #ifdef __CUDACC__
 
-template <int ROWS, bool PARTIAL>
+template <int ROWS, bool PARTIAL, bool WIDE>
 __global__ void __launch_bounds__(DT_THREADS) k_decrypt_tail(DtArgs a) {
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   const int k = v >> a.lg, G = 1 << a.lg, g = v & (G - 1);
   const long long j = blockIdx.y;
   BehzSums s = {0, 0};
   if (k < a.n)
-    s = behz_sums_loaded<ROWS>(j, k, a.x, a.c0, a.kr, a.gl, a.rk, a.n, a.pow2,
-                               a.t, a.nu_t, g, G);
+    s = behz_sums_loaded<ROWS, WIDE>(j, k, a.x, a.c0, a.kr, a.gl, a.rk, a.n,
+                                     a.pow2, a.t, a.nu_t, g, G);
   for (int m = 1; m < G; m <<= 1) {
     const BehzSums o = {__shfl_xor_sync(0xffffffffu, s.xt, m),
                         __shfl_xor_sync(0xffffffffu, s.xg, m)};
-    s = behz_sums_add(s, o, a.gl, a.pow2, a.t);
+    s = behz_sums_add<WIDE>(s, o, a.gl, a.pow2, a.t);
   }
   if (g == 0 && k < a.n)
-    dt_finish<PARTIAL>(s, j, k, a.out, a.gl, a.n, a.pow2, a.t, a.neg_t,
-                       a.nu_t, a.inv_gt);
+    dt_finish<PARTIAL, WIDE>(s, j, k, a.out, a.gl, a.n, a.pow2, a.t, a.neg_t,
+                             a.nu_t, a.inv_gt);
 }
 
-template <int ROWS, bool PARTIAL>
+template <int ROWS, bool PARTIAL, bool WIDE>
 static void dt_run(const DtArgs& a, void* stream) {
   const dim3 grid(
       (unsigned)((((long long)a.n << a.lg) + DT_THREADS - 1) / DT_THREADS),
       (unsigned)a.J);
-  k_decrypt_tail<ROWS, PARTIAL><<<grid, DT_THREADS, 0, (cudaStream_t)stream>>>(
-      a);
+  k_decrypt_tail<ROWS, PARTIAL, WIDE>
+      <<<grid, DT_THREADS, 0, (cudaStream_t)stream>>>(a);
 }
 
 #else  // host build for the CPU tests: each coefficient's members in turn
 
-template <int ROWS, bool PARTIAL>
+template <int ROWS, bool PARTIAL, bool WIDE>
 static void dt_run(const DtArgs& a, void*) {
   for (long long j = 0; j < a.J; ++j)
     for (int k = 0; k < a.n; ++k)
-      decrypt_tail_body<ROWS, PARTIAL>(j, k, a.x, a.c0, a.out, a.kr, a.gl,
-                                       a.rk, a.n, a.pow2, a.t, a.neg_t,
-                                       a.nu_t, a.inv_gt, 1 << a.lg);
+      decrypt_tail_body<ROWS, PARTIAL, WIDE>(j, k, a.x, a.c0, a.out, a.kr,
+                                             a.gl, a.rk, a.n, a.pow2, a.t,
+                                             a.neg_t, a.nu_t, a.inv_gt,
+                                             1 << a.lg);
 }
 
 #endif
 
 // ROWS = ceil(rk / G) (runtime) -> the instantiation, 1..DT_MAX_ROWS.
-template <bool PARTIAL, int ROWS = 1>
-static void dt_dispatch(const DtArgs& a, void* stream) {
+template <bool PARTIAL, bool WIDE, int ROWS = 1>
+static void dt_rows(const DtArgs& a, void* stream) {
   const int G = 1 << a.lg;
   if ((a.rk + G - 1) / G <= ROWS || ROWS == DT_MAX_ROWS)
-    dt_run<ROWS, PARTIAL>(a, stream);
+    dt_run<ROWS, PARTIAL, WIDE>(a, stream);
   else if constexpr (ROWS < DT_MAX_ROWS)
-    dt_dispatch<PARTIAL, ROWS + 1>(a, stream);
+    dt_rows<PARTIAL, WIDE, ROWS + 1>(a, stream);
+}
+
+// The strategy (pow2 2: WIDE) and then ROWS.
+template <bool PARTIAL>
+static void dt_dispatch(const DtArgs& a, void* stream) {
+  if (a.pow2 == 2)
+    dt_rows<PARTIAL, true>(a, stream);
+  else
+    dt_rows<PARTIAL, false>(a, stream);
 }
 
 static bool dt_args(const void* x, const void* c0, void* out, const void* kr,
@@ -165,7 +181,7 @@ static bool dt_args(const void* x, const void* c0, void* out, const void* kr,
        (const u64*)gl, J,     rk,    n,     pow2,  t,
        neg_t,           nu_t,  inv_gt, dt_lg(rk)};
   return J >= 1 && J <= 65535 && n >= 1 && n <= (1 << 27) && rk >= 1 &&
-         a.lg >= 0;
+         a.lg >= 0 && pow2 >= 0 && pow2 <= 2;
 }
 
 // The launchers' status: NTT_EINVAL-like for arguments the kernel does not

@@ -19,7 +19,7 @@
 // inverse's n^-1 cancel in one Shoup multiply by n^-1 * 2^64 at the end.
 //
 // The three transforms (K3, K4, and K5's transform with kernel 18), every
-// n <= 2^15 in one launch: the stage kernels' cluster schedule
+// n <= 2^17 in one launch: the stage kernels' cluster schedule
 // (ntt_cluster.cuh, ntt_stage.cu).  One polynomial p per cluster of
 // B = 2^cl blocks, P B blocks; block b holds coefficients
 // [b n/B, (b + 1) n/B) of it in BUFS buffers of n/B u64 and, after its
@@ -55,15 +55,19 @@
 // keeps every block's shared memory until its peers have read it (K4's D
 // is local: its barrier is the one before D).
 // B: stage_cluster_log with the op's buffers a block, 8 wherever it fits
-// (2^15: B >= 2 for one buffer, B >= 4 for two; 2^14: B >= 2 for two);
-// the launchers refuse a B that does not fit or is no power of two up to
-// 8.  The launcher (run_cluster) raises the shared memory limit to the
-// shape's need and checks the cluster's fit once per kernel, device and
-// shape, and returns the CUDA error where it does not: there is no
-// two-halves, one-block or plain schedule behind it.  Bound on the card:
-// the latency of a block's local stages, as the stage kernels' (PERF.md);
-// device memory is read once (x and y; s, a and e; u, pk and e; the
-// tables) and each output written once.
+// (2^15: B >= 2 for one buffer, B >= 4 for two; 2^14: B >= 2 for two; 2^16: B
+// >= 4 for one, 8 for two; 2^17: 8 for one), and 16 for the two buffers of
+// K5's transform and kernel 18 at 2^17 (two 64 KB buffers a block; a
+// non-portable cluster size, allowed on each kernel and checked against the
+// card with cudaOccupancyMaxActiveClusters at set-up, as every cluster); the
+// launchers refuse a B that does not fit or is no power of two up to 8 (16
+// only there).  The launcher (run_cluster) raises the shared memory limit to
+// the shape's need and checks the cluster's fit once per kernel, device and
+// shape, and returns the CUDA error where it does not: there is no two-halves,
+// one-block or plain schedule behind it.  Bound on the card: the latency of a
+// block's local stages, as the stage kernels' (PERF.md); device memory is read
+// once (x and y; s, a and e; u, pk and e; the tables) and each output written
+// once.
 //
 // encrypt_fused cannot carry the last residue across grid steps as the TPU
 // grid does (fused_ops.py:397-407): blocks run in no order.  Its transform
@@ -584,14 +588,25 @@ static int et_launch(EncryptTail f, int rows, void* stream) {
                 : et_dispatch<1>(f, rows, stream);
 }
 
+// The launch at B = 16 (cluster_ok: two buffers a block at 2^17), built
+// only for the transforms of two buffers.
+template <typename F>
+static constexpr int (*op_run16())(const F&, int, void*) {
+  if constexpr (F::BUFS > 1)
+    return run_cluster_op<4, F>;
+  else
+    return nullptr;
+}
+
 // One transform over P polynomials at cluster size B (0: the rule,
 // stage_cluster_log with F::BUFS buffers a block), or NTT_EINVAL where a
 // block of a cluster of B cannot hold F::BUFS buffers of n/B points.
 template <typename F>
 static int op_launch(const F& f, int P, int B, void* stream) {
   typedef int (*Run)(const F&, int, void*);
-  static const Run runs[4] = {run_cluster_op<0, F>, run_cluster_op<1, F>,
-                              run_cluster_op<2, F>, run_cluster_op<3, F>};
+  static const Run runs[5] = {run_cluster_op<0, F>, run_cluster_op<1, F>,
+                              run_cluster_op<2, F>, run_cluster_op<3, F>,
+                              op_run16<F>()};
   const int cl = cluster_log(B, f.logn, F::BUFS);
   if (P < 1 || cl < 0) return NTT_EINVAL;
   return runs[cl](f, P, stream);

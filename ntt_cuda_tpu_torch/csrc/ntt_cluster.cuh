@@ -1,14 +1,14 @@
-// The thread-block cluster schedule shared by every transform of the
-// library: the stage transforms (ntt_stage.cu, kernels 7-13, 19, 20, and
-// kernel 15's inverse), the whole-op transforms (fused_ops.cu: K3, K4, K5
-// and kernel 18) and the 30-bit transform (ntt30.cu, kernel 22): one
-// polynomial per cluster of B = 2^cl blocks (cl <= 3: B <= 8, the portable
-// cluster size), block j holding coefficients [j n/B, (j + 1) n/B) of it in
-// its own shared memory.  The cross stages (the first log2 B of a forward,
+// The thread-block cluster schedule shared by every transform of the library:
+// the stage transforms (ntt_stage.cu, kernels 7-13, 19, 20, and kernel 15's
+// inverse), the whole-op transforms (fused_ops.cu: K3, K4, K5 and kernel 18)
+// and the 30-bit transform (ntt30.cu, kernel 22): one polynomial per cluster
+// of B = 2^cl blocks (cl <= 3: B <= 8, the portable cluster size; cl = 4, B =
+// 16, only where a launch's two buffers do not fit eight blocks: the whole-op
+// transforms at 2^17), block j holding coefficients [j n/B, (j + 1) n/B) of it
+// in its own shared memory.  The cross stages (the first log2 B of a forward,
 // the last of an inverse) run in registers on one column's B values, moved
-// between the blocks through distributed shared memory; the local stages
-// run in each block (ntt_block.cuh's tiled passes, STAGE_TILE stages a
-// pass).
+// between the blocks through distributed shared memory; the local stages run
+// in each block (ntt_block.cuh's tiled passes, STAGE_TILE stages a pass).
 //
 // Here, for either word (u64 with Twiddles, u32 with Twiddles32): the
 // cross stages, the rule that picks B, the threads a block may run, the
@@ -63,56 +63,75 @@ NTT_HD void cross_inv(W* v, const TW& t, W q, int base) {
   }
 }
 
-// The longest transform a cluster launch takes: 2^15 u64 points
+// The longest transform a cluster launch takes: 2^17 u64 points
 // (cuda.TRANSFORM_MAX_N), 2^16 u32 (cuda.TRANSFORM30_MAX_N).
-#define LOG_TRANSFORM_MAX 15
+#define LOG_TRANSFORM_MAX 17
+#define LOG_TRANSFORM30_MAX 16
+
+// The n the kernels' __launch_bounds__ are sized for (ClusterBound): 2^15
+// u64, the longest transform before the cap rose to 2^17.  Longer ones run
+// more than one set of points a thread, in turn.
+#define LOG_BOUND_N 15
 
 // Whether a launch of 2^logn points of W takes clusters of 2^cl blocks,
-// each block holding `bufs` buffers of its n/B points: n <= 2^15 u64 or
+// each block holding `bufs` buffers of its n/B points: n <= 2^17 u64 or
 // 2^16 u32, at least 2 points a block, B <= 8, and at most 128 KB of
 // shared memory a block, 2^14 u64 or 2^15 u32 (two buffers of 2^14 u64, or
-// one of 2^16 u32, 256 KB, pass the 227 KB a block can have).
+// one of 2^16 u32, 256 KB, pass the 227 KB a block can have).  B = 16, a
+// non-portable cluster size, only where B = 8 does not fit: u64 buffers of
+// two a block at 2^17.
 template <typename W = u64>
 static inline bool cluster_ok(int logn, int cl, int bufs = 1) {
   constexpr int lu32 = sizeof(W) == 4;  // u32: one more doubling of each
   constexpr int lb = LOG_BLOCK_MAX + lu32;
-  return cl >= 0 && cl <= 3 && logn <= LOG_TRANSFORM_MAX + lu32 &&
+  if (cl == 4)
+    return !lu32 && bufs > 1 && !cluster_ok<W>(logn, 3, bufs) &&
+           cluster_ok<W>(logn, 3, 1) && ((long long)bufs << (logn - 4)) <=
+                                            (1ll << lb);
+  return cl >= 0 && cl <= 3 &&
+         logn <= (lu32 ? LOG_TRANSFORM30_MAX : LOG_TRANSFORM_MAX) &&
          logn - cl >= 1 && logn - cl <= lb &&
          ((long long)bufs << (logn - cl)) <= (1ll << lb);
 }
 
 // Every cluster kernel's __launch_bounds__ at cluster size 2^CL: at most
 // `threads` threads a block, one set of 2^STAGE_TILE points each
-// (tiled_threads) of the largest n/B of u64 that cluster_ok gives a block
-// (512 at CL = 3, 1024 below; run_cluster launches no more, and a block of
-// more sets, u32 at 2^16, runs them in turn), and at least OCC blocks an
-// SM.  At CL = 3, OCC = 1 leaves a thread up to 128 registers, where the
-// u64 kernels spill nothing, and OCC = 2 holds it to 64, where they spill
-// but two blocks share an SM.  On the H100 the first was the faster where
+// (tiled_threads) of the largest n/B of u64 at n = 2^LOG_BOUND_N (512 at
+// CL = 3 and 4, 1024 below; run_cluster launches no more, and a block of
+// more sets, u32 at 2^16 and u64 at 2^16 and 2^17, runs them in turn), and
+// at least OCC blocks an SM.  Sized at 2^15, not at the 2^17 cap: at 2^17
+// it would be 1024 threads at CL = 3, and OCC = 1 would then hold a thread
+// to 64 registers, where the kernels of every n <= 2^15 would spill.  At
+// CL = 3, OCC = 1 leaves a thread up to 128 registers, where the u64
+// kernels spill nothing, and OCC = 2 holds it to 64, where they spill but
+// two blocks share an SM.  On the H100 the first was the faster where
 // every cluster of the grid fits on the card at once, the second where
 // they do not (PERF.md, tools/bounds_ab.py): run_cluster takes the kernel
 // of OCC = wide_occ for a grid of more clusters than the card holds of
 // OCC = 1.
 template <int CL, int OCC>
 struct ClusterBound {
+  static constexpr int LB = LOG_BOUND_N - (CL < 3 ? CL : 3);
   static constexpr int threads = tiled_threads<STAGE_TILE>(
-      1 << (LOG_TRANSFORM_MAX - CL < LOG_BLOCK_MAX ? LOG_TRANSFORM_MAX - CL
-                                                   : LOG_BLOCK_MAX));
+      1 << (LB < LOG_BLOCK_MAX ? LB : LOG_BLOCK_MAX));
   static constexpr int blocks = OCC;
 };
 
 // The OCC of a cluster kernel at cluster size 2^cl for a grid wider than
 // the card: 2 at CL = 3 (1 below, where two blocks of 1024 threads would
-// hold a thread to 32 registers).
+// hold a thread to 32 registers, and at CL = 4, whose blocks of 128 KB
+// cannot share an SM).
 constexpr int wide_occ(int cl) { return cl == 3 ? 2 : 1; }
 
 // The launchers' rule: the largest B a launch of 2^logn points takes, 8
-// from n = 16 on (-1 where none does).  On the H100 B = 8 was the fastest
-// at n = 2^14 and 2^15 for P = 9, 18 and 36 polynomials (PERF.md): a
-// launch is bound by the latency of its blocks' local stages, which falls
-// with n/B, and P B blocks past 132 SMs still beat fewer, longer blocks.
+// from n = 16 on, 16 where only 16 fits (-1 where none does).  On the H100
+// B = 8 was the fastest at n = 2^14 and 2^15 for P = 9, 18 and 36
+// polynomials (PERF.md): a launch is bound by the latency of its blocks'
+// local stages, which falls with n/B, and P B blocks past 132 SMs still
+// beat fewer, longer blocks.
 template <typename W = u64>
 static inline int stage_cluster_log(int logn, int bufs = 1) {
+  if (cluster_ok<W>(logn, 4, bufs)) return 4;
   int cl = 3;
   while (cl >= 0 && !cluster_ok<W>(logn, cl, bufs)) --cl;
   return cl;
@@ -124,7 +143,7 @@ template <typename W = u64>
 static inline int cluster_log(int B, int logn, int bufs = 1) {
   if (B == 0) return stage_cluster_log<W>(logn, bufs);
   int cl = 0;
-  while (cl < 4 && (1 << cl) != B) ++cl;
+  while (cl < 5 && (1 << cl) != B) ++cl;
   return cluster_ok<W>(logn, cl, bufs) ? cl : -1;
 }
 
@@ -141,6 +160,11 @@ static inline cudaError_t cluster_setup(const void* kernel, long long shape,
   return launch_setup().run(kernel, shape, [&](int* fit) {
     cudaFuncAttributes fa;
     cudaError_t r = cudaFuncGetAttributes(&fa, kernel);
+    // a cluster of more than 8 blocks is non-portable: allowed per kernel
+    if (r == cudaSuccess && cfg.attrs[0].val.clusterDim.x > 8)
+      r = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
     if (r == cudaSuccess &&
         (size_t)fa.maxDynamicSharedSizeBytes < cfg.dynamicSmemBytes)
       r = cudaFuncSetAttribute(kernel,
@@ -186,7 +210,10 @@ static int run_cluster(void (*one)(K...), void (*wide)(K...), int P,
   void (*kernel)(K...) = one;
   int fit = 0;
   cudaError_t e = cluster_setup((const void*)one, logn, cfg, &fit);
-  if (e == cudaSuccess && wide != one && P > fit) {
+  // the wide kernel only where two of the shape's blocks fit an SM's
+  // shared memory (every n <= 2^15 shape; not 128 KB blocks)
+  if (e == cudaSuccess && wide != one && P > fit &&
+      2 * cfg.dynamicSmemBytes <= (size_t)(227 << 10)) {
     kernel = wide;
     e = cluster_setup((const void*)wide, logn, cfg, &fit);
   }

@@ -76,7 +76,8 @@
 // (cl <= 3: B <= 8, the portable cluster size), P B blocks a launch.
 // Block j (cluster.block_rank()) holds coefficients [j n/B, (j + 1) n/B)
 // in its own shared memory, n/B u64: 32 KB at n = 2^15, B = 8, and at
-// most 128 KB (2^14), so n = 2^15 is one launch at B >= 2.
+// most 128 KB (2^14), so n = 2^15 is one launch at B >= 2, 2^16 at B >= 4
+// and 2^17 at B = 8.
 //   Forward (CT, natural order in), two phases with a cluster barrier
 //   between them (and one before, so that every block of the cluster has
 //   started before a remote write):
@@ -104,8 +105,10 @@
 // (chip_smoke.py's local-stage A/B; PERF.md).  Threads per block: one set
 // of 2^STAGE_TILE coefficients each, n / (B 8), at most 1024 (512 at
 // n = 2^15, B = 8; the kernels' __launch_bounds__, ClusterBound, with one
-// or two blocks an SM by the grid's width): every thread of a pass has
-// work, and the cross phases give each thread n / (B^2 T) columns.
+// or two blocks an SM by the grid's width; 512 too at 2^16 and 2^17, B =
+// 8, where each thread runs two or four sets in turn): every thread of a
+// pass has work, and the cross phases give each thread n / (B^2 T)
+// columns.
 // B: stage_cluster_log (ntt_cluster.cuh, shared with fused_ops.cu's
 // whole-op transforms), the rule fixed from per-B timings on the card
 // (PERF.md): 8 wherever it fits.  The launcher (run_cluster) raises the
@@ -377,12 +380,15 @@ struct DecFusedArgs {
   u64 t, neg_t, nu_t, inv_gt;
 };
 
+// WIDE: the tail's wide mod-t strategy (d.pow2 = 2, behz_sums.cuh), a
+// template constant so that the other two compile as they did.
+template <bool WIDE>
 NTT_HD void dec_fused_tail(long long k, const StageIO& io,
                            const DecFusedArgs& d) {
   const int n = 1 << io.logn;
-  d.out[k] = dec_round(
-      behz_sums(0, (int)k, io.out, d.c0, d.kr, d.gl[0], io.r, n, d.pow2, d.t,
-                d.nu_t),
+  d.out[k] = dec_round<WIDE>(
+      behz_sums<WIDE>(0, (int)k, io.out, d.c0, d.kr, d.gl[0], io.r, n, d.pow2,
+                      d.t, d.nu_t),
       d.gl, d.pow2, d.t, d.neg_t, d.nu_t, d.inv_gt);
 }
 
@@ -433,7 +439,7 @@ __global__ void k_cross_stage(CrossIO io, Twiddles tw, long long total) {
 
 // Kernel 15: residue p's inverse on a cluster of 2^CL blocks, then, after
 // the grid barrier, the tail over every thread of the grid.
-template <int CL, int OCC>
+template <int CL, int OCC, bool WIDE>
 __global__ void __launch_bounds__(ClusterBound<CL, OCC>::threads,
                                   ClusterBound<CL, OCC>::blocks)
     k_decrypt_cluster(StageIO io, Twiddles tw, DecFusedArgs d) {
@@ -454,14 +460,14 @@ __global__ void __launch_bounds__(ClusterBound<CL, OCC>::threads,
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        k < (1ll << io.logn); k += stride)
-    dec_fused_tail(k, io, d);
+    dec_fused_tail<WIDE>(k, io, d);
 }
 
-template <int CL>
+template <int CL, bool WIDE>
 static int run_decrypt(const StageIO& io, const Twiddles& tw,
                        const DecFusedArgs& d, void* stream) {
-  return run_cluster<CL, u64, true>(k_decrypt_cluster<CL, 1>,
-                                    k_decrypt_cluster<CL, wide_occ(CL)>,
+  return run_cluster<CL, u64, true>(k_decrypt_cluster<CL, 1, WIDE>,
+                                    k_decrypt_cluster<CL, wide_occ(CL), WIDE>,
                                     io.r, io.logn, 1, stream, io, tw, d);
 }
 
@@ -520,11 +526,12 @@ static int run_inverse(const StageIO& io, const Twiddles& tw, int P, void*) {
 }
 
 // Kernel 15: every residue's cluster, then the tail.
-template <int CL>
+template <int CL, bool WIDE>
 static int run_decrypt(const StageIO& io, const Twiddles& tw,
                        const DecFusedArgs& d, void*) {
   run_inverse<CL>(io, tw, io.r, nullptr);
-  for (long long k = 0; k < (1ll << io.logn); ++k) dec_fused_tail(k, io, d);
+  for (long long k = 0; k < (1ll << io.logn); ++k)
+    dec_fused_tail<WIDE>(k, io, d);
   return 0;
 }
 
@@ -646,7 +653,8 @@ extern "C" int ntt_cross_stage(const void* x, const void* partner, void* out,
 #endif
 
 // Kernel 15: x, sk, c0 (rk, n), scratch (rk, n), out (n,), the rk kept
-// moduli's tables, DecTailConsts' k2_rows and glob, its mod-t strategy;
+// moduli's tables, DecTailConsts' k2_rows and glob, its mod-t strategy
+// (pow2: 1 pow2 t, 0 odd t < 2^31, 2 wide, decrypt_tail.cu);
 // cluster: B, or 0 for ntt_stage_cluster_size's.
 extern "C" int ntt_decrypt_fused(const void* x, const void* sk, const void* c0,
                                  void* scratch, void* out, const void* psi,
@@ -657,7 +665,7 @@ extern "C" int ntt_decrypt_fused(const void* x, const void* sk, const void* c0,
                                  u64 nu_t, u64 inv_gt, int cluster,
                                  void* stream) {
   const int cl = cluster_log(cluster, logn);
-  if (rk < 1 || cl < 0) return NTT_EINVAL;
+  if (rk < 1 || cl < 0 || pow2 < 0 || pow2 > 2) return NTT_EINVAL;
   const StageIO io = stage_io(x, nullptr, sk, nullptr, nullptr, scratch,
                               PRO_MONT, rk, rk, logn);
   const DecFusedArgs d = {(const u64*)c0, (u64*)out, (const u64*)kr,
@@ -665,7 +673,11 @@ extern "C" int ntt_decrypt_fused(const void* x, const void* sk, const void* c0,
                           neg_t,          nu_t,      inv_gt};
   typedef int (*Run)(const StageIO&, const Twiddles&, const DecFusedArgs&,
                      void*);
-  static const Run runs[4] = {run_decrypt<0>, run_decrypt<1>, run_decrypt<2>,
-                              run_decrypt<3>};
-  return runs[cl](io, make_tw(psi, psi_sh, ipsi, ipsi_sh, consts), d, stream);
+  static const Run runs[2][4] = {
+      {run_decrypt<0, false>, run_decrypt<1, false>, run_decrypt<2, false>,
+       run_decrypt<3, false>},
+      {run_decrypt<0, true>, run_decrypt<1, true>, run_decrypt<2, true>,
+       run_decrypt<3, true>}};
+  return runs[pow2 == 2][cl](io, make_tw(psi, psi_sh, ipsi, ipsi_sh, consts),
+                             d, stream);
 }

@@ -35,9 +35,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 BLOCK_MAX_N = 16384     # one u64 polynomial per block in shared memory:
 #                         128 KB
-TRANSFORM_MAX_N = 32768  # the cluster kernels (stage and whole-op
-#                          transforms): one cluster of 2-8 blocks per
-#                          polynomial
+TRANSFORM_MAX_N = 131072  # the cluster kernels (stage and whole-op
+#                           transforms): one cluster of 2-8 blocks per
+#                           polynomial, 16 for the two-buffer whole-op
+#                           launches at 2^17
 TRANSFORM30_MAX_N = 65536  # kernel 22 (u32): one cluster of 1-8 blocks
 #                            per polynomial, 2-8 at 2^16
 

@@ -2,8 +2,11 @@
 form, SEAL 3.5 semantics).
 
 Counterpart of `ntt_cuda_tpu/models/bfv.py` (the reference's
-bfv_keygen.cuh:95, bfv_encryption.cuh:223, bfv_decryption.cuh:76) with the
-integer uniform spec, on the JAX package's two kernel schedules:
+bfv_keygen.cuh:95, bfv_encryption.cuh:223, bfv_decryption.cuh:76) with
+both uniform specs of keygen (`uniform_spec="int"`, the integer-exact
+default, and `"fp64"`, the reference's double-precision draw emulated
+exactly: ops/sampling.uniform_ref), on the JAX package's two kernel
+schedules:
 
 * "op": one whole-op kernel per operation (ops/fused_ops.py; one
   thread-block cluster launch per polynomial at every n);
@@ -55,10 +58,6 @@ from ..ops.modmath import I64
 from ..utils import hostmath as hm
 from . import encoder
 
-# What the port leaves out, by the ROADMAP.md Queue 1 item that adds it.
-_ROADMAP_FP64 = "ROADMAP.md Queue 1, the item \"uniform_spec='fp64'\""
-
-
 def _as_tensor(name: str, x) -> torch.Tensor:
     """Tensor view of an array argument, keeping u64 bit patterns exact."""
     if isinstance(x, torch.Tensor):
@@ -98,10 +97,11 @@ def check_residues(name: str, x, shape: tuple, hint: str = "",
 # -- the ops' bodies: shared by the public methods (after validation) and the
 # programs (none); a nonce is an int or an int64 tensor on the device ------
 
-def _keygen(nonce, tf: ntt.NTTTables, fusion: str):
+def _keygen(nonce, tf: ntt.NTTTables, fusion: str, uniform_spec: str):
     """-> (sk (r, n), pk (2, r, n)), both NTT domain."""
     s_b, a, e_d = sampling.keygen_draws_compact(tf.n, tf.r, tf.ms,
-                                                nonce=nonce)
+                                                nonce=nonce,
+                                                uniform_spec=uniform_spec)
     if fusion == "op":
         sk, pk0 = fused_ops.keygen_fused(s_b, a, e_d, tf)
     else:
@@ -189,6 +189,7 @@ class BFVContext:
     params: params_mod.BFVParams
     device: torch.device
     fusion: str                        # "op" or "stage"
+    uniform_spec: str                  # "int" or "fp64" (keygen's draw)
     tables_full: ntt.NTTTables         # (r, n)
     tables_drop: ntt.NTTTables         # (r-1, n)
     tail_consts: bfv_tail.TailConsts
@@ -206,17 +207,20 @@ class BFVContext:
         `device` None is the current CUDA device; where there is none this
         raises, and `device="cpu"` runs the kernels' plain versions.
         fusion "auto" is the JAX package's rule: "op" for n <= 16384,
-        "stage" above.  What is not ported raises NotImplementedError
-        naming the ROADMAP item; nothing falls back."""
+        "stage" above.  uniform_spec "fp64" makes keygen's uniform draw the
+        reference's exact double-precision one (sampling.uniform_ref).  t
+        is a power of two or odd below 2^62 (the decrypt kernels pick
+        their mod-t strategy by t, bfv_tail._t_strategy); n a power of two
+        up to 131072.  Nothing falls back."""
         if params.t % 2 == 0 and params.t & (params.t - 1):
             raise ValueError(
                 f"t={params.t} is neither a power of two (reference "
                 f"semantics) nor odd (batching-prime semantics); no "
                 f"decrypt path supports it")
-        if params.t & (params.t - 1) and params.t >= (1 << 31):
+        if params.t & (params.t - 1) and params.t >= bfv_tail.T_MAX:
             raise ValueError(
-                "the decrypt tail requires a power-of-two t or an odd "
-                "t < 2^31")
+                f"t={params.t} >= 2^62: no modulus below 2^62 is 1 mod t, "
+                f"as encryption's Delta embedding assumes")
         if uniform_spec not in ("int", "fp64"):
             raise ValueError(f"unknown uniform_spec {uniform_spec!r}")
         if fusion == "auto":
@@ -227,9 +231,6 @@ class BFVContext:
             raise NotImplementedError(
                 f"n={params.n} > {TRANSFORM_MAX_N}: no transform kernel "
                 f"takes it")
-        if uniform_spec == "fp64":
-            raise NotImplementedError(
-                f"uniform_spec='fp64' is not ported; see {_ROADMAP_FP64}")
         device = cuda.default_device(device, "BFVContext.build")
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -237,6 +238,7 @@ class BFVContext:
             params=params,
             device=device,
             fusion=fusion,
+            uniform_spec=uniform_spec,
             tables_full=ntt.tables_for(params, device=device),
             tables_drop=ntt.tables_for(params, params.r - 1, device=device),
             tail_consts=bfv_tail.TailConsts.build(params, device),
@@ -250,7 +252,8 @@ class BFVContext:
         bfv_keygen.cuh:95-151).  Keygen nonces live in the bit-63-clear
         half of the nonce space; nonces must be < 2**63."""
         sampling.check_user_nonce(nonce)
-        return _keygen(int(nonce), self.tables_full, self.fusion)
+        return _keygen(int(nonce), self.tables_full, self.fusion,
+                       self.uniform_spec)
 
     def encrypt(self, pk, m_poly, nonce=0):
         """pk (2, r, n) NTT domain, m_poly (n,) in [0, t) -> ciphertext
@@ -387,8 +390,8 @@ class BFVContext:
     def next_context(self) -> "BFVContext":
         """The context one level down the modulus chain: the same scheme
         over q[:-1], q[r-2] taking the dropped modulus's role, on the same
-        device with the same fusion.  Cached.  Decryption there takes the
-        same sk (its first r-2 rows)."""
+        device with the same fusion and uniform spec.  Cached.  Decryption
+        there takes the same sk (its first r-2 rows)."""
         nxt = self._mult_cache.get("next_ctx")
         if nxt is None:
             p = self.params
@@ -399,6 +402,7 @@ class BFVContext:
                 name=f"{p.name}@L{p.r - 1}", n=p.n, q=p.q[:-1],
                 psi=p.psi[:-1], t=p.t, gamma=p.gamma)
             nxt = BFVContext.build(np_, device=self.device,
+                                   uniform_spec=self.uniform_spec,
                                    fusion=self.fusion)
             self._mult_cache["next_ctx"] = nxt
         return nxt
@@ -497,12 +501,12 @@ class BFVContext:
         Each function reads its constants from `bz` and allocates only its
         outputs and intermediates, so it can be captured
         (utils/profiling.graphed) after one warm-up call."""
-        r, fusion = self.params.r, self.fusion
+        r, fusion, us = self.params.r, self.fusion, self.uniform_spec
         bundles = dict(tf=self.tables_full, td=self.tables_drop,
                        tc=self.tail_consts, dtc=self.dec_tail_consts)
 
         def kg_fn(nonce, bz):
-            return _keygen(nonce, bz["tf"], fusion)
+            return _keygen(nonce, bz["tf"], fusion, us)
 
         def enc_fn(nonce, pk, m_poly, bz):
             return _encrypt(nonce, pk, m_poly, bz["tf"], bz["tc"], fusion)

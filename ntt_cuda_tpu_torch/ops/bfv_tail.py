@@ -24,7 +24,8 @@ Counterpart of `ntt_cuda_tpu/ops/bfv_tail.py` for the main path:
   drop and Delta*m + fix); the encrypt tail kernel reads their
   `tail_rows` (Shoup pairs, `tail_rows`).
 * `DecTailConsts` and `_t_strategy`: the decrypt kernel's constants and
-  its static mod-t strategy (pow2 masks, or Barrett-by-t for odd t < 2^31).
+  its static mod-t strategy (pow2 masks, Barrett-by-t for odd t < 2^31,
+  or Montgomery products mod t for an odd t from 2^31 to T_MAX).
 * The RNS-sharded program's tails (parallel/spmd.py), one rank's rows of
   the padded (2, r, n) layout: `encrypt_tail_padded` (kernel 16, K5's tail
   launch with e added and ra from its own all-reduced input),
@@ -52,11 +53,21 @@ from .modmath import I64, ModulusSet
 from .ntt import NTTTables
 
 
+# The largest plaintext modulus the port takes, exclusive: every u64 it
+# carries lives in an int64 below 2^62 (ops/modmath.py), and no modulus
+# below 2^62 is === 1 mod a t >= 2^62, as encryption's Delta embedding
+# assumes (the JAX package's ops/poly.py add_message).
+T_MAX = 1 << 62
+# From here an odd t takes the decrypt kernels' wide strategy: a product of
+# two residues below t no longer fits 64 bits.
+T_WIDE = 1 << 31
+
+
 def _fix_threshold(t: int) -> int:
     """weird_m_stuff's fix = floor((m + (t+1)//2) / t) for m in [0, t) is
     exactly [m >= t - (t+1)//2]: one compare, valid for any t."""
-    if not 1 < t < (1 << 32):
-        raise ValueError(f"plaintext modulus {t} must fit u32")
+    if not 1 < t < T_MAX:
+        raise ValueError(f"plaintext modulus {t} must lie below 2^62")
     return t - ((t + 1) >> 1)
 
 
@@ -142,14 +153,24 @@ class DecTailConsts:
 def _t_fields(params) -> tuple[int, int]:
     """(nu_t, inv_gt) of the decrypt kernels' mod-t strategy: 0, 0 for a
     power-of-two t; floor(2^64 / t) and (gamma mod t)^-1 for an odd
-    t < 2^31."""
+    t < T_MAX."""
     g, t = params.gamma, params.t
     if t & (t - 1) == 0:
         return 0, 0
-    if t % 2 == 1 and t < (1 << 31):
+    if t % 2 == 1 and t < T_MAX:
         return (1 << 64) // t, pow(g % t, -1, t)
     raise ValueError(f"decrypt tail needs a power-of-two t or an odd "
-                     f"t < 2^31, got {t}")
+                     f"t < 2^62, got {t}")
+
+
+def _t_mode(t: int) -> int:
+    """The decrypt kernels' mod-t strategy, their `pow2` argument: 1 for a
+    power-of-two t (masks), 0 for an odd t < 2^31 (Barrett by t), 2 for a
+    wider odd t (Montgomery products mod t, csrc/behz_sums.cuh)."""
+    if t & (t - 1) == 0:
+        return 1
+    return 2 if t >= T_WIDE else 0
+
 
 
 def _dec_rows(params, lo: int, hi: int, device,
@@ -177,13 +198,16 @@ def _dec_rows(params, lo: int, hi: int, device,
 def _k2_rows(params, lo: int, hi: int, device,
              pad_to: int | None = None) -> torch.Tensor:
     """K2's rows (DecTailConsts.k2_rows) of moduli [lo, hi): q, t*gamma *
-    inv_punctured mod q and bcm_gamma mod gamma as Shoup pairs, bcm_t.  As
+    inv_punctured mod q and bcm_gamma mod gamma as Shoup pairs, bcm_t
+    (times 2^64 mod t for the wide strategy's Montgomery products).  As
     in _dec_rows, the dropped modulus's row keeps q with every constant 0
     and rows up to pad_to - lo are pad rows, q = 1 and all else 0: a Shoup
     product by 0 is 0 whatever its operand and modulus, so neither adds
     to the sums."""
-    g = params.gamma
+    g, t = params.gamma, params.t
     bcm_t, bcm_g = params.base_change_matrix
+    if _t_mode(t) == 2:
+        bcm_t = [hm.to_mont(v, t) for v in bcm_t]
     rows = []
     for i in range(lo, hi):
         q = params.q[i]
@@ -208,17 +232,22 @@ def _dec_glob(params, device) -> torch.Tensor:
 def _t_strategy(tmeta: tuple) -> tuple[int, int, int, int, int]:
     """The decrypt kernel's static mod-t strategy from DecTailConsts.tmeta
     = (t, neg_t, nu_t, inv_gt), as its (pow2, t, neg_t, nu_t, inv_gt)
-    arguments.
+    arguments (pow2: _t_mode).
 
     pow2 t: the reference's mask forms, bit for bit
     (poly_arithmetic.cuh:217-268; t | 2^64 makes masked wrapping sums
     exact mod t).  Odd t < 2^31 (batching primes): Barrett-by-t with
     nu_t = floor(2^64/t), every x_t value kept < t, and a final multiply
     by (gamma mod t)^-1 (the reference skips it because its gamma === 1
-    mod 1024)."""
+    mod 1024).  Odd t >= 2^31: the same steps as Montgomery products mod
+    t (the JAX package's xla tail, ops/poly.py fast_convert_and_round),
+    neg_t and (gamma mod t)^-1 passed times 2^64 mod t."""
     t, neg_t, nu_t, inv_gt = tmeta
-    if t & (t - 1) == 0:
+    mode = _t_mode(t)
+    if mode == 1:
         return (1, t, neg_t, 0, 0)
+    if mode == 2:
+        return (2, t, hm.to_mont(neg_t, t), nu_t, hm.to_mont(inv_gt, t))
     return (0, t, neg_t, nu_t, inv_gt)
 
 
@@ -532,7 +561,8 @@ class DecPartialConsts:
     """decrypt_tail_partial's constants for one rank's rows: per_mod,
     k2_rows and glob as DecTailConsts's (the dropped modulus's BEHZ row
     zeroed, pad rows q = 1), and the mod-t strategy's t and nu_t (0 for
-    pow2 t).  The plain version reads per_mod, the kernel k2_rows."""
+    pow2 t; _t_mode picks the strategy).  The plain version reads per_mod,
+    the kernel k2_rows."""
 
     per_mod: torch.Tensor  # (rows, 6)
     k2_rows: torch.Tensor  # (rows, 6)
@@ -558,14 +588,25 @@ def decrypt_tail_partial_plain(x, ct0, consts: DecPartialConsts):
     """(rl, n) x, c0 -> (x_t, x_g), the rank's BEHZ partial sums as (n,)
     int64: x_t the low 32 bits of sum_i (y_i bcm_t_i) & (t-1) for pow2 t
     (the JAX kernel's wrapping u32 sum), sum_i (y_i bcm_t_i) mod t for odd
-    t; x_g = sum_i y_i bcm_g_i mod gamma."""
+    t (each product an exact Montgomery product mod t where t >= 2^31);
+    x_g = sum_i y_i bcm_g_i mod gamma."""
     q, qinv, ptg, ipq, bcm_t, bcm_g = _cols(consts.per_mod)
     gamma, ginv = consts.glob[0], consts.glob[1]
     y = modmath.add_mod_lazy_gt(x, ct0, q)
     y = modmath.mont_mul(modmath.mont_mul(y, ptg, q, qinv), ipq, q, qinv)
     t = consts.t
-    if t & (t - 1) == 0:
+    mode = _t_mode(t)
+    if mode == 1:
         x_t = ((y * bcm_t) & (t - 1)).sum(dim=-2) & modmath.MASK32
+    elif mode == 2:
+        tt = poly._scalar(t, x)
+        tqi = poly._scalar(modmath.as_i64(hm.mont_qinv_neg(t)), x)
+        r2 = poly._scalar(hm.mont_r2(t), x)
+        part = modmath.mont_mul(modmath.mont_mul(y, r2, tt, tqi), bcm_t, tt,
+                                tqi)
+        x_t = part[0]
+        for i in range(1, part.shape[0]):
+            x_t = modmath.add_mod(x_t, part[i], tt)
     else:
         tt, nu = poly._scalar(t, x), poly._scalar(consts.nu_t, x)
         part = modmath.mod_u64(modmath.mod_u64(y, tt, nu) * bcm_t, tt, nu)
@@ -601,8 +642,7 @@ def decrypt_tail_partial(x, ct0, consts: DecPartialConsts):
     t = consts.t
     cuda.launch("ntt_decrypt_tail_partial", dev, x.data_ptr(), ct0.data_ptr(),
                 out.data_ptr(), consts.k2_rows.data_ptr(),
-                consts.glob.data_ptr(), rl, n, int(t & (t - 1) == 0), t,
-                consts.nu_t)
+                consts.glob.data_ptr(), rl, n, _t_mode(t), t, consts.nu_t)
     decrypt_tail_partial.launches += 1
     return out[0], out[1]
 
@@ -618,16 +658,24 @@ def _gamma_scalars(params, like: torch.Tensor):
             poly._scalar(modmath.as_i64(hm.mont_qinv_neg(g)), like))
 
 
+def _combine_halves(lo_sum, hi_sum, m: int) -> torch.Tensor:
+    """The total mod m from the all-reduced 32-bit halves of the ranks'
+    partials: hi 2^32 + lo, as mont_mul(hi mod m, Mont(2^32)) + (lo mod m)
+    < 2 m (m odd, below 2^62).  Each half sum stays below R 2^32, so no
+    rank count below 2^31 wraps int64."""
+    mq = poly._scalar(m, lo_sum)
+    nu = poly._scalar((1 << 64) // m, lo_sum)
+    minv = poly._scalar(modmath.as_i64(hm.mont_qinv_neg(m)), lo_sum)
+    hi = modmath.mont_mul(modmath.mod_u64(hi_sum, mq, nu),
+                          poly._scalar(hm.to_mont(1 << 32, m), lo_sum), mq,
+                          minv)
+    return hi + modmath.mod_u64(lo_sum, mq, nu)
+
+
 def combine_gamma_halves(lo_sum, hi_sum, params) -> torch.Tensor:
     """The gamma-row total mod gamma from the all-reduced 32-bit halves of
-    the ranks' partials: hi 2^32 + lo, as mont_mul(hi mod gamma,
-    Mont(2^32)) + (lo mod gamma) < 2 gamma.  Each half sum stays below
-    R 2^32, so no rank count below 2^31 wraps int64."""
-    gq, nu, ginv = _gamma_scalars(params, lo_sum)
-    hi = modmath.mont_mul(modmath.mod_u64(hi_sum, gq, nu),
-                          poly._scalar(hm.to_mont(1 << 32, params.gamma),
-                                       lo_sum), gq, ginv)
-    return hi + modmath.mod_u64(lo_sum, gq, nu)
+    the ranks' partials (_combine_halves), below 2 gamma."""
+    return _combine_halves(lo_sum, hi_sum, params.gamma)
 
 
 def psum_behz_partials(x_t, x_g, group, params):
@@ -635,12 +683,19 @@ def psum_behz_partials(x_t, x_g, group, params):
     (3, n) int64 sum, [x_t, x_g's low 32 bits, x_g's high bits] ((3, J,
     n) for J ciphertexts' (J, n) partials): x_t
     partials are below 2^32 and so are the halves, so for R < 2^31 no sum
-    wraps.  Returns (x_t sum, x_g total mod gamma, below 2 gamma)."""
+    wraps.  For a t >= 2^31 x_t goes as two halves too ((4, n): x_t's
+    low and high 32 bits first), its total taken mod t.  Returns (x_t
+    sum, x_g total mod gamma, below 2 gamma)."""
     from ..parallel import mesh
-    parts = torch.stack([x_t, x_g & modmath.MASK32,
-                         (x_g >> 32) & modmath.MASK32])
+    wide = _t_mode(params.t) == 2
+    x_ts = ([x_t & modmath.MASK32, (x_t >> 32) & modmath.MASK32] if wide
+            else [x_t])
+    parts = torch.stack(x_ts + [x_g & modmath.MASK32,
+                                (x_g >> 32) & modmath.MASK32])
     mesh.all_reduce(parts, group)
-    return parts[0], combine_gamma_halves(parts[1], parts[2], params)
+    x_t_sum = (_combine_halves(parts[0], parts[1], params.t) if wide
+               else parts[0])
+    return x_t_sum, combine_gamma_halves(parts[-2], parts[-1], params)
 
 
 def dec_round_from_sums(x_t_sum, x_g_sum, params) -> torch.Tensor:
@@ -662,8 +717,16 @@ def dec_round_from_sums(x_t_sum, x_g_sum, params) -> torch.Tensor:
     tt, nu_t = poly._scalar(t, x_t_sum), poly._scalar((1 << 64) // t,
                                                        x_t_sum)
     x_t = modmath.mod_u64(x_t_sum, tt, nu_t)
-    x_t = modmath.mod_u64(x_t * neg_t, tt, nu_t)
+    if _t_mode(t) == 2:
+        # products of two residues below t pass 64 bits: exact
+        # mulmod (Montgomery) products, as the kernels' wide strategy
+        tqi = poly._scalar(modmath.as_i64(hm.mont_qinv_neg(t)), x_t_sum)
+        mul = lambda a, c: modmath.mont_mul(
+            a, poly._scalar(hm.to_mont(c, t), x_t_sum), tt, tqi)
+    else:
+        mul = lambda a, c: modmath.mod_u64(a * c, tt, nu_t)
+    x_t = mul(x_t, neg_t)
     plus = modmath.add_mod(x_t, modmath.mod_u64(gq - x_g, tt, nu_t), tt)
     minus = modmath.sub_mod(x_t, modmath.mod_u64(x_g, tt, nu_t), tt)
     corr = torch.where(over, plus, minus)
-    return modmath.mod_u64(corr * pow(g % t, -1, t), tt, nu_t)
+    return mul(corr, pow(g % t, -1, t))

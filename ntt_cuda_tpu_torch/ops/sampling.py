@@ -6,8 +6,10 @@ documented spec choices: the integer-exact uniform floor(u * (q-1) / 2^64),
 the pinned 38-threshold Gaussian, the exact ternary with its byte-255 -> 2
 quirk, and bit-63 nonce domain separation between keygen and encryption.
 The converters are plain tensor code on the keystream's device, as they
-are XLA outside any kernel in the JAX package.  Only the `uniform_spec=
-"int"` spec is here; the fp64 emulation is not ported yet.
+are XLA outside any kernel in the JAX package.  Both uniform specs are
+here: the integer-exact `uniform` (the default, `uniform_spec="int"`) and
+`uniform_ref`, the reference's IEEE-double data path emulated in integers
+(`uniform_spec="fp64"`, keygen only, as in the JAX package).
 
 A draw's nonce is a Python int, or an int64 tensor of u64 bit patterns on
 the draws' device (`keygen_nonce_t` / `encrypt_nonce_t` map it there, and
@@ -138,6 +140,105 @@ def uniform(u64s: torch.Tensor, ms: modmath.ModulusSet) -> torch.Tensor:
     return modmath.mulhi_u64(u64s, ms.q - 1)
 
 
+# --- the reference-exact fp64 uniform spec (opt-in) --------------------------
+#
+# The reference computes d = (double)u; d /= UINT64_MAX; d *= (double)(q-1);
+# out = (unsigned long long)d (uniform_dist_xq, bfv_keygen.cuh:33-45).  As in
+# the JAX package (ntt_cuda_tpu/ops/sampling.py uniform_ref), the IEEE-double
+# path is emulated exactly in integers: (double)u = RNE53(u), the division
+# by (double)UINT64_MAX = 2^64 is an exact scaling, the multiply is
+# RNE53(RNE53(u) RNE53(q-1)) 2^-64 and the cast truncates (>> 64).  Here in
+# the port's int64-carried u64 idiom: unsigned compares XOR the sign bit,
+# every right shift is masked to a logical one, and every shift amount is
+# clamped to [0, 63] as the JAX code clamps it (torch.where evaluates both
+# branches).  Plain tensor ops on the words' device, with no host read, so
+# the keygen program stays capturable as a CUDA graph.
+
+_SIGN = -(1 << 63)        # bit 63 alone, as an int64
+
+
+def _ult(a, b):
+    """a < b for u64 bit patterns."""
+    return (a ^ _SIGN) < (b ^ _SIGN)
+
+
+def _shr(x, s):
+    """Logical x >> s for u64 bit patterns, s in [0, 63]: an int, or a
+    tensor of x's shape (no host copy either way: capturable)."""
+    if isinstance(s, int):
+        return x if s == 0 else (x >> s) & ((1 << (64 - s)) - 1)
+    keep = torch.where(s == 0, -1, (1 << (64 - s).clamp(max=63)) - 1)
+    return (x >> s) & keep
+
+
+def _bitlen_u64(x):
+    """Bit length of each u64 lane (0 for 0), by binary-search shifts."""
+    n = torch.zeros_like(x)
+    for k in (32, 16, 8, 4, 2, 1):
+        big = ~_ult(x, torch.full_like(x, 1 << k))
+        n = n + big.to(I64) * k
+        x = torch.where(big, _shr(x, k), x)
+    return n + (x != 0).to(I64)
+
+
+def _rne53_u64(x):
+    """RNE53(x) for u64 lanes -> (value, overflowed_to_2_64)."""
+    L = _bitlen_u64(x)
+    shift = L.clamp(min=53) - 53                       # 0..11
+    keep = _shr(x, shift)
+    rem = x & ((1 << shift) - 1)
+    half = torch.where(shift > 0, 1 << (shift - 1).clamp(min=0, max=63), 0)
+    up = ((rem > half) | ((rem == half) & ((keep & 1) == 1))) & (shift > 0)
+    val = keep + up.to(I64)                            # <= 2^53
+    ov = (L == 64) & (val == (1 << 53))
+    return torch.where(ov, 0, val << shift), ov
+
+
+def _rne53_128_shift64(hi, lo):
+    """floor(RNE53(hi * 2^64 + lo) / 2^64) for 128-bit lane pairs."""
+    L = torch.where(hi != 0, 64 + _bitlen_u64(hi), _bitlen_u64(lo))
+    shift = L.clamp(min=53) - 53                       # 0..75
+    ge64 = shift >= 64
+    sh_lo = shift.clamp(max=63)
+    sh_hi = torch.where(ge64, shift - 64, 63).clamp(max=63)
+    keep = torch.where(
+        ge64, _shr(hi, sh_hi),
+        torch.where(shift == 0, lo,
+                    (hi << (64 - sh_lo).clamp(max=63)) | _shr(lo, sh_lo)))
+    # rem = prod & (2^shift - 1), half = 2^(shift-1), as 128-bit pairs
+    rem_lo = torch.where(ge64, lo, lo & ((1 << sh_lo) - 1))
+    rem_hi = torch.where(ge64, hi & ((1 << sh_hi) - 1), 0)
+    # half's set bit (index shift - 1) lies in lo for shift <= 64, in hi
+    # for shift >= 65
+    half_in_hi = shift >= 65
+    half_lo = torch.where(half_in_hi | (shift == 0), 0,
+                          1 << (shift - 1).clamp(min=0, max=63))
+    half_hi = torch.where(half_in_hi, 1 << (shift - 65).clamp(min=0, max=63),
+                          0)
+    gt = _ult(half_hi, rem_hi) | ((rem_hi == half_hi) & _ult(half_lo, rem_lo))
+    eq = (rem_hi == half_hi) & (rem_lo == half_lo)
+    up = ((gt | (eq & ((keep & 1) == 1))) & (shift > 0)).to(I64)
+    val = keep + up                                    # <= 2^53
+    # out = val * 2^shift >> 64
+    return torch.where(ge64, val << sh_hi,
+                       torch.where(shift == 0, 0,
+                                   _shr(val, (64 - shift).clamp(min=0,
+                                                                max=63))))
+
+
+def uniform_ref(u64s: torch.Tensor, ms: modmath.ModulusSet) -> torch.Tensor:
+    """(r, n) u64 lanes -> (r, n) residues under the reference's exact
+    double-precision uniform spec (the block comment above), bit for bit
+    the JAX package's uniform_ref, including its quirk that a result can
+    exceed q - 1 where q - 1 needs more than 53 bits and rounds up."""
+    qd, _ = _rne53_u64(ms.q - 1)                       # (r, 1); q-1 < 2^62
+    av, av_ov = _rne53_u64(u64s)
+    hi = torch.where(av_ov, qd, modmath.mulhi_u64(av, qd))
+    lo = torch.where(av_ov, 0, av * qd)                # RNE53(u) == 2^64
+    return _rne53_128_shift64(hi, lo)
+
+
+
 def small_res(d: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Compact ternary or Gaussian plane (..., n) -> per-modulus residues
     (..., r, n) with q (r, 1): negatives map to q + d, the rest broadcast
@@ -173,15 +274,18 @@ def _stream(nbytes: int, nonce, encrypt: bool, key_byte: int, device):
 
 
 def keygen_draws_compact(n: int, r: int, ms: modmath.ModulusSet,
-                         key_byte: int = salsa20.DEFAULT_KEY_BYTE, nonce=0):
+                         key_byte: int = salsa20.DEFAULT_KEY_BYTE, nonce=0,
+                         uniform_spec: str = "int"):
     """Keygen draws on ms's device: (s_b (n,) int32, a (r, n) uniform
     residues, e_d (n,) int32).  Byte layout (bfv_keygen.cuh:120-122):
     ternary bytes at 0, uniform u64 lanes at n, Gaussian u32 at n + 8rn.
-    `nonce`: an int, or a () int64 tensor (module docstring)."""
+    `nonce`: an int, or a () int64 tensor (module docstring).
+    `uniform_spec`: "int" (uniform) or "fp64" (uniform_ref)."""
     ks = _stream(keygen_entropy_bytes(n, r), nonce, False, key_byte,
                  ms.q.device)
     s_b = ternary_int(salsa20.bytes_u8(ks, 0, n))
-    a = uniform(salsa20.bytes_u64(ks, n, r * n).reshape(r, n), ms)
+    ufn = uniform_ref if uniform_spec == "fp64" else uniform
+    a = ufn(salsa20.bytes_u64(ks, n, r * n).reshape(r, n), ms)
     e_d = gaussian_int(salsa20.bytes_u32(ks, n + 8 * r * n, n))
     return s_b, a, e_d
 

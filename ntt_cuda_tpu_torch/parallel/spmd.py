@@ -75,10 +75,10 @@ class SpmdBFVContext:
         None is this rank's current CUDA device; "cpu" runs the kernels'
         plain versions."""
         t = params.t
-        if t & (t - 1) and (t % 2 == 0 or t >= (1 << 31)):
+        if t & (t - 1) and (t % 2 == 0 or t >= bfv_tail.T_MAX):
             raise ValueError("SPMD pipelines run the fused tails: t must be "
                              "a power of two or an odd batching prime "
-                             "< 2^31")
+                             "< 2^62")
         if params.n > cuda.TRANSFORM_MAX_N:
             raise NotImplementedError(
                 f"n={params.n} > {cuda.TRANSFORM_MAX_N}: no transform kernel "

@@ -1,4 +1,5 @@
-"""The schoolbook negacyclic product: the NTT tests' golden model.
+"""Golden models: the schoolbook negacyclic product (the NTT tests') and
+the reference's double-precision uniform draw (uniform_ref_double).
 
 Counterpart of `schoolbook_negacyclic` in `ntt_cuda_tpu/utils/golden.py`
 (the reference's refPolyMul128, helper.h:95-126), which calls the JAX
@@ -54,3 +55,13 @@ def schoolbook_negacyclic(a, b, q: int, n: int, device=None) -> torch.Tensor:
                                ms.qinv_neg[0], ms.r2[0]), lo, qt)
         acc = modmath.add_mod(acc, s, qt)
     return acc
+
+
+def uniform_ref_double(u64_vals, q: int) -> list[int]:
+    """The reference's uniform draw in IEEE doubles, on the host (the JAX
+    package's golden.uniform_ref_double; uniform_dist_xq,
+    bfv_keygen.cuh:33-45): d = (double)u; d /= (double)UINT64_MAX;
+    d *= (double)(q - 1); the cast truncates.  Python floats are IEEE
+    doubles, and float(int) rounds to nearest even as the C cast does."""
+    top = float((1 << 64) - 1)
+    return [int(float(int(u)) / top * float(q - 1)) for u in u64_vals]

@@ -6,9 +6,10 @@ package, on the CPU.
    `ntt_cuda_tpu` BFVContext.build(p, backend="xla") for nonces 0..3.
 3. Keys and ciphertexts cross between the two packages through
    `ntt_cuda_tpu_torch.convert` and still decrypt.
-4. What the port leaves out raises (and an L = 3 ciphertext, once left
-   out, decrypts); argument errors read as the JAX package's; without a
-   device, build goes to the card or raises.
+4. What the port once left out runs (uniform_spec="fp64" keygen equals
+   the JAX package's, an L = 3 ciphertext decrypts), an unknown fusion
+   raises; argument errors read as the JAX package's; without a device,
+   build goes to the card or raises.
 """
 
 from pathlib import Path
@@ -107,8 +108,12 @@ def test_roundtrip_check(ctx):
 
 def test_unported_configurations_raise():
     p = get_bfv_params("4k_3q")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*fp64"):
-        BFVContext.build(p, device="cpu", uniform_spec="fp64")
+    # uniform_spec="fp64", once refused, builds and equals the JAX package
+    fp = BFVContext.build(p, device="cpu", uniform_spec="fp64")
+    jfp = jbfv.BFVContext.build(jget("4k_3q"), backend="xla",
+                                uniform_spec="fp64")
+    for got, want in zip(fp.keygen(1), jfp.keygen(1)):
+        np.testing.assert_array_equal(convert.to_numpy(got), np.asarray(want))
     with pytest.raises(ValueError, match="unknown fusion"):
         BFVContext.build(p, device="cpu", fusion="fast")
     # decrypt of an L = 3 (un-relinearized) ciphertext is ported: m * 1

@@ -163,5 +163,8 @@ def test_fix_threshold_and_t_checks():
         assert bfv_tail._fix_threshold(t) == jtail._fix_threshold(t)
         assert all((m + (t + 1) // 2) // t == (m >= bfv_tail._fix_threshold(t))
                    for m in (0, 1, t // 2 - 1, t // 2, (t + 1) // 2, t - 1))
-    with pytest.raises(ValueError, match="u32"):
-        bfv_tail._fix_threshold(2**32)
+    for t in (2**32 + 15, 2**62 - 57):     # past the JAX kernels' u32 bound
+        assert all((m + (t + 1) // 2) // t == (m >= bfv_tail._fix_threshold(t))
+                   for m in (0, 1, t // 2 - 1, t // 2, (t + 1) // 2, t - 1))
+    with pytest.raises(ValueError, match="2\\^62"):
+        bfv_tail._fix_threshold(2**62)

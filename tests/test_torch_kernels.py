@@ -208,7 +208,7 @@ def test_host_op_kernels_32k(host_lib, op32_ctx, J):
 def test_host_op_kernels_reject_bad_arguments(host_lib, op32_ctx):
     p, tf = op32_ctx.params, op32_ctx.tables_full
     x = torch.zeros((p.r, p.n), dtype=torch.int64)
-    for blocks, logn in ((p.r + 1, p.logn), (p.r, 16), (p.r, 0)):
+    for blocks, logn in ((p.r + 1, p.logn), (p.r, 18), (p.r, 0)):
         assert host_lib.ntt_half_polymul_cluster(
             x.data_ptr(), x.data_ptr(), x.data_ptr(), *tf.kernel_args(),
             blocks, p.r, logn, 0, None) != 0
@@ -352,12 +352,13 @@ def test_host_encrypt_cluster(host_lib, op32_ctx, name, J, B):
 def test_host_encrypt_cluster_refusals(host_lib):
     """The encrypt launchers refuse, before touching memory, the shapes
     whose two n/B buffers pass 128 KB a block (2^14 at B = 1, 2^15 at B =
-    1 and 2), a B that is no power of two up to 8, and n past 2^15; the
-    rule (B = 0) is taken from n = 2 to 2^15."""
+    1 and 2, 2^17 at B = 8), a B that is no power of two up to 8 (16 only
+    where 8 does not fit: 2^17), and n past 2^17; the rule (B = 0) is
+    taken from n = 2 to 2^15."""
     front = host_lib.ntt_encrypt_front_cluster
     tf = [None] * 5
-    for logn, B in ((14, 1), (15, 1), (15, 2), (15, 3), (15, 16), (16, 0),
-                    (16, 8), (0, 0)):
+    for logn, B in ((14, 1), (15, 1), (15, 2), (15, 3), (15, 16), (18, 0),
+                    (17, 8), (0, 0)):
         assert front(None, None, None, *tf, 1, logn, B, None) != 0, (logn, B)
         assert host_lib.ntt_encrypt_transform_cluster(
             None, None, None, None, *tf, 1, 1, logn, B, None) != 0, (logn, B)
@@ -434,14 +435,15 @@ def test_host_op_cluster(host_lib, kernel, name, B):
 
 def test_host_op_cluster_refusals(host_lib):
     """K3 and K4 refuse, before touching memory, a B that is no power of
-    two up to 8 (3, 16), n outside [2, 2^15] (logn 0 and 16), B = 1 at
-    2^15, no polynomial or modulus, and (K3) a polynomial count that is no
-    multiple of r; the rule (B = 0) is taken from n = 2 to 2^15."""
+    two up to 8 (3, 16: one buffer a block never takes 16), n outside
+    [2, 2^17] (logn 0 and 18), B = 1 at 2^15, no polynomial or modulus,
+    and (K3) a polynomial count that is no multiple of r; the rule (B = 0)
+    is taken from n = 2 to 2^15."""
     k3 = host_lib.ntt_half_polymul_cluster
     k4 = host_lib.ntt_keygen_fused_cluster
     tf = [None] * 5
-    for logn, B in ((14, 3), (15, 16), (15, 1), (0, 0), (0, 1), (16, 0),
-                    (16, 8)):
+    for logn, B in ((14, 3), (15, 16), (15, 1), (0, 0), (0, 1), (18, 0),
+                    (17, 16)):
         assert k3(None, None, None, *tf, 2, 1, logn, B, None) != 0, (logn, B)
         assert k4(None, None, None, None, None, *tf, 1, logn, B,
                   None) != 0, (logn, B)
@@ -706,11 +708,11 @@ def test_host_stage_inverse(host_lib, stage_ctx, J, B):
 
 def test_host_stage_cluster_rule(host_lib):
     """The launchers' rule: the largest cluster size B <= 8 a launch of n
-    points takes (a block holds 2 to 2^14 points); none past 2^15."""
-    for logn, B in ((15, 8), (14, 8), (12, 8), (4, 8), (3, 4), (2, 2),
-                    (1, 1)):
+    points takes (a block holds 2 to 2^14 points); none past 2^17."""
+    for logn, B in ((17, 8), (16, 8), (15, 8), (14, 8), (12, 8), (4, 8),
+                    (3, 4), (2, 2), (1, 1)):
         assert host_lib.ntt_stage_cluster_size(logn) == B, logn
-    for logn in (0, 16):
+    for logn in (0, 18):
         assert host_lib.ntt_stage_cluster_size(logn) == 0
 
 
@@ -744,7 +746,7 @@ def test_host_stage_rejects_bad_arguments(host_lib, stage_ctx):
     for pro, P, logn in ((cuda.PRO_MONT, p.r, p.logn),   # forward: no y
                          (cuda.PRO_KSACC, p.r, p.logn),  # an inverse prologue
                          (cuda.PRO_COPY, p.r + 1, p.logn),  # P % r
-                         (cuda.PRO_COPY, p.r, 16)):       # 2^16
+                         (cuda.PRO_COPY, p.r, 18)):       # 2^18
         assert host_lib.ntt_stage_forward(x.data_ptr(), None, None, None,
                                           x.data_ptr(), *tb.kernel_args(), pro,
                                           P, p.r, logn, None, 0, 0, None) != 0
@@ -1424,3 +1426,125 @@ def test_cuda_shard_offset_matches_plain(cuda_device, C):
     assert torch.equal(inv, ntt_stage.ntt_inverse_mul_plain(x, y, tb))
     assert torch.equal(inv, ntt_stage.ntt_inverse_mul(x, y, tb))
     torch.cuda.synchronize()
+
+
+# --- odd t >= 2^31 and n = 2^16, 2^17 on the card: the twins of
+# tests/test_torch_wide_t.py's and tests/test_torch_large_n.py's host-build
+# checks --------------------------------------------------------------------
+
+def _wide_t_params(t_bits: int | None = None):
+    """Nine 57-bit moduli at n = 32768 (the narrowest width with nine
+    primes === 1 mod 2nt) for t = find_plain_modulus(32768, 33), or, with
+    t_bits = 62, the same moduli with the largest batching prime below
+    2^62."""
+    t = primegen.find_plain_modulus(32768, 33)
+    p = primegen.make_bfv_params(32768, 57, 9, t=t)
+    if t_bits == 62:
+        step = 2 * p.n
+        t = (bfv_tail.T_MAX - 1) // step * step + 1
+        while not primegen.is_prime(t):
+            t -= step
+        p = BFVParams(name="gen_32768_57b_9q_t62", n=p.n, q=p.q, psi=p.psi,
+                      t=t)
+    return p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t_bits", [33, 62])
+def test_cuda_decrypt_kernels_wide_t(cuda_device, t_bits):
+    """K2 (J = 1, 3), kernel 15 (every B that fits) and kernel 17 (rows
+    0-3, 6-9 and 0-9) at an odd t >= 2^31, the wide mod-t strategy, against
+    their plain versions on the card."""
+    p, dev = _wide_t_params(t_bits), cuda_device
+    assert bfv_tail._t_mode(p.t) == 2
+    rng = np.random.default_rng(t_bits)
+    dt = bfv_tail.DecTailConsts.build(p, dev)
+    td = ntt.tables_for(p, p.r - 1, device=dev)
+    for J in (1, 3):
+        lead = () if J == 1 else (J,)
+        x, c0 = (_rand_res(rng, p.q[:-1], p.n, lead).to(dev)
+                 for _ in range(2))
+        assert torch.equal(bfv_tail.decrypt_tail(x, c0, dt),
+                           bfv_tail.decrypt_tail_plain(x, c0, dt))
+    x, sk, c0 = (_rand_res(rng, p.q[:-1], p.n).to(dev) for _ in range(3))
+    want = bfv_tail.decrypt_fused_plain(x, sk, c0, td, dt)
+    for B in (2, 4, 8):
+        assert torch.equal(bfv_tail.decrypt_fused(x, sk, c0, td, dt,
+                                                  cluster=B), want)
+    xf, cf = (_rand_res(rng, p.q, p.n).to(dev) for _ in range(2))
+    for lo, hi in ((0, 3), (6, 9), (0, 9)):
+        dc = bfv_tail.build_dec_tail_consts_padded(p, lo, hi, device=dev)
+        xs, cs = xf[lo:hi].contiguous(), cf[lo:hi].contiguous()
+        got = bfv_tail.decrypt_tail_partial(xs, cs, dc)
+        want = bfv_tail.decrypt_tail_partial_plain(xs, cs, dc)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("logn,r", [(16, 3), (17, 4)])
+def test_cuda_large_n_kernels_match_plain(cuda_device, logn, r):
+    """At n = 2^16 and 2^17: kernels 7 (both ways), 8, 9 and 10 by the rule,
+    K2 and 15; K3, K4 (one buffer a block, B = 8) and K5 and 18 (two
+    buffers: B = 8 at 2^16, 16 at 2^17) against their plain versions."""
+    p, dev = primegen.make_bfv_params(1 << logn, 55, r), cuda_device
+    ctx = BFVContext.build(p, device=dev, fusion="op")
+    tf, td, tc, dt = (ctx.tables_full, ctx.tables_drop, ctx.tail_consts,
+                      ctx.dec_tail_consts)
+    rng = np.random.default_rng(logn)
+    x = _rand_res(rng, p.q[:-1], p.n).to(dev)
+    y = _rand_res(rng, p.q[:-1], p.n).to(dev)
+    d = torch.from_numpy(rng.integers(-19, 17, p.n).astype(np.int32)).to(dev)
+    xf = _rand_res(rng, p.q, p.n).to(dev)
+    for kern, plain, args in (
+            (ntt_stage.ntt_forward, ntt_stage.ntt_forward_plain, (x, td)),
+            (ntt_stage.ntt_inverse, ntt_stage.ntt_inverse_plain, (x, td)),
+            (ntt_stage.ntt_inverse_mul, ntt_stage.ntt_inverse_mul_plain,
+             (x, y, td)),
+            (ntt_stage.ntt_forward_ternary,
+             ntt_stage.ntt_forward_ternary_plain, (d.clamp(-1, 2), tf)),
+            (ntt_stage.ntt_forward_addneg_gauss,
+             ntt_stage.ntt_forward_addneg_gauss_plain, (xf, d, tf)),
+            (bfv_tail.decrypt_tail, bfv_tail.decrypt_tail_plain, (x, y, dt)),
+            (bfv_tail.decrypt_fused, bfv_tail.decrypt_fused_plain,
+             (x, y, x, td, dt)),
+            (fused_ops.half_polymul, fused_ops.half_polymul_plain,
+             (x, y, td)),
+            (fused_ops.keygen_fused, fused_ops.keygen_fused_plain,
+             (d.clamp(-1, 2), xf, d, tf))):
+        for g, w in zip(as_tuple(kern(*args)), as_tuple(plain(*args))):
+            assert torch.equal(g, w), kern.__name__
+    pk = _rand_res(rng, p.q, p.n, (2,)).to(dev)
+    u_b, e_d = sampling.encrypt_draws_compact_batch(p.n, range(1, 3),
+                                                    device=dev)
+    m = torch.from_numpy(rng.integers(0, p.t, (2, p.n))).to(dev)
+    for B in (0, 8 if logn == 16 else 16):
+        assert torch.equal(
+            fused_ops.encrypt_fused(u_b, pk, e_d, m, tf, tc, cluster=B),
+            fused_ops.encrypt_fused_plain(u_b, pk, e_d, m, tf, tc))
+        assert torch.equal(fused_ops.encrypt_front(u_b[0], pk, tf, cluster=B),
+                           fused_ops.encrypt_front_plain(u_b[0], pk, tf))
+    if logn == 17:
+        with pytest.raises(RuntimeError):
+            fused_ops.encrypt_front(u_b[0], pk, tf, cluster=8)
+
+
+def as_tuple(x):
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+@pytest.mark.gpu
+def test_cuda_fp64_keygen_matches_cpu(cuda_device):
+    """uniform_spec="fp64" keygen on the card at 16k_5q (op) and 32k_9q
+    (stage) equal to the CPU's plain path, and its program replayed as a
+    CUDA graph equal to eager."""
+    from ntt_cuda_tpu_torch.utils import profiling
+    for name in ("16k_5q", "32k_9q"):
+        p = get_bfv_params(name)
+        ctx = BFVContext.build(p, device=cuda_device, uniform_spec="fp64")
+        got = ctx.keygen(5)
+        want = BFVContext.build(p, device="cpu", uniform_spec="fp64").keygen(5)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        kg_fn, *_, bz = ctx.op_programs()
+        g = profiling.graphed(kg_fn, torch.tensor(5, device=cuda_device), bz)
+        assert all(torch.equal(a, b) for a, b in zip(g(), got))
