@@ -1,0 +1,5 @@
+"""Relinearized ciphertext products completed, over the window's seconds."""
+
+
+def read(rec):
+    return rec.items / rec.elapsed if rec.elapsed > 0 else None
