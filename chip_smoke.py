@@ -252,7 +252,7 @@ from ntt_cuda_tpu_torch.parallel import (mesh as pmesh,  # noqa: E402
                                          spmd_mult)
 from ntt_cuda_tpu_torch.models import encoder  # noqa: E402
 from ntt_cuda_tpu_torch.utils import golden, primegen  # noqa: E402
-from ntt_cuda_tpu_torch.utils import profiling  # noqa: E402
+from ntt_cuda_tpu_torch.utils import profiling, tracing  # noqa: E402
 from ntt_cuda_tpu_torch.utils.profiling import median_ms  # noqa: E402
 
 SEED = 20261016
@@ -350,35 +350,36 @@ SALSA_KERNEL, SALSA_LANES_KERNEL = "k_salsa20", "k_salsa20_lanes"
 SALSA_SETS = ("16k_5q", "32k_9q")
 SALSA_CARRY = 2**32 - 5       # counter0 whose blocks cross into word 9
 
-# name -> (wrappers, CUDA source, the TPU kernel it replaces, the main
-# paths that run it; its `launches` are the first path's: the EvalMult
-# path's wherever it runs the kernel, 0 where no path does)
+# name -> (its wrappers' names in utils/tracing.WRAPPERS, CUDA source, the
+# TPU kernel it replaces, the main paths that run it; its launches, counted
+# by the registry, are the first path's: the EvalMult path's wherever it
+# runs the kernel, 0 where no path does)
 KERNELS = {
-    "salsa20_keystream": ((salsa20.keystream_words,),
+    "salsa20_keystream": (("salsa20.keystream_words",),
                           "ntt_cuda_tpu_torch/csrc/salsa20.cu",
                           "ntt_cuda_tpu/ops/salsa20.py:174",
                           ("mult", "op", "stage", "op32", "spmd", "spmd_mult",
                            "spmd2d", "spmd2d_mult", "rns", "rns_inner", "fp64",
                            "wide_t", "large_n", "large_n17")),
-    "salsa20_keystream_batch": ((salsa20.keystream_words_batch,),
+    "salsa20_keystream_batch": (("salsa20.keystream_words_batch",),
                                 "ntt_cuda_tpu_torch/csrc/salsa20.cu",
                                 "ntt_cuda_tpu/ops/salsa20.py:249",
                                 ("batch", "rns", "rns_inner", "programs",
                                  "wide_t", "large_n", "large_n17")),
-    "decrypt_tail": ((bfv_tail.decrypt_tail,),
+    "decrypt_tail": (("bfv_tail.decrypt_tail",),
                      "ntt_cuda_tpu_torch/csrc/decrypt_tail.cu",
                      "ntt_cuda_tpu/ops/bfv_tail.py:388",
                      ("mult", "op", "stage", "batch", "op32", "rns_inner",
                       "programs", "wide_t", "large_n", "large_n17")),
-    "half_polymul": ((fused_ops.half_polymul,),
+    "half_polymul": (("fused_ops.half_polymul",),
                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                      "ntt_cuda_tpu/ops/fused_ops.py:213",
                      ("op", "op32", "spmd", "spmd_mult", "rns", "programs")),
-    "keygen_fused": ((fused_ops.keygen_fused,),
+    "keygen_fused": (("fused_ops.keygen_fused",),
                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                      "ntt_cuda_tpu/ops/fused_ops.py:137",
                      ("op", "op32", "spmd", "programs", "fp64")),
-    "encrypt_fused": ((fused_ops.encrypt_fused,),
+    "encrypt_fused": (("fused_ops.encrypt_fused",),
                       "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                       "ntt_cuda_tpu/ops/fused_ops.py:466",
                       ("op", "batch", "op32", "rns", "rns_inner", "programs",
@@ -387,47 +388,47 @@ KERNELS = {
     # its times below are the forward's, the direction the main path runs
     # (also its shard-offset launch, coef_kernels.local_forward, on the
     # 2-D program's path)
-    "ntt_transform": ((ntt_stage.ntt_forward, ntt_stage.ntt_inverse,
-                       coef_kernels.local_forward),
+    "ntt_transform": (("ntt_stage.ntt_forward", "ntt_stage.ntt_inverse",
+                       "coef_kernels.local_forward"),
                       "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                       "ntt_cuda_tpu/ops/ntt_pallas.py:558",
                       ("mult", "stage", "spmd_mult", "spmd2d", "coef",
                        "spmd2d_mult", "rns", "rns_inner", "programs", "wide_t",
                        "large_n", "large_n17")),
-    "ntt_inverse_mul": ((ntt_stage.ntt_inverse_mul,
-                         coef_kernels.local_inverse_mul),
+    "ntt_inverse_mul": (("ntt_stage.ntt_inverse_mul",
+                         "coef_kernels.local_inverse_mul"),
                         "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                         "ntt_cuda_tpu/ops/ntt_pallas.py:685",
                         ("mult", "stage", "spmd_mult", "spmd2d", "coef",
                          "spmd2d_mult", "rns", "rns_inner", "programs", "fp64",
                          "wide_t", "large_n", "large_n17")),
-    "ntt_forward_ternary": ((ntt_stage.ntt_forward_ternary,),
+    "ntt_forward_ternary": (("ntt_stage.ntt_forward_ternary",),
                             "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                             "ntt_cuda_tpu/ops/ntt_pallas.py:782",
                             ("mult", "stage", "rns", "rns_inner", "programs",
                              "fp64", "wide_t", "large_n", "large_n17")),
-    "ntt_forward_addneg_gauss": ((ntt_stage.ntt_forward_addneg_gauss,),
+    "ntt_forward_addneg_gauss": (("ntt_stage.ntt_forward_addneg_gauss",),
                                  "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                                  "ntt_cuda_tpu/ops/ntt_pallas.py:959",
                                  ("mult", "stage", "rns", "rns_inner",
                                   "programs", "fp64", "wide_t", "large_n",
                                   "large_n17")),
-    "encrypt_fused_stage": ((bfv_tail.encrypt_fused,),
+    "encrypt_fused_stage": (("bfv_tail.encrypt_fused",),
                             "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                             "ntt_cuda_tpu/ops/bfv_tail.py:661",
                             ("mult", "stage", "rns", "rns_inner", "programs",
                              "wide_t", "large_n", "large_n17")),
-    "ntt_forward_addneg": ((ntt_stage.ntt_forward_addneg,),
+    "ntt_forward_addneg": (("ntt_stage.ntt_forward_addneg",),
                            "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                            "ntt_cuda_tpu/ops/ntt_pallas.py:868",
                            ("mult", "spmd_mult", "rns", "rns_inner",
                             "large_n")),
     # three launches: two of ntt_stage.cu and fused_ops.cu's tail
-    "keyswitch_fused": ((fused_ops.keyswitch_fused,),
+    "keyswitch_fused": (("fused_ops.keyswitch_fused",),
                         "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                         "ntt_cuda_tpu/ops/fused_ops.py:651",
                         ("mult", "rns_inner", "programs", "large_n")),
-    "behz_rns_to_bsk": ((behz_kernels.rns_to_bsk,),
+    "behz_rns_to_bsk": (("behz_kernels.rns_to_bsk",),
                         "ntt_cuda_tpu_torch/csrc/behz.cu",
                         "ntt_cuda_tpu/ops/behz_pallas.py:183",
                         ("mult", "rns_inner", "programs", "large_n")),
@@ -435,78 +436,78 @@ KERNELS = {
     # both bodies in one launch, scale_and_round, the next row; the
     # sharded EvalMult their band form, the rows below), so their
     # launches are 0
-    "behz_fast_floor": ((behz_kernels.fast_floor,),
+    "behz_fast_floor": (("behz_kernels.fast_floor",),
                         "ntt_cuda_tpu_torch/csrc/behz.cu",
                         "ntt_cuda_tpu/ops/behz_pallas.py:227", ()),
-    "behz_bsk_to_q": ((behz_kernels.bsk_to_q,),
+    "behz_bsk_to_q": (("behz_kernels.bsk_to_q",),
                       "ntt_cuda_tpu_torch/csrc/behz.cu",
                       "ntt_cuda_tpu/ops/behz_pallas.py:258", ()),
-    "behz_scale_and_round": ((behz_kernels.scale_and_round,),
+    "behz_scale_and_round": (("behz_kernels.scale_and_round",),
                              "ntt_cuda_tpu_torch/csrc/behz.cu",
                              "ntt_cuda_tpu/ops/behz_pallas.py:406",
                              ("mult", "rns_inner", "programs", "large_n")),
     # kernel 22, both directions; its times below are the forward's at
     # (16, 1, 65536)
-    "ntt30_transform": ((ntt30.ntt_forward, ntt30.ntt_inverse),
+    "ntt30_transform": (("ntt30.ntt_forward", "ntt30.ntt_inverse"),
                         "ntt_cuda_tpu_torch/csrc/ntt30.cu",
                         "ntt_cuda_tpu/ops/ntt_pallas30.py:257", ("cli30",)),
     # the RNS-sharded program's kernels (parallel/spmd.py): 18, 16, 17
-    "encrypt_front": ((fused_ops.encrypt_front,),
+    "encrypt_front": (("fused_ops.encrypt_front",),
                       "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                       "ntt_cuda_tpu/ops/fused_ops.py:301",
                       ("spmd", "wide_t_spmd")),
     # 16 also as the sharded key switch's modulus drop (no e, no message)
-    "encrypt_tail_padded": ((bfv_tail.encrypt_tail_padded,
-                             bfv_tail.drop_last_padded),
+    "encrypt_tail_padded": (("bfv_tail.encrypt_tail_padded",
+                             "bfv_tail.drop_last_padded"),
                             "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                             "ntt_cuda_tpu/ops/bfv_tail.py:760",
                             ("spmd", "spmd_mult", "spmd2d", "spmd2d_mult",
                              "rns", "wide_t_spmd")),
-    "decrypt_tail_partial": ((bfv_tail.decrypt_tail_partial,),
+    "decrypt_tail_partial": (("bfv_tail.decrypt_tail_partial",),
                              "ntt_cuda_tpu_torch/csrc/decrypt_tail.cu",
                              "ntt_cuda_tpu/ops/bfv_tail.py:886",
                              ("spmd", "spmd_mult", "spmd2d", "spmd2d_mult",
                               "rns", "wide_t_spmd")),
     # the sharded EvalMult's kernels (parallel/spmd_mult.py): 20 (kernel
     # 19's two transform launches over a rank's rows) and 21a-c in band form
-    "keyswitch_front": ((fused_ops.keyswitch_front,),
+    "keyswitch_front": (("fused_ops.keyswitch_front",),
                         "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                         "ntt_cuda_tpu/ops/fused_ops.py:766",
                         ("spmd_mult", "rns")),
     # kernel 20's accumulate-and-inverse launch on a coefficient shard
     # (coef_kernels.local_keyswitch_acc: PRO_KSACC with the shard offset),
     # the 2-D key switch's (parallel/spmd2d_mult.py)
-    "keyswitch_acc_shard": ((coef_kernels.local_keyswitch_acc,),
+    "keyswitch_acc_shard": (("coef_kernels.local_keyswitch_acc",),
                             "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                             "ntt_cuda_tpu/ops/fused_ops.py:766",
                             ("spmd2d_mult",)),
-    "behz_rns_to_bsk_rows": ((behz_kernels.rns_to_bsk_rows,),
+    "behz_rns_to_bsk_rows": (("behz_kernels.rns_to_bsk_rows",),
                              "ntt_cuda_tpu_torch/csrc/behz.cu",
                              "ntt_cuda_tpu/ops/behz_pallas.py:431",
                              ("spmd_mult", "spmd2d_mult", "rns")),
-    "behz_fast_floor_rows": ((behz_kernels.fast_floor_rows,),
+    "behz_fast_floor_rows": (("behz_kernels.fast_floor_rows",),
                              "ntt_cuda_tpu_torch/csrc/behz.cu",
                              "ntt_cuda_tpu/ops/behz_pallas.py:447",
                              ("spmd_mult", "spmd2d_mult", "rns")),
-    "behz_bsk_to_q_rows": ((behz_kernels.bsk_to_q_rows,),
+    "behz_bsk_to_q_rows": (("behz_kernels.bsk_to_q_rows",),
                            "ntt_cuda_tpu_torch/csrc/behz.cu",
                            "ntt_cuda_tpu/ops/behz_pallas.py:464",
                            ("spmd_mult", "spmd2d_mult", "rns")),
     # the op-level entry points (the ops path): 12 (ntt_forward /
     # ntt_inverse with mod_idx), 14 (encrypt_tail), 15 (decrypt_fused)
-    "ntt_transform_idx": ((ntt_stage.ntt_transform_idx,),
+    "ntt_transform_idx": (("ntt_stage.ntt_transform_idx",),
                           "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                           "ntt_cuda_tpu/ops/ntt_pallas.py:496", ("ops",)),
-    "encrypt_tail": ((bfv_tail.encrypt_tail,),
+    "encrypt_tail": (("bfv_tail.encrypt_tail",),
                      "ntt_cuda_tpu_torch/csrc/fused_ops.cu",
                      "ntt_cuda_tpu/ops/bfv_tail.py:144", ("ops",)),
-    "decrypt_fused": ((bfv_tail.decrypt_fused,),
+    "decrypt_fused": (("bfv_tail.decrypt_fused",),
                       "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                       "ntt_cuda_tpu/ops/bfv_tail.py:507", ("ops",)),
     # glue of the coefficient-sharded transform, not a TPU kernel: the
     # cross-shard butterfly, XLA in the JAX package (parallel/sharded.py
     # _cross_forward_stage); its launches are the one-process coef path's
-    "coef_cross_stage": ((coef_kernels.cross_stage,),
+    "coef_cross_stage": (("coef_kernels.cross_stage",),
                          "ntt_cuda_tpu_torch/csrc/ntt_stage.cu",
                          "ntt_cuda_tpu/parallel/sharded.py:102", ("coef",)),
 }
@@ -3122,13 +3123,12 @@ def finish_rns_ranks(R: int, procs: list, out: Path) -> dict:
 
 
 def reset_counts() -> None:
-    for wrappers, *_ in KERNELS.values():
-        for w in wrappers:
-            w.launches = 0
+    tracing.reset()
 
 
 def read_counts() -> dict[str, int]:
-    return {k: sum(w.launches for w in ws) for k, (ws, *_) in KERNELS.items()}
+    c = tracing.counts()
+    return {k: sum(c[w] for w in ws) for k, (ws, *_) in KERNELS.items()}
 
 
 def drive(ctx: BFVContext, msgs: np.ndarray, dev=None) -> dict:

@@ -56,6 +56,7 @@ from ..ops import (behz, behz_kernels, bfv_tail, fused_ops, modmath, ntt,
                    ntt_stage, poly, salsa20, sampling)
 from ..ops.modmath import I64
 from ..utils import hostmath as hm
+from ..utils import tracing
 from . import encoder
 
 def _as_tensor(name: str, x) -> torch.Tensor:
@@ -247,6 +248,7 @@ class BFVContext:
 
     # -- public API ---------------------------------------------------------
 
+    @tracing.traced("ntt.keygen")
     def keygen(self, nonce=0):
         """-> (sk (r, n), pk (2, r, n)), both NTT domain (keygen_rns,
         bfv_keygen.cuh:95-151).  Keygen nonces live in the bit-63-clear
@@ -255,6 +257,7 @@ class BFVContext:
         return _keygen(int(nonce), self.tables_full, self.fusion,
                        self.uniform_spec)
 
+    @tracing.traced("ntt.encrypt")
     def encrypt(self, pk, m_poly, nonce=0):
         """pk (2, r, n) NTT domain, m_poly (n,) in [0, t) -> ciphertext
         (2, r-1, n), coefficient domain (encryption_rns,
@@ -273,6 +276,7 @@ class BFVContext:
         return _encrypt(int(nonce), pk, m_poly, self.tables_full,
                         self.tail_consts, self.fusion)
 
+    @tracing.traced("ntt.encrypt_batch")
     def encrypt_batch(self, pk, m_batch, nonces):
         """Throughput-mode encryption: pk (2, r, n) NTT domain, m_batch
         (J, n) in [0, t), nonces (J,) distinct per message -> (J, 2, r-1,
@@ -302,6 +306,7 @@ class BFVContext:
         return _encrypt_batch(nonces, pk, m_batch, self.tables_full,
                               self.tail_consts)
 
+    @tracing.traced("ntt.decrypt")
     def decrypt(self, sk, ct):
         """sk (r, n) NTT domain (first r-1 residues used; (r-1, n) also
         accepted), ct (L, r-1, n) -> plaintext (n,) in [0, t)
@@ -317,6 +322,7 @@ class BFVContext:
         return bfv_tail.decrypt_tail(self._spower_front(ct[1:], sk), ct[0],
                                      self.dec_tail_consts)
 
+    @tracing.traced("ntt.decrypt_batch")
     def decrypt_batch(self, sk, cts):
         """Throughput-mode decryption: cts (J, 2, r-1, n) -> (J, n), one
         launch per kernel for all J messages; equal to decrypt() per
@@ -373,6 +379,7 @@ class BFVContext:
         ct = check_residues("ct", ct, tuple(ct.shape), device=self.device)
         return poly.poly_negate(ct, self.tables_drop.ms)
 
+    @tracing.traced("ntt.mul_plain")
     def mul_plain(self, ct, m_poly):
         """Ciphertext (2, r-1, n) * plaintext (n,) in Z_t[x]/(x^n + 1):
         decrypts to the negacyclic product (m_ct * m) mod t.  Both
@@ -417,6 +424,7 @@ class BFVContext:
         tc = self.next_context().tail_consts
         return poly.divide_and_round_q_last(ct, tc.dr, tc.ms_drop, tc.ms_last)
 
+    @tracing.traced("ntt.noise_budget")
     def noise_budget(self, sk, ct) -> int:
         """Invariant noise budget in bits (SEAL's invariant_noise_budget):
         floor(log2(q / (2 |w|))) with w = [t (c0 + c1 s + ...)]_q centered;
@@ -454,6 +462,7 @@ class BFVContext:
             return q_prod.bit_length() - 1
         return max(0, (q_prod // (2 * max_w)).bit_length() - 1)
 
+    @tracing.traced("ntt.mul")
     def mul(self, ct_a, ct_b, rlk=None):
         """Homomorphic multiplication (BEHZ RNS EvalMult): decrypts to the
         negacyclic product (m1 * m2) mod t.  (2, r-1, n) ciphertexts or
@@ -469,6 +478,7 @@ class BFVContext:
                    st.tables_bsk)
         return ct3 if rlk is None else self.relinearize(ct3, rlk)
 
+    @tracing.traced("ntt.square")
     def square(self, ct, rlk=None):
         """Homomorphic squaring: bit-identical to mul(ct, ct), with one
         operand's transforms and conversion."""
@@ -551,6 +561,7 @@ class BFVContext:
 
         return mul_fn, square_fn, bundles
 
+    @tracing.traced("ntt.relin_keygen")
     def relin_keygen(self, sk, nonce=0):
         """Relinearization keys for mul(): (2, r-1, r, n), NTT domain.
         Key j encrypts P * q~_j * s^2 over the full base, P = q_last (the
@@ -566,6 +577,7 @@ class BFVContext:
         a, e = sampling.relin_draws(p.n, p.r, p.r - 1, ms, nonce=int(nonce))
         return self._kskeygen(a, e, sk, ntt.dyadic_mul(sk, sk, ms))
 
+    @tracing.traced("ntt.galois_keygen")
     def galois_keygen(self, sk, elts, nonce=0):
         """Switching keys for the Galois automorphisms x -> x^g: {g: (2,
         r-1, r, n)} for each g in `elts` (odd, 0 < g < 2n), NTT domain.
@@ -592,6 +604,7 @@ class BFVContext:
         keys = self._kskeygen(a, e, sk, ntt_stage.ntt_forward(ts, tf))
         return {g: keys[i] for i, g in enumerate(elts)}
 
+    @tracing.traced("ntt.apply_galois")
     def apply_galois(self, ct, g, gk):
         """Homomorphic automorphism: decrypts to tau_g(m), out[j] =
         +-m[(j g^-1 mod 2n) mod n] with the negacyclic sign, mod t.  `gk`
@@ -637,6 +650,7 @@ class BFVContext:
                            f"with galois_keygen(sk, [2*n - 1])")
         return self.apply_galois(ct, g, gks[g])
 
+    @tracing.traced("ntt.relinearize")
     def relinearize(self, ct3, rlk):
         """(3, r-1, n) or (J, 3, r-1, n) mul() output + relin keys ->
         (..., 2, r-1, n): key-switch c2 through rlk (the RNS digits of c2,

@@ -32,6 +32,7 @@ import torch
 
 from .. import cuda
 from ..utils import hostmath as hm
+from ..utils import tracing
 from . import behz, modmath
 from .behz import AuxBase, MultConsts
 from .modmath import I64
@@ -168,15 +169,13 @@ def rns_to_bsk(x, mb: MultBanks) -> torch.Tensor:
     lead = _lead("x", x, mb.k)
     if x.device.type == "cpu":
         return rns_to_bsk_plain(x, mb)
-    dev = _kernel_device("rns_to_bsk", x, mb)
-    cuda.require("x", x, I64, tuple(x.shape), dev)
-    out = torch.empty(lead + (mb.k + 1, x.shape[-1]), dtype=I64, device=dev)
-    _launch(RNS_TO_BSK, x, None, out, mb)
-    rns_to_bsk.launches += 1
+    with tracing.launch("behz_kernels.rns_to_bsk"):
+        dev = _kernel_device("rns_to_bsk", x, mb)
+        cuda.require("x", x, I64, tuple(x.shape), dev)
+        out = torch.empty(lead + (mb.k + 1, x.shape[-1]), dtype=I64,
+                          device=dev)
+        _launch(RNS_TO_BSK, x, None, out, mb)
     return out
-
-
-rns_to_bsk.launches = 0
 
 
 # --- kernel 21b: floor(t x / q) in Bsk ---------------------------------------
@@ -194,16 +193,13 @@ def fast_floor(xq, xbsk, mb: MultBanks) -> torch.Tensor:
                          f"xq {tuple(xq.shape)}")
     if xq.device.type == "cpu":
         return fast_floor_plain(xq, xbsk, mb)
-    dev = _kernel_device("fast_floor", xq, mb)
-    cuda.require("xq", xq, I64, tuple(xq.shape), dev)
-    cuda.require("xbsk", xbsk, I64, tuple(xbsk.shape), dev)
-    out = torch.empty_like(xbsk)
-    _launch(FAST_FLOOR, xq, xbsk, out, mb)
-    fast_floor.launches += 1
+    with tracing.launch("behz_kernels.fast_floor"):
+        dev = _kernel_device("fast_floor", xq, mb)
+        cuda.require("xq", xq, I64, tuple(xq.shape), dev)
+        cuda.require("xbsk", xbsk, I64, tuple(xbsk.shape), dev)
+        out = torch.empty_like(xbsk)
+        _launch(FAST_FLOOR, xq, xbsk, out, mb)
     return out
-
-
-fast_floor.launches = 0
 
 
 # --- kernel 21c: Shenoy-Kumaresan Bsk -> q -----------------------------------
@@ -217,15 +213,12 @@ def bsk_to_q(x, mb: MultBanks) -> torch.Tensor:
     lead = _lead("x", x, mb.k + 1)
     if x.device.type == "cpu":
         return bsk_to_q_plain(x, mb)
-    dev = _kernel_device("bsk_to_q", x, mb)
-    cuda.require("x", x, I64, tuple(x.shape), dev)
-    out = torch.empty(lead + (mb.k, x.shape[-1]), dtype=I64, device=dev)
-    _launch(BSK_TO_Q, x, None, out, mb)
-    bsk_to_q.launches += 1
+    with tracing.launch("behz_kernels.bsk_to_q"):
+        dev = _kernel_device("bsk_to_q", x, mb)
+        cuda.require("x", x, I64, tuple(x.shape), dev)
+        out = torch.empty(lead + (mb.k, x.shape[-1]), dtype=I64, device=dev)
+        _launch(BSK_TO_Q, x, None, out, mb)
     return out
-
-
-bsk_to_q.launches = 0
 
 
 def scale_and_round_plain(xq, xbsk, mb: MultBanks) -> torch.Tensor:
@@ -242,16 +235,13 @@ def scale_and_round(xq, xbsk, mb: MultBanks) -> torch.Tensor:
                          f"xq {tuple(xq.shape)}")
     if xq.device.type == "cpu":
         return scale_and_round_plain(xq, xbsk, mb)
-    dev = _kernel_device("scale_and_round", xq, mb)
-    cuda.require("xq", xq, I64, tuple(xq.shape), dev)
-    cuda.require("xbsk", xbsk, I64, tuple(xbsk.shape), dev)
-    out = torch.empty_like(xq)
-    _launch(SCALE_AND_ROUND, xq, xbsk, out, mb)
-    scale_and_round.launches += 1
+    with tracing.launch("behz_kernels.scale_and_round"):
+        dev = _kernel_device("scale_and_round", xq, mb)
+        cuda.require("xq", xq, I64, tuple(xq.shape), dev)
+        cuda.require("xbsk", xbsk, I64, tuple(xbsk.shape), dev)
+        out = torch.empty_like(xq)
+        _launch(SCALE_AND_ROUND, xq, xbsk, out, mb)
     return out
-
-
-scale_and_round.launches = 0
 
 
 # --- the band forms, for one rank of the RNS-sharded EvalMult ---------------
@@ -427,16 +417,13 @@ def rns_to_bsk_rows(x, mc: SpmdMultConsts, row0: int,
     lead = _band_lead("x", x, mc.k, row0, rl, mc.k)
     if x.device.type == "cpu":
         return rns_to_bsk_rows_plain(x, mc, row0, rl)
-    mb = mc.banks
-    dev = _kernel_device("rns_to_bsk_rows", x, mb)
-    cuda.require("x", x, I64, tuple(x.shape), dev)
-    out = torch.empty(lead + (rl, x.shape[-1]), dtype=I64, device=dev)
-    _launch(RNS_TO_BSK, x, None, out, mb, row0)
-    rns_to_bsk_rows.launches += 1
+    with tracing.launch("behz_kernels.rns_to_bsk_rows"):
+        mb = mc.banks
+        dev = _kernel_device("rns_to_bsk_rows", x, mb)
+        cuda.require("x", x, I64, tuple(x.shape), dev)
+        out = torch.empty(lead + (rl, x.shape[-1]), dtype=I64, device=dev)
+        _launch(RNS_TO_BSK, x, None, out, mb, row0)
     return out
-
-
-rns_to_bsk_rows.launches = 0
 
 
 # --- kernel 21b on a band ----------------------------------------------------
@@ -466,17 +453,14 @@ def fast_floor_rows(xq, xb, mc: SpmdMultConsts, row0: int,
                          f"{tuple(xq.shape)} over {rl} rows")
     if xq.device.type == "cpu":
         return fast_floor_rows_plain(xq, xb, mc, row0, rl)
-    mb = mc.banks
-    dev = _kernel_device("fast_floor_rows", xq, mb)
-    cuda.require("xq", xq, I64, tuple(xq.shape), dev)
-    cuda.require("xb", xb, I64, tuple(xb.shape), dev)
-    out = torch.empty_like(xb)
-    _launch(FAST_FLOOR, xq, xb, out, mb, row0)
-    fast_floor_rows.launches += 1
+    with tracing.launch("behz_kernels.fast_floor_rows"):
+        mb = mc.banks
+        dev = _kernel_device("fast_floor_rows", xq, mb)
+        cuda.require("xq", xq, I64, tuple(xq.shape), dev)
+        cuda.require("xb", xb, I64, tuple(xb.shape), dev)
+        out = torch.empty_like(xb)
+        _launch(FAST_FLOOR, xq, xb, out, mb, row0)
     return out
-
-
-fast_floor_rows.launches = 0
 
 
 # --- kernel 21c on a band ----------------------------------------------------
@@ -513,13 +497,10 @@ def bsk_to_q_rows(x, mc: SpmdMultConsts, row0: int,
     lead = _band_lead("x", x, mc.k + 1, row0, rl, mc.k)
     if x.device.type == "cpu":
         return bsk_to_q_rows_plain(x, mc, row0, rl)
-    mb = mc.banks
-    dev = _kernel_device("bsk_to_q_rows", x, mb)
-    cuda.require("x", x, I64, tuple(x.shape), dev)
-    out = torch.empty(lead + (rl, x.shape[-1]), dtype=I64, device=dev)
-    _launch(BSK_TO_Q, x, None, out, mb, row0)
-    bsk_to_q_rows.launches += 1
+    with tracing.launch("behz_kernels.bsk_to_q_rows"):
+        mb = mc.banks
+        dev = _kernel_device("bsk_to_q_rows", x, mb)
+        cuda.require("x", x, I64, tuple(x.shape), dev)
+        out = torch.empty(lead + (rl, x.shape[-1]), dtype=I64, device=dev)
+        _launch(BSK_TO_Q, x, None, out, mb, row0)
     return out
-
-
-bsk_to_q_rows.launches = 0

@@ -48,6 +48,7 @@ import torch
 
 from .. import cuda
 from ..utils import hostmath as hm
+from ..utils import tracing
 from . import modmath, ntt, ntt_stage, poly, sampling
 from .modmath import I64, ModulusSet
 from .ntt import NTTTables
@@ -269,22 +270,19 @@ def decrypt_tail(x, ct0, consts: DecTailConsts) -> torch.Tensor:
         return decrypt_tail_plain(x, ct0, consts)
     if x.device.type != "cuda":
         raise ValueError(f"decrypt_tail: no kernel for {x.device}")
-    single = x.dim() == 2
-    J = 1 if single else x.shape[0]
-    rk, n = x.shape[-2:]
-    for name, tns in (("x", x), ("ct0", ct0)):
-        cuda.require(name, tns, I64, tuple(x.shape), consts.per_mod.device)
-    out = torch.empty((J, n), dtype=I64, device=x.device)
-    pow2, t, neg_t, nu_t, inv_gt = _t_strategy(consts.tmeta)
-    cuda.launch("ntt_decrypt_tail", x.device, x.data_ptr(), ct0.data_ptr(),
-                out.data_ptr(), consts.k2_rows.data_ptr(),
-                consts.glob.data_ptr(), J, rk, n, pow2, t, neg_t, nu_t,
-                inv_gt)
-    decrypt_tail.launches += 1
+    with tracing.launch("bfv_tail.decrypt_tail"):
+        single = x.dim() == 2
+        J = 1 if single else x.shape[0]
+        rk, n = x.shape[-2:]
+        for name, tns in (("x", x), ("ct0", ct0)):
+            cuda.require(name, tns, I64, tuple(x.shape), consts.per_mod.device)
+        out = torch.empty((J, n), dtype=I64, device=x.device)
+        pow2, t, neg_t, nu_t, inv_gt = _t_strategy(consts.tmeta)
+        cuda.launch("ntt_decrypt_tail", x.device, x.data_ptr(), ct0.data_ptr(),
+                    out.data_ptr(), consts.k2_rows.data_ptr(),
+                    consts.glob.data_ptr(), J, rk, n, pow2, t, neg_t, nu_t,
+                    inv_gt)
     return out[0] if single else out
-
-
-decrypt_tail.launches = 0
 
 
 def encrypt_fused_plain(u_ntt, pk, e_d, m_poly, tables: NTTTables,
@@ -314,23 +312,21 @@ def encrypt_fused(u_ntt, pk, e_d, m_poly, tables: NTTTables,
                              f"{tuple(t.shape)}")
     if pk.device.type == "cpu":
         return encrypt_fused_plain(u_ntt, pk, e_d, m_poly, tables, consts)
-    dev = cuda.kernel_device("encrypt_fused", pk, tables,
-                             cuda.TRANSFORM_MAX_N)
-    cuda.require("u_ntt", u_ntt, I64, (r, n), dev)
-    cuda.require("pk", pk, I64, (2, r, n), dev)
-    cuda.require("e_d", e_d, torch.int32, (2, n), dev)
-    cuda.require("m_poly", m_poly, I64, (n,), dev)
-    scratch = torch.empty((2, r, n), dtype=I64, device=dev)
-    ct = torch.empty((2, r - 1, n), dtype=I64, device=dev)
-    ntt_stage.inverse_launch(dev, pk, u_ntt, e_d, scratch, tables)
-    cuda.launch("ntt_encrypt_tail", dev, scratch.data_ptr(),
-                m_poly.data_ptr(), ct.data_ptr(), consts.tail_rows.data_ptr(),
-                consts.q_last, consts.half, consts.fix_th, 1, r, n)
-    encrypt_fused.launches += 1
+    with tracing.launch("bfv_tail.encrypt_fused"):
+        dev = cuda.kernel_device("encrypt_fused", pk, tables,
+                                 cuda.TRANSFORM_MAX_N)
+        cuda.require("u_ntt", u_ntt, I64, (r, n), dev)
+        cuda.require("pk", pk, I64, (2, r, n), dev)
+        cuda.require("e_d", e_d, torch.int32, (2, n), dev)
+        cuda.require("m_poly", m_poly, I64, (n,), dev)
+        scratch = torch.empty((2, r, n), dtype=I64, device=dev)
+        ct = torch.empty((2, r - 1, n), dtype=I64, device=dev)
+        ntt_stage.inverse_launch(dev, pk, u_ntt, e_d, scratch, tables)
+        cuda.launch("ntt_encrypt_tail", dev, scratch.data_ptr(),
+                    m_poly.data_ptr(), ct.data_ptr(),
+                    consts.tail_rows.data_ptr(), consts.q_last, consts.half,
+                    consts.fix_th, 1, r, n)
     return ct
-
-
-encrypt_fused.launches = 0
 
 
 # --- kernel 14: the encrypt tail from c and e -------------------------------
@@ -361,18 +357,16 @@ def encrypt_tail(c, e, m_poly, consts: TailConsts) -> torch.Tensor:
         return encrypt_tail_plain(c, e, m_poly, consts)
     if c.device.type != "cuda":
         raise ValueError(f"encrypt_tail: no kernel for {c.device}")
-    dev = consts.per_mod.device
-    for name, t in (("c", c), ("e", e), ("m_poly", m_poly)):
-        cuda.require(name, t, I64, tuple(t.shape), dev)
-    ct = torch.empty((2, r - 1, n), dtype=I64, device=dev)
-    cuda.launch("ntt_encrypt_tail_e", dev, c.data_ptr(), e.data_ptr(),
-                m_poly.data_ptr(), ct.data_ptr(), consts.tail_rows.data_ptr(),
-                consts.q_last, consts.half, consts.fix_th, r, n)
-    encrypt_tail.launches += 1
+    with tracing.launch("bfv_tail.encrypt_tail"):
+        dev = consts.per_mod.device
+        for name, t in (("c", c), ("e", e), ("m_poly", m_poly)):
+            cuda.require(name, t, I64, tuple(t.shape), dev)
+        ct = torch.empty((2, r - 1, n), dtype=I64, device=dev)
+        cuda.launch("ntt_encrypt_tail_e", dev, c.data_ptr(), e.data_ptr(),
+                    m_poly.data_ptr(), ct.data_ptr(),
+                    consts.tail_rows.data_ptr(), consts.q_last, consts.half,
+                    consts.fix_th, r, n)
     return ct
-
-
-encrypt_tail.launches = 0
 
 
 # --- kernel 15: INTT(x (.) sk) and the decrypt tail in one launch ------------
@@ -405,23 +399,20 @@ def decrypt_fused(x_ntt, sk, ct0, tables: NTTTables, consts: DecTailConsts,
                          f"tables for {rk}")
     if x_ntt.device.type == "cpu":
         return decrypt_fused_plain(x_ntt, sk, ct0, tables, consts)
-    dev = cuda.kernel_device("decrypt_fused", x_ntt, tables,
-                             cuda.TRANSFORM_MAX_N)
-    for name, t in (("x_ntt", x_ntt), ("sk", sk), ("ct0", ct0)):
-        cuda.require(name, t, I64, (rk, n), dev)
-    scratch = torch.empty((rk, n), dtype=I64, device=dev)
-    out = torch.empty((n,), dtype=I64, device=dev)
-    pow2, t, neg_t, nu_t, inv_gt = _t_strategy(consts.tmeta)
-    cuda.launch("ntt_decrypt_fused", dev, x_ntt.data_ptr(), sk.data_ptr(),
-                ct0.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-                *tables.kernel_args(), consts.k2_rows.data_ptr(),
-                consts.glob.data_ptr(), rk, tables.logn, pow2, t, neg_t,
-                nu_t, inv_gt, cluster)
-    decrypt_fused.launches += 1
+    with tracing.launch("bfv_tail.decrypt_fused"):
+        dev = cuda.kernel_device("decrypt_fused", x_ntt, tables,
+                                 cuda.TRANSFORM_MAX_N)
+        for name, t in (("x_ntt", x_ntt), ("sk", sk), ("ct0", ct0)):
+            cuda.require(name, t, I64, (rk, n), dev)
+        scratch = torch.empty((rk, n), dtype=I64, device=dev)
+        out = torch.empty((n,), dtype=I64, device=dev)
+        pow2, t, neg_t, nu_t, inv_gt = _t_strategy(consts.tmeta)
+        cuda.launch("ntt_decrypt_fused", dev, x_ntt.data_ptr(), sk.data_ptr(),
+                    ct0.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                    *tables.kernel_args(), consts.k2_rows.data_ptr(),
+                    consts.glob.data_ptr(), rk, tables.logn, pow2, t, neg_t,
+                    nu_t, inv_gt, cluster)
     return out
-
-
-decrypt_fused.launches = 0
 
 
 # --- the RNS-sharded program's tails: one rank's rows [lo, hi) of the padded
@@ -510,20 +501,17 @@ def encrypt_tail_padded(c, e, ra_ready, m_poly,
         return encrypt_tail_padded_plain(c, e, ra_ready, m_poly, consts)
     if c.device.type != "cuda":
         raise ValueError(f"encrypt_tail_padded: no kernel for {c.device}")
-    dev = consts.per_mod.device
-    for name, t in (("c", c), ("e", e), ("ra_ready", ra_ready),
-                    ("m_poly", m_poly)):
-        cuda.require(name, t, I64, tuple(t.shape), dev)
-    ct = torch.empty((2, rl, n), dtype=I64, device=dev)
-    cuda.launch("ntt_encrypt_tail_padded", dev, c.data_ptr(), e.data_ptr(),
-                ra_ready.data_ptr(), m_poly.data_ptr(), ct.data_ptr(),
-                consts.tail_rows.data_ptr(), consts.q_last, consts.fix_th, rl,
-                n)
-    encrypt_tail_padded.launches += 1
+    with tracing.launch("bfv_tail.encrypt_tail_padded"):
+        dev = consts.per_mod.device
+        for name, t in (("c", c), ("e", e), ("ra_ready", ra_ready),
+                        ("m_poly", m_poly)):
+            cuda.require(name, t, I64, tuple(t.shape), dev)
+        ct = torch.empty((2, rl, n), dtype=I64, device=dev)
+        cuda.launch("ntt_encrypt_tail_padded", dev, c.data_ptr(), e.data_ptr(),
+                    ra_ready.data_ptr(), m_poly.data_ptr(), ct.data_ptr(),
+                    consts.tail_rows.data_ptr(), consts.q_last,
+                    consts.fix_th, rl, n)
     return ct
-
-
-encrypt_tail_padded.launches = 0
 
 
 def drop_last_padded(c, ra_ready, consts: PaddedTailConsts) -> torch.Tensor:
@@ -542,18 +530,15 @@ def drop_last_padded(c, ra_ready, consts: PaddedTailConsts) -> torch.Tensor:
         return drop_last_padded_plain(c, ra_ready, consts)
     if c.device.type != "cuda":
         raise ValueError(f"drop_last_padded: no kernel for {c.device}")
-    dev = consts.per_mod.device
-    for name, t in (("c", c), ("ra_ready", ra_ready)):
-        cuda.require(name, t, I64, tuple(t.shape), dev)
-    ct = torch.empty((2, rl, n), dtype=I64, device=dev)
-    cuda.launch("ntt_drop_last_padded", dev, c.data_ptr(), ra_ready.data_ptr(),
-                ct.data_ptr(), consts.tail_rows.data_ptr(), consts.q_last, rl,
-                n)
-    drop_last_padded.launches += 1
+    with tracing.launch("bfv_tail.drop_last_padded"):
+        dev = consts.per_mod.device
+        for name, t in (("c", c), ("ra_ready", ra_ready)):
+            cuda.require(name, t, I64, tuple(t.shape), dev)
+        ct = torch.empty((2, rl, n), dtype=I64, device=dev)
+        cuda.launch("ntt_drop_last_padded", dev, c.data_ptr(),
+                    ra_ready.data_ptr(), ct.data_ptr(),
+                    consts.tail_rows.data_ptr(), consts.q_last, rl, n)
     return ct
-
-
-drop_last_padded.launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -635,19 +620,16 @@ def decrypt_tail_partial(x, ct0, consts: DecPartialConsts):
         return decrypt_tail_partial_plain(x, ct0, consts)
     if x.device.type != "cuda":
         raise ValueError(f"decrypt_tail_partial: no kernel for {x.device}")
-    dev = consts.per_mod.device
-    cuda.require("x", x, I64, (rl, n), dev)
-    cuda.require("ct0", ct0, I64, (rl, n), dev)
-    out = torch.empty((2, n), dtype=I64, device=dev)
-    t = consts.t
-    cuda.launch("ntt_decrypt_tail_partial", dev, x.data_ptr(), ct0.data_ptr(),
-                out.data_ptr(), consts.k2_rows.data_ptr(),
-                consts.glob.data_ptr(), rl, n, _t_mode(t), t, consts.nu_t)
-    decrypt_tail_partial.launches += 1
+    with tracing.launch("bfv_tail.decrypt_tail_partial"):
+        dev = consts.per_mod.device
+        cuda.require("x", x, I64, (rl, n), dev)
+        cuda.require("ct0", ct0, I64, (rl, n), dev)
+        out = torch.empty((2, n), dtype=I64, device=dev)
+        t = consts.t
+        cuda.launch("ntt_decrypt_tail_partial", dev, x.data_ptr(),
+                    ct0.data_ptr(), out.data_ptr(), consts.k2_rows.data_ptr(),
+                    consts.glob.data_ptr(), rl, n, _t_mode(t), t, consts.nu_t)
     return out[0], out[1]
-
-
-decrypt_tail_partial.launches = 0
 
 
 def _gamma_scalars(params, like: torch.Tensor):

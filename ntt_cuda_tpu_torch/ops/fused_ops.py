@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from .. import cuda
+from ..utils import tracing
 from . import bfv_tail, modmath, ntt, ntt_stage, poly, sampling
 from .bfv_tail import TailConsts
 from .modmath import I64
@@ -51,22 +52,20 @@ def half_polymul(x, y_ntt, tables: NTTTables, *,
     and timings, and a B whose n/B buffer does not fit a block raises)."""
     if x.device.type == "cpu":
         return half_polymul_plain(x, y_ntt, tables)
-    dev = cuda.kernel_device("half_polymul", x, tables, cuda.TRANSFORM_MAX_N)
-    r, n = tables.r, tables.n
-    if x.dim() < 2 or tuple(x.shape[-2:]) != (r, n):
-        raise ValueError(f"half_polymul: x shape {tuple(x.shape)}, expected "
-                         f"(..., {r}, {n})")
-    cuda.require("x", x, I64, tuple(x.shape), dev)
-    cuda.require("y_ntt", y_ntt, I64, (r, n), dev)
-    out = torch.empty_like(x)
-    cuda.launch("ntt_half_polymul_cluster", dev, x.data_ptr(),
-                y_ntt.data_ptr(), out.data_ptr(), *tables.kernel_args(),
-                x.numel() // n, r, tables.logn, cluster)
-    half_polymul.launches += 1
+    with tracing.launch("fused_ops.half_polymul"):
+        dev = cuda.kernel_device("half_polymul", x, tables,
+                                 cuda.TRANSFORM_MAX_N)
+        r, n = tables.r, tables.n
+        if x.dim() < 2 or tuple(x.shape[-2:]) != (r, n):
+            raise ValueError(f"half_polymul: x shape {tuple(x.shape)}, "
+                             f"expected (..., {r}, {n})")
+        cuda.require("x", x, I64, tuple(x.shape), dev)
+        cuda.require("y_ntt", y_ntt, I64, (r, n), dev)
+        out = torch.empty_like(x)
+        cuda.launch("ntt_half_polymul_cluster", dev, x.data_ptr(),
+                    y_ntt.data_ptr(), out.data_ptr(), *tables.kernel_args(),
+                    x.numel() // n, r, tables.logn, cluster)
     return out
-
-
-half_polymul.launches = 0
 
 
 # --- keygen_fused ----------------------------------------------------------
@@ -86,21 +85,20 @@ def keygen_fused(s_b, a, e_d, tables: NTTTables, *, cluster: int = 0):
     card: one launch, one cluster per modulus; cluster as half_polymul's."""
     if a.device.type == "cpu":
         return keygen_fused_plain(s_b, a, e_d, tables)
-    dev = cuda.kernel_device("keygen_fused", a, tables, cuda.TRANSFORM_MAX_N)
-    r, n = tables.r, tables.n
-    cuda.require("s_b", s_b, torch.int32, (n,), dev)
-    cuda.require("a", a, I64, (r, n), dev)
-    cuda.require("e_d", e_d, torch.int32, (n,), dev)
-    sk = torch.empty((r, n), dtype=I64, device=dev)
-    pk0 = torch.empty((r, n), dtype=I64, device=dev)
-    cuda.launch("ntt_keygen_fused_cluster", dev, s_b.data_ptr(),
-                a.data_ptr(), e_d.data_ptr(), sk.data_ptr(), pk0.data_ptr(),
-                *tables.kernel_args(), r, tables.logn, cluster)
-    keygen_fused.launches += 1
+    with tracing.launch("fused_ops.keygen_fused"):
+        dev = cuda.kernel_device("keygen_fused", a, tables,
+                                 cuda.TRANSFORM_MAX_N)
+        r, n = tables.r, tables.n
+        cuda.require("s_b", s_b, torch.int32, (n,), dev)
+        cuda.require("a", a, I64, (r, n), dev)
+        cuda.require("e_d", e_d, torch.int32, (n,), dev)
+        sk = torch.empty((r, n), dtype=I64, device=dev)
+        pk0 = torch.empty((r, n), dtype=I64, device=dev)
+        cuda.launch("ntt_keygen_fused_cluster", dev, s_b.data_ptr(),
+                    a.data_ptr(), e_d.data_ptr(), sk.data_ptr(),
+                    pk0.data_ptr(), *tables.kernel_args(), r, tables.logn,
+                    cluster)
     return sk, pk0
-
-
-keygen_fused.launches = 0
 
 
 # --- encrypt_fused ---------------------------------------------------------
@@ -141,30 +139,28 @@ def encrypt_fused(u_b, pk, e_d, m_poly, tables: NTTTables,
     the elementwise tail."""
     if pk.device.type == "cpu":
         return encrypt_fused_plain(u_b, pk, e_d, m_poly, tables, consts)
-    dev = cuda.kernel_device("encrypt_fused", pk, tables,
-                             cuda.TRANSFORM_MAX_N)
-    single = u_b.dim() == 1
-    if single:
-        u_b, e_d, m_poly = u_b[None], e_d[None], m_poly[None]
-    J = u_b.shape[0]
-    r, n = tables.r, tables.n
-    cuda.require("u_b", u_b, torch.int32, (J, n), dev)
-    cuda.require("pk", pk, I64, (2, r, n), dev)
-    cuda.require("e_d", e_d, torch.int32, (J, 2, n), dev)
-    cuda.require("m_poly", m_poly, I64, (J, n), dev)
-    scratch = torch.empty((J, 2, r, n), dtype=I64, device=dev)
-    ct = torch.empty((J, 2, r - 1, n), dtype=I64, device=dev)
-    cuda.launch("ntt_encrypt_transform_cluster", dev, u_b.data_ptr(),
-                pk.data_ptr(), e_d.data_ptr(), scratch.data_ptr(),
-                *tables.kernel_args(), J, r, tables.logn, cluster)
-    cuda.launch("ntt_encrypt_tail", dev, scratch.data_ptr(),
-                m_poly.data_ptr(), ct.data_ptr(), consts.tail_rows.data_ptr(),
-                consts.q_last, consts.half, consts.fix_th, J, r, n)
-    encrypt_fused.launches += 1
+    with tracing.launch("fused_ops.encrypt_fused"):
+        dev = cuda.kernel_device("encrypt_fused", pk, tables,
+                                 cuda.TRANSFORM_MAX_N)
+        single = u_b.dim() == 1
+        if single:
+            u_b, e_d, m_poly = u_b[None], e_d[None], m_poly[None]
+        J = u_b.shape[0]
+        r, n = tables.r, tables.n
+        cuda.require("u_b", u_b, torch.int32, (J, n), dev)
+        cuda.require("pk", pk, I64, (2, r, n), dev)
+        cuda.require("e_d", e_d, torch.int32, (J, 2, n), dev)
+        cuda.require("m_poly", m_poly, I64, (J, n), dev)
+        scratch = torch.empty((J, 2, r, n), dtype=I64, device=dev)
+        ct = torch.empty((J, 2, r - 1, n), dtype=I64, device=dev)
+        cuda.launch("ntt_encrypt_transform_cluster", dev, u_b.data_ptr(),
+                    pk.data_ptr(), e_d.data_ptr(), scratch.data_ptr(),
+                    *tables.kernel_args(), J, r, tables.logn, cluster)
+        cuda.launch("ntt_encrypt_tail", dev, scratch.data_ptr(),
+                    m_poly.data_ptr(), ct.data_ptr(),
+                    consts.tail_rows.data_ptr(), consts.q_last, consts.half,
+                    consts.fix_th, J, r, n)
     return ct[0] if single else ct
-
-
-encrypt_fused.launches = 0
 
 
 # --- encrypt_front: c_h = INTT(NTT(u) (.) pk_h), no tail -------------------
@@ -191,19 +187,16 @@ def encrypt_front(u_b, pk, tables: NTTTables, *,
                              f"{tuple(t.shape)}")
     if pk.device.type == "cpu":
         return encrypt_front_plain(u_b, pk, tables)
-    dev = cuda.kernel_device("encrypt_front", pk, tables,
-                             cuda.TRANSFORM_MAX_N)
-    cuda.require("u_b", u_b, torch.int32, (n,), dev)
-    cuda.require("pk", pk, I64, (2, r, n), dev)
-    c = torch.empty((2, r, n), dtype=I64, device=dev)
-    cuda.launch("ntt_encrypt_front_cluster", dev, u_b.data_ptr(),
-                pk.data_ptr(), c.data_ptr(), *tables.kernel_args(), r,
-                tables.logn, cluster)
-    encrypt_front.launches += 1
+    with tracing.launch("fused_ops.encrypt_front"):
+        dev = cuda.kernel_device("encrypt_front", pk, tables,
+                                 cuda.TRANSFORM_MAX_N)
+        cuda.require("u_b", u_b, torch.int32, (n,), dev)
+        cuda.require("pk", pk, I64, (2, r, n), dev)
+        c = torch.empty((2, r, n), dtype=I64, device=dev)
+        cuda.launch("ntt_encrypt_front_cluster", dev, u_b.data_ptr(),
+                    pk.data_ptr(), c.data_ptr(), *tables.kernel_args(), r,
+                    tables.logn, cluster)
     return c
-
-
-encrypt_front.launches = 0
 
 
 # --- keyswitch_front (kernel 20) and keyswitch_fused (19): c2's digits
@@ -271,14 +264,11 @@ def keyswitch_front(c2, ksk, tables: NTTTables) -> torch.Tensor:
     J, k = _front_args(c2, ksk, tables)
     if c2.device.type == "cpu":
         return keyswitch_front_plain(c2, ksk, tables)
-    dev = cuda.kernel_device("keyswitch_front", c2, tables,
-                             cuda.TRANSFORM_MAX_N)
-    acc = _front_launch(dev, c2, ksk, tables, J, k)
-    keyswitch_front.launches += 1
+    with tracing.launch("fused_ops.keyswitch_front"):
+        dev = cuda.kernel_device("keyswitch_front", c2, tables,
+                                 cuda.TRANSFORM_MAX_N)
+        acc = _front_launch(dev, c2, ksk, tables, J, k)
     return acc[0] if c2.dim() == 2 else acc
-
-
-keyswitch_front.launches = 0
 
 
 def keyswitch_fused_plain(c2, ksk, tables: NTTTables,
@@ -305,15 +295,12 @@ def keyswitch_fused(c2, ksk, tables: NTTTables,
     J, _ = _front_args(c2, ksk, tables)
     if c2.device.type == "cpu":
         return keyswitch_fused_plain(c2, ksk, tables, consts)
-    dev = cuda.kernel_device("keyswitch_fused", c2, tables,
-                             cuda.TRANSFORM_MAX_N)
-    acc = _front_launch(dev, c2, ksk, tables, J, k)
-    out = torch.empty((J, 2, k, n), dtype=I64, device=dev)
-    cuda.launch("ntt_encrypt_tail", dev, acc.data_ptr(), None,
-                out.data_ptr(), consts.tail_rows.data_ptr(), consts.q_last,
-                consts.half, consts.fix_th, J, r, n)
-    keyswitch_fused.launches += 1
+    with tracing.launch("fused_ops.keyswitch_fused"):
+        dev = cuda.kernel_device("keyswitch_fused", c2, tables,
+                                 cuda.TRANSFORM_MAX_N)
+        acc = _front_launch(dev, c2, ksk, tables, J, k)
+        out = torch.empty((J, 2, k, n), dtype=I64, device=dev)
+        cuda.launch("ntt_encrypt_tail", dev, acc.data_ptr(), None,
+                    out.data_ptr(), consts.tail_rows.data_ptr(), consts.q_last,
+                    consts.half, consts.fix_th, J, r, n)
     return out[0] if c2.dim() == 2 else out
-
-
-keyswitch_fused.launches = 0

@@ -34,6 +34,7 @@ import torch
 
 from .. import cuda
 from ..utils import hostmath as hm
+from ..utils import tracing
 from . import modmath
 from .modmath import I64, MASK32
 
@@ -198,12 +199,9 @@ def ntt_forward(x, tables: NTTTables30, *, cluster: int = 0) -> torch.Tensor:
     128 KB of a block, such as 1 at n = 65536, raises)."""
     if x.device.type == "cpu":
         return ntt_forward_plain(x, tables)
-    out = _launch("ntt30.ntt_forward", x, tables, False, cluster)
-    ntt_forward.launches += 1
+    with tracing.launch("ntt30.ntt_forward"):
+        out = _launch("ntt30.ntt_forward", x, tables, False, cluster)
     return out
-
-
-ntt_forward.launches = 0
 
 
 def ntt_inverse(x, tables: NTTTables30, *, cluster: int = 0) -> torch.Tensor:
@@ -211,9 +209,6 @@ def ntt_inverse(x, tables: NTTTables30, *, cluster: int = 0) -> torch.Tensor:
     as ntt_forward's."""
     if x.device.type == "cpu":
         return ntt_inverse_plain(x, tables)
-    out = _launch("ntt30.ntt_inverse", x, tables, True, cluster)
-    ntt_inverse.launches += 1
+    with tracing.launch("ntt30.ntt_inverse"):
+        out = _launch("ntt30.ntt_inverse", x, tables, True, cluster)
     return out
-
-
-ntt_inverse.launches = 0

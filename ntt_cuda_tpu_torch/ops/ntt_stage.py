@@ -30,6 +30,7 @@ import dataclasses
 import torch
 
 from .. import cuda
+from ..utils import tracing
 from . import ntt, poly, sampling
 from .modmath import I64
 from .ntt import NTTTables
@@ -154,16 +155,13 @@ def ntt_transform_idx(x, tables: NTTTables, mod_idx,
     cuda.require("x", x, I64, tuple(x.shape), dev)
     out = torch.empty_like(x)
     if out.numel():
-        if inverse:
-            inverse_launch(dev, x, None, None, out, tables, mod_idx=idx)
-        else:
-            forward_launch(dev, x, None, out, tables, cuda.PRO_COPY,
-                           mod_idx=idx)
-        ntt_transform_idx.launches += 1
+        with tracing.launch("ntt_stage.ntt_transform_idx"):
+            if inverse:
+                inverse_launch(dev, x, None, None, out, tables, mod_idx=idx)
+            else:
+                forward_launch(dev, x, None, out, tables, cuda.PRO_COPY,
+                               mod_idx=idx)
     return out
-
-
-ntt_transform_idx.launches = 0
 
 
 # --- kernel 7: forward and inverse ------------------------------------------
@@ -181,15 +179,12 @@ def ntt_forward(x, tables: NTTTables, mod_idx=None) -> torch.Tensor:
     _residue_lead("x", x, tables)
     if x.device.type == "cpu":
         return ntt_forward_plain(x, tables)
-    dev = _kernel_device("ntt_forward", x, tables)
-    cuda.require("x", x, I64, tuple(x.shape), dev)
-    out = torch.empty_like(x)
-    forward_launch(dev, x, None, out, tables, cuda.PRO_COPY)
-    ntt_forward.launches += 1
+    with tracing.launch("ntt_stage.ntt_forward"):
+        dev = _kernel_device("ntt_forward", x, tables)
+        cuda.require("x", x, I64, tuple(x.shape), dev)
+        out = torch.empty_like(x)
+        forward_launch(dev, x, None, out, tables, cuda.PRO_COPY)
     return out
-
-
-ntt_forward.launches = 0
 
 
 def ntt_inverse_plain(x, tables: NTTTables) -> torch.Tensor:
@@ -204,15 +199,12 @@ def ntt_inverse(x, tables: NTTTables, mod_idx=None) -> torch.Tensor:
     _residue_lead("x", x, tables)
     if x.device.type == "cpu":
         return ntt_inverse_plain(x, tables)
-    dev = _kernel_device("ntt_inverse", x, tables)
-    cuda.require("x", x, I64, tuple(x.shape), dev)
-    out = torch.empty_like(x)
-    inverse_launch(dev, x, None, None, out, tables)
-    ntt_inverse.launches += 1
+    with tracing.launch("ntt_stage.ntt_inverse"):
+        dev = _kernel_device("ntt_inverse", x, tables)
+        cuda.require("x", x, I64, tuple(x.shape), dev)
+        out = torch.empty_like(x)
+        inverse_launch(dev, x, None, None, out, tables)
     return out
-
-
-ntt_inverse.launches = 0
 
 
 # --- kernel 8: INTT(x (.) y) ------------------------------------------------
@@ -230,16 +222,13 @@ def ntt_inverse_mul(x, y, tables: NTTTables) -> torch.Tensor:
                          f"{tuple(x.shape)}, got {tuple(y.shape)}")
     if x.device.type == "cpu":
         return ntt_inverse_mul_plain(x, y, tables)
-    dev = _kernel_device("ntt_inverse_mul", x, tables)
-    cuda.require("x", x, I64, tuple(x.shape), dev)
-    cuda.require("y", y, I64, tuple(y.shape), dev)
-    out = torch.empty_like(x)
-    inverse_launch(dev, x, y, None, out, tables)
-    ntt_inverse_mul.launches += 1
+    with tracing.launch("ntt_stage.ntt_inverse_mul"):
+        dev = _kernel_device("ntt_inverse_mul", x, tables)
+        cuda.require("x", x, I64, tuple(x.shape), dev)
+        cuda.require("y", y, I64, tuple(y.shape), dev)
+        out = torch.empty_like(x)
+        inverse_launch(dev, x, y, None, out, tables)
     return out
-
-
-ntt_inverse_mul.launches = 0
 
 
 # --- kernel 9: NTT of a compact ternary draw --------------------------------
@@ -254,15 +243,12 @@ def ntt_forward_ternary(u_b, tables: NTTTables) -> torch.Tensor:
     lead = _draw_lead("u_b", u_b, tables.n)
     if u_b.device.type == "cpu":
         return ntt_forward_ternary_plain(u_b, tables)
-    dev = _kernel_device("ntt_forward_ternary", u_b, tables)
-    cuda.require("u_b", u_b, torch.int32, tuple(u_b.shape), dev)
-    out = torch.empty(lead + (tables.r, tables.n), dtype=I64, device=dev)
-    forward_launch(dev, None, u_b, out, tables, cuda.PRO_TERNARY)
-    ntt_forward_ternary.launches += 1
+    with tracing.launch("ntt_stage.ntt_forward_ternary"):
+        dev = _kernel_device("ntt_forward_ternary", u_b, tables)
+        cuda.require("u_b", u_b, torch.int32, tuple(u_b.shape), dev)
+        out = torch.empty(lead + (tables.r, tables.n), dtype=I64, device=dev)
+        forward_launch(dev, None, u_b, out, tables, cuda.PRO_TERNARY)
     return out
-
-
-ntt_forward_ternary.launches = 0
 
 
 # --- kernel 10: NTT(-(x + e)) with a compact Gaussian e ---------------------
@@ -282,16 +268,13 @@ def ntt_forward_addneg_gauss(x, e_d, tables: NTTTables) -> torch.Tensor:
                          f"{tuple(x.shape)}: one row per message")
     if x.device.type == "cpu":
         return ntt_forward_addneg_gauss_plain(x, e_d, tables)
-    dev = _kernel_device("ntt_forward_addneg_gauss", x, tables)
-    cuda.require("x", x, I64, tuple(x.shape), dev)
-    cuda.require("e_d", e_d, torch.int32, tuple(e_d.shape), dev)
-    out = torch.empty_like(x)
-    forward_launch(dev, x, e_d, out, tables, cuda.PRO_ADDNEG_GAUSS)
-    ntt_forward_addneg_gauss.launches += 1
+    with tracing.launch("ntt_stage.ntt_forward_addneg_gauss"):
+        dev = _kernel_device("ntt_forward_addneg_gauss", x, tables)
+        cuda.require("x", x, I64, tuple(x.shape), dev)
+        cuda.require("e_d", e_d, torch.int32, tuple(e_d.shape), dev)
+        out = torch.empty_like(x)
+        forward_launch(dev, x, e_d, out, tables, cuda.PRO_ADDNEG_GAUSS)
     return out
-
-
-ntt_forward_addneg_gauss.launches = 0
 
 
 # --- kernel 11: NTT(-(x + e)) with a u64 e ----------------------------------
@@ -310,13 +293,10 @@ def ntt_forward_addneg(x, e, tables: NTTTables) -> torch.Tensor:
                          f"{tuple(x.shape)}")
     if x.device.type == "cpu":
         return ntt_forward_addneg_plain(x, e, tables)
-    dev = _kernel_device("ntt_forward_addneg", x, tables)
-    cuda.require("x", x, I64, tuple(x.shape), dev)
-    cuda.require("e", e, I64, tuple(x.shape), dev)
-    out = torch.empty_like(x)
-    forward_launch(dev, x, None, out, tables, cuda.PRO_ADDNEG, y=e)
-    ntt_forward_addneg.launches += 1
+    with tracing.launch("ntt_stage.ntt_forward_addneg"):
+        dev = _kernel_device("ntt_forward_addneg", x, tables)
+        cuda.require("x", x, I64, tuple(x.shape), dev)
+        cuda.require("e", e, I64, tuple(x.shape), dev)
+        out = torch.empty_like(x)
+        forward_launch(dev, x, None, out, tables, cuda.PRO_ADDNEG, y=e)
     return out
-
-
-ntt_forward_addneg.launches = 0

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import cuda
+from ..utils import tracing
 from .modmath import I64
 
 SIGMA_WORDS = (0x61707865, 0x3320646E, 0x79622D32, 0x6B206574)  # "expand 32-byte k"
@@ -138,15 +139,13 @@ def keystream_words_batch(nblocks: int, nonces,
     if device.type == "cpu":
         return keystream_words_batch_plain(nblocks, v, key_byte=key_byte,
                                            counter0=counter0, device=device)
-    ks = torch.empty((v.shape[0], nblocks * 16), dtype=torch.int32,
-                     device=device)
-    cuda.launch("ntt_salsa20_batch", device, ks.data_ptr(), nblocks,
-                _key_word(key_byte), v.data_ptr(), v.shape[0], int(counter0))
-    keystream_words_batch.launches += 1
+    with tracing.launch("salsa20.keystream_words_batch"):
+        ks = torch.empty((v.shape[0], nblocks * 16), dtype=torch.int32,
+                         device=device)
+        cuda.launch("ntt_salsa20_batch", device, ks.data_ptr(), nblocks,
+                    _key_word(key_byte), v.data_ptr(), v.shape[0],
+                    int(counter0))
     return ks
-
-
-keystream_words_batch.launches = 0
 
 
 def keystream_words(nblocks: int, key_byte: int = DEFAULT_KEY_BYTE, nonce=0,
@@ -159,14 +158,11 @@ def keystream_words(nblocks: int, key_byte: int = DEFAULT_KEY_BYTE, nonce=0,
                                      counter0=counter0, device=device)
     if device.type != "cuda":
         raise ValueError(f"keystream_words: no kernel for {device}")
-    ks = torch.empty(nblocks * 16, dtype=torch.int32, device=device)
-    cuda.launch("ntt_salsa20", device, ks.data_ptr(), nblocks,
-                _key_word(key_byte), int(nonce), int(counter0))
-    keystream_words.launches += 1
+    with tracing.launch("salsa20.keystream_words"):
+        ks = torch.empty(nblocks * 16, dtype=torch.int32, device=device)
+        cuda.launch("ntt_salsa20", device, ks.data_ptr(), nblocks,
+                    _key_word(key_byte), int(nonce), int(counter0))
     return ks
-
-
-keystream_words.launches = 0
 
 
 def keystream_for_bytes(nbytes: int, **kw) -> torch.Tensor:

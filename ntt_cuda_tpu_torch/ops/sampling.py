@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import tracing
 from . import modmath, salsa20
 from .modmath import I64
 
@@ -273,6 +274,7 @@ def _stream(nbytes: int, nonce, encrypt: bool, key_byte: int, device):
                                    device=device)
 
 
+@tracing.traced("ntt.draws")
 def keygen_draws_compact(n: int, r: int, ms: modmath.ModulusSet,
                          key_byte: int = salsa20.DEFAULT_KEY_BYTE, nonce=0,
                          uniform_spec: str = "int"):
@@ -339,6 +341,7 @@ def encrypt_draws_slice(n: int, block: int, S: int,
     return u_b, e_d
 
 
+@tracing.traced("ntt.draws")
 def encrypt_draws_compact(n: int, key_byte: int = salsa20.DEFAULT_KEY_BYTE,
                           nonce=0, device=None):
     """Encryption draws: (u_b (n,) int32, e_d (2, n) int32).  Layout
@@ -352,6 +355,7 @@ def encrypt_draws_compact(n: int, key_byte: int = salsa20.DEFAULT_KEY_BYTE,
     return u_b, e_d
 
 
+@tracing.traced("ntt.draws")
 def encrypt_draws_compact_batch(n: int, nonces,
                                 key_byte: int = salsa20.DEFAULT_KEY_BYTE,
                                 device=None):
@@ -397,6 +401,7 @@ def relin_entropy_bytes(n: int, r: int, k: int) -> int:
     return k * (8 * r * n + 4 * n)
 
 
+@tracing.traced("ntt.draws")
 def relin_draws(n: int, r: int, k: int, ms: modmath.ModulusSet, nonce=0):
     """Draws of the k relinearization keys on ms's device: (a (k, r, n)
     uniform NTT-domain residues, e (k, r, n) Gaussian residues).  Key j
@@ -467,6 +472,7 @@ def _key_draws(ks, n: int, r: int, k: int, ms: modmath.ModulusSet):
 GALOIS_KEY_BYTE = 0x03
 
 
+@tracing.traced("ntt.draws")
 def galois_draws(n: int, r: int, k: int, elts, ms: modmath.ModulusSet,
                  nonce=0):
     """Draws of the Galois switching keys of `elts` on ms's device:

@@ -35,6 +35,7 @@ from .. import cuda
 from ..ops import modmath, ntt, ntt_stage
 from ..ops.modmath import I64
 from ..ops.ntt import NTTTables
+from ..utils import tracing
 from . import sharded
 
 
@@ -61,15 +62,12 @@ def local_forward(x, tables: NTTTables, logc: int, shard: int):
     _check_local("local_forward", x, tables, logc)
     if x.device.type == "cpu":
         return sharded.local_forward_stages(x, tables, 1 << logc, shard)
-    dev = _local_device("local_forward", x, tables, logc)
-    out = torch.empty_like(x)
-    ntt_stage.forward_launch(dev, x, None, out, tables, cuda.PRO_COPY,
-                             logc=logc, shard=shard)
-    local_forward.launches += 1
+    with tracing.launch("coef_kernels.local_forward"):
+        dev = _local_device("local_forward", x, tables, logc)
+        out = torch.empty_like(x)
+        ntt_stage.forward_launch(dev, x, None, out, tables, cuda.PRO_COPY,
+                                 logc=logc, shard=shard)
     return out
-
-
-local_forward.launches = 0
 
 
 def local_inverse_mul_plain(x, y, tables: NTTTables, C: int, shard: int):
@@ -96,17 +94,14 @@ def local_inverse_mul(x, y, tables: NTTTables, logc: int, shard: int):
                          f"{tuple(x.shape)}, got {tuple(y.shape)}")
     if x.device.type == "cpu":
         return local_inverse_mul_plain(x, y, tables, 1 << logc, shard)
-    dev = _local_device("local_inverse_mul", x, tables, logc)
-    if y is not None:
-        cuda.require("y", y, I64, tuple(y.shape), dev)
-    out = torch.empty_like(x)
-    ntt_stage.inverse_launch(dev, x, y, None, out, tables, logc=logc,
-                             shard=shard)
-    local_inverse_mul.launches += 1
+    with tracing.launch("coef_kernels.local_inverse_mul"):
+        dev = _local_device("local_inverse_mul", x, tables, logc)
+        if y is not None:
+            cuda.require("y", y, I64, tuple(y.shape), dev)
+        out = torch.empty_like(x)
+        ntt_stage.inverse_launch(dev, x, y, None, out, tables, logc=logc,
+                                 shard=shard)
     return out
-
-
-local_inverse_mul.launches = 0
 
 
 def local_keyswitch_acc_plain(dhat, ksk, tables: NTTTables, C: int,
@@ -141,18 +136,16 @@ def local_keyswitch_acc(dhat, ksk, tables: NTTTables, logc: int, shard: int):
                          f"{tuple(ksk.shape)}")
     if dhat.device.type == "cpu":
         return local_keyswitch_acc_plain(dhat, ksk, tables, 1 << logc, shard)
-    dev = _local_device("local_keyswitch_acc", dhat, tables, logc)
-    cuda.require("ksk", ksk, I64, tuple(ksk.shape), dev)
-    out = torch.empty((2, tables.r, S), dtype=I64, device=dev)
-    cuda.launch("ntt_stage_inverse_cluster", dev, dhat.data_ptr(),
-                ksk.data_ptr(), None, out.data_ptr(), *tables.kernel_args(),
-                cuda.PRO_KSACC, k, 2 * tables.r, tables.r,
-                S.bit_length() - 1, None, logc, shard, 0)
-    local_keyswitch_acc.launches += 1
+    with tracing.launch("coef_kernels.local_keyswitch_acc"):
+        dev = _local_device("local_keyswitch_acc", dhat, tables, logc)
+        cuda.require("ksk", ksk, I64, tuple(ksk.shape), dev)
+        out = torch.empty((2, tables.r, S), dtype=I64, device=dev)
+        cuda.launch("ntt_stage_inverse_cluster", dev, dhat.data_ptr(),
+                    ksk.data_ptr(), None, out.data_ptr(),
+                    *tables.kernel_args(), cuda.PRO_KSACC, k, 2 * tables.r,
+                    tables.r,
+                    S.bit_length() - 1, None, logc, shard, 0)
     return out
-
-
-local_keyswitch_acc.launches = 0
 
 
 def cross_stage(x, partner, tables: NTTTables, C: int, s: int, block: int,
@@ -168,22 +161,19 @@ def cross_stage(x, partner, tables: NTTTables, C: int, s: int, block: int,
             return sharded.cross_inverse_stage(x, partner, tables, C, s,
                                                block, halve=False)
         return sharded.cross_forward_stage(x, partner, tables, C, s, block)
-    logc = sharded.log2_shards(C)
-    _check_local("cross_stage", x, tables, logc)
-    dev = _local_device("cross_stage", x, tables, logc)
-    cuda.require("partner", partner, I64, tuple(x.shape), dev)
-    out = torch.empty_like(x)
-    S = tables.n >> logc
-    cuda.launch("ntt_cross_stage", dev, x.data_ptr(), partner.data_ptr(),
-                out.data_ptr(), *tables.kernel_args(), int(inverse),
-                int(sharded.u_side(C, s, block)),
-                sharded.cross_twiddle(C, s, block), x.numel() // S, tables.r,
-                S.bit_length() - 1, logc)
-    cross_stage.launches += 1
+    with tracing.launch("coef_kernels.cross_stage"):
+        logc = sharded.log2_shards(C)
+        _check_local("cross_stage", x, tables, logc)
+        dev = _local_device("cross_stage", x, tables, logc)
+        cuda.require("partner", partner, I64, tuple(x.shape), dev)
+        out = torch.empty_like(x)
+        S = tables.n >> logc
+        cuda.launch("ntt_cross_stage", dev, x.data_ptr(), partner.data_ptr(),
+                    out.data_ptr(), *tables.kernel_args(), int(inverse),
+                    int(sharded.u_side(C, s, block)),
+                    sharded.cross_twiddle(C, s, block), x.numel() // S,
+                    tables.r, S.bit_length() - 1, logc)
     return out
-
-
-cross_stage.launches = 0
 
 
 def cross_fwd(x, tables: NTTTables, C: int, block: int, exchange):

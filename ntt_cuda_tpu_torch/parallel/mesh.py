@@ -14,8 +14,8 @@ programs talk across ranks.  Each call is logged in `collectives` as
 ("all_reduce", shape), ("all_gather", gathered shape) or ("ppermute",
 shape) before it runs (clear the list to start a count): torch has no
 compiled program to inspect, so this log stands in for the JAX package's
-`lowered_*` HLO counts (tests/test_collectives.py), as the kernels'
-`launches` counters do for their launches.
+`lowered_*` HLO counts (tests/test_collectives.py), as the launch
+registry (utils/tracing.py) does for the kernels' launches.
 """
 
 from __future__ import annotations

@@ -1,0 +1,9 @@
+"""Share (%) of the host time in the library's public ops (host_issue_ms)
+spent outside its kernel wrappers' `ntt.launch.*` spans: argument checks,
+the draws' converters, stacks and copies."""
+
+from portbench.harness.program import host_glue_share
+
+
+def read(rec):
+    return host_glue_share(rec, 2)

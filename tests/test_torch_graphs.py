@@ -3,7 +3,8 @@
 
 On the CPU: `graphed`'s eager path, `time_chained` /
 `time_chained_dynamic` / `time_once` on the CLI's chains and `trace`'s
-Chrome trace (`demo --time`: tests/test_torch_cli.py).  On the card (`-m gpu`,
+Chrome trace, with the library's own spans in it (`demo --time`:
+tests/test_torch_cli.py).  On the card (`-m gpu`,
 skipped here): every op program at 4k_3q captured once with `graphed` and
 replayed equals the eager public method bit for bit, a replay after a
 second nonce is copied into the static input equals eager at that nonce,
@@ -90,7 +91,11 @@ def test_trace_writes_a_chrome_trace(tmp_path, cpu_ctx):
         cpu_ctx.encrypt(pk, torch.zeros(cpu_ctx.params.n, dtype=torch.int64))
     files = list(tmp_path.glob("trace_*.json"))
     assert len(files) == 1
-    assert json.loads(files[0].read_text())["traceEvents"]
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert events
+    # the library's own spans, in the operator's view of the timeline
+    names = {e.get("name") for e in events}
+    assert {"ntt.encrypt", "ntt.draws"} <= names
     assert len(prof.key_averages()) > 0
 
 
