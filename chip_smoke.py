@@ -349,6 +349,13 @@ SMS, IMAD_PER_CLOCK, ALU_PER_CLOCK = 132, 64, 64
 SALSA_KERNEL, SALSA_LANES_KERNEL = "k_salsa20", "k_salsa20_lanes"
 SALSA_SETS = ("16k_5q", "32k_9q")
 SALSA_CARRY = 2**32 - 5       # counter0 whose blocks cross into word 9
+# k_salsa20_draws (kernel 6 fused with the encryption draws' converters) at
+# the client cells' shapes, (set, J), and at J = 1; its bound's instruction
+# term is K1's rounds a block (k_salsa20's SASS) and, a Gaussian word, the
+# least a six-step search issues: a compare and an add a step
+DRAWS_SHAPES = (("16k_5q", 32), ("32k_9q", 16), ("16k_5q", 1))
+DRAWS_KERNEL = "k_salsa20_draws"
+GAUSS_SEARCH_ALU = 2 * 6
 
 # name -> (its wrappers' names in utils/tracing.WRAPPERS, CUDA source, the
 # TPU kernel it replaces, the main paths that run it; its launches, counted
@@ -364,8 +371,14 @@ KERNELS = {
     "salsa20_keystream_batch": (("salsa20.keystream_words_batch",),
                                 "ntt_cuda_tpu_torch/csrc/salsa20.cu",
                                 "ntt_cuda_tpu/ops/salsa20.py:249",
-                                ("batch", "rns", "rns_inner", "programs",
-                                 "wide_t", "large_n", "large_n17")),
+                                ("programs",)),
+    # kernel 6 and the converters of encrypt_batch's draws in one kernel
+    "salsa20_draws": (("salsa20.encrypt_draws_batch",),
+                      "ntt_cuda_tpu_torch/csrc/salsa20.cu",
+                      "ntt_cuda_tpu/ops/salsa20.py:249 + ops/sampling.py "
+                      "ternary_int, gaussian_int",
+                      ("batch", "rns", "rns_inner", "programs", "wide_t",
+                       "large_n", "large_n17")),
     "decrypt_tail": (("bfv_tail.decrypt_tail",),
                      "ntt_cuda_tpu_torch/csrc/decrypt_tail.cu",
                      "ntt_cuda_tpu/ops/bfv_tail.py:388",
@@ -798,13 +811,15 @@ def spills(lines: dict[str, str]) -> dict[str, str]:
             if re.search(r"[1-9]\d* bytes spill", v)}
 
 
-def device_us(fn, reps: int = 20, names: set | None = None) -> float:
+def device_us(fn, reps: int = 20, names: set | None = None,
+              every: bool = False) -> float:
     """Device time of one call in us: torch.profiler's intervals of the
-    port's kernels (k_*) over a window of calls, summed, over the calls;
-    their names go into `names` where it is given.  A window now and then
-    records no device event at all, and has done so three times in a row:
-    up to eight windows are tried, each after an empty one twice as long
-    (up to 16 `reps`), and the empty ones are logged."""
+    port's kernels (k_*; with `every`, of every device event, PyTorch's
+    own kernels and copies too) over a window of calls, summed, over the
+    calls; their names go into `names` where it is given.  A window now
+    and then records no device event at all, and has done so three times
+    in a row: up to eight windows are tried, each after an empty one twice
+    as long (up to 16 `reps`), and the empty ones are logged."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(8):
@@ -817,7 +832,7 @@ def device_us(fn, reps: int = 20, names: set | None = None) -> float:
         dev_events = [e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA]
         iv = [e.time_range.end - e.time_range.start for e in dev_events
-              if e.name.removeprefix("void ").startswith("k_")]
+              if every or e.name.removeprefix("void ").startswith("k_")]
         if dev_events:
             break
         log(f"device_us: a profiler window of {calls} calls recorded no "
@@ -1143,6 +1158,81 @@ def keystream_times(cases: dict, mults: dict, clock_hz: float) -> dict:
         t = work.terms(mults, clock_hz)
         res[f"{kname} {label}"] = {
             "us": [device_us(kern, 10) for _ in range(2)],
+            "bound_us": bound_ms * 1e3, "bound_by": bound_by,
+            "bytes_us": t["bytes_ms"] * 1e3, "ops_us": t["ops_ms"] * 1e3,
+            "alu": t["alu"], "fma": t["imads"]}
+    return res
+
+
+def draws_ref(n: int, nonces, dev):
+    """encrypt_batch's draws as they were before k_salsa20_draws: kernel
+    6's streams of the mapped nonces, then the plain converters on the
+    card."""
+    ks = salsa20.keystream_words_batch(
+        blocks(sampling.encrypt_entropy_bytes(n)),
+        sampling.encrypt_nonces(nonces), device=dev)
+    return (sampling.ternary_int(salsa20.bytes_u8(ks, 0, n)),
+            sampling.gaussian_int(salsa20.bytes_u32(ks, n, 2 * n).reshape(
+                -1, 2, n)))
+
+
+def draws_cases(dev) -> dict:
+    """label -> (kernel, wrapper call, plain call, Work, n, nonces) of
+    k_salsa20_draws at DRAWS_SHAPES, nonces 0, one with bits 32-62 set,
+    then 1, 2, ...: 12 bytes written a coefficient (u_b's int32 and e_d's
+    two) and the nonces read; K1's rounds a block and a search a Gaussian
+    word."""
+    cases = {}
+    for name, J in DRAWS_SHAPES:
+        n = get_bfv_params(name).n
+        nonces = ([0, 0x7FFFFFFF00000000 | 5] + list(range(1, J - 1)))[:J]
+        cases[f"{name} J={J}"] = (
+            "salsa20_draws",
+            lambda n=n, v=nonces: salsa20.encrypt_draws_batch(n, v,
+                                                              device=dev),
+            lambda n=n, v=nonces: draws_ref(n, v, dev),
+            Work(12 * J * n + 8 * J,
+                 salsa20_block=J * blocks(sampling.encrypt_entropy_bytes(n)),
+                 gauss_search=2 * J * n), n, nonces)
+    return cases
+
+
+def draws_checks(dev, errs: dict) -> dict:
+    """k_salsa20_draws exactly against kernel 6 and the plain converters at
+    DRAWS_SHAPES; one launch a call, through encrypt_draws_compact_batch
+    too; returns the cases."""
+    cases = draws_cases(dev)
+    for label, (kname, kern, plain, _, n, nonces) in cases.items():
+        want = plain()
+        compare(kname, kern(), want, errs)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = sampling.encrypt_draws_compact_batch(n, nonces, device=dev)
+        launched = read_counts()
+        compare(kname, got, want, errs)
+        if launched["salsa20_draws"] != 1 or sum(launched.values()) != 1:
+            raise AssertionError(f"draws {label}: launches {launched}, "
+                                 f"expected one of k_salsa20_draws alone")
+        log(f"check {kname} {label}: equal to kernel 6's streams and the "
+            f"plain converters on the card; encrypt_draws_compact_batch one "
+            f"launch of it")
+    return cases
+
+
+def draws_times(cases: dict, mults: dict, clock_hz: float) -> dict:
+    """Device us per call of k_salsa20_draws (torch.profiler, two windows
+    of 10 calls) at DRAWS_SHAPES beside the bound, and of the path it
+    replaced (kernel 6, then the plain converters: every device event)."""
+    res = {}
+    for label, (kname, kern, plain, work, *_) in cases.items():
+        bound_ms, bound_by = work.bound(mults, clock_hz)
+        t = work.terms(mults, clock_hz)
+        res[f"{kname} {label}"] = {
+            "us": [device_us(kern, 10) for _ in range(2)],
+            "kernel6_and_converters_us": [device_us(plain, 10, every=True)
+                                          for _ in range(2)],
+            "ms": kernel_ms(kern), "kernel6_and_converters_ms":
+                kernel_ms(plain),
             "bound_us": bound_ms * 1e3, "bound_by": bound_by,
             "bytes_us": t["bytes_ms"] * 1e3, "ops_us": t["ops_ms"] * 1e3,
             "alu": t["alu"], "fma": t["imads"]}
@@ -3817,13 +3907,16 @@ def main() -> int:
     salsa_lines = ptxas_lines(ptxas_out, SALSA_KERNEL)
     salsa_o = ROOT / "build" / "ptxas" / "salsa20.o"
     mults["salsa20_block"] = sass_pipes(salsa_o, SALSA_KERNEL)
+    mults["gauss_search"] = {"alu": GAUSS_SEARCH_ALU, "fma": 0}
     log(f"K1 and 6 (k_salsa20, k_salsa20_lanes), registers and spills "
         f"(ptxas -v, sm_90a): {json.dumps(salsa_lines)}; with spills: "
         f"{json.dumps(spills(salsa_lines))}; SASS instructions by pipe "
         f"(cuobjdump -sass), k_salsa20 a 64-byte block (the bound's): "
         f"{json.dumps(mults['salsa20_block'])}; k_salsa20_lanes a lane, "
         f"four lanes a block: "
-        f"{json.dumps(sass_pipes(salsa_o, SALSA_LANES_KERNEL))}")
+        f"{json.dumps(sass_pipes(salsa_o, SALSA_LANES_KERNEL))}; "
+        f"{DRAWS_KERNEL}'s whole SASS (its read-back loops counted once): "
+        f"{json.dumps(sass_pipes(salsa_o, DRAWS_KERNEL))}")
     log(f"build: all builds done in {time.perf_counter() - t0:.1f} s")
     log(f"local-stage A/B probe (LOCAL_AB_SRC; k_ab_pair<0> the encrypt "
         f"transform's two inverses interleaved, <1> in turn), registers and "
@@ -3857,6 +3950,9 @@ def main() -> int:
                          (f"J={BATCH_J} {STAGE_SET}",
                           "salsa20_keystream_batch")):
         timing[kname] = ks_cases[label][2:]
+    dr_cases = draws_checks(dev, errs)
+    timing["salsa20_draws"] = dr_cases[
+        "{} J={}".format(*DRAWS_SHAPES[0])][1:4]
     for name in STAGE_CHECK_SETS + ("32k_16q",):
         ctx = BFVContext.build(get_bfv_params(name), device=dev,
                                fusion="stage")
@@ -4074,10 +4170,12 @@ def main() -> int:
         log(f"launch counts in the {name} batch run: {json.dumps(cnt)}")
         missing = [k for k, (*_, s) in KERNELS.items()
                    if "batch" in s and cnt[k] < 1]
-        if (missing or cnt["salsa20_keystream_batch"] != 1
+        if (missing or cnt["salsa20_draws"] != 1
+                or cnt["salsa20_keystream_batch"] != 0
                 or cnt["encrypt_fused"] != 1):
             raise AssertionError(f"{name} batch path: kernels not launched "
-                                 f"{missing}, or kernel 6 / K5 not once")
+                                 f"{missing}, or k_salsa20_draws / K5 not "
+                                 f"once, or kernel 6 launched")
         if name == STAGE_SET:
             counts["batch"] = cnt
         batch[name] = (ctx, res)
@@ -4524,6 +4622,15 @@ def main() -> int:
         f"busier pipe's SASS instructions over {SMS} SMs x "
         f"{ALU_PER_CLOCK}/clock): "
         f"{json.dumps(keystream_times(ks_cases, mults, clock_hz))}")
+    log(f"k_salsa20_draws (encrypt_batch's draws in one launch) at "
+        f"{DRAWS_SHAPES} (set, J), each == kernel 6 + the plain converters "
+        f"in phase 1, device us per call (torch.profiler, two windows of 10 "
+        f"calls) and ms (CUDA events, 20 calls back to back), beside the "
+        f"same of the path it replaced and the bound (12 bytes a "
+        f"coefficient over {HBM_BYTES_PER_S:.3g} B/s, or K1's rounds a "
+        f"block plus {GAUSS_SEARCH_ALU} ALU instructions a Gaussian word "
+        f"over {SMS} SMs x {ALU_PER_CLOCK}/clock), {smi('name,power.limit')}: "
+        f"{json.dumps(draws_times(dr_cases, mults, clock_hz))}")
     log(f"the encrypt tail's launch forms (K5's and 13's at J = 1 and "
         f"{BATCH_J}, 19's drop, 14, 16 and its drop at rows 0-{p_s.r} and "
         f"6-{p_s.r}) and kernel 17 (rows 0-{p_s.r} and 6-{p_s.r}, levels 0 "

@@ -34,6 +34,25 @@
 //     lane, the row round's words exchanged with __shfl_sync.  A small
 //     grid is one warp a scheduler or less, latency-bound, and four times
 //     the threads take 10-20% off (encrypt's 4608 blocks).
+//
+// k_salsa20_draws (ntt_salsa20_draws) is kernel 6 fused with its
+// converters: the compact draws of a batched encryption, u_b (J, n) and
+// e_d (J, 2, n) int32, straight from the J streams, with no stream
+// written.  Each CTA makes k_salsa20's staged tile of 64 blocks, then
+// reads it back in output order and converts in registers: stream words
+// [0, n/4) are the ternary bytes (bfv_encryption.cuh:247), a word read
+// gives four byte / 85 - 1 values and one 16-byte store; words [n/4,
+// 9n/4) are e0 then e1, a 16-byte chunk read gives four Gaussian values
+// and one 16-byte store.  A warp's stores cover 512 bytes in a row.  The
+// Gaussian value is the pinned spec of ops/sampling.py gaussian_int:
+// -19 + #{bound <= u} over GAUSS_ICDF_BOUNDS, by a six-step search over
+// the bounds padded to 64 in shared memory (38 compares a word would cost
+// more than the rounds do), u == 0 -> -16, u >= 2^32 - 128 -> +16.  The
+// nonces are the user's, (J,) int64 on the device: encryption's map (bit
+// 63 set on a nonzero nonce) is applied here, so the launch reads nothing
+// from the host and a CUDA graph replays it at whatever they then hold.
+// Bound: the rounds' instructions and the search's, against 12 bytes out
+// a coefficient (4 of u_b, 8 of e_d) at 3.35 TB/s.
 
 #include "modarith.cuh"
 
@@ -104,6 +123,93 @@ NTT_HD int salsa20_tile_read(int t) {
   return 4 * (t >> 2) + ((t & 3) ^ ((t >> 3) & 3));
 }
 
+// The pinned Gaussian thresholds (ops/sampling.py GAUSS_ICDF_BOUNDS,
+// which a test holds this table to), padded to a power of two with a
+// bound no word below 2^32 - 1 reaches (that word reads +16 anyway).
+#define GAUSS_BOUNDS 38
+#define GAUSS_SEARCH 64
+#define GAUSS_PAD 0xFFFFFFFFu
+#define GAUSS_TABLE                                                       \
+  {7u, 40u, 233u, 1232u, 5940u, 26078u, 104261u, 379750u, 1260811u,       \
+   3818335u, 10556606u, 26670310u, 61645758u, 130551381u, 253768664u,     \
+   453762321u, 748401120u, 1142399168u, 1620621248u, 2674346113u,         \
+   3152568192u, 3546566273u, 3841204865u, 4041198721u, 4164415872u,       \
+   4233321601u, 4268297088u, 4284410752u, 4291148929u, 4293706369u,       \
+   4294587521u, 4294862977u, 4294941313u, 4294961281u, 4294966144u,       \
+   4294967168u, 4294967168u, 4294967168u}
+
+// Entry i (< GAUSS_SEARCH) of the padded search table.
+NTT_HD u32 gauss_table_entry(int i) {
+  const u32 b[GAUSS_BOUNDS] = GAUSS_TABLE;
+  return i < GAUSS_BOUNDS ? b[i] : GAUSS_PAD;
+}
+
+// The Gaussian value of word u: #{bound <= u} by a branchless search of
+// the sorted padded table `tab`, then the spec's two ends.
+NTT_HD int gauss_draw(u32 u, const u32* tab) {
+  int pos = 0;
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+  for (int s = GAUSS_SEARCH / 2; s >= 1; s >>= 1)
+    pos += tab[pos + s - 1] <= u ? s : 0;
+  return u == 0u ? -16 : u >= 0xFFFFFF80u ? 16 : pos - 19;
+}
+
+// The ternary value of stream byte k of word w: byte / 85 - 1 (byte 255
+// -> 2).
+NTT_HD int ternary_draw(u32 w, int k) {
+  return (int)(((w >> (8 * k)) & 0xFFu) / 85u) - 1;
+}
+
+// Encryption's effective nonce: bit 63 set on every nonzero nonce.
+NTT_HD u64 encrypt_nonce(u64 nonce) {
+  return nonce ? nonce | (1ull << 63) : 0ull;
+}
+
+// Four int32 draws to p, 16-byte aligned: one vector store on the card.
+NTT_HD void store_draws4(int* p, int a, int b, int c, int d) {
+#ifdef __CUDA_ARCH__
+  *(int4*)p = make_int4(a, b, c, d);
+#else
+  p[0] = a;
+  p[1] = b;
+  p[2] = c;
+  p[3] = d;
+#endif
+}
+
+// Thread t's part of a draws CTA's read-back: `tile` holds blocks [b0, b0
+// + cnt) of stream j as k_salsa20 stages them (chunk k of block i at slot
+// salsa20_tile_slot(i, k)), `tab` the search table; u_b and e_d are row
+// j's (n and 2n int32).  Tile word w is stream word 16 b0 + w: below n/4
+// a word of four ternary bytes, from there a Gaussian word of e_d's flat
+// (2, n), read four at a time.  n % 64 == 0: the stream is 9n/64 whole
+// blocks, and n/4 a block's first word.
+NTT_HD void salsa20_draws_out(const u32* tile, const u32* tab, int t,
+                              long long b0, int cnt, int n, int* u_b,
+                              int* e_d) {
+  const long long w0 = 16 * b0, nt = n / 4;
+  const int tw = nt - w0 < 16 * cnt ? (int)(nt - w0) : 16 * cnt;
+  for (int w = t; w < tw; w += SALSA_TILE) {
+    const u32 x = tile[4 * salsa20_tile_slot(w >> 4, (w >> 2) & 3) + (w & 3)];
+    store_draws4(u_b + 4 * (w0 + w), ternary_draw(x, 0), ternary_draw(x, 1),
+                 ternary_draw(x, 2), ternary_draw(x, 3));
+  }
+  for (int c = (tw > 0 ? tw / 4 : 0) + t; c < 4 * cnt; c += SALSA_TILE) {
+    const int slot = salsa20_tile_slot(c >> 2, c & 3);
+#ifdef __CUDA_ARCH__
+    const uint4 x4 = ((const uint4*)tile)[slot];
+    const u32 x[4] = {x4.x, x4.y, x4.z, x4.w};
+#else
+    const u32* x = tile + 4 * slot;
+#endif
+    store_draws4(e_d + (w0 - nt + 4 * c), gauss_draw(x[0], tab),
+                 gauss_draw(x[1], tab), gauss_draw(x[2], tab),
+                 gauss_draw(x[3], tab));
+  }
+}
+
 #ifdef __CUDACC__
 
 // Grid: blocks of the stream in x, streams in y.  nonces null: one stream
@@ -161,6 +267,42 @@ __global__ void __launch_bounds__(SALSA_LANES_CTA)
   o[(5 * l + 4) & 15] = bb + w0[1];
   o[(5 * l + 8) & 15] = c + w0[2];
   o[(5 * l + 12) & 15] = d + w0[3];
+}
+
+// Grid: the 9n/64 blocks of stream j in x (SALSA_TILE a CTA), j in y;
+// block counters from 0.  u_b: (J, n), e_d: (J, 2, n) int32.
+__global__ void __launch_bounds__(SALSA_TILE)
+    k_salsa20_draws(int* __restrict__ u_b, int* __restrict__ e_d, int n,
+                    u32 kw, const u64* __restrict__ nonces) {
+  __shared__ uint4 tile[4 * SALSA_TILE];
+  __shared__ u32 tab[GAUSS_SEARCH];
+  const int t = threadIdx.x;
+  const long long nb = 9ll * n / 64, b0 = (long long)blockIdx.x * SALSA_TILE;
+  const long long j = blockIdx.y;
+  static_assert(SALSA_TILE == GAUSS_SEARCH, "a thread an entry of tab");
+  tab[t] = gauss_table_entry(t);
+  u32 x[16];
+  salsa20_block(x, kw, encrypt_nonce(nonces[j]), (u64)(b0 + t));
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    tile[salsa20_tile_slot(t, k)] =
+        make_uint4(x[4 * k], x[4 * k + 1], x[4 * k + 2], x[4 * k + 3]);
+  __syncthreads();
+  salsa20_draws_out((const u32*)tile, tab, t, b0,
+                    (int)(nb - b0 < SALSA_TILE ? nb - b0 : SALSA_TILE), n,
+                    u_b + j * n, e_d + 2 * j * n);
+}
+
+static int salsa20_draws_launch(void* u_b, void* e_d, int n, u32 kw,
+                                const void* nonces, int J, void* stream) {
+  if (n < 64 || n % 64 || J < 1 || J > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long nb = 9ll * n / 64;
+  const dim3 grid((unsigned)((nb + SALSA_TILE - 1) / SALSA_TILE),
+                  (unsigned)J);
+  k_salsa20_draws<<<grid, SALSA_TILE, 0, (cudaStream_t)stream>>>(
+      (int*)u_b, (int*)e_d, n, kw, (const u64*)nonces);
+  return (int)cudaGetLastError();
 }
 
 static int salsa20_launch(void* ks, long long nb, u32 kw, const void* nonces,
@@ -247,6 +389,49 @@ static int salsa20_launch(void* ks, long long nb, u32 kw, const void* nonces,
   return 0;
 }
 
+// k_salsa20_draws CTA by CTA: each thread's block staged into the tile,
+// then each thread's read-back.
+static int salsa20_draws_launch(void* u_b, void* e_d, int n, u32 kw,
+                                const void* nonces, int J, void*) {
+  if (n < 64 || n % 64 || J < 1 || J > 65535) return 1;
+  const long long nb = 9ll * n / 64;
+  u32 tab[GAUSS_SEARCH];
+  for (int i = 0; i < GAUSS_SEARCH; ++i) tab[i] = gauss_table_entry(i);
+  for (long long j = 0; j < J; ++j) {
+    const u64 nn = encrypt_nonce(((const u64*)nonces)[j]);
+    for (long long b0 = 0; b0 < nb; b0 += SALSA_TILE) {
+      u32 tile[4 * SALSA_TILE][4];
+      for (int t = 0; t < SALSA_TILE; ++t) {
+        u32 x[16];
+        salsa20_block(x, kw, nn, (u64)(b0 + t));
+        for (int k = 0; k < 4; ++k)
+          for (int w = 0; w < 4; ++w)
+            tile[salsa20_tile_slot(t, k)][w] = x[4 * k + w];
+      }
+      const int cnt = (int)(nb - b0 < SALSA_TILE ? nb - b0 : SALSA_TILE);
+      for (int t = 0; t < SALSA_TILE; ++t)
+        salsa20_draws_out(&tile[0][0], tab, t, b0, cnt, n,
+                          (int*)u_b + j * n, (int*)e_d + 2 * j * n);
+    }
+  }
+  return 0;
+}
+
+// The host build's seam for the tests (the card's library has none): the
+// converters of k_salsa20_draws on given words, count of them: word i's
+// four ternary values to tern[4i..4i+3], its Gaussian value to gauss[i].
+extern "C" int ntt_draws_convert(const void* words, long long count,
+                                 void* tern, void* gauss) {
+  u32 tab[GAUSS_SEARCH];
+  for (int i = 0; i < GAUSS_SEARCH; ++i) tab[i] = gauss_table_entry(i);
+  for (long long i = 0; i < count; ++i) {
+    const u32 w = ((const u32*)words)[i];
+    for (int k = 0; k < 4; ++k) ((int*)tern)[4 * i + k] = ternary_draw(w, k);
+    ((int*)gauss)[i] = gauss_draw(w, tab);
+  }
+  return 0;
+}
+
 extern "C" const char* ntt_error_string(int) { return "host build"; }
 
 #endif
@@ -262,4 +447,12 @@ extern "C" int ntt_salsa20_batch(void* ks, long long nb, u32 kw,
                                  const void* nonces, int J, u64 ctr0,
                                  void* stream) {
   return salsa20_launch(ks, nb, kw, nonces, J, 0, ctr0, stream);
+}
+
+// The compact draws of a batched encryption: u_b (J, n) and e_d (J, 2, n)
+// int32 from the streams of the (J,) user nonces (u64; encryption's map
+// applied here), the key word kw; n % 64 == 0.
+extern "C" int ntt_salsa20_draws(void* u_b, void* e_d, int n, u32 kw,
+                                 const void* nonces, int J, void* stream) {
+  return salsa20_draws_launch(u_b, e_d, n, kw, nonces, J, stream);
 }

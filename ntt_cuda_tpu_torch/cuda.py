@@ -54,6 +54,8 @@ SIGNATURES = {
     "ntt_salsa20": (_P, _L, _U32, _U64, _U64, _P),
     # ks (J * nb * 16 words), nb, key word, nonces (J,) u64, J, counter0
     "ntt_salsa20_batch": (_P, _L, _U32, _P, _I, _U64, _P),
+    # u_b (J, n), e_d (J, 2, n) int32, n, key word, user nonces (J,) u64, J
+    "ntt_salsa20_draws": (_P, _P, _I, _U32, _P, _I, _P),
     # x, c0, out, k2_rows, glob, J, r-1, n, pow2, t, neg_t, nu_t, inv_gt
     "ntt_decrypt_tail": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _U64, _U64,
                          _U64, _U64, _P),

@@ -14,9 +14,9 @@ schedules:
   in (ops/ntt_stage.py, bfv_tail.encrypt_fused).
 
 `fusion="auto"` picks as the JAX package does: "op" up to n = 16384,
-"stage" above.  `encrypt_batch` runs the J-nonce keystream (kernel 6) and
-the whole-op encrypt kernel under either schedule, as the JAX package
-does.  The evaluator (mul, square, relin_keygen, relinearize, decrypt
+"stage" above.  `encrypt_batch` runs the J nonces' draws (on the card one
+kernel, k_salsa20_draws, kernel 6 fused with the converters) and the
+whole-op encrypt kernel under either schedule, as the JAX package does.  The evaluator (mul, square, relin_keygen, relinearize, decrypt
 of L >= 3 ciphertexts, and the Galois automorphisms galois_keygen,
 apply_galois, rotate_rows and rotate_columns) ignores `fusion`, as the JAX
 package's pallas backends do: its transforms are the stage kernels at
@@ -125,8 +125,9 @@ def _encrypt(nonce, pk, m_poly, tf: ntt.NTTTables,
 
 def _encrypt_batch(nonces, pk, m_batch, tf: ntt.NTTTables,
                    tc: bfv_tail.TailConsts):
-    """(J,) nonces, m_batch (J, n) -> (J, 2, r-1, n): kernel 6, then the
-    whole-op encrypt over the batch whatever the fusion."""
+    """(J,) nonces, m_batch (J, n) -> (J, 2, r-1, n): the batch's draws
+    (one launch on the card), then the whole-op encrypt over the batch
+    whatever the fusion."""
     u_b, e_d = sampling.encrypt_draws_compact_batch(tf.n, nonces,
                                                     device=tf.device)
     return fused_ops.encrypt_fused(u_b, pk, e_d, m_batch, tf, tc)
@@ -281,8 +282,9 @@ class BFVContext:
         """Throughput-mode encryption: pk (2, r, n) NTT domain, m_batch
         (J, n) in [0, t), nonces (J,) distinct per message -> (J, 2, r-1,
         n) ciphertexts, row j bit-identical to encrypt(pk, m_batch[j],
-        nonces[j]).  One keystream launch for the J nonces (kernel 6) and
-        the whole-op encrypt kernel over the batch, whatever the context's
+        nonces[j]).  One launch for the J nonces' draws (k_salsa20_draws:
+        kernel 6's streams and the converters in one kernel) and the
+        whole-op encrypt kernel over the batch, whatever the context's
         fusion (the JAX package's rule, ntt_cuda_tpu/models/bfv.py:988-999).
         The kernel's (J, 2, r, n) scratch is J 2 r n 8 bytes: 75 MB at
         32k_9q, J = 16.  The JAX package splits larger batches for the
@@ -502,10 +504,10 @@ class BFVContext:
             dec_batch_fn(sk, cts, bz) == decrypt_batch(sk, cts)
 
         bit for bit.  A nonce is an int64 tensor of u64 bit patterns on the
-        context's device, () or (J,): the draws read it there (kernel 6)
-        and map it there, so nothing of its value reaches the host, and a
-        CUDA graph of a function replays it at whatever value the tensor
-        holds.  No argument validation, as in the JAX package: callers hold
+        context's device, () or (J,): the draws read it there (kernel 6,
+        or k_salsa20_draws for enc_batch_fn's) and map it there, so
+        nothing of its value reaches the host, and a CUDA graph of a
+        function replays it at whatever value the tensor holds.  No argument validation, as in the JAX package: callers hold
         validated tensors (int64, contiguous, on the device); a nonce is
         not checked against bit 63 (keygen clears it, encrypt sets it).
         Each function reads its constants from `bz` and allocates only its

@@ -16,7 +16,9 @@ device (raising where there is none); the CPU only when asked for.
 `keystream_words_batch` also takes its nonces as a (J,) int64 tensor on the
 device and reads them there, with no host read: the entry of the draws
 whose nonce lives on the card (a CUDA graph replays it at whatever value
-the tensor then holds).
+the tensor then holds).  `encrypt_draws_batch` is kernel 6 fused with the
+encryption draws' converters (k_salsa20_draws, CUDA only): the J streams'
+ternary and Gaussian values, with no stream written.
 
 `bytes_u8` / `bytes_u32` / `bytes_u64` read the stream as the reference
 does (bfv_keygen.cuh:120-122, bfv_encryption.cuh:247): each is a view of
@@ -146,6 +148,35 @@ def keystream_words_batch(nblocks: int, nonces,
                     _key_word(key_byte), v.data_ptr(), v.shape[0],
                     int(counter0))
     return ks
+
+
+def encrypt_draws_batch(n: int, nonces, key_byte: int = DEFAULT_KEY_BYTE,
+                        device=None):
+    """(J,) user nonces -> the compact draws of a batched encryption, (u_b
+    (J, n), e_d (J, 2, n)) int32, in one launch of k_salsa20_draws on a
+    CUDA device: kernel 6's streams of the mapped nonces turned into
+    ternary and Gaussian values in registers, with no stream written.  The
+    nonces go as they are (ints, a uint64 array, or a (J,) int64 tensor of
+    u64 bit patterns, read on the device in place); the kernel applies
+    encryption's map.  n: a multiple of 64.  The CPU has no such kernel:
+    sampling.encrypt_draws_compact_batch runs the plain stream and
+    converters there."""
+    device = cuda.default_device(device, "encrypt_draws_batch")
+    if device.type != "cuda":
+        raise ValueError(f"encrypt_draws_batch: no kernel for {device}")
+    if n < 64 or n % 64:
+        raise ValueError(f"encrypt_draws_batch: n={n} is not a multiple "
+                         f"of 64")
+    v = nonce_tensor(nonces, device)
+    if v.dim() != 1:
+        raise ValueError(f"nonces: expected shape (J,), got {tuple(v.shape)}")
+    J = v.shape[0]
+    with tracing.launch("salsa20.encrypt_draws_batch"):
+        u_b = torch.empty((J, n), dtype=torch.int32, device=device)
+        e_d = torch.empty((J, 2, n), dtype=torch.int32, device=device)
+        cuda.launch("ntt_salsa20_draws", device, u_b.data_ptr(),
+                    e_d.data_ptr(), n, _key_word(key_byte), v.data_ptr(), J)
+    return u_b, e_d
 
 
 def keystream_words(nblocks: int, key_byte: int = DEFAULT_KEY_BYTE, nonce=0,

@@ -6,10 +6,14 @@ documented spec choices: the integer-exact uniform floor(u * (q-1) / 2^64),
 the pinned 38-threshold Gaussian, the exact ternary with its byte-255 -> 2
 quirk, and bit-63 nonce domain separation between keygen and encryption.
 The converters are plain tensor code on the keystream's device, as they
-are XLA outside any kernel in the JAX package.  Both uniform specs are
-here: the integer-exact `uniform` (the default, `uniform_spec="int"`) and
-`uniform_ref`, the reference's IEEE-double data path emulated in integers
-(`uniform_spec="fp64"`, keygen only, as in the JAX package).
+are XLA outside any kernel in the JAX package, with one exception: on the
+card, a batched encryption's draws (`encrypt_draws_compact_batch`) come
+from one kernel that runs the streams and both converters
+(`salsa20.encrypt_draws_batch`), and the plain path here is what it is
+held to.  Both uniform specs are here: the integer-exact `uniform` (the
+default, `uniform_spec="int"`) and `uniform_ref`, the reference's
+IEEE-double data path emulated in integers (`uniform_spec="fp64"`,
+keygen only, as in the JAX package).
 
 A draw's nonce is a Python int, or an int64 tensor of u64 bit patterns on
 the draws' device (`keygen_nonce_t` / `encrypt_nonce_t` map it there, and
@@ -32,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import cuda
 from ..utils import tracing
 from . import modmath, salsa20
 from .modmath import I64
@@ -361,15 +366,22 @@ def encrypt_draws_compact_batch(n: int, nonces,
                                 device=None):
     """Batched compact encryption draws: (J,) nonces -> (u_b (J, n) int32,
     e_d (J, 2, n) int32), row j equal to encrypt_draws_compact(n,
-    nonce=nonces[j]).  One keystream launch (kernel 6) for the J mapped
-    nonces, and every view taken for all J rows at once.  `nonces`: ints,
-    a uint64 array, or a (J,) int64 tensor (module docstring).  `device`
-    None is the current CUDA device, or a tensor's."""
-    if isinstance(nonces, torch.Tensor):
-        mapped = encrypt_nonce_t(nonces)
-        device = nonces.device if device is None else device
-    else:
-        mapped = encrypt_nonces(nonces)
+    nonce=nonces[j]).  On a CUDA device one launch of
+    `salsa20.encrypt_draws_batch` (k_salsa20_draws: the streams and the
+    converters in one kernel, the nonces mapped there).  On the CPU the
+    plain path, which the kernel is held to: kernel 6's plain stream for
+    the J mapped nonces, every view taken for all J rows at once, then
+    ternary_int and gaussian_int.  `nonces`: ints, a uint64 array, or a
+    (J,) int64 tensor (module docstring).  `device` None is the current
+    CUDA device, or a tensor's."""
+    if isinstance(nonces, torch.Tensor) and device is None:
+        device = nonces.device
+    device = cuda.default_device(device, "encrypt_draws_compact_batch")
+    if device.type == "cuda":
+        return salsa20.encrypt_draws_batch(n, nonces, key_byte=key_byte,
+                                           device=device)
+    mapped = (encrypt_nonce_t(nonces) if isinstance(nonces, torch.Tensor)
+              else encrypt_nonces(nonces))
     ks = salsa20.keystream_words_batch(-(-encrypt_entropy_bytes(n) // 64),
                                        mapped, key_byte=key_byte,
                                        device=device)

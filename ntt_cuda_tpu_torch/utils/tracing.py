@@ -60,6 +60,7 @@ _RecordFunction = torch._C._profiler._RecordFunctionFast
 FAMILIES = {
     "k_salsa20": "draws",
     "k_salsa20_lanes": "draws",
+    "k_salsa20_draws": "draws",
     "k_stage_fwd_block": "transform",
     "k_stage_inv_block": "transform",
     "k_cross_stage": "transform",
@@ -80,6 +81,7 @@ _SALSA = ("k_salsa20", "k_salsa20_lanes")     # by the stream's size
 WRAPPERS = {
     "salsa20.keystream_words": Wrapper(_SALSA, 1),
     "salsa20.keystream_words_batch": Wrapper(_SALSA, 1),
+    "salsa20.encrypt_draws_batch": Wrapper(("k_salsa20_draws",), 1),
     "ntt_stage.ntt_transform_idx": Wrapper((_FWD, _INV), 1),
     "ntt_stage.ntt_forward": Wrapper((_FWD,), 1),
     "ntt_stage.ntt_inverse": Wrapper((_INV,), 1),

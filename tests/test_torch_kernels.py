@@ -16,6 +16,7 @@ Two ways:
 
 import ctypes
 import functools
+import re
 import shutil
 import subprocess
 
@@ -137,6 +138,88 @@ def test_host_salsa20_batch(host_lib, nb):
                 rtol=0, atol=0)
     assert host_lib.ntt_salsa20_batch(ks.data_ptr(), nb, 0, v.data_ptr(), 0,
                                       0, None) != 0
+
+
+# the draws kernel's nonce edges: 0 (no bit 63), bits 32-62 set, the
+# largest user nonce, and one with bit 63 already set (mapped to itself)
+DRAW_NONCES = [0, 0x7FFFFFFF00000000 | 5, 2**63 - 1, 7 | (1 << 63), 1]
+
+
+@pytest.mark.parametrize("n", [64, 1024, 4096])
+def test_host_salsa20_draws(host_lib, n):
+    """k_salsa20_draws (host build): u_b and e_d equal kernel 6's plain
+    stream of the mapped nonces followed by the plain converters, the
+    nonces given raw; n = 1024 leaves a partial last tile (144 blocks a
+    stream) and a tile that holds ternary and Gaussian blocks both (n =
+    64); nothing is written past the outputs."""
+    J = len(DRAW_NONCES)
+    v = salsa20.nonce_tensor(DRAW_NONCES, "cpu")
+    u_b = torch.full((J + 1, n), 7, dtype=torch.int32)
+    e_d = torch.full((J + 1, 2, n), 7, dtype=torch.int32)
+    assert host_lib.ntt_salsa20_draws(u_b.data_ptr(), e_d.data_ptr(), n,
+                                      0x01010101, v.data_ptr(), J, None) == 0
+    ks = salsa20.keystream_words_batch_plain(
+        sampling.encrypt_entropy_bytes(n) // 64,
+        sampling.encrypt_nonces(DRAW_NONCES))
+    assert torch.equal(u_b[:J], sampling.ternary_int(
+        salsa20.bytes_u8(ks, 0, n)))
+    assert torch.equal(e_d[:J], sampling.gaussian_int(
+        salsa20.bytes_u32(ks, n, 2 * n).reshape(J, 2, n)))
+    ref = sampling.encrypt_draws_compact_batch(n, DRAW_NONCES, device="cpu")
+    assert torch.equal(u_b[:J], ref[0]) and torch.equal(e_d[:J], ref[1])
+    assert torch.all(u_b[J] == 7) and torch.all(e_d[J] == 7)
+
+
+@pytest.mark.parametrize("n,J", [(32, 1), (1000, 1), (0, 1), (1024, 0)])
+def test_host_salsa20_draws_refusals(host_lib, n, J):
+    """n not a multiple of 64 (or below it) and J = 0 are refused."""
+    v = salsa20.nonce_tensor([1], "cpu")
+    out = torch.empty(3 * 1024, dtype=torch.int32)
+    assert host_lib.ntt_salsa20_draws(out.data_ptr(), out.data_ptr(), n,
+                                      0x01010101, v.data_ptr(), J, None) != 0
+
+
+def _draws_convert(host_lib, words):
+    """The draws kernel's converters on given u32 words (host seam)."""
+    fn = host_lib.ntt_draws_convert
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    w = torch.from_numpy(np.asarray(words, dtype=np.uint64).astype(
+        np.uint32).view(np.int32).copy())
+    tern = torch.empty(4 * w.numel(), dtype=torch.int32)
+    gauss = torch.empty(w.numel(), dtype=torch.int32)
+    assert fn(w.data_ptr(), w.numel(), tern.data_ptr(), gauss.data_ptr()) == 0
+    return w, tern, gauss
+
+
+def test_host_draws_converters_at_the_edges(host_lib):
+    """The draws kernel's Gaussian search and ternary division on given
+    words equal gaussian_int and ternary_int: every bound and bound - 1,
+    the words 0, 1, 2^32 - 129, 2^32 - 128 and 2^32 - 1, random words, and
+    the bytes 0, 84, 85, 169, 170, 254 and 255 in every byte position."""
+    bounds = sampling.GAUSS_ICDF_BOUNDS
+    edge_bytes = [0, 84, 85, 169, 170, 254, 255]
+    words = ([b for b in bounds] + [b - 1 for b in bounds]
+             + [0, 1, 2**32 - 129, 2**32 - 128, 2**32 - 1]
+             + [int.from_bytes(bytes(edge_bytes[k:] + edge_bytes[:k])[:4],
+                               "little") for k in range(len(edge_bytes))]
+             + np.random.default_rng(5).integers(0, 2**32, 4096).tolist())
+    w, tern, gauss = _draws_convert(host_lib, words)
+    assert torch.equal(gauss, sampling.gaussian_int(w))
+    assert torch.equal(tern, sampling.ternary_int(w.view(torch.uint8)))
+    assert sorted(set(tern.tolist())) == [-1, 0, 1, 2]
+    assert gauss.min() == -19 and gauss.max() == 16
+
+
+def test_draws_gauss_table_is_the_pinned_spec():
+    """csrc/salsa20.cu's GAUSS_TABLE is ops/sampling.py's
+    GAUSS_ICDF_BOUNDS, in order."""
+    src = (cuda.CSRC / "salsa20.cu").read_text()
+    body = src[src.index("#define GAUSS_TABLE"):].split("}", 1)[0]
+    table = tuple(int(x) for x in re.findall(r"(\d+)u", body))
+    assert table == sampling.GAUSS_ICDF_BOUNDS
+    assert f"#define GAUSS_BOUNDS {len(table)}" in src
 
 
 @pytest.fixture(scope="module")
@@ -1289,6 +1372,55 @@ def test_cuda_op32_kernels_match_plain(cuda_device, name):
         assert torch.equal(fused_ops.encrypt_fused(u_b, pk, e2, m, tf, tc),
                            fused_ops.encrypt_fused_plain(u_b, pk, e2, m, tf,
                                                          tc))
+    torch.cuda.synchronize()
+
+
+def _draws_ref(n: int, nonces, device):
+    """Kernel 6's stream of the mapped nonces on `device`, then the plain
+    converters there."""
+    ks = salsa20.keystream_words_batch(
+        sampling.encrypt_entropy_bytes(n) // 64,
+        sampling.encrypt_nonces(nonces), device=device)
+    return (sampling.ternary_int(salsa20.bytes_u8(ks, 0, n)),
+            sampling.gaussian_int(salsa20.bytes_u32(ks, n, 2 * n).reshape(
+                -1, 2, n)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,J", [("16k_5q", 32), ("32k_9q", 16),
+                                    ("16k_5q", 1), ("32k_9q", 1)])
+def test_cuda_salsa20_draws_match_kernel6_and_converters(cuda_device, name,
+                                                         J):
+    """k_salsa20_draws on the card, bit for bit kernel 6's stream followed
+    by the plain ternary_int / gaussian_int there, at the client shapes
+    (16k_5q J = 32, 32k_9q J = 16) and J = 1: nonce 0 and a nonce with
+    bits 32-62 set among the rows (J = 1: each alone); the encryption
+    draws take it in one launch; a device-tensor nonce replayed under a
+    CUDA graph at two values."""
+    from ntt_cuda_tpu_torch.utils import profiling, tracing
+    n = get_bfv_params(name).n
+    edge = [0, 0x7FFFFFFF00000000 | 5]
+    sets = ([edge + list(range(1, J - 1))] if J > 1 else
+            [[x] for x in edge])
+    for nonces in sets:
+        got = salsa20.encrypt_draws_batch(n, nonces, device=cuda_device)
+        want = _draws_ref(n, nonces, cuda_device)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        tracing.reset()
+        draws = sampling.encrypt_draws_compact_batch(n, nonces,
+                                                     device=cuda_device)
+        assert tracing.counts()["salsa20.encrypt_draws_batch"] == 1
+        assert sum(tracing.counts().values()) == 1
+        assert torch.equal(draws[0], want[0]) and torch.equal(draws[1],
+                                                              want[1])
+    v = salsa20.nonce_tensor(sets[0], cuda_device)
+    g = profiling.graphed(lambda v: salsa20.encrypt_draws_batch(n, v), v)
+    for k in (3, 2**40 + 11):
+        nonces = [x + k for x in sets[0]]
+        v.copy_(salsa20.nonce_tensor(nonces, cuda_device))
+        u_b, e_d = g()
+        want = _draws_ref(n, nonces, cuda_device)
+        assert torch.equal(u_b, want[0]) and torch.equal(e_d, want[1])
     torch.cuda.synchronize()
 
 

@@ -97,6 +97,8 @@ def test_every_launch_site_is_registered():
      "unsigned long const*, unsigned long, unsigned long)", "draws"),
     ("void k_salsa20(uint4*, long long, unsigned int, unsigned long const*,"
      " unsigned long, unsigned long)", "draws"),
+    ("void k_salsa20_draws(int*, int*, int, unsigned int, "
+     "unsigned long long const*)", "draws"),
     ("void k_op_cluster<3, 2, EncryptTransform>(EncryptTransform)",
      "whole_op"),
     ("void k_stage_inv_block<3, 2>(StageIO, Twiddles)", "transform"),
@@ -221,10 +223,10 @@ def test_cuda_spans_have_no_device_copy_and_counts_match_kernels():
             if e.device_type == torch.autograd.DeviceType.CPU}
     assert {"ntt.encrypt_batch", "ntt.draws",
             "ntt.launch.fused_ops.encrypt_fused",
-            "ntt.launch.salsa20.keystream_words_batch"} <= host
+            "ntt.launch.salsa20.encrypt_draws_batch"} <= host
     counts = tracing.counts()
     assert counts["fused_ops.encrypt_fused"] == 1
-    assert counts["salsa20.keystream_words_batch"] == 1
+    assert counts["salsa20.encrypt_draws_batch"] == 1
     launched = sum(c * tracing.WRAPPERS[w].per_call
                    for w, c in counts.items())
     kernels = [e.name for e in cuda_events
