@@ -48,8 +48,8 @@ interleaved against in turn).  Then:
    the launch counts set to 0 before it and read after it, its messages
    round-tripped and its keys and ciphertexts equal to the same calls on
    the CPU;
-4. the EvalMult main path at 32k_9q through `BFVContext.build(params)`
-   and at 16k_5q (keygen, relin_keygen, encrypt of two seeded messages,
+4. the EvalMult main path at 32k_9q through `BFVContext.build(params)`,
+   at 16k_5q and at 32k_16q (k = 15; keygen, relin_keygen, encrypt of two seeded messages,
    mul decrypted at L = 3, mul with rlk, square with rlk, decrypt), counts
    read as in 3, every product equal to the negacyclic m1 m2 mod t (exact
    through the plain NTT over the set's first modulus), and at 16k_5q
@@ -258,7 +258,8 @@ from ntt_cuda_tpu_torch.utils.profiling import median_ms  # noqa: E402
 SEED = 20261016
 OP_SET = "16k_5q"        # the op schedule's main path (n <= 16384)
 STAGE_SET = "32k_9q"     # the stage schedule's main path (n = 32768)
-MULT_SETS = ("32k_9q", "16k_5q")  # the EvalMult main path, timed at both
+# the EvalMult main path, timed at each (the CPU twin at OP_SET alone)
+MULT_SETS = ("32k_9q", "16k_5q", "32k_16q")
 OP_CHECK_SETS = ("4k_3q", "16k_5q")
 STAGE_CHECK_SETS = ("4k_3q", "16k_5q", "32k_9q")
 MULT_CHECK_SETS = ("4k_3q", "16k_5q", "32k_9q", "32k_16q")

@@ -240,7 +240,7 @@ def _front_launch(dev, c2, ksk, tables: NTTTables, J: int,
     over the tables' r moduli: the PRO_DIGIT forward into d^ (J, k, r, n)
     (polynomial (J k + j) r + mi reads digit row J k + j, reduced with the
     tables' nu = floor(2^64 / q)), then the PRO_KSACC inverse into
-    (J, 2, r, n)."""
+    (J, 2, r, n): kernels k_stage_fwd_block_ks and k_stage_inv_block_ks."""
     r, n = tables.r, tables.n
     cuda.require("c2", c2, I64, tuple(c2.shape), dev)
     cuda.require("ksk", ksk, I64, (2, k, r, n), dev)

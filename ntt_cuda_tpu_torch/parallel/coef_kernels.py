@@ -124,7 +124,7 @@ def local_keyswitch_acc(dhat, ksk, tables: NTTTables, logc: int, shard: int):
     times the global n^-1.  dhat (k, r, S) the digits' forwards, ksk (2, k,
     r, S) the shard's key block -> (2, r, S); the cross GS stages follow
     without halving.  Kernel 20's second launch (csrc/ntt_stage.cu
-    PRO_KSACC) with the shard offset."""
+    PRO_KSACC, k_stage_inv_block_ks) with the shard offset."""
     k = dhat.shape[0] if dhat.dim() == 3 else 0
     if k < 1:
         raise ValueError(f"dhat: expected shape (k, {tables.r}, "

@@ -63,6 +63,8 @@ FAMILIES = {
     "k_salsa20_draws": "draws",
     "k_stage_fwd_block": "transform",
     "k_stage_inv_block": "transform",
+    "k_stage_fwd_block_ks": "keyswitch",
+    "k_stage_inv_block_ks": "keyswitch",
     "k_cross_stage": "transform",
     "k_ntt30_cluster": "transform",
     "k_op_cluster": "whole_op",
@@ -75,6 +77,7 @@ FAMILIES = {
 Wrapper = collections.namedtuple("Wrapper", "kernels per_call")
 
 _FWD, _INV = "k_stage_fwd_block", "k_stage_inv_block"
+_FWD_KS, _INV_KS = "k_stage_fwd_block_ks", "k_stage_inv_block_ks"
 _SALSA = ("k_salsa20", "k_salsa20_lanes")     # by the stream's size
 
 # wrapper -> (the kernels it can launch, kernel launches per call)
@@ -93,8 +96,9 @@ WRAPPERS = {
     "fused_ops.keygen_fused": Wrapper(("k_op_cluster",), 1),
     "fused_ops.encrypt_fused": Wrapper(("k_op_cluster", "k_encrypt_tail"), 2),
     "fused_ops.encrypt_front": Wrapper(("k_op_cluster",), 1),
-    "fused_ops.keyswitch_front": Wrapper((_FWD, _INV), 2),
-    "fused_ops.keyswitch_fused": Wrapper((_FWD, _INV, "k_encrypt_tail"), 3),
+    "fused_ops.keyswitch_front": Wrapper((_FWD_KS, _INV_KS), 2),
+    "fused_ops.keyswitch_fused": Wrapper(
+        (_FWD_KS, _INV_KS, "k_encrypt_tail"), 3),
     "bfv_tail.decrypt_tail": Wrapper(("k_decrypt_tail",), 1),
     "bfv_tail.encrypt_fused": Wrapper((_INV, "k_encrypt_tail"), 2),
     "bfv_tail.encrypt_tail": Wrapper(("k_encrypt_tail",), 1),
@@ -113,7 +117,7 @@ WRAPPERS = {
     "behz_kernels.bsk_to_q_rows": Wrapper(("k_behz",), 1),
     "coef_kernels.local_forward": Wrapper((_FWD,), 1),
     "coef_kernels.local_inverse_mul": Wrapper((_INV,), 1),
-    "coef_kernels.local_keyswitch_acc": Wrapper((_INV,), 1),
+    "coef_kernels.local_keyswitch_acc": Wrapper((_INV_KS,), 1),
     "coef_kernels.cross_stage": Wrapper(("k_cross_stage",), 1),
 }
 

@@ -963,11 +963,10 @@ def test_host_forward_addneg(host_lib, stage_ctx, J):
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 
-def test_host_keyswitch(host_lib, stage_ctx):
-    """Kernel 19: the PRO_DIGIT forward, the PRO_KSACC inverse and the tail
-    without a message (J = 2; J = 1 at 2^15) against the xla chain."""
-    p, tb, tc = stage_ctx.params, stage_ctx.tables_full, stage_ctx.tail_consts
-    J = 1 if p.n > 16384 else 2
+def _host_keyswitch(host_lib, ctx, J):
+    """Kernel 19 through the host build's stage entry points (PRO_DIGIT
+    forward, PRO_KSACC inverse) and the tail, against the plain chain."""
+    p, tb, tc = ctx.params, ctx.tables_full, ctx.tail_consts
     k, r, n = p.r - 1, p.r, p.n
     rng = np.random.default_rng(80)
     c2 = _rand_res(rng, p.q[:-1], n, (J,))
@@ -988,6 +987,24 @@ def test_host_keyswitch(host_lib, stage_ctx):
                                      tc.half, tc.fix_th, J, r, n, None) == 0
     ref = fused_ops.keyswitch_fused_plain(c2, ksk, tb, tc)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+def test_host_keyswitch(host_lib, stage_ctx):
+    """Kernel 19: the PRO_DIGIT forward, the PRO_KSACC inverse and the tail
+    without a message (J = 2; J = 1 at 2^15) against the xla chain."""
+    _host_keyswitch(host_lib, stage_ctx,
+                    1 if stage_ctx.params.n > 16384 else 2)
+
+
+def test_host_keyswitch_k15(host_lib):
+    """Kernel 19 at 32k_16q's sixteen moduli (15 digits; n = 1024, roots
+    psi^32), J = 2, equal to the plain chain."""
+    p = get_bfv_params("32k_16q")
+    small = BFVParams(name="32k_16q_n1024", n=1024, q=p.q,
+                      psi=tuple(pow(s, 32, q) for s, q in zip(p.psi, p.q)),
+                      t=p.t, gamma=p.gamma)
+    _host_keyswitch(host_lib, BFVContext.build(small, device="cpu",
+                                               fusion="stage"), 2)
 
 
 def test_host_stage_bsk_tables(host_lib, stage_ctx):
