@@ -27,7 +27,9 @@ interleaved against in turn).  Then:
    (one cluster launch at 2^15), J = 1 and 3 where there is a batch axis,
    every stage row (7 both ways, 8-11, 12 both ways, 13's and 19/20's
    transforms, the coefficient shards' offset launches) also at cluster
-   sizes B = 2, 4 and 8 at 32k_9q, K2 also at
+   sizes B = 2, 4 and 8 at 32k_9q, the stage engine at the server cells'
+   launch widths (each launch counted on the engine; its kernels' ptxas
+   lines free of spills), K2 also at
    32k_16q; the EvalMult kernels (BEHZ
    21a-c, kernel 11, the key switch 19) at 4k_3q, 16k_5q and 32k_9q,
    21a-c and 19 also at 32k_16q, J = 1 and 2; 21a-c, the one-launch
@@ -243,8 +245,9 @@ from ntt_cuda_tpu_torch import BFVContext, cli, cuda, get_bfv_params  # noqa: E4
 from ntt_cuda_tpu_torch.examples import (  # noqa: E402
     encrypted_dot_product as example)
 from ntt_cuda_tpu_torch.ops import (behz, behz_kernels,  # noqa: E402
-                                    bfv_tail, fused_ops, ntt, ntt30,
-                                    ntt_stage, poly, salsa20, sampling)
+                                    bfv_tail, fused_ops, modmath, ntt,
+                                    ntt30, ntt_stage, poly, salsa20,
+                                    sampling)
 from ntt_cuda_tpu_torch.params import BFVParams, get_params  # noqa: E402
 from ntt_cuda_tpu_torch.parallel import (mesh as pmesh,  # noqa: E402
                                          coef_kernels, multihost, rns,
@@ -750,6 +753,8 @@ def ptxas_lines(out: str, kernels: str) -> dict[str, str]:
 
 # the cluster kernels' names, and the conversion kernels' and K2's
 CLUSTER_KERNELS = "k_stage_|k_op_cluster|k_decrypt_cluster|k_ntt30_cluster"
+# the stage engine's kernels: k_stage_*<3, 2, PRO> (PRO >= 0)
+ENGINE_KERNELS = r"k_stage_\w+ILi3ELi2ELi\d"
 GROUP_KERNELS = "k_behz|k_decrypt_tail|k_encrypt_tail"
 
 
@@ -1521,6 +1526,69 @@ def cluster_times(dev, rng, errs: dict) -> dict:
                     "rule": B == ntt_stage.cluster_size(p.n),
                     "fwd_us": device_us(fwd), "inv_mul_us": device_us(inv),
                     "fwd_ms": kernel_ms(fwd), "inv_mul_ms": kernel_ms(inv)}
+    return res
+
+
+# the server cells' (parameter set, J) for the stage engine's checks
+ENGINE_CELLS = (("32k_9q", 8), ("32k_16q", 4), ("16k_5q", 16))
+
+
+def engine_checks(dev, rng, errs: dict) -> dict:
+    """The stage engine at each server cell's launch widths (ENGINE_CELLS):
+    one request's six stage launches at the cell's J (the product's
+    forward and inverse over q and over Bsk, the key switch's PRO_DIGIT
+    forward and PRO_KSACC inverse) through the launchers' rule, each
+    counted on the engine (tracing.stage_paths) and equal to its plain
+    version; device us per launch (torch.profiler)."""
+    res = {}
+    for name, J in ENGINE_CELLS:
+        p = get_bfv_params(name)
+        ctx = BFVContext.build(p, device=dev)
+        tf = ctx.tables_full
+        n, r, k, ms = p.n, p.r, p.r - 1, tf.ms
+        runs = []
+        for label, t in (("q", ctx.tables_drop),
+                         ("bsk", ctx._mult_setup().tables_bsk)):
+            qs = [int(q) for q in t.ms.q.flatten()]
+            x, y = (rand_res(rng, qs, n, (4 * J,), dev) for _ in range(2))
+            of, oi = torch.empty_like(x), torch.empty_like(x)
+            runs += [
+                (f"fwd_{label}", of,
+                 lambda x=x, t=t, o=of: ntt_stage.forward_launch(
+                     dev, x, None, o, t, cuda.PRO_COPY),
+                 lambda x=x, t=t: ntt.ntt_forward(x, t)),
+                (f"inv_{label}", oi,
+                 lambda x=x, y=y, t=t, o=oi: ntt_stage.inverse_launch(
+                     dev, x, y, None, o, t),
+                 lambda x=x, y=y, t=t: ntt.ntt_inverse(
+                     ntt.dyadic_mul(x, y, t.ms), t))]
+        c2 = torch.from_numpy(rng.integers(0, max(p.q), (J, k, n))).to(dev)
+        ksk = rand_res(rng, p.q, n, (2, k), dev)
+        dhat = torch.empty((J, k, r, n), dtype=torch.int64, device=dev)
+        acc = torch.empty((J, 2, r, n), dtype=torch.int64, device=dev)
+        runs += [
+            ("fwd_ks", dhat,
+             lambda: ntt_stage.forward_launch(dev, c2, None, dhat, tf,
+                                              cuda.PRO_DIGIT, nu=ms.nu),
+             lambda: ntt.ntt_forward(
+                 modmath.mod_u64(c2[..., None, :], ms.q, ms.nu), tf)),
+            ("inv_ks", acc,
+             lambda: cuda.launch("ntt_stage_inverse_cluster", dev,
+                                 dhat.data_ptr(), ksk.data_ptr(), None,
+                                 acc.data_ptr(), *tf.kernel_args(),
+                                 cuda.PRO_KSACC, k, J * 2 * r, r, p.logn,
+                                 None, 0, 0, 0),
+             lambda: fused_ops.keyswitch_front_plain(c2, ksk, tf))]
+        for label, out, launch, plain in runs:
+            tracing.reset()
+            launch()
+            paths = tracing.stage_paths()
+            if paths != {"engine": 1, "one": 0}:
+                raise AssertionError(f"stage engine {name} {label}: paths "
+                                     f"{paths}")
+            compare(f"stage engine {name} {label}", out, plain(), errs)
+            res[f"{name} J={J} {label} P={out.numel() // n}"] = \
+                device_us(launch)
     return res
 
 
@@ -3897,6 +3965,13 @@ def main() -> int:
         f"fused_ops.cu's k_op_cluster<CL, OCC, op> and kernel 22's "
         f"k_ntt30_cluster<CL, inverse>, __launch_bounds__ ClusterBound): "
         f"{json.dumps(ptxas_lines(ptxas_out, CLUSTER_KERNELS))}")
+    engine_lines = ptxas_lines(ptxas_out, ENGINE_KERNELS)
+    log(f"stage engine kernels (k_stage_*<3, 2, PRO>) registers and spills: "
+        f"{json.dumps(engine_lines)}; with spills: "
+        f"{json.dumps(spills(engine_lines))}")
+    if not engine_lines or spills(engine_lines):
+        raise AssertionError("the stage engine's kernels spill, or none "
+                             "was found")
     group_lines = ptxas_lines(ptxas_out, GROUP_KERNELS)
     log(f"conversion kernels, K2, 17 and the encrypt tail, registers and "
         f"spills (ptxas -v, sm_90a; k_behz<K, which, SHARE> for K = 1..16, "
@@ -3966,6 +4041,10 @@ def main() -> int:
             if name == STAGE_SET and J == 1:   # K2 too: 32k_9q, J = 1
                 timing[kname] = (kern, plain, work)
     cluster_checks(dev, rng, errs)
+    engine_us = engine_checks(dev, rng, errs)
+    log(f"check the stage engine at the server cells' widths (each launch "
+        f"counted on the engine, == plain); device us per launch: "
+        f"{json.dumps(engine_us)}")
     encrypt_cluster_checks(dev, rng, errs)
     op_cluster_checks(dev, rng, errs)
     rule = {n: ntt_stage.cluster_size(n) for n in (2048, 4096, 16384, 32768)}

@@ -18,7 +18,9 @@
 // and ps = j len' + ps'.  The local stages run register-tiled (fwd_pass /
 // inv_pass below): each thread carries 2^K coefficients through K stages
 // between block barriers.  Twiddles and their Shoup companions are read
-// from global memory, where one modulus's tables stay in L2.
+// from global memory, where one modulus's tables stay in L2; the stage
+// engine's passes (fwd_pass_sh, inv_pass_sh) read a block's from shared
+// memory.
 //
 // `tid`/`nt` are the thread's index and the block's thread count; the host
 // build of the tests passes 0/1, where BLOCK_SYNC is a no-op and one thread
@@ -234,6 +236,142 @@ NTT_HD void ntt_inv_tiled(W* s, int logn, const TW& tw, W q, int tid, int nt,
                           int tw_mul = 1) {
   W* const one[1] = {s};
   ntt_inv_tiled<K, 1>(one, logn, tw, q, tid, nt, tw_mul);
+}
+
+// --- the local passes of the stage engine (ntt_stage.cu) --------------------
+//
+// The engine's block keeps its local twiddles in shared memory, copied once
+// a modulus (load_local_twiddles): for its 2^logb-point range, entry t =
+// len + ps (len a local stage's length, ps < len) holds the twiddle of
+// index tw_mul len + ps and its Shoup companion side by side, one 16-byte
+// load; entries 1 .. 2^logb - 1 (64 KB at 2^logb = 4096).  A pass's set
+// with base b = (G << (lo + k)) | (g mod 2^lo), G = g >> lo, needs at its
+// stage st (forward) the 2^st twiddles of ps = G 2^st + m, and at the
+// inverse's stage hs the 2^(k-1-hs) of ps = G 2^(k-1-hs) + m: the passes
+// below load each once.  The block's coefficients sit swizzled, word i at
+// swz(i): the passes whose sets are 1 or 8 words apart (lo = 0, 3) then
+// touch each bank pair at most twice a warp, as unit-stride ones do; the
+// table's entry t sits at tswz(t), so that the pass of lo = 0, whose
+// threads each read 2^st neighbouring entries, spreads them over the banks.
+struct alignas(16) TwPair {
+  u64 w, ws;
+};
+
+NTT_HD int swz(int i) { return i ^ ((i >> 4) & 15); }
+
+NTT_HD int tswz(int t) { return t ^ ((t >> 3) & 7); }
+
+NTT_HD int log2_floor(unsigned t) {
+#ifdef __CUDA_ARCH__
+  return 31 - __clz(t);
+#else
+  return 31 - __builtin_clz(t);
+#endif
+}
+
+// Entries 1 .. 2^logb - 1 of stw from one modulus's rows w, ws (psi and
+// psi_sh, or ipsi and ipsi_sh) for tw_mul.
+NTT_HD void load_local_twiddles(TwPair* stw, const u64* w, const u64* ws,
+                                int logb, int tw_mul, int tid, int nt) {
+  for (int t = 1 + tid; t < (1 << logb); t += nt) {
+    const int len = 1 << log2_floor((unsigned)t);
+    const size_t at = (size_t)tw_mul * len + (t - len);
+    TwPair p;
+    p.w = w[at];
+    p.ws = ws[at];
+    stw[tswz(t)] = p;
+  }
+}
+
+// fwd_pass / inv_pass (one array) on the swizzled buffer with the shared
+// twiddles: the same butterflies in the same order.
+template <int k>
+NTT_HD void fwd_pass_sh(u64* s, int logn, int lg0, const TwPair* tw, u64 q,
+                        int tid, int nt) {
+  const int lo = logn - lg0 - k;
+  for (int g = tid; g < (1 << (logn - k)); g += nt) {
+    const int G = g >> lo;
+    const int b = (G << (lo + k)) | (g & ((1 << lo) - 1));
+    u64 v[1 << k];
+#pragma unroll
+    for (int e = 0; e < (1 << k); ++e) v[e] = s[swz(b + (e << lo))];
+#pragma unroll
+    for (int st = 0; st < k; ++st) {
+      const int hs = k - 1 - st;
+      const int t = (1 << (lg0 + st)) + (G << st);
+      TwPair w[1 << (k - 1)];
+#pragma unroll
+      for (int m = 0; m < (1 << st); ++m) w[m] = tw[tswz(t + m)];
+#pragma unroll
+      for (int h = 0; h < (1 << (k - 1)); ++h) {
+        const int e0 = ((h >> hs) << (hs + 1)) | (h & ((1 << hs) - 1));
+        ct_butterfly(v[e0], v[e0 + (1 << hs)], w[h >> hs].w, w[h >> hs].ws,
+                     q);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < (1 << k); ++e) s[swz(b + (e << lo))] = v[e];
+  }
+}
+
+template <int k>
+NTT_HD void inv_pass_sh(u64* s, int logn, int lg0, const TwPair* tw, u64 q,
+                        int tid, int nt) {
+  const int lo = logn - 1 - lg0;
+  for (int g = tid; g < (1 << (logn - k)); g += nt) {
+    const int G = g >> lo;
+    const int b = (G << (lo + k)) | (g & ((1 << lo) - 1));
+    u64 v[1 << k];
+#pragma unroll
+    for (int e = 0; e < (1 << k); ++e) v[e] = s[swz(b + (e << lo))];
+#pragma unroll
+    for (int hs = 0; hs < k; ++hs) {
+      const int t = (1 << (lg0 - hs)) + (G << (k - 1 - hs));
+      TwPair w[1 << (k - 1)];
+#pragma unroll
+      for (int m = 0; m < (1 << (k - 1 - hs)); ++m) w[m] = tw[tswz(t + m)];
+#pragma unroll
+      for (int h = 0; h < (1 << (k - 1)); ++h) {
+        const int e0 = ((h >> hs) << (hs + 1)) | (h & ((1 << hs) - 1));
+        gs_butterfly(v[e0], v[e0 + (1 << hs)], w[h >> hs].w, w[h >> hs].ws,
+                     q);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < (1 << k); ++e) s[swz(b + (e << lo))] = v[e];
+  }
+}
+
+// ntt_fwd_tiled / ntt_inv_tiled (one array, tw_mul folded into the shared
+// table) with these passes.
+template <int K>
+NTT_HD void ntt_fwd_tiled_sh(u64* s, int logn, const TwPair* tw, u64 q,
+                             int tid, int nt) {
+  static_assert(K == 2 || K == 3, "passes of 2 or 3 stages");
+  int lg = logn % K;
+  BLOCK_SYNC();
+  if (lg == 1) fwd_pass_sh<1>(s, logn, 0, tw, q, tid, nt);
+  if (lg == 2) fwd_pass_sh<2>(s, logn, 0, tw, q, tid, nt);
+  if (lg) BLOCK_SYNC();
+  for (; lg < logn; lg += K) {
+    fwd_pass_sh<K>(s, logn, lg, tw, q, tid, nt);
+    BLOCK_SYNC();
+  }
+}
+
+template <int K>
+NTT_HD void ntt_inv_tiled_sh(u64* s, int logn, const TwPair* tw, u64 q,
+                             int tid, int nt) {
+  static_assert(K == 2 || K == 3, "passes of 2 or 3 stages");
+  int lg = logn - 1;
+  BLOCK_SYNC();
+  for (; lg + 1 >= K; lg -= K) {
+    inv_pass_sh<K>(s, logn, lg, tw, q, tid, nt);
+    BLOCK_SYNC();
+  }
+  if (lg == 0) inv_pass_sh<1>(s, logn, 0, tw, q, tid, nt);
+  if (lg == 1) inv_pass_sh<2>(s, logn, 1, tw, q, tid, nt);
+  if (lg >= 0) BLOCK_SYNC();
 }
 
 // Threads per block for the tiled form of a 2^logn-point transform: one

@@ -108,7 +108,8 @@ static inline bool cluster_ok(int logn, int cl, int bufs = 1) {
 // every cluster of the grid fits on the card at once, the second where
 // they do not (PERF.md, tools/bounds_ab.py): run_cluster takes the kernel
 // of OCC = wide_occ for a grid of more clusters than the card holds of
-// OCC = 1.
+// OCC = 1.  The stage transforms take their engine there instead
+// (ntt_stage.cu), whose bounds are its own.
 template <int CL, int OCC>
 struct ClusterBound {
   static constexpr int LB = LOG_BOUND_N - (CL < 3 ? CL : 3);
@@ -176,30 +177,22 @@ static inline cudaError_t cluster_setup(const void* kernel, long long shape,
   }, clusters);
 }
 
-// One launch of P clusters of 2^CL blocks, each block with `bufs` buffers
-// of 2^(logn - CL) W of dynamic shared memory and one thread per
-// STAGE_TILE-stage set of a buffer, at most ClusterBound's, of
-// `one` (the kernel of OCC = 1) or, where the card cannot hold all P of
-// its clusters at once, of `wide` (OCC = wide_occ(CL); the same kernel
-// where that is 1).  COOP: a cooperative launch (the kernel takes a grid
-// barrier, cooperative_groups::this_grid().sync()), refused with
-// cudaErrorCooperativeLaunchTooLarge unless the card holds all P clusters
-// at once.  A cluster that cannot run returns its CUDA error.
-template <int CL, typename W = u64, bool COOP = false, typename... K,
-          typename... A>
-static int run_cluster(void (*one)(K...), void (*wide)(K...), int P,
-                       int logn, int bufs, void* stream, const A&... args) {
+// The launch configuration of P clusters of 2^CL blocks, each block with
+// `bufs` buffers of 2^(logn - CL) W of dynamic shared memory and one
+// thread per STAGE_TILE-stage set of a buffer, at most ClusterBound's;
+// attr[0] the cluster dimension, the one attribute.
+template <int CL, typename W = u64>
+static cudaLaunchConfig_t cluster_config(int P, int logn, int bufs,
+                                         void* stream,
+                                         cudaLaunchAttribute* attr) {
   const int nb = 1 << (logn - CL);
   const int sets = tiled_threads<STAGE_TILE>(nb);
   const int threads = sets < ClusterBound<CL, 1>::threads
                           ? sets : ClusterBound<CL, 1>::threads;
-  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1u << CL;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  attr[1].id = cudaLaunchAttributeCooperative;
-  attr[1].val.cooperative = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)P << CL);
   cfg.blockDim = dim3(threads);
@@ -207,6 +200,25 @@ static int run_cluster(void (*one)(K...), void (*wide)(K...), int P,
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  return cfg;
+}
+
+// One launch of cluster_config's shape of `one` (the kernel of OCC = 1)
+// or, where the card cannot hold all P of its clusters at once, of `wide`
+// (OCC = wide_occ(CL); the same kernel where that is 1).  COOP: a
+// cooperative launch (the kernel takes a grid barrier,
+// cooperative_groups::this_grid().sync()), refused with
+// cudaErrorCooperativeLaunchTooLarge unless the card holds all P clusters
+// at once.  A cluster that cannot run returns its CUDA error.
+template <int CL, typename W = u64, bool COOP = false, typename... K,
+          typename... A>
+static int run_cluster(void (*one)(K...), void (*wide)(K...), int P,
+                       int logn, int bufs, void* stream, const A&... args) {
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg =
+      cluster_config<CL, W>(P, logn, bufs, stream, attr);
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
   void (*kernel)(K...) = one;
   int fit = 0;
   cudaError_t e = cluster_setup((const void*)one, logn, cfg, &fit);

@@ -120,10 +120,40 @@
 // Every intermediate stays in [0, q), so each prologue, epilogue, mod_idx
 // and shard base gives the plain version's integers.
 //
+// The engine: a launch of more clusters than the card holds at once (the
+// server's launches, 128-960 polynomials) was a grid of P clusters at two
+// blocks an SM of 512 threads, which held a thread to 64 registers and
+// spilled, and whose blocks re-read every local twiddle and its Shoup
+// companion from L1/L2 (64 KB a block at 2^15, B = 8, for each
+// polynomial).  The engine runs instead as many clusters of B = 8 as the
+// card holds at once (G), persistent: cluster c walks positions
+// [c P / G, (c + 1) P / G) of the polynomials ordered by modulus
+// (engine_span), and each block copies its local twiddles of a modulus,
+// n/B - 1 pairs, into shared memory when the modulus changes (ntt_block.cuh
+// load_local_twiddles); the local passes read them there (fwd_pass_sh,
+// inv_pass_sh: each distinct twiddle of a pass once), on the block's buffer
+// swizzled against bank conflicts.  ENGINE_OCC = 2 blocks an SM of 256
+// threads (up to 128 registers each), each with its buffer and table (96
+// KB at 2^15), so that one block's barriers and loads overlap the other's
+// passes.  The prologue is a template argument, so that a thread's loads
+// go out in batches with no branch between them (pro_values): a probe of
+// the first engine timed the inverse's prologue loop at 13.6 of 30 us a
+// polynomial, its loads one at a time.
+// The prologues, the cross stages (their B - 1 twiddles still from global
+// memory), the epilogue and every integer are the kernels'; the kernel
+// names too (k_stage_*<3, ENGINE_OCC, PRO>).  The launchers' rule
+// (run_stage): the engine where P passes the clusters the card holds of
+// the kernel of OCC = 1, B = 8, no mod_idx, and two blocks' shared memory
+// fits an SM (n <= 2^15); every other launch, one polynomial a cluster on
+// that kernel (k_stage_*<CL, 1, -1>).  ntt_stage_paths counts each.
+//
 // Host build (g++, the CPU tests): walk_clusters runs, for each cluster,
 // phase A of its B blocks (one thread each) into B host buffers, then
 // phase B of each block: the same index algebra at every B
-// (ntt_stage_forward_cluster / ntt_stage_inverse_cluster take B).
+// (ntt_stage_forward_cluster / ntt_stage_inverse_cluster take B); the
+// engine's entry points walk its G clusters' lists the same way.
+
+#include <atomic>
 
 #include "behz_sums.cuh"
 #include "ntt_cluster.cuh"
@@ -200,6 +230,25 @@ NTT_HD u64 prologue(const StageIO& io, int p, int i, const ModConsts& c) {
     default:
       return io.x[at];
   }
+}
+
+// prologue() of a prologue known when compiled, for the engine's batches
+// (its cases' expressions; PRO_KSACC sums in pro_values).  prologue()
+// keeps its own switch: as a dispatch to this, it compiled kernel 15's
+// k_decrypt_cluster to more spill bytes on the card.
+template <int PRO>
+NTT_HD u64 pro_value(const StageIO& io, int p, int i, const ModConsts& c) {
+  const size_t n = (size_t)1 << io.logn;
+  const size_t at = (size_t)p * n + i;
+  const size_t at_d = (size_t)(p / io.r) * n + i;
+  if (PRO == PRO_TERNARY) return small_res(io.d[at_d], c.q);
+  if (PRO == PRO_ADDNEG_GAUSS)
+    return add_neg_mod(io.x[at], small_res(io.d[at_d], c.q), c.q);
+  if (PRO == PRO_MONT)
+    return mont_mul(io.x[at], io.y[(size_t)(p % io.ny) * n + i], c.q, c.qinv);
+  if (PRO == PRO_ADDNEG) return add_neg_mod(io.x[at], io.y[at], c.q);
+  if (PRO == PRO_DIGIT) return mod_nu(io.x[at_d], c.q, io.nu[p % io.r]);
+  return io.x[at];
 }
 
 // The inverse's last step on coefficient i of polynomial p.
@@ -280,6 +329,172 @@ NTT_HD void inv_phase_b(const StageIO& io, const Twiddles& tw, int p, int j,
     for (int k = 0; k < (1 << CL); ++k)
       ob[k * nb + i] = inv_finish(io, p, k * nb + i, v[k], c);
   }
+}
+
+// --- the engine: the wide launches' persistent, modulus-grouped form ----
+//
+// G clusters of B = 8 walk the P polynomials ordered by modulus: position
+// s holds modulus s / (P / r) and polynomial (s mod (P / r)) r + s / (P / r)
+// (p % r is p's modulus), and cluster c takes positions [c P / G,
+// (c + 1) P / G), so that no cluster has more than one beyond another and
+// a modulus's polynomials go to consecutive clusters.
+struct EngineSpan {
+  int s0, s1, per;
+};
+
+NTT_HD EngineSpan engine_span(int P, int r, int G, int c) {
+  EngineSpan sp;
+  sp.s0 = (int)((long long)c * P / G);
+  sp.s1 = (int)((long long)(c + 1) * P / G);
+  sp.per = P / r;
+  return sp;
+}
+
+// Block j's local twiddles of modulus mi into its shared table (psi, or
+// ipsi for the inverse).
+template <int CL>
+NTT_HD void eng_twiddles(const StageIO& io, const Twiddles& tw, bool inverse,
+                         int mi, int j, int tid, int nt, TwPair* stw) {
+  const Twiddles t = stage_twiddles(io, tw, mi);
+  load_local_twiddles(stw, inverse ? t.ipsi : t.psi,
+                      inverse ? t.ipsi_sh : t.psi_sh, io.logn - CL,
+                      (tw_base(io) << CL) + j, tid, nt);
+}
+
+// The engine's phases: fwd_phase_a .. inv_phase_b with the prologue PRO
+// known when compiled, the block's buffer swizzled (swz) and the local
+// stages' twiddles from its table.  A thread's loads go out in batches
+// with no branch between them, so that they are in flight together: the
+// U values of pro_values at coefficients i0 + (u % V) s1 + (u / V) s2, all
+// of them in range (PRO_KSACC's k digits two at a time over the batch, each
+// sum in prologue()'s order), a forward's two columns at once.
+template <int PRO, int U, int V>
+NTT_HD void pro_values(const StageIO& io, int p, int i0, int s1, int s2,
+                       const ModConsts& c, u64* v) {
+  if (PRO == PRO_KSACC) {
+    const int k = io.ny, r = io.r, mi = p % r, h = (p / r) % 2;
+    const size_t n = (size_t)1 << io.logn, step = (size_t)r * n;
+    const u64* dj = io.x + ((size_t)(p / (2 * r)) * k * r + mi) * n;
+    const u64* kj = io.y + ((size_t)h * k * r + mi) * n;
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = 0;
+#pragma unroll 2
+    for (int j = 0; j < k; ++j) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const size_t at = j * step + i0 + (u % V) * s1 + (u / V) * s2;
+        v[u] = add_mod(v[u], mont_mul(dj[at], kj[at], c.q, c.qinv), c.q);
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    v[u] = pro_value<PRO>(io, p, i0 + (u % V) * s1 + (u / V) * s2, c);
+}
+
+// COLS columns i + m step of fwd_phase_a, their loads in one batch.
+template <int CL, int PRO, int COLS>
+NTT_HD void eng_fwd_columns(const StageIO& io, const Twiddles& t,
+                            const ModConsts& c, int p, int i, int step,
+                            u64* const* peer) {
+  const int nb = 1 << (io.logn - CL);
+  u64 v[COLS << CL];
+  pro_values<PRO, COLS << CL, 1 << CL>(io, p, i, nb, step, c, v);
+#pragma unroll
+  for (int m = 0; m < COLS; ++m) {
+    cross_fwd<CL>(v + (m << CL), t, c.q, tw_base(io));
+#pragma unroll
+    for (int k = 0; k < (1 << CL); ++k)
+      peer[k][swz(i + m * step)] = v[(m << CL) + k];
+  }
+}
+
+template <int CL, int PRO>
+NTT_HD void eng_fwd_phase_a(const StageIO& io, const Twiddles& tw, int p,
+                            int j, int tid, int nt, u64* const* peer) {
+  const int nb = 1 << (io.logn - CL), step = nt << CL;
+  const int mi = p % io.r;
+  const ModConsts c = load_consts(tw.consts, mi);
+  const Twiddles t = stage_twiddles(io, tw, mi);
+  int i = j * nt + tid;
+  for (; i + step < nb; i += 2 * step)
+    eng_fwd_columns<CL, PRO, 2>(io, t, c, p, i, step, peer);
+  if (i < nb) eng_fwd_columns<CL, PRO, 1>(io, t, c, p, i, step, peer);
+}
+
+template <int CL>
+NTT_HD void eng_fwd_phase_b(const StageIO& io, const Twiddles& tw,
+                            const TwPair* stw, int p, int j, int tid, int nt,
+                            u64* s) {
+  const int logb = io.logn - CL, nb = 1 << logb;
+  const ModConsts c = load_consts(tw.consts, p % io.r);
+  ntt_fwd_tiled_sh<STAGE_TILE>(s, logb, stw, c.q, tid, nt);
+  u64* ob = io.out + ((size_t)p << io.logn) + (size_t)j * nb;
+  for (int i = tid; i < nb; i += nt) ob[i] = s[swz(i)];
+}
+
+template <int CL, int PRO>
+NTT_HD void eng_inv_phase_a(const StageIO& io, const Twiddles& tw,
+                            const TwPair* stw, int p, int j, int tid, int nt,
+                            u64* s) {
+  constexpr int U = 8;
+  const int logb = io.logn - CL, nb = 1 << logb;
+  const ModConsts c = load_consts(tw.consts, p % io.r);
+  int i = tid;
+  for (; i + (U - 1) * nt < nb; i += U * nt) {
+    u64 v[U];
+    pro_values<PRO, U, U>(io, p, j * nb + i, nt, 0, c, v);
+#pragma unroll
+    for (int u = 0; u < U; ++u) s[swz(i + u * nt)] = v[u];
+  }
+  for (; i < nb; i += nt) {
+    u64 v[1];
+    pro_values<PRO, 1, 1>(io, p, j * nb + i, 0, 0, c, v);
+    s[swz(i)] = v[0];
+  }
+  ntt_inv_tiled_sh<STAGE_TILE>(s, logb, stw, c.q, tid, nt);
+}
+
+template <int CL>
+NTT_HD void eng_inv_phase_b(const StageIO& io, const Twiddles& tw, int p,
+                            int j, int tid, int nt, u64* const* peer) {
+  const int nb = 1 << (io.logn - CL);
+  const int mi = p % io.r;
+  const ModConsts c = load_consts(tw.consts, mi);
+  const Twiddles t = stage_twiddles(io, tw, mi);
+  u64* ob = io.out + ((size_t)p << io.logn);
+  for (int i = j * nt + tid; i < nb; i += nt << CL) {
+    u64 v[1 << CL];
+#pragma unroll
+    for (int k = 0; k < (1 << CL); ++k) v[k] = peer[k][swz(i)];
+    cross_inv<CL>(v, t, c.q, tw_base(io));
+#pragma unroll
+    for (int k = 0; k < (1 << CL); ++k)
+      ob[k * nb + i] = inv_finish(io, p, k * nb + i, v[k], c);
+  }
+}
+
+// The engine's blocks an SM, and its shared memory a block: the n/B
+// coefficients and the n/B-entry twiddle table (96 KB at n = 2^15).
+#define ENGINE_OCC 2
+#define ENGINE_CL 3
+
+static inline size_t engine_smem(int logn) {
+  return (size_t)24 << (logn - ENGINE_CL);
+}
+
+// Whether the engine takes a launch of 2^logn points: B = 8 fits, and on
+// the card ENGINE_OCC blocks an SM (each with 1 KB the card reserves) fit
+// its 228 KB: every n up to 2^15.
+static inline bool engine_fits(int logn) {
+  if (!cluster_ok(logn, ENGINE_CL)) return false;
+#ifdef __CUDACC__
+  return (size_t)ENGINE_OCC * (engine_smem(logn) + 1024) <=
+         (size_t)(228 << 10);
+#else
+  return true;
+#endif
 }
 
 static StageIO stage_io(const void* x, const void* d, const void* y,
@@ -436,35 +651,100 @@ __device__ __forceinline__ void stage_inv_body(const StageIO& io,
   cluster.sync();  // no block exits while another reads its shared memory
 }
 
-template <int CL, int OCC>
-__global__ void __launch_bounds__(ClusterBound<CL, OCC>::threads,
-                                  ClusterBound<CL, OCC>::blocks)
-    k_stage_fwd_block(StageIO io, Twiddles tw) {
-  stage_fwd_body<CL>(io, tw);
+// The engine (ENGINE_CL = 3) with prologue PRO: the cluster's positions in
+// turn (engine_span), each block's twiddle table copied where the modulus
+// changes.  The forward meets the cluster barrier before phase A (every
+// peer is past its phase B of the last polynomial, and has started) and
+// after it; the inverse after phase A and after phase B (no block
+// overwrites its buffer, or exits, while a peer reads it).  The table is
+// copied where the block alone reads it: after the forward's first
+// barrier, before the inverse's phase A, whose transform starts with a
+// block barrier.
+template <bool INV, int PRO>
+__device__ __forceinline__ void stage_engine_body(const StageIO& io,
+                                                  const Twiddles& tw, int P) {
+  constexpr int CL = ENGINE_CL;
+  extern __shared__ u64 smem[];
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int j = (int)cluster.block_rank();
+  const int tid = threadIdx.x, nt = blockDim.x;
+  TwPair* stw = reinterpret_cast<TwPair*>(smem + (1 << (io.logn - CL)));
+  u64* peer[1 << CL];
+#pragma unroll
+  for (int k = 0; k < (1 << CL); ++k)
+    peer[k] = cluster.map_shared_rank(smem, k);
+  const EngineSpan sp =
+      engine_span(P, io.r, gridDim.x >> CL, blockIdx.x >> CL);
+  int cur = -1;
+  for (int at = sp.s0; at < sp.s1; ++at) {
+    const int mi = at / sp.per, p = (at % sp.per) * io.r + mi;
+    if (!INV) {
+      cluster.sync();
+      if (mi != cur) eng_twiddles<CL>(io, tw, false, mi, j, tid, nt, stw);
+      eng_fwd_phase_a<CL, PRO>(io, tw, p, j, tid, nt, peer);
+      cluster.sync();
+      eng_fwd_phase_b<CL>(io, tw, stw, p, j, tid, nt, smem);
+    } else {
+      if (mi != cur) eng_twiddles<CL>(io, tw, true, mi, j, tid, nt, stw);
+      eng_inv_phase_a<CL, PRO>(io, tw, stw, p, j, tid, nt, smem);
+      cluster.sync();
+      eng_inv_phase_b<CL>(io, tw, p, j, tid, nt, peer);
+      cluster.sync();
+    }
+    cur = mi;
+  }
 }
 
-template <int CL, int OCC>
-__global__ void __launch_bounds__(ClusterBound<CL, OCC>::threads,
-                                  ClusterBound<CL, OCC>::blocks)
-    k_stage_inv_block(StageIO io, Twiddles tw) {
-  stage_inv_body<CL>(io, tw);
+// __launch_bounds__ of the stage kernels: ClusterBound's, or the engine's
+// ENGINE_OCC blocks an SM of ClusterBound<CL, 1>'s threads / ENGINE_OCC
+// (256 at CL = 3: up to 128 registers a thread).
+template <int CL, int OCC, int EPRO>
+struct StageBound {
+  static constexpr int threads = EPRO >= 0
+                                     ? ClusterBound<CL, 1>::threads / OCC
+                                     : ClusterBound<CL, OCC>::threads;
+};
+
+// EPRO -1: one polynomial per cluster (P unused); a prologue PRO_*: the
+// engine, which runs that prologue alone.
+template <int CL, int OCC, int EPRO>
+__global__ void __launch_bounds__(StageBound<CL, OCC, EPRO>::threads, OCC)
+    k_stage_fwd_block(StageIO io, Twiddles tw, int P) {
+  if constexpr (EPRO >= 0)
+    stage_engine_body<false, EPRO>(io, tw, P);
+  else
+    stage_fwd_body<CL>(io, tw);
+}
+
+template <int CL, int OCC, int EPRO>
+__global__ void __launch_bounds__(StageBound<CL, OCC, EPRO>::threads, OCC)
+    k_stage_inv_block(StageIO io, Twiddles tw, int P) {
+  if constexpr (EPRO >= 0)
+    stage_engine_body<true, EPRO>(io, tw, P);
+  else
+    stage_inv_body<CL>(io, tw);
 }
 
 // The key switch's two launches (PRO_DIGIT, PRO_KSACC): the same bodies
 // under names of their own, so that a trace tells them from the other
 // transforms.
-template <int CL, int OCC>
-__global__ void __launch_bounds__(ClusterBound<CL, OCC>::threads,
-                                  ClusterBound<CL, OCC>::blocks)
-    k_stage_fwd_block_ks(StageIO io, Twiddles tw) {
-  stage_fwd_body<CL>(io, tw);
+template <int CL, int OCC, int EPRO>
+__global__ void __launch_bounds__(StageBound<CL, OCC, EPRO>::threads, OCC)
+    k_stage_fwd_block_ks(StageIO io, Twiddles tw, int P) {
+  if constexpr (EPRO >= 0)
+    stage_engine_body<false, EPRO>(io, tw, P);
+  else
+    stage_fwd_body<CL>(io, tw);
 }
 
-template <int CL, int OCC>
-__global__ void __launch_bounds__(ClusterBound<CL, OCC>::threads,
-                                  ClusterBound<CL, OCC>::blocks)
-    k_stage_inv_block_ks(StageIO io, Twiddles tw) {
-  stage_inv_body<CL>(io, tw);
+template <int CL, int OCC, int EPRO>
+__global__ void __launch_bounds__(StageBound<CL, OCC, EPRO>::threads, OCC)
+    k_stage_inv_block_ks(StageIO io, Twiddles tw, int P) {
+  if constexpr (EPRO >= 0)
+    stage_engine_body<true, EPRO>(io, tw, P);
+  else
+    stage_inv_body<CL>(io, tw);
 }
 
 __global__ void k_cross_stage(CrossIO io, Twiddles tw, long long total) {
@@ -506,28 +786,79 @@ static int run_decrypt(const StageIO& io, const Twiddles& tw,
                                     io.r, io.logn, 1, stream, io, tw, d);
 }
 
+typedef void (*StageKernel)(StageIO, Twiddles, int);
+
+// The kernel of OCC = 1 of a direction, under the key switch's name for its
+// prologues.
 template <int CL>
-static int run_forward(const StageIO& io, const Twiddles& tw, int P,
-                       void* stream) {
-  if (keyswitch_pro(io.pro))
-    return run_cluster<CL>(k_stage_fwd_block_ks<CL, 1>,
-                           k_stage_fwd_block_ks<CL, wide_occ(CL)>, P, io.logn,
-                           1, stream, io, tw);
-  return run_cluster<CL>(k_stage_fwd_block<CL, 1>,
-                         k_stage_fwd_block<CL, wide_occ(CL)>, P, io.logn, 1,
-                         stream, io, tw);
+static StageKernel one_kernel(bool inverse, int pro) {
+  const bool ks = keyswitch_pro(pro);
+  if (inverse)
+    return ks ? k_stage_inv_block_ks<CL, 1, -1> : k_stage_inv_block<CL, 1, -1>;
+  return ks ? k_stage_fwd_block_ks<CL, 1, -1> : k_stage_fwd_block<CL, 1, -1>;
 }
 
+// The engine's kernel of a direction and prologue.
+static StageKernel engine_kernel(bool inverse, int pro) {
+  constexpr int C = ENGINE_CL, O = ENGINE_OCC;
+  if (inverse) {
+    if (pro == PRO_MONT) return k_stage_inv_block<C, O, PRO_MONT>;
+    if (pro == PRO_KSACC) return k_stage_inv_block_ks<C, O, PRO_KSACC>;
+    return k_stage_inv_block<C, O, PRO_COPY>;
+  }
+  switch (pro) {
+    case PRO_TERNARY:
+      return k_stage_fwd_block<C, O, PRO_TERNARY>;
+    case PRO_ADDNEG_GAUSS:
+      return k_stage_fwd_block<C, O, PRO_ADDNEG_GAUSS>;
+    case PRO_ADDNEG:
+      return k_stage_fwd_block<C, O, PRO_ADDNEG>;
+    case PRO_DIGIT:
+      return k_stage_fwd_block_ks<C, O, PRO_DIGIT>;
+    default:
+      return k_stage_fwd_block<C, O, PRO_COPY>;
+  }
+}
+
+// One launch of the OCC = 1 kernel: P clusters of 2^CL blocks.
 template <int CL>
-static int run_inverse(const StageIO& io, const Twiddles& tw, int P,
-                       void* stream) {
-  if (keyswitch_pro(io.pro))
-    return run_cluster<CL>(k_stage_inv_block_ks<CL, 1>,
-                           k_stage_inv_block_ks<CL, wide_occ(CL)>, P, io.logn,
-                           1, stream, io, tw);
-  return run_cluster<CL>(k_stage_inv_block<CL, 1>,
-                         k_stage_inv_block<CL, wide_occ(CL)>, P, io.logn, 1,
-                         stream, io, tw);
+static int run_one(bool inverse, const StageIO& io, const Twiddles& tw, int P,
+                   void* stream) {
+  const StageKernel k = one_kernel<CL>(inverse, io.pro);
+  return run_cluster<CL>(k, k, P, io.logn, 1, stream, io, tw, P);
+}
+
+// How many clusters of the OCC = 1 kernel the card holds at once (a CUDA
+// error where none fits).
+static cudaError_t one_fit(bool inverse, const StageIO& io, int P,
+                           void* stream, int* fit) {
+  constexpr int CL = ENGINE_CL;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config<CL>(P, io.logn, 1, stream, attr);
+  return cluster_setup((const void*)one_kernel<CL>(inverse, io.pro),
+                       io.logn, cfg, fit);
+}
+
+// One launch of the engine over `clusters` clusters of 8, or, at 0, as
+// many as the card holds at once (at most P).
+static int run_engine(bool inverse, const StageIO& io, const Twiddles& tw,
+                      int P, int clusters, void* stream) {
+  constexpr int CL = ENGINE_CL;
+  const StageKernel k = engine_kernel(inverse, io.pro);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config<CL>(1, io.logn, 1, stream, attr);
+  const int most = StageBound<CL, ENGINE_OCC, PRO_COPY>::threads;
+  if ((int)cfg.blockDim.x > most) cfg.blockDim = dim3(most);
+  cfg.dynamicSmemBytes = engine_smem(io.logn);
+  int fit = 0;
+  cudaError_t e = cluster_setup((const void*)k, io.logn, cfg, &fit);
+  if (e != cudaSuccess) return (int)e;
+  const int G = clusters > 0 ? clusters : (fit < P ? fit : P);
+  cfg.gridDim = dim3((unsigned)G << CL);
+  e = cudaLaunchKernelEx(&cfg, k, io, tw, P);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 template <typename K, typename IO>
@@ -578,16 +909,124 @@ static int run_decrypt(const StageIO& io, const Twiddles& tw,
   return 0;
 }
 
+template <int CL>
+static int run_one(bool inverse, const StageIO& io, const Twiddles& tw, int P,
+                   void* stream) {
+  return inverse ? run_inverse<CL>(io, tw, P, stream)
+                 : run_forward<CL>(io, tw, P, stream);
+}
+
+// The engine's clusters in turn (the counterpart of walk_clusters): each
+// walks its positions, its blocks' tables copied where the modulus
+// changes, then phase A of its 8 blocks and phase B of each.
+template <int PRO>
+static void walk_engine(bool inverse, const StageIO& io, const Twiddles& tw,
+                        int P, int G) {
+  constexpr int CL = ENGINE_CL;
+  const int nb = 1 << (io.logn - CL);
+  std::vector<u64> buf((size_t)nb << CL);
+  std::vector<TwPair> tws((size_t)nb << CL);
+  u64* peer[1 << CL];
+  for (int k = 0; k < (1 << CL); ++k) peer[k] = buf.data() + (size_t)k * nb;
+  for (int c = 0; c < G; ++c) {
+    const EngineSpan sp = engine_span(P, io.r, G, c);
+    int cur = -1;
+    for (int at = sp.s0; at < sp.s1; ++at) {
+      const int mi = at / sp.per, p = (at % sp.per) * io.r + mi;
+      for (int j = 0; j < (1 << CL) && mi != cur; ++j)
+        eng_twiddles<CL>(io, tw, inverse, mi, j, 0, 1, &tws[(size_t)j * nb]);
+      cur = mi;
+      for (int j = 0; j < (1 << CL); ++j) {
+        if (inverse)
+          eng_inv_phase_a<CL, PRO>(io, tw, &tws[(size_t)j * nb], p, j, 0, 1,
+                                   peer[j]);
+        else
+          eng_fwd_phase_a<CL, PRO>(io, tw, p, j, 0, 1, peer);
+      }
+      for (int j = 0; j < (1 << CL); ++j) {
+        if (inverse)
+          eng_inv_phase_b<CL>(io, tw, p, j, 0, 1, peer);
+        else
+          eng_fwd_phase_b<CL>(io, tw, &tws[(size_t)j * nb], p, j, 0, 1,
+                              peer[j]);
+      }
+    }
+  }
+}
+
+// clusters 0: one a polynomial.
+static int run_engine(bool inverse, const StageIO& io, const Twiddles& tw,
+                      int P, int clusters, void*) {
+  const int G = clusters > 0 ? clusters : P;
+  switch (io.pro) {
+    case PRO_TERNARY:
+      walk_engine<PRO_TERNARY>(inverse, io, tw, P, G);
+      break;
+    case PRO_ADDNEG_GAUSS:
+      walk_engine<PRO_ADDNEG_GAUSS>(inverse, io, tw, P, G);
+      break;
+    case PRO_MONT:
+      walk_engine<PRO_MONT>(inverse, io, tw, P, G);
+      break;
+    case PRO_ADDNEG:
+      walk_engine<PRO_ADDNEG>(inverse, io, tw, P, G);
+      break;
+    case PRO_DIGIT:
+      walk_engine<PRO_DIGIT>(inverse, io, tw, P, G);
+      break;
+    case PRO_KSACC:
+      walk_engine<PRO_KSACC>(inverse, io, tw, P, G);
+      break;
+    default:
+      walk_engine<PRO_COPY>(inverse, io, tw, P, G);
+  }
+  return 0;
+}
+
 #endif
 
-// One direction's launch at cluster size 2^cl.
+// Stage launches since the library loaded, by path: [0] the engine, [1]
+// the kernel of OCC = 1 (ntt_stage_paths).
+static std::atomic<long long> stage_paths[2];
+
+// A launch's path: PATH_RULE the launchers' rule, PATH_ONE the kernel of
+// OCC = 1, 0 or more the engine over as many clusters as the card holds
+// at once (0) or over that many.
+enum { PATH_RULE = -2, PATH_ONE = -1 };
+
+// One direction's launch at cluster size 2^cl.  The rule: the engine where
+// it takes the launch (B = 8, no mod_idx, engine_fits) and the card holds
+// fewer clusters of the OCC = 1 kernel than P, else that kernel; the host
+// build, which knows no card, takes the latter.  A path the launch cannot
+// take is refused.
 static int run_stage(bool inverse, const StageIO& io, const Twiddles& tw,
-                     int P, int cl, void* stream) {
-  typedef int (*Run)(const StageIO&, const Twiddles&, int, void*);
-  static const Run runs[2][4] = {
-      {run_forward<0>, run_forward<1>, run_forward<2>, run_forward<3>},
-      {run_inverse<0>, run_inverse<1>, run_inverse<2>, run_inverse<3>}};
-  return runs[inverse][cl](io, tw, P, stream);
+                     int P, int cl, int path, void* stream) {
+  typedef int (*Run)(bool, const StageIO&, const Twiddles&, int, void*);
+  static const Run ones[4] = {run_one<0>, run_one<1>, run_one<2>,
+                              run_one<3>};
+  const bool takes = cl == ENGINE_CL && !io.mod_idx && engine_fits(io.logn);
+  bool engine = path >= 0;
+  if (engine && !takes) return NTT_EINVAL;
+#ifdef __CUDACC__
+  if (path == PATH_RULE && takes) {
+    int fit = 0;
+    const cudaError_t e = one_fit(inverse, io, P, stream, &fit);
+    if (e != cudaSuccess) return (int)e;
+    engine = P > fit;
+  }
+#endif
+  const int rc = engine ? run_engine(inverse, io, tw, P, path > 0 ? path : 0,
+                                     stream)
+                        : ones[cl](inverse, io, tw, P, stream);
+  if (rc == 0) ++stage_paths[engine ? 0 : 1];
+  return rc;
+}
+
+// out[0], out[1]: the stage launches since the library loaded that took the
+// engine and the kernel of OCC = 1.
+extern "C" void ntt_stage_paths(long long* out) {
+  out[0] = stage_paths[0].load();
+  out[1] = stage_paths[1].load();
 }
 
 // The cluster size B (a power of two up to 8) the launchers take for
@@ -597,22 +1036,61 @@ extern "C" int ntt_stage_cluster_size(int logn) {
   return 1 << stage_cluster_log(logn);
 }
 
-// x, d, y, nu: prologue inputs; out (P, n).  pro: forward_pro().  mod_idx:
-// (P,) int32 moduli or null; logc, shard: the coefficient shard (0, 0).
-// cluster: B, or 0 for ntt_stage_cluster_size's.
-extern "C" int ntt_stage_forward_cluster(
-    const void* x, const void* d, const void* y, const void* nu, void* out,
-    const void* psi, const void* psi_sh, const void* ipsi,
-    const void* ipsi_sh, const void* consts, int pro, int P, int r, int logn,
-    const void* mod_idx, int logc, int shard, int cluster, void* stream) {
+static int stage_forward(const void* x, const void* d, const void* y,
+                         const void* nu, void* out, const Twiddles& tw,
+                         int pro, int P, int r, int logn, const void* mod_idx,
+                         int logc, int shard, int cluster, int path,
+                         void* stream) {
   const int cl = cluster_log(cluster, logn);
   if (!stage_args_ok(pro, P, r, 1, logn, mod_idx, logc, shard) ||
       !forward_pro(pro) || cl < 0)
     return NTT_EINVAL;
   const StageIO io = stage_io(x, d, y, nullptr, nu, out, pro, 1, r, logn,
                               mod_idx, logc, shard);
-  return run_stage(false, io, make_tw(psi, psi_sh, ipsi, ipsi_sh, consts),
-                   P, cl, stream);
+  return run_stage(false, io, tw, P, cl, path, stream);
+}
+
+static int stage_inverse(const void* x, const void* y, const void* e,
+                         void* out, const Twiddles& tw, int pro, int ny, int P,
+                         int r, int logn, const void* mod_idx, int logc,
+                         int shard, int cluster, int path, void* stream) {
+  const int cl = cluster_log(cluster, logn);
+  if (!stage_args_ok(pro, P, r, ny, logn, mod_idx, logc, shard) ||
+      !inverse_pro(pro) || (mod_idx && e) || cl < 0)
+    return NTT_EINVAL;
+  const StageIO io = stage_io(x, nullptr, y, e, nullptr, out, pro, ny, r,
+                              logn, mod_idx, logc, shard);
+  return run_stage(true, io, tw, P, cl, path, stream);
+}
+
+// x, d, y, nu: prologue inputs; out (P, n).  pro: forward_pro().  mod_idx:
+// (P,) int32 moduli or null; logc, shard: the coefficient shard (0, 0).
+// cluster: B, or 0 for ntt_stage_cluster_size's.  The launchers' rule
+// picks the engine or the kernel of OCC = 1 (run_stage).
+extern "C" int ntt_stage_forward_cluster(
+    const void* x, const void* d, const void* y, const void* nu, void* out,
+    const void* psi, const void* psi_sh, const void* ipsi,
+    const void* ipsi_sh, const void* consts, int pro, int P, int r, int logn,
+    const void* mod_idx, int logc, int shard, int cluster, void* stream) {
+  return stage_forward(x, d, y, nu, out,
+                       make_tw(psi, psi_sh, ipsi, ipsi_sh, consts), pro, P, r,
+                       logn, mod_idx, logc, shard, cluster, PATH_RULE, stream);
+}
+
+// The same at B = 8 on the path `clusters` names: at least 1, the engine
+// over that many clusters; 0, the engine over as many as the card holds
+// at once (the host build: one a polynomial); -1, the kernel of OCC = 1.
+// The engine refuses mod_idx and, on the card, n past engine_fits.
+extern "C" int ntt_stage_forward_engine(
+    const void* x, const void* d, const void* y, const void* nu, void* out,
+    const void* psi, const void* psi_sh, const void* ipsi,
+    const void* ipsi_sh, const void* consts, int pro, int P, int r, int logn,
+    const void* mod_idx, int logc, int shard, int clusters, void* stream) {
+  if (clusters < PATH_ONE) return NTT_EINVAL;
+  return stage_forward(x, d, y, nu, out,
+                       make_tw(psi, psi_sh, ipsi, ipsi_sh, consts), pro, P, r,
+                       logn, mod_idx, logc, shard, 1 << ENGINE_CL, clusters,
+                       stream);
 }
 
 extern "C" int ntt_stage_forward(const void* x, const void* d, const void* y,
@@ -635,14 +1113,23 @@ extern "C" int ntt_stage_inverse_cluster(
     const void* psi_sh, const void* ipsi, const void* ipsi_sh,
     const void* consts, int pro, int ny, int P, int r, int logn,
     const void* mod_idx, int logc, int shard, int cluster, void* stream) {
-  const int cl = cluster_log(cluster, logn);
-  if (!stage_args_ok(pro, P, r, ny, logn, mod_idx, logc, shard) ||
-      !inverse_pro(pro) || (mod_idx && e) || cl < 0)
-    return NTT_EINVAL;
-  const StageIO io = stage_io(x, nullptr, y, e, nullptr, out, pro, ny, r,
-                              logn, mod_idx, logc, shard);
-  return run_stage(true, io, make_tw(psi, psi_sh, ipsi, ipsi_sh, consts),
-                   P, cl, stream);
+  return stage_inverse(x, y, e, out,
+                       make_tw(psi, psi_sh, ipsi, ipsi_sh, consts), pro, ny, P,
+                       r, logn, mod_idx, logc, shard, cluster, PATH_RULE,
+                       stream);
+}
+
+// ntt_stage_forward_engine's path for the inverse.
+extern "C" int ntt_stage_inverse_engine(
+    const void* x, const void* y, const void* e, void* out, const void* psi,
+    const void* psi_sh, const void* ipsi, const void* ipsi_sh,
+    const void* consts, int pro, int ny, int P, int r, int logn,
+    const void* mod_idx, int logc, int shard, int clusters, void* stream) {
+  if (clusters < PATH_ONE) return NTT_EINVAL;
+  return stage_inverse(x, y, e, out,
+                       make_tw(psi, psi_sh, ipsi, ipsi_sh, consts), pro, ny, P,
+                       r, logn, mod_idx, logc, shard, 1 << ENGINE_CL, clusters,
+                       stream);
 }
 
 extern "C" int ntt_stage_inverse(const void* x, const void* y, const void* e,

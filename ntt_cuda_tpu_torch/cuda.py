@@ -97,6 +97,13 @@ SIGNATURES = {
                                   _I, _I, _I, _P, _I, _I, _I, _P),
     "ntt_stage_inverse_cluster": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                   _I, _I, _I, _P, _I, _I, _I, _P),
+    # the same two at B = 8 with the path last: at least 1, the engine over
+    # that many clusters; 0, over as many as the card holds; -1, the kernel
+    # of OCC = 1
+    "ntt_stage_forward_engine": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                 _I, _I, _I, _P, _I, _I, _I, _P),
+    "ntt_stage_inverse_engine": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, _P, _I, _I, _I, _P),
     # x, partner, out, 4 tables, consts, inverse, u_side, w, P, r, log n,
     # log2 C
     "ntt_cross_stage": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -128,6 +135,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ntt_error_string.restype = ctypes.c_char_p
     lib.ntt_stage_cluster_size.argtypes = [ctypes.c_int]
     lib.ntt_stage_cluster_size.restype = ctypes.c_int
+    lib.ntt_stage_paths.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    lib.ntt_stage_paths.restype = None
     return lib
 
 
@@ -190,6 +199,12 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The kernels' library, built if needed and loaded once per process."""
     return bind(ctypes.CDLL(str(build())))
+
+
+def loaded() -> ctypes.CDLL | None:
+    """The kernels' library where this process has loaded it, else None
+    (nothing is built or loaded here)."""
+    return library() if library.cache_info().currsize else None
 
 
 def default_device(device, name: str) -> torch.device:

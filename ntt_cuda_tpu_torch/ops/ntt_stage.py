@@ -5,10 +5,12 @@ Counterpart of the public API of `ntt_cuda_tpu/ops/ntt_pallas.py`
 (`ntt_forward`, `ntt_inverse`, `ntt_inverse_mul`, `ntt_forward_ternary`,
 `ntt_forward_addneg_gauss`, `ntt_forward_addneg`), the kernels of the JAX
 package's `fusion="stage"` schedule and of its EvalMult path.  On a CUDA
-device each wrapper launches csrc/ntt_stage.cu (n <= 32768), one
-thread-block cluster per polynomial, one launch a transform; on the CPU
-it runs the plain version beside it, composed from ops/ntt.py,
-ops/poly.py and the compact-draw map of ops/sampling.py.
+device each wrapper launches csrc/ntt_stage.cu, one launch a transform:
+one thread-block cluster per polynomial, or, for more polynomials than
+the card holds clusters at once, the engine, as many clusters as it holds
+walking the polynomials by modulus (`utils/tracing.stage_paths` counts
+each path); on the CPU it runs the plain version beside it, composed from
+ops/ntt.py, ops/poly.py and the compact-draw map of ops/sampling.py.
 
 Standard RNS layout: x is (r, n) for one message or (J, r, n) for J, and
 polynomial (j, i) has modulus i.  A compact i32 draw is (n,) or (J, n),

@@ -40,18 +40,28 @@ of a profiler event's name (None: not a kernel of the library).  A CUDA
 graph replays with no Python, so it counts nothing: a function given to
 `utils/profiling.graphed` counts its launches at its eager calls alone
 (graphed's two warm-up calls and the capture, once each).
+
+Stage paths.  `stage_paths()` counts the stage transform's launches
+(csrc/ntt_stage.cu, every `k_stage_*` launch, whichever wrapper made it)
+since the last `reset()` by the path the launchers took: "engine", the
+persistent, modulus-grouped launch of the grids wider than the card,
+and "one", the kernel of OCC = 1, one polynomial a cluster.  The library
+counts them as it launches (`ntt_stage_paths`), graph replays excepted.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import functools
 import re
 import time
 
 import torch
 from torch.autograd import profiler as _profiler
+
+from .. import cuda
 
 _RecordFunction = torch._C._profiler._RecordFunctionFast
 
@@ -211,10 +221,31 @@ def counts() -> dict[str, int]:
 
 
 def reset() -> None:
-    """Zero the launch counts and the span totals."""
+    """Zero the launch counts, the stage paths and the span totals."""
     for w in _counts:
         _counts[w] = 0
+    _paths_at_reset[:] = _stage_path_totals()
     _totals.clear()
+
+
+STAGE_PATHS = ("engine", "one")
+_paths_at_reset = [0, 0]
+
+
+def _stage_path_totals() -> list[int]:
+    """The loaded library's stage launches by path since it loaded."""
+    lib = cuda.loaded()
+    if lib is None:
+        return [0, 0]
+    out = (ctypes.c_longlong * 2)()
+    lib.ntt_stage_paths(out)
+    return list(out)
+
+
+def stage_paths() -> dict[str, int]:
+    """Stage transform launches of each path since the last reset()."""
+    return {k: t - b for k, t, b in zip(STAGE_PATHS, _stage_path_totals(),
+                                        _paths_at_reset)}
 
 
 def snapshot() -> dict[str, Totals]:

@@ -11,6 +11,10 @@ ntt_cluster.cuh has ClusterBound and wide_occ replaced:
   at once;
 * `1024`: `__launch_bounds__(1024)`, the bound before ClusterBound.
 
+A stage launch of more clusters than the card holds runs the stage engine
+(ntt_stage.cu) in every build: its bounds are its own, and the forms
+change only the other kernels and the narrower launches.
+
 All three builds print their cluster kernels' `ptxas -v` lines.  Then every
 CL = 3 kernel runs at B = 8 at the main paths' shapes and between them
 (`cases`): each build's outputs equal to the plain versions, and device us
