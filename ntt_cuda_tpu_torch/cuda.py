@@ -8,6 +8,13 @@ the root of the checkout, keyed by a hash of the sources and flags, and is
 built at the first kernel call of a process.  Nothing here runs at import:
 the package imports where there is no CUDA at all.
 
+The same sources build as host C++ with g++ (`host_library`, into
+`build/host-<hash>/`): each kernel's `#else` branch runs its blocks on
+the CPU, one thread a block, behind the same C launchers, which the
+tests call through ctypes.  Both builds take one body: one compiler
+process per source, all at once, then the link, under a lock in `build/`
+so that processes starting together compile once.
+
 Each `extern "C"` launcher takes device pointers and the stream as
 `c_void_p` (a pointer passed as a plain int would be cut to 32 bits),
 launches on PyTorch's current stream, allocates nothing and returns
@@ -17,6 +24,7 @@ launches on PyTorch's current stream, allocates nothing and returns
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -33,6 +41,7 @@ HEADERS = ("modarith.cuh", "ntt_block.cuh", "ntt_cluster.cuh",
            "behz_sums.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-fPIC")
 BLOCK_MAX_N = 16384     # one u64 polynomial per block in shared memory:
 #                         128 KB
 TRANSFORM_MAX_N = 131072  # the cluster kernels (stage and whole-op
@@ -120,17 +129,33 @@ SIGNATURES = {
     "ntt30_transform": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
+# argtypes of the host build's entries that the card's library lacks (the
+# tests' seams).
+HOST_SIGNATURES = {
+    # partial, group size G, x, c0, out, k2_rows, glob, J, rows, n, pow2, t,
+    # neg_t, nu_t, inv_gt (K2 or kernel 17 at any G)
+    "ntt_decrypt_tail_group": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _U64, _U64, _U64, _U64),
+    # words, count, tern (4 * count), gauss (count): k_salsa20_draws'
+    # converters on given u32 words
+    "ntt_draws_convert": (_P, _L, _P, _P),
+}
+
 # The stage kernels' prologues (ntt_stage.cu PRO_*).
 (PRO_COPY, PRO_TERNARY, PRO_ADDNEG_GAUSS, PRO_MONT, PRO_ADDNEG, PRO_DIGIT,
  PRO_KSACC) = range(7)
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare argtypes/restype of every launcher of a loaded library."""
-    for name, argtypes in SIGNATURES.items():
+def _declare(lib: ctypes.CDLL, signatures: dict) -> None:
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare argtypes/restype of every launcher of a loaded library."""
+    _declare(lib, SIGNATURES)
     lib.ntt_error_string.argtypes = [ctypes.c_int]
     lib.ntt_error_string.restype = ctypes.c_char_p
     lib.ntt_stage_cluster_size.argtypes = [ctypes.c_int]
@@ -140,12 +165,22 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _hash(flags: tuple[str, ...]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
+
+
+def source_hash() -> str:
+    """The card build's key: the sources, the headers and NVCC_FLAGS."""
+    return _hash(NVCC_FLAGS)
+
+
+def host_hash() -> str:
+    """The host build's key: the sources, the headers and HOST_FLAGS."""
+    return _hash(HOST_FLAGS)
 
 
 def find_nvcc() -> str:
@@ -158,6 +193,18 @@ def find_nvcc() -> str:
                        "ntt_cuda_tpu_torch are built from csrc/ at first use")
 
 
+class NoHostCompiler(RuntimeError):
+    """No g++ to build csrc/ as host code."""
+
+
+def find_gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise NoHostCompiler("g++ not found: the host build of csrc/ (the "
+                             "kernels' C launchers on the CPU) needs it")
+    return gxx
+
+
 def _run_all(cmds: list[list[str]]) -> None:
     """Run the commands together; raise with the output of the first that
     fails, after every one has ended."""
@@ -167,38 +214,60 @@ def _run_all(cmds: list[list[str]]) -> None:
     outs = [p.communicate()[0] for p in procs]
     for cmd, p, out in zip(cmds, procs, outs):
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
-                               f"{' '.join(cmd)}\n{out}")
+            raise RuntimeError(f"{Path(cmd[0]).name} failed ({p.returncode})"
+                               f":\n{' '.join(cmd)}\n{out}")
 
 
-def build() -> Path:
-    """Compile csrc/*.cu, one nvcc per source in parallel, and link them
-    into one shared library (skipped when the hashed build exists); return
-    its path."""
-    out_dir = CSRC.parents[1] / "build" / f"cuda-{source_hash()}"
+def _build(kind: str, find, flags: tuple[str, ...],
+           link_flags: tuple[str, ...]) -> Path:
+    """Compile csrc/*.cu with `find()`'s compiler, one process per source
+    in parallel, and link them into `build/<kind>-<hash>/` (skipped when
+    the hashed build exists); return the library's path.  The first
+    process builds under an exclusive lock on `build/<kind>-<hash>.lock`;
+    the others wait on it, then find the library it installed."""
+    out_dir = CSRC.parents[1] / "build" / f"{kind}-{_hash(flags)}"
     lib = out_dir / "libntt_cuda_tpu_torch.so"
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc, tag = find_nvcc(), f".tmp-{os.getpid()}"
-    objs = [out_dir / f"{Path(s).stem}{tag}.o" for s in SOURCES]
-    tmp = out_dir / f"{tag}.so"
-    try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
-                  for s, o in zip(SOURCES, objs)])
-        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
-                   *map(str, objs)]])
-        os.replace(tmp, lib)   # atomic: a concurrent build never sees half
-    finally:
-        for o in objs + [tmp]:
-            o.unlink(missing_ok=True)
+    with open(out_dir.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.is_file():
+            return lib
+        cc, tag = find(), f".tmp-{os.getpid()}"
+        objs = [out_dir / f"{Path(s).stem}{tag}.o" for s in SOURCES]
+        tmp = out_dir / f"{tag}.so"
+        try:
+            _run_all([[cc, *flags, "-c", "-o", str(o), str(CSRC / s)]
+                      for s, o in zip(SOURCES, objs)])
+            _run_all([[cc, *link_flags, "-shared", "-o", str(tmp),
+                       *map(str, objs)]])
+            os.replace(tmp, lib)   # atomic: a reader never sees half
+        finally:
+            for o in objs + [tmp]:
+                o.unlink(missing_ok=True)
     return lib
+
+
+def build() -> Path:
+    """The card's library: csrc/*.cu compiled by nvcc for sm_90a."""
+    return _build("cuda", find_nvcc, NVCC_FLAGS, NVCC_FLAGS)
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """The kernels' library, built if needed and loaded once per process."""
     return bind(ctypes.CDLL(str(build())))
+
+
+@functools.cache
+def host_library() -> ctypes.CDLL:
+    """csrc/*.cu built as host C++ with g++ (once per checkout) and loaded
+    once per process, bound like the card's library plus the host-only
+    entries; raises NoHostCompiler where there is no g++."""
+    lib = bind(ctypes.CDLL(str(_build("host", find_gxx, HOST_FLAGS, ()))))
+    _declare(lib, HOST_SIGNATURES)
+    return lib
 
 
 def loaded() -> ctypes.CDLL | None:

@@ -10,14 +10,12 @@ Every comparison is exact (tolerance 0).
    conversions are per coefficient).
 3. The same at 4k_3q against the JAX package's Pallas kernels
    (`behz_pallas`) in interpret mode, and the one-launch scale_and_round
-   of csrc/behz.cu (built with g++ as host code) at every group size G
+   of csrc/behz.cu (the host build, `cuda.host_library`) at every group
+   size G
    against `behz_pallas.scale_and_round` in interpret mode.
 """
 
-import ctypes
 import dataclasses
-import shutil
-import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -149,23 +147,15 @@ def test_plain_conversions_match_pallas_interpret():
 
 
 @pytest.fixture(scope="module")
-def behz_host_lib(tmp_path_factory):
-    """csrc/behz.cu alone built as host C++ with g++, bound like the CUDA
-    build's ntt_behz."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ not available to build the kernels as host code")
-    out = tmp_path_factory.mktemp("behzhost") / "libbehz_host.so"
-    subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC",
-                    "-o", str(out), str(cuda.CSRC / "behz.cu")], check=True,
-                   capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
-    lib.ntt_behz.argtypes = list(cuda.SIGNATURES["ntt_behz"])
-    lib.ntt_behz.restype = ctypes.c_int
-    return lib
+def host_lib():
+    """csrc/*.cu built as host C++, once per checkout (cuda.host_library)."""
+    try:
+        return cuda.host_library()
+    except cuda.NoHostCompiler as e:
+        pytest.skip(str(e))
 
 
-def test_host_scale_and_round_matches_pallas_interpret(behz_host_lib):
+def test_host_scale_and_round_matches_pallas_interpret(host_lib):
     """The one-launch scale_and_round (21b's floors kept on chip and
     converted back to q) at every G, against the JAX package's two Pallas
     kernels in interpret mode at 4k_3q, alpha at m_sk / 2 included."""
@@ -184,7 +174,7 @@ def test_host_scale_and_round_matches_pallas_interpret(behz_host_lib):
     _eq(behz_kernels.scale_and_round_plain(tq, tb, mb), ref)
     for G in (0,) + behz_kernels.GROUPS:
         out = torch.empty_like(tq)
-        assert behz_host_lib.ntt_behz(
+        assert host_lib.ntt_behz(
             behz_kernels.SCALE_AND_ROUND, tq.data_ptr(), tb.data_ptr(),
             out.data_ptr(), *mb.kernel_args(), 2, k, p.n, 0, k, G,
             None) == 0

@@ -6,10 +6,10 @@ package, on the CPU.
    `ntt_cuda_tpu` BFVContext.build(p, backend="xla") for nonces 0..3.
 3. Keys and ciphertexts cross between the two packages through
    `ntt_cuda_tpu_torch.convert` and still decrypt.
-4. What the port once left out runs (uniform_spec="fp64" keygen equals
-   the JAX package's, an L = 3 ciphertext decrypts), an unknown fusion
-   raises; argument errors read as the JAX package's; without a device,
-   build goes to the card or raises.
+4. An unknown fusion raises, and an L = 3 ciphertext decrypts under the
+   stage schedule (uniform_spec="fp64" keygen: tests/test_torch_fp64.py);
+   argument errors read as the JAX package's; without a device, build
+   goes to the card or raises.
 """
 
 from pathlib import Path
@@ -106,26 +106,20 @@ def test_roundtrip_check(ctx):
     np.testing.assert_array_equal(ctx.roundtrip_check(m).numpy(), m)
 
 
-def test_unported_configurations_raise():
+def test_unknown_fusion_raises():
+    """An unknown fusion raises; the stage schedule decrypts an L = 3
+    (un-relinearized) product, m * 1 (the op schedule's is
+    test_torch_mult.py's test_mul_matches_jax_and_decrypts)."""
     p = get_bfv_params("4k_3q")
-    # uniform_spec="fp64", once refused, builds and equals the JAX package
-    fp = BFVContext.build(p, device="cpu", uniform_spec="fp64")
-    jfp = jbfv.BFVContext.build(jget("4k_3q"), backend="xla",
-                                uniform_spec="fp64")
-    for got, want in zip(fp.keygen(1), jfp.keygen(1)):
-        np.testing.assert_array_equal(convert.to_numpy(got), np.asarray(want))
     with pytest.raises(ValueError, match="unknown fusion"):
         BFVContext.build(p, device="cpu", fusion="fast")
-    # decrypt of an L = 3 (un-relinearized) ciphertext is ported: m * 1
     m = np.random.default_rng(4).integers(0, p.t, p.n)
     one = np.zeros(p.n, np.int64)
     one[0] = 1
-    for fusion in ("op", "stage"):
-        ctx = BFVContext.build(p, device="cpu", fusion=fusion)
-        sk, pk = ctx.keygen(2)
-        ct3 = ctx.mul(ctx.encrypt(pk, m, nonce=1), ctx.encrypt(pk, one,
-                                                                nonce=2))
-        np.testing.assert_array_equal(ctx.decrypt(sk, ct3).numpy(), m)
+    ctx = BFVContext.build(p, device="cpu", fusion="stage")
+    sk, pk = ctx.keygen(2)
+    ct3 = ctx.mul(ctx.encrypt(pk, m, nonce=1), ctx.encrypt(pk, one, nonce=2))
+    np.testing.assert_array_equal(ctx.decrypt(sk, ct3).numpy(), m)
 
 
 def test_build_without_device_needs_a_card(monkeypatch):

@@ -58,8 +58,10 @@ def test_demo(capsys):
 
 def test_demo_time(capsys, monkeypatch):
     """demo --time with short chains (2 and 8 steps, patched in here): three
-    positive per-phase lines in the JAX CLI's format, then the eager
-    medians on a line of their own."""
+    per-phase lines in the JAX CLI's format, each a slope that
+    time_chained clamps at 0 (two short chains on a loaded CPU can read
+    0; test_torch_graphs.py holds the slope positive on a chain of known
+    cost), then the eager medians on a line of their own."""
     phase_times = cli._phase_times
     monkeypatch.setattr(cli, "_phase_times", lambda ctx, params:
                         phase_times(ctx, params, inner=(2, 8)))
@@ -67,7 +69,7 @@ def test_demo_time(capsys, monkeypatch):
     lines = capsys.readouterr().out.splitlines()
     for phase in ("keygen ", "encrypt", "decrypt"):
         line = next(ln for ln in lines if ln.startswith(f"[demo] {phase} "))
-        assert line.endswith(" us") and float(line.split()[-2]) > 0
+        assert line.endswith(" us") and float(line.split()[-2]) >= 0
     assert any(ln.startswith("[demo] one eager call (median): ")
                for ln in lines)
 

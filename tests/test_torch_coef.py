@@ -16,9 +16,6 @@ program):
   psi[C + c] beside two halves at 2 (C + c) + h).
 """
 
-import ctypes
-import shutil
-import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -45,17 +42,12 @@ def _one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """csrc/*.cu built as host C++ with g++, bound like the CUDA build."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ not available to build the kernels as host code")
-    out = tmp_path_factory.mktemp("hostkernels") / "libntt_host.so"
-    subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O2", "-shared",
-                    "-fPIC", "-o", str(out),
-                    *[str(cuda.CSRC / s) for s in cuda.SOURCES]],
-                   check=True, capture_output=True, text=True)
-    return cuda.bind(ctypes.CDLL(str(out)))
+def host_lib():
+    """csrc/*.cu built as host C++, once per checkout (cuda.host_library)."""
+    try:
+        return cuda.host_library()
+    except cuda.NoHostCompiler as e:
+        pytest.skip(str(e))
 
 
 @pytest.fixture(scope="module")

@@ -2,16 +2,17 @@
 (utils/profiling.py), with no JAX (the card's machine has none).
 
 On the CPU: `graphed`'s eager path, `time_chained` /
-`time_chained_dynamic` / `time_once` on the CLI's chains and `trace`'s
-Chrome trace, with the library's own spans in it (`demo --time`:
-tests/test_torch_cli.py).  On the card (`-m gpu`,
-skipped here): every op program at 4k_3q captured once with `graphed` and
+`time_chained_dynamic` / `time_once` on the CLI's decrypt chain and on a
+chain of sleeps of known cost, and `trace`'s Chrome trace, with the
+library's own spans in it (`demo --time`: tests/test_torch_cli.py).  On
+the card (`-m gpu`, skipped here): every op program at 4k_3q captured once with `graphed` and
 replayed equals the eager public method bit for bit, a replay after a
 second nonce is copied into the static input equals eager at that nonce,
 and a capture on the card never falls back to eager calls.
 """
 
 import json
+import time
 
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ from ntt_cuda_tpu_torch import BFVContext, cli, get_bfv_params
 from ntt_cuda_tpu_torch.utils import profiling
 
 SET = "4k_3q"
+SLEEP_S = 0.002   # a step of known cost for the slopes
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -68,20 +70,34 @@ def test_graphed_sees_the_bundles_tensors(cpu_ctx):
 
 
 def test_time_chained_on_the_cpu(cpu_ctx):
-    """The chains run eagerly under the host clock: a positive slope for
-    the decrypt chain, and the dynamic form (one function of the length)
-    agrees in sign; time_once is positive."""
+    """The chains run eagerly under the host clock.  The decrypt chain's
+    slope is a number, clamped at 0 (two short chains of real ops on a
+    loaded CPU can read 0).  On a chain of known cost, k sleeps of 2 ms,
+    both forms read a positive slope in a wide band around 2 ms: a sleep
+    never ends early, so the long chain takes at least its 2 ms a step,
+    and the band's floor leaves room for noise on the short one.
+    time_once is positive."""
     p = cpu_ctx.params
     m = torch.arange(p.n, dtype=torch.int64) % p.t
     sk, pk = cpu_ctx.keygen(nonce=1)
     ct = cpu_ctx.encrypt(pk, m, nonce=2)
     _, _, dec_make = cli.phase_chains(cpu_ctx, sk, pk, m)
-    assert profiling.time_chained(dec_make, ct, 1, 6, reps=2) > 0
+    assert profiling.time_chained(dec_make, ct, 1, 6, reps=2) >= 0
 
-    def step(c, k):
-        return dec_make(k)(c)
-    assert profiling.time_chained_dynamic(step, ct, inner_lo=1, inner_hi=6,
-                                          reps=1, epochs=2) > 0
+    def make_step(k):
+        def chain(x):
+            for _ in range(k):
+                time.sleep(SLEEP_S)
+            return x
+        return chain
+
+    def step(x, k):
+        return make_step(k)(x)
+    x = torch.zeros(1)
+    assert SLEEP_S / 4 < profiling.time_chained(make_step, x, 1, 11,
+                                                reps=3) < 20 * SLEEP_S
+    assert SLEEP_S / 4 < profiling.time_chained_dynamic(
+        step, x, inner_lo=1, inner_hi=11, reps=1, epochs=2) < 20 * SLEEP_S
     assert profiling.time_once(cpu_ctx.decrypt, sk, ct, reps=2) > 0
 
 

@@ -3,9 +3,10 @@ tensor versions, exactly (tolerance 0).
 
 Two ways:
 
-* Here, on the CPU: the same .cu sources compiled by g++ as host code
-  (their `#else` branches run each block with one thread, in order, where
-  the block barrier is a no-op) and called through the same C launchers.
+* Here, on the CPU: the same .cu sources compiled by g++ as host code,
+  once per checkout (`cuda.host_library`; their `#else` branches run each
+  block with one thread, in order, where the block barrier is a no-op)
+  and called through the same C launchers.
   This checks each kernel's index algebra and arithmetic without a card.
 * On the card (`-m gpu`): each wrapper launches its real kernel on CUDA
   tensors.  These tests skip without a card.  Run them on the card with
@@ -14,11 +15,8 @@ Two ways:
   a CUDA-only environment need not have).
 """
 
-import ctypes
 import functools
 import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -63,16 +61,29 @@ def _rand_res(rng, qs, n, lead=()):
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """csrc/*.cu built as host C++ with g++, bound like the CUDA build."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ not available to build the kernels as host code")
-    out = tmp_path_factory.mktemp("hostkernels") / "libntt_host.so"
-    cmd = [gxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC",
-           "-o", str(out), *[str(cuda.CSRC / s) for s in cuda.SOURCES]]
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
-    return cuda.bind(ctypes.CDLL(str(out)))
+def host_lib():
+    """csrc/*.cu built as host C++, once per checkout (cuda.host_library)."""
+    try:
+        return cuda.host_library()
+    except cuda.NoHostCompiler as e:
+        pytest.skip(str(e))
+
+
+def test_host_library_is_built_once_per_checkout(host_lib):
+    """Every call of cuda.host_library() in a process returns the one
+    handle, loaded from the hash-keyed directory beside the card's."""
+    assert cuda.host_library() is host_lib
+    built = cuda.CSRC.parents[1] / "build" / f"host-{cuda.host_hash()}"
+    assert host_lib._name == str(built / "libntt_cuda_tpu_torch.so")
+    assert (built / "libntt_cuda_tpu_torch.so").is_file()
+
+
+def test_host_and_card_builds_hash_apart():
+    """The compiler flags are part of each build's key: the host and card
+    libraries never share a directory."""
+    assert cuda.HOST_FLAGS != cuda.NVCC_FLAGS
+    assert cuda.host_hash() != cuda.source_hash()
+    assert len(cuda.host_hash()) == len(cuda.source_hash()) == 16
 
 
 @pytest.fixture(scope="module", params=[SMALL, get_bfv_params("4k_3q")],
@@ -181,15 +192,12 @@ def test_host_salsa20_draws_refusals(host_lib, n, J):
 
 def _draws_convert(host_lib, words):
     """The draws kernel's converters on given u32 words (host seam)."""
-    fn = host_lib.ntt_draws_convert
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     w = torch.from_numpy(np.asarray(words, dtype=np.uint64).astype(
         np.uint32).view(np.int32).copy())
     tern = torch.empty(4 * w.numel(), dtype=torch.int32)
     gauss = torch.empty(w.numel(), dtype=torch.int32)
-    assert fn(w.data_ptr(), w.numel(), tern.data_ptr(), gauss.data_ptr()) == 0
+    assert host_lib.ntt_draws_convert(w.data_ptr(), w.numel(),
+                                      tern.data_ptr(), gauss.data_ptr()) == 0
     return w, tern, gauss
 
 

@@ -4,21 +4,17 @@ exactly.
 
 * The port's plain transforms at 2^16 against the JAX package's
   ops/ntt.py (xla), one 55-bit modulus (`make_bfv_params(65536, 55, 1)`).
-* The host build of csrc/ntt_stage.cu and csrc/fused_ops.cu (g++, only
-  these two sources, bound by hand): the stage kernels (7, 8: every B
-  that fits and the rule) at 2^16 and 2^17, and the whole-op transforms
-  at 2^17 (K3, K4 one buffer a block at B = 8; K5's transform and kernel
-  18, two buffers a block, at B = 16, the rule there, with B = 8
-  refused), each against its plain version on one or two polynomials.
+* The host build of csrc/ (`cuda.host_library`): the stage kernels (7,
+  8: every B that fits and the rule) at 2^16 and 2^17, and the whole-op
+  transforms at 2^17 (K3, K4 one buffer a block at B = 8; K5's transform
+  and kernel 18, two buffers a block, at B = 16, the rule there, with B
+  = 8 refused), each against its plain version on one or two polynomials.
 * The cluster rule at 2^16 and 2^17 and the launchers' bounds.
 * Marked `slow`: BFV round trips at 2^16 and 2^17 against the JAX
   package's xla context (JAX's own round trip there takes seconds).
 """
 
-import ctypes
 import functools
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -69,36 +65,15 @@ def test_plain_transforms_2e16_match_jax():
 
 # --- the cluster kernels on the host build ---------------------------------
 
-_NAMES = ("ntt_stage_forward_cluster", "ntt_stage_inverse_cluster",
-          "ntt_half_polymul_cluster", "ntt_keygen_fused_cluster",
-          "ntt_encrypt_transform_cluster", "ntt_encrypt_front_cluster")
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """csrc/ntt_stage.cu and csrc/fused_ops.cu built as host C++ with g++
-    (one process each, at once), their launchers bound as the CUDA build
-    binds them."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ not available to build the kernels as host code")
-    d = tmp_path_factory.mktemp("hostkernels")
-    objs = [d / f"{s}.o" for s in ("ntt_stage", "fused_ops")]
-    procs = [subprocess.Popen([gxx, "-x", "c++", "-std=c++17", "-O2", "-c",
-                               "-fPIC", "-o", str(o),
-                               str(cuda.CSRC / f"{o.stem}.cu")])
-             for o in objs]
-    assert all(pr.wait() == 0 for pr in procs)
-    out = d / "libntt_host.so"
-    subprocess.run([gxx, "-shared", "-o", str(out), *map(str, objs)],
-                   check=True)
-    lib = ctypes.CDLL(str(out))
-    for name in _NAMES:
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = list(cuda.SIGNATURES[name]), ctypes.c_int
-    lib.ntt_stage_cluster_size.argtypes = [ctypes.c_int]
-    lib.ntt_stage_cluster_size.restype = ctypes.c_int
-    return lib
+def host_lib():
+    """csrc/*.cu built as host C++, once per checkout (cuda.host_library)."""
+    try:
+        return cuda.host_library()
+    except cuda.NoHostCompiler as e:
+        pytest.skip(str(e))
 
 
 def test_cluster_rule_and_bounds(host_lib):

@@ -27,11 +27,8 @@ against the JAX package, exactly (tolerance 0).
   --noconftest -p no:cacheprovider -m gpu tests/test_torch_spmd_kernels.py`.
 """
 
-import ctypes
 import dataclasses
 import functools
-import shutil
-import subprocess
 import types
 
 import numpy as np
@@ -301,16 +298,12 @@ def test_build_without_process_group_or_card_raises():
 # --- the .cu sources as host code ------------------------------------------
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """csrc/*.cu built as host C++ with g++, bound like the CUDA build."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ not available to build the kernels as host code")
-    out = tmp_path_factory.mktemp("hostkernels") / "libntt_host.so"
-    cmd = [gxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC",
-           "-o", str(out), *[str(cuda.CSRC / s) for s in cuda.SOURCES]]
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
-    return cuda.bind(ctypes.CDLL(str(out)))
+def host_lib():
+    """csrc/*.cu built as host C++, once per checkout (cuda.host_library)."""
+    try:
+        return cuda.host_library()
+    except cuda.NoHostCompiler as e:
+        pytest.skip(str(e))
 
 
 def _host_front(lib, u_b, pk, tb):
@@ -438,10 +431,6 @@ def test_host_encrypt_tail_padded(host_lib, sets, form, where, align, rng):
     assert torch.equal(ct, want)
 
 
-_DT_GROUP = (ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 5 + (
-    ctypes.c_int,) * 4 + (ctypes.c_uint64,) * 4
-
-
 @pytest.mark.parametrize("G", [0, 1, 4, 8], ids=["rule", "G1", "G4", "G8"])
 @pytest.mark.parametrize("case", ["rows0-2", "rows2-4", "level1_rows2-4",
                                   "32k_rows0-3", "32k_rows6-9",
@@ -472,11 +461,10 @@ def test_host_decrypt_tail_partial(host_lib, sets, case, G, rng):
             x.data_ptr(), c0.data_ptr(), out.data_ptr(), dc.k2_rows.data_ptr(),
             dc.glob.data_ptr(), rl, n, pow2, t, dc.nu_t, None)
     else:
-        fn = host_lib.ntt_decrypt_tail_group
-        fn.argtypes, fn.restype = _DT_GROUP, ctypes.c_int
-        rc = fn(1, G, x.data_ptr(), c0.data_ptr(), out.data_ptr(),
-                dc.k2_rows.data_ptr(), dc.glob.data_ptr(), 1, rl, n, pow2, t,
-                0, dc.nu_t, 0)
+        rc = host_lib.ntt_decrypt_tail_group(
+            1, G, x.data_ptr(), c0.data_ptr(), out.data_ptr(),
+            dc.k2_rows.data_ptr(), dc.glob.data_ptr(), 1, rl, n, pow2, t, 0,
+            dc.nu_t, 0)
     assert rc == 0
     want = bfv_tail.decrypt_tail_partial_plain(x, c0, dc)
     assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])

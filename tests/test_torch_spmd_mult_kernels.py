@@ -26,10 +26,8 @@ banks and a rank's key draws) against the JAX package, exactly (tolerance
   -p no:cacheprovider -m gpu tests/test_torch_spmd_mult_kernels.py`.
 """
 
-import ctypes
 import functools
 import os
-import shutil
 import subprocess
 import sys
 import types
@@ -305,16 +303,12 @@ def test_key_draws_rank_are_rows_of_the_full_draws(nonce):
 # --- the .cu sources as host code ------------------------------------------
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """csrc/*.cu built as host C++ with g++, bound like the CUDA build."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ not available to build the kernels as host code")
-    out = tmp_path_factory.mktemp("hostkernels") / "libntt_host.so"
-    cmd = [gxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC",
-           "-o", str(out), *[str(cuda.CSRC / s) for s in cuda.SOURCES]]
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
-    return cuda.bind(ctypes.CDLL(str(out)))
+def host_lib():
+    """csrc/*.cu built as host C++, once per checkout (cuda.host_library)."""
+    try:
+        return cuda.host_library()
+    except cuda.NoHostCompiler as e:
+        pytest.skip(str(e))
 
 
 def _host_band(lib, which, x, xb, out, mc, row0, group=0):

@@ -3,9 +3,9 @@ modulus-grouped form: G clusters of 8 walk the polynomials by modulus,
 each block's twiddles in shared memory) against the plain versions,
 exactly, and the count of its launches in utils/tracing.py.
 
-* Here, on the CPU: ntt_stage.cu built by g++ as host code, whose engine
-  entry points (`ntt_stage_{forward,inverse}_engine`) walk the G clusters'
-  work lists one block thread at a time: every prologue and the +e
+* Here, on the CPU: the host build of csrc/ (`cuda.host_library`), whose
+  engine entry points (`ntt_stage_{forward,inverse}_engine`) walk the G
+  clusters' work lists one block thread at a time: every prologue and the +e
   epilogue at 2^14, 2^15 and 2^16, at G from one cluster to more clusters
   than polynomials (r above G, lists that split unevenly, an empty
   cluster), one polynomial alone, and coefficient shards (logc > 0).
@@ -15,10 +15,7 @@ exactly, and the count of its launches in utils/tracing.py.
   versions.
 """
 
-import ctypes
 import functools
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -30,8 +27,6 @@ from ntt_cuda_tpu_torch.ops import fused_ops, modmath, ntt, poly, sampling
 from ntt_cuda_tpu_torch.parallel import coef_kernels, sharded
 from ntt_cuda_tpu_torch.utils import primegen, tracing
 
-_NAMES = ("ntt_stage_forward_cluster", "ntt_stage_inverse_cluster",
-          "ntt_stage_forward_engine", "ntt_stage_inverse_engine")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -45,23 +40,12 @@ def _one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """csrc/ntt_stage.cu built as host C++ with g++, its launchers bound as
-    the CUDA build binds them."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ not available to build the kernels as host code")
-    out = tmp_path_factory.mktemp("hostengine") / "libntt_stage_host.so"
-    subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O2", "-shared",
-                    "-fPIC", "-o", str(out), str(cuda.CSRC / "ntt_stage.cu")],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
-    for name in _NAMES:
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = list(cuda.SIGNATURES[name]), ctypes.c_int
-    lib.ntt_stage_paths.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
-    lib.ntt_stage_paths.restype = None
-    return lib
+def host_lib():
+    """csrc/*.cu built as host C++, once per checkout (cuda.host_library)."""
+    try:
+        return cuda.host_library()
+    except cuda.NoHostCompiler as e:
+        pytest.skip(str(e))
 
 
 @functools.cache

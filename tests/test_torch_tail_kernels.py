@@ -22,9 +22,6 @@ their CUDA sources built as host code, exactly (tolerance 0).
   and 3, 14, 19's drop) also at 32k_16q, aligned and offset by 8 bytes.
 """
 
-import ctypes
-import shutil
-import subprocess
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -59,17 +56,12 @@ def _one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """csrc/*.cu built as host C++ with g++, bound like the CUDA build."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ not available to build the kernels as host code")
-    out = tmp_path_factory.mktemp("hostkernels") / "libntt_host.so"
-    subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O2", "-shared",
-                    "-fPIC", "-o", str(out),
-                    *[str(cuda.CSRC / s) for s in cuda.SOURCES]],
-                   check=True, capture_output=True, text=True)
-    return cuda.bind(ctypes.CDLL(str(out)))
+def host_lib():
+    """csrc/*.cu built as host C++, once per checkout (cuda.host_library)."""
+    try:
+        return cuda.host_library()
+    except cuda.NoHostCompiler as e:
+        pytest.skip(str(e))
 
 
 def _rand(rng, qs, n, lead=()):

@@ -15,15 +15,11 @@ Two t's at n = 2048 over three 60-bit moduli:
   reaches the 2^62 moduli), over the same three moduli (t > q: the
   message does not survive, but every integer is JAX's).
 
-The host build of csrc/decrypt_tail.cu and csrc/ntt_stage.cu (g++, only
-these two sources, bound by hand) runs K2 (every G), 17 and 15 at these
+The host build of csrc/ (`cuda.host_library`) runs K2 (every G), 17 and 15 at these
 t's and at the narrowest wide t against their plain versions.
 """
 
-import ctypes
 import functools
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -173,36 +169,15 @@ def test_mul_matches_jax_or_raises_its_error(pair):
 
 # --- the decrypt kernels' wide strategy on the host build -----------------
 
-_NAMES = ("ntt_decrypt_tail", "ntt_decrypt_tail_partial", "ntt_decrypt_fused")
-_DT_GROUP = (ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 5 + (
-    ctypes.c_int,) * 4 + (ctypes.c_uint64,) * 4
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """csrc/decrypt_tail.cu and csrc/ntt_stage.cu built as host C++ with
-    g++ (one process each, at once), their launchers bound as the CUDA
-    build binds them."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ not available to build the kernels as host code")
-    d = tmp_path_factory.mktemp("hostkernels")
-    objs = [d / f"{s}.o" for s in ("decrypt_tail", "ntt_stage")]
-    procs = [subprocess.Popen([gxx, "-x", "c++", "-std=c++17", "-O2", "-c",
-                               "-fPIC", "-o", str(o),
-                               str(cuda.CSRC / f"{o.stem}.cu")])
-             for o in objs]
-    assert all(pr.wait() == 0 for pr in procs)
-    out = d / "libntt_host.so"
-    subprocess.run([gxx, "-shared", "-o", str(out), *map(str, objs)],
-                   check=True)
-    lib = ctypes.CDLL(str(out))
-    for name in _NAMES:
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = list(cuda.SIGNATURES[name]), ctypes.c_int
-    fn = lib.ntt_decrypt_tail_group
-    fn.argtypes, fn.restype = _DT_GROUP, ctypes.c_int
-    return lib
+def host_lib():
+    """csrc/*.cu built as host C++, once per checkout (cuda.host_library)."""
+    try:
+        return cuda.host_library()
+    except cuda.NoHostCompiler as e:
+        pytest.skip(str(e))
 
 
 @functools.cache
